@@ -31,7 +31,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Load E consecutive elements at p, which is aligned to E * sizeof(T)
-// bytes when that is 4, 8 or 16, as f32 values.
+// bytes when that is 4, 8 or 16 (16 when it is 32), as f32 values.
 template <typename T, int E>
 __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&o)[E]) {
   constexpr int kBytes = E * int(sizeof(T));
@@ -40,6 +40,16 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&o)[E])
     const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int i = 0; i < E; ++i) o[i] = to_f32<T>(t[i]);
+  } else if constexpr (kBytes == 32) {
+    const uint4 raw0 = *reinterpret_cast<const uint4*>(p);
+    const uint4 raw1 = *reinterpret_cast<const uint4*>(p + E / 2);
+    const T* t0 = reinterpret_cast<const T*>(&raw0);
+    const T* t1 = reinterpret_cast<const T*>(&raw1);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      o[i] = to_f32<T>(t0[i]);
+      o[E / 2 + i] = to_f32<T>(t1[i]);
+    }
   } else if constexpr (kBytes == 8) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const T* t = reinterpret_cast<const T*>(&raw);

@@ -1,0 +1,116 @@
+// ragged_paged_attention — C query tokens per request slot against its KV
+// pages, read through the slot's page table, for sm_90a.
+//
+// Replaces the Pallas TPU kernel flexflow_tpu/serve/kernels.py
+// ragged_paged_attention (plain_kernel of _build_ragged_paged_kernel).
+// Same function: q (R, C, H, dk) attends the lines of the page pools
+// (P + 1, ps, KV, dk / pack) that mask (R, C, NP * ps) allows, line s of
+// slot r living at line s % ps of page table[r, s / ps]; pools in q's
+// dtype (float32, bf16), int8 codes or packed int4 codes with per-page,
+// per-KV-head f32 scales; a row with nothing to attend gives 0. One
+// kernel serves decode (C = 1) and the mixed prefill step (C up to
+// prefill_chunk). paged_attention.cuh holds the loop and its two block
+// designs.
+//
+// Bound on an H100: the larger of
+//  * bytes: the pages the mask opens, 2 * pages * ps * KV * (dk / pack)
+//    * itemsize, plus scales, table, mask and q/out, over 3.35 TB/s;
+//  * operations: 4 * (attended (row, line) pairs) * G * dk FLOP, over the
+//    rate of the unit that runs them (here f32 on the CUDA cores,
+//    67 TFLOP/s; the bf16 tensor cores' 989 TFLOP/s are the later step).
+// A decode step is bound by bytes; a mixed step at C = 128 by operations.
+//
+// Design against that bound:
+//  * Pages no row of a block attends are skipped after a look at their
+//    mask bits (__syncthreads_or), before the table, scales or K/V are
+//    read. The TPU kernel DMAs every page and skips only the compute.
+//  * Decode: every K/V line is read once for all query heads of its
+//    group, as one coalesced segment per warp, four lines in flight.
+//  * Mixed steps: each K/V tile is staged once in shared memory as f32
+//    and reused by 32 query rows in 4 x 4 register blocks.
+//  * int8 and int4 codes are converted to f32 in registers on their way
+//    in, so the quantized pools move 1/2 and 1/4 of the bf16 bytes; the
+//    page's scales multiply the scores and the probabilities, never the
+//    K/V elements.
+//  * No tensor cores, TMA or split-K yet: those are later work.
+#include "paged_attention.cuh"
+
+namespace fft {
+namespace {
+
+template <typename TQ, int KIND, int DK, int GB>
+__global__ void __launch_bounds__(kDecodeThreads) ragged_decode_kernel(PagedArgs a) {
+  attend_decode<TQ, KIND, DK, GB>(a, blockIdx.z, blockIdx.y, blockIdx.x * GB);
+}
+
+template <typename TQ, int KIND, int DK>
+__global__ void __launch_bounds__(kTileThreads) ragged_tile_kernel(PagedArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  attend_tile<TQ, KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kTileRows, smem);
+}
+
+template <typename TQ, int KIND, int DK>
+cudaError_t launch_dk(const PagedArgs& a, cudaStream_t stream) {
+  const int rows = a.C * (a.H / a.KV);
+  if (rows == 1) {
+    ragged_decode_kernel<TQ, KIND, DK, 1><<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+  } else if (rows <= kDecodeRows) {
+    ragged_decode_kernel<TQ, KIND, DK, kDecodeRows>
+        <<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+  } else {
+    constexpr size_t kSmem = TileSmem<DK>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        ragged_tile_kernel<TQ, KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((rows + kTileRows - 1) / kTileRows, a.KV, a.R);
+    ragged_tile_kernel<TQ, KIND, DK><<<grid, kTileThreads, kSmem, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TQ, int KIND>
+cudaError_t launch_kind(const PagedArgs& a, int dk, cudaStream_t stream) {
+  if (dk == 64) return launch_dk<TQ, KIND, 64>(a, stream);
+  if (dk == 128) return launch_dk<TQ, KIND, 128>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TQ>
+cudaError_t launch_q(const PagedArgs& a, int dk, int pool_kind, cudaStream_t stream) {
+  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(a, dk, stream);
+  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(a, dk, stream);
+  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(a, dk, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace fft
+
+extern "C" int ragged_paged_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* mask, void* out, int R,
+    int C, int H, int KV, int dk, int ps, int NP, int dtype, int pool_kind,
+    float scale, void* stream) {
+  if (R <= 0 || C <= 0 || KV <= 0 || NP <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (ps != 16 && ps != 32 && ps != 64 && ps != 128) return (int)cudaErrorInvalidValue;
+  if (pool_kind != fft::kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  fft::PagedArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+                   static_cast<const float*>(v_scale), static_cast<const int*>(table),
+                   static_cast<const uint8_t*>(mask), out, R, C, H, KV, ps, NP, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == fft::kBFloat16) {
+    err = fft::launch_q<__nv_bfloat16>(a, dk, pool_kind, s);
+  } else if (dtype == fft::kFloat32) {
+    err = fft::launch_q<float>(a, dk, pool_kind, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,4 +1,4 @@
-"""Serving scheduler telemetry (the dense-layout subset of
+"""Serving scheduler telemetry (a subset of
 ``flexflow_tpu/metrics.py:SchedulerStats``).
 
 The counters of the prefix cache, the host tier, speculation, context
@@ -29,6 +29,8 @@ class SchedulerStats:
     flushes: int = 0              # in-flight entries drained to host
     pipeline_drains: int = 0      # full _flush_all with work in flight
     admitted: int = 0
+    preemptions: int = 0          # paged pool exhausted: recompute preemptions
+    failed: int = 0               # requests ended with an error
     prefill_tokens: int = 0       # chunk tokens dispatched
     decode_tokens: int = 0        # decode tokens dispatched
     occupancy_sum: float = 0.0    # active slots / total, summed per step
@@ -107,6 +109,8 @@ class SchedulerStats:
             "flushes": self.flushes,
             "pipeline_drains": self.pipeline_drains,
             "admitted": self.admitted,
+            "preemptions": self.preemptions,
+            "failed": self.failed,
             "prefill_tokens": self.prefill_tokens,
             "decode_tokens": self.decode_tokens,
             "mean_occupancy": round(self.mean_occupancy, 4),
@@ -124,6 +128,7 @@ class SchedulerStats:
             f"occ={s['mean_occupancy']:.2f} fill={s['mean_budget_fill']:.2f} "
             f"prefill_toks={s['prefill_tokens']} "
             f"decode_toks={s['decode_tokens']} adm={s['admitted']} "
+            f"preempt={s['preemptions']} failed={s['failed']} "
             f"dstep_ms={s['decode_step_ms_p50']:.2f}/"
             f"{s['decode_step_ms_p99']:.2f}"
         )

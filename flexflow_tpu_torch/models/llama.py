@@ -1,12 +1,16 @@
 """LLaMA model family — the serving subset of ``flexflow_tpu/models/llama.py``.
 
 embedding → N × [rms_norm → attention(QKV + RoPE + GQA) → rms_norm →
-SwiGLU FFN] → rms_norm → lm_head, served over a dense KV cache.
+SwiGLU FFN] → rms_norm → lm_head, served over a dense or a paged KV
+cache.
 
 Layout kept from the JAX package at every public function so tests
 compare like with like: weights are ``(in, out)``, stacked on a leading
-layer dim ``L``, under the same dict keys; the KV cache is
-``(L, slots, max_len + 1, KV, dk)`` with the last line a scratch row.
+layer dim ``L``, under the same dict keys; the dense KV cache is
+``(L, slots, max_len + 1, KV, dk)`` with the last line a scratch row,
+the paged one ``(L, num_pages + 1, page_size, KV, dk / pack)`` with the
+last page a scratch page (plus ``(L, num_pages + 1, KV)`` f32 scales
+when quantized).
 
 Differences from the JAX package:
   * the layer stack is a Python loop over per-layer views, not a scan;
@@ -17,8 +21,9 @@ Differences from the JAX package:
     kernels of ``serve/kernels.py`` (the JAX package's ``"pallas"``),
     ``kernels="torch"`` through :func:`serve_attention` (its ``"xla"``).
 
-The training path, pipeline parallelism and the early-exit
-``num_layers`` slice of ``serve_step`` come with later slices.
+The training path, pipeline and context parallelism, the whole-step
+megakernel and the early-exit ``num_layers`` slice of the step functions
+come with later slices.
 """
 from __future__ import annotations
 
@@ -233,6 +238,38 @@ def serve_attention(cfg: LLaMAConfig, q, k_cache, v_cache, mask):
     return out.reshape(R, C, H * dk)
 
 
+def _qkv(cfg: LLaMAConfig, p, x):
+    """A block's attention norm and Q/K/V projections, before RoPE:
+    (R, C, H, dk), (R, C, KV, dk), (R, C, KV, dk)."""
+    R, C, _ = x.shape
+    H, KV, dk = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    h = _rms(x, p["attn_norm"], cfg.rms_norm_eps)
+    return (_mm(h, p["wq"]).reshape(R, C, H, dk),
+            _mm(h, p["wk"]).reshape(R, C, KV, dk),
+            _mm(h, p["wv"]).reshape(R, C, KV, dk))
+
+
+def _out_and_ffn(cfg: LLaMAConfig, p, x, attn):
+    """A block's output projection of ``attn`` (R, C, H*dk), residual,
+    FFN norm, SwiGLU FFN and residual."""
+    x = x + _mm(attn, p["wo"])
+    h2 = _rms(x, p["ffn_norm"], cfg.rms_norm_eps)
+    ffn = _mm(F.silu(_mm(h2, p["w1"])) * _mm(h2, p["w3"]), p["w2"])
+    return x + ffn
+
+
+def _head(cfg: LLaMAConfig, params, x, logits_idx, all_logits: bool):
+    """Final norm and f32 LM head, at ``logits_idx`` (R,) or, with
+    ``all_logits``, at every chunk column."""
+    x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if not all_logits:
+        x = x[torch.arange(x.shape[0], device=x.device), logits_idx.long()]  # (R, D)
+    # f32 logits from the model-dtype hidden state, as the JAX package's
+    # preferred_element_type=f32 head
+    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+
+
 def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
                 positions, kernels: str = "torch"):
     """One transformer block on a serving step: project, RoPE, write the
@@ -241,12 +278,9 @@ def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
     the whole cache. ``kernels="cuda"`` routes attention through the
     hand-written kernels (serve/kernels.py: decode for C == 1, verify
     otherwise). Returns the block's output."""
-    R, C, D = x.shape
-    H, KV, dk = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    h = _rms(x, p["attn_norm"], cfg.rms_norm_eps)
-    q = _mm(h, p["wq"]).reshape(R, C, H, dk)
-    k = _mm(h, p["wk"]).reshape(R, C, KV, dk)
-    v = _mm(h, p["wv"]).reshape(R, C, KV, dk)
+    R, C, _ = x.shape
+    H, dk = cfg.num_attention_heads, cfg.head_dim
+    q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     bidx = torch.arange(R, device=x.device)[:, None]
@@ -267,10 +301,7 @@ def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
         attn = serve_attention(cfg, q, k_cache, v_cache, mask)
     else:
         raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
-    x = x + _mm(attn, p["wo"])
-    h2 = _rms(x, p["ffn_norm"], cfg.rms_norm_eps)
-    ffn = _mm(F.silu(_mm(h2, p["w1"])) * _mm(h2, p["w3"]), p["w2"])
-    return x + ffn
+    return _out_and_ffn(cfg, p, x, attn)
 
 
 def serve_step(
@@ -295,7 +326,6 @@ def serve_step(
     (R, C, V) when ``all_logits``. ``cache`` is the dict that was passed
     in, its tensors updated in place.
     """
-    R, C = tokens.shape
     S1 = cache["k"].shape[2]  # max_len + 1 (scratch row)
     if cache_positions is None:
         cache_positions = positions
@@ -312,11 +342,178 @@ def serve_step(
         p_l = {name: w[l] for name, w in layers.items()}
         x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l],
                         cache["v"][l], cache_positions, kernels)
-    x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
-    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    if not all_logits:
-        x = x[torch.arange(R, device=x.device), logits_idx.long()]  # (R, D)
-    # f32 logits from the model-dtype hidden state, as the JAX package's
-    # preferred_element_type=f32 head
-    logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
-    return logits, cache
+    return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+# ---------------------------------------------------------------------------
+# Serving path over the paged KV cache (ServingConfig.kv_layout="paged"):
+# K/V live in a page pool read and written through a per-slot page table
+# (serve/paging.py). ``kernels="torch"`` gathers the virtual cache and
+# runs the exact dense ``serve_attention`` math; ``kernels="cuda"`` runs
+# the hand-written ragged paged kernel, which reads the pages in place.
+
+#: decode-step fusions this family's serving step supports
+#: (ServingConfig.fused_decode): "rope_kv_write" folds RoPE and the KV
+#: page write into the paged attention kernel
+#: (serve/kernels.fused_rope_paged_attention). "whole_step" joins it
+#: with the megakernel slice.
+FUSED_DECODE = ("rope_kv_write",)
+
+
+def init_paged_kv_cache(cfg: LLaMAConfig, num_pages: int, page_size: int,
+                        dtype=None, kv_quant: Optional[str] = None, *,
+                        device: Any = None) -> Dict[str, torch.Tensor]:
+    """Paged pool: (L, num_pages+1, page_size, KV, dk). Pool row
+    ``num_pages`` is the shared scratch page: unallocated table entries
+    point there, so padding writes never touch live pages.
+
+    With ``kv_quant`` (serve/kv_quant.py) the pools store int8 codes, or
+    int4 codes packed two per uint8 along dk (trailing dim
+    ``head_dim // 2``), and the cache gains ``k_scale``/``v_scale``:
+    (L, num_pages+1, KV) f32 per-page-per-KV-head scales, zero (a page
+    with no committed lines). The step functions update all of it in
+    place."""
+    L, KV, dk = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    dt = dtype or cfg.dtype
+    spec = None
+    if kv_quant is not None:
+        from ..serve.kv_quant import resolve_spec
+
+        spec = resolve_spec(kv_quant)
+        dt = spec.dtype
+        if dk % spec.pack:
+            raise ValueError(
+                f"kv_quant={kv_quant!r} packs {spec.pack} codes per element "
+                f"along head_dim, which needs head_dim ({dk}) divisible by "
+                f"{spec.pack}"
+            )
+        dk //= spec.pack
+    shape = (L, num_pages + 1, page_size, KV, dk)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if spec is not None:
+        sshape = (L, num_pages + 1, KV)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return cache
+
+
+def _page_lookup(page_table: torch.Tensor, cache_positions: torch.Tensor,
+                 page_size: int):
+    """(R, NP) table × (R, C) cache lines → physical page and in-page
+    offset, each (R, C) int64."""
+    logical = cache_positions // page_size
+    phys = torch.gather(page_table.long(), 1, logical)
+    return phys, cache_positions % page_size
+
+
+def _block_paged_torch(cfg: LLaMAConfig, p, x, cos, sin, mask, k_pool, v_pool,
+                       phys, off, page_table, k_scale=None, v_scale=None,
+                       qmax=None):
+    """One block of the ``kernels="torch"`` paged step (the JAX package's
+    ``_block_paged_xla``): project, RoPE, commit K/V at the table-resolved
+    (page, offset) in place, gather — and dequantize — the virtual cache
+    through the table, attend with :func:`serve_attention`, out-project,
+    FFN."""
+    from ..serve import kernels as _k
+
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    _k.commit_paged(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax)
+    if qmax is not None:
+        k_virt = _k.dequant_pages(k_pool, k_scale, page_table, q.dtype)
+        v_virt = _k.dequant_pages(v_pool, v_scale, page_table, q.dtype)
+    else:
+        k_virt = _k.gather_pages(k_pool, page_table)
+        v_virt = _k.gather_pages(v_pool, page_table)
+    return _out_and_ffn(cfg, p, x, serve_attention(cfg, q, k_virt, v_virt, mask))
+
+
+def serve_block_paged(cfg: LLaMAConfig, p, x, cos, sin, mask, k_pool, v_pool,
+                      phys, off, page_table, kernels: str = "torch",
+                      k_scale=None, v_scale=None, qmax=None, *,
+                      fused_rope: bool = False, logical=None):
+    """One block on a paged serving step: write the new K/V at the
+    table-resolved (physical page, offset) — quantizing at the page
+    scales when ``qmax`` is set — and attend over the virtual cache read
+    through the page table. Pools and scales (one layer's views) are
+    updated in place. Returns the block's output.
+
+    ``kernels="cuda"``: attention runs in the ragged paged kernel; with
+    ``fused_rope`` RoPE and the K/V commit move into the same kernel
+    (serve/kernels.fused_rope_paged_attention, which takes ``logical``
+    and ``off`` as int32). ``kernels="torch"`` ignores ``fused_rope``:
+    the unfused step is the reference every fusion is held to."""
+    if kernels == "torch":
+        return _block_paged_torch(cfg, p, x, cos, sin, mask, k_pool, v_pool,
+                                  phys, off, page_table, k_scale, v_scale, qmax)
+    if kernels != "cuda":
+        raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
+    from ..serve import kernels as _k
+
+    R, C, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    if fused_rope:
+        attn = _k.fused_rope_paged_attention(
+            q, k, v, cos, sin, k_pool, v_pool, page_table, logical.to(torch.int32),
+            off.to(torch.int32), mask, k_scale=k_scale, v_scale=v_scale, qmax=qmax)
+    else:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        _k.commit_paged(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax)
+        attn = _k.ragged_paged_attention(q, k_pool, v_pool, page_table, mask,
+                                         k_scale=k_scale, v_scale=v_scale)
+    return _out_and_ffn(cfg, p, x, attn.reshape(R, C, -1))
+
+
+def serve_step_paged(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,     # (R, C) int
+    positions: torch.Tensor,  # (R, C) int RoPE/sequence positions
+    logits_idx: torch.Tensor, # (R,) int
+    mask: Optional[torch.Tensor],  # (R, C, cache_len+1) bool, or None => causal
+    cache_positions: Optional[torch.Tensor],  # (R, C) cache line idx
+    page_table: torch.Tensor,  # (R, NP) int32
+    *,
+    cfg: LLaMAConfig,
+    cache_len: int,
+    all_logits: bool = False,
+    kernels: str = "torch",
+    kv_quant: Optional[str] = None,
+    fused_rope: bool = False,
+):
+    """Paged twin of :func:`serve_step`: the same contract plus the
+    per-slot page table; prefill chunks, decode and explicit-mask steps
+    all read and write K/V through the table. ``kv_quant`` selects the
+    quantized pool layout (the commit quantizes in the step, attention
+    dequantizes at read time); ``fused_rope`` folds RoPE and the K/V
+    page write into the CUDA kernel. Returns (logits, cache), the cache
+    tensors updated in place."""
+    if cache_positions is None:
+        cache_positions = positions
+    positions = positions.long()
+    cache_positions = cache_positions.long()
+    ps = cache["k"].shape[2]
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_freqs(cfg, positions)
+    from ..serve.kernels import paged_serve_mask
+
+    mask = paged_serve_mask(mask, positions, page_table.shape[1], ps, cache_len)
+    phys, off = _page_lookup(page_table, cache_positions, ps)
+    logical = cache_positions // ps
+    qmax = None
+    if kv_quant is not None:
+        from ..serve.kv_quant import resolve_spec
+
+        qmax = resolve_spec(kv_quant).qmax
+    layers = params["layers"]
+    for l in range(cfg.num_hidden_layers):
+        p_l = {name: w[l] for name, w in layers.items()}
+        scales = ((cache["k_scale"][l], cache["v_scale"][l]) if qmax is not None
+                  else (None, None))
+        x = serve_block_paged(cfg, p_l, x, cos, sin, mask, cache["k"][l],
+                              cache["v"][l], phys, off, page_table, kernels,
+                              *scales, qmax, fused_rope=fused_rope, logical=logical)
+    return _head(cfg, params, x, logits_idx, all_logits), cache

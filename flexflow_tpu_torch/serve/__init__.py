@@ -1,6 +1,7 @@
 """Serving stack — continuous batching and incremental decoding on the
-dense KV cache (counterpart of ``flexflow_tpu/serve``; the paged layout,
-prefix caching, SpecInfer and clusters come with later slices)."""
+dense or the paged KV cache, with bf16, f32, int8 or int4 pages
+(counterpart of ``flexflow_tpu/serve``; prefix caching, SpecInfer and
+clusters come with later slices)."""
 from .batch_config import (
     BatchConfig,
     GenerationConfig,
@@ -8,6 +9,7 @@ from .batch_config import (
 )
 from .engine import InferenceEngine, ServingConfig
 from .llm import LLM
+from .paging import PageAllocator
 from .request_manager import Request, RequestManager, RequestStatus
 from .sampling import sample_tokens
 
@@ -17,6 +19,7 @@ __all__ = [
     "GenerationResult",
     "InferenceEngine",
     "LLM",
+    "PageAllocator",
     "ServingConfig",
     "Request",
     "RequestManager",

@@ -9,9 +9,10 @@ source, all together). Nothing here runs at import time: the package
 imports on machines without ``nvcc`` or a GPU.
 
 Every library exports
-``int <name>_launch(void* ptrs..., int dims..., float scale, void* stream)``,
+``int <name>_launch(void* ptrs..., int dims..., float floats..., void* stream)``,
 which returns ``cudaGetLastError()`` after the launch, and
-``const char* error_string(int)``.
+``const char* error_string(int)``. A pointer argument may be null (an
+absent optional tensor).
 """
 from __future__ import annotations
 
@@ -31,10 +32,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: pointer and int argument counts of each kernel's launcher
+#: pointer, int and float argument counts of each kernel's launcher
 SIGNATURES = {
-    "decode_attention": (5, 6),
-    "verify_attention": (5, 7),
+    "decode_attention": (5, 6, 1),
+    "verify_attention": (5, 7, 1),
+    "ragged_paged_attention": (8, 9, 1),
+    "fused_rope_paged_attention": (16, 10, 2),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -93,12 +96,12 @@ def _lib(name: str) -> ctypes.CDLL:
         if not target.exists():
             build([name])
         lib = ctypes.CDLL(str(target))
-        n_ptr, n_int = SIGNATURES[name]
+        n_ptr, n_int, n_float = SIGNATURES[name]
         fn = getattr(lib, f"{name}_launch")
         # every pointer and the stream as c_void_p: ctypes would cut a
         # bare Python int to 32 bits
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
@@ -106,16 +109,22 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, tensors: List[torch.Tensor], ints: List[int],
-           scale: float) -> None:
+def launch(name: str, tensors: List[Optional[torch.Tensor]], ints: List[int],
+           floats: List[float]) -> None:
     """Launch kernel ``name`` on the current stream of the tensors'
-    device; raises if the launch was refused."""
+    device (None passes a null pointer); raises if the launch was
+    refused."""
     lib = _lib(name)
+    n_ptr, n_int, n_float = SIGNATURES[name]
+    if (len(tensors), len(ints), len(floats)) != (n_ptr, n_int, n_float):
+        raise ValueError(f"{name} takes {n_ptr} pointers, {n_int} ints and "
+                         f"{n_float} floats")
     device = tensors[0].device
     with torch.cuda.device(device):
         err = getattr(lib, f"{name}_launch")(
-            *[t.data_ptr() for t in tensors], *[int(i) for i in ints],
-            float(scale), torch.cuda.current_stream(device).cuda_stream,
+            *[None if t is None else t.data_ptr() for t in tensors],
+            *[int(i) for i in ints], *[float(x) for x in floats],
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -1,10 +1,13 @@
-"""InferenceEngine — the serving step on the dense KV cache.
+"""InferenceEngine — the serving step on the dense or the paged KV cache.
 
-Counterpart of ``flexflow_tpu/serve/engine.py`` for the dense layout.
-The JAX engine jits one step program per static signature and donates
-the cache through every call; here the step runs eagerly (no jit, no
-step keys) and the KV cache is updated **in place**, so steady-state
-decoding allocates no new cache.
+Counterpart of ``flexflow_tpu/serve/engine.py`` on one device. The JAX
+engine jits one step program per static signature and donates the cache
+through every call; here the step runs eagerly (no jit, no step keys)
+and the KV cache is updated **in place**, so steady-state decoding
+allocates no new cache. The paged layout (``kv_layout="paged"``) keeps
+a host-side :class:`PageAllocator` whose table reaches the device
+through a pinned, non-blocking copy, re-shipped only when the table
+changed.
 
 The step contract is the JAX engine's: :meth:`InferenceEngine.run`
 takes a :class:`BatchConfig` and returns logits on the device;
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .batch_config import BatchConfig
+from .paging import PageAllocator
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -41,15 +45,11 @@ def resolve_device(device: Any = None) -> torch.device:
 #: that brings each. A value other than the field's default raises.
 _LATER_SLICES = {
     "inference_debugging": "the serving-triage slice",
-    "page_size": "the paged-KV slice",
-    "max_cached_tokens": "the paged-KV slice",
-    "kv_quant": "the paged-KV slice (int8/int4 pages)",
     "prefix_caching": "the prefix-caching slice",
     "host_cache_bytes": "the prefix-caching slice (host tier)",
     "kv_shard": "the long-context slice",
     "context_shards": "the long-context slice",
     "cache_policy": "the prefix-caching slice",
-    "fused_decode": "the megakernel step-fusion slice",
     "quantized_allreduce": "the megakernel step-fusion slice",
     "replicas": "the cluster slice",
     "router_policy": "the cluster slice",
@@ -82,9 +82,9 @@ _LATER_SLICES = {
 @dataclasses.dataclass
 class ServingConfig:
     """Serving limits, with the field names of the JAX package's
-    ``ServingConfig``. This slice serves the dense KV layout; every field
-    listed in ``_LATER_SLICES`` must keep its default (see
-    :meth:`validate`)."""
+    ``ServingConfig``. The port serves the dense and the paged KV
+    layouts; every field listed in ``_LATER_SLICES`` must keep its
+    default (see :meth:`validate`)."""
 
     max_requests_per_batch: int = 16
     max_sequence_length: int = 2048
@@ -109,16 +109,29 @@ class ServingConfig:
     # prefill_chunk per row.
     max_tokens_per_step: int = 0
     inference_debugging: Optional[str] = None
-    # KV cache layout: only "dense" — (slots, max_len + 1) lines per slot.
+    # KV cache layout. "dense": (slots, max_len + 1) lines per slot.
+    # "paged": fixed-size token pages and a per-slot page table
+    # (serve/paging.py): memory follows the pages actually allocated.
     kv_layout: str = "dense"
-    page_size: int = 128
+    page_size: int = 128                    # tokens per KV page
+    # Page-pool budget in tokens (rounded up to whole pages, at least one
+    # slot's worst case). None = every slot's worst case. Below that the
+    # scheduler preempts (recompute on re-admission) when pages run out.
     max_cached_tokens: Optional[int] = None
+    # Quantized pages (paged layout only; serve/kv_quant.py): "int8"
+    # codes or "int4" nibble pairs with per-page-per-KV-head f32 scales.
+    # max_cached_tokens stays a memory budget priced at cache_dtype, so
+    # the same budget buys ~2x (int8) or ~4x (int4) the pages.
     kv_quant: Optional[str] = None
     prefix_caching: bool = False
     host_cache_bytes: Optional[int] = None
     kv_shard: str = "none"
     context_shards: int = 0
     cache_policy: str = "complete"
+    # Decode-step fusions. "rope_kv_write" (paged layout): RoPE and the
+    # K/V page write run inside the paged attention kernel
+    # (serve/kernels.fused_rope_paged_attention). "sampling" and
+    # "whole_step" come with the megakernel step-fusion slice.
     fused_decode: Tuple[str, ...] = ()
     quantized_allreduce: Optional[str] = None
     replicas: int = 1
@@ -148,14 +161,39 @@ class ServingConfig:
     autoscale_max_replicas: int = 0
 
     def validate(self) -> None:
-        """Raise on a configuration this slice cannot serve."""
-        if self.kv_layout == "paged":
-            raise NotImplementedError(
-                "kv_layout='paged' is not ported yet: it comes with the "
-                "paged-KV slice"
+        """Raise on a configuration the port cannot serve: ValueError for
+        a bad value (as the JAX engine raises at construction),
+        NotImplementedError for a feature of a later slice."""
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"unknown kv_layout {self.kv_layout!r} (expected 'dense' or 'paged')")
+        for name in self.fused_decode:
+            if name not in ("rope_kv_write", "sampling", "whole_step"):
+                raise ValueError(
+                    f"unknown fused_decode entry {name!r} (expected "
+                    "'rope_kv_write', 'sampling' and/or 'whole_step')"
+                )
+            if name != "rope_kv_write":
+                raise NotImplementedError(
+                    f"ServingConfig.fused_decode={name!r} is not ported yet: "
+                    "it comes with the megakernel step-fusion slice"
+                )
+        paged = self.kv_layout == "paged"
+        if "rope_kv_write" in self.fused_decode and not paged:
+            raise ValueError(
+                "fused_decode='rope_kv_write' requires kv_layout='paged' — the "
+                "fused prologue commits K/V through the page table inside the "
+                "ragged paged kernel"
             )
-        if self.kv_layout != "dense":
-            raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
+        if self.kv_quant is not None:
+            if not paged:
+                raise ValueError(
+                    "kv_quant requires kv_layout='paged' — the dense layout "
+                    "has no per-page scale granularity"
+                )
+            from .kv_quant import resolve_spec
+
+            resolve_spec(self.kv_quant)
         if self.kernels not in ("cuda", "torch"):
             raise ValueError(
                 f"unknown kernels {self.kernels!r} (expected 'cuda' — the "
@@ -185,15 +223,35 @@ class ServingConfig:
             return self.prefill_chunk
         return max(1, min(self.prefill_chunk, self.max_tokens_per_step))
 
+    @property
+    def pages_per_slot(self) -> int:
+        """Logical pages covering one slot's worst case (cache_len lines
+        plus the scratch line)."""
+        return -(-(self.cache_len + 1) // self.page_size)
+
+    @property
+    def num_pages(self) -> int:
+        """Physical pages in the pool, the scratch page excluded: every
+        slot's worst case, or the ``max_cached_tokens`` budget (never
+        below one slot's worst case)."""
+        if self.max_cached_tokens is None:
+            return self.max_requests_per_batch * self.pages_per_slot
+        return max(self.pages_per_slot,
+                   -(-self.max_cached_tokens // self.page_size))
+
 
 class InferenceEngine:
-    """Owns the params and the dense KV cache on ``device`` and runs the
+    """Owns the params and the KV cache on ``device`` and runs the
     serving step.
 
     ``model`` is a model-family module exposing the serving protocol
     (see models/llama.py): ``init_kv_cache(cfg, slots, max_len, dtype,
     device=)`` and ``serve_step(params, cache, tokens, positions,
-    logits_idx, mask, cache_positions, *, cfg, all_logits, kernels)``.
+    logits_idx, mask, cache_positions, *, cfg, all_logits, kernels)``;
+    for the paged layout also ``init_paged_kv_cache(cfg, num_pages,
+    page_size, dtype, kv_quant, device=)``, ``serve_step_paged`` (the
+    same arguments plus the page table, ``cache_len``, ``kv_quant`` and
+    ``fused_rope``) and ``FUSED_DECODE``.
     """
 
     def __init__(
@@ -209,16 +267,83 @@ class InferenceEngine:
         self.cfg = cfg
         self.serving = serving or ServingConfig()
         self.serving.validate()
+        self.paged = self.serving.kv_layout == "paged"
+        if ("rope_kv_write" in self.serving.fused_decode
+                and "rope_kv_write" not in getattr(model, "FUSED_DECODE", ())):
+            raise ValueError(
+                "fused_decode='rope_kv_write' requested but "
+                f"{getattr(model, '__name__', repr(model))} does not advertise "
+                "it (model.FUSED_DECODE)"
+            )
         self.device = resolve_device(device)
         self.params = params
+        self.pager: Optional[PageAllocator] = None  # host-side page tables
         self.cache = self._alloc_cache()
+
+    def _num_pages(self) -> int:
+        """Pages of the pool: ``ServingConfig.num_pages``, converted by
+        bytes per page when the pages are quantized under a budget."""
+        sc = self.serving
+        if sc.kv_quant is None or sc.max_cached_tokens is None:
+            return sc.num_pages
+        from .kv_quant import quantized_pool_pages, resolve_spec
+
+        return quantized_pool_pages(
+            sc.num_pages, sc.page_size, self.cfg.num_key_value_heads,
+            self.cfg.head_dim,
+            torch.empty((), dtype=sc.cache_dtype).element_size(),
+            resolve_spec(sc.kv_quant),
+        )
 
     def _alloc_cache(self):
         sc = self.serving
-        return self.model.init_kv_cache(
-            self.cfg, sc.max_requests_per_batch, sc.cache_len, sc.cache_dtype,
+        if not self.paged:
+            return self.model.init_kv_cache(
+                self.cfg, sc.max_requests_per_batch, sc.cache_len, sc.cache_dtype,
+                device=self.device,
+            )
+        num_pages = self._num_pages()
+        self.pager = PageAllocator(num_pages, sc.pages_per_slot,
+                                   sc.max_requests_per_batch, sc.page_size)
+        self._table_cache = None
+        return self.model.init_paged_kv_cache(
+            self.cfg, num_pages, sc.page_size, sc.cache_dtype, sc.kv_quant,
             device=self.device,
         )
+
+    # ------------------------------------------------------------------
+    # paged-layout accounting
+
+    def page_table_device(self) -> torch.Tensor:
+        """The allocator's page table on the device (R, NP) int32 — every
+        paged step's read-only indices. Cached against the allocator's
+        version: steady-state decode re-ships nothing."""
+        cached = self._table_cache
+        if cached is not None and cached[0] == self.pager.version:
+            return cached[1]
+        dev = self._tensor(self.pager.table.copy(), torch.int32)
+        self._table_cache = (self.pager.version, dev)
+        return dev
+
+    def kv_cache_bytes(self) -> int:
+        """Device bytes held by the cache tensors (dense: every slot's
+        lines; paged: the page pool and its scales)."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
+    def kv_bytes_per_line(self) -> float:
+        """K+V bytes one cached token line costs across all layers, the
+        quantized pools' scale rows amortized into it."""
+        k = self.cache["k"]
+        lines = k.shape[1] * k.shape[2]  # slots × (len+1) or pages × page_size
+        return self.kv_cache_bytes() / lines
+
+    def kv_allocated_bytes(self) -> int:
+        """Bytes of KV memory backing allocated pages (paged layout; the
+        whole cache on the dense one)."""
+        if not self.paged:
+            return self.kv_cache_bytes()
+        return int(self.pager.used_pages * self.serving.page_size
+                   * self.kv_bytes_per_line())
 
     @property
     def scratch_pos(self) -> int:
@@ -240,12 +365,22 @@ class InferenceEngine:
 
     def _step(self, tokens, positions, logits_idx, mask=None,
               cache_positions=None, all_logits=False):
+        sc = self.serving
         with torch.inference_mode():
-            logits, self.cache = self.model.serve_step(
-                self.params, self.cache, tokens, positions, logits_idx, mask,
-                cache_positions, cfg=self.cfg, all_logits=all_logits,
-                kernels=self.serving.kernels,
-            )
+            if self.paged:
+                logits, self.cache = self.model.serve_step_paged(
+                    self.params, self.cache, tokens, positions, logits_idx, mask,
+                    cache_positions, self.page_table_device(), cfg=self.cfg,
+                    cache_len=sc.cache_len, all_logits=all_logits,
+                    kernels=sc.kernels, kv_quant=sc.kv_quant,
+                    fused_rope="rope_kv_write" in sc.fused_decode,
+                )
+            else:
+                logits, self.cache = self.model.serve_step(
+                    self.params, self.cache, tokens, positions, logits_idx, mask,
+                    cache_positions, cfg=self.cfg, all_logits=all_logits,
+                    kernels=sc.kernels,
+                )
         return logits
 
     def run(self, bc: BatchConfig, all_logits: bool = False):
@@ -309,6 +444,12 @@ class InferenceEngine:
         )
 
     def reset(self):
-        """Drop all cached sequences (a fresh, zeroed KV cache)."""
+        """Drop all cached sequences: the KV cache is zeroed in place and,
+        paged, a fresh allocator puts every page back on the free list."""
         for t in self.cache.values():
             t.zero_()
+        if self.paged:
+            sc = self.serving
+            self.pager = PageAllocator(self.pager.num_pages, sc.pages_per_slot,
+                                       sc.max_requests_per_batch, sc.page_size)
+            self._table_cache = None

@@ -2,11 +2,13 @@
 
 Each kernel here has three parts side by side:
 
-* the **wrapper** (:func:`decode_attention`, :func:`verify_attention`):
+* the **wrapper** (:func:`decode_attention`, :func:`verify_attention`,
+  :func:`ragged_paged_attention`, :func:`fused_rope_paged_attention`):
   checks device, dtype, shape and contiguity, then either runs the plain
   version (the tensors lie on the CPU) or launches the CUDA kernel (the
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
-  version. Each launch adds one to ``LAUNCHES[name]``.
+  version. Each launch adds one to ``LAUNCHES[name]``; the paged kernels
+  count per pool type, ``name[bf16|f32|int8|int4]``.
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -14,10 +16,19 @@ Each kernel here has three parts side by side:
   H100 and what its design does about that), built on first use by
   :mod:`._cuda`.
 
-Both kernels compute an f32 online softmax and clamp the softmax
+Every kernel computes an f32 online softmax and clamps the softmax
 denominator at 1e-20, so a query row with nothing to attend gives 0
-(``serve_attention`` gives the mean of V there instead; only padding
-rows meet that case and their outputs are never read).
+(``serve_attention`` and :func:`ragged_paged_attention_torch` give the
+mean of V there instead; only padding rows meet that case and their
+outputs are never read).
+
+The paged kernels read K/V from page pools ``(P+1, page_size, KV,
+dk/pack)`` through a per-slot page table (serve/paging.py); pool row P
+is the scratch page. Quantized pools (serve/kv_quant.py) hold int8
+codes, or int4 codes packed two per uint8 byte, with one f32 scale per
+page and KV head; the kernels multiply the scores by ``k_scale * scale``
+and the probabilities by ``v_scale`` (the TPU kernel's order), the torch
+path dequantizes the gathered lines first.
 """
 from __future__ import annotations
 
@@ -26,15 +37,28 @@ from typing import Dict, Optional
 
 import torch
 
+from .kv_quant import pool_pack, quant_line_write, unpack_codes
+
 NEG_INF = -1e30
+
+#: pool types of the paged kernels, as their launch counters name them
+POOL_TYPES = ("bf16", "f32", "int8", "int4")
+PAGED_KERNELS = ("ragged_paged_attention", "fused_rope_paged_attention")
 
 #: launches per kernel since the last :func:`reset_launch_counts` — a
 #: launch of the CUDA kernel counts, a plain-version call on the CPU not
-LAUNCHES: Dict[str, int] = {"decode_attention": 0, "verify_attention": 0}
+LAUNCHES: Dict[str, int] = {
+    "decode_attention": 0,
+    "verify_attention": 0,
+    **{f"{k}[{t}]": 0 for k in PAGED_KERNELS for t in POOL_TYPES},
+}
 
-#: head dims the CUDA kernels are instantiated for
+#: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
+_CUDA_PAGE_SIZES = (16, 32, 64, 128)
+#: most new lines per slot the fused kernel commits in one launch
+_FUSED_MAX_CHUNK = 256
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +115,7 @@ def decode_attention(q, k_cache, v_cache, seq_lens, *,
         "decode_attention",
         [q, k_cache, v_cache, seq_lens, out],
         [R, S1, H, KV, dk, _dtype_code(q.dtype)],
-        scale if scale is not None else 1.0 / math.sqrt(dk),
+        [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
     LAUNCHES["decode_attention"] += 1
     return out
@@ -149,7 +173,7 @@ def verify_attention(q, k_cache, v_cache, mask, *,
         "verify_attention",
         [q, k_cache, v_cache, mask, out],
         [R, C, S1, H, KV, dk, _dtype_code(q.dtype)],
-        scale if scale is not None else 1.0 / math.sqrt(dk),
+        [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
     LAUNCHES["verify_attention"] += 1
     return out
@@ -209,3 +233,358 @@ def causal_serve_mask(positions: torch.Tensor, S1: int) -> torch.Tensor:
     key_pos = torch.arange(S1, dtype=positions.dtype, device=positions.device)
     mask = key_pos[None, None, :] <= positions[:, :, None]
     return mask & (key_pos[None, None, :] < S1 - 1)
+
+
+def paged_serve_mask(mask: Optional[torch.Tensor], positions: torch.Tensor,
+                     num_logical_pages: int, page_size: int,
+                     cache_len: int) -> torch.Tensor:
+    """Paged twin of :func:`causal_serve_mask` over the page-aligned
+    virtual cache (S_virt = NP * page_size): the causal mask when
+    ``mask`` is None, else the explicit (R, C, cache_len+1) mask padded
+    with never-attended lines out to S_virt. The scratch line (index
+    ``cache_len``, where padding tokens write) is excluded."""
+    S_virt = num_logical_pages * page_size
+    if mask is None:
+        key_pos = torch.arange(S_virt, dtype=positions.dtype, device=positions.device)
+        m = key_pos[None, None, :] <= positions[:, :, None]
+        return m & (key_pos[None, None, :] < cache_len)
+    if mask.shape[-1] < S_virt:
+        pad = mask.new_zeros(mask.shape[:-1] + (S_virt - mask.shape[-1],))
+        mask = torch.cat([mask, pad], dim=-1)
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: gathers through the page table and the torch serving math
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """A slot's logical cache from the page pool: pool (P+1, ps, ...) ×
+    table (R, NP) → virtual cache (R, NP*ps, ...). Unallocated entries
+    point at the scratch page, which the caller's mask never exposes."""
+    R, NP = page_table.shape
+    ps = pool.shape[1]
+    flat = pool[page_table.reshape(-1).long()]
+    return flat.reshape((R, NP * ps) + tuple(pool.shape[2:]))
+
+
+def _line_scales(scale: torch.Tensor, page_table: torch.Tensor, ps: int) -> torch.Tensor:
+    """(P+1, KV) per-page scales → (R, NP*ps, KV), one per virtual line."""
+    R, NP = page_table.shape
+    s = scale[page_table.reshape(-1).long()]
+    return s.reshape(R, NP, 1, -1).expand(R, NP, ps, s.shape[-1]).reshape(R, NP * ps, -1)
+
+
+def dequant_pages(pool: torch.Tensor, scale: torch.Tensor,
+                  page_table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Quantized twin of :func:`gather_pages`: the (R, NP*ps, KV, dk)
+    virtual cache in ``dtype``, each line's codes (unpacked from nibbles
+    for uint8 pools) times its page's per-KV-head scale."""
+    codes = unpack_codes(gather_pages(pool, page_table), pool_pack(pool))
+    s = _line_scales(scale, page_table, pool.shape[1])
+    return (codes * s[..., None]).to(dtype)
+
+
+def ragged_paged_attention_torch(q, k_pool, v_pool, page_table, mask, *,
+                                 scale: Optional[float] = None,
+                                 k_scale=None, v_scale=None):
+    """The ``kernels="torch"`` math (the JAX package's
+    ``ragged_paged_attention_xla``): gather (and dequantize) the virtual
+    cache through the table, then the grouped-query masked softmax of
+    ``serve_attention`` with probabilities rounded to q's dtype. A row
+    with nothing to attend gives the mean of V. Returns (R, C, H, dk)."""
+    R, C, H, dk = q.shape
+    KV = k_pool.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    if k_scale is not None:
+        k_virt = dequant_pages(k_pool, k_scale, page_table, q.dtype)
+        v_virt = dequant_pages(v_pool, v_scale, page_table, q.dtype)
+    else:
+        k_virt = gather_pages(k_pool, page_table)
+        v_virt = gather_pages(v_pool, page_table)
+    qg = q.reshape(R, C, KV, G, dk)
+    scores = torch.einsum("rckgd,rskd->rkgcs", qg.to(torch.float32),
+                          k_virt.to(torch.float32)) * scale
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    dt = torch.promote_types(q.dtype, v_virt.dtype)
+    out = torch.einsum("rkgcs,rskd->rckgd", probs.to(dt), v_virt.to(dt))
+    return out.reshape(R, C, H, dk)
+
+
+def _rope_rotate(x, cos, sin):
+    """Rotate-half RoPE on the trailing head dim, op for op the unfused
+    ``apply_rope`` (models/llama.py), so the fused path stays bitwise
+    the unfused one. ``cos``/``sin`` arrive broadcastable against ``x``;
+    a partial rotary width (``cos.shape[-1] < head_dim``) passes the tail
+    of each head through."""
+    rot = cos.shape[-1]
+    xr = x[..., :rot]
+    half = rot // 2
+    rotated = torch.cat([-xr[..., half:], xr[..., :half]], dim=-1)
+    out = xr * cos + rotated * sin
+    if x.shape[-1] > rot:
+        out = torch.cat([out, x[..., rot:].to(out.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ragged paged attention
+
+
+def pool_type(pool: torch.Tensor) -> str:
+    """The launch-counter name of a page pool's type."""
+    if pool.dtype == torch.uint8:
+        return "int4"
+    if pool.dtype == torch.int8:
+        return "int8"
+    return {torch.bfloat16: "bf16", torch.float32: "f32"}.get(
+        pool.dtype, str(pool.dtype).replace("torch.", ""))
+
+
+def ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask, *,
+                               scale: Optional[float] = None,
+                               k_scale=None, v_scale=None):
+    """Plain version: q (R, C, H, dk) against the lines of the pools
+    (P+1, ps, KV, dk/pack) that ``mask`` (R, C, NP*ps) lets each token
+    attend, line s of slot r at line s % ps of page table[r, s // ps].
+    With ``k_scale``/``v_scale`` (P+1, KV) the pools hold codes and, as
+    in the kernel, scores are dot(q, codes) * (k_scale * scale) and the
+    probabilities weigh the V codes times v_scale. f32 throughout; a row
+    with nothing to attend gives 0. Returns (R, C, H, dk) in q's dtype."""
+    R, C, H, dk = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    pack = pool_pack(k_pool) if k_scale is not None else 1
+    kc = unpack_codes(gather_pages(k_pool, page_table), pack)  # (R, S, KV, dk)
+    vc = unpack_codes(gather_pages(v_pool, page_table), pack)
+    qg = q.to(torch.float32).reshape(R, C, KV, G, dk)
+    scores = torch.einsum("rckgd,rskd->rkgcs", qg, kc)
+    if k_scale is not None:
+        ksc = _line_scales(k_scale, page_table, ps) * scale   # (R, S, KV)
+        scores = scores * ksc.permute(0, 2, 1)[:, :, None, None, :]
+    else:
+        scores = scores * scale
+    m_ = mask.to(q.device)[:, None, None]                      # (R, 1, 1, C, S)
+    scores = torch.where(m_, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(m_, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    if v_scale is not None:
+        vsc = _line_scales(v_scale, page_table, ps)
+        p = p * vsc.permute(0, 2, 1)[:, :, None, None, :]
+    out = torch.einsum("rkgcs,rskd->rkgcd", p, vc) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(R, C, H, dk).to(q.dtype)
+
+
+def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
+                           scale: Optional[float] = None,
+                           k_scale=None, v_scale=None):
+    """Ragged paged attention: every one of the C query tokens per slot
+    attends the lines its ``mask`` row allows, read through the slot's
+    page table. q (R, C, H, dk); pools (P+1, ps, KV, dk/pack) in q's
+    dtype, or int8/uint8 codes with ``k_scale``/``v_scale`` (P+1, KV)
+    f32; page_table (R, NP) int32; mask (R, C, NP*ps) bool. Returns
+    (R, C, H, dk)."""
+    kind = _check_paged(q, k_pool, v_pool, page_table, mask, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask,
+                                          scale=scale, k_scale=k_scale, v_scale=v_scale)
+    _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale)
+    from . import _cuda
+
+    R, C, H, dk = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty_like(q)
+    _cuda.launch(
+        "ragged_paged_attention",
+        [q, k_pool, v_pool, k_scale, v_scale, page_table, mask, out],
+        [R, C, H, KV, dk, ps, page_table.shape[1], _dtype_code(q.dtype), kind],
+        [scale if scale is not None else 1.0 / math.sqrt(dk)],
+    )
+    LAUNCHES[f"ragged_paged_attention[{pool_type(k_pool)}]"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused RoPE + KV write + ragged paged attention
+
+
+def commit_paged(k_pool, v_pool, k, v, phys, off, k_scale=None, v_scale=None,
+                 qmax: Optional[float] = None):
+    """Write the new K/V lines (R, C, KV, dk) at physical page ``phys``,
+    in-page offset ``off`` (each (R, C) int64) in place: a scatter, or
+    ``kv_quant.quant_line_write`` with ``qmax`` on a quantized pool. The
+    unfused paged step's commit, which the fused kernel matches bit for
+    bit."""
+    if qmax is not None:
+        quant_line_write(k_pool, k_scale, phys, off, k, qmax)
+        quant_line_write(v_pool, v_scale, phys, off, v, qmax)
+    else:
+        k_pool[phys, off] = k.to(k_pool.dtype)
+        v_pool[phys, off] = v.to(v_pool.dtype)
+
+
+def fused_rope_paged_attention_ref(q, k_new, v_new, cos, sin, k_pool, v_pool,
+                                   page_table, logical, off, mask, *,
+                                   scale: Optional[float] = None,
+                                   k_scale=None, v_scale=None,
+                                   qmax: Optional[float] = None):
+    """Plain version, the unfused composition itself: RoPE of q (R, C, H,
+    dk) and k_new (R, C, KV, dk) with cos/sin (R, C, rot) f32 (None: no
+    RoPE), then the commit of the new K/V lines at in-page offset
+    ``off`` of page ``page_table[r, logical]`` — a scatter, or
+    ``kv_quant.quant_line_write`` with ``qmax`` on a quantized pool —
+    IN PLACE, then :func:`ragged_paged_attention_ref`. Returns the
+    attention output (R, C, H, dk)."""
+    if cos is not None:
+        q = _rope_rotate(q, cos[:, :, None, :], sin[:, :, None, :])
+        k_new = _rope_rotate(k_new, cos[:, :, None, :], sin[:, :, None, :])
+    phys = page_table.long().gather(1, logical.long())
+    commit_paged(k_pool, v_pool, k_new, v_new, phys, off.long(), k_scale, v_scale, qmax)
+    return ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask,
+                                      scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def fused_rope_paged_attention(q, k_new, v_new, cos, sin, k_pool, v_pool,
+                               page_table, logical, off, mask, *,
+                               scale: Optional[float] = None,
+                               k_scale=None, v_scale=None,
+                               qmax: Optional[float] = None):
+    """RoPE on q and k_new, the in-place commit of the new K/V lines into
+    their pages (quantizing at the page scales when ``qmax`` is set) and
+    ragged paged attention, in one kernel. q (R, C, H, dk) and k_new /
+    v_new (R, C, KV, dk) before RoPE; cos/sin (R, C, rot) f32 or None;
+    logical/off (R, C) int32 logical page and in-page offset of each new
+    line; the rest as :func:`ragged_paged_attention`. The pools (and
+    scales) are updated in place; returns the attention output
+    (R, C, H, dk)."""
+    kind = _check_paged(q, k_pool, v_pool, page_table, mask, k_scale, v_scale)
+    R, C, H, dk = q.shape
+    KV = k_pool.shape[2]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != (R, C, KV, dk) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} ({R}, {C}, {KV}, {dk}) on "
+                             f"q's device; got {t.dtype} {tuple(t.shape)}")
+    if (cos is None) != (sin is None):
+        raise ValueError("cos and sin come together or not at all")
+    if cos is not None:
+        rot = cos.shape[-1]
+        for name, t in (("cos", cos), ("sin", sin)):
+            if (t.shape != (R, C, rot) or t.dtype != torch.float32
+                    or t.device != q.device):
+                raise ValueError(f"{name} must be float32 ({R}, {C}, rot) on q's device")
+        if rot % 2 or rot > dk:
+            raise ValueError(f"rotary width {rot} must be even and at most {dk}")
+    for name, t in (("logical", logical), ("off", off)):
+        if t.shape != (R, C) or t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError(f"{name} must be int32 ({R}, {C}) on q's device")
+    if (qmax is None) != (k_scale is None):
+        raise ValueError("qmax is given exactly when the pools are quantized")
+    if q.device.type == "cpu":
+        return fused_rope_paged_attention_ref(
+            q, k_new, v_new, cos, sin, k_pool, v_pool, page_table, logical, off,
+            mask, scale=scale, k_scale=k_scale, v_scale=v_scale, qmax=qmax)
+    _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale)
+    if C > _FUSED_MAX_CHUNK:
+        raise ValueError(f"the fused kernel takes at most {_FUSED_MAX_CHUNK} "
+                         f"lines per slot; got C={C}")
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("cos", cos), ("sin", sin),
+                    ("logical", logical), ("off", off)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from . import _cuda
+
+    ps = k_pool.shape[1]
+    out = torch.empty_like(q)
+    q_rot = torch.empty_like(q)
+    k_rot = torch.empty_like(k_new)
+    _cuda.launch(
+        "fused_rope_paged_attention",
+        [q, k_new, v_new, cos, sin, k_pool, v_pool, k_scale, v_scale, page_table,
+         logical, off, mask, out, q_rot, k_rot],
+        [R, C, H, KV, dk, ps, page_table.shape[1],
+         cos.shape[-1] if cos is not None else 0, _dtype_code(q.dtype), kind],
+        [scale if scale is not None else 1.0 / math.sqrt(dk),
+         qmax if qmax is not None else 0.0],
+    )
+    LAUNCHES[f"fused_rope_paged_attention[{pool_type(k_pool)}]"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged checks
+
+
+def _check_paged(q, k_pool, v_pool, page_table, mask, k_scale, v_scale) -> int:
+    """Shape, dtype and device checks of the paged kernels' common
+    operands; returns the pool kind the CUDA launcher takes (0 full
+    precision, 1 int8, 2 int4)."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (R, C, H, dk); got {tuple(q.shape)}")
+    R, C, H, dk = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
+        raise ValueError(
+            f"k/v pools must share one (P+1, ps, KV, dk/pack) shape and dtype; "
+            f"got {k_pool.dtype} {tuple(k_pool.shape)} and {v_pool.dtype} "
+            f"{tuple(v_pool.shape)}"
+        )
+    P1, ps, KV, dkp = k_pool.shape
+    if H % KV:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together or not at all")
+    if k_scale is not None:
+        pack = 2 if k_pool.dtype == torch.uint8 else 1
+        if k_pool.dtype not in (torch.int8, torch.uint8) or dkp * pack != dk:
+            raise ValueError(
+                f"quantized pools hold int8 codes (dk={dk}) or uint8 nibble "
+                f"pairs (dk/2={dk // 2}); got {k_pool.dtype} with {dkp}"
+            )
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != (P1, KV) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 ({P1}, {KV}); got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        kind = 1 if pack == 1 else 2
+    else:
+        if not k_pool.dtype.is_floating_point or dkp != dk:
+            raise ValueError(f"full-precision pools must be floating (P+1, ps, KV, "
+                             f"{dk}); got {k_pool.dtype} {tuple(k_pool.shape)}")
+        kind = 0
+    NP = page_table.shape[-1]
+    if page_table.shape != (R, NP) or page_table.dtype != torch.int32:
+        raise ValueError(f"page_table must be int32 ({R}, NP); got "
+                         f"{page_table.dtype} {tuple(page_table.shape)}")
+    if mask.shape != (R, C, NP * ps) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool ({R}, {C}, {NP * ps}); got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    for t in (k_pool, v_pool, page_table, mask, k_scale, v_scale):
+        if t is not None and t.device != q.device:
+            raise ValueError("q, the pools, scales, table and mask must lie on one device")
+    return kind
+
+
+def _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dtype not in _CUDA_DTYPES:
+        raise ValueError(f"CUDA paged attention takes float32 or bfloat16 q; got {q.dtype}")
+    if k_scale is None and k_pool.dtype != q.dtype:
+        raise ValueError(f"full-precision pools must be q's dtype {q.dtype}; got "
+                         f"{k_pool.dtype}")
+    dk = q.shape[-1]
+    if dk not in _CUDA_HEAD_DIMS:
+        raise ValueError(f"CUDA attention has no head dim {dk} (has {_CUDA_HEAD_DIMS})")
+    if k_pool.shape[1] not in _CUDA_PAGE_SIZES:
+        raise ValueError(f"CUDA paged attention has no page size {k_pool.shape[1]} "
+                         f"(has {_CUDA_PAGE_SIZES})")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("mask", mask),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:  # the kernels read them in 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")

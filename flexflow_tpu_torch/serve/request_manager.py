@@ -1,9 +1,8 @@
 """RequestManager — request queue + continuous batching + decoding loops.
 
-Counterpart of ``flexflow_tpu/serve/request_manager.py`` for the dense
-KV layout: queue incoming requests, admit them into free batch slots,
-run chunked prefill and incremental decoding, and free slots on
-completion.
+Counterpart of ``flexflow_tpu/serve/request_manager.py``: queue incoming
+requests, admit them into free batch slots, run chunked prefill and
+incremental decoding, and free slots on completion.
 
 Scheduling is iteration-level continuous batching: a prompt enters the
 batch in fixed-size chunks, and — with
@@ -15,8 +14,16 @@ chunk progression and completions never drain the pipeline.
 ``continuous_batching=False`` restores the flush-on-admit scheduler
 (any prefilling request forces the blocking sync path).
 
-The paged layout, prefix caching, preemption, tracing and the cluster
-hooks come with the slices that port them.
+On the paged layout every step first grows the active slots' page
+tables to cover the lines it will touch. When the pool runs out, the
+pipeline is drained and the newest admission is preempted: its pages
+return to the pool and it goes back to the front of the queue, to be
+prefilled again (prompt plus the tokens generated so far) on
+re-admission. A request that alone exceeds the pool fails with an
+error instead.
+
+Prefix caching, tracing and the cluster hooks come with the slices that
+port them.
 """
 from __future__ import annotations
 
@@ -45,9 +52,9 @@ class RequestStatus(enum.Enum):
     PREFILLING = "prefilling"
     DECODING = "decoding"
     COMPLETED = "completed"
-    # Terminal failure, surfaced via GenerationResult.error. On the dense
-    # layout no request fails: register_request cuts a prompt to
-    # max_sequence_length - 1 tokens, which the cache always holds.
+    # Terminal failure, surfaced via GenerationResult.error: a request the
+    # paged KV pool can never hold (register_request cuts a prompt to
+    # max_sequence_length - 1 tokens, which the dense cache always holds).
     ERROR = "error"
 
 
@@ -154,17 +161,149 @@ class RequestManager:
         return rid
 
     # ------------------------------------------------------------------
+    # paged-KV page management (serve/paging.py PageAllocator)
+
+    @property
+    def _paged(self) -> bool:
+        return self.engine.paged
+
+    def _engines(self) -> List[InferenceEngine]:
+        """Every engine whose cache this manager keeps in sync (SpecInfer
+        adds its draft models' engines)."""
+        return [self.engine]
+
+    def _ensure_pages(self, req: Request, num_lines: int) -> bool:
+        """Cover cache lines [0, num_lines) for ``req`` on every engine;
+        all-or-nothing per engine (``ensure`` is idempotent, so a retry
+        after a partial cross-engine grant is safe)."""
+        return all(eng.pager.ensure(req.slot, num_lines) for eng in self._engines())
+
+    def _release_pages(self, slot: int):
+        for eng in self._engines():
+            eng.pager.release(slot)
+
+    def _preempt(self, req: Request):
+        """Evict an admitted request back to the front of the queue and
+        reclaim its pages. Its lines are recomputed on re-admission
+        (prompt plus the tokens generated so far prefill again), so
+        generation goes on where it stopped. Only called with the pipeline
+        drained, so no dispatched step can write the reclaimed pages."""
+        assert req.pipeline_refs == 0, "preempting a request with work in flight"
+        self._release_pages(req.slot)
+        self.slots[req.slot] = None
+        req.slot = -1
+        req.status = RequestStatus.PENDING
+        req.n_cached = 0
+        req.n_sched = 0
+        req.inflight = 0
+        self.pending.insert(0, req.request_id)
+        self.stats.preemptions += 1
+
+    def _lines_needed(self, req: Request, chunk: Optional[int] = None) -> int:
+        """The cache lines the next step may touch, bounded from above."""
+        if req.status is RequestStatus.PREFILLING:
+            chunk = chunk or self.engine.serving.prefill_chunk
+            return min(len(req.tokens), max(req.n_cached, req.n_sched) + chunk)
+        # decode: reads lines [0, len-1], writes len-1, plus the lines of
+        # the dispatch-ahead steps in flight
+        return len(req.tokens) + req.inflight + 1
+
+    def _reserve_active_pages(self, lines_fn=None):
+        """Grow every active slot's page table to cover this step's reads
+        and writes; when the pool runs out, drain the pipeline, preempt
+        the newest admission and retry. A request that alone exceeds the
+        pool fails with an error instead of stalling everyone else."""
+        if not self._paged:
+            return
+        lines_fn = lines_fn or self._lines_needed
+        while True:
+            active = sorted(
+                (self.requests[rid] for rid in self.slots
+                 if rid is not None and self.requests[rid].status
+                 in (RequestStatus.PREFILLING, RequestStatus.DECODING)),
+                key=lambda r: r.admit_seq,
+            )
+            for req in active:
+                if self._ensure_pages(req, lines_fn(req)):
+                    continue
+                # drain before touching slot ownership; completions the
+                # flush lands may already free enough pages
+                self._flush_all()
+                if req.status not in (
+                    RequestStatus.PREFILLING, RequestStatus.DECODING
+                ) or self._ensure_pages(req, lines_fn(req)):
+                    break  # the active set changed; derive it again
+                victims = [
+                    r for r in active
+                    if r is not req and r.status
+                    in (RequestStatus.PREFILLING, RequestStatus.DECODING)
+                ]
+                if not victims:
+                    self._fail_request(
+                        req,
+                        "KV page pool exhausted by this request alone — raise "
+                        "ServingConfig.max_cached_tokens (or lower "
+                        "max_sequence_length/page_size)",
+                    )
+                    break
+                self._preempt(victims[-1])
+                break
+            else:
+                return
+
+    # ------------------------------------------------------------------
     # slot management
+
+    def _admission_error(self, req: Request) -> Optional[str]:
+        """A reason this request can never be admitted under the
+        configured limits, or None (without the check it would wait in
+        the queue forever)."""
+        sc = self.engine.serving
+        need = len(req.tokens) + 1  # prompt lines + the first output's line
+        if need > sc.cache_len + 1:
+            return (f"prompt ({len(req.tokens)} tokens) exceeds the cache "
+                    f"capacity ({sc.cache_len} lines)")
+        if not self._paged:
+            return None
+        # with kv_quant the budget buys more pages: the allocator's own
+        # capacity below is the bound then
+        if (sc.max_cached_tokens is not None and sc.kv_quant is None
+                and need > sc.max_cached_tokens):
+            return (f"prompt ({len(req.tokens)} tokens) can never fit the "
+                    f"configured KV budget (max_cached_tokens="
+                    f"{sc.max_cached_tokens})")
+        for eng in self._engines():
+            cap = eng.pager.num_pages * eng.pager.page_size
+            if need > cap:
+                return (f"prompt ({len(req.tokens)} tokens) exceeds the KV "
+                        f"page pool ({cap} tokens)")
+        return None
 
     def _admit_pending(self):
         for i, occupant in enumerate(self.slots):
             if occupant is not None:
                 continue
+            # fail unservable heads at once instead of parking them
+            while self.pending:
+                head = self.requests[self.pending[0]]
+                err = self._admission_error(head)
+                if err is None:
+                    break
+                self._fail_request(head, err)
             if not self.pending:
                 return
-            rid = self.pending.pop(0)
+            rid = self.pending[0]
             req = self.requests[rid]
             req.slot = i
+            if self._paged and not self._ensure_pages(
+                req, min(len(req.tokens), self.engine.serving.prefill_chunk)
+            ):
+                # the pool cannot take the first chunk: stop admitting
+                # (a flush frees pages) and undo any partial grant
+                self._release_pages(i)
+                req.slot = -1
+                return
+            self.pending.pop(0)
             req.status = RequestStatus.PREFILLING
             req.n_cached = 0
             req.n_sched = 0
@@ -186,22 +325,34 @@ class RequestManager:
         return out
 
     def _release_slot(self, req: Request):
-        """Return the request's slot to the free pool. Callers guarantee
-        no in-flight dispatch still references it (pipeline_refs == 0)."""
+        """Return the request's slot (and, paged, its pages) to the free
+        pool. Callers guarantee no in-flight dispatch still references it
+        (pipeline_refs == 0)."""
         if req.slot < 0:
             return
+        if self._paged:
+            self._release_pages(req.slot)
         self.slots[req.slot] = None
         req.slot = -1
 
-    def _finish(self, req: Request):
-        req.status = RequestStatus.COMPLETED
+    def _finish(self, req: Request, error: Optional[str] = None):
+        req.status = RequestStatus.ERROR if error else RequestStatus.COMPLETED
+        req.error = error
         req.profile.finish_time = time.perf_counter()
         # With dispatches still in flight for this slot, defer the release
         # to the flush that drains the last of them: they keep writing
-        # (garbage) K/V into the slot, so handing it to another request
-        # now would corrupt that request's cache.
+        # (garbage) K/V through the slot's table, so handing the slot or
+        # its pages to another request now would corrupt that request's
+        # cache.
         if req.slot >= 0 and req.pipeline_refs == 0:
             self._release_slot(req)
+
+    def _fail_request(self, req: Request, reason: str):
+        self.stats.failed += 1
+        self._log.warning("request %d failed: %s", req.request_id, reason)
+        if req.request_id in self.pending:
+            self.pending.remove(req.request_id)
+        self._finish(req, error=reason)
 
     # ------------------------------------------------------------------
     # batch building (reference prepare_next_batch, request_manager.cc:350)
@@ -535,12 +686,17 @@ class RequestManager:
         prefilling = self._active(RequestStatus.PREFILLING)
         decoding = self._active(RequestStatus.DECODING)
         if decoding and not prefilling:
+            self._reserve_active_pages()
             return self._step_pipelined(mixed=False)
         if sc.continuous_batching and (prefilling or decoding):
+            self._reserve_active_pages(
+                lambda r: self._lines_needed(r, sc.mixed_chunk))
             return self._step_pipelined(mixed=True)
         return self._step_sync()
 
     def _step_pipelined(self, mixed: bool) -> bool:
+        # page reservation may have preempted or failed requests: derive
+        # the schedulable set again
         prefilling = self._active(RequestStatus.PREFILLING) if mixed else []
         decoding = [
             r for r in self._active(RequestStatus.DECODING)
@@ -562,6 +718,7 @@ class RequestManager:
 
     def _step_sync(self) -> bool:
         self._flush_all()
+        self._reserve_active_pages()
         bc = self._prepare_batch()
         if bc is None:
             return bool(self.pending)

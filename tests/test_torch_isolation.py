@@ -46,3 +46,21 @@ def test_scan_catches_forbidden_imports():
     assert FORBIDDEN.search("from flexflow_tpu import models")
     assert not FORBIDDEN.search("from flexflow_tpu_torch.serve import kernels")
     assert not FORBIDDEN.search("# the JAX package: import jax")
+
+
+def test_chip_smoke_ok_line_counts_the_one_card_it_drives():
+    """chip_smoke.py drives cuda:0 alone: it exposes only that card before
+    CUDA starts, so the ok line's torch.cuda.device_count() is 1 on a
+    machine that shows several cards. An empty value hides every card,
+    and stays so: the run then fails for want of a CUDA device."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_smoke.one_card(None) == "0"
+    assert chip_smoke.one_card("") == ""
+    assert chip_smoke.one_card(" ") == " "
+    assert chip_smoke.one_card("0,1,2,3") == "0"
+    assert chip_smoke.one_card("3, 1") == "3"
+    assert chip_smoke.one_card("GPU-5f2e") == "GPU-5f2e"

@@ -119,8 +119,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_layout", "paged"),
-    ("kv_quant", "int8"),
+    ("kv_shard", "context"),
+    ("fused_decode", ("sampling",)),
     ("fused_decode", ("whole_step",)),
     ("prefix_caching", True),
     ("replicas", 2),
