@@ -20,6 +20,15 @@ its error against the plain version, its times and its bound; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises: the
 script then exits non-zero without that line. It needs a CUDA GPU and
 fails without one. It imports nothing of JAX or of the JAX package.
+
+Training (slice 3): the flash-attention kernels, forward and backward,
+against their plain versions at the training shape (B·H = 128, S = T =
+2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
+shape; ``train_parity`` holds one full-width step with
+``attention="flash"`` against ``attention="torch"`` under the bf16 rule,
+and an f32 2-layer step and three SGD steps to 1e-5; ``train`` takes ten
+Adam steps of LLaMA-7B at full width cut to 8 layers (bf16, remat, flash
+attention) on one seeded (4, 2049) batch, whose loss must fall.
 """
 from __future__ import annotations
 
@@ -38,8 +47,10 @@ import time
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import optimizers as O
 from flexflow_tpu_torch.metrics import SchedulerStats
 from flexflow_tpu_torch.models import llama
+from flexflow_tpu_torch.ops import flash_attention as FA
 from flexflow_tpu_torch.serve import kernels as K
 from flexflow_tpu_torch.serve import _cuda
 from flexflow_tpu_torch.serve.batch_config import BatchConfig
@@ -148,8 +159,9 @@ def phase_build():
                       "max_spill_store_bytes": max(spills, default=None)}
     for name in _cuda.SIGNATURES:
         _cuda._lib(name)  # loads, or raises
+    sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
-          "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in _cuda.SIGNATURES],
+          "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info})
 
 
@@ -198,9 +210,9 @@ def _sdpa_inputs(q, k, v, mask):
             vv.transpose(1, 2).contiguous(), mask[:, None])
 
 
-def _compare(name, out, ref, dtype):
+def _compare(name, out, ref, dtype, tol=None):
     err = (out.float() - ref.float()).abs()
-    tol = TOL[dtype]
+    tol = tol or TOL[dtype]
     ok = bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
     check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
     check(ok, f"{name}: max abs err {float(err.max())} outside {tol}")
@@ -635,6 +647,9 @@ def _logit_diff(a_steps, b_steps):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
+    for kernel in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q"):  # f32 and mma kernels
+        if kernel in n:
+            return kernel
     if "ragged_decode_kernel" in n or "ragged_tile_kernel" in n:
         return "ragged_paged_attention"
     if "fused_kernel" in n:
@@ -650,16 +665,16 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_slice(llm, prompts, new, path):
-    """The slice workload once more under torch.profiler: device time by
-    kernel class and the device's idle share of the wall time. The
-    profiler slows the host, so the idle share is an upper bound."""
+def _profile(run, path):
+    """``run()`` under torch.profiler: device time by kernel class and the
+    device's idle share of the wall time. The profiler slows the host, so
+    the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        llm.generate(prompts, max_new_tokens=new)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_class, kernels = {}, []
@@ -676,6 +691,11 @@ def profile_slice(llm, prompts, new, path):
             "device_idle_share": 1.0 - busy_s / wall,
             "device_ms_by_class": by_class,
             "top_kernels": [{"name": n, "ms": ms, "count": k} for ms, n, k in kernels[:10]]}
+
+
+def profile_slice(llm, prompts, new, path):
+    """The slice workload once more under the profiler."""
+    return _profile(lambda: llm.generate(prompts, max_new_tokens=new), path)
 
 
 def _slice_prompts(seed, cfg):
@@ -907,31 +927,347 @@ def phase_f32(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training: flash-attention kernels, train-step parity, the train slice
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv", "flash_attention_bwd_q")
+# the train slice: LLaMA-7B at full width, depth cut to 8 layers (32 with
+# bf16 params and grads and f32 Adam moments is 80.9 GB, over the card's
+# 80), one seeded batch of 4 sequences of max_position_embeddings tokens
+TRAIN_LAYERS = 8
+TRAIN_BATCH = (4, 2049)
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-4
+# the f32 parity case: flash = torch to this relative error (summation
+# order of f32 math in the kernels and in cuBLAS)
+F32_TRAIN_RTOL = 1e-5
+# Flash kernels vs plain versions. The bf16 kernels split p and ds into
+# bf16 hi + lo halves for the mma, so they keep f32 precision to ~2^-16
+# and differ from the plain version by the last rounding to bf16 only;
+# atol 1e-3 (not TOL's 1e-2) catches an error of a few thousandths that
+# TOL would pass. Each output's relative L2 distance must also stay
+# within FLASH_REL_L2.
+FLASH_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2), torch.float32: TOL[torch.float32]}
+FLASH_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+# (label, dtype, B, H, S, T, dk, causal); the first is the train slice's
+FLASH_CASES = (
+    ("llama7b-train", torch.bfloat16, 4, 32, 2048, 2048, 128, True),
+    ("f32-full-s1000", torch.float32, 2, 32, 1000, 1000, 128, False),
+    ("llama160m-dk64", torch.bfloat16, 4, 12, 2048, 2048, 64, True),
+)
+
+
+def _flash_pairs(S, T, causal):
+    """(row, line) pairs attended per head: the causal top-left rule
+    stops row r at line r."""
+    if not causal:
+        return S * T
+    full = max(0, S - T)  # rows that see every line
+    part = S - full
+    return part * (part + 1) // 2 + full * T
+
+
+def _flash_bounds(dtype, B, H, S, T, dk, causal):
+    """Least time of each kernel on these inputs: its operations (fwd: QK^T
+    and PV; bwd_kv: s, dp, dV, dK; bwd_q: s, dp, dQ, each 2 * pairs * dk
+    FLOP a head) over the dtype's peak, or its bytes (inputs read once,
+    outputs written once; lse/delta f32) over the HBM rate."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * H * _flash_pairs(S, T, causal)
+    qb, kb, st = B * S * H * dk * isz, B * T * H * dk * isz, B * H * S * 4
+    work = {"flash_attention_fwd": (4, 2 * qb + 2 * kb + st),
+            "flash_attention_bwd_kv": (8, 2 * qb + 4 * kb + 2 * st),
+            "flash_attention_bwd_q": (6, 3 * qb + 2 * kb + 2 * st)}
+    out = {}
+    for name, (per_pair, nbytes) in work.items():
+        flops = per_pair * pairs * dk
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        out[name] = (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", flops)
+    return out
+
+
+def _flash_library_ms(q, k, v, do, causal):
+    """SDPA forward and its autograd backward on the same inputs, in its
+    (B, H, S, dk) layout made beforehand (not timed)."""
+    F = torch.nn.functional
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    sdo = do.transpose(1, 2).contiguous()
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal))
+    out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (sq, sk, sv), sdo, retain_graph=True))
+    del out, sq, sk, sv, sdo
+    return fwd, bwd
+
+
+def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal):
+    """The three flash kernels against their plain versions on one case;
+    returns a row per kernel with its error, times and bound."""
+    q, k, v = _rand((B, S, H, dk), dtype, gen), _rand((B, T, H, dk), dtype, gen), \
+        _rand((B, T, H, dk), dtype, gen)
+    do = _rand((B, S, H, dk), dtype, gen)
+    scale = 1.0 / math.sqrt(dk)
+    out, lse = FA.flash_fwd(q, k, v, causal, scale)
+    delta = FA.delta_rows(out, do).contiguous()
+    dk_, dv = FA.flash_bwd_kv(q, k, v, do, lse, delta, causal, scale)
+    dq = FA.flash_bwd_q(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    name = f"[{label}]"
+    err, rel = {}, {}
+
+    def compare(kname, what, got, want):
+        """FLASH_TOL pointwise and FLASH_REL_L2 on the whole output."""
+        e = _compare(f"{kname}[{what}]{name}", got, want, dtype, FLASH_TOL[dtype])
+        r = _rel_l2([got], [want])
+        check(r <= FLASH_REL_L2[dtype],
+              f"{kname}[{what}]{name}: relative L2 error {r} over {FLASH_REL_L2[dtype]}")
+        err[kname] = max(err.get(kname, 0.0), e)
+        rel[kname] = max(rel.get(kname, 0.0), r)
+
+    out_ref, lse_ref = FA.flash_fwd_ref(q, k, v, causal, scale)
+    compare("flash_attention_fwd", "out", out, out_ref)
+    # lse is f32 in both: summation order only
+    lse_err = float((lse - lse_ref).abs().max())
+    check(bool(torch.allclose(lse, lse_ref, atol=1e-5, rtol=1e-5)),
+          f"flash_attention_fwd{name}: lse max abs err {lse_err}")
+    del out_ref, lse_ref
+    dk_ref, dv_ref = FA.flash_bwd_kv_ref(q, k, v, do, lse, delta, causal, scale)
+    compare("flash_attention_bwd_kv", "dk", dk_, dk_ref)
+    compare("flash_attention_bwd_kv", "dv", dv, dv_ref)
+    del dk_ref, dv_ref
+    compare("flash_attention_bwd_q", "dq", dq,
+            FA.flash_bwd_q_ref(q, k, v, do, lse, delta, causal, scale))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lib_fwd, lib_bwd = _flash_library_ms(q, k, v, do, causal)
+    calls = {
+        "flash_attention_fwd": (lambda: FA.flash_fwd(q, k, v, causal, scale),
+                                lambda: FA.flash_fwd_ref(q, k, v, causal, scale), lib_fwd),
+        "flash_attention_bwd_kv": (
+            lambda: FA.flash_bwd_kv(q, k, v, do, lse, delta, causal, scale),
+            lambda: FA.flash_bwd_kv_ref(q, k, v, do, lse, delta, causal, scale), lib_bwd),
+        "flash_attention_bwd_q": (
+            lambda: FA.flash_bwd_q(q, k, v, do, lse, delta, causal, scale),
+            lambda: FA.flash_bwd_q_ref(q, k, v, do, lse, delta, causal, scale), lib_bwd),
+    }
+    bounds = _flash_bounds(dtype, B, H, S, T, dk, causal)
+    rows = {}
+    for kname, (kernel, plain, lib) in calls.items():
+        bound_ms, bound_by, flops = bounds[kname]
+        row = {"phase": "kernels", "kernel": kname, "case": label,
+               "dtype": str(dtype).replace("torch.", ""),
+               "shape": {"B": B, "H": H, "S": S, "T": T, "dk": dk, "causal": causal},
+               "max_abs_err": err[kname], "tol": FLASH_TOL[dtype],
+               "rel_l2": rel[kname], "rel_l2_tol": FLASH_REL_L2[dtype], "flop": flops,
+               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5),
+               "library_ms": lib, "bound_ms": bound_ms, "bound_by": bound_by}
+        if kname == "flash_attention_fwd":
+            row["lse_max_abs_err"] = lse_err
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(row)
+        rows[kname] = row
+    return rows
+
+
+def phase_flash_kernels(seed):
+    """The flash kernels against their plain versions in every FLASH_CASES
+    case; the rows of the kernels line are the train slice's shape. SDPA's
+    backward computes dq, dk and dv in one call: both backward rows carry
+    its time."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 3)
+    main = {}
+    for i, case in enumerate(FLASH_CASES):
+        rows = run_flash_check(*case[:1], gen, *case[1:])
+        if i == 0:
+            main.update(rows)
+    return main
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over lists of tensors, in f64."""
+    num = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def _loss_and_grads(cfg, params, toks, attention):
+    """The next-token loss of ``toks`` under full remat, its per-token
+    values and the gradients of the mean, as the train step takes them."""
+    attn_fn = llama.make_flash_attention() if attention == "flash" else None
+    leaves = O.tree_leaves(params)
+    logits = llama.forward(params, toks[:, :-1], cfg, remat=True, attn_fn=attn_fn)
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, toks[:, 1:].long()[..., None])[..., 0]
+    del logp
+    loss = nll.mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), nll.detach(), grads
+
+
+def _train_params(cfg, seed):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    params = llama.init_params(gen, cfg, device=DEV)
+    for p in O.tree_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _train_tokens(seed, cfg, shape):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape)).to(DEV)
+
+
+def phase_train_parity(seed):
+    """One full-width step (the train slice's model and batch) with
+    attention="flash" against attention="torch", both bf16, each held to
+    bf16's own error — the distance of the plain bf16 step from the same
+    step in f32 — on the per-token losses and the gradients (slice 1's
+    rule, SLICE_PATHS and SLICE_VS_EXACT). Then an f32 2-layer case at
+    batch (2, 513): loss and gradients flash = torch to F32_TRAIN_RTOL, and
+    equal loss trajectories over three SGD steps through make_train_step."""
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=TRAIN_LAYERS)
+    toks = _train_tokens(seed + 7, cfg, TRAIN_BATCH)
+    params = _train_params(cfg, seed)
+    FA.reset_launch_counts()
+    res = {"flash": _loss_and_grads(cfg, params, toks, "flash")}
+    flash_launches = dict(FA.LAUNCHES)
+    res["torch"] = _loss_and_grads(cfg, params, toks, "torch")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        params32 = _to_f32(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for p in O.tree_leaves(params32):
+        p.requires_grad_(True)
+    res["f32"] = _loss_and_grads(cfg32, params32, toks, "torch")
+    del params32
+    d = {}
+    for what, vals in (("nll", {k: [r[1]] for k, r in res.items()}),
+                       ("grads", {k: list(r[2]) for k, r in res.items()})):
+        d[what] = {f"{a}_vs_{b}": _rel_l2(vals[a], vals[b])
+                   for a, b in (("flash", "torch"), ("flash", "f32"), ("torch", "f32"))}
+    losses = {k: r[0] for k, r in res.items()}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_parity", "case": "bf16-full-width", "layers": TRAIN_LAYERS,
+          "batch": list(TRAIN_BATCH), "loss": losses, "rel_l2": d,
+          "flash_launches": flash_launches,
+          "tol": {"flash_vs_torch": f"<= {SLICE_PATHS} * torch_vs_f32",
+                  "flash_vs_f32": f"<= {SLICE_VS_EXACT} * torch_vs_f32"}})
+    for what, x in d.items():
+        check(x["flash_vs_torch"] <= SLICE_PATHS * x["torch_vs_f32"],
+              f"train parity: flash {what} further from torch than bf16 allows: {x}")
+        check(x["flash_vs_f32"] <= SLICE_VS_EXACT * x["torch_vs_f32"],
+              f"train parity: flash {what} further from f32 than the plain bf16 step: {x}")
+    for name in FLASH_KERNELS:
+        check(flash_launches[name] > 0, f"{name} was not launched by the flash step")
+
+    # f32: flash = torch to F32_TRAIN_RTOL
+    cfg2 = llama.LLaMAConfig.llama_7b(num_hidden_layers=2, dtype=torch.float32)
+    toks2 = _train_tokens(seed + 8, cfg2, (2, 513))
+    params2 = _train_params(cfg2, seed + 1)
+    FA.reset_launch_counts()
+    lf, _, gf = _loss_and_grads(cfg2, params2, toks2, "flash")
+    launched = dict(FA.LAUNCHES)
+    lt, _, gt = _loss_and_grads(cfg2, params2, toks2, "torch")
+    g_rel = _rel_l2(list(gf), list(gt))
+    del gf, gt
+    traj = {}
+    for attention in ("flash", "torch"):
+        _, step = llama.make_train_step(cfg2, O.SGDOptimizer(lr=1e-2), device=DEV,
+                                        attention=attention)
+        p = _train_params(cfg2, seed + 1)
+        opt = O.SGDOptimizer(lr=1e-2).init(p)
+        traj[attention] = []
+        for _ in range(3):
+            p, opt, loss = step(p, opt, toks2)
+            traj[attention].append(float(loss))
+        del p, opt
+    del params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_parity", "case": "f32-2-layers", "batch": [2, 513],
+          "loss": {"flash": lf, "torch": lt}, "grads_rel_l2": g_rel,
+          "sgd_losses": traj, "flash_launches": launched, "rtol": F32_TRAIN_RTOL})
+    check(abs(lf - lt) <= F32_TRAIN_RTOL * abs(lt), f"f32 loss flash {lf} vs torch {lt}")
+    check(g_rel <= F32_TRAIN_RTOL, f"f32 grads flash vs torch rel L2 {g_rel}")
+    for a, b in zip(traj["flash"], traj["torch"]):
+        check(abs(a - b) <= F32_TRAIN_RTOL * abs(b), f"f32 SGD losses differ: {traj}")
+    for name in FLASH_KERNELS:
+        check(launched[name] > 0, f"{name} was not launched by the f32 flash step")
+
+
+def phase_train(seed):
+    """The train slice through make_train_step: ten Adam steps with
+    attention="flash" and full remat on one seeded batch; the loss must be
+    finite and fall. Returns the flash launches of the ten steps."""
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=TRAIN_LAYERS)
+    toks = _train_tokens(seed + 7, cfg, TRAIN_BATCH)
+    init, step = llama.make_train_step(cfg, O.AdamOptimizer(lr=TRAIN_LR), device=DEV,
+                                       remat=True, attention="flash")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params, opt = init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    losses, step_s, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = dict(FA.LAUNCHES)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, toks)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({k: FA.LAUNCHES[k] - before[k] for k in FA.LAUNCHES})
+    launches = dict(FA.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _PEAKS.append(peak)
+    B, S1 = TRAIN_BATCH
+    tokens = B * (S1 - 1)
+    steady = statistics.median(step_s[1:])
+    flops = 3 * llama.flops_per_token(cfg, S1 - 1) * tokens
+    emit({"phase": "train", "model": "llama_7b", "layers": TRAIN_LAYERS, "dtype": "bfloat16",
+          "num_params": llama.num_params(cfg), "batch": list(TRAIN_BATCH),
+          "optimizer": f"adam lr={TRAIN_LR}", "remat": "full", "attention": "flash",
+          "init_s": init_s, "losses": losses, "step_s": step_s, "step_ms_median": steady * 1e3,
+          "tokens_per_s": tokens / steady, "mfu": flops / steady / PEAK_FLOPS[torch.bfloat16],
+          "model_flop_per_step": flops, "peak_memory_bytes": peak,
+          "flash_launches_per_step": per_step[-1], "launches": launches})
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
+    for name in FLASH_KERNELS:
+        check(all(p[name] > 0 for p in per_step), f"{name} missed a train step: {per_step}")
+    # one more step under the profiler
+    emit(_profile(lambda: float(step(params, opt, toks)[2]), "train"))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def unported_bounds():
     """Bounds of the TPU kernels still to port, at stated shapes (no
     kernel runs): the whole-step decode walk (both of its TPU kernels
     compute one step) at R = 16 decode slots holding DECODE_LENS lines
     of LLaMA-7B: its weights (the LM head included, the embedding rows
-    aside) and the K/V lines read once over the HBM rate; training flash
-    attention forward (4 * B * H * S^2 / 2 * dk FLOP, causal) and backward
-    (2.5 times that: scores recomputed, dV, dP, dQ, dK) at B = 1, H = 32,
-    S = 2048, dk = 128 over the bf16 peak."""
+    aside) and the K/V lines read once over the HBM rate."""
     cfg = llama.LLaMAConfig.llama_7b()
     D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     kvd = cfg.num_key_value_heads * cfg.head_dim
     weights = L * (D * (D + 2 * kvd) + D * D + 3 * D * Fd + 2 * D) + D * cfg.vocab_size + D
     kv_lines = sum(DECODE_LENS)
     step_bytes = 2 * weights + kv_lines * L * 2 * kvd * 2
-    B, H, S, dk = 1, 32, 2048, 128
-    fwd = 4 * B * H * (S * S // 2) * dk
     return {"phase": "unported_bounds",
             "whole_step_decode": {"bytes": step_bytes, "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-                                  "bound_by": "bytes", "R": 16, "kv_lines": kv_lines},
-            "flash_fwd": {"flop": fwd, "bound_ms": fwd / PEAK_FLOPS[torch.bfloat16] * 1e3,
-                          "bound_by": "operations"},
-            "flash_bwd": {"flop": 5 * fwd // 2,
-                          "bound_ms": 2.5 * fwd / PEAK_FLOPS[torch.bfloat16] * 1e3,
-                          "bound_by": "operations"}}
+                                  "bound_by": "bytes", "R": 16, "kv_lines": kv_lines}}
 
 
 SOURCES = {
@@ -945,8 +1281,14 @@ SOURCES = {
     **{f"fused_rope_paged_attention[{t}]": (
         "flexflow_tpu_torch/csrc/fused_rope_paged_attention.cu",
         "flexflow_tpu/serve/kernels.py:1067") for t in K.POOL_TYPES},
+    "flash_attention_fwd": ("flexflow_tpu_torch/csrc/flash_attention_fwd.cu",
+                            "flexflow_tpu/ops/flash_attention.py:101"),
+    "flash_attention_bwd_kv": ("flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "flexflow_tpu/ops/flash_attention.py:142"),
+    "flash_attention_bwd_q": ("flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
+                              "flexflow_tpu/ops/flash_attention.py:203"),
 }
-PHASES = ("kernels", "slice", "paged", "f32")
+PHASES = ("kernels", "slice", "paged", "f32", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -955,8 +1297,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of kernels, slice, paged, f32 (device and "
-                         "build always run; paged needs slice)")
+                    help="comma list of kernels, slice, paged, f32, train_parity, "
+                         "train (device and build always run; paged needs slice)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -967,6 +1309,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         main_rows = phase_kernels(args.seed)
         main_rows.update(phase_paged_kernels(args.seed))
+        main_rows.update(phase_flash_kernels(args.seed))
     if "slice" in phases:
         holder = [None]
         holder[0], dense = phase_slice(args.seed)
@@ -979,6 +1322,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "f32" in phases:
         launches.update(phase_f32(args.seed))
+    if "train_parity" in phases:
+        phase_train_parity(args.seed)
+    if "train" in phases:
+        launches.update(phase_train(args.seed))
     rows = []
     for name, (src, replaces) in SOURCES.items():
         m = main_rows.get(name, {})
@@ -993,7 +1340,7 @@ def main(argv=None) -> int:
     if phases != set(PHASES):
         return 0  # a partial run proves nothing: no ok line
     for r in rows:
-        check(r["launches"] > 0, f"{r['name']} was never launched on a serving path")
+        check(r["launches"] > 0, f"{r['name']} was never launched on its path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,11 @@
-"""LLaMA model family — the serving subset of ``flexflow_tpu/models/llama.py``.
+"""LLaMA model family — the port of ``flexflow_tpu/models/llama.py``:
+single-device training and serving.
 
 embedding → N × [rms_norm → attention(QKV + RoPE + GQA) → rms_norm →
-SwiGLU FFN] → rms_norm → lm_head, served over a dense or a paged KV
-cache.
+SwiGLU FFN] → rms_norm → lm_head, trained with :func:`make_train_step`
+(full causal attention, ``attention="torch"`` or the hand-written flash
+kernels of ``ops/flash_attention.py``, per-block remat) or served over a
+dense or a paged KV cache.
 
 Layout kept from the JAX package at every public function so tests
 compare like with like: weights are ``(in, out)``, stacked on a leading
@@ -19,15 +22,19 @@ Differences from the JAX package:
     the tensors it is given and returns the same dict);
   * ``kernels="cuda"`` routes attention through the hand-written CUDA
     kernels of ``serve/kernels.py`` (the JAX package's ``"pallas"``),
-    ``kernels="torch"`` through :func:`serve_attention` (its ``"xla"``).
+    ``kernels="torch"`` through :func:`serve_attention` (its ``"xla"``);
+    in training, ``attention="flash"`` is the JAX package's ``"flash"``
+    and ``attention="torch"`` its ``"xla"``;
+  * the train step's optimizer updates the parameters in place.
 
-The training path, pipeline and context parallelism, the whole-step
-megakernel and the early-exit ``num_layers`` slice of the step functions
-come with later slices.
+Data, tensor, pipeline, sequence and context parallelism, microbatching,
+the whole-step megakernel and the early-exit ``num_layers`` slice of the
+step functions come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -517,3 +524,169 @@ def serve_step_paged(
                               cache["v"][l], phys, off, page_table, kernels,
                               *scales, qmax, fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+# ---------------------------------------------------------------------------
+# Training path: full causal attention over the whole sequence
+
+
+def attention(cfg: LLaMAConfig, q, k, v, mask):
+    """Plain attention of q (B, S, H, dk) — RoPE applied — over k/v (B, T,
+    KV, dk), GQA heads repeated; ``mask`` (B, S, T) or (S, T) bool, True =
+    attend, or None. f32 scores and softmax, probabilities rounded to q's
+    dtype before PV, as the JAX package's ``attention`` (its "xla" path)."""
+    H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(cfg.head_dim)
+    if mask is not None:
+        m = mask if mask.dim() == 3 else mask[None]
+        scores = torch.where(m[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def block(cfg: LLaMAConfig, p, x, cos, sin, mask, attn_fn=None):
+    """One transformer block, training path (full local-sequence
+    attention): ``p`` one layer's params, x (B, S, D). ``attn_fn``
+    overrides :func:`attention` (see :func:`make_flash_attention`).
+    Returns the block's output."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = (attn_fn or attention)(cfg, q, k, v, mask)
+    return _out_and_ffn(cfg, p, x, attn.reshape(B, S, -1))
+
+
+def causal_mask(S: int, device: Any = None) -> torch.Tensor:
+    return torch.ones((S, S), dtype=torch.bool, device=device).tril()
+
+
+def make_flash_attention():
+    """Causal flash-attention ``attn_fn`` for :func:`block`: the
+    hand-written CUDA kernels (forward and backward) of
+    ``ops/flash_attention.py``, which never materialise the (B, H, S, S)
+    scores. GQA heads are repeated before the call, so autograd sums each
+    group's gradients."""
+    from ..ops.flash_attention import flash_attention
+
+    def attn_fn(cfg, q, k, v, mask):
+        # mask is None by construction (forward() builds none when an
+        # attn_fn is given); causality is computed in the kernel
+        H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+        if KV != H:
+            k = k.repeat_interleave(H // KV, dim=2)
+            v = v.repeat_interleave(H // KV, dim=2)
+        return flash_attention(q, k, v, causal=True)
+
+    return attn_fn
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LLaMAConfig, *,
+            remat: bool = False, remat_policy: Optional[str] = None,
+            attn_fn=None) -> torch.Tensor:
+    """Training/eval forward: full causal attention over tokens (B, S) at
+    positions 0..S-1; returns f32 logits (B, S, V). ``remat`` recomputes
+    each block's activations in the backward pass under ``remat_policy``
+    (None: all; "dots": all but the matmul outputs)."""
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_freqs(cfg, torch.arange(S, device=tokens.device).expand(B, S))
+    mask = None if attn_fn is not None else causal_mask(S, tokens.device)
+    blk = functools.partial(block, cfg, attn_fn=attn_fn)
+    if remat:
+        from ..core.remat import checkpoint
+
+        blk = checkpoint(blk, remat_policy)
+    # unbind: one backward node per stacked weight gathers the L layer
+    # gradients at once (a per-layer slice would add a full stack each)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for l in range(cfg.num_hidden_layers):
+        x = blk({name: ws[l] for name, ws in layers.items()}, x, cos, sin, mask)
+    x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    # f32 logits from the model-dtype hidden state, as the JAX package's
+    # preferred_element_type=f32 head
+    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+
+
+def next_token_loss(params, tokens, cfg, **kw) -> torch.Tensor:
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]."""
+    logits = forward(params, tokens[:, :-1], cfg, **kw)
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return nll.mean()
+
+
+def make_train_step(cfg: LLaMAConfig, optimizer, *, device: Any = "cuda",
+                    remat: bool = True, remat_policy: Optional[str] = None,
+                    attention: str = "torch", mesh=None, num_microbatches: int = 1):
+    """Build ``(init_fn, step_fn)`` for single-device training on
+    ``device`` (a GPU unless the caller asks for the CPU).
+
+    * ``init_fn(generator)`` → ``(params, opt_state)``: random weights from
+      ``generator`` (on ``device``) as leaf tensors that require grad, and
+      the optimizer's state.
+    * ``step_fn(params, opt_state, tokens)`` → ``(params, opt_state,
+      loss)``: the next-token loss of tokens (B, S + 1) and its gradients,
+      then the optimizer's update, which writes params and state in place.
+
+    ``attention="flash"`` runs the hand-written flash-attention kernels
+    (the JAX package's "flash"), ``"torch"`` the plain :func:`attention`
+    (its "xla"). ``mesh`` and ``num_microbatches > 1`` raise
+    ``NotImplementedError``: parallel training is a later slice."""
+    if mesh is not None or num_microbatches != 1:
+        raise NotImplementedError(
+            "make_train_step runs on one device; mesh and num_microbatches wait "
+            "for ROADMAP.md queue 1 item 10 (parallel training: mesh, "
+            "microbatching, pipeline, sequence and tensor parallelism)")
+    if attention == "flash":
+        attn_fn = make_flash_attention()
+    elif attention == "torch":
+        attn_fn = None
+    else:
+        raise ValueError(f"unknown attention {attention!r} (expected 'flash' or 'torch')")
+    from ..core.remat import resolve_remat_policy
+    from ..optimizers import tree_leaves, tree_unflatten
+    from ..serve.engine import resolve_device
+
+    resolve_remat_policy(remat_policy)  # an unknown name raises here
+    dev = resolve_device(device)
+
+    def init_fn(generator: torch.Generator):
+        params = init_params(generator, cfg, device=dev)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return params, optimizer.init(params)
+
+    def step_fn(params, opt_state, tokens):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = next_token_loss(params, torch.as_tensor(tokens, device=dev), cfg,
+                               remat=remat, remat_policy=remat_policy,
+                               attn_fn=attn_fn)
+        grads = torch.autograd.grad(loss, leaves)
+        params, opt_state = optimizer.update(tree_unflatten(params, grads), opt_state,
+                                             params)
+        return params, opt_state, loss.detach()
+
+    return init_fn, step_fn
+
+
+def num_params(cfg: LLaMAConfig) -> int:
+    L, D, Fd, V = (cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
+                   cfg.vocab_size)
+    H, KV, dk = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    per_layer = D * (H * dk) + 2 * D * (KV * dk) + (H * dk) * D + 3 * D * Fd + 2 * D
+    head = 0 if cfg.tie_word_embeddings else D * V
+    return V * D + L * per_layer + D + head
+
+
+def flops_per_token(cfg: LLaMAConfig, seq_len: int) -> int:
+    """Forward FLOPs/token ≈ 2*n_params + attention quadratic term."""
+    return 2 * num_params(cfg) + 4 * cfg.num_hidden_layers * cfg.hidden_size * seq_len

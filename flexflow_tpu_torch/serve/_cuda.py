@@ -8,9 +8,10 @@ first use (or through :func:`build`, which starts one ``nvcc`` per
 source, all together). Nothing here runs at import time: the package
 imports on machines without ``nvcc`` or a GPU.
 
-Every library exports
+Every kernel ``<name>`` has a launcher
 ``int <name>_launch(void* ptrs..., int dims..., float floats..., void* stream)``,
-which returns ``cudaGetLastError()`` after the launch, and
+which returns ``cudaGetLastError()`` after the launch, in the library of
+its source (``SOURCES``; its own name unless listed), which also exports
 ``const char* error_string(int)``. A pointer argument may be null (an
 absent optional tensor).
 """
@@ -38,9 +39,22 @@ SIGNATURES = {
     "verify_attention": (5, 7, 1),
     "ragged_paged_attention": (8, 9, 1),
     "fused_rope_paged_attention": (16, 10, 2),
+    "flash_attention_fwd": (5, 7, 1),
+    "flash_attention_bwd_kv": (8, 7, 1),
+    "flash_attention_bwd_q": (7, 7, 1),
+}
+#: kernels whose launcher lives in a source of another name
+SOURCES = {
+    "flash_attention_bwd_kv": "flash_attention_bwd",
+    "flash_attention_bwd_q": "flash_attention_bwd",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> str:
+    """The source (``csrc/<source>.cu``) that holds kernel ``name``."""
+    return SOURCES.get(name, name)
 
 
 def _nvcc() -> str:
@@ -51,20 +65,20 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str) -> Path:
+def _target(src_name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+    for src in [SRC_DIR / f"{src_name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(src.read_bytes())
     digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{src_name}-{digest}.so"
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """Compile every kernel in ``names`` (all when None) that is not
-    built yet, one ``nvcc`` per source, all started together. Returns
-    each compiled kernel's ``ptxas`` report; raises with the compiler's
-    output if any build fails."""
-    names = list(names or SIGNATURES)
+    """Compile the sources of every kernel in ``names`` (all when None)
+    that are not built yet, one ``nvcc`` per source, all started
+    together. Returns each compiled source's ``ptxas`` report; raises
+    with the compiler's output if any build fails."""
+    names = list(dict.fromkeys(source(n) for n in (names or SIGNATURES)))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -90,22 +104,27 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+    """The loaded library of kernel ``name``'s source, built if needed,
+    with the argument types of every launcher it exports."""
+    src = source(name)
+    lib = _LIBS.get(src)
     if lib is None:
-        target = _target(name)
+        target = _target(src)
         if not target.exists():
-            build([name])
+            build([src])
         lib = ctypes.CDLL(str(target))
-        n_ptr, n_int, n_float = SIGNATURES[name]
-        fn = getattr(lib, f"{name}_launch")
-        # every pointer and the stream as c_void_p: ctypes would cut a
-        # bare Python int to 32 bits
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for kernel, (n_ptr, n_int, n_float) in SIGNATURES.items():
+            if source(kernel) != src:
+                continue
+            fn = getattr(lib, f"{kernel}_launch")
+            # every pointer and the stream as c_void_p: ctypes would cut a
+            # bare Python int to 32 bits
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[src] = lib
     return lib
 
 

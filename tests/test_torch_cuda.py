@@ -1,11 +1,15 @@
 """The port's CUDA attention kernels (dense decode and verify, ragged
-paged and fused RoPE + KV-write paged attention) held against their
-plain PyTorch versions on the GPU. Every test here needs a CUDA GPU and skips without
-one; the file imports neither JAX nor the JAX package, so on a machine
-with a GPU and no JAX it runs as
+paged and fused RoPE + KV-write paged attention, training flash attention
+forward and backward) held against their plain PyTorch versions on the
+GPU, and bf16 train steps through each attention path under each remat
+setting. Every test here needs a CUDA GPU and skips without one; the file
+imports neither JAX nor the JAX package, so on a machine with a GPU and
+no JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import math
+
 import pytest
 import torch
 
@@ -159,3 +163,100 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
     reads_scratch = (mask & (table == P).repeat_interleave(ps, dim=1)[:, None]).any(-1)
     assert torch.equal(fused[~reads_scratch], unfused[~reads_scratch])
     torch.testing.assert_close(fused, ref, **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# training flash attention
+
+
+@pytest.mark.parametrize("S,T", [(128, 128), (100, 100), (77, 150), (150, 77)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dk", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain_versions(cuda_device, dtype, dk, causal, S, T):
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    B, H = 2, 3
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(B, S, H, dk), rnd(B, T, H, dk), rnd(B, T, H, dk), rnd(B, S, H, dk)
+    scale = dk ** -0.5
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    out_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal, scale)
+    torch.testing.assert_close(out, out_ref, **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    grads = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    want = fa.flash_bwd_ref(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, **TOL[dtype], msg=name)
+    for name in fa.LAUNCHES:
+        assert fa.LAUNCHES[name] == before[name] + 1
+
+
+def test_cuda_flash_wrappers_raise_instead_of_falling_back(cuda_device):
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(1, 8, 2, 32, device=cuda_device)  # no kernel for head dim 32
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, q, q, True, 0.2)
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, True, 0.2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), q.half(), q.half(), True, 0.2)
+
+
+@pytest.mark.parametrize("remat,policy,fwd_launches",
+                         [(True, None, 4), (True, "dots", 4), (False, None, 2)])
+def test_cuda_bf16_train_step_flash_and_torch(cuda_device, remat, policy, fwd_launches):
+    """Two bf16 SGD steps at a small width through the flash kernels and
+    through the plain attention, under every remat setting: finite losses
+    within bf16's reach of each other that fall, gradients within bf16's
+    reach of each other, and per 2-layer step the flash forward launched
+    twice per layer under remat (the recompute), once without, and each
+    backward kernel once per layer."""
+    from flexflow_tpu_torch import optimizers as topt
+    from flexflow_tpu_torch.models import llama as tl
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    cfg = tl.LLaMAConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         num_key_value_heads=2, max_position_embeddings=256)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129),
+                         generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    losses, grads = {}, {}
+    for attention in ("flash", "torch"):
+        init, step = tl.make_train_step(cfg, topt.SGDOptimizer(lr=0.1), device=cuda_device,
+                                        remat=remat, remat_policy=policy,
+                                        attention=attention)
+        params, opt = init(torch.Generator(device=cuda_device).manual_seed(0))
+        # the gradients the step takes, through the same loss and remat
+        loss = tl.next_token_loss(
+            params, toks, cfg, remat=remat, remat_policy=policy,
+            attn_fn=tl.make_flash_attention() if attention == "flash" else None)
+        grads[attention] = torch.autograd.grad(loss, topt.tree_leaves(params))
+        fa.reset_launch_counts()
+        params, opt, loss = step(params, opt, toks)
+        torch.cuda.synchronize()
+        launched = dict(fa.LAUNCHES)
+        losses[attention] = [float(loss), float(step(params, opt, toks)[2])]
+        if attention == "flash":
+            assert launched == {"flash_attention_fwd": fwd_launches,
+                                "flash_attention_bwd_kv": 2, "flash_attention_bwd_q": 2}
+        else:
+            assert not any(launched.values())
+    for attention, (first, second) in losses.items():
+        assert math.isfinite(first) and math.isfinite(second), losses
+        assert second < first, (attention, losses)
+    for a, b in zip(losses["flash"], losses["torch"]):
+        assert abs(a - b) < 2e-2 * b, losses
+    num = sum(float((g - w).double().pow(2).sum()) for g, w in zip(grads["flash"],
+                                                                 grads["torch"]))
+    den = sum(float(w.double().pow(2).sum()) for w in grads["torch"])
+    assert math.sqrt(num / den) < 2e-2
