@@ -21,6 +21,16 @@ line is ``{"ok": true, "device": {...}}``. Any failure raises: the
 script then exits non-zero without that line. It needs a CUDA GPU and
 fails without one. It imports nothing of JAX or of the JAX package.
 
+Whole-step serving (slice 4): the whole-step kernel (every layer, the LM
+head and the greedy argmax of a serving step in one persistent CUDA
+kernel) against its plain version at LLaMA-7B width cut to 2 layers, on
+decode and C = 128 mixed steps over bf16, f32, int8 and int4 pools and a
+GQA case, bitwise equal at two tile counts; ``whole`` serves the paged
+slice's 8 requests at full depth with ``fused_decode=("whole_step",)``
+on bf16, int8 and int4 pools (no paged attention kernel may run), holds
+the teacher-forced logits of each arm to its plain twin, and the f32
+phase checks its greedy tokens against the unfused runs.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -88,6 +98,9 @@ PAGED_ARMS = (("bf16", None, ()), ("int8", "int8", ()), ("int4", "int4", ()),
               ("bf16-fused", None, ("rope_kv_write",)),
               ("int8-fused", "int8", ("rope_kv_write",)),
               ("int4-fused", "int4", ("rope_kv_write",)))
+# arms of the whole-step slice, under the same budget
+WHOLE_ARMS = (("bf16-whole", None, ("whole_step",)), ("int8-whole", "int8", ("whole_step",)),
+              ("int4-whole", "int4", ("whole_step",)))
 
 
 def one_card(visible):
@@ -582,15 +595,304 @@ def phase_paged_kernels(seed):
     return main
 
 
+# the whole-step kernel at LLaMA-7B width cut to 2 layers, 16 slots, on
+# the paged slice's table and page shapes: (label, model dtype, pool
+# quantization, KV heads, step kind)
+WHOLE_CHECK_LAYERS = 2
+WHOLE_CASES = (
+    ("bf16-decode", torch.bfloat16, None, 32, "decode"),
+    ("bf16-mixed-c128", torch.bfloat16, None, 32, "mixed"),
+    ("f32-decode", torch.float32, None, 32, "decode"),
+    ("f32-mixed-c128", torch.float32, None, 32, "mixed"),
+    ("int8-decode", torch.bfloat16, "int8", 32, "decode"),
+    ("int8-mixed-c128", torch.bfloat16, "int8", 32, "mixed"),
+    ("int4-decode", torch.bfloat16, "int4", 32, "decode"),
+    ("int4-mixed-c128", torch.bfloat16, "int4", 32, "mixed"),
+    ("f32-int4-mixed-c128", torch.float32, "int4", 32, "mixed"),
+    ("bf16-gqa-decode", torch.bfloat16, None, 8, "decode"),
+    ("bf16-gqa-mixed-c128", torch.bfloat16, None, 8, "mixed"),
+)
+# f32 kernel vs plain version: summation order only
+WHOLE_F32_RTOL = 1e-4
+# f32 logits of the kernel against a plain or unfused path on a quantized
+# pool: the kernel projects in its own order, so a K/V value at a rounding
+# tie may take the other code, which moves the logits by up to ~0.5%
+F32_TIE_REL_L2 = 1e-2
+
+
+def _whole_case(gen, rng, dtype, quant, KV, kind):
+    """Inputs of one whole-step call: random weights, a paged cache whose
+    every page holds random lines (int8/int4 codes at per-page amax
+    scales), the paged slice's shuffled table and the step's tokens,
+    positions and logits_idx (decode: DECODE_LENS; mixed: prefill chunks,
+    decode rows and idle slots)."""
+    sc = ServingConfig()
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=WHOLE_CHECK_LAYERS,
+                                     num_key_value_heads=KV, dtype=dtype)
+    R, ps, NP = sc.max_requests_per_batch, sc.page_size, sc.pages_per_slot
+    L, dk = cfg.num_hidden_layers, cfg.head_dim
+    C = 1 if kind == "decode" else sc.prefill_chunk
+    P = R * NP
+    params = llama.init_params(gen, cfg, device=DEV)
+    pos = _paged_positions(rng, kind, R, C, sc.cache_len, ps)
+    held = np.where(pos < sc.cache_len, pos + 1, 0).max(axis=1)
+    perm = rng.permutation(P).reshape(R, NP)
+    table = np.where(np.arange(NP)[None, :] < -(-held[:, None] // ps), perm, P)
+    cache = {}
+    for name in ("k", "v"):
+        lines = torch.randn((L, P + 1, ps, KV, dk), generator=gen, device=DEV)
+        if quant is None:
+            cache[name] = lines.to(dtype)
+            continue
+        spec = KQ.SPECS[quant]
+        s = lines.abs().amax(dim=(2, 4)) / spec.qmax + 1e-3          # (L, P+1, KV)
+        codes = torch.round(lines / s[:, :, None, :, None]).clamp(-spec.qmax, spec.qmax)
+        cache[name] = KQ.pack_codes(codes, spec.dtype, spec.pack).contiguous()
+        cache[f"{name}_scale"] = s.contiguous()
+        del codes
+    del lines
+    li = np.zeros((R,), np.int64)
+    if kind == "mixed":
+        li[[r for r in range(R) if r % 4 in (0, 1)]] = C - 1
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(R, C))).to(DEV)
+    return dict(cfg=cfg, params=params, cache=cache, tokens=toks,
+                pos=torch.from_numpy(pos).to(DEV), li=torch.from_numpy(li).to(DEV),
+                table=torch.from_numpy(table.astype(np.int32)).to(DEV), quant=quant,
+                R=R, C=C, ps=ps, NP=NP, P=P, cache_len=sc.cache_len)
+
+
+def _whole_bound(case):
+    """Least time of one step on these inputs: the larger of its bytes
+    (every weight, the LM head included, read once; the distinct K/V pages
+    the mask opens in every layer, with their scales; the new lines
+    written) over the HBM rate, and its operations (2 * rows * the layer
+    projections' weights, 2 * R * D * V for the head, 4 * attended pairs *
+    H * dk per layer for attention) over the model dtype's peak."""
+    cfg, p, cache = case["cfg"], case["params"], case["cache"]
+    L, D, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
+    H, dk = cfg.num_attention_heads, cfg.head_dim
+    R, C, ps, NP = case["R"], case["C"], case["ps"], case["NP"]
+    isz = p["embed"].element_size()
+    layer_params = sum(w[0].numel() for w in p["layers"].values())
+    proj_params = sum(p["layers"][n][0].numel() for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"))
+    mask = K.paged_serve_mask(None, case["pos"], NP, ps, case["cache_len"])
+    opened = mask.reshape(R, C, NP, ps).any(dim=3).any(dim=1)
+    pages = int(case["table"][opened].unique().numel())
+    kp = cache["k"]
+    page_bytes = ps * kp.shape[3] * kp.shape[4] * kp.element_size()
+    nbytes = isz * (L * layer_params + D * V + D) + 2 * L * pages * page_bytes
+    nbytes += 2 * L * R * C * kp.shape[3] * kp.shape[4] * kp.element_size()
+    if "k_scale" in cache:
+        nbytes += 2 * L * pages * kp.shape[3] * 4
+    flops = (2 * R * C * L * proj_params + 2 * R * D * V
+             + 4 * L * int(mask.sum()) * H * dk)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[p["embed"].dtype]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), nbytes, flops
+
+
+def cuda_ms_restored(fn, restore, iters: int = 20, warmup: int = 2) -> float:
+    """Median device time of ``fn`` by CUDA events, ``restore()`` (not
+    timed) before each call: the step writes the pools it reads."""
+    for _ in range(warmup):
+        restore()
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        restore()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def run_whole_check(label, case):
+    """The kernel against its plain version (kernels="torch") on one case:
+    at the gate's tile count and at another count the kernel takes, which
+    must agree bit for bit (the live rows' logits and tokens, non-scratch
+    pools and scales).
+    f32: logits within WHOLE_F32_RTOL (relative L2; F32_TIE_REL_L2 on
+    quantized pools, where a value at a rounding tie may take the other
+    code), tokens equal (on quantized pools, or differing at a tie), pools
+    to 1e-4 / one code, scales within F32_TIE_REL_L2. bf16: logits, pool values (codes
+    times scales) and scales no further from the plain version than
+    SLICE_PATHS times the plain bf16 path's distance from the same step in
+    f32. Times: the kernel, its plain
+    version and the unfused kernels="cuda" step (cuBLAS + the ragged
+    kernel) on the same inputs, pools restored before each run."""
+    cfg, params, cache = case["cfg"], case["params"], case["cache"]
+    quant, P, dtype = case["quant"], case["P"], cfg.dtype
+    step = (case["tokens"], case["pos"], case["li"], case["table"])
+    kw = dict(cfg=cfg, cache_len=case["cache_len"], kv_quant=quant)
+    la, _ = llama.whole_step_weight_layout(params, cfg)
+    roles = llama.whole_step_tile_roles(cfg)
+    x0 = torch.empty((case["R"], case["C"], cfg.hidden_size), dtype=dtype, device="meta")
+    gate, est = K.whole_step_pick_tiles(la, cache, x0, cfg.num_attention_heads,
+                                        tile_roles=roles, budget=K.WHOLE_STEP_SMEM_BUDGET)
+    check(gate is not None, f"whole[{label}]: no tile count fits the budget")
+    takes = [t for t in K.whole_step_tile_candidates(la, roles)
+             if K.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
+    other = max(t for t in takes if t != gate)
+    work = {k: v.clone() for k, v in cache.items()}
+
+    def restore():
+        for k, v in cache.items():
+            work[k].copy_(v)
+
+    def run(kernels, tiles, prm=params, c=None, cf=cfg):
+        c = c if c is not None else work
+        return llama.serve_step_whole(prm, c, *step, cfg=cf, cache_len=case["cache_len"],
+                                      kv_quant=quant, tiles=tiles, kernels=kernels)
+
+    outs = {}
+    for name, kernels, tiles in (("gate", "cuda", gate), ("other", "cuda", other),
+                                 ("plain", "torch", gate)):
+        restore()
+        logits, toks, _ = run(kernels, tiles)
+        torch.cuda.synchronize()
+        outs[name] = (logits.clone(), toks.clone(), {k: v[:, :P].clone() for k, v in work.items()})
+    # slots whose logits_idx column is padding read the scratch page, which
+    # every padding line writes in no fixed order: only live rows count
+    live = case["pos"].gather(1, case["li"][:, None])[:, 0] < case["cache_len"]
+    (lg, tg, cg), (lo, to_, co), (lp, tp, cp) = (
+        (lgt[live], tk[live], c) for lgt, tk, c in (outs["gate"], outs["other"], outs["plain"]))
+    bitwise = (torch.equal(lg, lo) and torch.equal(tg, to_)
+               and all(torch.equal(cg[k], co[k]) for k in cg))
+    check(bitwise, f"whole[{label}]: tiles {gate} and {other} differ")
+    check(bool(torch.isfinite(lg).all()), f"whole[{label}]: non-finite logits")
+    check(torch.equal(tg, torch.argmax(lg, dim=-1)), f"whole[{label}]: tokens are not the argmax")
+    pack = 1 if quant is None else KQ.SPECS[quant].pack
+
+    def values(c, k):
+        """A pool's values: codes times their page scale when quantized."""
+        v = KQ.unpack_codes(c[k], pack)
+        return v * c[f"{k}_scale"][:, :, None, :, None] if quant else v
+
+    row = {"phase": "kernels", "kernel": "whole_step_decode", "case": label,
+           "dtype": str(dtype).replace("torch.", ""), "pool": quant or str(dtype).replace("torch.", ""),
+           "shape": {"L": cfg.num_hidden_layers, "R": case["R"], "C": case["C"],
+                     "D": cfg.hidden_size, "H": cfg.num_attention_heads,
+                     "KV": cfg.num_key_value_heads, "F": cfg.intermediate_size,
+                     "V": cfg.vocab_size, "ps": case["ps"], "NP": case["NP"], "P": P},
+           "live_rows": int(live.sum()), "tiles": gate, "tiles_other": other,
+           "smem_est": est, "bitwise_across_tiles": bitwise,
+           "max_abs_err": float((lg - lp).abs().max()),
+           "logits_rel_l2_vs_plain": _rel(lg, lp),
+           "tokens_equal_plain": f"{int((tg == tp).sum())}/{tg.numel()}"}
+    if dtype == torch.float32:
+        # summation order only: codes one step apart at a rounding tie. A
+        # code that took the other side of a tie moves the logits by far
+        # more than f32 rounding (F32_TIE_REL_L2), and a token may then
+        # differ only where the plain version's top two logits are closer
+        # than that move
+        pool_err = {k: (float((KQ.unpack_codes(cg[k], pack) - KQ.unpack_codes(cp[k], pack))
+                              .abs().max()) if quant else _rel(cg[k], cp[k]))
+                    for k in ("k", "v")}
+        row["pool_err_vs_plain"] = pool_err
+        rtol = F32_TIE_REL_L2 if quant else WHOLE_F32_RTOL
+        check(row["logits_rel_l2_vs_plain"] <= rtol,
+              f"whole[{label}]: f32 logits {row['logits_rel_l2_vs_plain']} from the plain version")
+        flips = tg != tp
+        top2 = lp.topk(2, dim=-1).values
+        margin, diff = top2[:, 0] - top2[:, 1], (lg - lp).abs().amax(dim=-1)
+        check(bool((margin[flips] <= 2 * diff[flips]).all()) if quant else not bool(flips.any()),
+              f"whole[{label}]: f32 tokens differ from the plain version")
+        for k, e in pool_err.items():
+            check(e <= (1.0 if quant else 1e-4), f"whole[{label}]: {k} pool error {e}")
+        if quant:  # a second layer's scales follow the first layer's ties
+            row["scale_rel_l2_vs_plain"] = max(_rel(cg[k], cp[k]) for k in ("k_scale", "v_scale"))
+            check(row["scale_rel_l2_vs_plain"] <= rtol, f"whole[{label}]: scales differ")
+    else:
+        # the same step in f32: weights and pools upcast, the plain version
+        p32 = _to_f32(params)
+        c32 = {k: (v.to(torch.float32) if quant is None or "scale" in k else v.clone())
+               for k, v in cache.items()}
+        exact = run("torch", gate, p32, c32, dataclasses.replace(cfg, dtype=torch.float32))[0]
+        exact = exact[live]
+        c32 = {k: v[:, :P] for k, v in c32.items()}
+        del p32
+        d_kernel, d_plain = _rel(lg, exact), _rel(lp, exact)
+        row.update(logits_rel_l2_vs_f32=d_kernel, plain_rel_l2_vs_f32=d_plain)
+        check(d_kernel <= SLICE_PATHS * d_plain,
+              f"whole[{label}]: kernel logits {d_kernel} from f32, plain {d_plain}")
+        # pools by the same rule: kernel vs plain within twice the plain
+        # bf16 pool's distance from the f32 one (a second layer's K/V carry
+        # the first layer's rounding, so codes move by more than one step)
+        row["pool_rel_l2_vs_plain"], row["plain_pool_rel_l2_vs_f32"] = {}, {}
+        for k in ("k", "v") + (("k_scale", "v_scale") if quant else ()):
+            if "scale" in k:
+                e, e_plain = _rel(cg[k], cp[k]), _rel(cp[k], c32[k])
+            else:
+                e, e_plain = _rel(values(cg, k), values(cp, k)), _rel(values(cp, k), values(c32, k))
+            row["pool_rel_l2_vs_plain"][k], row["plain_pool_rel_l2_vs_f32"][k] = e, e_plain
+            check(e <= SLICE_PATHS * e_plain,
+                  f"whole[{label}]: {k} pool {e} from the plain one, plain {e_plain} from f32")
+        del c32
+    del outs
+    row["bound_ms"], row["bound_by"], row["bytes"], row["flop"] = _whole_bound(case)
+    unfused_kw = dict(kw, kernels="cuda")
+    mask_args = (None, None, case["table"])
+    row.update(
+        ms=cuda_ms_restored(lambda: run("cuda", gate), restore),
+        ms_tiles_other=cuda_ms_restored(lambda: run("cuda", other), restore),
+        plain_ms=cuda_ms_restored(lambda: run("torch", gate), restore, iters=5),
+        unfused_ms=cuda_ms_restored(lambda: llama.serve_step_paged(
+            params, work, case["tokens"], case["pos"], case["li"], *mask_args,
+            **unfused_kw), restore),
+        library_ms=None)
+    emit(row)
+    del work
+    return row
+
+
+def phase_whole_kernels(seed):
+    """The whole-step kernel against its plain version in every
+    WHOLE_CASES case; the rows of the kernels line are the decode cases
+    (MHA) of each pool type."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 4)
+    rng = np.random.default_rng(seed + 4)
+    main = {}
+    for label, dtype, quant, KV, kind in WHOLE_CASES:
+        case = _whole_case(gen, rng, dtype, quant, KV, kind)
+        row = run_whole_check(label, case)
+        if kind == "decode" and KV == 32:
+            pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
+            main[f"whole_step_decode[{pool}]"] = row
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return main
+
+
 def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens):
     """Replay ``seqs`` (prompt + fed output tokens) through a fresh engine:
-    lockstep chunked prefill, then one decode step per fed token.
-    Returns each step's logits of the rows active in it, on the host. A
-    paged engine gets each slot's pages as its lines arrive (its pool is
-    the default worst case: nothing is preempted)."""
+    lockstep chunked prefill, then one decode step per fed token, each
+    through ``run_mixed(..., with_logits=True)`` — the serving step itself
+    (the whole-step kernel where the engine runs it; ``engine.run`` is
+    always the per-layer step). Returns each step's logits of the rows
+    active in it, on the host. A paged engine gets each slot's pages as
+    its lines arrive (its pool is the default worst case: nothing is
+    preempted)."""
     eng = InferenceEngine(llama, cfg, params, sc, device=DEV)
     R, C, S = eng.num_slots, sc.prefill_chunk, eng.scratch_pos
     n = len(seqs)
+    head = (np.ones((R,), bool), np.ones((R,), np.float32), np.full((R,), 2.0, np.float32),
+            np.zeros((R,), np.int32))
+    last = torch.zeros((R,), dtype=torch.int64, device=DEV)
+
+    def step(bc):
+        return eng.run_mixed(last, bc.tokens, np.zeros((R,), bool), bc.positions,
+                             bc.logits_idx, None, *head, with_logits=True)[1]
+
     out = []
     for k in range(math.ceil(max(prompt_lens) / C)):
         bc = BatchConfig.empty(R, C, S)
@@ -606,7 +908,7 @@ def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens):
             rows.append(i)
             if eng.paged:
                 check(eng.pager.ensure(i, off + m), "teacher-forced run out of pages")
-        out.append(eng.run(bc)[rows].cpu())
+        out.append(step(bc)[rows].cpu())
     for t in range(max(len(s) for s in seqs) - min(prompt_lens)):
         bc = BatchConfig.empty(R, 1, S)
         rows = []
@@ -620,7 +922,7 @@ def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens):
             if eng.paged:
                 check(eng.pager.ensure(i, p + 1), "teacher-forced run out of pages")
         if rows:
-            out.append(eng.run(bc)[rows].cpu())
+            out.append(step(bc)[rows].cpu())
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -816,11 +1118,13 @@ def phase_slice(seed):
     return params, {k: launches.get(k, 0) for k in DENSE_KERNELS}
 
 
-def phase_paged(seed, holder):
-    """The paged slice: the same 8 requests through LLM.generate on the
-    paged KV cache under a 17-page budget, in every arm of PAGED_ARMS
-    (one params object, each engine freed before the next). Each arm's
-    kernel variant must launch, the bf16 arm must preempt, and each arm's
+def phase_paged(seed, holder, arms):
+    """The paged slices: the same 8 requests through LLM.generate on the
+    paged KV cache under a 17-page budget, in every arm of ``arms``
+    (PAGED_ARMS and/or WHOLE_ARMS; one params object, each engine freed
+    before the next). Each arm's kernel must launch (a whole-step arm's
+    and no paged attention kernel, with no gate fallback and the mixed
+    step on the walk), the bf16 arms must preempt, and each arm's
     teacher-forced logits are held to its kernels="torch" twin under
     slice 1's rule. Returns the launches of the arms' runs. ``holder`` is
     a list holding the bf16 params, emptied here so that they are freed
@@ -830,24 +1134,40 @@ def phase_paged(seed, holder):
     prompts, new = _slice_prompts(seed, cfg)
     launches, seqs = {}, None
     tf = {}
-    for label, quant, fused in PAGED_ARMS:
+    for label, quant, fused in arms:
         llm = LLM(llama, cfg, params, device=DEV)
         llm.compile(ServingConfig(kv_layout="paged", max_cached_tokens=PAGED_BUDGET,
                                   kv_quant=quant, fused_decode=fused))
+        eng = llm.engine
+        whole = "whole_step" in fused
         results, line = _serve(llm, prompts, new)
-        kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
+        kind = ("whole_step_decode" if whole else "fused_rope_paged_attention" if fused
+                else "ragged_paged_attention")
         variant = f"{kind}[{quant or 'bf16'}]"
-        emit({"phase": "slice", "path": f"paged-{label}", "model": "llama_7b",
+        path = f"whole-{label[:-6]}" if whole else f"paged-{label}"
+        extra = {}
+        if whole:
+            extra = {"tiles": eng.whole_step_tiles, "mixed_tiles": eng.whole_step_mixed_tiles,
+                     "smem_est": eng.whole_step_smem_est,
+                     "fallbacks": llm.rm.stats.whole_step_fallbacks}
+        emit({"phase": "slice", "path": path, "model": "llama_7b",
               "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
               "kv_quant": quant, "fused_decode": list(fused),
-              "max_cached_tokens": PAGED_BUDGET, "num_pages": llm.engine.pager.num_pages,
-              **line})
+              "max_cached_tokens": PAGED_BUDGET, "num_pages": eng.pager.num_pages,
+              **extra, **line})
         check(line["launches"].get(variant, 0) > 0,
-              f"{variant} was never launched on the paged-{label} arm")
-        if label == "bf16":
-            check(line["preemptions"] > 0, "the 17-page budget caused no preemption")
-            emit(profile_slice(llm, prompts, new, "paged-bf16"))
-            # every arm is teacher-forced over the bf16 arm's tokens
+              f"{variant} was never launched on the {path} arm")
+        if whole:
+            check(extra["fallbacks"] == 0 and eng.whole_step_mixed_on,
+                  f"{path}: the whole-step gate fell back ({extra})")
+            paged = [k for k in line["launches"] if k.split("[")[0] in K.PAGED_KERNELS]
+            check(not paged, f"{path}: paged attention kernels ran: {paged}")
+        if quant is None:
+            check(line["preemptions"] > 0, f"{path}: the 17-page budget caused no preemption")
+        if label in ("bf16", "bf16-whole"):
+            emit(profile_slice(llm, prompts, new, path))
+        if seqs is None:
+            # every arm is teacher-forced over the first bf16 arm's tokens
             seqs = [r.input_tokens + r.output_tokens[:-1] for r in results]
         for k, v in line["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -869,10 +1189,12 @@ def phase_paged(seed, holder):
             cfg32, params32,
             ServingConfig(kernels="torch", cache_dtype=torch.float32, kv_layout="paged",
                           kv_quant=quant, max_requests_per_batch=len(seqs)), seqs, plens)
-        for label, q, _ in PAGED_ARMS:
+        for label, q, fused in arms:
             if q == quant:
                 got, want = tf.pop(label)
-                _hold_to_plain(f"paged-{label}", got, want, exact)
+                whole = "whole_step" in fused
+                _hold_to_plain(f"whole-{label[:-6]}" if whole else f"paged-{label}", got,
+                               want, exact)
         del exact
     del params32
     gc.collect()
@@ -880,11 +1202,33 @@ def phase_paged(seed, holder):
     return launches
 
 
+def _tie_check(cfg, params, prompts, ref_outs, got_kw, ref_kw):
+    """Teacher-force the reference run's tokens through both
+    configurations: the logits within F32_TIE_REL_L2 (relative L2), and
+    every step whose argmax differs a tie, its reference top-two margin
+    within twice the row's largest logit difference."""
+    seqs = [p + o[:-1] for p, o in zip(prompts, ref_outs)]
+    plens = [len(p) for p in prompts]
+    a, b = (torch.cat(_teacher_forced_logits(
+        cfg, params, ServingConfig(cache_dtype=torch.float32,
+                                   max_requests_per_batch=len(seqs), **kw), seqs, plens))
+        for kw in (got_kw, ref_kw))
+    diff = (a - b).abs().amax(dim=-1)
+    top2 = b.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    flips = a.argmax(-1) != b.argmax(-1)
+    out = {"rel_l2": _rel(a, b), "max_abs": float(diff.max()), "flips": int(flips.sum()),
+           "flip_margins": margin[flips].tolist(), "flip_diffs": diff[flips].tolist()}
+    check(out["rel_l2"] <= F32_TIE_REL_L2, f"f32 whole-step logits off: {out}")
+    check(bool((margin[flips] <= 2 * diff[flips]).all()), f"f32 token flip is no tie: {out}")
+    return out
+
+
 def phase_f32(seed):
     """Full width, 2 layers, f32: greedy tokens equal across kernels
     ("cuda" and "torch") on the dense layout and on f32, int8 and int4
-    pools; fused and unfused (f32, int8 and int4 pools); paged and dense.
-    Returns the launches of its paged runs."""
+    pools; fused, whole-step and unfused (f32, int8 and int4 pools); paged
+    and dense. Returns the launches of its paged runs."""
     cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=2, dtype=torch.float32)
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
@@ -892,6 +1236,7 @@ def phase_f32(seed):
     llm = LLM(llama, cfg, device=DEV, seed=seed)
     paged = dict(kv_layout="paged")
     fused = dict(fused_decode=("rope_kv_write",))
+    whole = dict(fused_decode=("whole_step",))
     runs = {
         "dense-cuda": {}, "dense-torch": dict(kernels="torch"),
         "paged-cuda": paged, "paged-torch": dict(paged, kernels="torch"),
@@ -902,6 +1247,9 @@ def phase_f32(seed):
         "int4-cuda": dict(paged, kv_quant="int4"),
         "int4-torch": dict(paged, kv_quant="int4", kernels="torch"),
         "int4-fused": dict(paged, kv_quant="int4", **fused),
+        "paged-whole": dict(paged, **whole),
+        "int8-whole": dict(paged, kv_quant="int8", **whole),
+        "int4-whole": dict(paged, kv_quant="int4", **whole),
     }
     outs, launches = {}, {}
     for name, kw in runs.items():
@@ -916,13 +1264,29 @@ def phase_f32(seed):
              ("int8-cuda", "int8-torch"), ("int4-cuda", "int4-torch"),
              ("paged-fused", "paged-cuda"),
              ("int8-fused", "int8-cuda"), ("int4-fused", "int4-cuda"),
-             ("paged-cuda", "dense-cuda")]
+             ("paged-cuda", "dense-cuda"),
+             ("paged-whole", "paged-cuda"), ("paged-whole", "paged-torch"),
+             ("int8-whole", "int8-cuda"), ("int8-whole", "int8-torch"),
+             ("int4-whole", "int4-cuda"), ("int4-whole", "int4-torch")]
+    ties = {}
     for a, b in pairs:
-        check(outs[a] == outs[b], f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
+        if outs[a] == outs[b]:
+            continue
+        # the whole-step kernel projects in its own summation order: on a
+        # quantized pool a K/V value at a rounding tie may take the other
+        # code, which moves the logits by far less than a code step. A
+        # greedy token may then differ only where the reference's top two
+        # logits are closer than that move (a tie), checked teacher-forced
+        # over the reference's tokens.
+        check(a.endswith("-whole") and "kv_quant" in runs[a],
+              f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
+        ties[f"{a} vs {b}"] = _tie_check(cfg, llm.params, prompts, outs[b], runs[a], runs[b])
     emit({"phase": "f32_tokens", "layers": 2, "requests": len(prompts),
-          "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs],
-          "launches": launches})
-    for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]"):
+          "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs
+                                      if f"{a} vs {b}" not in ties],
+          "equal_but_ties": ties, "launches": launches})
+    for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
+              "whole_step_decode[f32]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")
     return launches
 
@@ -1253,23 +1617,6 @@ def phase_train(seed):
     return launches
 
 
-def unported_bounds():
-    """Bounds of the TPU kernels still to port, at stated shapes (no
-    kernel runs): the whole-step decode walk (both of its TPU kernels
-    compute one step) at R = 16 decode slots holding DECODE_LENS lines
-    of LLaMA-7B: its weights (the LM head included, the embedding rows
-    aside) and the K/V lines read once over the HBM rate."""
-    cfg = llama.LLaMAConfig.llama_7b()
-    D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
-    kvd = cfg.num_key_value_heads * cfg.head_dim
-    weights = L * (D * (D + 2 * kvd) + D * D + 3 * D * Fd + 2 * D) + D * cfg.vocab_size + D
-    kv_lines = sum(DECODE_LENS)
-    step_bytes = 2 * weights + kv_lines * L * 2 * kvd * 2
-    return {"phase": "unported_bounds",
-            "whole_step_decode": {"bytes": step_bytes, "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-                                  "bound_by": "bytes", "R": 16, "kv_lines": kv_lines}}
-
-
 SOURCES = {
     "decode_attention": ("flexflow_tpu_torch/csrc/decode_attention.cu",
                          "flexflow_tpu/serve/kernels.py:166"),
@@ -1287,8 +1634,13 @@ SOURCES = {
                                "flexflow_tpu/ops/flash_attention.py:142"),
     "flash_attention_bwd_q": ("flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
                               "flexflow_tpu/ops/flash_attention.py:203"),
+    # one kernel replaces both TPU kernels of the whole-step walk
+    **{f"whole_step_decode[{t}]": (
+        "flexflow_tpu_torch/csrc/whole_step_decode.cu",
+        "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode) and "
+        "flexflow_tpu/serve/kernels.py:1612 (_whole_step_decode_tiled)") for t in K.POOL_TYPES},
 }
-PHASES = ("kernels", "slice", "paged", "f32", "train_parity", "train")
+PHASES = ("kernels", "slice", "paged", "whole", "f32", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -1297,35 +1649,48 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of kernels, slice, paged, f32, train_parity, "
-                         "train (device and build always run; paged needs slice)")
+                    help="comma list of kernels, slice, paged, whole, f32, train_parity, "
+                         "train (device and build always run; paged and whole need slice)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
     phase_device()
     phase_build()
-    emit(unported_bounds())
+    mark("build")
     main_rows, launches = {}, {}
     if "kernels" in phases:
         main_rows = phase_kernels(args.seed)
         main_rows.update(phase_paged_kernels(args.seed))
+        main_rows.update(phase_whole_kernels(args.seed))
         main_rows.update(phase_flash_kernels(args.seed))
+        mark("kernels")
     if "slice" in phases:
         holder = [None]
         holder[0], dense = phase_slice(args.seed)
         launches.update(dense)
-        if "paged" in phases:
-            launches.update({k: v for k, v in phase_paged(args.seed, holder).items()
+        mark("slice")
+        arms = ((PAGED_ARMS if "paged" in phases else ())
+                + (WHOLE_ARMS if "whole" in phases else ()))
+        if arms:
+            launches.update({k: v for k, v in phase_paged(args.seed, holder, arms).items()
                              if "[f32]" not in k})
         del holder
         gc.collect()
         torch.cuda.empty_cache()
+        mark("paged+whole")
     if "f32" in phases:
         launches.update(phase_f32(args.seed))
+        mark("f32")
     if "train_parity" in phases:
         phase_train_parity(args.seed)
+        mark("train_parity")
     if "train" in phases:
         launches.update(phase_train(args.seed))
+        mark("train")
     rows = []
     for name, (src, replaces) in SOURCES.items():
         m = main_rows.get(name, {})
@@ -1335,6 +1700,8 @@ def main(argv=None) -> int:
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
+                            for i, (name, t) in enumerate(marks)},
           "peak_memory_bytes": max(_PEAKS + [torch.cuda.max_memory_allocated()])})
     print(json.dumps({"kernels": rows}), flush=True)
     if phases != set(PHASES):

@@ -1,5 +1,5 @@
-// The page-tile attention loop shared by ragged_paged_attention.cu and
-// fused_rope_paged_attention.cu.
+// The page-tile attention loop shared by ragged_paged_attention.cu,
+// fused_rope_paged_attention.cu and whole_step_decode.cu.
 //
 // q (R, C, H, dk) attends, under mask (R, C, NP * ps), the virtual cache
 // of its slot: logical line s of slot r lives at line s % ps of physical
@@ -279,37 +279,38 @@ constexpr int kLinesPerThread = kTileLines / kRowGroup;                 // 4
 constexpr int kTilePages = kTileLines / 16;  // pages per tile at ps = 16
 constexpr int kChunk = 8;                    // dims per staging load
 
-template <int DK>
+template <int DK, int ROWS = kTileRows>
 struct TileSmem {
   static constexpr int kStrideK = DK + 4;    // padded: conflict-free reads
   static constexpr int kStrideP = kTileLines + 4;
   static constexpr size_t kK = size_t(kTileLines) * kStrideK;
   static constexpr size_t kV = size_t(kTileLines) * DK;
-  static constexpr size_t kQ = size_t(kTileRows) * kStrideK;
-  static constexpr size_t kP = size_t(kTileRows) * kStrideP;
+  static constexpr size_t kQ = size_t(ROWS) * kStrideK;
+  static constexpr size_t kP = size_t(ROWS) * kStrideP;
   static constexpr size_t kLine = 2 * size_t(kTileLines);   // per-line scales
   static constexpr size_t kPage = 3 * size_t(kTilePages);   // page id, scales
   static constexpr size_t kBytes = sizeof(float) * (kK + kV + kQ + kP + kLine + kPage)
-                                   + size_t(kTileRows) * kTileLines;  // mask
+                                   + size_t(ROWS) * kTileLines;  // mask
 };
 
-// Rows [row0, row0 + 32) of KV head h of slot r; smem holds
-// TileSmem<DK>::kBytes. All kTileThreads threads call it; it ends with a
-// barrier.
-template <typename TQ, int KIND, int DK>
+// Rows [row0, row0 + NT / 4) of KV head h of slot r (32 rows at the
+// default kTileThreads); smem holds TileSmem<DK, NT / 4>::kBytes. All NT
+// threads of the block call it; it ends with a barrier.
+template <typename TQ, int KIND, int DK, int NT = kTileThreads>
 __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* smem) {
-  using L = TileSmem<DK>;
+  constexpr int ROWS = NT / kRowGroup * kRowsPerThread;
+  using L = TileSmem<DK, ROWS>;
   constexpr int kCols = DK / kRowGroup;  // output columns per thread
   float* sK = smem;                // [64][DK + 4]
   float* sV = sK + L::kK;          // [64][DK]
-  float* sQ = sV + L::kV;          // [32][DK + 4]
-  float* sP = sQ + L::kQ;          // [32][64 + 4] probability * v_scale
+  float* sQ = sV + L::kV;          // [ROWS][DK + 4]
+  float* sP = sQ + L::kQ;          // [ROWS][64 + 4] probability * v_scale
   float* sLk = sP + L::kP;         // [64] line score factor k_scale * scale
   float* sLv = sLk + kTileLines;   // [64] line v_scale
   float* sPk = sLv + kTileLines;   // [kTilePages] per page of the tile
   float* sPv = sPk + kTilePages;
   int* sPid = reinterpret_cast<int*>(sPv + kTilePages);
-  uint8_t* sM = reinterpret_cast<uint8_t*>(sPid + kTilePages);  // [32][64]
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sPid + kTilePages);  // [ROWS][64]
 
   const int G = a.H / a.KV;
   const int rows = a.C * G;
@@ -320,7 +321,7 @@ __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* s
   const int npt = a.ps >= kTileLines ? 1 : kTileLines / a.ps;  // pages per tile
   const TQ* q = static_cast<const TQ*>(a.q);
 
-  for (int idx = tid; idx < kTileRows * DK; idx += kTileThreads) {
+  for (int idx = tid; idx < ROWS * DK; idx += NT) {
     const int ii = idx / DK, d = idx % DK, rr = row0 + ii;
     float x = 0.f;
     if (rr < rows) {
@@ -342,7 +343,7 @@ __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* s
   const uint8_t* mrow = a.mask + (size_t)r * a.C * S;
   for (int t0 = 0; t0 < S; t0 += kTileLines) {
     int any = 0;
-    for (int idx = tid; idx < kTileRows * kTileLines; idx += kTileThreads) {
+    for (int idx = tid; idx < ROWS * kTileLines; idx += NT) {
       const int ii = idx / kTileLines, j = idx % kTileLines;
       const int rr = row0 + ii, s = t0 + j;
       uint8_t bit = 0;
@@ -363,7 +364,7 @@ __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* s
     // the end of a processed tile protects the buffers from these writes)
     if (!__syncthreads_or(any)) continue;
 
-    for (int idx = tid; idx < kTileLines * (DK / kChunk); idx += kTileThreads) {
+    for (int idx = tid; idx < kTileLines * (DK / kChunk); idx += NT) {
       const int j = idx / (DK / kChunk), d = (idx % (DK / kChunk)) * kChunk;
       const int s = t0 + j;
       float kx[kChunk], vx[kChunk];

@@ -2,8 +2,8 @@
 ``flexflow_tpu/metrics.py:SchedulerStats``).
 
 The counters of the prefix cache, the host tier, speculation, context
-parallelism, the retrace sentinel and the whole-step megakernel come
-with the slices that port those features.
+parallelism and the retrace sentinel come with the slices that port
+those features.
 """
 from __future__ import annotations
 
@@ -42,6 +42,13 @@ class SchedulerStats:
     decode_step_ms_samples: List[float] = dataclasses.field(
         default_factory=list
     )
+    # Whole-step kernel gate (serve/engine._whole_step_smem_gate): step
+    # shapes the gate sent back to the per-layer path because no legal
+    # tiling fit the budget (healthy serving keeps it 0), and its priced
+    # decode footprint in bytes. Mirrored from the engine at every
+    # dispatch.
+    whole_step_fallbacks: int = 0
+    whole_step_smem_est: int = 0
 
     def record_step(
         self,
@@ -117,6 +124,8 @@ class SchedulerStats:
             "mean_budget_fill": round(self.mean_budget_fill, 4),
             "decode_step_ms_p50": round(self.decode_step_ms_p50, 3),
             "decode_step_ms_p99": round(self.decode_step_ms_p99, 3),
+            "whole_step_fallbacks": self.whole_step_fallbacks,
+            "whole_step_smem_est": self.whole_step_smem_est,
         }
 
     def report(self) -> str:

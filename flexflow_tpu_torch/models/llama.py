@@ -27,9 +27,13 @@ Differences from the JAX package:
     and ``attention="torch"`` its ``"xla"``;
   * the train step's optimizer updates the parameters in place.
 
+``serve_step_whole`` (``ServingConfig.fused_decode=("whole_step",)``) runs
+the whole paged serving step in one persistent CUDA kernel
+(serve/kernels.whole_step_decode).
+
 Data, tensor, pipeline, sequence and context parallelism, microbatching,
-the whole-step megakernel and the early-exit ``num_layers`` slice of the
-step functions come with later slices.
+the whole-step walk of SpecInfer rounds and the early-exit ``num_layers``
+slice of the step functions come with later slices.
 """
 from __future__ import annotations
 
@@ -362,9 +366,9 @@ def serve_step(
 #: decode-step fusions this family's serving step supports
 #: (ServingConfig.fused_decode): "rope_kv_write" folds RoPE and the KV
 #: page write into the paged attention kernel
-#: (serve/kernels.fused_rope_paged_attention). "whole_step" joins it
-#: with the megakernel slice.
-FUSED_DECODE = ("rope_kv_write",)
+#: (serve/kernels.fused_rope_paged_attention); "whole_step" runs the
+#: whole step in one kernel (:func:`serve_step_whole`).
+FUSED_DECODE = ("rope_kv_write", "whole_step")
 
 
 def init_paged_kv_cache(cfg: LLaMAConfig, num_pages: int, page_size: int,
@@ -524,6 +528,155 @@ def serve_step_paged(
                               cache["v"][l], phys, off, page_table, kernels,
                               *scales, qmax, fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-step serving (ServingConfig.fused_decode=("whole_step",);
+# serve/kernels.whole_step_decode carries the kernel's design). The
+# family's half: the weight layout the walk streams, and the step entry
+# point binding this family's block and head math — the same
+# _block_paged_torch body the unfused step runs.
+
+
+def whole_step_weight_layout(params: Dict[str, Any], cfg: LLaMAConfig):
+    """``(layer_arrays, head_arrays)``: every per-layer tensor as its
+    stacked (L, …) array (the storage layout already: validated and
+    named, nothing copied) and the epilogue params. Raises ValueError for
+    a layout the walk cannot stream, so the engine fails at construction
+    and never mid-serve."""
+    L = cfg.num_hidden_layers
+    layer_arrays = {}
+    for name, a in params["layers"].items():
+        if isinstance(a, dict):
+            raise ValueError(
+                "whole_step is not composed with weight-only quantization (layer "
+                f"tensor {name!r} is a quantized pair): serve full-precision params "
+                "or drop the whole_step fusion")
+        if a.shape[0] != L:
+            raise ValueError(f"layer tensor {name!r} leading dim {a.shape[0]} != "
+                             f"num_hidden_layers {L}")
+        layer_arrays[name] = a
+    head_arrays = {"final_norm": params["final_norm"]}
+    if cfg.tie_word_embeddings:
+        head_arrays["embed"] = params["embed"]
+    else:
+        if isinstance(params["lm_head"], dict):
+            raise ValueError("whole_step is not composed with a weight-only quantized lm_head")
+        head_arrays["lm_head"] = params["lm_head"]
+    return layer_arrays, head_arrays
+
+
+def _whole_head_fn(cfg: LLaMAConfig, head, x, logits_idx):
+    """The walk's epilogue, op for op :func:`serve_step_paged`'s tail
+    (final norm, the logits_idx row, f32 LM head)."""
+    return _head(cfg, head, x, logits_idx, all_logits=False)
+
+
+def whole_step_tile_roles(cfg: LLaMAConfig) -> Dict[str, Tuple[str, Optional[str]]]:
+    """The weight (and bias: none in LLaMA) behind each column-tiled role
+    of the sub-block walk: w1 gates, w3 lifts, w2 closes."""
+    return {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None),
+            "o": ("wo", None), "gate": ("w1", None), "up": ("w3", None),
+            "down": ("w2", None)}
+
+
+def _whole_tile_plan(cfg: LLaMAConfig, qmax):
+    """The sub-block walk's closures — the ops of :func:`_block_paged_torch`
+    split at the projection boundaries — plus the constants the CUDA
+    kernel takes (``eps``, ``qmax``)."""
+    from ..serve import kernels as _k
+
+    def pre_fn(p, x):
+        return _rms(x, p["attn_norm"], cfg.rms_norm_eps)
+
+    def attend_fn(p, q, k, v, cs, sn, mask, kb, vb, ks, vs, ph, of, pt):
+        R, C, _ = q.shape
+        dk = cfg.head_dim
+        q = apply_rope(q.reshape(R, C, -1, dk), cs, sn)
+        k = apply_rope(k.reshape(R, C, -1, dk), cs, sn)
+        _k.commit_paged(kb, vb, k, v.reshape(R, C, -1, dk), ph, of, ks, vs, qmax)
+        if qmax is not None:
+            k_virt = _k.dequant_pages(kb, ks, pt, q.dtype)
+            v_virt = _k.dequant_pages(vb, vs, pt, q.dtype)
+        else:
+            k_virt = _k.gather_pages(kb, pt)
+            v_virt = _k.gather_pages(vb, pt)
+        return serve_attention(cfg, q, k_virt, v_virt, mask)
+
+    def mid_fn(p, x, h, x2):
+        return _rms(x2, p["ffn_norm"], cfg.rms_norm_eps)
+
+    def act_fn(g, u):
+        return F.silu(g) * u
+
+    return {"roles": whole_step_tile_roles(cfg), "mm_fn": _mm, "pre_fn": pre_fn,
+            "attend_fn": attend_fn, "mid_fn": mid_fn, "act_fn": act_fn,
+            "eps": cfg.rms_norm_eps, "qmax": qmax}
+
+
+def serve_step_whole(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,      # (R, C) int — C=1 decode, C>1 mixed
+    positions: torch.Tensor,   # (R, C) int
+    logits_idx: torch.Tensor,  # (R,) int
+    page_table: torch.Tensor,  # (R, NP) int32
+    *,
+    cfg: LLaMAConfig,
+    cache_len: int,
+    kv_quant: Optional[str] = None,
+    tiles: int = 1,
+    kernels: str = "torch",
+):
+    """The whole paged serving step in one kernel: every layer (Q/K/V,
+    RoPE and the K/V page commit, paged attention, out-projection, SwiGLU
+    MLP), the final norm, the LM head at ``logits_idx`` and the greedy
+    argmax. The embedding, RoPE tables, mask and page lookup run before
+    the kernel, as in the JAX package. ``kernels="cuda"`` goes through
+    serve/kernels.whole_step_decode (the CUDA kernel on a GPU, its plain
+    version on the CPU), ``"torch"`` straight to the plain version;
+    ``tiles`` is the engine gate's output-column tile count.
+
+    Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)``, the
+    cache updated in place. At ``tiles=1`` the plain version runs the ops
+    of :func:`serve_step_paged` (``kernels="torch"``), so it is bitwise
+    that step."""
+    if kernels not in ("cuda", "torch"):
+        raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
+    from ..serve import kernels as _k
+
+    positions = positions.long()
+    ps = cache["k"].shape[2]
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_freqs(cfg, positions)
+    mask = _k.paged_serve_mask(None, positions, page_table.shape[1], ps, cache_len)
+    phys, off = _page_lookup(page_table, positions, ps)
+    qmax = None
+    if kv_quant is not None:
+        from ..serve.kv_quant import resolve_spec
+
+        qmax = resolve_spec(kv_quant).qmax
+    layer_arrays, head_arrays = whole_step_weight_layout(params, cfg)
+
+    def block_fn(p_l, xv, cs, sn, mk, kb, vb, ks, vs, ph, of, pt):
+        return _block_paged_torch(cfg, p_l, xv, cs, sn, mk, kb, vb, ph, of, pt, ks, vs, qmax)
+
+    def head_fn(head, xv, li):
+        return _whole_head_fn(cfg, head, xv, li)
+
+    plan = _whole_tile_plan(cfg, qmax)
+    args = (layer_arrays, head_arrays, x, cos, sin, cache, page_table, phys, off, mask,
+            logits_idx)
+    if kernels == "cuda":
+        logits, toks, cache = _k.whole_step_decode(*args, block_fn=block_fn, head_fn=head_fn,
+                                                   tiles=tiles, tile_plan=plan)
+    elif tiles > 1:
+        logits, toks, cache = _k._whole_step_decode_tiled_ref(*args, tiles=tiles,
+                                                             tile_plan=plan, head_fn=head_fn)
+    else:
+        logits, toks, cache = _k.whole_step_decode_ref(*args, block_fn=block_fn,
+                                                       head_fn=head_fn)
+    return logits, toks.long(), cache
 
 
 # ---------------------------------------------------------------------------

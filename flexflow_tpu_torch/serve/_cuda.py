@@ -42,6 +42,7 @@ SIGNATURES = {
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
+    "whole_step_decode": (27, 17, 3),
 }
 #: kernels whose launcher lives in a source of another name
 SOURCES = {

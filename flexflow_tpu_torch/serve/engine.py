@@ -26,6 +26,7 @@ import torch
 
 from .batch_config import BatchConfig
 from .paging import PageAllocator
+from .sampling import choose_sample_mode, sample_tokens
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -50,7 +51,7 @@ _LATER_SLICES = {
     "kv_shard": "the long-context slice",
     "context_shards": "the long-context slice",
     "cache_policy": "the prefix-caching slice",
-    "quantized_allreduce": "the megakernel step-fusion slice",
+    "quantized_allreduce": "the parallel-serving slice",
     "replicas": "the cluster slice",
     "router_policy": "the cluster slice",
     "prefill_replicas": "the cluster slice",
@@ -130,8 +131,13 @@ class ServingConfig:
     cache_policy: str = "complete"
     # Decode-step fusions. "rope_kv_write" (paged layout): RoPE and the
     # K/V page write run inside the paged attention kernel
-    # (serve/kernels.fused_rope_paged_attention). "sampling" and
-    # "whole_step" come with the megakernel step-fusion slice.
+    # (serve/kernels.fused_rope_paged_attention). "sampling": the sync
+    # path samples inside the step call (InferenceEngine.run_sampled).
+    # "whole_step" (paged layout): the whole decode step — and the mixed
+    # step when the gate prices it — runs as one persistent kernel
+    # (serve/kernels.whole_step_decode, model.serve_step_whole), with the
+    # output-column tile count the engine's gate picks; below the gate's
+    # floor the engine falls back to the per-layer path.
     fused_decode: Tuple[str, ...] = ()
     quantized_allreduce: Optional[str] = None
     replicas: int = 1
@@ -173,12 +179,12 @@ class ServingConfig:
                     f"unknown fused_decode entry {name!r} (expected "
                     "'rope_kv_write', 'sampling' and/or 'whole_step')"
                 )
-            if name != "rope_kv_write":
-                raise NotImplementedError(
-                    f"ServingConfig.fused_decode={name!r} is not ported yet: "
-                    "it comes with the megakernel step-fusion slice"
-                )
         paged = self.kv_layout == "paged"
+        if "whole_step" in self.fused_decode and not paged:
+            raise ValueError(
+                "fused_decode='whole_step' requires kv_layout='paged' — the layer "
+                "walk commits and gathers K/V through the page table"
+            )
         if "rope_kv_write" in self.fused_decode and not paged:
             raise ValueError(
                 "fused_decode='rope_kv_write' requires kv_layout='paged' — the "
@@ -251,7 +257,9 @@ class InferenceEngine:
     for the paged layout also ``init_paged_kv_cache(cfg, num_pages,
     page_size, dtype, kv_quant, device=)``, ``serve_step_paged`` (the
     same arguments plus the page table, ``cache_len``, ``kv_quant`` and
-    ``fused_rope``) and ``FUSED_DECODE``.
+    ``fused_rope``) and ``FUSED_DECODE``; for ``fused_decode=("whole_step",)``
+    also ``serve_step_whole``, ``whole_step_weight_layout`` and
+    ``whole_step_tile_roles``.
     """
 
     def __init__(
@@ -275,10 +283,80 @@ class InferenceEngine:
                 f"{getattr(model, '__name__', repr(model))} does not advertise "
                 "it (model.FUSED_DECODE)"
             )
+        # Whole-step kernel: the gate below picks an output-column tile
+        # count per step shape (the C = 1 decode step; the C =
+        # prefill_chunk mixed step); whole_step_on turns False only when
+        # no legal tiling fits the budget (whole_step_fallbacks counts
+        # those, mirrored into SchedulerStats).
+        self.whole_step_on = False
+        self.whole_step_tiles = 1
+        self.whole_step_mixed_on = False
+        self.whole_step_mixed_tiles = 1
+        self.whole_step_fallbacks = 0
+        self.whole_step_smem_est = 0
+        if "whole_step" in self.serving.fused_decode:
+            if "whole_step" not in getattr(model, "FUSED_DECODE", ()):
+                raise ValueError(
+                    "fused_decode='whole_step' requested but "
+                    f"{getattr(model, '__name__', repr(model))} does not advertise "
+                    "it (model.FUSED_DECODE)"
+                )
+            # an unstreamable layout raises here, never mid-serve
+            model.whole_step_weight_layout(params, cfg)
+            self.whole_step_on = True
         self.device = resolve_device(device)
         self.params = params
         self.pager: Optional[PageAllocator] = None  # host-side page tables
         self.cache = self._alloc_cache()
+        if self.whole_step_on:
+            self._whole_step_smem_gate()
+
+    def _whole_step_smem_gate(self):
+        """Pick the whole-step kernel's output-column tile count for each
+        step shape it serves — the C = 1 decode step and the C =
+        prefill_chunk mixed step — as the SMALLEST legal count whose
+        priced block footprint (serve/kernels.whole_step_smem_bytes) fits
+        ``kernels.WHOLE_STEP_SMEM_BUDGET``. A shape no tiling fits stays
+        on the per-layer path and counts one ``whole_step_fallbacks``;
+        the decode shape failing turns the walk off altogether."""
+        from ..logging_utils import get_logger
+        from . import kernels as _k
+
+        budget = _k.WHOLE_STEP_SMEM_BUDGET
+        layer_arrays, _ = self.model.whole_step_weight_layout(self.params, self.cfg)
+        roles = self.model.whole_step_tile_roles(self.cfg)
+
+        def pick(C):
+            x0 = torch.empty((self.num_slots, C, self.cfg.hidden_size),
+                             dtype=self.params["embed"].dtype, device="meta")
+            return _k.whole_step_pick_tiles(layer_arrays, self.cache, x0,
+                                            self.cfg.num_attention_heads,
+                                            tile_roles=roles, budget=budget)
+
+        log = get_logger("serve")
+        tiles, est = pick(1)
+        self.whole_step_smem_est = int(est)
+        if tiles is None:
+            self.whole_step_fallbacks += 1
+            self.whole_step_on = False
+            log.warning("whole_step: every legal tiling prices %d bytes or more against "
+                        "the %d-byte budget; serving on the per-layer path", est, budget)
+            return
+        self.whole_step_tiles = int(tiles)
+        C = self.serving.prefill_chunk
+        if C <= 1:
+            self.whole_step_mixed_on = True
+            self.whole_step_mixed_tiles = self.whole_step_tiles
+            return
+        mtiles, mest = pick(C)
+        if mtiles is None:
+            self.whole_step_fallbacks += 1
+            log.warning("whole_step: the C=%d mixed step prices %d bytes or more against "
+                        "the %d-byte budget; mixed steps stay on the per-layer path",
+                        C, mest, budget)
+            return
+        self.whole_step_mixed_on = True
+        self.whole_step_mixed_tiles = int(mtiles)
 
     def _num_pages(self) -> int:
         """Pages of the pool: ``ServingConfig.num_pages``, converted by
@@ -407,18 +485,34 @@ class InferenceEngine:
         ``generator``. Returns the sampled tokens (R,) as a device
         tensor — the caller reads them up to ``dispatch_ahead`` steps
         later; ``with_logits`` also returns the (R, V) logits."""
-        from .sampling import choose_sample_mode, sample_tokens
-
         host_tokens = np.asarray(host_tokens)
-        mode, cap = choose_sample_mode(greedy, topp, topk, self.cfg.vocab_size)
         host = self._tensor(host_tokens, torch.int64)
         use = self._tensor(use_last, torch.bool)
         first = torch.where(use, last_tokens.to(torch.int64), host[:, 0])
         tokens = torch.cat([first[:, None], host[:, 1:]], dim=1)
-        logits = self._step(tokens, self._tensor(positions, torch.int64),
-                            self._tensor(logits_idx, torch.int64))
+        positions = self._tensor(positions, torch.int64)
+        logits_idx = self._tensor(logits_idx, torch.int64)
+        gtoks = None
+        if self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on):
+            # the whole-step kernel owns the decode step and, when the gate
+            # priced it, the mixed step; greedy rows take its argmax
+            logits, gtoks = self._step_whole(tokens, positions, logits_idx)
+        else:
+            logits = self._step(tokens, positions, logits_idx)
+        toks = self._sample(logits, generator, greedy, temperature, topp, topk, gtoks)
+        if with_logits:
+            return toks, logits
+        return toks
+
+    def _sample(self, logits, generator, greedy, temperature, topp, topk, greedy_toks=None):
+        """Each slot's decode head on (R, V) logits, in the cheapest mode
+        the batch allows; an all-greedy batch takes ``greedy_toks`` (the
+        whole-step kernel's argmax) when given."""
+        mode, cap = choose_sample_mode(greedy, topp, topk, self.cfg.vocab_size)
+        if mode == "greedy" and greedy_toks is not None:
+            return greedy_toks
         with torch.inference_mode():
-            toks = sample_tokens(
+            return sample_tokens(
                 logits, generator,
                 greedy=self._tensor(greedy, torch.bool),
                 temperature=self._tensor(temperature, torch.float32),
@@ -426,6 +520,37 @@ class InferenceEngine:
                 topk_arr=self._tensor(topk, torch.int64),
                 mode=mode, topk_cap=cap,
             )
+
+    def _step_whole(self, tokens, positions, logits_idx):
+        """One step through ``model.serve_step_whole`` at the gate's tile
+        count for its shape; returns (logits, greedy tokens)."""
+        sc = self.serving
+        tiles = self.whole_step_tiles if tokens.shape[1] == 1 else self.whole_step_mixed_tiles
+        with torch.inference_mode():
+            logits, toks, self.cache = self.model.serve_step_whole(
+                self.params, self.cache, tokens, positions, logits_idx,
+                self.page_table_device(), cfg=self.cfg, cache_len=sc.cache_len,
+                kv_quant=sc.kv_quant, tiles=tiles, kernels=sc.kernels)
+        return logits, toks
+
+    def run_sampled(self, bc: BatchConfig, generator, greedy, temperature, topp, topk,
+                    with_logits: bool = False):
+        """The sync step with its sampling in the same call (the
+        ``"sampling"`` and ``"whole_step"`` fusions' sync path): the
+        whole-step kernel when it owns the step's shape (no explicit mask
+        or cache positions), else the per-layer step; then each slot's
+        head, drawing from ``generator``. Returns the sampled tokens (R,)
+        on the device, and the (R, V) logits with ``with_logits``."""
+        R = self.num_slots
+        if (self.whole_step_on and (bc.chunk == 1 or self.whole_step_mixed_on)
+                and bc.mask is None and bc.cache_positions is None):
+            # use_last all False: the host tokens go through the token select
+            return self.run_mixed(
+                torch.zeros((R,), dtype=torch.int64, device=self.device), bc.tokens,
+                np.zeros((R,), bool), bc.positions, bc.logits_idx, generator, greedy,
+                temperature, topp, topk, with_logits=with_logits)
+        logits = self.run(bc)
+        toks = self._sample(logits, generator, greedy, temperature, topp, topk)
         if with_logits:
             return toks, logits
         return toks

@@ -1,14 +1,17 @@
-"""Hand-written CUDA attention kernels of the serving hot path.
+"""Hand-written CUDA kernels of the serving hot path: attention, and the
+whole serving step in one kernel (:func:`whole_step_decode`).
 
 Each kernel here has three parts side by side:
 
 * the **wrapper** (:func:`decode_attention`, :func:`verify_attention`,
-  :func:`ragged_paged_attention`, :func:`fused_rope_paged_attention`):
+  :func:`ragged_paged_attention`, :func:`fused_rope_paged_attention`,
+  :func:`whole_step_decode`):
   checks device, dtype, shape and contiguity, then either runs the plain
   version (the tensors lie on the CPU) or launches the CUDA kernel (the
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
   version. Each launch adds one to ``LAUNCHES[name]``; the paged kernels
-  count per pool type, ``name[bf16|f32|int8|int4]``.
+  and the whole-step kernel count per pool type,
+  ``name[bf16|f32|int8|int4]``.
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -50,7 +53,7 @@ PAGED_KERNELS = ("ragged_paged_attention", "fused_rope_paged_attention")
 LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "verify_attention": 0,
-    **{f"{k}[{t}]": 0 for k in PAGED_KERNELS for t in POOL_TYPES},
+    **{f"{k}[{t}]": 0 for k in PAGED_KERNELS + ("whole_step_decode",) for t in POOL_TYPES},
 }
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
@@ -588,3 +591,386 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale):
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:  # the kernels read them in 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# whole-step decode (ServingConfig.fused_decode=("whole_step",))
+#
+# The whole serving step of a model family (every layer, the final norm,
+# the LM head and the greedy argmax) as one persistent cooperative CUDA
+# kernel (csrc/whole_step_decode.cu), the port of the JAX package's
+# whole_step_decode and _whole_step_decode_tiled. On the TPU the tile
+# count decides how much of a layer's weights one grid step keeps in
+# VMEM; here it sets the output-column tile of one block's projection work
+# item, and the engine's gate prices that item in shared memory and
+# registers (:func:`whole_step_smem_bytes`). Only output columns are
+# split and every output element's contraction runs in one order, so the
+# kernel's logits, tokens and pool bytes are bitwise equal at every tile
+# count it takes.
+
+#: bytes one block of the whole-step kernel may hold on chip: the shared
+#: memory a block may opt into on an H100 (227 KB)
+WHOLE_STEP_SMEM_BUDGET = 227 * 1024
+
+#: column-tiled projection roles in the order of the walk's four stages:
+#: Q/K/V (attention after the last tile), out-projection, MLP gate/up,
+#: MLP down
+_TILE_ROLE_ORDER = ("q", "k", "v", "o", "gate", "up", "down")
+
+# geometry of csrc/whole_step_decode.cu
+_WS_BK = 32              # K depth of a staged weight chunk
+_WS_WARPS = 8            # warps of a block (256 threads)
+_WS_MAX_FRAGS = 24       # 16 x 8 f32 accumulator fragments a warp holds
+_WS_HEAD_COLS = 256      # most LM-head columns per work item
+#: static shared memory of the kernel (attention, commit and reductions;
+#: under 10 KB at head dim 128), priced on top of the dynamic part
+_WS_STATIC_SMEM = 12 * 1024
+_WS_ATTN_ROWS = 64       # query rows of the attention tile design
+
+
+def _ws_per_warp(width: int) -> int:
+    """Accumulator fragments of 16 rows × 8 columns per warp for a
+    column tile of ``width``."""
+    return -(-(width // 8) // _WS_WARPS)
+
+
+def _ws_row_tile(rows: int, width: int) -> int:
+    """The kernel's row tile (csrc row_frags): 16 rows for a step of at
+    most 16, else the most of 64, 32, 16 whose accumulators for a column
+    tile of ``width`` fit a warp."""
+    if rows <= 16:
+        return 16
+    for frags in (4, 2, 1):
+        if _ws_per_warp(width) <= _WS_MAX_FRAGS // frags:
+            return 16 * frags
+    return 16
+
+
+def _ws_k_slices(rows: int) -> int:
+    """Contraction slices of every projection: enough work items to fill
+    the card when a step has few rows. Depends on the rows alone, never on
+    the tile count."""
+    return max(1, 8 // -(-rows // 16))
+
+
+def _ws_item_bytes(rows: int, width: int, isz: int) -> int:
+    """A projection work item's double-buffered weight (32 × width) and
+    activation (rows × 32) chunks, padded as the kernel pads them, plus
+    its f32 accumulators (rows × width, in registers)."""
+    bm, pad = _ws_row_tile(rows, width), 16 // isz
+    return 2 * (bm * (_WS_BK + pad) + _WS_BK * (width + pad)) * isz + 4 * bm * width
+
+
+def _ws_attn_smem(dk: int) -> int:
+    """Bytes of paged_attention.cuh's TileSmem<dk, 64>."""
+    floats = (64 * (dk + 4) + 64 * dk + _WS_ATTN_ROWS * (dk + 4)
+              + _WS_ATTN_ROWS * 68 + 2 * 64 + 3 * 4)
+    return 4 * floats + _WS_ATTN_ROWS * 64
+
+
+def _ws_widths(layer_arrays, tile_roles, tiles: int):
+    return [int(layer_arrays[w].shape[-1]) // tiles for (w, _b) in tile_roles.values()]
+
+
+def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
+                          tiles: int, tile_roles) -> int:
+    """On-chip bytes one block of the whole-step kernel holds for one
+    projection work item — one row tile (16 rows, or up to 64 for a step
+    of more than 16 rows) by one output-column tile of the widest tiled
+    weight: the double-buffered weight chunk (32 × width) and activation
+    chunk (rows × 32), padded as the kernel pads them, plus the f32
+    accumulators (rows × width, in registers); or, when larger, an LM-head
+    item (R rows × at most 256 columns) or the attention's tile design (a
+    KV head with more than one query row); plus the kernel's static shared
+    memory. ``x0`` (R, C, D) gives the step shape and the model dtype (a
+    "meta" tensor will do)."""
+    R, C, D = x0.shape
+    isz = x0.element_size()
+    wmax = max(_ws_widths(layer_arrays, tile_roles, tiles))
+    item = max(_ws_item_bytes(R * C, wmax, isz),
+               _ws_item_bytes(R, min(_WS_HEAD_COLS, wmax), isz))
+    dk = int(layer_arrays[tile_roles["q"][0]].shape[-1]) // num_heads
+    kv = int(cache["k"].shape[3])
+    attn = _ws_attn_smem(dk) if C * (num_heads // kv) > 1 else 0
+    return _WS_STATIC_SMEM + max(item, attn)
+
+
+def whole_step_tile_candidates(layer_arrays, tile_roles):
+    """Legal sub-block tile counts for this weight layout, ascending: the
+    divisors of the gcd of the tiled weights' output (last) dims, so that
+    each role splits into equal column tiles."""
+    g = 0
+    for wname, _b in tile_roles.values():
+        g = math.gcd(g, int(layer_arrays[wname].shape[-1]))
+    return tuple(t for t in range(1, g + 1) if g % t == 0)
+
+
+def whole_step_kernel_takes(layer_arrays, *, tiles: int, tile_roles) -> bool:
+    """Whether the CUDA kernel takes this tile count: every column tile a
+    whole number of 8-wide MMA columns, and the widest one's accumulators
+    for 16 rows within a warp's share (24 fragments of 16 × 8)."""
+    widths = _ws_widths(layer_arrays, tile_roles, tiles)
+    if any(w % 8 or w <= 0 for w in widths):
+        return False
+    return _ws_per_warp(max(widths)) <= _WS_MAX_FRAGS
+
+
+def whole_step_pick_tiles(layer_arrays, cache, x0, num_heads: int, *,
+                          tile_roles, budget: int):
+    """The SMALLEST candidate tile count the kernel takes whose priced
+    block footprint (:func:`whole_step_smem_bytes`) fits ``budget``.
+    Returns ``(tiles, est_bytes)``, or ``(None, best_est)`` when no legal
+    tiling fits (the attention and static floor alone exceed the budget):
+    the one condition under which the engine falls back to the per-layer
+    path."""
+    best = None
+    for t in whole_step_tile_candidates(layer_arrays, tile_roles):
+        if not whole_step_kernel_takes(layer_arrays, tiles=t, tile_roles=tile_roles):
+            continue
+        est = whole_step_smem_bytes(layer_arrays, cache, x0, num_heads,
+                                    tiles=t, tile_roles=tile_roles)
+        if best is None or est < best:
+            best = est
+        if est <= budget:
+            return t, est
+    return None, int(best or 0)
+
+
+def whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
+                          phys, off, mask, logits_idx, *, block_fn, head_fn):
+    """Plain version of the untiled walk: ``block_fn(p_l, x, cos, sin,
+    mask, k_pool, v_pool, k_scale, v_scale, phys, off, page_table) -> x``
+    runs layer l on its weights ``p_l`` and its pool views (updated in
+    place), then ``head_fn(head_arrays, x, logits_idx)`` gives the (R, V)
+    f32 logits. Returns ``(logits, greedy tokens (R,) int32, cache)``."""
+    quant = "k_scale" in cache
+    x = x0
+    for l in range(cache["k"].shape[0]):
+        p_l = {name: a[l] for name, a in layer_arrays.items()}
+        ks, vs = (cache["k_scale"][l], cache["v_scale"][l]) if quant else (None, None)
+        x = block_fn(p_l, x, cos, sin, mask, cache["k"][l], cache["v"][l], ks, vs,
+                     phys, off, page_table)
+    logits = head_fn(head_arrays, x, logits_idx)
+    return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def _whole_step_decode_tiled_ref(layer_arrays, head_arrays, x0, cos, sin, cache,
+                                 page_table, phys, off, mask, logits_idx, *, tiles: int,
+                                 tile_plan, head_fn):
+    """Plain version of the sub-block walk (the JAX package's
+    ``_whole_step_decode_tiled``): per layer four stages, each projection
+    computed one output-column tile at a time — Q/K/V tiles then
+    attention (``attend_fn``), out-projection tiles into the residual,
+    gate/up tiles through ``act_fn``, down tiles into the residual.
+    ``tile_plan`` holds ``roles`` ({role: (weight, bias or None)}),
+    ``mm_fn``, ``pre_fn(p, x)``, ``attend_fn(p, q, k, v, cos, sin, mask,
+    k_pool, v_pool, k_scale, v_scale, phys, off, page_table) -> attn``
+    (pools updated in place), ``mid_fn(p, x, h, x2)`` and
+    ``act_fn(gate or None, up)``."""
+    R, C, _ = x0.shape
+    K = int(tiles)
+    roles = tile_plan["roles"]
+    for r in ("q", "k", "v", "o", "up", "down"):
+        if r not in roles:
+            raise ValueError(f"whole_step tile_plan is missing role {r!r}")
+    glu = "gate" in roles
+    mm_fn, pre_fn, attend_fn = tile_plan["mm_fn"], tile_plan["pre_fn"], tile_plan["attend_fn"]
+    mid_fn, act_fn = tile_plan["mid_fn"], tile_plan["act_fn"]
+    tw = {}
+    for r in (x for x in _TILE_ROLE_ORDER if x in roles):
+        n = layer_arrays[roles[r][0]].shape[-1]
+        if n % K:
+            raise ValueError(f"whole_step tiles={K} does not divide {roles[r][0]!r} output "
+                             f"dim {n} (see whole_step_tile_candidates)")
+        tw[r] = n // K
+    quant = "k_scale" in cache
+
+    def tiled(r, p, h, out):
+        wname, bname = roles[r]
+        for t in range(K):
+            sl = slice(t * tw[r], (t + 1) * tw[r])
+            y = mm_fn(h, p[wname][:, sl])
+            out[..., sl] = y if bname is None else y + p[bname][sl]
+        return out
+
+    x = x0
+    for l in range(cache["k"].shape[0]):
+        p = {name: a[l] for name, a in layer_arrays.items()}
+        h = pre_fn(p, x)
+        q, k, v = (tiled(r, p, h, x.new_empty((R, C, tw[r] * K))) for r in ("q", "k", "v"))
+        ks, vs = (cache["k_scale"][l], cache["v_scale"][l]) if quant else (None, None)
+        attn = attend_fn(p, q, k, v, cos, sin, mask, cache["k"][l], cache["v"][l], ks, vs,
+                         phys, off, page_table)
+        x2 = x + tiled("o", p, attn, x.new_empty(x.shape))
+        h2 = mid_fn(p, x, h, x2)
+        up = tiled("up", p, h2, x.new_empty((R, C, tw["up"] * K)))
+        gate = tiled("gate", p, h2, torch.empty_like(up)) if glu else None
+        act = act_fn(gate, up)
+        x = x2 + tiled("down", p, act, x.new_empty(x.shape))
+    logits = head_fn(head_arrays, x, logits_idx)
+    return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+#: the layer and head tensors the CUDA kernel takes (the LLaMA layout)
+_WS_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3")
+_WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo", None),
+             "gate": ("w1", None), "up": ("w3", None), "down": ("w2", None)}
+
+
+def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys,
+                      off, mask, logits_idx, *, block_fn, head_fn, tiles: int = 1,
+                      tile_plan=None):
+    """The whole serving step of every layer in one kernel. ``layer_arrays``
+    are the stacked (L, …) layer weights, ``head_arrays`` the final norm
+    and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied);
+    x0 (R, C, D) the embedded step input; cos/sin (R, C, dk) f32; ``cache``
+    the paged pools (L, P+1, ps, KV, dk/pack) [+ (L, P+1, KV) scales],
+    updated in place; page_table (R, NP); phys/off (R, C) the page and
+    in-page offset of each new line; mask (R, C, NP*ps) bool; logits_idx
+    (R,) the row whose logits each slot returns. Returns ``(logits (R, V)
+    f32, greedy tokens (R,) int32, cache)``.
+
+    On CPU tensors it runs the plain version: the untiled walk through
+    ``block_fn``/``head_fn`` at ``tiles == 1``, the sub-block walk through
+    ``tile_plan`` otherwise. On CUDA tensors it launches
+    csrc/whole_step_decode.cu, which computes the LLaMA block (the layer
+    names of ``_WS_LAYER_NAMES``, RMS norms at ``tile_plan["eps"]``,
+    rotate-half RoPE, SwiGLU, pools quantized at ``tile_plan["qmax"]``),
+    or raises on a layout, shape, dtype, head dim or tile count it does
+    not take. Each launch adds one to
+    ``LAUNCHES["whole_step_decode[<pool>]"]``."""
+    candidates = (whole_step_tile_candidates(layer_arrays, tile_plan["roles"])
+                  if tile_plan is not None else (1,))
+    if tiles not in candidates:
+        raise ValueError(f"whole_step tiles={tiles} is not a legal tile count "
+                         f"{candidates} (see whole_step_tile_candidates)")
+    if x0.device.type == "cpu":
+        if tiles > 1:
+            return _whole_step_decode_tiled_ref(
+                layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys, off,
+                mask, logits_idx, tiles=tiles, tile_plan=tile_plan, head_fn=head_fn)
+        return whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache,
+                                     page_table, phys, off, mask, logits_idx,
+                                     block_fn=block_fn, head_fn=head_fn)
+    return _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache,
+                                   page_table, phys, off, mask, logits_idx, tiles, tile_plan)
+
+
+def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
+                            phys, off, mask, logits_idx, tiles, tile_plan):
+    if x0.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x0.device}")
+    if tile_plan is None or tile_plan.get("roles") != _WS_ROLES:
+        raise ValueError("the whole-step kernel computes the LLaMA block: it needs the "
+                         f"tile plan of its roles {_WS_ROLES} (with eps and qmax)")
+    if sorted(layer_arrays) != sorted(_WS_LAYER_NAMES):
+        raise ValueError(f"the whole-step kernel takes the layer tensors {_WS_LAYER_NAMES}; "
+                         f"got {sorted(layer_arrays)}")
+    tied = "lm_head" not in head_arrays
+    head = head_arrays["embed"] if tied else head_arrays["lm_head"]
+    dt = x0.dtype
+    if dt not in _CUDA_DTYPES:
+        raise ValueError(f"the whole-step kernel takes float32 or bfloat16; got {dt}")
+    R, C, D = x0.shape
+    L, _, Q = layer_arrays["wq"].shape
+    KVd = layer_arrays["wk"].shape[-1]
+    Fd = layer_arrays["w1"].shape[-1]
+    V = head.shape[0] if tied else head.shape[1]
+    k_pool, v_pool = cache["k"], cache["v"]
+    if k_pool.dim() != 5 or k_pool.shape != v_pool.shape or k_pool.shape[0] != L:
+        raise ValueError(f"pools must be (L={L}, P+1, ps, KV, dk/pack); got "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    _, P1, ps, KV, dkp = k_pool.shape
+    dk = KVd // KV
+    H = Q // dk
+    shapes = {"attn_norm": (L, D), "wq": (L, D, H * dk), "wk": (L, D, KV * dk),
+              "wv": (L, D, KV * dk), "wo": (L, H * dk, D), "ffn_norm": (L, D),
+              "w1": (L, D, Fd), "w2": (L, Fd, D), "w3": (L, D, Fd)}
+    for name, shape in shapes.items():
+        t = layer_arrays[name]
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name} must be {dt} {shape}; got {t.dtype} {tuple(t.shape)}")
+    if tuple(head.shape) != ((V, D) if tied else (D, V)) or head.dtype != dt:
+        raise ValueError(f"the LM head must be {dt} (D, V) (embed (V, D) when tied); got "
+                         f"{head.dtype} {tuple(head.shape)}")
+    if tuple(head_arrays["final_norm"].shape) != (D,) or head_arrays["final_norm"].dtype != dt:
+        raise ValueError(f"final_norm must be {dt} ({D},)")
+    if dk not in _CUDA_HEAD_DIMS or H * dk != Q or H % KV:
+        raise ValueError(f"the whole-step kernel has no head dim {dk} with H={H}, KV={KV} "
+                         f"(head dims {_CUDA_HEAD_DIMS})")
+    if ps not in _CUDA_PAGE_SIZES:
+        raise ValueError(f"the whole-step kernel has no page size {ps} "
+                         f"(has {_CUDA_PAGE_SIZES})")
+    if C > _FUSED_MAX_CHUNK:
+        raise ValueError(f"the whole-step kernel commits at most {_FUSED_MAX_CHUNK} lines "
+                         f"per slot; got C={C}")
+    if D % _WS_BK or Q % _WS_BK or Fd % _WS_BK or V % 8:
+        raise ValueError(f"the whole-step kernel needs D ({D}), H*dk ({Q}) and F ({Fd}) "
+                         f"multiples of {_WS_BK} and V ({V}) of 8")
+    if not whole_step_kernel_takes(layer_arrays, tiles=tiles, tile_roles=_WS_ROLES):
+        raise ValueError(f"the whole-step kernel does not take tiles={tiles} at these "
+                         "widths (see whole_step_kernel_takes)")
+    quant = "k_scale" in cache
+    qmax = tile_plan.get("qmax")
+    if quant != (qmax is not None):
+        raise ValueError("qmax is given exactly when the pools are quantized")
+    if quant:
+        pack = 2 if k_pool.dtype == torch.uint8 else 1
+        if k_pool.dtype not in (torch.int8, torch.uint8) or dkp * pack != dk:
+            raise ValueError(f"quantized pools hold int8 codes or uint8 nibble pairs of "
+                             f"head dim {dk}; got {k_pool.dtype} with {dkp}")
+        for name in ("k_scale", "v_scale"):
+            t = cache[name]
+            if tuple(t.shape) != (L, P1, KV) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 ({L}, {P1}, {KV})")
+        kind = 1 if pack == 1 else 2
+    else:
+        if k_pool.dtype != dt or dkp != dk:
+            raise ValueError(f"full-precision pools must be {dt} with head dim {dk}; got "
+                             f"{k_pool.dtype} {tuple(k_pool.shape)}")
+        kind = 0
+    NP = page_table.shape[-1]
+    if tuple(page_table.shape) != (R, NP) or page_table.dtype != torch.int32:
+        raise ValueError(f"page_table must be int32 ({R}, NP)")
+    if tuple(mask.shape) != (R, C, NP * ps) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool ({R}, {C}, {NP * ps})")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t is None or tuple(t.shape) != (R, C, dk) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({R}, {C}, {dk})")
+    phys, off = phys.to(torch.int32).contiguous(), off.to(torch.int32).contiguous()
+    logits_idx = logits_idx.to(torch.int32).contiguous()
+    if tuple(phys.shape) != (R, C) or tuple(off.shape) != (R, C) or logits_idx.shape != (R,):
+        raise ValueError(f"phys/off must be ({R}, {C}) and logits_idx ({R},)")
+    tensors = [*(layer_arrays[n] for n in _WS_LAYER_NAMES), head_arrays["final_norm"], head,
+               x0, cos, sin, k_pool, v_pool, cache.get("k_scale"), cache.get("v_scale"),
+               page_table, phys, off, mask, logits_idx]
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != x0.device:
+            raise ValueError("every operand of the whole-step kernel must lie on x0's device")
+        if not t.is_contiguous():
+            raise ValueError("every operand of the whole-step kernel must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("every operand of the whole-step kernel must be 16-byte aligned")
+    from . import _cuda
+
+    M = R * C
+    KS = _ws_k_slices(M)
+    logits = torch.empty((R, V), dtype=torch.float32, device=x0.device)
+    tokens = torch.empty((R,), dtype=torch.int32, device=x0.device)
+    scratch = torch.empty((M * (4 * D + 3 * Q + 3 * KVd + Fd) + R * D,), dtype=dt,
+                          device=x0.device)
+    work = torch.empty((KS * M * max(Q + 2 * KVd, D, 2 * Fd),), dtype=torch.float32,
+                       device=x0.device)
+    _cuda.launch(
+        "whole_step_decode",
+        tensors[:11] + [x0, cos, sin, k_pool, v_pool, cache.get("k_scale"),
+                        cache.get("v_scale"), page_table, phys, off, mask, logits_idx,
+                        logits, tokens, scratch, work],
+        [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
+         kind],
+        [tile_plan["eps"], 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
+    )
+    LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1
+    return logits, tokens, cache

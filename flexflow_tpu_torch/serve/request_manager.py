@@ -91,6 +91,11 @@ class Request:
 
 
 class RequestManager:
+    # The sync path of the "sampling" and "whole_step" fusions
+    # (engine.run_sampled) samples inside the step call; a manager whose
+    # engine calls need its own hooks (SpecInfer) turns it off.
+    supports_fused_sampling = True
+
     def __init__(
         self,
         engine: InferenceEngine,
@@ -668,6 +673,9 @@ class RequestManager:
         self._admit_pending()
 
     def _maybe_log_stats(self):
+        # the whole-step gate's telemetry, mirrored from the engine
+        self.stats.whole_step_fallbacks = self.engine.whole_step_fallbacks
+        self.stats.whole_step_smem_est = self.engine.whole_step_smem_est
         if self._step_counter % 200 == 0:
             self._log.debug("%s", self.stats.report())
 
@@ -726,8 +734,16 @@ class RequestManager:
         decoding = self._active(RequestStatus.DECODING)
         decode_only = bool(decoding) and not prefilling
         t0 = time.perf_counter()
-        logits = self.engine.run(bc)
-        sampled = self._sample(logits)
+        fused = self.engine.serving.fused_decode
+        if ("sampling" in fused or "whole_step" in fused) and self.supports_fused_sampling:
+            # sampling inside the step call: the (R, V) logits stay on the device
+            greedy, temp, topp, topk = self._decode_head_params(
+                [self.requests[r] for r in self.slots if r is not None])
+            sampled = self.engine.run_sampled(bc, self._generator, greedy, temp, topp,
+                                              topk).cpu().numpy()
+        else:
+            logits = self.engine.run(bc)
+            sampled = self._sample(logits)
         if decode_only:
             # the full blocking step wall time (this path syncs by design)
             self.stats.note_decode_step_ms((time.perf_counter() - t0) * 1e3)

@@ -260,3 +260,132 @@ def test_cuda_bf16_train_step_flash_and_torch(cuda_device, remat, policy, fwd_la
                                                                  grads["torch"]))
     den = sum(float(w.double().pow(2).sum()) for w in grads["torch"])
     assert math.sqrt(num / den) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# whole-step serving kernel
+
+
+def _whole_case(dev, dtype, quant, C, KV, ps):
+    """A 2-layer LLaMA at small widths (D 256, 4 heads of 64, F 512, V
+    512) and a paged cache warmed by one unfused step: slot 0 holds 9
+    lines, slot 1 holds 20, slot 2 is idle. The step under test writes C
+    new lines per live slot (slot 2's columns are padding)."""
+    from flexflow_tpu_torch.models import llama as tl
+
+    cfg = tl.LLaMAConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=KV,
+                         max_position_embeddings=512, dtype=dtype)
+    params = tl.init_params(torch.Generator(device=dev).manual_seed(4), cfg, device=dev)
+    R, NP = 3, 4
+    cache_len = NP * ps - 1
+    P = R * NP
+    cache = tl.init_paged_kv_cache(cfg, P, ps, kv_quant=quant, device=dev)
+    held = [9, 20, 0]
+    table = torch.full((R, NP), P, dtype=torch.int32)
+    for r, n in enumerate(held):
+        pages = -(-(n + C) // ps)
+        table[r, :pages] = torch.arange(r * NP, r * NP + pages)
+    table = table.to(dev)
+    gen = torch.Generator().manual_seed(5)
+    width = max(held)
+    toks = torch.randint(1, cfg.vocab_size, (R, width), generator=gen)
+    pos = torch.full((R, width), cache_len)
+    for r, n in enumerate(held):
+        pos[r, :n] = torch.arange(n)
+    tl.serve_step_paged(params, cache, toks.to(dev), pos.to(dev),
+                        torch.zeros(R, dtype=torch.long, device=dev), None, None, table,
+                        cfg=cfg, cache_len=cache_len, kv_quant=quant)
+    toks = torch.randint(1, cfg.vocab_size, (R, C), generator=gen)
+    pos = torch.full((R, C), cache_len)
+    for r, n in enumerate(held[:2]):
+        pos[r] = torch.arange(n, n + C)
+    li = torch.tensor([C - 1, C - 2 if C > 1 else 0, 0])
+    step = (toks.to(dev), pos.to(dev), li.to(dev), table)
+    return cfg, params, cache, step, cache_len, P
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("C,KV", [(1, 4), (1, 2), (8, 2)])
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_whole_step_matches_plain_version(cuda_device, dtype, quant, C, KV, ps):
+    """The kernel against the plain walk (kernels="torch" on the card) at
+    the smallest and the largest tile count it takes: the live slots'
+    logits and tokens and the non-scratch pool bytes and scales bitwise
+    equal across the two counts; against the
+    plain version, f32 logits to 1e-4 relative with equal tokens and pools
+    to one code, bf16 logits and pools within bf16's rounding of each
+    other (relative L2 2e-2)."""
+    from flexflow_tpu_torch.models import llama as tl
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    cfg, params, cache, step, cache_len, P = _whole_case(cuda_device, dtype, quant, C, KV, ps)
+    la, _ = tl.whole_step_weight_layout(params, cfg)
+    roles = tl.whole_step_tile_roles(cfg)
+    x0 = torch.empty((3, C, cfg.hidden_size), dtype=dtype, device="meta")
+    legal = [t for t in tk.whole_step_tile_candidates(la, roles)
+             if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
+    assert len(legal) >= 2
+    runs = {}
+    for name, kernels, tiles in (("lo", "cuda", legal[0]), ("hi", "cuda", legal[-1]),
+                                 ("plain", "torch", legal[0])):
+        c = {k: v.clone() for k, v in cache.items()}
+        before = dict(tk.LAUNCHES)
+        logits, toks, _ = tl.serve_step_whole(params, c, *step, cfg=cfg, cache_len=cache_len,
+                                              kv_quant=quant, tiles=tiles, kernels=kernels)
+        torch.cuda.synchronize()
+        key = f"whole_step_decode[{tk.pool_type(c['k'])}]"
+        assert tk.LAUNCHES[key] == before[key] + (kernels == "cuda")
+        runs[name] = (logits, toks, c)
+    # slot 2 is idle: its logits read the scratch page, which every
+    # padding line writes in no fixed order
+    (lo, tlo, clo), (hi, thi, chi), (pl, tpl, cpl) = (
+        (lg[:2], tk_[:2], c) for lg, tk_, c in (runs["lo"], runs["hi"], runs["plain"]))
+    assert torch.equal(lo, hi) and torch.equal(tlo, thi)
+    for k in clo:
+        assert torch.equal(clo[k][:, :P], chi[k][:, :P]), k
+    assert bool(torch.isfinite(lo).all())
+    assert torch.equal(tlo, torch.argmax(lo, dim=-1))
+    pack = 1 if quant is None else kq.SPECS[quant].pack
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    if dtype == torch.float32:
+        assert rel(lo, pl) <= 1e-4 and torch.equal(tlo, tpl)
+        for k in ("k", "v"):
+            d = kq.unpack_codes(clo[k][:, :P], pack) - kq.unpack_codes(cpl[k][:, :P], pack)
+            assert float(d.abs().max()) <= (1e-4 if quant is None else 1.0), k
+    else:
+        assert rel(lo, pl) <= 2e-2
+        for k in ("k", "v"):
+            a, b = clo[k][:, :P], cpl[k][:, :P]
+            if quant is not None:
+                s = f"{k}_scale"
+                a = kq.unpack_codes(a, pack) * clo[s][:, :P, None, :, None]
+                b = kq.unpack_codes(b, pack) * cpl[s][:, :P, None, :, None]
+            assert rel(a, b) <= 2e-2, k
+    if quant is not None:
+        for s in ("k_scale", "v_scale"):
+            torch.testing.assert_close(clo[s][:, :P], cpl[s][:, :P],
+                                       rtol=1e-4 if dtype == torch.float32 else 2e-2, atol=0)
+
+
+def test_cuda_whole_step_raises_instead_of_falling_back(cuda_device):
+    from flexflow_tpu_torch.models import llama as tl
+
+    cfg, params, cache, step, cache_len, _ = _whole_case(cuda_device, torch.bfloat16, None, 1,
+                                                          2, 16)
+    with pytest.raises(ValueError, match="tiles"):  # a 128 / 32 = 4-wide K/V tile
+        tl.serve_step_whole(params, cache, *step, cfg=cfg, cache_len=cache_len, tiles=32,
+                            kernels="cuda")
+    small = tl.LLaMAConfig.tiny(dtype=torch.float32)  # head dim 16: no kernel
+    p = tl.init_params(torch.Generator(device=cuda_device).manual_seed(0), small,
+                       device=cuda_device)
+    c = tl.init_paged_kv_cache(small, 4, 16, device=cuda_device)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda_device)
+    one = torch.zeros((1, 1), dtype=torch.long, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tl.serve_step_whole(p, c, one, one, one[0], table, cfg=small, cache_len=31,
+                            kernels="cuda")

@@ -196,8 +196,7 @@ SERVE_NO_PS = {k: v for k, v in SERVE.items() if k != "page_size"}
 
 def test_later_slice_fields_still_raise_and_head_dim_pack_is_checked(weights):
     cfg_t, params_t = weights[2], weights[3]
-    for serve in (dict(prefix_caching=True), dict(fused_decode=("sampling",)),
-                  dict(fused_decode=("whole_step",))):
+    for serve in (dict(prefix_caching=True), dict(quantized_allreduce="int8")):
         with pytest.raises(NotImplementedError, match="slice"):
             InferenceEngine(tl, cfg_t, params_t,
                             ServingConfig(kv_layout="paged", **SERVE, **serve), device="cpu")
@@ -211,6 +210,7 @@ def test_later_slice_fields_still_raise_and_head_dim_pack_is_checked(weights):
 
 def test_cpu_serving_launches_no_kernel(weights):
     before = dict(tk.LAUNCHES)
-    _port(weights, kernels="cuda", fused_decode=("rope_kv_write",), **TIGHT).generate(
-        PROMPTS[:2], max_new_tokens=3)
+    for fused in (("rope_kv_write",), ("whole_step",)):
+        _port(weights, kernels="cuda", fused_decode=fused, **TIGHT).generate(
+            PROMPTS[:2], max_new_tokens=3)
     assert tk.LAUNCHES == before

@@ -118,19 +118,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
         InferenceEngine(tl, cfg_t, params_t, ServingConfig(**SERVE))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("kv_shard", "context"),
-    ("fused_decode", ("sampling",)),
-    ("fused_decode", ("whole_step",)),
-    ("prefix_caching", True),
-    ("replicas", 2),
-    ("inference_debugging", "/nonexistent"),
+@pytest.mark.parametrize("field,value,exc", [
+    pytest.param("kv_shard", "context", NotImplementedError, id="kv_shard-context"),
+    # fused_decode "sampling" and "whole_step" are ported (slice 4): the
+    # first builds on the dense layout, the second needs the paged one
+    pytest.param("fused_decode", ("sampling",), None, id="fused_decode-value1"),
+    pytest.param("fused_decode", ("whole_step",), ValueError, id="fused_decode-value2"),
+    pytest.param("prefix_caching", True, NotImplementedError, id="prefix_caching-True"),
+    pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
+    pytest.param("inference_debugging", "/nonexistent", NotImplementedError,
+                 id="inference_debugging-/nonexistent"),
 ])
-def test_unported_serving_fields_raise(weights, field, value):
+def test_unported_serving_fields_raise(weights, field, value, exc):
+    """A field of a later slice raises NotImplementedError naming it; a
+    ported one builds, or raises the JAX engine's ValueError."""
     cfg_t, params_t = weights[2], weights[3]
-    with pytest.raises(NotImplementedError, match="slice"):
-        InferenceEngine(tl, cfg_t, params_t,
-                        ServingConfig(**{field: value}, **SERVE), device="cpu")
+    sc = ServingConfig(**{field: value}, **SERVE)
+    if exc is None:
+        assert InferenceEngine(tl, cfg_t, params_t, sc, device="cpu").serving is sc
+        return
+    with pytest.raises(exc, match="slice" if exc is NotImplementedError else "paged"):
+        InferenceEngine(tl, cfg_t, params_t, sc, device="cpu")
 
 
 def test_unknown_kernels_value_raises():
