@@ -614,10 +614,14 @@ WHOLE_CASES = (
 )
 # f32 kernel vs plain version: summation order only
 WHOLE_F32_RTOL = 1e-4
-# f32 logits of the kernel against a plain or unfused path on a quantized
-# pool: the kernel projects in its own order, so a K/V value at a rounding
-# tie may take the other code, which moves the logits by up to ~0.5%
-F32_TIE_REL_L2 = 1e-2
+# f32 logits of the kernel against a plain or unfused path on an int4
+# pool: the kernel projects in its own summation order, so a K/V value at a
+# rounding tie may take the other code (~560 of 143M code bytes in one
+# mixed step on LLaMA-7B widths, measured on an H100), which moves the
+# logits by 1.2e-3 to 2.1e-3 in that step and by 4.4e-3 to 4.8e-3 over 16
+# served tokens (relative L2); the limit is 1.5 times the largest, two
+# thirds of bf16's own distance from f32 (1.07e-2 to 1.25e-2)
+F32_TIE_REL_L2 = 7e-3
 
 
 def _whole_case(gen, rng, dtype, quant, KV, kind):
@@ -664,27 +668,33 @@ def _whole_case(gen, rng, dtype, quant, KV, kind):
 def _whole_bound(case):
     """Least time of one step on these inputs: the larger of its bytes
     (every weight, the LM head included, read once; the distinct K/V pages
-    the mask opens in every layer, with their scales; the new lines
-    written) over the HBM rate, and its operations (2 * rows * the layer
-    projections' weights, 2 * R * D * V for the head, 4 * attended pairs *
-    H * dk per layer for attention) over the model dtype's peak."""
+    the mask opens in every layer, with their scales; the live rows' new
+    lines written) over the HBM rate, and its operations (2 * live rows *
+    the layer projections' weights, 2 * live slots * D * V for the head,
+    4 * attended pairs * H * dk per layer for attention) over the model
+    dtype's peak. A live row is one whose position is in the cache (the
+    rest are padding the step need not compute), a live slot one whose
+    logits_idx row is live: counted as the attention term counts the
+    mask's pairs."""
     cfg, p, cache = case["cfg"], case["params"], case["cache"]
     L, D, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
     H, dk = cfg.num_attention_heads, cfg.head_dim
-    R, C, ps, NP = case["R"], case["C"], case["ps"], case["NP"]
+    R, ps, NP = case["R"], case["ps"], case["NP"]
     isz = p["embed"].element_size()
     layer_params = sum(w[0].numel() for w in p["layers"].values())
     proj_params = sum(p["layers"][n][0].numel() for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"))
     mask = K.paged_serve_mask(None, case["pos"], NP, ps, case["cache_len"])
-    opened = mask.reshape(R, C, NP, ps).any(dim=3).any(dim=1)
+    opened = mask.reshape(R, -1, NP, ps).any(dim=3).any(dim=1)
     pages = int(case["table"][opened].unique().numel())
+    rows = int((case["pos"] < case["cache_len"]).sum())
+    slots = int((case["pos"].gather(1, case["li"][:, None]) < case["cache_len"]).sum())
     kp = cache["k"]
     page_bytes = ps * kp.shape[3] * kp.shape[4] * kp.element_size()
     nbytes = isz * (L * layer_params + D * V + D) + 2 * L * pages * page_bytes
-    nbytes += 2 * L * R * C * kp.shape[3] * kp.shape[4] * kp.element_size()
+    nbytes += 2 * L * rows * kp.shape[3] * kp.shape[4] * kp.element_size()
     if "k_scale" in cache:
         nbytes += 2 * L * pages * kp.shape[3] * 4
-    flops = (2 * R * C * L * proj_params + 2 * R * D * V
+    flops = (2 * rows * L * proj_params + 2 * slots * D * V
              + 4 * L * int(mask.sum()) * H * dk)
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[p["embed"].dtype]
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), nbytes, flops
@@ -721,8 +731,8 @@ def run_whole_check(label, case):
     pools and scales).
     f32: logits within WHOLE_F32_RTOL (relative L2; F32_TIE_REL_L2 on
     quantized pools, where a value at a rounding tie may take the other
-    code), tokens equal (on quantized pools, or differing at a tie), pools
-    to 1e-4 / one code, scales within F32_TIE_REL_L2. bf16: logits, pool values (codes
+    code), tokens equal (on int4 pools, or differing at a tie), pools to
+    1e-4 / one code, scales within F32_TIE_REL_L2. bf16: logits, pool values (codes
     times scales) and scales no further from the plain version than
     SLICE_PATHS times the plain bf16 path's distance from the same step in
     f32. Times: the kernel, its plain
@@ -782,7 +792,8 @@ def run_whole_check(label, case):
                      "D": cfg.hidden_size, "H": cfg.num_attention_heads,
                      "KV": cfg.num_key_value_heads, "F": cfg.intermediate_size,
                      "V": cfg.vocab_size, "ps": case["ps"], "NP": case["NP"], "P": P},
-           "live_rows": int(live.sum()), "tiles": gate, "tiles_other": other,
+           "live_slots": int(live.sum()),
+           "live_rows": int((case["pos"] < case["cache_len"]).sum()), "tiles": gate, "tiles_other": other,
            "smem_est": est, "bitwise_across_tiles": bitwise,
            "max_abs_err": float((lg - lp).abs().max()),
            "logits_rel_l2_vs_plain": _rel(lg, lp),
@@ -797,13 +808,17 @@ def run_whole_check(label, case):
                               .abs().max()) if quant else _rel(cg[k], cp[k]))
                     for k in ("k", "v")}
         row["pool_err_vs_plain"] = pool_err
+        if quant:  # how many codes took the other side of a tie
+            row["codes_differ"] = {k: f"{int((cg[k] != cp[k]).sum())}/{cg[k].numel()} bytes"
+                                   for k in ("k", "v")}
         rtol = F32_TIE_REL_L2 if quant else WHOLE_F32_RTOL
         check(row["logits_rel_l2_vs_plain"] <= rtol,
               f"whole[{label}]: f32 logits {row['logits_rel_l2_vs_plain']} from the plain version")
         flips = tg != tp
         top2 = lp.topk(2, dim=-1).values
         margin, diff = top2[:, 0] - top2[:, 1], (lg - lp).abs().amax(dim=-1)
-        check(bool((margin[flips] <= 2 * diff[flips]).all()) if quant else not bool(flips.any()),
+        check(bool((margin[flips] <= 2 * diff[flips]).all()) if quant == "int4"
+              else not bool(flips.any()),
               f"whole[{label}]: f32 tokens differ from the plain version")
         for k, e in pool_err.items():
             check(e <= (1.0 if quant else 1e-4), f"whole[{label}]: {k} pool error {e}")
@@ -1202,25 +1217,48 @@ def phase_paged(seed, holder, arms):
     return launches
 
 
-def _tie_check(cfg, params, prompts, ref_outs, got_kw, ref_kw):
-    """Teacher-force the reference run's tokens through both
-    configurations: the logits within F32_TIE_REL_L2 (relative L2), and
-    every step whose argmax differs a tie, its reference top-two margin
-    within twice the row's largest logit difference."""
-    seqs = [p + o[:-1] for p, o in zip(prompts, ref_outs)]
-    plens = [len(p) for p in prompts]
-    a, b = (torch.cat(_teacher_forced_logits(
-        cfg, params, ServingConfig(cache_dtype=torch.float32,
-                                   max_requests_per_batch=len(seqs), **kw), seqs, plens))
-        for kw in (got_kw, ref_kw))
-    diff = (a - b).abs().amax(dim=-1)
-    top2 = b.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    flips = a.argmax(-1) != b.argmax(-1)
-    out = {"rel_l2": _rel(a, b), "max_abs": float(diff.max()), "flips": int(flips.sum()),
-           "flip_margins": margin[flips].tolist(), "flip_diffs": diff[flips].tolist()}
-    check(out["rel_l2"] <= F32_TIE_REL_L2, f"f32 whole-step logits off: {out}")
-    check(bool((margin[flips] <= 2 * diff[flips]).all()), f"f32 token flip is no tie: {out}")
+def _record_steps(eng):
+    """Keep the logits of every step the engine serves, by (slot, sampled
+    position), on the host: wraps ``eng.run_mixed``, which the pipelined
+    decode and mixed steps both go through."""
+    rec, run, scratch = {}, eng.run_mixed, eng.scratch_pos
+
+    def run_mixed(last, host, use_last, positions, logits_idx, *head, with_logits=False):
+        toks, logits = run(last, host, use_last, positions, logits_idx, *head, with_logits=True)
+        at = np.asarray(positions)[np.arange(len(logits_idx)), np.asarray(logits_idx)]
+        live = np.flatnonzero(at < scratch)
+        for s, lg in zip(live, logits[torch.from_numpy(live).to(logits.device)].cpu()):
+            rec[(int(s), int(at[s]))] = lg
+        return (toks, logits) if with_logits else toks
+
+    eng.run_mixed = run_mixed
+    return rec
+
+
+def _divergence(plens, got, want, rec_got, rec_want):
+    """Where two greedy runs part, read from the logits they served
+    (request i sits in slot i of a fresh engine): for each request whose
+    tokens differ, its first differing step t, the reference's top-two
+    margin and the largest logit difference there, and the relative L2 of
+    the two runs' logits over the request's steps 0..t (the same inputs
+    up to there). A token may part only at a tie: the margin within twice
+    the difference, and the logits within F32_TIE_REL_L2."""
+    out = []
+    for i, (a_toks, b_toks) in enumerate(zip(got, want)):
+        if a_toks == b_toks:
+            continue
+        t = next(k for k, (x, y) in enumerate(zip(a_toks, b_toks)) if x != y)
+        keys = [(i, plens[i] - 1 + k) for k in range(t + 1)]
+        a = torch.stack([rec_got[k] for k in keys])
+        b = torch.stack([rec_want[k] for k in keys])
+        check(a.argmax(-1).tolist() == a_toks[:t + 1] and b.argmax(-1).tolist() == b_toks[:t + 1],
+              f"request {i}: the recorded logits are not the ones its tokens came from")
+        top2 = b[-1].topk(2).values
+        d = {"request": i, "step": t, "margin": float(top2[0] - top2[1]),
+             "max_abs_diff": float((a[-1] - b[-1]).abs().max()), "rel_l2": _rel(a, b)}
+        check(d["margin"] <= 2 * d["max_abs_diff"], f"f32 token parts at no tie: {d}")
+        check(d["rel_l2"] <= F32_TIE_REL_L2, f"f32 whole-step logits off: {d}")
+        out.append(d)
     return out
 
 
@@ -1228,7 +1266,9 @@ def phase_f32(seed):
     """Full width, 2 layers, f32: greedy tokens equal across kernels
     ("cuda" and "torch") on the dense layout and on f32, int8 and int4
     pools; fused, whole-step and unfused (f32, int8 and int4 pools); paged
-    and dense. Returns the launches of its paged runs."""
+    and dense. The int4 whole-step run alone may part from the unfused
+    runs, and only at a rounding tie (:func:`_divergence`). Returns the
+    launches of its paged runs."""
     cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=2, dtype=torch.float32)
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
@@ -1251,9 +1291,10 @@ def phase_f32(seed):
         "int8-whole": dict(paged, kv_quant="int8", **whole),
         "int4-whole": dict(paged, kv_quant="int4", **whole),
     }
-    outs, launches = {}, {}
+    outs, launches, recs = {}, {}, {}
     for name, kw in runs.items():
         llm.compile(ServingConfig(cache_dtype=torch.float32, **kw))
+        recs[name] = _record_steps(llm.engine)
         K.reset_launch_counts()
         outs[name] = [r.output_tokens for r in llm.generate(prompts, max_new_tokens=16)]
         for k, v in K.LAUNCHES.items():
@@ -1272,19 +1313,18 @@ def phase_f32(seed):
     for a, b in pairs:
         if outs[a] == outs[b]:
             continue
-        # the whole-step kernel projects in its own summation order: on a
-        # quantized pool a K/V value at a rounding tie may take the other
-        # code, which moves the logits by far less than a code step. A
-        # greedy token may then differ only where the reference's top two
-        # logits are closer than that move (a tie), checked teacher-forced
-        # over the reference's tokens.
-        check(a.endswith("-whole") and "kv_quant" in runs[a],
-              f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
-        ties[f"{a} vs {b}"] = _tie_check(cfg, llm.params, prompts, outs[b], runs[a], runs[b])
+        # the whole-step kernel projects in its own summation order: on an
+        # int4 pool a K/V value at a rounding tie may take the other code
+        # (one code step is 1/7 of the page's amax). A greedy token may
+        # then part only where the reference's top two logits are closer
+        # than the logits moved; every other pair is equal token for token
+        check(a == "int4-whole", f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
+        ties[f"{a} vs {b}"] = _divergence([len(p) for p in prompts], outs[a], outs[b],
+                                          recs[a], recs[b])
     emit({"phase": "f32_tokens", "layers": 2, "requests": len(prompts),
           "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs
                                       if f"{a} vs {b}" not in ties],
-          "equal_but_ties": ties, "launches": launches})
+          "parted_at_ties": ties, "launches": launches})
     for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
               "whole_step_decode[f32]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")

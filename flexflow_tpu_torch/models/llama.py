@@ -573,45 +573,11 @@ def _whole_head_fn(cfg: LLaMAConfig, head, x, logits_idx):
 
 
 def whole_step_tile_roles(cfg: LLaMAConfig) -> Dict[str, Tuple[str, Optional[str]]]:
-    """The weight (and bias: none in LLaMA) behind each column-tiled role
-    of the sub-block walk: w1 gates, w3 lifts, w2 closes."""
+    """The weight (and bias: none in LLaMA) behind each role the kernel
+    splits into output-column tiles: w1 gates, w3 lifts, w2 closes."""
     return {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None),
             "o": ("wo", None), "gate": ("w1", None), "up": ("w3", None),
             "down": ("w2", None)}
-
-
-def _whole_tile_plan(cfg: LLaMAConfig, qmax):
-    """The sub-block walk's closures — the ops of :func:`_block_paged_torch`
-    split at the projection boundaries — plus the constants the CUDA
-    kernel takes (``eps``, ``qmax``)."""
-    from ..serve import kernels as _k
-
-    def pre_fn(p, x):
-        return _rms(x, p["attn_norm"], cfg.rms_norm_eps)
-
-    def attend_fn(p, q, k, v, cs, sn, mask, kb, vb, ks, vs, ph, of, pt):
-        R, C, _ = q.shape
-        dk = cfg.head_dim
-        q = apply_rope(q.reshape(R, C, -1, dk), cs, sn)
-        k = apply_rope(k.reshape(R, C, -1, dk), cs, sn)
-        _k.commit_paged(kb, vb, k, v.reshape(R, C, -1, dk), ph, of, ks, vs, qmax)
-        if qmax is not None:
-            k_virt = _k.dequant_pages(kb, ks, pt, q.dtype)
-            v_virt = _k.dequant_pages(vb, vs, pt, q.dtype)
-        else:
-            k_virt = _k.gather_pages(kb, pt)
-            v_virt = _k.gather_pages(vb, pt)
-        return serve_attention(cfg, q, k_virt, v_virt, mask)
-
-    def mid_fn(p, x, h, x2):
-        return _rms(x2, p["ffn_norm"], cfg.rms_norm_eps)
-
-    def act_fn(g, u):
-        return F.silu(g) * u
-
-    return {"roles": whole_step_tile_roles(cfg), "mm_fn": _mm, "pre_fn": pre_fn,
-            "attend_fn": attend_fn, "mid_fn": mid_fn, "act_fn": act_fn,
-            "eps": cfg.rms_norm_eps, "qmax": qmax}
 
 
 def serve_step_whole(
@@ -635,12 +601,13 @@ def serve_step_whole(
     the kernel, as in the JAX package. ``kernels="cuda"`` goes through
     serve/kernels.whole_step_decode (the CUDA kernel on a GPU, its plain
     version on the CPU), ``"torch"`` straight to the plain version;
-    ``tiles`` is the engine gate's output-column tile count.
+    ``tiles`` is the engine gate's output-column tile count, which the
+    kernel's answer does not depend on.
 
     Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)``, the
-    cache updated in place. At ``tiles=1`` the plain version runs the ops
-    of :func:`serve_step_paged` (``kernels="torch"``), so it is bitwise
-    that step."""
+    cache updated in place. The plain version runs the ops of
+    :func:`serve_step_paged` (``kernels="torch"``) at every tile count, so
+    it is bitwise that step."""
     if kernels not in ("cuda", "torch"):
         raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
     from ..serve import kernels as _k
@@ -664,15 +631,12 @@ def serve_step_whole(
     def head_fn(head, xv, li):
         return _whole_head_fn(cfg, head, xv, li)
 
-    plan = _whole_tile_plan(cfg, qmax)
     args = (layer_arrays, head_arrays, x, cos, sin, cache, page_table, phys, off, mask,
             logits_idx)
     if kernels == "cuda":
-        logits, toks, cache = _k.whole_step_decode(*args, block_fn=block_fn, head_fn=head_fn,
-                                                   tiles=tiles, tile_plan=plan)
-    elif tiles > 1:
-        logits, toks, cache = _k._whole_step_decode_tiled_ref(*args, tiles=tiles,
-                                                             tile_plan=plan, head_fn=head_fn)
+        logits, toks, cache = _k.whole_step_decode(
+            *args, block_fn=block_fn, head_fn=head_fn, tile_roles=whole_step_tile_roles(cfg),
+            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles)
     else:
         logits, toks, cache = _k.whole_step_decode_ref(*args, block_fn=block_fn,
                                                        head_fn=head_fn)

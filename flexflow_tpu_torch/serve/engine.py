@@ -131,10 +131,9 @@ class ServingConfig:
     cache_policy: str = "complete"
     # Decode-step fusions. "rope_kv_write" (paged layout): RoPE and the
     # K/V page write run inside the paged attention kernel
-    # (serve/kernels.fused_rope_paged_attention). "sampling": the sync
-    # path samples inside the step call (InferenceEngine.run_sampled).
-    # "whole_step" (paged layout): the whole decode step — and the mixed
-    # step when the gate prices it — runs as one persistent kernel
+    # (serve/kernels.fused_rope_paged_attention). "whole_step" (paged
+    # layout): the whole decode step — and the mixed step when the gate
+    # prices it — runs as one persistent kernel
     # (serve/kernels.whole_step_decode, model.serve_step_whole), with the
     # output-column tile count the engine's gate picks; below the gate's
     # floor the engine falls back to the per-layer path.
@@ -178,6 +177,12 @@ class ServingConfig:
                 raise ValueError(
                     f"unknown fused_decode entry {name!r} (expected "
                     "'rope_kv_write', 'sampling' and/or 'whole_step')"
+                )
+            if name == "sampling":
+                raise NotImplementedError(
+                    "ServingConfig.fused_decode='sampling' is not ported: the eager step "
+                    "already samples on the device, so it waits for a later slice whose "
+                    "step has a head to fuse"
                 )
         paged = self.kv_layout == "paged"
         if "whole_step" in self.fused_decode and not paged:
@@ -536,7 +541,7 @@ class InferenceEngine:
     def run_sampled(self, bc: BatchConfig, generator, greedy, temperature, topp, topk,
                     with_logits: bool = False):
         """The sync step with its sampling in the same call (the
-        ``"sampling"`` and ``"whole_step"`` fusions' sync path): the
+        ``"whole_step"`` fusion's sync path): the
         whole-step kernel when it owns the step's shape (no explicit mask
         or cache positions), else the per-layer step; then each slot's
         head, drawing from ``generator``. Returns the sampled tokens (R,)

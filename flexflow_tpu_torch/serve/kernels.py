@@ -612,11 +612,6 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale):
 #: memory a block may opt into on an H100 (227 KB)
 WHOLE_STEP_SMEM_BUDGET = 227 * 1024
 
-#: column-tiled projection roles in the order of the walk's four stages:
-#: Q/K/V (attention after the last tile), out-projection, MLP gate/up,
-#: MLP down
-_TILE_ROLE_ORDER = ("q", "k", "v", "o", "gate", "up", "down")
-
 # geometry of csrc/whole_step_decode.cu
 _WS_BK = 32              # K depth of a staged weight chunk
 _WS_WARPS = 8            # warps of a block (256 threads)
@@ -754,63 +749,6 @@ def whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache, page_t
     return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-def _whole_step_decode_tiled_ref(layer_arrays, head_arrays, x0, cos, sin, cache,
-                                 page_table, phys, off, mask, logits_idx, *, tiles: int,
-                                 tile_plan, head_fn):
-    """Plain version of the sub-block walk (the JAX package's
-    ``_whole_step_decode_tiled``): per layer four stages, each projection
-    computed one output-column tile at a time — Q/K/V tiles then
-    attention (``attend_fn``), out-projection tiles into the residual,
-    gate/up tiles through ``act_fn``, down tiles into the residual.
-    ``tile_plan`` holds ``roles`` ({role: (weight, bias or None)}),
-    ``mm_fn``, ``pre_fn(p, x)``, ``attend_fn(p, q, k, v, cos, sin, mask,
-    k_pool, v_pool, k_scale, v_scale, phys, off, page_table) -> attn``
-    (pools updated in place), ``mid_fn(p, x, h, x2)`` and
-    ``act_fn(gate or None, up)``."""
-    R, C, _ = x0.shape
-    K = int(tiles)
-    roles = tile_plan["roles"]
-    for r in ("q", "k", "v", "o", "up", "down"):
-        if r not in roles:
-            raise ValueError(f"whole_step tile_plan is missing role {r!r}")
-    glu = "gate" in roles
-    mm_fn, pre_fn, attend_fn = tile_plan["mm_fn"], tile_plan["pre_fn"], tile_plan["attend_fn"]
-    mid_fn, act_fn = tile_plan["mid_fn"], tile_plan["act_fn"]
-    tw = {}
-    for r in (x for x in _TILE_ROLE_ORDER if x in roles):
-        n = layer_arrays[roles[r][0]].shape[-1]
-        if n % K:
-            raise ValueError(f"whole_step tiles={K} does not divide {roles[r][0]!r} output "
-                             f"dim {n} (see whole_step_tile_candidates)")
-        tw[r] = n // K
-    quant = "k_scale" in cache
-
-    def tiled(r, p, h, out):
-        wname, bname = roles[r]
-        for t in range(K):
-            sl = slice(t * tw[r], (t + 1) * tw[r])
-            y = mm_fn(h, p[wname][:, sl])
-            out[..., sl] = y if bname is None else y + p[bname][sl]
-        return out
-
-    x = x0
-    for l in range(cache["k"].shape[0]):
-        p = {name: a[l] for name, a in layer_arrays.items()}
-        h = pre_fn(p, x)
-        q, k, v = (tiled(r, p, h, x.new_empty((R, C, tw[r] * K))) for r in ("q", "k", "v"))
-        ks, vs = (cache["k_scale"][l], cache["v_scale"][l]) if quant else (None, None)
-        attn = attend_fn(p, q, k, v, cos, sin, mask, cache["k"][l], cache["v"][l], ks, vs,
-                         phys, off, page_table)
-        x2 = x + tiled("o", p, attn, x.new_empty(x.shape))
-        h2 = mid_fn(p, x, h, x2)
-        up = tiled("up", p, h2, x.new_empty((R, C, tw["up"] * K)))
-        gate = tiled("gate", p, h2, torch.empty_like(up)) if glu else None
-        act = act_fn(gate, up)
-        x = x2 + tiled("down", p, act, x.new_empty(x.shape))
-    logits = head_fn(head_arrays, x, logits_idx)
-    return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
-
-
 #: the layer and head tensors the CUDA kernel takes (the LLaMA layout)
 _WS_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3")
 _WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo", None),
@@ -818,8 +756,8 @@ _WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo"
 
 
 def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys,
-                      off, mask, logits_idx, *, block_fn, head_fn, tiles: int = 1,
-                      tile_plan=None):
+                      off, mask, logits_idx, *, block_fn, head_fn, tile_roles, eps: float,
+                      qmax=None, tiles: int = 1):
     """The whole serving step of every layer in one kernel. ``layer_arrays``
     are the stacked (L, …) layer weights, ``head_arrays`` the final norm
     and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied);
@@ -827,42 +765,39 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     the paged pools (L, P+1, ps, KV, dk/pack) [+ (L, P+1, KV) scales],
     updated in place; page_table (R, NP); phys/off (R, C) the page and
     in-page offset of each new line; mask (R, C, NP*ps) bool; logits_idx
-    (R,) the row whose logits each slot returns. Returns ``(logits (R, V)
-    f32, greedy tokens (R,) int32, cache)``.
+    (R,) the row whose logits each slot returns. ``tiles`` must be one of
+    :func:`whole_step_tile_candidates` for ``tile_roles``. Returns
+    ``(logits (R, V) f32, greedy tokens (R,) int32, cache)``.
 
-    On CPU tensors it runs the plain version: the untiled walk through
-    ``block_fn``/``head_fn`` at ``tiles == 1``, the sub-block walk through
-    ``tile_plan`` otherwise. On CUDA tensors it launches
-    csrc/whole_step_decode.cu, which computes the LLaMA block (the layer
-    names of ``_WS_LAYER_NAMES``, RMS norms at ``tile_plan["eps"]``,
-    rotate-half RoPE, SwiGLU, pools quantized at ``tile_plan["qmax"]``),
-    or raises on a layout, shape, dtype, head dim or tile count it does
-    not take. Each launch adds one to
+    On CPU tensors it runs the plain version, the walk through
+    ``block_fn``/``head_fn`` (:func:`whole_step_decode_ref`): the tile
+    count only groups output columns, so it gives the same answer at
+    every count. On CUDA tensors it launches csrc/whole_step_decode.cu,
+    which computes the LLaMA block (the layer names of
+    ``_WS_LAYER_NAMES``, RMS norms at ``eps``, rotate-half RoPE, SwiGLU,
+    pools quantized at ``qmax``), or raises on a layout, shape, dtype,
+    head dim or tile count it does not take. Each launch adds one to
     ``LAUNCHES["whole_step_decode[<pool>]"]``."""
-    candidates = (whole_step_tile_candidates(layer_arrays, tile_plan["roles"])
-                  if tile_plan is not None else (1,))
+    candidates = whole_step_tile_candidates(layer_arrays, tile_roles)
     if tiles not in candidates:
         raise ValueError(f"whole_step tiles={tiles} is not a legal tile count "
                          f"{candidates} (see whole_step_tile_candidates)")
     if x0.device.type == "cpu":
-        if tiles > 1:
-            return _whole_step_decode_tiled_ref(
-                layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys, off,
-                mask, logits_idx, tiles=tiles, tile_plan=tile_plan, head_fn=head_fn)
         return whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache,
                                      page_table, phys, off, mask, logits_idx,
                                      block_fn=block_fn, head_fn=head_fn)
     return _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache,
-                                   page_table, phys, off, mask, logits_idx, tiles, tile_plan)
+                                   page_table, phys, off, mask, logits_idx, tiles,
+                                   tile_roles, eps, qmax)
 
 
 def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
-                            phys, off, mask, logits_idx, tiles, tile_plan):
+                            phys, off, mask, logits_idx, tiles, tile_roles, eps, qmax):
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
-    if tile_plan is None or tile_plan.get("roles") != _WS_ROLES:
-        raise ValueError("the whole-step kernel computes the LLaMA block: it needs the "
-                         f"tile plan of its roles {_WS_ROLES} (with eps and qmax)")
+    if tile_roles != _WS_ROLES:
+        raise ValueError("the whole-step kernel computes the LLaMA block: it takes the "
+                         f"tile roles {_WS_ROLES}")
     if sorted(layer_arrays) != sorted(_WS_LAYER_NAMES):
         raise ValueError(f"the whole-step kernel takes the layer tensors {_WS_LAYER_NAMES}; "
                          f"got {sorted(layer_arrays)}")
@@ -911,7 +846,6 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
         raise ValueError(f"the whole-step kernel does not take tiles={tiles} at these "
                          "widths (see whole_step_kernel_takes)")
     quant = "k_scale" in cache
-    qmax = tile_plan.get("qmax")
     if quant != (qmax is not None):
         raise ValueError("qmax is given exactly when the pools are quantized")
     if quant:
@@ -970,7 +904,7 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
                         logits, tokens, scratch, work],
         [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
          kind],
-        [tile_plan["eps"], 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
+        [eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
     )
     LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1
     return logits, tokens, cache

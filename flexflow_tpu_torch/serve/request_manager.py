@@ -44,7 +44,6 @@ from .batch_config import (
     ProfileInfo,
 )
 from .engine import InferenceEngine
-from .sampling import choose_sample_mode, sample_tokens
 
 
 class RequestStatus(enum.Enum):
@@ -91,11 +90,6 @@ class Request:
 
 
 class RequestManager:
-    # The sync path of the "sampling" and "whole_step" fusions
-    # (engine.run_sampled) samples inside the step call; a manager whose
-    # engine calls need its own hooks (SpecInfer) turns it off.
-    supports_fused_sampling = True
-
     def __init__(
         self,
         engine: InferenceEngine,
@@ -419,25 +413,9 @@ class RequestManager:
     def _sample(self, logits) -> np.ndarray:
         """Sample one token per slot from (R, V) logits using each slot's
         GenerationConfig (the sync path's decode head)."""
-        greedy, temp, topp, topk = self._decode_head_params(
-            [self.requests[r] for r in self.slots if r is not None]
-        )
-        mode, cap = choose_sample_mode(
-            greedy, topp, topk, self.engine.cfg.vocab_size
-        )
-        dev = logits.device
-        with torch.inference_mode():
-            toks = sample_tokens(
-                logits,
-                self._generator,
-                greedy=torch.as_tensor(greedy, device=dev),
-                temperature=torch.as_tensor(temp, device=dev),
-                topp=torch.as_tensor(topp, device=dev),
-                topk_arr=torch.as_tensor(topk, device=dev),
-                mode=mode,
-                topk_cap=cap,
-            )
-        return toks.cpu().numpy()
+        head = self._decode_head_params(
+            [self.requests[r] for r in self.slots if r is not None])
+        return self.engine._sample(logits, self._generator, *head).cpu().numpy()
 
     def _append_token(self, req: Request, token: int):
         if len(req.tokens) == req.prompt_len and not req.profile.first_token_time:
@@ -734,16 +712,14 @@ class RequestManager:
         decoding = self._active(RequestStatus.DECODING)
         decode_only = bool(decoding) and not prefilling
         t0 = time.perf_counter()
-        fused = self.engine.serving.fused_decode
-        if ("sampling" in fused or "whole_step" in fused) and self.supports_fused_sampling:
-            # sampling inside the step call: the (R, V) logits stay on the device
+        if "whole_step" in self.engine.serving.fused_decode:
+            # the walk's sync path: the step and its sampling in one call
             greedy, temp, topp, topk = self._decode_head_params(
                 [self.requests[r] for r in self.slots if r is not None])
             sampled = self.engine.run_sampled(bc, self._generator, greedy, temp, topp,
                                               topk).cpu().numpy()
         else:
-            logits = self.engine.run(bc)
-            sampled = self._sample(logits)
+            sampled = self._sample(self.engine.run(bc))
         if decode_only:
             # the full blocking step wall time (this path syncs by design)
             self.stats.note_decode_step_ms((time.perf_counter() - t0) * 1e3)

@@ -120,9 +120,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
 
 @pytest.mark.parametrize("field,value,exc", [
     pytest.param("kv_shard", "context", NotImplementedError, id="kv_shard-context"),
-    # fused_decode "sampling" and "whole_step" are ported (slice 4): the
-    # first builds on the dense layout, the second needs the paged one
-    pytest.param("fused_decode", ("sampling",), None, id="fused_decode-value1"),
+    # fused_decode "whole_step" is ported and needs the paged layout
+    pytest.param("fused_decode", ("sampling",), NotImplementedError, id="fused_decode-value1"),
     pytest.param("fused_decode", ("whole_step",), ValueError, id="fused_decode-value2"),
     pytest.param("prefix_caching", True, NotImplementedError, id="prefix_caching-True"),
     pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
@@ -131,12 +130,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
 ])
 def test_unported_serving_fields_raise(weights, field, value, exc):
     """A field of a later slice raises NotImplementedError naming it; a
-    ported one builds, or raises the JAX engine's ValueError."""
+    ported one raises the JAX engine's ValueError on a bad layout."""
     cfg_t, params_t = weights[2], weights[3]
     sc = ServingConfig(**{field: value}, **SERVE)
-    if exc is None:
-        assert InferenceEngine(tl, cfg_t, params_t, sc, device="cpu").serving is sc
-        return
     with pytest.raises(exc, match="slice" if exc is NotImplementedError else "paged"):
         InferenceEngine(tl, cfg_t, params_t, sc, device="cpu")
 
