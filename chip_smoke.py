@@ -21,6 +21,17 @@ line is ``{"ok": true, "device": {...}}``. Any failure raises: the
 script then exits non-zero without that line. It needs a CUDA GPU and
 fails without one. It imports nothing of JAX or of the JAX package.
 
+Mixed-step tiles on the tensor cores (slice 5): the paged kernels' rows
+name the block design their launcher took (``design``: "decode", "mma"
+for bf16 q, "f32-tile" for f32 q) and their time over the library call's
+(``vs_library``); the fused kernel's live-row output must equal the
+ragged kernel's bit for bit, and its ``commit_ms`` times the launch with
+a mask that attends nothing (RoPE and the commit alone), as the ragged
+rows' ``empty_device_ms`` does for the ragged kernel. The build line
+lists the registers, spills, shared memory and resident blocks of every
+mma kernel instantiation (from ``ptxas -v``), and every paged arm is profiled (each kernel
+class's share of busy device time; launches by design).
+
 Whole-step serving (slice 4): the whole-step kernel (every layer, the LM
 head and the greedy argmax of a serving step in one persistent CUDA
 kernel) against its plain version at LLaMA-7B width cut to 2 layers, on
@@ -141,6 +152,65 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# H100 (sm_90): registers an SM, allocated per warp in units of 256;
+# shared memory an SM, of which 1 KB a block is reserved; threads an SM
+SM_REGISTERS, SM_SMEM, SM_THREADS = 65536, 233472, 2048
+
+
+def _mma_smem(pool, dk):
+    """Dynamic shared bytes of the tensor-core paged tile, as
+    ``MmaSmem<KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
+    them out: bf16 K/V tiles of 64 lines (three stages, or one that
+    quantized codes widen into, with three stages of raw codes), mask bits
+    of 32 tiles x 128 rows, page ids and scales of 128 pages, tile flags."""
+    bf16 = 2 * (3 if pool == "bf16" else 1) * 64 * (dk + 8) * 2
+    raw = 0 if pool == "bf16" else 3 * 2 * 64 * (dk // (2 if pool == "int4" else 1))
+    return bf16 + raw + 8 * 32 * 128 + 12 * 128 + 32 * 4
+
+
+def _mma_report(reports):
+    """Each tensor-core paged kernel instantiation (kernel, pool, dk) from
+    its ``ptxas -v`` report: registers and spill bytes a thread, shared
+    bytes a block (ptxas's static bytes plus ``_mma_smem``) and the blocks
+    of 256 threads an SM holds, by registers and by shared memory."""
+    rows = []
+    for name in _cuda.DESIGNED:
+        text = reports.get(name, "")
+        for fn in text.split("Compiling entry function '")[1:]:
+            m = re.search(r"_mma_kernelILi(\d)ELi(\d+)E", fn.split("'")[0])
+            if not m:
+                continue
+            pool, dk = ("bf16", "int8", "int4")[int(m[1])], int(m[2])
+            regs = int(re.search(r"Used (\d+) registers", fn)[1])
+            spills = int(re.search(r"(\d+) bytes spill stores", fn)[1])
+            static = re.search(r"(\d+) bytes smem", fn)
+            smem = (int(static[1]) if static else 0) + _mma_smem(pool, dk)
+            warp_regs = -(-regs * 32 // 256) * 256
+            blocks = min(SM_THREADS // 256, SM_REGISTERS // (8 * warp_regs),
+                         SM_SMEM // (smem + 1024))
+            rows.append({"kernel": name, "pool": pool, "dk": dk, "registers": regs,
+                         "spill_store_bytes": spills, "smem_bytes": smem,
+                         "blocks_per_sm": blocks})
+    return sorted(rows, key=lambda x: (x["kernel"], x["pool"], x["dk"]))
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call of ``fn``: the summed durations of the
+    kernels it launched, from a trace of ``iters`` calls (host gaps between
+    them, which ``cuda_ms`` counts, excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == torch.autograd.DeviceType.CUDA)
+    return ns / 1e6 / iters
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -175,7 +245,7 @@ def phase_build():
     sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
-          "ptxas": info})
+          "ptxas": info, "mma_kernels": _mma_report(reports)})
 
 
 def _rand(shape, dtype, gen):
@@ -446,15 +516,17 @@ def _paged_bound(case, q_dtype, extra_bytes=0):
 
 def _paged_library_ms(case, q, quant):
     """SDPA over the virtual cache gathered beforehand (the gather is not
-    timed); None for quantized pools, which no single PyTorch call
-    attends."""
+    timed): its cuda_ms and device_ms; None for quantized pools, which no
+    single PyTorch call attends."""
     if quant is not None:
-        return None
+        return None, None
     kv = K.gather_pages(case["kp"], case["table"])
     vv = K.gather_pages(case["vp"], case["table"])
     sq, sk, svv, smask = _sdpa_inputs(q, kv, vv, case["mask"])
-    ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, svv, attn_mask=smask))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(sq, sk, svv, attn_mask=smask)
+    ms = cuda_ms(sdpa), device_ms(sdpa)
     del kv, vv, sq, sk, svv, smask
     return ms
 
@@ -467,25 +539,50 @@ def _paged_row(kernel, label, case, dtype, quant, err):
             "tol": TOL[dtype]}
 
 
+def _design_of(kernel, call):
+    """``call()`` once; the block design the wrapper counted for it."""
+    before = dict(K.DESIGN_LAUNCHES)
+    out = call()
+    took = [k for k, v in K.DESIGN_LAUNCHES.items() if v != before[k]]
+    check(len(took) == 1 and took[0].startswith(kernel + "["),
+          f"{kernel}: one launch counted no single design: {took}")
+    return out, took[0][len(kernel) + 1:-1]
+
+
+def _vs_library(row):
+    return row["ms"] / row["library_ms"] if row.get("library_ms") else None
+
+
 def run_ragged_check(label, case, dtype, quant):
     q, kp, vp, ks, vs, table = (case[k] for k in ("q", "kp", "vp", "ks", "vs", "table"))
     mask = case["mask"].clone()
     mask[case["R"] - 1, 0] = False  # a row with nothing to attend
-    out = K.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    out, design = _design_of("ragged_paged_attention", lambda: K.ragged_paged_attention(
+        q, kp, vp, table, mask, k_scale=ks, v_scale=vs))
     torch.cuda.synchronize()
     ref = K.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     err = _compare(f"ragged_paged_attention[{label}]", out, ref, dtype)
     check(bool((out[case["R"] - 1, 0] == 0).all()), "ragged: empty row not zero")
     del ref
     row = _paged_row("ragged_paged_attention", label, case, dtype, quant, err)
+    row["design"] = design
     mask = case["mask"]
     row["bound_ms"], row["bound_by"] = _paged_bound(case, dtype)
     row.update(
         ms=cuda_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
                                                     k_scale=ks, v_scale=vs)),
+        device_ms=device_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
+                                                             k_scale=ks, v_scale=vs)),
         plain_ms=cuda_ms(lambda: K.ragged_paged_attention_ref(
             q, kp, vp, table, mask, k_scale=ks, v_scale=vs), iters=5),
-        library_ms=_paged_library_ms(case, q, quant))
+    )
+    row["library_ms"], row["library_device_ms"] = _paged_library_ms(case, q, quant)
+    row["vs_library"] = _vs_library(row)
+    # the same launch under a mask that attends nothing: the launch, the
+    # mask's bits, the Q loads and the zero outputs, no tile read
+    none = torch.zeros_like(mask)
+    row["empty_device_ms"] = device_ms(lambda: K.ragged_paged_attention(
+        q, kp, vp, table, none, k_scale=ks, v_scale=vs))
     emit(row)
     return row
 
@@ -494,8 +591,9 @@ def run_fused_check(label, case, dtype, quant):
     """The fused kernel against the port's unfused composition on the card
     (RoPE, then the scatter or quant_line_write, then the ragged kernel):
     non-scratch pool bytes and scales bit for bit, and the outputs of rows
-    that never read the scratch page compared bit for bit (reported) and
-    within the kernel tolerance of the plain version (required)."""
+    that never read the scratch page bit for bit and within the kernel
+    tolerance of the plain version. ``commit_ms`` times the launch under a
+    mask that attends nothing: RoPE and the commit, no tile read."""
     R, C, KV, dk, ps, P = (case[k] for k in ("R", "C", "KV", "dk", "ps", "P"))
     q, table, mask, pos = case["q"], case["table"], case["mask"], case["pos"]
     gen = torch.Generator(device=DEV)
@@ -511,9 +609,9 @@ def run_fused_check(label, case, dtype, quant):
         return [None if case[k] is None else case[k].clone() for k in ("kp", "vp", "ks", "vs")]
 
     a, b = pools(), pools()
-    out = K.fused_rope_paged_attention(q, k_new, v_new, cos, sin, a[0], a[1], table,
-                                       logical, off, mask, k_scale=a[2], v_scale=a[3],
-                                       qmax=qmax)
+    out, design = _design_of("fused_rope_paged_attention", lambda: K.fused_rope_paged_attention(
+        q, k_new, v_new, cos, sin, a[0], a[1], table, logical, off, mask, k_scale=a[2],
+        v_scale=a[3], qmax=qmax))
     qr, kr = llama.apply_rope(q, cos, sin), llama.apply_rope(k_new, cos, sin)
     phys = table.long().gather(1, logical.long())
     K.commit_paged(b[0], b[1], kr, v_new, phys, off.long(), b[2], b[3], qmax)
@@ -531,8 +629,10 @@ def run_fused_check(label, case, dtype, quant):
                                            v_scale=c[3], qmax=qmax)
     err = _compare(f"fused_rope_paged_attention[{label}]", out[live], ref[live], dtype)
     row = _paged_row("fused_rope_paged_attention", label, case, dtype, quant, err)
-    row.update(pools_bitwise_vs_unfused=True, live_rows=int(live.sum()),
-               out_bitwise_vs_unfused=bool(torch.equal(out[live], unfused[live])))
+    bitwise = bool(torch.equal(out[live], unfused[live]))
+    row.update(design=design, pools_bitwise_vs_unfused=True, live_rows=int(live.sum()),
+               out_bitwise_vs_unfused=bitwise)
+    check(bitwise, f"fused[{label}]: live-row output differs from the unfused path's")
     del ref, c, unfused
     isz = q.element_size()
     dkp, pisz = case["kp"].shape[3], case["kp"].element_size()
@@ -554,7 +654,17 @@ def run_fused_check(label, case, dtype, quant):
         plain_ms=cuda_ms(lambda: K.fused_rope_paged_attention_ref(
             q, k_new, v_new, cos, sin, b[0], b[1], table, logical, off, mask,
             k_scale=b[2], v_scale=b[3], qmax=qmax), iters=5),
-        library_ms=_paged_library_ms(case, qr, quant))
+    )
+    row["library_ms"], row["library_device_ms"] = _paged_library_ms(case, qr, quant)
+    row["vs_library"] = _vs_library(row)
+    none = torch.zeros_like(mask)
+
+    def fused(m):
+        return lambda: K.fused_rope_paged_attention(
+            q, k_new, v_new, cos, sin, a[0], a[1], table, logical, off, m,
+            k_scale=a[2], v_scale=a[3], qmax=qmax)
+    row.update(device_ms=device_ms(fused(mask)), commit_ms=cuda_ms(fused(none)),
+               commit_device_ms=device_ms(fused(none)))
     emit(row)
     return row
 
@@ -585,6 +695,10 @@ def phase_paged_kernels(seed):
         case = _paged_case(gen, rng, dtype, quant, KV, kind)
         ragged = run_ragged_check(label, case, dtype, quant)
         fused = run_fused_check(label, case, dtype, quant)
+        want = ("decode" if kind == "decode" else "mma" if dtype == torch.bfloat16
+                else "f32-tile")
+        check(ragged["design"] == fused["design"] == want,
+              f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
         if kind == "mixed" and "gqa" not in label:
             pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
             main[f"ragged_paged_attention[{pool}]"] = ragged
@@ -967,9 +1081,9 @@ def _kernel_class(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q"):  # f32 and mma kernels
         if kernel in n:
             return kernel
-    if "ragged_decode_kernel" in n or "ragged_tile_kernel" in n:
+    if any(k in n for k in ("ragged_decode_kernel", "ragged_tile_kernel", "ragged_mma_kernel")):
         return "ragged_paged_attention"
-    if "fused_kernel" in n:
+    if "fused_kernel" in n or "fused_mma_kernel" in n:
         return "fused_rope_paged_attention"
     if "decode_kernel" in n:
         return "decode_attention"
@@ -984,29 +1098,37 @@ def _kernel_class(name: str) -> str:
 
 def _profile(run, path):
     """``run()`` under torch.profiler: device time by kernel class and the
-    device's idle share of the wall time. The profiler slows the host, so
-    the idle share is an upper bound."""
+    device's idle share of the wall time. Only the device is traced, and
+    its kernel events are summed straight from the trace (the profiler's
+    own event tree takes minutes to build for a serving run); the
+    profiler still slows the host, so the idle share is an upper bound.
+    ``reduce_s`` is the host time the sums took."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
     by_class, kernels = {}, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        c = _kernel_class(ev.key)
+    for name, (ms, count) in by_name.items():
+        c = _kernel_class(name)
         by_class[c] = by_class.get(c, 0.0) + ms
-        kernels.append((ms, ev.key[:100], ev.count))
+        kernels.append((ms, name[:100], count))
     busy_s = sum(by_class.values()) / 1e3
     kernels.sort(reverse=True)
     return {"phase": "profile", "path": path, "wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
             "device_ms_by_class": by_class,
+            "share_of_busy": {c: ms / 1e3 / busy_s for c, ms in by_class.items()},
+            "reduce_s": time.perf_counter() - t1,
             "top_kernels": [{"name": n, "ms": ms, "count": k} for ms, n, k in kernels[:10]]}
 
 
@@ -1043,6 +1165,7 @@ def _serve(llm, prompts, new):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    design_launches = {k: v for k, v in K.DESIGN_LAUNCHES.items() if v}
     for r in results:
         check(r.error is None, f"request {r.request_id} failed: {r.error}")
         check(len(r.output_tokens) == new, f"request {r.request_id}: "
@@ -1057,6 +1180,7 @@ def _serve(llm, prompts, new):
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "kv_cache_bytes": llm.engine.kv_cache_bytes(),
             "preemptions": stats["preemptions"], "launches": launches,
+            "design_launches": design_launches,
             "steps": {k: stats[k] for k in ("mixed_steps", "decode_steps", "sync_steps")},
             # host wall ms of each pipelined decode dispatch (the device runs ahead)
             "decode_dispatch_ms": {"p50": stats["decode_step_ms_p50"],
@@ -1150,6 +1274,7 @@ def phase_paged(seed, holder, arms):
     launches, seqs = {}, None
     tf = {}
     for label, quant, fused in arms:
+        t_arm = time.perf_counter()
         llm = LLM(llama, cfg, params, device=DEV)
         llm.compile(ServingConfig(kv_layout="paged", max_cached_tokens=PAGED_BUDGET,
                                   kv_quant=quant, fused_decode=fused))
@@ -1179,8 +1304,10 @@ def phase_paged(seed, holder, arms):
             check(not paged, f"{path}: paged attention kernels ran: {paged}")
         if quant is None:
             check(line["preemptions"] > 0, f"{path}: the 17-page budget caused no preemption")
-        if label in ("bf16", "bf16-whole"):
+        t_prof = time.perf_counter()
+        if not whole or label == "bf16-whole":
             emit(profile_slice(llm, prompts, new, path))
+        t_tf = time.perf_counter()
         if seqs is None:
             # every arm is teacher-forced over the first bf16 arm's tokens
             seqs = [r.input_tokens + r.output_tokens[:-1] for r in results]
@@ -1192,6 +1319,9 @@ def phase_paged(seed, holder, arms):
         plens = [len(p) for p in prompts]
         tf[label] = [_teacher_forced_logits(cfg, params, ServingConfig(kernels=k, **sc),
                                             seqs, plens) for k in ("cuda", "torch")]
+        # host seconds of the arm's parts: build and serve, profile, teacher-forced runs
+        emit({"phase": "arm_seconds", "path": path, "serve_s": t_prof - t_arm,
+              "profile_s": t_tf - t_prof, "teacher_forced_s": time.perf_counter() - t_tf})
     # the f32 computation of each pool type, its weights upcast
     params32 = _to_f32(params)
     del params
@@ -1739,6 +1869,8 @@ def main(argv=None) -> int:
                      "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
+        if name.split("[")[0] in K.PAGED_KERNELS:
+            rows[-1].update(design=m.get("design"), vs_library=m.get("vs_library"))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
                             for i, (name, t) in enumerate(marks)},

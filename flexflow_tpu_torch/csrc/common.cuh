@@ -1,6 +1,6 @@
 // Helpers shared by the port's attention kernels: f32 conversion of the
-// element types the kernels take (float, bf16) and vector loads of E
-// consecutive elements.
+// element types the kernels take (float, bf16), vector loads of E
+// consecutive elements and stores of 8.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +64,24 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&o)[E])
 #pragma unroll
     for (int i = 0; i < E; ++i) o[i] = to_f32<T>(p[i]);
   }
+}
+
+// Store 8 f32 values as T at p, 16-byte aligned (bf16: each rounded once;
+// f32: as they are).
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]);
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

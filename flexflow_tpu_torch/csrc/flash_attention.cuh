@@ -2,7 +2,7 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): the tile shape, the
 // loaders of a head's rows from the (B, S, H, dk) layout into shared
 // memory, the 4 x 4 register-blocked score product of the f32 kernels and
-// the mma.sync fragments of the bf16 kernels.
+// the bf16 kernels' loaders (their mma.sync fragments are in mma.cuh).
 //
 // Every kernel works on tiles of 64 query rows and 64 key lines. The f32
 // kernels run 256 threads on the CUDA cores: in the score phase thread t
@@ -15,7 +15,7 @@
 // 8 different lines hit 32 different banks.
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace fft {
 namespace flash {
@@ -100,79 +100,11 @@ __device__ __forceinline__ bool attends(int r, int c, int S, int T, int causal) 
 
 // ---------------------------------------------------------------------------
 // Tensor-core tiles (bf16 inputs): 4 warps of 16 rows (or lines) each run
-// mma.sync.m16n8k16 with f32 accumulation. Operands stay bf16 in shared
-// memory with rows padded by 8 elements, so the 32-bit fragment reads of
-// a warp (8 rows x 4 words) hit 32 different banks. Probabilities and
-// score gradients, f32 in registers, enter an mma as a hi + lo pair of
-// bf16 operands: their f32 value to ~2^-16, as the TPU kernels keep them
-// in f32.
+// mma.sync.m16n8k16 with f32 accumulation on the fragments of mma.cuh.
+// Probabilities and score gradients, f32 in registers, enter an mma as a
+// hi + lo pair of bf16 operands, as the TPU kernels keep them in f32.
 
 constexpr int kMmaThreads = 128;
-
-template <int W>
-struct LdH {
-  static constexpr int kRow = W + 8;  // bf16 row stride of a W-wide tile
-};
-
-// c += a (16 x 16, row-major fragments) * b (16 x 8, column fragments)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) ≈ hi + lo, each a pair of bf16 (x0 in the low half)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// The A fragments (hi and lo) of a 16 x 16 block whose two 16 x 8 halves
-// are the accumulators c0 (columns 0-7) and c1 (columns 8-15): an mma's
-// output layout is the next mma's input layout.
-__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4],
-                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// The A fragment of rows m0 .. m0 + 15, columns k0 .. k0 + 15 of a
-// row-major bf16 tile with row stride L.
-template <int L>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int m0, int k0,
-                                       int g, int t, uint32_t (&a)[4]) {
-  const __nv_bfloat16* p = tile + (m0 + g) * L + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * L);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * L + 8);
-}
-
-// The B fragment (k0 .. k0 + 15) x (n0 .. n0 + 7) of B = tile^T, where the
-// tile is row-major (n, k) with row stride L: b0, b1.
-template <int L>
-__device__ __forceinline__ void load_b(const __nv_bfloat16* tile, int n0, int k0,
-                                       int g, int t, uint32_t& b0, uint32_t& b1) {
-  const __nv_bfloat16* p = tile + (n0 + g) * L + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
 
 // Rows [r0, r0 + NROWS) of one bf16 head into dst with row stride DK + 8,
 // zeros past n; transposed (dst (d, r) at d * (NROWS + 8) + r) with

@@ -31,7 +31,9 @@
 // block reads a line another block is writing. The one exception is the
 // scratch page, which every padding line of every slot writes: its bytes
 // are garbage, and only padding rows, whose outputs nobody reads, see
-// them.
+// them. The mma design reads the pages by cp.async.cg, through L2: the
+// barrier that ends rope_and_commit makes every thread's committed stores
+// visible to the whole block, those reads included.
 //
 // Bound on an H100: that of ragged_paged_attention plus the q, k_new,
 // v_new, cos and sin bytes read and the lines (and, quantized, the
@@ -40,10 +42,16 @@
 // Design against that bound: the rotated K/V lines are committed
 // straight from the block (the rotated q and K round-trip through two
 // small buffers of the wrapper, a few KB per slot at decode), and the
-// attention is ragged_paged_attention's. Decode launches R * KV blocks
-// of 256 threads; a mixed step at C = 128 has the same R * KV blocks,
-// each walking its 4 row tiles in turn: a quarter of the unfused
-// kernel's blocks.
+// attention is ragged_paged_attention's, in the design the ragged
+// launcher would take (paged_design). Decode launches R * KV blocks of
+// 256 threads. A bf16 mixed step launches R * KV blocks of 8 warps that
+// walk ceil(C * G / 128) passes of attend_tile_mma (one at C = 128,
+// G = 1): each pass is the ragged kernel's row block, its rows on the
+// same warps, so the output of every row that reads no scratch line is
+// bitwise the ragged kernel's. f32 mixed steps walk attend_tile's 32-row
+// tiles in turn on 128 threads.
+#include <type_traits>
+
 #include "paged_commit.cuh"
 
 namespace fft {
@@ -51,7 +59,7 @@ namespace {
 
 using FusedArgs = CommitArgs;
 
-// GB > 0: the decode design with GB rows per call; GB == 0: the tile design.
+// GB > 0: the decode design with GB rows per call; GB == 0: the f32 tile design.
 template <typename TQ, int KIND, int DK, int GB>
 __global__ void __launch_bounds__(GB > 0 ? kDecodeThreads : kTileThreads)
 fused_kernel(FusedArgs f) {
@@ -68,15 +76,36 @@ fused_kernel(FusedArgs f) {
   }
 }
 
+// The mma design (bf16 q): every 128-row pass of the slot's KV head.
+template <int KIND, int DK>
+__global__ void __launch_bounds__(kMmaTileThreads, 1) fused_mma_kernel(FusedArgs f) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int h = blockIdx.x, r = blockIdx.y;
+  rope_and_commit<__nv_bfloat16, KIND, DK, kMmaTileThreads>(f, r, h);
+  const int rows = f.a.C * (f.a.H / f.a.KV);
+  for (int row0 = 0; row0 < rows; row0 += kMmaTileRows)
+    attend_tile_mma<KIND, DK>(f.a, r, h, row0, smem_mma);
+}
+
 template <typename TQ, int KIND, int DK>
 cudaError_t launch_dk(const FusedArgs& f, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
   const int rows = f.a.C * (f.a.H / f.a.KV);
+  const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
   const dim3 grid(f.a.KV, f.a.R);
-  if (rows == 1) {
-    fused_kernel<TQ, KIND, DK, 1><<<grid, kDecodeThreads, 0, stream>>>(f);
-  } else if (rows <= kDecodeRows) {
-    fused_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kDecodeThreads, 0, stream>>>(f);
-  } else {
+  if (design == kDesignDecode) {
+    if (rows == 1) {
+      fused_kernel<TQ, KIND, DK, 1><<<grid, kDecodeThreads, 0, stream>>>(f);
+    } else {
+      fused_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kDecodeThreads, 0, stream>>>(f);
+    }
+  } else if constexpr (kBf16) {  // kDesignMma
+    constexpr size_t kSmem = MmaSmem<KIND, DK>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mma_kernel<KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (err != cudaSuccess) return err;
+    fused_mma_kernel<KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(f);
+  } else {  // kDesignF32Tile
     constexpr size_t kSmem = TileSmem<DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
         fused_kernel<TQ, KIND, DK, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
@@ -148,6 +177,12 @@ extern "C" int fused_rope_paged_attention_launch(
     err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The block design (0 decode, 1 mma, 2 f32-tile) the launcher takes for
+// these shapes and q dtype.
+extern "C" int fused_rope_paged_attention_design(int C, int H, int KV, int dtype) {
+  return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);
 }
 
 extern "C" const char* error_string(int err) {

@@ -1,0 +1,131 @@
+// Tensor-core fragments and asynchronous copies shared by the bf16
+// kernels: the training flash-attention kernels (flash_attention.cuh),
+// the mixed-step tile of the paged kernels (paged_attention.cuh) and the
+// whole-step kernel's projections (whole_step_decode.cu).
+//
+// mma.sync.m16n8k16 bf16 with f32 accumulation. In a warp, lane = 4 g + t
+// holds row g (and g + 8) of an A or C fragment and column g of a B
+// fragment. Operands stay bf16 in shared memory with rows padded by 8
+// elements, so the 32-bit fragment reads of a warp (8 rows x 4 words)
+// and the 16-byte rows of an ldmatrix (8 rows x 16 bytes) hit 32
+// different banks. f32 values (probabilities, score gradients) enter an
+// mma as a hi + lo pair of bf16 operands: their f32 value to ~2^-16.
+#pragma once
+
+#include "common.cuh"
+
+namespace fft {
+
+template <int W>
+struct LdH {
+  static constexpr int kRow = W + 8;  // bf16 row stride of a W-wide tile
+};
+
+// c += a (16 x 16, row-major fragments) * b (16 x 8, column fragments)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) ≈ hi + lo, each a pair of bf16 (x0 in the low half)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// The A fragments (hi and lo) of a 16 x 16 block whose two 16 x 8 halves
+// are the accumulators c0 (columns 0-7) and c1 (columns 8-15): an mma's
+// output layout is the next mma's input layout.
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4],
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// The A fragment of rows m0 .. m0 + 15, columns k0 .. k0 + 15 of a
+// row-major bf16 tile with row stride L.
+template <int L>
+__device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int m0, int k0,
+                                       int g, int t, uint32_t (&a)[4]) {
+  const __nv_bfloat16* p = tile + (m0 + g) * L + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * L);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * L + 8);
+}
+
+// The B fragment (k0 .. k0 + 15) x (n0 .. n0 + 7) of B = tile^T, where the
+// tile is row-major (n, k) with row stride L: b0, b1.
+template <int L>
+__device__ __forceinline__ void load_b(const __nv_bfloat16* tile, int n0, int k0,
+                                       int g, int t, uint32_t& b0, uint32_t& b1) {
+  const __nv_bfloat16* p = tile + (n0 + g) * L + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// The B fragments (k0 .. k0 + 15) x (n0 .. n0 + 15) of B = tile^T, where the
+// tile is row-major (n, k) with row stride L: b[0], b[1] for columns
+// n0 .. n0 + 7 and b[2], b[3] for n0 + 8 .. n0 + 15, by one ldmatrix (lane
+// l gives the address of row n0 + l % 8 + 8 (l / 16), column k0 + 8 (l / 8
+// % 2)). Rows are 16-byte aligned.
+template <int L>
+__device__ __forceinline__ void load_b_x4(const __nv_bfloat16* tile, int n0, int k0,
+                                          int lane, uint32_t (&b)[4]) {
+  const __nv_bfloat16* p = tile + (n0 + (lane & 7) + 8 * (lane >> 4)) * L + k0 + 8 * ((lane >> 3) & 1);
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(s));
+}
+
+// The B fragments (k0 .. k0 + 15) x (n0 .. n0 + 15) of B = the tile itself,
+// row-major (k, n) with row stride L: b[0], b[1] for columns n0 .. n0 + 7
+// and b[2], b[3] for n0 + 8 .. n0 + 15, by one transposing ldmatrix
+// (lane l gives the address of row k0 + l % 16, column n0 + 8 (l / 16)).
+// Rows are 16-byte aligned.
+template <int L>
+__device__ __forceinline__ void load_b_trans(const __nv_bfloat16* tile, int k0, int n0,
+                                             int lane, uint32_t (&b)[4]) {
+  const __nv_bfloat16* p = tile + (k0 + (lane & 15)) * L + n0 + 8 * (lane >> 4);
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(s));
+}
+
+// 16 bytes from global to shared memory through L2 (cp.async.cg); with
+// src_bytes 0 the destination is zero-filled and gmem not read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace fft

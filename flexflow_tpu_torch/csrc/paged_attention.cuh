@@ -18,31 +18,67 @@
 // codes (the softmax sum takes the unscaled probability). A full-
 // precision pool uses the same formulas with both page scales 1.
 //
-// Two block designs, chosen by the number of query rows per KV head:
-//  * attend_decode (C * G <= 8: decode steps): one block of 8 warps per
-//    (slot, KV head, up to 8 rows), the design of decode_attention.cu.
-//    One page is one tile: the block loads the page's mask for its rows,
-//    skips the page when no row attends any of its lines, else reads
-//    the page id and scales once; warps split the page's lines, every
-//    line is read once for all rows of the block.
-//  * attend_tile (C * G > 8: mixed and prefill steps): one block of 128
-//    threads per (slot, KV head, 32 rows), the register-blocked tiles of
-//    verify_attention.cu over tiles of 64 virtual lines (half a 128-line
-//    page, one 64-line page, or 2 or 4 smaller pages; their page ids and
-//    scales are read once per tile). The tile's mask is loaded first and
-//    the tile skipped, K/V unread, when no row of the block attends it.
+// Three block designs (paged_design), chosen by the number of query rows
+// per KV head and q's dtype:
+//  * attend_decode ("decode", C * G <= 8: decode steps): one block of 8
+//    warps per (slot, KV head, up to 8 rows). One page is one tile: the
+//    block loads the page's mask for its rows, skips the page when no
+//    row attends any of its lines, else reads the page id and scales
+//    once; warps split the page's lines, every line is read once for all
+//    rows of the block. Bound by bytes, and near it.
+//  * attend_tile_mma ("mma", bf16 q, C * G > 8: mixed and prefill steps
+//    in the model dtype): one block of 8 warps per (slot, KV head, 128
+//    rows), on the tensor cores. A bf16 mixed step at C = 128 is bound by
+//    the bytes of the pages it opens, its FLOP about a quarter of that
+//    time at the bf16 tensor-core rate; on the CUDA cores in f32
+//    (attend_tile) the same FLOP bound it many times over. So: QK^T and
+//    PV run as mma.sync.m16n8k16 bf16 with f32 accumulation (mma.cuh),
+//    warp w owning rows 16 w .. 16 w + 15 with its Q fragments in
+//    registers for the whole walk and the scores and (m, l) in the
+//    accumulators (base-2 exponent, tree reductions: with one block of 8
+//    warps an SM, two warps a scheduler, the softmax is latency-bound);
+//    P enters PV as a hi + lo pair of bf16, so the result stays as close
+//    to the f32 plain version as the CUDA-core tile. K/V tiles of 64
+//    lines stream through three bf16 buffers, two cp.async copies
+//    (16-byte, through L2) in flight while the third is multiplied, one
+//    barrier a tile; int8/int4 codes are copied raw and widened to bf16
+//    codes in shared memory (every code is exact in bf16; the page scales
+//    stay on the scores and probabilities), so quantized pools still move
+//    1/2 and 1/4 of the bytes. 128 rows read each tile once: at C = 128,
+//    G = 1 that is every row of a (slot, KV head). The mask of 32 tiles
+//    is packed to bits ahead of them (with their page ids and scales), so
+//    a tile no row of the block attends is never read and a warp whose 16
+//    rows attend nothing in a tile skips its math.
+//  * attend_tile ("f32-tile": f32 q, C * G > 8): one block of 128
+//    threads per (slot, KV head, 32 rows), the register-blocked f32 tiles
+//    of verify_attention.cu over the same 64-line tiles on the CUDA
+//    cores (TF32 would miss the f32 kernels' 1e-5 tolerance). The whole-
+//    step kernel (whole_step_decode.cu) calls it at every dtype, with
+//    its own block size and its own tile-invariance contract.
 //
 // Pool and q pointers are read with plain loads (never the read-only
 // cache): the fused kernel writes them earlier in the same launch.
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace fft {
 
 enum PoolKind : int { kPoolFloat = 0, kPoolInt8 = 1, kPoolInt4 = 2 };
 
 constexpr int kMaxPageSize = 128;
+
+enum PagedDesign : int { kDesignDecode = 0, kDesignMma = 1, kDesignF32Tile = 2 };
+
+constexpr int kDecodeRows = 8;    // most query rows per KV head of a decode block
+
+// The block design of a paged attention call with ``rows`` = C * G query
+// rows per KV head and q of DType ``dtype``; the launchers route by it and
+// export it to their wrappers.
+__host__ __device__ inline int paged_design(int rows, int dtype) {
+  if (rows <= kDecodeRows) return kDesignDecode;
+  return dtype == kBFloat16 ? kDesignMma : kDesignF32Tile;
+}
 
 struct PagedArgs {
   const void* q;         // (R, C, H, dk) TQ
@@ -129,7 +165,6 @@ __device__ __forceinline__ const void* pool_at(const void* pool, size_t off) {
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
 constexpr int kDecodeLines = 4;   // lines per warp per iteration
-constexpr int kDecodeRows = 8;    // most query rows per KV head of a block
 
 // Rows [i0, i0 + GB) of KV head h of slot r. All kDecodeThreads threads
 // of the block call it; it ends with a barrier, so it can be called
@@ -495,6 +530,355 @@ __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* s
       for (int e = 0; e < 4; ++e) o[64 * hh + e] = from_f32<TQ>(acc[u][4 * hh + e] * inv);
   }
   __syncthreads();  // sQ may be rewritten by the next call
+}
+
+// ---------------------------------------------------------------------------
+// mma design (bf16 q)
+
+constexpr int kMmaTileWarps = 8;
+constexpr int kMmaTileThreads = kMmaTileWarps * 32;
+constexpr int kMmaTileRows = kMmaTileWarps * 16;  // query rows per block or pass
+constexpr int kMmaStages = 3;                     // K/V tile buffers: two copies in flight
+constexpr int kMetaTiles = 32;                    // tiles whose mask bits are staged at once
+constexpr int kMetaPages = kMetaTiles * kTileLines / 16;  // their pages at ps = 16
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int KIND, int DK>
+struct MmaSmem {
+  static constexpr bool kQuant = KIND != kPoolFloat;
+  static constexpr int kLd = LdH<DK>::kRow;                   // bf16 row stride
+  static constexpr int kRaw = DK / pack_of<KIND>();           // code bytes of a pool row
+  static constexpr size_t kTile = size_t(kTileLines) * kLd;   // bf16 elements of a K or V tile
+  // bf16 K/V tile pairs: one a stage, or one that the raw codes widen into
+  static constexpr size_t kBf16 = 2 * (kQuant ? 1 : kMmaStages) * kTile * sizeof(__nv_bfloat16);
+  static constexpr size_t kRawBytes = kQuant ? kMmaStages * 2 * size_t(kTileLines) * kRaw : 0;
+  static constexpr size_t kBits = sizeof(uint64_t) * kMetaTiles * kMmaTileRows;
+  static constexpr size_t kPages = (2 * sizeof(float) + sizeof(int)) * kMetaPages;
+  static constexpr size_t kFlags = size_t(kMetaTiles) * (kMmaTileRows / 32);  // per tile, per warp
+  static constexpr size_t kBytes = kBf16 + kRawBytes + kBits + kPages + kFlags;
+};
+
+// 2^x, subnormal results flushed to 0 (a probability under 2^-126 adds
+// nothing a bf16 output can show)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ float tree_max(float (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] = fmaxf(x[i], x[i + w]);
+  return x[0];
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] += x[i + w];
+  return x[0];
+}
+
+// Bit j set when the mask row mrow attends line s0 + j, for the 64 lines
+// from s0 (lines at or past S, a multiple of 16, read as 0). mrow + s0 is
+// 16-byte aligned.
+__device__ __forceinline__ uint64_t mask_bits(const uint8_t* mrow, int s0, int S) {
+  uint64_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (s0 + 16 * k >= S) break;
+    const uint4 w = *reinterpret_cast<const uint4*>(mrow + s0 + 16 * k);
+    const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // bytes -> 0/1 per byte -> 4 bits (byte b to bit b)
+      const uint32_t nib = ((__vcmpne4(v[i], 0u) & 0x01010101u) * 0x01020408u) >> 24;
+      bits |= uint64_t(nib) << (16 * k + 4 * i);
+    }
+  }
+  return bits;
+}
+
+// Rows [row0, row0 + 128) of KV head h of slot r, bf16 q, on the tensor
+// cores; smem holds MmaSmem<KIND, DK>::kBytes. Warp w always owns rows
+// row0 + 16 w .. row0 + 16 w + 15, and a row's result depends on its own
+// mask bits and the tiles it attends alone, taken in one order: the
+// ragged kernel (one block a pass) and the fused kernel (every pass in
+// one block) give the same bits. All kMmaTileThreads threads of the block
+// call it; it ends with a barrier.
+template <int KIND, int DK>
+__device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
+                                unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  using L = MmaSmem<KIND, DK>;
+  using PT = typename PoolT<bf16, KIND>::T;
+  constexpr int LD = L::kLd, RAW = L::kRaw;
+  constexpr int kRowBytes = L::kQuant ? RAW : DK * 2;  // pool bytes of one line
+  constexpr int kChunks = kRowBytes / 16;              // 16-byte copies of one line
+  bf16* sKV = reinterpret_cast<bf16*>(smem);           // [stage][K, V][64][LD]
+  uint8_t* sRaw = smem + L::kBf16;                     // quantized: [stage][K, V][64][RAW]
+  uint64_t* sBits = reinterpret_cast<uint64_t*>(sRaw + L::kRawBytes);  // [tile][row]
+  float* sPk = reinterpret_cast<float*>(sBits + kMetaTiles * kMmaTileRows);
+  float* sPv = sPk + kMetaPages;
+  int* sPid = reinterpret_cast<int*>(sPv + kMetaPages);
+  uint8_t* sFlag = reinterpret_cast<uint8_t*>(sPid + kMetaPages);  // [tile][4 warps]
+
+  const int G = a.H / a.KV, rows = a.C * G, ps = a.ps, S = a.NP * ps;
+  const int ps_log = __ffs(ps) - 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = row0 + 16 * warp + g, rb = ra + 8;  // this thread's rows
+
+  // the warp's Q fragments, zero past the last row
+  uint32_t qa[DK / 16][4];
+  {
+    const bf16* q = static_cast<const bf16*>(a.q);
+    auto at = [&](int i) -> const bf16* {
+      return i < rows ? q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + 2 * t
+                      : nullptr;
+    };
+    const bf16* pa = at(ra);
+    const bf16* pb = at(rb);
+#pragma unroll
+    for (int ks = 0; ks < DK / 16; ++ks) {
+      qa[ks][0] = pa ? ld32(pa + 16 * ks) : 0u;
+      qa[ks][1] = pb ? ld32(pb + 16 * ks) : 0u;
+      qa[ks][2] = pa ? ld32(pa + 16 * ks + 8) : 0u;
+      qa[ks][3] = pb ? ld32(pb + 16 * ks + 8) : 0u;
+    }
+  }
+  float o[DK / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < DK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  // copy the K/V lines of tile u into stage st (lines at or past S zero):
+  // kChunks threads a line, each line's pool offset computed once for K and V
+  auto issue = [&](int u, int p0, int st) {
+    constexpr int kLinesPerPass = kMmaTileThreads / kChunks;
+    const int c = tid % kChunks;
+#pragma unroll
+    for (int j = tid / kChunks; j < kTileLines; j += kLinesPerPass) {
+      const int s = u * kTileLines + j;
+      size_t off = 0;
+      int nbytes = 0;
+      if (s < S) {
+        off = pool_row<KIND, DK>(sPid[(s >> ps_log) - p0], s & (ps - 1), h, ps, a.KV) *
+                  sizeof(PT) + 16 * c;
+        nbytes = 16;
+      }
+      const int lk = st * 2 * kTileLines + j, lv = lk + kTileLines;
+      cp_async16(L::kQuant ? static_cast<void*>(sRaw + lk * RAW + 16 * c)
+                           : static_cast<void*>(sKV + lk * LD + 8 * c),
+                 static_cast<const uint8_t*>(a.k_pool) + off, nbytes);
+      cp_async16(L::kQuant ? static_cast<void*>(sRaw + lv * RAW + 16 * c)
+                           : static_cast<void*>(sKV + lv * LD + 8 * c),
+                 static_cast<const uint8_t*>(a.v_pool) + off, nbytes);
+    }
+  };
+  // widen the codes of stage st to bf16 codes in the one bf16 tile pair
+  auto widen = [&](int st) {
+    constexpr int kItems = RAW / 8;  // 8 code bytes an item
+    for (int idx = tid; idx < 2 * kTileLines * kItems; idx += kMmaTileThreads) {
+      const int kv = idx / (kTileLines * kItems);
+      const int j = idx / kItems % kTileLines, c8 = idx % kItems * 8;
+      const uint2 w = *reinterpret_cast<const uint2*>(
+          sRaw + ((st * 2 + kv) * kTileLines + j) * RAW + c8);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&w);
+      bf16* dst = sKV + (kv * kTileLines + j) * LD + c8;
+      if constexpr (KIND == kPoolInt8) {
+        uint4 x;
+        x.x = pack_bf16(float(int8_t(b[0])), float(int8_t(b[1])));
+        x.y = pack_bf16(float(int8_t(b[2])), float(int8_t(b[3])));
+        x.z = pack_bf16(float(int8_t(b[4])), float(int8_t(b[5])));
+        x.w = pack_bf16(float(int8_t(b[6])), float(int8_t(b[7])));
+        *reinterpret_cast<uint4*>(dst) = x;
+      } else {
+        uint4 lo, hi;  // dims c8 .. c8 + 7 and c8 + DK / 2 ..
+        uint32_t* pl = &lo.x;
+        uint32_t* ph = &hi.x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pl[i] = pack_bf16(float(int(b[2 * i] & 0xF) - 8), float(int(b[2 * i + 1] & 0xF) - 8));
+          ph[i] = pack_bf16(float(int(b[2 * i] >> 4) - 8), float(int(b[2 * i + 1] >> 4) - 8));
+        }
+        *reinterpret_cast<uint4*>(dst) = lo;
+        *reinterpret_cast<uint4*>(dst + DK / 2) = hi;
+      }
+    }
+  };
+
+  const uint8_t* mslot = a.mask + (size_t)r * a.C * S;
+  const int ntiles = (S + kTileLines - 1) / kTileLines;
+  for (int c0 = 0; c0 < ntiles; c0 += kMetaTiles) {
+    const int nct = min(kMetaTiles, ntiles - c0);
+    const int p0 = (c0 * kTileLines) >> ps_log;  // the chunk's first page
+    const int npc = ((min((c0 + nct) * kTileLines, S) - c0 * kTileLines) + ps - 1) >> ps_log;
+    __syncthreads();  // the last chunk's bits, pages and flags are read
+    // mask bits of the chunk's tiles for the block's rows; warp w of a
+    // pass covers rows 32 (w % 4) .. + 31 of tile 2 k + w / 4
+#pragma unroll 4
+    for (int idx = tid; idx < nct * kMmaTileRows; idx += kMmaTileThreads) {
+      const int tt = idx / kMmaTileRows, ii = idx % kMmaTileRows, i = row0 + ii;
+      const uint64_t bits =
+          i < rows ? mask_bits(mslot + (size_t)(i / G) * S, (c0 + tt) * kTileLines, S) : 0ull;
+      sBits[idx] = bits;
+      const bool any = __any_sync(0xffffffffu, bits != 0ull);
+      if (lane == 0) sFlag[tt * (kMmaTileRows / 32) + ii / 32] = any;
+    }
+    for (int j = tid; j < npc; j += kMmaTileThreads) {
+      const int page = a.table[(size_t)r * a.NP + p0 + j];
+      sPid[j] = page;
+      // scores in base 2: dot * (k_scale * scale) * log2(e), then exp2
+      sPk[j] = (KIND == kPoolFloat ? 1.f : a.k_scale[(size_t)page * a.KV + h]) * a.scale *
+               kLog2e;
+      sPv[j] = KIND == kPoolFloat ? 1.f : a.v_scale[(size_t)page * a.KV + h];
+    }
+    __syncthreads();
+    uint32_t todo = 0;  // tiles any row of the block attends (block-uniform)
+    for (int tt = 0; tt < nct; ++tt)
+      todo |= uint32_t(reinterpret_cast<const uint32_t*>(sFlag)[tt] != 0u) << tt;
+
+    // the attended tiles stream through kMmaStages buffers, two copies in
+    // flight while one tile is multiplied: one commit group a tile (empty
+    // past the last), issued in the order the tiles are taken
+    uint32_t pend = todo;
+    auto issue_next = [&](int st) {
+      if (pend) {
+        issue(c0 + __ffs(pend) - 1, p0, st);
+        pend &= pend - 1;
+      }
+      cp_async_commit();
+    };
+    issue_next(0);
+    issue_next(1);
+    for (int st = 0; todo; st = st + 1 == kMmaStages ? 0 : st + 1) {
+      const int tt = __ffs(todo) - 1, u = c0 + tt;
+      todo &= todo - 1;
+      cp_async_wait<kMmaStages - 2>();  // this tile's group has landed
+      __syncthreads();  // ... for every thread, and every warp is done with the last tile
+      issue_next(st == 0 ? kMmaStages - 1 : st - 1);  // into the last tile's buffer
+      const bf16* sK = sKV + (L::kQuant ? 0 : st * 2 * L::kTile);
+      if constexpr (L::kQuant) {
+        widen(st);
+        __syncthreads();
+      }
+      const bf16* sV = sK + L::kTile;
+
+      const uint64_t ba = sBits[tt * kMmaTileRows + 16 * warp + g];
+      const uint64_t bb = sBits[tt * kMmaTileRows + 16 * warp + g + 8];
+      if (__any_sync(0xffffffffu, (ba | bb) != 0ull)) {  // warp-uniform
+        // S = Q K^T of the warp's 16 rows and the tile's 64 lines
+        float s[kTileLines / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < kTileLines / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < DK / 16; ++ks)
+#pragma unroll
+          for (int n2 = 0; n2 < kTileLines / 16; ++n2) {
+            uint32_t b[4];
+            load_b_x4<LD>(sK, n2 * 16, ks * 16, lane, b);
+            mma16816(s[2 * n2], qa[ks], b[0], b[1]);
+            mma16816(s[2 * n2 + 1], qa[ks], b[2], b[3]);
+          }
+
+        // s[nt][e]: row ra (e < 2) or rb, line 8 nt + 2 t + (e & 1) of the
+        // tile, on page (u * 64 + 8 nt) / ps; its mask bit is bit
+        // 8 nt + (e & 1) of xa or xb
+        const int pt = ((u * kTileLines) >> ps_log) - p0;
+        const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
+        // the row maxima and sums reduce as trees (short dependency chains:
+        // each scheduler runs only two warps)
+        float red_a[kTileLines / 8], red_b[kTileLines / 8];
+#pragma unroll
+        for (int nt = 0; nt < kTileLines / 8; ++nt) {
+          const float ksc = sPk[pt + ((nt * 8) >> ps_log)];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool on = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+            s[nt][e] = on ? s[nt][e] * ksc : kNegInf;
+          }
+          red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
+          red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
+        }
+        float mx[2] = {fmaxf(m[0], tree_max<kTileLines / 8>(red_a)),
+                       fmaxf(m[1], tree_max<kTileLines / 8>(red_b))};
+        float corr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          corr[i] = exp2_ftz(m[i] - mx[i]);
+          m[i] = mx[i];
+        }
+#pragma unroll
+        for (int nt = 0; nt < kTileLines / 8; ++nt) {
+          bool on[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            on[e] = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+            s[nt][e] = on[e] ? exp2_ftz(s[nt][e] - m[e >> 1]) : 0.f;
+          }
+          red_a[nt] = s[nt][0] + s[nt][1];
+          red_b[nt] = s[nt][2] + s[nt][3];
+          if constexpr (L::kQuant) {
+            // lines on pages past the chunk's last (past S) have no scale
+            // staged: read only on attended lines
+            const float vsc = sPv[pt + ((nt * 8) >> ps_log)];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = on[e] ? s[nt][e] * vsc : 0.f;
+          }
+        }
+        l[0] = l[0] * corr[0] + tree_sum<kTileLines / 8>(red_a);
+        l[1] = l[1] * corr[1] + tree_sum<kTileLines / 8>(red_b);
+#pragma unroll
+        for (int nt = 0; nt < DK / 8; ++nt) {
+          o[nt][0] *= corr[0];
+          o[nt][1] *= corr[0];
+          o[nt][2] *= corr[1];
+          o[nt][3] *= corr[1];
+        }
+        // O += P V, P as hi + lo bf16 fragments straight from the scores
+#pragma unroll
+        for (int kt = 0; kt < kTileLines / 16; ++kt) {
+          uint32_t ah[4], al[4];
+          acc_to_a(s[2 * kt], s[2 * kt + 1], ah, al);
+#pragma unroll
+          for (int n2 = 0; n2 < DK / 16; ++n2) {
+            uint32_t b[4];
+            load_b_trans<LD>(sV, kt * 16, n2 * 16, lane, b);
+            mma16816(o[2 * n2], ah, b[0], b[1]);
+            mma16816(o[2 * n2], al, b[0], b[1]);
+            mma16816(o[2 * n2 + 1], ah, b[2], b[3]);
+            mma16816(o[2 * n2 + 1], al, b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = i ? rb : ra;
+    if (row >= rows) continue;
+    const float inv = 1.f / fmaxf(l[i], kMinDenominator);
+    bf16* orow = out + (((size_t)r * a.C + row / G) * a.H + (size_t)h * G + row % G) * DK + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < DK / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(orow + nt * 8) =
+          pack_bf16(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+  }
+  __syncthreads();  // the shared buffers may be rewritten by the next call
 }
 
 }  // namespace fft

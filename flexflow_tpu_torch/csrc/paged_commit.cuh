@@ -57,6 +57,34 @@ __device__ __forceinline__ TQ rope_at(const TQ* x, int d, const float* cs,
   return from_f32<TQ>(__fadd_rn(__fmul_rn(xd, cs[d]), __fmul_rn(partner, sn[d])));
 }
 
+// Dims [d0, d0 + 8) of head row x, RoPE'd as rope_at rounds each, into y.
+// x, y and (with a rotary width a multiple of 16, where 8 dims lie on one
+// side of rot / 2) cs and sn are read and written in 16-byte vectors.
+template <typename TQ>
+__device__ __forceinline__ void rope8(const TQ* x, TQ* y, int d0, const float* cs,
+                                      const float* sn, int rot) {
+  float v[8];
+  load_f32<TQ, 8>(x + d0, v);
+  if (cs != nullptr && d0 < rot) {
+    if (rot % 16 != 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[d0 + i] = rope_at<TQ>(x, d0 + i, cs, sn, rot);
+      return;
+    }
+    const int half = rot / 2;
+    float p[8], c[8], s[8];
+    load_f32<TQ, 8>(x + (d0 < half ? d0 + half : d0 - half), p);
+    load_f32<float, 8>(cs + d0, c);
+    load_f32<float, 8>(sn + d0, s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float partner = d0 < half ? -p[i] : p[i];
+      v[i] = __fadd_rn(__fmul_rn(v[i], c[i]), __fmul_rn(partner, s[i]));
+    }
+  }
+  store8<TQ>(y + d0, v);
+}
+
 __device__ __forceinline__ uint8_t pack_pair(float lo, float hi) {
   return uint8_t(((int)lo + 8) | (((int)hi + 8) << 4));
 }
@@ -120,41 +148,56 @@ __device__ void commit_quant(const CommitArgs& f, int r, int h, const TQ* vals,
   }
   __syncthreads();
 
-  // requantize the codes of every touched page whose scale moved
+  // requantize the codes of every touched page whose scale moved, 8 code
+  // bytes a thread at a time
+  constexpr int V = DKP / 8;
   for (int c = 0; c < C; ++c) {  // block-uniform
     if (sLead[c] != c || sRatio[c] == 1.f) continue;  // rint(code * 1) == code
     const float ratio = sRatio[c];
     const size_t base = pool_row<KIND, DK>(sPage[c], 0, h, a.ps, a.KV);
-    for (int idx = tid; idx < a.ps * DKP; idx += NT) {
-      const size_t at = base + (size_t)(idx / DKP) * a.KV * DKP + idx % DKP;
-      if constexpr (KIND == kPoolInt8) {
-        int8_t* p = static_cast<int8_t*>(pool);
-        p[at] = (int8_t)rintf(__fmul_rn(float(p[at]), ratio));
-      } else {
-        uint8_t* p = static_cast<uint8_t*>(pool);
-        const uint8_t b = p[at];
-        const float lo = rintf(__fmul_rn(float(int(b & 0xF) - 8), ratio));
-        const float hi = rintf(__fmul_rn(float(int((b >> 4) & 0xF) - 8), ratio));
-        p[at] = pack_pair(lo, hi);
+    for (int idx = tid; idx < a.ps * V; idx += NT) {
+      uint8_t* at = static_cast<uint8_t*>(pool) + base + (size_t)(idx / V) * a.KV * DKP +
+                    idx % V * 8;
+      uint2 w = *reinterpret_cast<const uint2*>(at);
+      uint8_t* b = reinterpret_cast<uint8_t*>(&w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if constexpr (KIND == kPoolInt8) {
+          b[i] = (uint8_t)(int8_t)rintf(__fmul_rn(float(int8_t(b[i])), ratio));
+        } else {
+          const float lo = rintf(__fmul_rn(float(int(b[i] & 0xF) - 8), ratio));
+          const float hi = rintf(__fmul_rn(float(int((b[i] >> 4) & 0xF) - 8), ratio));
+          b[i] = pack_pair(lo, hi);
+        }
       }
+      *reinterpret_cast<uint2*>(at) = w;
     }
   }
   __syncthreads();
 
-  // quantize the new lines at their page's final scale
-  for (int idx = tid; idx < C * DKP; idx += NT) {
-    const int c = idx / DKP, j = idx % DKP;
+  // quantize the new lines at their page's final scale, 8 code bytes a
+  // thread at a time
+  for (int idx = tid; idx < C * V; idx += NT) {
+    const int c = idx / V, j0 = idx % V * 8;
     const float den = fmaxf(sNew[sLead[c]], 1e-30f);
-    const size_t at = pool_row<KIND, DK>(sPage[c], of[c], h, a.ps, a.KV) + j;
     const TQ* v = rowv + c * line_stride;
-    const float x = fminf(fmaxf(rintf(__fdiv_rn(to_f32<TQ>(v[j]), den)), -qmax), qmax);
-    if constexpr (KIND == kPoolInt8) {
-      static_cast<int8_t*>(pool)[at] = (int8_t)x;
-    } else {
-      const float y =
-          fminf(fmaxf(rintf(__fdiv_rn(to_f32<TQ>(v[j + DK / 2]), den)), -qmax), qmax);
-      static_cast<uint8_t*>(pool)[at] = pack_pair(x, y);
+    float x[8], y[8];
+    load_f32<TQ, 8>(v + j0, x);
+    if constexpr (KIND == kPoolInt4) load_f32<TQ, 8>(v + j0 + DK / 2, y);
+    uint2 w;
+    uint8_t* b = reinterpret_cast<uint8_t*>(&w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float qx = fminf(fmaxf(rintf(__fdiv_rn(x[i], den)), -qmax), qmax);
+      if constexpr (KIND == kPoolInt8) {
+        b[i] = (uint8_t)(int8_t)qx;
+      } else {
+        const float qy = fminf(fmaxf(rintf(__fdiv_rn(y[i], den)), -qmax), qmax);
+        b[i] = pack_pair(qx, qy);
+      }
     }
+    *reinterpret_cast<uint2*>(static_cast<uint8_t*>(pool) +
+                              pool_row<KIND, DK>(sPage[c], of[c], h, a.ps, a.KV) + j0) = w;
   }
   for (int c = tid; c < C; c += NT) {
     if (sLead[c] == c) scale[(size_t)sPage[c] * a.KV + h] = sNew[c];
@@ -176,34 +219,42 @@ __device__ void rope_and_commit(const CommitArgs& f, int r, int h) {
   TQ* qo = static_cast<TQ*>(f.q_rot);
   TQ* ko = static_cast<TQ*>(f.k_rot);
 
-  for (int idx = tid; idx < C * G * DK; idx += NT) {
-    const int d = idx % DK, cg = idx / DK, c = cg / G, g = cg % G;
+  constexpr int V = DK / 8;  // 8-dim vectors a head row
+  for (int idx = tid; idx < C * G * V; idx += NT) {
+    const int d0 = idx % V * 8, cg = idx / V, c = cg / G, g = cg % G;
     const size_t rc = (size_t)r * C + c;
     const size_t row = (rc * a.H + (size_t)h * G + g) * DK;
     const float* cs = f.cos ? f.cos + rc * f.rot : nullptr;
     const float* sn = f.sin ? f.sin + rc * f.rot : nullptr;
-    qo[row + d] = rope_at<TQ>(qin + row, d, cs, sn, f.rot);
+    rope8<TQ>(qin + row, qo + row, d0, cs, sn, f.rot);
   }
-  for (int idx = tid; idx < C * DK; idx += NT) {
-    const int d = idx % DK, c = idx / DK;
+  for (int idx = tid; idx < C * V; idx += NT) {
+    const int d0 = idx % V * 8, c = idx / V;
     const size_t rc = (size_t)r * C + c;
     const size_t row = (rc * a.KV + h) * DK;
     const float* cs = f.cos ? f.cos + rc * f.rot : nullptr;
     const float* sn = f.sin ? f.sin + rc * f.rot : nullptr;
-    ko[row + d] = rope_at<TQ>(kin + row, d, cs, sn, f.rot);
+    rope8<TQ>(kin + row, ko + row, d0, cs, sn, f.rot);
   }
   __syncthreads();
 
   if constexpr (KIND == kPoolFloat) {
+    __shared__ size_t sDst[kMaxChunk];  // pool row of each new line
+    for (int c = tid; c < C; c += NT)
+      sDst[c] = pool_row<KIND, DK>(line_page(f, r, c), f.off[(size_t)r * C + c], h, a.ps, a.KV);
+    __syncthreads();
     TQ* kp = static_cast<TQ*>(f.k_pool);
     TQ* vp = static_cast<TQ*>(f.v_pool);
-    for (int idx = tid; idx < C * DK; idx += NT) {
-      const int d = idx % DK, c = idx / DK;
+    for (int idx = tid; idx < C * V; idx += NT) {
+      const int d0 = idx % V * 8, c = idx / V;
       const size_t rc = (size_t)r * C + c;
-      const size_t dst = pool_row<KIND, DK>(line_page(f, r, c), f.off[rc], h, a.ps, a.KV) + d;
-      const size_t src = (rc * a.KV + h) * DK + d;
-      kp[dst] = ko[src];
-      vp[dst] = vin[src];
+      const size_t dst = sDst[c] + d0;
+      const size_t src = (rc * a.KV + h) * DK + d0;
+      float x[8];
+      load_f32<TQ, 8>(ko + src, x);
+      store8<TQ>(kp + dst, x);
+      load_f32<TQ, 8>(vin + src, x);
+      store8<TQ>(vp + dst, x);
     }
   } else {
     commit_quant<TQ, KIND, DK, NT>(f, r, h, ko, f.k_pool, f.k_scale);

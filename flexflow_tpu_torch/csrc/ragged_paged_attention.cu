@@ -9,30 +9,40 @@
 // dtype (float32, bf16), int8 codes or packed int4 codes with per-page,
 // per-KV-head f32 scales; a row with nothing to attend gives 0. One
 // kernel serves decode (C = 1) and the mixed prefill step (C up to
-// prefill_chunk). paged_attention.cuh holds the loop and its two block
+// prefill_chunk). paged_attention.cuh holds the loop and its three block
 // designs.
 //
 // Bound on an H100: the larger of
 //  * bytes: the pages the mask opens, 2 * pages * ps * KV * (dk / pack)
 //    * itemsize, plus scales, table, mask and q/out, over 3.35 TB/s;
 //  * operations: 4 * (attended (row, line) pairs) * G * dk FLOP, over the
-//    rate of the unit that runs them (here f32 on the CUDA cores,
-//    67 TFLOP/s; the bf16 tensor cores' 989 TFLOP/s are the later step).
-// A decode step is bound by bytes; a mixed step at C = 128 by operations.
+//    rate of the unit that runs them (bf16 tensor cores 989 TFLOP/s, f32
+//    CUDA cores 67 TFLOP/s).
+// Decode steps are bound by bytes. A mixed step at C = 128 is bound by
+// bytes on bf16 pools and by operations on int8 and int4 pools (1/2 and
+// 1/4 of the bytes, the same FLOP) and f32 ones (the CUDA cores' rate).
 //
-// Design against that bound:
-//  * Pages no row of a block attends are skipped after a look at their
-//    mask bits (__syncthreads_or), before the table, scales or K/V are
-//    read. The TPU kernel DMAs every page and skips only the compute.
-//  * Decode: every K/V line is read once for all query heads of its
-//    group, as one coalesced segment per warp, four lines in flight.
-//  * Mixed steps: each K/V tile is staged once in shared memory as f32
-//    and reused by 32 query rows in 4 x 4 register blocks.
-//  * int8 and int4 codes are converted to f32 in registers on their way
-//    in, so the quantized pools move 1/2 and 1/4 of the bf16 bytes; the
-//    page's scales multiply the scores and the probabilities, never the
-//    K/V elements.
-//  * No tensor cores, TMA or split-K yet: those are later work.
+// Design against that bound (paged_design picks the block design):
+//  * Pages or tiles no row of a block attends are skipped after a look at
+//    their mask bits, before their K/V are read. The TPU kernel DMAs
+//    every page and skips only the compute.
+//  * Decode ("decode"): every K/V line is read once for all query heads of
+//    its group, as one coalesced segment per warp, four lines in flight.
+//  * bf16 mixed steps ("mma"): one block of 8 warps per (slot, KV head,
+//    128 rows), ceil(C * G / 128) row blocks on the grid. Each K/V tile of
+//    64 lines is read once for the block's 128 rows, by cp.async into one
+//    of three shared buffers, two copies in flight while the tensor cores
+//    (mma.sync, bf16 in, f32 accumulators) multiply the third; int8 and
+//    int4 codes are widened to bf16 codes in shared memory, so the
+//    quantized pools move 1/2 and 1/4 of the bf16 bytes and the page
+//    scales multiply the scores and the probabilities, never the K/V
+//    elements.
+//  * f32 mixed steps ("f32-tile"): attend_tile, each K/V tile staged once
+//    in shared memory as f32 and reused by 32 query rows in 4 x 4 register
+//    blocks on the CUDA cores; the whole-step kernel shares it.
+//  * No wgmma, TMA or split-K over the cache yet: those are later work.
+#include <type_traits>
+
 #include "paged_attention.cuh"
 
 namespace fft {
@@ -49,15 +59,32 @@ __global__ void __launch_bounds__(kTileThreads) ragged_tile_kernel(PagedArgs a) 
   attend_tile<TQ, KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kTileRows, smem);
 }
 
+template <int KIND, int DK>
+__global__ void __launch_bounds__(kMmaTileThreads, 1) ragged_mma_kernel(PagedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  attend_tile_mma<KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kMmaTileRows, smem_mma);
+}
+
 template <typename TQ, int KIND, int DK>
 cudaError_t launch_dk(const PagedArgs& a, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
   const int rows = a.C * (a.H / a.KV);
-  if (rows == 1) {
-    ragged_decode_kernel<TQ, KIND, DK, 1><<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
-  } else if (rows <= kDecodeRows) {
-    ragged_decode_kernel<TQ, KIND, DK, kDecodeRows>
-        <<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
-  } else {
+  const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
+  if (design == kDesignDecode) {
+    if (rows == 1) {
+      ragged_decode_kernel<TQ, KIND, DK, 1><<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+    } else {
+      ragged_decode_kernel<TQ, KIND, DK, kDecodeRows>
+          <<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+    }
+  } else if constexpr (kBf16) {  // kDesignMma
+    constexpr size_t kSmem = MmaSmem<KIND, DK>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        ragged_mma_kernel<KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((rows + kMmaTileRows - 1) / kMmaTileRows, a.KV, a.R);
+    ragged_mma_kernel<KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(a);
+  } else {  // kDesignF32Tile
     constexpr size_t kSmem = TileSmem<DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
         ragged_tile_kernel<TQ, KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -109,6 +136,12 @@ extern "C" int ragged_paged_attention_launch(
     err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The block design (0 decode, 1 mma, 2 f32-tile) the launcher takes for
+// these shapes and q dtype.
+extern "C" int ragged_paged_attention_design(int C, int H, int KV, int dtype) {
+  return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);
 }
 
 extern "C" const char* error_string(int err) {

@@ -13,7 +13,9 @@ Every kernel ``<name>`` has a launcher
 which returns ``cudaGetLastError()`` after the launch, in the library of
 its source (``SOURCES``; its own name unless listed), which also exports
 ``const char* error_string(int)``. A pointer argument may be null (an
-absent optional tensor).
+absent optional tensor). The paged kernels' libraries also export
+``int <name>_design(int C, int H, int KV, int dtype)``, the block design
+their launcher takes (:func:`design`).
 """
 from __future__ import annotations
 
@@ -49,6 +51,11 @@ SOURCES = {
     "flash_attention_bwd_kv": "flash_attention_bwd",
     "flash_attention_bwd_q": "flash_attention_bwd",
 }
+
+#: kernels whose library exports ``<name>_design``
+DESIGNED = ("ragged_paged_attention", "fused_rope_paged_attention")
+#: the block designs of the paged kernels, by the code ``<name>_design`` returns
+DESIGNS = ("decode", "mma", "f32-tile")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -123,6 +130,10 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                            + [ctypes.c_float] * n_float + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        for kernel in DESIGNED:
+            if source(kernel) == src:
+                getattr(lib, f"{kernel}_design").argtypes = [ctypes.c_int] * 4
+                getattr(lib, f"{kernel}_design").restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _LIBS[src] = lib
@@ -151,3 +162,10 @@ def launch(name: str, tensors: List[Optional[torch.Tensor]], ints: List[int],
             f"{name} launch failed: CUDA error {err} "
             f"({lib.error_string(err).decode()})"
         )
+
+
+def design(name: str, C: int, H: int, KV: int, dtype: int) -> str:
+    """The block design (one of ``DESIGNS``) that paged kernel ``name``'s
+    launcher takes for C query tokens per slot, H query and KV key/value
+    heads and q of dtype code ``dtype``."""
+    return DESIGNS[getattr(_lib(name), f"{name}_design")(C, H, KV, dtype)]

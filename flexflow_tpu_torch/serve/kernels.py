@@ -11,7 +11,9 @@ Each kernel here has three parts side by side:
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
   version. Each launch adds one to ``LAUNCHES[name]``; the paged kernels
   and the whole-step kernel count per pool type,
-  ``name[bf16|f32|int8|int4]``.
+  ``name[bf16|f32|int8|int4]``, and the paged kernels also per block
+  design, as their launcher reports it, in ``DESIGN_LAUNCHES``
+  (``name[decode|mma|f32-tile]``).
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -40,6 +42,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ._cuda import DESIGNS
 from .kv_quant import pool_pack, quant_line_write, unpack_codes
 
 NEG_INF = -1e30
@@ -56,6 +59,11 @@ LAUNCHES: Dict[str, int] = {
     **{f"{k}[{t}]": 0 for k in PAGED_KERNELS + ("whole_step_decode",) for t in POOL_TYPES},
 }
 
+#: launches of the paged kernels by the block design their launcher took
+#: (``_cuda.DESIGNS``: "decode" for C * G <= 8, else "mma" for bf16 q on
+#: the tensor cores, "f32-tile" for f32 q), since the last reset
+DESIGN_LAUNCHES: Dict[str, int] = {f"{k}[{d}]": 0 for k in PAGED_KERNELS for d in DESIGNS}
+
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
@@ -65,8 +73,20 @@ _FUSED_MAX_CHUNK = 256
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count_paged(name: str, q: torch.Tensor, k_pool: torch.Tensor) -> None:
+    """Count one launch of paged kernel ``name``, by pool type and by the
+    block design its launcher took."""
+    from . import _cuda
+
+    LAUNCHES[f"{name}[{pool_type(k_pool)}]"] += 1
+    _, C, H, _ = q.shape
+    design = _cuda.design(name, C, H, k_pool.shape[2], _dtype_code(q.dtype))
+    DESIGN_LAUNCHES[f"{name}[{design}]"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +427,7 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
         [R, C, H, KV, dk, ps, page_table.shape[1], _dtype_code(q.dtype), kind],
         [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
-    LAUNCHES[f"ragged_paged_attention[{pool_type(k_pool)}]"] += 1
+    _count_paged("ragged_paged_attention", q, k_pool)
     return out
 
 
@@ -513,7 +533,7 @@ def fused_rope_paged_attention(q, k_new, v_new, cos, sin, k_pool, v_pool,
         [scale if scale is not None else 1.0 / math.sqrt(dk),
          qmax if qmax is not None else 0.0],
     )
-    LAUNCHES[f"fused_rope_paged_attention[{pool_type(k_pool)}]"] += 1
+    _count_paged("fused_rope_paged_attention", q, k_pool)
     return out
 
 
@@ -588,7 +608,7 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale):
                     ("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("mask", mask)):
         if t.data_ptr() % 16:  # the kernels read them in 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
 

@@ -1,10 +1,10 @@
 """The port's CUDA attention kernels (dense decode and verify, ragged
-paged and fused RoPE + KV-write paged attention, training flash attention
-forward and backward) held against their plain PyTorch versions on the
-GPU, and bf16 train steps through each attention path under each remat
-setting. Every test here needs a CUDA GPU and skips without one; the file
-imports neither JAX nor the JAX package, so on a machine with a GPU and
-no JAX it runs as
+paged and fused RoPE + KV-write paged attention in each block design,
+training flash attention forward and backward) held against their plain
+PyTorch versions on the GPU, and bf16 train steps through each attention
+path under each remat setting. Every test here needs a CUDA GPU and skips
+without one; the file imports neither JAX nor the JAX package, so on a
+machine with a GPU and no JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -67,6 +67,25 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tk.verify_attention(q[:, None], kv, kv,
                             torch.ones(R, 1, S1, dtype=torch.bool, device=cuda_device))
+    # the paged kernels: no head dim 32, and no mask off 16-byte alignment
+    C, ps, NP = 20, 16, 2
+    before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
+    for dk_, misaligned in ((32, False), (64, True)):
+        q = torch.zeros(R, C, H, dk_, dtype=torch.bfloat16, device=cuda_device)
+        pool = torch.zeros(R * NP + 1, ps, KV, dk_, dtype=torch.bfloat16, device=cuda_device)
+        table = torch.zeros(R, NP, dtype=torch.int32, device=cuda_device)
+        n = R * C * NP * ps
+        mask = torch.ones(n + 1, dtype=torch.bool, device=cuda_device)
+        mask = (mask[1:] if misaligned else mask[:n]).view(R, C, NP * ps)
+        i = torch.zeros(R, C, dtype=torch.int32, device=cuda_device)
+        kv_new = torch.zeros(R, C, KV, dk_, dtype=torch.bfloat16, device=cuda_device)
+        what = "16-byte aligned" if misaligned else "head dim"
+        with pytest.raises(ValueError, match=what):
+            tk.ragged_paged_attention(q, pool, pool, table, mask)
+        with pytest.raises(ValueError, match=what):
+            tk.fused_rope_paged_attention(q, kv_new, kv_new, None, None, pool, pool, table,
+                                          i, i, mask)
+    assert {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES} == before
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +94,12 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
 
 def _paged_case(gen, dev, dtype, quant, R, C, H, KV, dk, ps, NP):
     """q, pools (q's dtype, or int8/int4 codes quantized from random
-    lines with per-page scales), a shuffled table with unallocated
-    entries on the scratch page P, and a mask that opens only allocated
-    lines (row (0, 0) attends nothing)."""
+    lines with per-page scales), a shuffled table whose last logical page
+    is unallocated (the scratch page P), and a mask that opens only
+    allocated lines: slot 0 at random (its row 0 attends nothing), slot 1
+    nothing at all, slot 2 a causal prefix whose last column is padding
+    (it attends every line, scratch page included, as a padding token of a
+    serving step does)."""
     from flexflow_tpu_torch.serve import kv_quant as kq
 
     P = R * NP
@@ -88,6 +110,10 @@ def _paged_case(gen, dev, dtype, quant, R, C, H, KV, dk, ps, NP):
     allocated = (table != P).repeat_interleave(ps, dim=1)
     mask = (torch.rand(R, C, NP * ps, generator=gen, device=dev) < 0.5) & allocated[:, None]
     mask[0, 0] = False
+    mask[1] = False
+    pos = torch.arange(C, device=dev) + (NP - 1) * ps - C
+    mask[2] = torch.arange(NP * ps, device=dev)[None, :] <= pos[:, None]
+    mask[2, C - 1] = True
     if quant is None:
         return q, lines[0].to(dtype), lines[1].to(dtype), None, None, table, mask
     spec = kq.SPECS[quant]
@@ -98,45 +124,94 @@ def _paged_case(gen, dev, dtype, quant, R, C, H, KV, dk, ps, NP):
         s[1].contiguous(), table, mask
 
 
-@pytest.mark.parametrize("ps", [16, 128])
-@pytest.mark.parametrize("C", [1, 5])
+# (C, H, KV, dk, ps, NP): query rows per KV head C * H / KV at decode
+# (<= 8; one row alone at C = 1, G = 1) at dk 64 and 128, 9-16, 128 and
+# past 128 (several 128-row blocks, the last one
+# partial), at G = 1 and 4; page sizes 16 (four pages a 64-line tile), 64
+# and 128; head dims 64 and 128; a cache of 4352 lines (68 tiles: three
+# chunks of the 32 whose mask bits the tensor-core tile stages at once)
+PAGED_SHAPES = [
+    (20, 8, 2, 64, 128, 34),
+    (1, 8, 2, 64, 16, 3),
+    (1, 8, 2, 64, 128, 3),
+    (1, 8, 2, 128, 16, 4),
+    (1, 2, 2, 128, 128, 3),
+    (5, 8, 2, 64, 16, 3),
+    (5, 8, 2, 64, 128, 3),
+    (5, 8, 2, 128, 16, 4),
+    (11, 2, 2, 128, 64, 3),
+    (3, 8, 2, 128, 16, 5),
+    (128, 2, 2, 128, 64, 4),
+    (37, 8, 2, 64, 128, 2),
+    (100, 8, 2, 128, 16, 12),
+]
+
+
+def _design(C, H, KV, dtype):
+    if C * (H // KV) <= 8:
+        return "decode"
+    return "mma" if dtype == torch.bfloat16 else "f32-tile"
+
+
+def _one_launch(before, name, pool, design):
+    """The wrapper counted exactly one launch of ``name``, on ``pool``, in
+    ``design``."""
+    for counts, key in ((tk.LAUNCHES, f"{name}[{tk.pool_type(pool)}]"),
+                        (tk.DESIGN_LAUNCHES, f"{name}[{design}]")):
+        moved = {k: v - before[k] for k, v in counts.items() if v != before[k]}
+        assert moved == {key: 1}
+
+
+@pytest.mark.parametrize("shape", PAGED_SHAPES, ids=lambda s: "C{}-H{}-KV{}-dk{}-ps{}".format(*s))
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_ragged_paged_attention_matches_plain_version(cuda_device, dtype, quant, C, ps):
+def test_cuda_ragged_paged_attention_matches_plain_version(cuda_device, dtype, quant, shape):
+    C, H, KV, dk, ps, NP = shape
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q, kp, vp, ks, vs, table, mask = _paged_case(gen, cuda_device, dtype, quant,
-                                                 3, C, 8, 2, 64, ps, 3)
-    before = dict(tk.LAUNCHES)
+                                                 3, C, H, KV, dk, ps, NP)
+    before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
     out = tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     ref = tk.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     torch.testing.assert_close(out, ref, **TOL[dtype])
-    assert (out[0, 0] == 0).all()  # a row with nothing to attend gives zeros
-    name = f"ragged_paged_attention[{tk.pool_type(kp)}]"
-    assert tk.LAUNCHES[name] == before[name] + 1
+    assert (out[0, 0] == 0).all() and (out[1] == 0).all()  # nothing to attend gives zeros
+    _one_launch(before, "ragged_paged_attention", kp, _design(C, H, KV, dtype))
 
 
-@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("partial", [False, True], ids=["rope-full", "rope-partial"])
+@pytest.mark.parametrize("shape", PAGED_SHAPES, ids=lambda s: "C{}-H{}-KV{}-dk{}-ps{}".format(*s))
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, quant, C):
+def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, quant, shape,
+                                                            partial):
     """Pools and scales (non-scratch pages) and the outputs of rows that
     never read the scratch page equal the unfused composition (RoPE,
     scatter or quant_line_write, ragged kernel) bit for bit; the output
-    is within the kernel tolerance of the plain version."""
+    is within the kernel tolerance of the plain version. Slot 2's last
+    column is a padding token: its line goes to the scratch page. A
+    partial rotary width passes the head tails through: dk / 2 at dk 64
+    (16-byte RoPE), dk / 2 + 8 at dk 128 (a width the commit rotates one
+    dim at a time)."""
     from flexflow_tpu_torch.models import llama as tl
     from flexflow_tpu_torch.serve import kv_quant as kq
 
+    C, H, KV, dk, ps, NP = shape
     gen = torch.Generator(device=cuda_device).manual_seed(2)
-    R, H, KV, dk, ps, NP = 3, 8, 2, 128, 16, 4
+    R = 3
     q, kp, vp, ks, vs, table, mask = _paged_case(gen, cuda_device, dtype, quant,
                                                  R, C, H, KV, dk, ps, NP)
     P = R * NP
     k_new = torch.randn(R, C, KV, dk, generator=gen, device=cuda_device).to(dtype)
     v_new = torch.randn(R, C, KV, dk, generator=gen, device=cuda_device).to(dtype)
+    top = (NP - 1) * ps - C  # the new lines fill allocated pages
     pos = torch.arange(C, device=cuda_device)[None, :] + torch.tensor(
-        [[3], [17], [30]], device=cuda_device)
+        [[min(3, top)], [min(17, top)], [top]], device=cuda_device)
+    pos[2, C - 1] = NP * ps - 1  # on the scratch page
     cos, sin = tl.rope_freqs(tl.LLaMAConfig(hidden_size=H * dk, num_attention_heads=H,
                                             num_key_value_heads=KV), pos)
+    if partial:
+        rot = dk // 2 + (8 if dk == 128 else 0)
+        cos, sin = cos[..., :rot].contiguous(), sin[..., :rot].contiguous()
     logical = (pos // ps).to(torch.int32)
     off = (pos % ps).to(torch.int32)
     qmax = None if quant is None else kq.SPECS[quant].qmax
@@ -144,11 +219,18 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
     def clones():
         return [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
 
+    def rope(x):
+        if partial:
+            return tk._rope_rotate(x, cos[:, :, None], sin[:, :, None])
+        return tl.apply_rope(x, cos, sin)
+
     a, b, c = clones(), clones(), clones()
+    before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
     fused = tk.fused_rope_paged_attention(q, k_new, v_new, cos, sin, a[0], a[1], table,
                                           logical, off, mask, k_scale=a[2],
                                           v_scale=a[3], qmax=qmax)
-    qr, kr = tl.apply_rope(q, cos, sin), tl.apply_rope(k_new, cos, sin)
+    _one_launch(before, "fused_rope_paged_attention", kp, _design(C, H, KV, dtype))
+    qr, kr = rope(q), rope(k_new)
     phys = table.long().gather(1, logical.long())
     tk.commit_paged(b[0], b[1], kr, v_new, phys, off.long(), b[2], b[3], qmax)
     unfused = tk.ragged_paged_attention(qr, b[0], b[1], table, mask, k_scale=b[2],
@@ -161,8 +243,95 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
         if x is not None:
             assert torch.equal(x[:P], y[:P])
     reads_scratch = (mask & (table == P).repeat_interleave(ps, dim=1)[:, None]).any(-1)
+    assert reads_scratch[2, C - 1] and (C == 1 or not reads_scratch[2, 0])
     assert torch.equal(fused[~reads_scratch], unfused[~reads_scratch])
-    torch.testing.assert_close(fused, ref, **TOL[dtype])
+    torch.testing.assert_close(fused[~reads_scratch], ref[~reads_scratch], **TOL[dtype])
+    assert (fused[1] == 0).all()
+
+
+_POISON_SRC = r"""
+#include <cuda_runtime.h>
+// fills the dynamic shared memory of every block with 0xFF bytes (f32 NaN)
+__global__ void poison(int words) {
+  extern __shared__ unsigned int smem[];
+  volatile unsigned int* w = smem;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = 0xFFFFFFFFu;
+}
+extern "C" int poison_launch(int blocks, int bytes, void* stream) {
+  cudaFuncSetAttribute(poison, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  poison<<<blocks, 256, bytes, static_cast<cudaStream_t>(stream)>>>(bytes / 4);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.fixture
+def poison_smem(cuda_device, tmp_path):
+    """A callable that fills the shared memory of every SM with NaN bits
+    on the current stream, so a kernel launched next that reads shared
+    memory it never wrote sees NaN rather than a leftover that happens to
+    be harmless."""
+    import ctypes
+    import subprocess
+
+    from flexflow_tpu_torch.serve import _cuda
+
+    src, lib_path = tmp_path / "poison.cu", tmp_path / "poison.so"
+    src.write_text(_POISON_SRC)
+    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.poison_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    props = torch.cuda.get_device_properties(cuda_device)
+    nbytes = 227 * 1024  # the most one block may take on sm_90
+
+    def run():
+        err = lib.poison_launch(4 * props.multi_processor_count, nbytes,
+                                torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert err == 0, f"poison launch failed: CUDA error {err}"
+
+    return run
+
+
+# (C, H, KV, dk, ps, NP): caches of 80 and 96 lines, whose last 64-line
+# tile runs past the last page (ps 16 and 32)
+@pytest.mark.parametrize("shape", [(3, 8, 2, 128, 16, 5), (20, 2, 2, 64, 32, 3)],
+                         ids=lambda s: "C{}-H{}-KV{}-dk{}-ps{}".format(*s))
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_smem, quant,
+                                                         shape):
+    """The tensor-core tile reads no shared memory it did not write: after
+    every SM's shared memory is filled with NaN bits, the ragged and fused
+    kernels' outputs are finite and match the plain version."""
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    C, H, KV, dk, ps, NP = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, kp, vp, ks, vs, table, mask = _paged_case(gen, cuda_device, torch.bfloat16, quant,
+                                                 3, C, H, KV, dk, ps, NP)
+    assert _design(C, H, KV, torch.bfloat16) == "mma"
+    ref = tk.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    poison_smem()
+    out = tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+    # the fused kernel, with no new line (C lines written back unchanged
+    # would move the scales of a quantized page): RoPE off, every line on
+    # the scratch page, whose lines no compared row reads
+    P = 3 * NP
+    logical = torch.full((3, C), NP - 1, dtype=torch.int32, device=cuda_device)
+    off = torch.zeros(3, C, dtype=torch.int32, device=cuda_device)
+    zeros = torch.zeros(3, C, KV, dk, dtype=torch.bfloat16, device=cuda_device)
+    qmax = None if quant is None else kq.SPECS[quant].qmax
+    pools = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    poison_smem()
+    fused = tk.fused_rope_paged_attention(q, zeros, zeros, None, None, pools[0], pools[1],
+                                          table, logical, off, mask, k_scale=pools[2],
+                                          v_scale=pools[3], qmax=qmax)
+    reads_scratch = (mask & (table == P).repeat_interleave(ps, dim=1)[:, None]).any(-1)
+    assert fused[~reads_scratch].isfinite().all()
+    torch.testing.assert_close(fused[~reads_scratch], ref[~reads_scratch],
+                               **TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------

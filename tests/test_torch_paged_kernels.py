@@ -218,3 +218,119 @@ def test_masks_gathers_and_dequant_match_jax():
         got = tk.dequant_pages(torch.from_numpy(kp), torch.from_numpy(ks),
                                torch.from_numpy(table), torch.float32)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (C, H, KV, ps, NP) of the shapes the CUDA tensor-core tile is held to
+# (tests/test_torch_cuda.py), at small widths (dk 16): C * G = 148 rows at
+# G = 4 (past one 128-row block, the last 16-row warp partial), 18 rows at
+# G = 2 (a warp and a bit), 130 rows at G = 1; page size 16 (four pages a
+# 64-line tile) and 32
+TILE_SHAPES = [(37, 8, 2, 16, 9), (9, 4, 2, 16, 4), (130, 2, 2, 32, 6)]
+TILE_DK = 16
+
+
+def _tile_case(rng, shape, quant):
+    """Three slots at ``shape``: slot 0 a causal prefill chunk whose rows
+    straddle warps and blocks, slot 1 a decode row followed by padding
+    columns (each attends every line below the last, scratch pages
+    included, as in a serving step), slot 2 attends nothing. The last
+    logical page of every slot is unallocated (the scratch page P)."""
+    C, H, KV, ps_, NP_ = shape
+    P_ = 3 * NP_
+    q = rng.normal(size=(3, C, H, TILE_DK)).astype(np.float32)
+    lines = rng.normal(size=(2, P_ + 1, ps_, KV, TILE_DK)).astype(np.float32)
+    table = rng.permutation(P_).reshape(3, NP_).astype(np.int32)
+    table[:, NP_ - 1] = P_
+    S = NP_ * ps_
+    key = np.arange(S)
+    mask = np.zeros((3, C, S), bool)
+    mask[0] = key[None, :] <= (S - ps_ - C + np.arange(C))[:, None]
+    mask[1, 0] = key <= 5
+    mask[1, 1:] = key[None, :] < S - 1
+    if quant is None:
+        return q, lines[0], lines[1], None, None, table, mask
+    spec = jq.SPECS[quant]
+    pools, scales = [], []
+    for x in lines:
+        s = np.abs(x).max(axis=(1, 3)) / spec.qmax + 1e-3
+        codes = np.clip(np.round(x / s[:, None, :, None]), -spec.qmax, spec.qmax)
+        pools.append(codes.astype(np.int8) if spec.pack == 1
+                     else np.array(jq.pack_nibbles(jnp.asarray(codes))))
+        scales.append(s.astype(np.float32))
+    return q, pools[0], pools[1], scales[0], scales[1], table, mask
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=lambda s: "C{}-H{}-KV{}-ps{}".format(*s[:4]))
+def test_ragged_ref_matches_jax_xla_at_tile_shapes(shape, quant):
+    """The plain version — the CUDA kernel's yardstick on the card — equals
+    JAX's XLA fallback on every row that attends something, at the row
+    counts and page sizes of the tensor-core tile."""
+    q, kp, vp, ks, vs, table, mask = _tile_case(np.random.default_rng(11), shape, quant)
+    want = np.asarray(jk.ragged_paged_attention_xla(
+        *_jax([q, kp, vp, table, mask]), k_scale=_jax([ks])[0], v_scale=_jax([vs])[0]))
+    tq_, tkp, tvp, tks, tvs, tt, tm = _torch([q, kp, vp, ks, vs, table, mask])
+    got = tk.ragged_paged_attention(tq_, tkp, tvp, tt, tm, k_scale=tks, v_scale=tvs)
+    live = mask.any(axis=-1)
+    np.testing.assert_allclose(got.numpy()[live], want[live], atol=ATOL)
+    assert (got[2] == 0).all()  # a slot with nothing to attend gives 0
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=lambda s: "C{}-H{}-KV{}-ps{}".format(*s[:4]))
+def test_fused_ref_matches_jax_unfused_at_tile_shapes(shape, quant):
+    """The fused plain version against JAX's unfused composition (RoPE,
+    the scatter or quant_line_write, the XLA fallback) at the tile's
+    shapes: output on the rows that attend something and read no scratch
+    line to ATOL, non-scratch pools and scales as
+    tests/test_torch_kv_quant.py holds the write side (f32 values to
+    1e-6, codes to one step, scales to 1e-6 relative). Slot 1's padding
+    columns write the scratch page."""
+    C, H, KV, ps_, NP_ = shape
+    rng = np.random.default_rng(12)
+    q, kp, vp, ks, vs, table, mask = _tile_case(rng, shape, quant)
+    P_ = 3 * NP_
+    k_new = rng.normal(size=(3, C, KV, TILE_DK)).astype(np.float32)
+    v_new = rng.normal(size=(3, C, KV, TILE_DK)).astype(np.float32)
+    ang = rng.random((3, C, TILE_DK)).astype(np.float32) * 6
+    cos, sin = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    S = NP_ * ps_
+    cpos = np.stack([S - ps_ - C + np.arange(C), np.full(C, S - 1), 2 + np.arange(C)])
+    cpos[1, 0] = 5
+    logical = (cpos // ps_).astype(np.int32)
+    off = (cpos % ps_).astype(np.int32)
+    qmax = None if quant is None else jq.SPECS[quant].qmax
+
+    jqr = jk._rope_rotate(jnp.asarray(q), jnp.asarray(cos)[:, :, None], jnp.asarray(sin)[:, :, None])
+    jkr = jk._rope_rotate(jnp.asarray(k_new), jnp.asarray(cos)[:, :, None],
+                          jnp.asarray(sin)[:, :, None])
+    phys = jnp.take_along_axis(jnp.asarray(table), jnp.asarray(logical), axis=1)
+    if quant is None:
+        jkp = jnp.asarray(kp).at[phys, jnp.asarray(off)].set(jkr)
+        jvp = jnp.asarray(vp).at[phys, jnp.asarray(off)].set(jnp.asarray(v_new))
+        jks = jvs = None
+    else:
+        jkp, jks = jq.quant_line_write(jnp.asarray(kp), jnp.asarray(ks), phys,
+                                       jnp.asarray(off), jkr, qmax)
+        jvp, jvs = jq.quant_line_write(jnp.asarray(vp), jnp.asarray(vs), phys,
+                                       jnp.asarray(off), jnp.asarray(v_new), qmax)
+    want = np.asarray(jk.ragged_paged_attention_xla(jqr, jkp, jvp, jnp.asarray(table),
+                                                    jnp.asarray(mask), k_scale=jks,
+                                                    v_scale=jvs))
+    t = _torch([q, k_new, v_new, cos, sin, kp, vp, table, logical, off, mask, ks, vs])
+    got = tk.fused_rope_paged_attention(*t[:11], k_scale=t[11], v_scale=t[12], qmax=qmax)
+    # the padding lines collide on the scratch page in no fixed order:
+    # compare the rows that read none of it
+    scratch = np.repeat(table == P_, ps_, axis=1)[:, None, :]
+    live = mask.any(axis=-1) & ~(mask & scratch).any(axis=-1)
+    assert live[0].all() and live[1, 0] and not live[1, 1:].any()
+    np.testing.assert_allclose(got.numpy()[live], want[live], atol=ATOL)
+    pack = 1 if quant is None else tq.SPECS[quant].pack
+    for mine, theirs in zip(t[5:7], (jkp, jvp)):
+        a = tq.unpack_codes(mine[:P_], pack)
+        b = tq.unpack_codes(torch.from_numpy(np.array(theirs)[:P_]), pack)
+        assert float((a - b).abs().max()) <= (1e-6 if quant is None else 1.0)
+    if quant is not None:
+        for mine, theirs in zip(t[11:13], (jks, jvs)):
+            np.testing.assert_allclose(mine.numpy()[:P_], np.array(theirs)[:P_],
+                                       rtol=1e-6, atol=0)
