@@ -32,6 +32,16 @@ lists the registers, spills, shared memory and resident blocks of every
 mma kernel instantiation (from ``ptxas -v``), and every paged arm is profiled (each kernel
 class's share of busy device time; launches by design).
 
+Dense verify and the flash forward redesigned (slice 6): verify rows
+carry the design their launcher took ("mma" for bf16 q at C * G > 8 on
+the tensor cores, "rows8" below, "f32"), ``device_ms`` and ``pack_ms``
+(the mask packed to 64-bit words once a step); the bits entry must equal
+the bool entry bit for bit, and the dense arm's verify launches must all
+be "mma". The flash forward rows carry "wgmma" (bf16: TMA tiles, warp-
+specialised warpgroup products) or "f32" and ``device_ms``; the train
+steps' forward launches must all be "wgmma". The build line reports the
+registers, spills and shared bytes of both new instantiations.
+
 Whole-step serving (slice 4): the whole-step kernel (every layer, the LM
 head and the greedy argmax of a serving step in one persistent CUDA
 kernel) against its plain version at LLaMA-7B width cut to 2 layers, on
@@ -168,30 +178,63 @@ def _mma_smem(pool, dk):
     return bf16 + raw + 8 * 32 * 128 + 12 * 128 + 32 * 4
 
 
+def _verify_mma_smem(dk):
+    """Dynamic shared bytes of ``verify_mma_kernel<DK>``
+    (``VerifyMmaSmem`` in ``csrc/verify_attention.cu``): three stages of
+    bf16 K/V tiles of 64 lines, the words of 32 tiles x 128 rows, tile
+    flags."""
+    return 3 * 2 * 64 * (dk + 8) * 2 + 8 * 32 * 128 + 32 * 4
+
+
+def _flash_wgmma_smem(dk):
+    """Dynamic shared bytes of ``flash_fwd_wgmma_kernel<DK>``
+    (``wg::Smem`` in ``csrc/flash_attention_fwd.cu``): Q boxes of 128 rows,
+    three stages of K and V boxes of 64 lines (128 bytes a row of a box),
+    1024 bytes of alignment slack."""
+    return (dk // 64) * 128 * 128 + 3 * 2 * (dk // 64) * 64 * 128 + 1024
+
+
+# the tensor-core instantiations the build line reports: (source, name
+# pattern of the entry function, its fields, threads a block, dynamic
+# shared bytes from the fields)
+MMA_KERNELS = (
+    *((src, r"_mma_kernelILi(\d)ELi(\d+)E", ("pool", "dk"), 256,
+       lambda pool, dk: _mma_smem(("bf16", "int8", "int4")[pool], dk))
+      for src in K.PAGED_KERNELS),
+    ("verify_attention", r"verify_mma_kernelILi(\d+)E", ("dk",), 256, _verify_mma_smem),
+    ("flash_attention_fwd", r"flash_fwd_wgmma_kernelILi(\d+)E", ("dk",), 384,
+     _flash_wgmma_smem),
+)
+
+
 def _mma_report(reports):
-    """Each tensor-core paged kernel instantiation (kernel, pool, dk) from
-    its ``ptxas -v`` report: registers and spill bytes a thread, shared
-    bytes a block (ptxas's static bytes plus ``_mma_smem``) and the blocks
-    of 256 threads an SM holds, by registers and by shared memory."""
+    """Each tensor-core kernel instantiation (the paged kernels' by pool
+    and dk, verify's and the flash forward's by dk) from its ``ptxas -v``
+    report: registers and spill bytes a thread (the flash forward's
+    registers are its launch count; setmaxnreg moves them between its
+    warpgroups), shared bytes a block (ptxas's static bytes plus the
+    dynamic layout) and the blocks an SM holds, by threads, registers and
+    shared memory."""
     rows = []
-    for name in _cuda.DESIGNED:
-        text = reports.get(name, "")
-        for fn in text.split("Compiling entry function '")[1:]:
-            m = re.search(r"_mma_kernelILi(\d)ELi(\d+)E", fn.split("'")[0])
+    for src, pattern, fields, threads, smem_of in MMA_KERNELS:
+        for fn in reports.get(src, "").split("Compiling entry function '")[1:]:
+            m = re.search(pattern, fn.split("'")[0])
             if not m:
                 continue
-            pool, dk = ("bf16", "int8", "int4")[int(m[1])], int(m[2])
+            vals = [int(x) for x in m.groups()]
             regs = int(re.search(r"Used (\d+) registers", fn)[1])
             spills = int(re.search(r"(\d+) bytes spill stores", fn)[1])
             static = re.search(r"(\d+) bytes smem", fn)
-            smem = (int(static[1]) if static else 0) + _mma_smem(pool, dk)
+            smem = (int(static[1]) if static else 0) + smem_of(*vals)
             warp_regs = -(-regs * 32 // 256) * 256
-            blocks = min(SM_THREADS // 256, SM_REGISTERS // (8 * warp_regs),
+            blocks = min(SM_THREADS // threads, SM_REGISTERS // (threads // 32 * warp_regs),
                          SM_SMEM // (smem + 1024))
-            rows.append({"kernel": name, "pool": pool, "dk": dk, "registers": regs,
-                         "spill_store_bytes": spills, "smem_bytes": smem,
-                         "blocks_per_sm": blocks})
-    return sorted(rows, key=lambda x: (x["kernel"], x["pool"], x["dk"]))
+            row = {"kernel": src, **dict(zip(fields, vals)), "registers": regs,
+                   "spill_store_bytes": spills, "smem_bytes": smem, "blocks_per_sm": blocks}
+            if "pool" in row:
+                row["pool"] = ("bf16", "int8", "int4")[row["pool"]]
+            rows.append(row)
+    return sorted(rows, key=lambda x: (x["kernel"], x.get("pool", ""), x["dk"]))
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -209,6 +252,26 @@ def device_ms(fn, iters: int = 10) -> float:
     ns = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
              if ev.device_type() == torch.autograd.DeviceType.CUDA)
     return ns / 1e6 / iters
+
+
+def back_to_back_ms(fn, iters: int = 20) -> float:
+    """Mean time of one call of ``fn`` from CUDA events around ``iters``
+    calls launched back to back: the device's time alone when the host
+    enqueues a call faster than the device runs one. The flash forward's
+    rows use it for ``device_ms``: late in this script the profiler's
+    kernel sums read ~30% under it for that kernel, where in a fresh
+    process profiler, per-call events and this agree
+    (``scripts/flash_probe.py timing``; PERF.md)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -272,11 +335,13 @@ def _decode_bound(q, k, sl):
 
 
 def _verify_bound(q, k, mask):
+    """The serving path's call, the bits entry: q, the packed mask words
+    and out once, the K/V lines some row of a slot attends."""
     R, C, H, dk = q.shape
     KV = k.shape[2]
     isz = q.element_size()
     lines = int(mask.any(dim=1).sum())  # lines some row of the slot attends
-    nbytes = (2 * q.numel() * isz + mask.numel()
+    nbytes = (2 * q.numel() * isz + 8 * R * C * -(-mask.shape[2] // 64)
               + 2 * lines * KV * dk * isz)
     flops = 4 * int(mask.sum()) * H * dk
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
@@ -361,11 +426,21 @@ def _tree_mask(rng, R, C, S1):
 
 
 def run_verify_check(label, gen, dtype, R, S1, H, KV, dk, mask, timed):
+    """The kernel against its plain version in the design its launcher
+    takes ("mma" for bf16 at C * G > 8, "rows8" below, "f32"), the bits
+    entry bitwise the bool entry. Timed: ``ms`` and ``device_ms`` of the
+    bits entry (the serving path's per-layer call), ``pack_ms`` of the
+    once-a-step packing."""
     C = mask.shape[1]
     q = _rand((R, C, H, dk), dtype, gen)
     k = _rand((R, S1, KV, dk), dtype, gen)
     v = _rand((R, S1, KV, dk), dtype, gen)
-    out = K.verify_attention(q, k, v, mask)
+    out, design = _design_of("verify_attention", lambda: K.verify_attention(q, k, v, mask))
+    want = "f32" if dtype == torch.float32 else ("mma" if C * H // KV > 8 else "rows8")
+    check(design == want, f"verify_attention[{label}]: design {design}, want {want}")
+    bits = K.pack_mask_bits(mask)
+    check(torch.equal(K.verify_attention_bits(q, k, v, bits, S1), out),
+          f"verify_attention[{label}]: the bits entry differs from the bool entry")
     torch.cuda.synchronize()
     ref = K.verify_attention_ref(q, k, v, mask)
     err = _compare(f"verify_attention[{label}]", out, ref, dtype)
@@ -373,7 +448,7 @@ def run_verify_check(label, gen, dtype, R, S1, H, KV, dk, mask, timed):
     if bool(empty.any()):
         check(bool((out[empty] == 0).all()), "verify: fully masked row not zero")
     row = {"phase": "kernels", "kernel": "verify_attention", "case": label,
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "design": design,
            "shape": {"R": R, "C": C, "S1": S1, "H": H, "KV": KV, "dk": dk},
            "attended_pairs": int(mask.sum()), "max_abs_err": err, "tol": TOL[dtype]}
     del ref
@@ -381,12 +456,15 @@ def run_verify_check(label, gen, dtype, R, S1, H, KV, dk, mask, timed):
         bound_ms, bound_by = _verify_bound(q, k, mask)
         sq, sk, svv, smask = _sdpa_inputs(q, k, v, mask)
         row.update(
-            ms=cuda_ms(lambda: K.verify_attention(q, k, v, mask)),
+            ms=cuda_ms(lambda: K.verify_attention_bits(q, k, v, bits, S1)),
+            device_ms=device_ms(lambda: K.verify_attention_bits(q, k, v, bits, S1)),
+            pack_ms=cuda_ms(lambda: K.pack_mask_bits(mask)),
             plain_ms=cuda_ms(lambda: K.verify_attention_ref(q, k, v, mask), iters=5),
             library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 sq, sk, svv, attn_mask=smask)),
             bound_ms=bound_ms, bound_by=bound_by,
         )
+        row["vs_library"] = _vs_library(row)
     emit(row)
     return row
 
@@ -425,6 +503,9 @@ def phase_kernels(seed):
                      mixed, timed=False)
     run_verify_check("llama160m-tree-c16", gen, bf16, R, S1, 12, 12, 64,
                      _tree_mask(rng, R, 16, S1), timed=False)
+    # SpecInfer's widest tree (ServingConfig.max_spec_tree_tokens)
+    run_verify_check("llama7b-tree-c64", gen, bf16, R, S1, 32, 32, 128,
+                     _tree_mask(rng, R, sc.max_spec_tree_tokens, S1), timed=True)
     torch.cuda.empty_cache()
     return main
 
@@ -1087,7 +1168,7 @@ def _kernel_class(name: str) -> str:
         return "fused_rope_paged_attention"
     if "decode_kernel" in n:
         return "decode_attention"
-    if "verify_kernel" in n:
+    if "verify_kernel" in n or "verify_mma_kernel" in n:
         return "verify_attention"
     if "memcpy" in n or "memset" in n:
         return "copy"
@@ -1232,6 +1313,9 @@ def phase_slice(seed):
     launches = line["launches"]
     for name in DENSE_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was never launched on the serving path")
+    # the bf16 mixed steps (C * G = 128 rows a KV head) verify on the tensor cores
+    check(line["design_launches"].get("verify_attention[mma]", 0) == launches["verify_attention"],
+          f"dense: verify launches not all mma: {line['design_launches']}")
     emit(profile_slice(llm, prompts, new, "dense"))
 
     # hold the served path against the plain one, teacher-forced, and
@@ -1483,11 +1567,13 @@ F32_TRAIN_RTOL = 1e-5
 # within FLASH_REL_L2.
 FLASH_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2), torch.float32: TOL[torch.float32]}
 FLASH_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
-# (label, dtype, B, H, S, T, dk, causal); the first is the train slice's
+# (label, dtype, B, H, S, T, dk, causal, timed); the first is the train
+# slice's; the last holds the wgmma forward at T != S, full attention
 FLASH_CASES = (
-    ("llama7b-train", torch.bfloat16, 4, 32, 2048, 2048, 128, True),
-    ("f32-full-s1000", torch.float32, 2, 32, 1000, 1000, 128, False),
-    ("llama160m-dk64", torch.bfloat16, 4, 12, 2048, 2048, 64, True),
+    ("llama7b-train", torch.bfloat16, 4, 32, 2048, 2048, 128, True, True),
+    ("f32-full-s1000", torch.float32, 2, 32, 1000, 1000, 128, False, True),
+    ("llama160m-dk64", torch.bfloat16, 4, 12, 2048, 2048, 64, True, True),
+    ("dk64-full-s1000-t1500", torch.bfloat16, 2, 12, 1000, 1500, 64, False, False),
 )
 
 
@@ -1533,14 +1619,21 @@ def _flash_library_ms(q, k, v, do, causal):
     return fwd, bwd
 
 
-def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal):
+def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal, timed=True):
     """The three flash kernels against their plain versions on one case;
-    returns a row per kernel with its error, times and bound."""
+    returns a row per kernel with its error and, ``timed``, its times and
+    bound (the forward's also its device time, back to back). The forward
+    must take its dtype's design ("wgmma" for bf16)."""
     q, k, v = _rand((B, S, H, dk), dtype, gen), _rand((B, T, H, dk), dtype, gen), \
         _rand((B, T, H, dk), dtype, gen)
     do = _rand((B, S, H, dk), dtype, gen)
     scale = 1.0 / math.sqrt(dk)
+    before = dict(FA.DESIGN_LAUNCHES)
     out, lse = FA.flash_fwd(q, k, v, causal, scale)
+    took = [k_[len("flash_attention_fwd["):-1] for k_, n in FA.DESIGN_LAUNCHES.items()
+            if n != before[k_]]
+    want = "wgmma" if dtype == torch.bfloat16 else "f32"
+    check(took == [want], f"flash_attention_fwd[{label}]: designs {took}, want {want}")
     delta = FA.delta_rows(out, do).contiguous()
     dk_, dv = FA.flash_bwd_kv(q, k, v, do, lse, delta, causal, scale)
     dq = FA.flash_bwd_q(q, k, v, do, lse, delta, causal, scale)
@@ -1572,6 +1665,19 @@ def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal):
             FA.flash_bwd_q_ref(q, k, v, do, lse, delta, causal, scale))
     gc.collect()
     torch.cuda.empty_cache()
+    if not timed:
+        rows = {}
+        for kname in FLASH_KERNELS:
+            rows[kname] = {"phase": "kernels", "kernel": kname, "case": label,
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "shape": {"B": B, "H": H, "S": S, "T": T, "dk": dk,
+                                     "causal": causal},
+                           "max_abs_err": err[kname], "tol": FLASH_TOL[dtype],
+                           "rel_l2": rel[kname], "rel_l2_tol": FLASH_REL_L2[dtype]}
+            if kname == "flash_attention_fwd":
+                rows[kname].update(design=want, lse_max_abs_err=lse_err)
+            emit(rows[kname])
+        return rows
     lib_fwd, lib_bwd = _flash_library_ms(q, k, v, do, causal)
     calls = {
         "flash_attention_fwd": (lambda: FA.flash_fwd(q, k, v, causal, scale),
@@ -1595,7 +1701,8 @@ def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal):
                "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5),
                "library_ms": lib, "bound_ms": bound_ms, "bound_by": bound_by}
         if kname == "flash_attention_fwd":
-            row["lse_max_abs_err"] = lse_err
+            row.update(lse_max_abs_err=lse_err, design=want,
+                       device_ms=back_to_back_ms(kernel), vs_library=row["ms"] / lib)
         gc.collect()
         torch.cuda.empty_cache()
         emit(row)
@@ -1612,7 +1719,7 @@ def phase_flash_kernels(seed):
     gen.manual_seed(seed + 3)
     main = {}
     for i, case in enumerate(FLASH_CASES):
-        rows = run_flash_check(*case[:1], gen, *case[1:])
+        rows = run_flash_check(case[0], gen, *case[1:])
         if i == 0:
             main.update(rows)
     return main
@@ -1762,6 +1869,7 @@ def phase_train(seed):
         step_s.append(time.perf_counter() - t0)
         per_step.append({k: FA.LAUNCHES[k] - before[k] for k in FA.LAUNCHES})
     launches = dict(FA.LAUNCHES)
+    design_launches = {k: v for k, v in FA.DESIGN_LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated()
     _PEAKS.append(peak)
     B, S1 = TRAIN_BATCH
@@ -1774,11 +1882,14 @@ def phase_train(seed):
           "init_s": init_s, "losses": losses, "step_s": step_s, "step_ms_median": steady * 1e3,
           "tokens_per_s": tokens / steady, "mfu": flops / steady / PEAK_FLOPS[torch.bfloat16],
           "model_flop_per_step": flops, "peak_memory_bytes": peak,
-          "flash_launches_per_step": per_step[-1], "launches": launches})
+          "flash_launches_per_step": per_step[-1], "launches": launches,
+          "design_launches": design_launches})
     check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
     for name in FLASH_KERNELS:
         check(all(p[name] > 0 for p in per_step), f"{name} missed a train step: {per_step}")
+    check(design_launches == {"flash_attention_fwd[wgmma]": launches["flash_attention_fwd"]},
+          f"the train steps' forward launches were not all wgmma: {design_launches}")
     # one more step under the profiler
     emit(_profile(lambda: float(step(params, opt, toks)[2]), "train"))
     del params, opt
@@ -1869,8 +1980,9 @@ def main(argv=None) -> int:
                      "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
-        if name.split("[")[0] in K.PAGED_KERNELS:
-            rows[-1].update(design=m.get("design"), vs_library=m.get("vs_library"))
+        if name.split("[")[0] in K.PAGED_KERNELS + ("verify_attention", "flash_attention_fwd"):
+            rows[-1].update(design=m.get("design"), vs_library=m.get("vs_library"),
+                            device_ms=m.get("device_ms"))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
                             for i, (name, t) in enumerate(marks)},

@@ -4,8 +4,10 @@
 // memory, the 4 x 4 register-blocked score product of the f32 kernels and
 // the bf16 kernels' loaders (their mma.sync fragments are in mma.cuh).
 //
-// Every kernel works on tiles of 64 query rows and 64 key lines. The f32
-// kernels run 256 threads on the CUDA cores: in the score phase thread t
+// The f32 kernels and the bf16 backward kernels work on tiles of 64 query
+// rows and 64 key lines (the bf16 forward, on wgmma, is
+// flash_attention_fwd.cu's own). The f32 kernels run 256 threads on the
+// CUDA cores: in the score phase thread t
 // owns rows i0 .. i0 + 3 of the query
 // tile (i0 = 4 * (t / 16)) and lines tx, tx + 16, tx + 32, tx + 48 of the
 // key tile (tx = t % 16): the 16 threads sharing a row group are 16

@@ -18,24 +18,25 @@
 // per byte, above the bf16 tensor cores' balance point (~295).
 //
 // Design against that bound:
-//  * One block per (b * H + h, tile of 64 query rows); heavy causal tiles
-//    (the last rows) are launched first.
+//  * One block per (b * H + h, tile of query rows: 128 bf16, 64 f32);
+//    heavy causal tiles (the last rows) are launched first.
 //  * The block walks the key tiles of 64 lines and stops at the causal
 //    diagonal: a tile whose first line lies past the block's last row is
 //    never read (the TPU kernel's pl.when(jnp.any(mask))).
-//  * bf16 inputs run on the tensor cores (flash_fwd_mma_kernel, below):
-//    QK^T and PV as mma.sync.m16n8k16 with f32 accumulation, P entering
-//    PV as hi + lo bf16 operands so it keeps its f32 value to ~2^-16, as
-//    the TPU kernel computes PV in f32. wgmma and TMA are the later step.
-//  * f32 inputs run on the CUDA cores (flash_fwd_kernel): Q (pre-loaded
-//    once), K and V of a tile are staged in shared memory as f32 with
-//    16-byte loads; each thread computes a 4 x 4 block of scores from
-//    float4 shared reads (4 FMAs per read), keeps its 4 rows' running max
-//    and sum in registers, and accumulates its rows' output in dk / 16
-//    columns.
-//  * Rows past S and lines past T are zero in shared memory and masked
-//    out of the softmax (the JAX kernel zeroes padded rows likewise).
+//  * bf16 inputs run on Hopper's warpgroup products (flash_fwd_wgmma_kernel,
+//    below, design "wgmma"): three warpgroups, one producer thread issuing
+//    TMA loads into a ring of K/V tiles, two consumer warpgroups of 64
+//    rows each running wgmma.mma_async; see its comment.
+//  * f32 inputs run on the CUDA cores (flash_fwd_kernel, design "f32"):
+//    Q (pre-loaded once), K and V of a tile are staged in shared memory as
+//    f32 with 16-byte loads; each thread computes a 4 x 4 block of scores
+//    from float4 shared reads (4 FMAs per read), keeps its 4 rows' running
+//    max and sum in registers, and accumulates its rows' output in dk / 16
+//    columns. Rows past S and lines past T are zero in shared memory and
+//    masked out of the softmax (the JAX kernel zeroes padded rows
+//    likewise).
 #include "flash_attention.cuh"
+#include "hopper.cuh"
 
 namespace fft {
 namespace {
@@ -164,134 +165,233 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The bf16 forward on the tensor cores: one block of 4 warps per (b * H +
-// h, tile of 64 query rows), warp w owning rows 16 w .. 16 w + 15 (its Q
-// fragments in registers). Per key tile of 64 lines: S = Q K^T (mma, f32
-// accumulators), the online softmax on the accumulators (a row's 4
-// threads reduce with two shuffles), O += P V with P as hi + lo bf16
-// fragments taken straight from the accumulators and V staged transposed.
+// The bf16 forward on the warpgroup products. One block of three
+// warpgroups per (b * H + h, 128 query rows), heavy causal tiles first:
+//  * warpgroup 0 is the producer. Its registers drop to kProducerRegs
+//    (setmaxnreg) and one thread issues TMA loads: the block's Q once (the
+//    map's 4-D (dk, H, S, B) box, 128 rows), then K and V tiles of 64
+//    lines into a ring of kStages buffers, each guarded by a full and an
+//    empty mbarrier. Rows past S and lines past T arrive as zeros (the
+//    JAX kernel zeroes padded rows likewise). Tiles past the causal
+//    diagonal are never loaded.
+//  * warpgroups 1 and 2 are consumers of 64 rows each, their registers
+//    raised to kConsumerRegs. Per tile: S = Q K^T as dk / 16 wgmma
+//    m64n64k16 with both operands in shared memory (K-major, 128-byte
+//    swizzle); the online softmax on the accumulators in base 2 (scale
+//    folded in; a row's 4 threads reduce with two shuffles); O += P V as
+//    wgmma m64n{dk}k16 with P from registers as a hi + lo pair of bf16
+//    (so P keeps its f32 value to ~2^-16, as the TPU kernel computes PV in
+//    f32) and V read MN-major from its TMA tile through the descriptor's
+//    transpose bit. Then a lane of every consumer warp arrives on the
+//    tile's empty barrier. A consumer whose rows all lie before a causal
+//    tile waits for it and arrives without the math. The softmax takes an
+//    FFMA and an ex2 a score; the masked-line test runs only in the tiles
+//    that hold masked lines.
+//  * out = acc / max(l, 1e-30) in bf16; lse = m + log(max(l, 1e-30)).
+namespace wg {
+
+constexpr int kRows = 128;        // query rows a block
+constexpr int kLines = 64;        // key lines a tile
+constexpr int kStages = 3;        // K/V tile buffers
+constexpr int kThreads = 384;     // producer + two consumer warpgroups
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 40 * 128 + 232 * 256 <= 65536
+constexpr int kBoxCols = 64;      // bf16 columns of a 128-byte TMA box
+
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int S, int T_, int H, int causal,
-                     float scale) {
-  constexpr int LQ = LdH<DK>::kRow;
-  constexpr int LV = LdH<kLines>::kRow;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][LQ]
-  __nv_bfloat16* sK = sQ + kRows * LQ;                              // [kLines][LQ]
-  __nv_bfloat16* sVt = sK + kLines * LQ;                            // [DK][LV]
+struct Smem {
+  static constexpr int kBoxes = DK / kBoxCols;                // boxes across dk
+  static constexpr uint32_t kQBox = kRows * 128;              // bytes of a Q box
+  static constexpr uint32_t kKBox = kLines * 128;             // bytes of a K or V box
+  static constexpr uint32_t kQ = kBoxes * kQBox;
+  static constexpr uint32_t kKV = kBoxes * kKBox;             // K or V of one stage
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr size_t kBytes = kQ + size_t(kStages) * kStage + 1024;  // + alignment
+};
 
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heavy tiles first
+}  // namespace wg
+
+template <int DK>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S,
+                       int T_, int H, int causal, float scale) {
+  using namespace hopper;
+  using L = wg::Smem<DK>;
+  constexpr int kNt = wg::kLines / 8;  // 8-line column blocks of a score tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[wg::kStages], empty[wg::kStages], qfull;
+  // the swizzle pattern follows address bits 7-9: boxes 1024-byte aligned
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + L::kQ;  // stage st: K at st * kStage, V after it
+
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * wg::kRows;  // heavy tiles first
   const int n = blockIdx.y, b = n / H, h = n % H;
-  const size_t rs = (size_t)H * DK;
-  const __nv_bfloat16* kb = k + ((size_t)b * T_ * H + h) * DK;
-  const __nv_bfloat16* vb = v + ((size_t)b * T_ * H + h) * DK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_a = row0 + warp * 16 + g, r_b = r_a + 8;  // this thread's rows
+  const int t_end = causal ? min(T_, row0 + wg::kRows) : T_;
+  const int ntiles = (t_end + wg::kLines - 1) / wg::kLines;
+  const int group = threadIdx.x / 128;
 
-  load_rows_bf16<DK, kRows, false>(sQ, q + ((size_t)b * S * H + h) * DK, row0, S, rs);
+  if (threadIdx.x == 0) {
+    mbar_init(&qfull, 1);
+    for (int st = 0; st < wg::kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // a lane of every consumer warp
+    }
+    fence_mbar_init();
+  }
   __syncthreads();
-  uint32_t qa[DK / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < DK / 16; ++ks) load_a<LQ>(sQ, warp * 16, ks * 16, g, t, qa[ks]);
 
-  float o[DK / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < DK / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-
-  const int t_end = causal ? min(T_, row0 + kRows) : T_;
-  for (int t0 = 0; t0 < t_end; t0 += kLines) {
-    __syncthreads();  // the last tile's reads of sK/sVt are done
-    load_rows_bf16<DK, kLines, false>(sK, kb, t0, T_, rs);
-    load_rows_bf16<DK, kLines, true>(sVt, vb, t0, T_, rs);
-    __syncthreads();
-
-    float s[kLines / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kLines / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DK / 16; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < kLines / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b<LQ>(sK, nt * 8, ks * 16, g, t, b0, b1);
-        mma16816(s[nt], qa[ks], b0, b1);
-      }
-
-    // c[e] of tile nt: row r_a (e < 2) or r_b, line t0 + 8 nt + 2 t + (e & 1)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kLines / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = attends(e < 2 ? r_a : r_b, t0 + nt * 8 + 2 * t + (e & 1), S, T_, causal);
-        s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kLines / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = attends(e < 2 ? r_a : r_b, t0 + nt * 8 + 2 * t + (e & 1), S, T_, causal);
-        const float p = ok ? expf(s[nt][e] - m[e >> 1]) : 0.f;
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int nt = 0; nt < DK / 8; ++nt) {
-      o[nt][0] *= corr[0];
-      o[nt][1] *= corr[0];
-      o[nt][2] *= corr[1];
-      o[nt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kt = 0; kt < kLines / 16; ++kt) {
-      uint32_t ah[4], al[4];
-      acc_to_a(s[2 * kt], s[2 * kt + 1], ah, al);
-#pragma unroll
-      for (int nt = 0; nt < DK / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b<LV>(sVt, nt * 8, kt * 16, g, t, b0, b1);
-        mma16816(o[nt], ah, b0, b1);
-        mma16816(o[nt], al, b0, b1);
+  if (group == 0) {
+    // producer: one thread issues every load; phases of empty[st] start
+    // complete (parity 1 passes at once)
+    reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&qfull, L::kQ);
+      for (int bx = 0; bx < L::kBoxes; ++bx)
+        tma_load_4d(sQ + bx * L::kQBox, &qmap, &qfull, bx * wg::kBoxCols, h, row0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % wg::kStages;
+        mbar_wait(&empty[st], ((j / wg::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], L::kStage);
+        unsigned char* sK = sKV + st * L::kStage;
+        for (int bx = 0; bx < L::kBoxes; ++bx) {
+          tma_load_4d(sK + bx * L::kKBox, &kmap, &full[st], bx * wg::kBoxCols, h,
+                      j * wg::kLines, b);
+          tma_load_4d(sK + L::kKV + bx * L::kKBox, &vmap, &full[st], bx * wg::kBoxCols, h,
+                      j * wg::kLines, b);
+        }
       }
     }
-  }
+  } else {
+    reg_alloc<wg::kConsumerRegs>();
+    const int c = group - 1;  // rows row0 + 64 c .. + 63
+    const int tid = threadIdx.x - 128 * group, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int rbase = row0 + 64 * c;
+    const int ra = rbase + 16 * warp + g, rb = ra + 8;  // this thread's rows
+    const int my_end = causal ? min(T_, rbase + 64) : T_;  // lines past it unattended
+    const float scale2 = scale * kLog2e;                  // scores in base 2
 
-  float lc[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    lc[i] = fmaxf(l[i], 1e-30f);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = i ? r_b : r_a;
-    if (r >= S) continue;
-    __nv_bfloat16* orow = out + ((size_t)b * S + r) * rs + (size_t)h * DK + 2 * t;
+    float o[DK / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < DK / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(orow + nt * 8) =
-          pack_bf16(o[nt][2 * i] / lc[i], o[nt][2 * i + 1] / lc[i]);
-    if (t == 0) lse[(size_t)n * S + r] = m[i] + logf(lc[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+    mbar_wait(&qfull, 0);
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % wg::kStages, t0 = j * wg::kLines;
+      mbar_wait(&full[st], (j / wg::kStages) & 1);
+      if (t0 < my_end) {
+        const unsigned char* sK = sKV + st * L::kStage;
+        const unsigned char* sV = sK + L::kKV;
+        float s[kNt][4];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < DK / 16; ++ks) {
+          const int bx = ks / 4, kof = (ks % 4) * 32;  // box, byte offset in its rows
+          wgmma_ss_n64(s, desc_sw128(sQ + bx * L::kQBox + c * 64 * 128 + kof, 16, 1024),
+                       desc_sw128(sK + bx * L::kKBox + kof, 16, 1024), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // s[nt][e]: row ra (e < 2) or rb, line t0 + 8 nt + 2 t + (e & 1).
+        // Masked lines (past T, or past the row under the causal rule)
+        // score kNegInf, only in the tiles that hold such lines. Every row
+        // this consumer writes attends a line of every tile it takes (line
+        // t0: t0 < T, and t0 <= rbase under the causal rule), so its
+        // maximum is a real score and a masked line's probability 2^(kNegInf
+        // * scale2 - m) is 0.
+        if (t0 + wg::kLines > T_ || (causal && t0 + wg::kLines - 1 > rbase)) {
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!attends(e < 2 ? ra : rb, t0 + nt * 8 + 2 * t + (e & 1), S, T_, causal))
+                s[nt][e] = kNegInf;
+        }
+        float red_a[kNt], red_b[kNt];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
+          red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
+        }
+        float mx[2] = {tree_max<kNt>(red_a), tree_max<kNt>(red_b)};
+        float corr[2], neg_m[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m[i], mx[i] * scale2);  // base 2
+          corr[i] = exp2_ftz(m[i] - m_new);
+          m[i] = m_new;
+          neg_m[i] = -m_new;
+        }
+        // p = 2^(s * scale2 - m), one FFMA and one ex2 a score
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = exp2_ftz(fmaf(s[nt][e], scale2, neg_m[e >> 1]));
+          red_a[nt] = s[nt][0] + s[nt][1];
+          red_b[nt] = s[nt][2] + s[nt][3];
+        }
+        l[0] = l[0] * corr[0] + tree_sum<kNt>(red_a);
+        l[1] = l[1] * corr[1] + tree_sum<kNt>(red_b);
+#pragma unroll
+        for (int nt = 0; nt < DK / 8; ++nt) {
+          o[nt][0] *= corr[0];
+          o[nt][1] *= corr[0];
+          o[nt][2] *= corr[1];
+          o[nt][3] *= corr[1];
+        }
+        // O += P V: P as hi + lo bf16 A fragments, 16 lines a product
+        uint32_t ph[kNt / 2][4], pl[kNt / 2][4];
+#pragma unroll
+        for (int kt = 0; kt < kNt / 2; ++kt) acc_to_a(s[2 * kt], s[2 * kt + 1], ph[kt], pl[kt]);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < kNt / 2; ++kt) {
+          const uint64_t dv = desc_sw128(sV + kt * 16 * 128, L::kKBox, 1024);
+          if constexpr (DK == 128) {
+            wgmma_rs_n128(o, ph[kt], dv);
+            wgmma_rs_n128(o, pl[kt], dv);
+          } else {
+            wgmma_rs_n64(o, ph[kt], dv);
+            wgmma_rs_n64(o, pl[kt], dv);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      __syncwarp();  // the warp is done with the stage (its products waited for)
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int r = i ? rb : ra;
+      if (r >= S) continue;
+      const float lc = fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = out + ((size_t)b * S + r) * H * DK + (size_t)h * DK + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < DK / 8; ++nt)
+        *reinterpret_cast<uint32_t*>(orow + nt * 8) =
+            pack_bf16(o[nt][2 * i] / lc, o[nt][2 * i + 1] / lc);
+      if (t == 0) lse[(size_t)n * S + r] = m[i] * kLn2 + logf(lc);
+    }
   }
 }
 
@@ -310,19 +410,64 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (B, L, H, dk) bf16 tensor at base as a 4-D map (dk, H, L, B),
+// boxes of 64 columns x 1 head x ``rows`` x 1, 128-byte swizzle, zeros
+// outside the tensor.
+cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, int H, int dk,
+                     int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(dk), cuuint64_t(H), cuuint64_t(L), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(dk) * 2, cuuint64_t(H) * dk * 2,
+                                 cuuint64_t(L) * H * dk * 2};
+  const cuuint32_t box[4] = {cuuint32_t(wg::kBoxCols), 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int DK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         float* lse, int B, int S, int T_, int H, int causal,
                         float scale, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  constexpr size_t kSmem = sizeof(bf) * (size_t(kRows + kLines) * LdH<DK>::kRow
-                                         + size_t(DK) * LdH<kLines>::kRow);
-  cudaError_t err = set_smem(flash_fwd_mma_kernel<DK>, kSmem);
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = make_map(&qmap, q, B, S, H, DK, wg::kRows);
+  if (err == cudaSuccess) err = make_map(&kmap, k, B, T_, H, DK, wg::kLines);
+  if (err == cudaSuccess) err = make_map(&vmap, v, B, T_, H, DK, wg::kLines);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_fwd_mma_kernel<DK><<<grid, kMmaThreads, kSmem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<bf*>(out), lse, S, T_, H, causal, scale);
+  constexpr size_t kSmem = wg::Smem<DK>::kBytes;
+  err = set_smem(flash_fwd_wgmma_kernel<DK>, kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + wg::kRows - 1) / wg::kRows, B * H);
+  flash_fwd_wgmma_kernel<DK><<<grid, wg::kThreads, kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, S, T_, H, causal, scale);
   return cudaGetLastError();
 }
 
@@ -351,6 +496,12 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
     err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The design the launcher takes for q of DType dtype: 0 "f32" (the CUDA
+// cores), 1 "wgmma".
+extern "C" int flash_attention_fwd_design(int dtype) {
+  return dtype == fft::kBFloat16 ? 1 : 0;
 }
 
 extern "C" const char* error_string(int err) {

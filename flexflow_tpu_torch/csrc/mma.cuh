@@ -16,6 +16,37 @@
 
 namespace fft {
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x, subnormal results flushed to 0 (a probability under 2^-126 adds
+// nothing a bf16 output can show)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the maximum and the sum of x as trees (short dependency chains); x is
+// overwritten
+template <int N>
+__device__ __forceinline__ float tree_max(float (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] = fmaxf(x[i], x[i + w]);
+  return x[0];
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sum(float (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] += x[i + w];
+  return x[0];
+}
+
 template <int W>
 struct LdH {
   static constexpr int kRow = W + 8;  // bf16 row stride of a W-wide tile

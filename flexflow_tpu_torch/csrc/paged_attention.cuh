@@ -48,7 +48,8 @@
 //    G = 1 that is every row of a (slot, KV head). The mask of 32 tiles
 //    is packed to bits ahead of them (with their page ids and scales), so
 //    a tile no row of the block attends is never read and a warp whose 16
-//    rows attend nothing in a tile skips its math.
+//    rows attend nothing in a tile skips its math. A warp's math on one
+//    tile is mma_warp_tile, which the dense verify kernel shares.
 //  * attend_tile ("f32-tile": f32 q, C * G > 8): one block of 128
 //    threads per (slot, KV head, 32 rows), the register-blocked f32 tiles
 //    of verify_attention.cu over the same 64-line tiles on the CUDA
@@ -541,7 +542,6 @@ constexpr int kMmaTileRows = kMmaTileWarps * 16;  // query rows per block or pas
 constexpr int kMmaStages = 3;                     // K/V tile buffers: two copies in flight
 constexpr int kMetaTiles = 32;                    // tiles whose mask bits are staged at once
 constexpr int kMetaPages = kMetaTiles * kTileLines / 16;  // their pages at ps = 16
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int KIND, int DK>
 struct MmaSmem {
@@ -557,32 +557,6 @@ struct MmaSmem {
   static constexpr size_t kFlags = size_t(kMetaTiles) * (kMmaTileRows / 32);  // per tile, per warp
   static constexpr size_t kBytes = kBf16 + kRawBytes + kBits + kPages + kFlags;
 };
-
-// 2^x, subnormal results flushed to 0 (a probability under 2^-126 adds
-// nothing a bf16 output can show)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int N>
-__device__ __forceinline__ float tree_max(float (&x)[N]) {
-#pragma unroll
-  for (int w = N / 2; w > 0; w /= 2)
-#pragma unroll
-    for (int i = 0; i < w; ++i) x[i] = fmaxf(x[i], x[i + w]);
-  return x[0];
-}
-
-template <int N>
-__device__ __forceinline__ float tree_sum(float (&x)[N]) {
-#pragma unroll
-  for (int w = N / 2; w > 0; w /= 2)
-#pragma unroll
-    for (int i = 0; i < w; ++i) x[i] += x[i + w];
-  return x[0];
-}
 
 // Bit j set when the mask row mrow attends line s0 + j, for the 64 lines
 // from s0 (lines at or past S, a multiple of 16, read as 0). mrow + s0 is
@@ -602,6 +576,114 @@ __device__ __forceinline__ uint64_t mask_bits(const uint8_t* mrow, int s0, int S
     }
   }
   return bits;
+}
+
+// One warp's 16 query rows (A fragments qa; rows g and g + 8 of the warp
+// attend the 64 lines of the tile whose bits are set in ba and bb, bit j
+// for line j) against the 64-line K/V tile sK/sV (row stride DK + 8): the
+// online softmax update of the accumulators o, m, l (m in base 2). The
+// score of line 8 nt + j is dot * kscale(nt) (the softmax scale times
+// log2(e), and a quantized page's K scale); with QUANT a probability is
+// multiplied by vscale(nt) (the page's V scale) before it weighs V, and
+// the sum takes it unscaled. Warp-uniform: skips the math when neither
+// row of any lane attends a line of the tile. The paged tile
+// (attend_tile_mma) and the dense verify kernel (verify_attention.cu)
+// share it.
+template <int DK, bool QUANT, typename KScale, typename VScale>
+__device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
+                                              const __nv_bfloat16* sK,
+                                              const __nv_bfloat16* sV, uint64_t ba,
+                                              uint64_t bb, int lane, KScale kscale,
+                                              VScale vscale, float (&o)[DK / 8][4],
+                                              float (&m)[2], float (&l)[2]) {
+  constexpr int LD = LdH<DK>::kRow;
+  if (!__any_sync(0xffffffffu, (ba | bb) != 0ull)) return;  // warp-uniform
+  const int t = lane % 4;
+  // S = Q K^T of the warp's 16 rows and the tile's 64 lines
+  float s[kTileLines / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kTileLines / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DK / 16; ++ks)
+#pragma unroll
+    for (int n2 = 0; n2 < kTileLines / 16; ++n2) {
+      uint32_t b[4];
+      load_b_x4<LD>(sK, n2 * 16, ks * 16, lane, b);
+      mma16816(s[2 * n2], qa[ks], b[0], b[1]);
+      mma16816(s[2 * n2 + 1], qa[ks], b[2], b[3]);
+    }
+
+  // s[nt][e]: row g (e < 2) or g + 8, line 8 nt + 2 t + (e & 1) of the
+  // tile; its mask bit is bit 8 nt + (e & 1) of xa or xb
+  const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
+  // the row maxima and sums reduce as trees (short dependency chains:
+  // each scheduler runs only two warps)
+  float red_a[kTileLines / 8], red_b[kTileLines / 8];
+#pragma unroll
+  for (int nt = 0; nt < kTileLines / 8; ++nt) {
+    const float ksc = kscale(nt);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool on = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+      s[nt][e] = on ? s[nt][e] * ksc : kNegInf;
+    }
+    red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
+    red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
+  }
+  float mx[2] = {fmaxf(m[0], tree_max<kTileLines / 8>(red_a)),
+                 fmaxf(m[1], tree_max<kTileLines / 8>(red_b))};
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    corr[i] = exp2_ftz(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTileLines / 8; ++nt) {
+    bool on[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      on[e] = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+      s[nt][e] = on[e] ? exp2_ftz(s[nt][e] - m[e >> 1]) : 0.f;
+    }
+    red_a[nt] = s[nt][0] + s[nt][1];
+    red_b[nt] = s[nt][2] + s[nt][3];
+    if constexpr (QUANT) {
+      // lines on pages past the chunk's last (past S) have no scale
+      // staged: read only on attended lines
+      const float vsc = vscale(nt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = on[e] ? s[nt][e] * vsc : 0.f;
+    }
+  }
+  l[0] = l[0] * corr[0] + tree_sum<kTileLines / 8>(red_a);
+  l[1] = l[1] * corr[1] + tree_sum<kTileLines / 8>(red_b);
+#pragma unroll
+  for (int nt = 0; nt < DK / 8; ++nt) {
+    o[nt][0] *= corr[0];
+    o[nt][1] *= corr[0];
+    o[nt][2] *= corr[1];
+    o[nt][3] *= corr[1];
+  }
+  // O += P V, P as hi + lo bf16 fragments straight from the scores
+#pragma unroll
+  for (int kt = 0; kt < kTileLines / 16; ++kt) {
+    uint32_t ah[4], al[4];
+    acc_to_a(s[2 * kt], s[2 * kt + 1], ah, al);
+#pragma unroll
+    for (int n2 = 0; n2 < DK / 16; ++n2) {
+      uint32_t b[4];
+      load_b_trans<LD>(sV, kt * 16, n2 * 16, lane, b);
+      mma16816(o[2 * n2], ah, b[0], b[1]);
+      mma16816(o[2 * n2], al, b[0], b[1]);
+      mma16816(o[2 * n2 + 1], ah, b[2], b[3]);
+      mma16816(o[2 * n2 + 1], al, b[2], b[3]);
+    }
+  }
 }
 
 // Rows [row0, row0 + 128) of KV head h of slot r, bf16 q, on the tensor
@@ -772,95 +854,12 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
 
       const uint64_t ba = sBits[tt * kMmaTileRows + 16 * warp + g];
       const uint64_t bb = sBits[tt * kMmaTileRows + 16 * warp + g + 8];
-      if (__any_sync(0xffffffffu, (ba | bb) != 0ull)) {  // warp-uniform
-        // S = Q K^T of the warp's 16 rows and the tile's 64 lines
-        float s[kTileLines / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < kTileLines / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < DK / 16; ++ks)
-#pragma unroll
-          for (int n2 = 0; n2 < kTileLines / 16; ++n2) {
-            uint32_t b[4];
-            load_b_x4<LD>(sK, n2 * 16, ks * 16, lane, b);
-            mma16816(s[2 * n2], qa[ks], b[0], b[1]);
-            mma16816(s[2 * n2 + 1], qa[ks], b[2], b[3]);
-          }
-
-        // s[nt][e]: row ra (e < 2) or rb, line 8 nt + 2 t + (e & 1) of the
-        // tile, on page (u * 64 + 8 nt) / ps; its mask bit is bit
-        // 8 nt + (e & 1) of xa or xb
-        const int pt = ((u * kTileLines) >> ps_log) - p0;
-        const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
-        // the row maxima and sums reduce as trees (short dependency chains:
-        // each scheduler runs only two warps)
-        float red_a[kTileLines / 8], red_b[kTileLines / 8];
-#pragma unroll
-        for (int nt = 0; nt < kTileLines / 8; ++nt) {
-          const float ksc = sPk[pt + ((nt * 8) >> ps_log)];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool on = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
-            s[nt][e] = on ? s[nt][e] * ksc : kNegInf;
-          }
-          red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
-          red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
-        }
-        float mx[2] = {fmaxf(m[0], tree_max<kTileLines / 8>(red_a)),
-                       fmaxf(m[1], tree_max<kTileLines / 8>(red_b))};
-        float corr[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-          corr[i] = exp2_ftz(m[i] - mx[i]);
-          m[i] = mx[i];
-        }
-#pragma unroll
-        for (int nt = 0; nt < kTileLines / 8; ++nt) {
-          bool on[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            on[e] = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
-            s[nt][e] = on[e] ? exp2_ftz(s[nt][e] - m[e >> 1]) : 0.f;
-          }
-          red_a[nt] = s[nt][0] + s[nt][1];
-          red_b[nt] = s[nt][2] + s[nt][3];
-          if constexpr (L::kQuant) {
-            // lines on pages past the chunk's last (past S) have no scale
-            // staged: read only on attended lines
-            const float vsc = sPv[pt + ((nt * 8) >> ps_log)];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[nt][e] = on[e] ? s[nt][e] * vsc : 0.f;
-          }
-        }
-        l[0] = l[0] * corr[0] + tree_sum<kTileLines / 8>(red_a);
-        l[1] = l[1] * corr[1] + tree_sum<kTileLines / 8>(red_b);
-#pragma unroll
-        for (int nt = 0; nt < DK / 8; ++nt) {
-          o[nt][0] *= corr[0];
-          o[nt][1] *= corr[0];
-          o[nt][2] *= corr[1];
-          o[nt][3] *= corr[1];
-        }
-        // O += P V, P as hi + lo bf16 fragments straight from the scores
-#pragma unroll
-        for (int kt = 0; kt < kTileLines / 16; ++kt) {
-          uint32_t ah[4], al[4];
-          acc_to_a(s[2 * kt], s[2 * kt + 1], ah, al);
-#pragma unroll
-          for (int n2 = 0; n2 < DK / 16; ++n2) {
-            uint32_t b[4];
-            load_b_trans<LD>(sV, kt * 16, n2 * 16, lane, b);
-            mma16816(o[2 * n2], ah, b[0], b[1]);
-            mma16816(o[2 * n2], al, b[0], b[1]);
-            mma16816(o[2 * n2 + 1], ah, b[2], b[3]);
-            mma16816(o[2 * n2 + 1], al, b[2], b[3]);
-          }
-        }
-      }
+      // lines 8 nt .. 8 nt + 7 of the tile lie on page (u * 64 + 8 nt) / ps
+      const int pt = ((u * kTileLines) >> ps_log) - p0;
+      mma_warp_tile<DK, L::kQuant>(
+          qa, sK, sV, ba, bb, lane,
+          [&](int nt) { return sPk[pt + ((nt * 8) >> ps_log)]; },
+          [&](int nt) { return sPv[pt + ((nt * 8) >> ps_log)]; }, o, m, l);
     }
   }
 

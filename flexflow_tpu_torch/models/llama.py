@@ -282,13 +282,15 @@ def _head(cfg: LLaMAConfig, params, x, logits_idx, all_logits: bool):
 
 
 def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
-                positions, kernels: str = "torch"):
+                positions, kernels: str = "torch", bits=None):
     """One transformer block on a serving step: project, RoPE, write the
     new K/V into ``k_cache``/``v_cache`` (one layer's (R, S1, KV, dk)
     views) IN PLACE at ``positions`` (cache line indices), attend over
     the whole cache. ``kernels="cuda"`` routes attention through the
     hand-written kernels (serve/kernels.py: decode for C == 1, verify
-    otherwise). Returns the block's output."""
+    otherwise, on ``bits``, the step's mask packed by
+    ``kernels.pack_mask_bits``, when given). Returns the block's
+    output."""
     R, C, _ = x.shape
     H, dk = cfg.num_attention_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, x)
@@ -305,6 +307,9 @@ def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
             attn = _k.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                        seq_lens)
             attn = attn.reshape(R, 1, H * dk)
+        elif bits is not None:
+            attn = _k.verify_attention_bits(q, k_cache, v_cache, bits, k_cache.shape[1])
+            attn = attn.reshape(R, C, H * dk)
         else:
             attn = _k.verify_attention(q, k_cache, v_cache, mask)
             attn = attn.reshape(R, C, H * dk)
@@ -348,11 +353,16 @@ def serve_step(
         from ..serve.kernels import causal_serve_mask
 
         mask = causal_serve_mask(positions, S1)
+    bits = None
+    if kernels == "cuda" and tokens.shape[1] > 1:
+        from ..serve.kernels import pack_mask_bits
+
+        bits = pack_mask_bits(mask)  # once for every layer's verify launch
     layers = params["layers"]
     for l in range(cfg.num_hidden_layers):
         p_l = {name: w[l] for name, w in layers.items()}
         x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l],
-                        cache["v"][l], cache_positions, kernels)
+                        cache["v"][l], cache_positions, kernels, bits)
     return _head(cfg, params, x, logits_idx, all_logits), cache
 
 

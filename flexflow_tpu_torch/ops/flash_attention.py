@@ -21,16 +21,18 @@ Each kernel has three parts side by side, as in ``serve/kernels.py``:
   :func:`flash_bwd_q`; :func:`flash_bwd` runs both): checks, then
   the plain version for tensors on the CPU, or the CUDA kernel for
   tensors on a GPU — never a fallback from a GPU tensor to the plain
-  version. Each launch adds one to ``LAUNCHES[name]``.
+  version. Each launch adds one to ``LAUNCHES[name]``; the forward's also
+  to ``DESIGN_LAUNCHES`` by the design its launcher took ("wgmma" for
+  bf16, "f32" for float32).
 * the **plain PyTorch version** (:func:`flash_fwd_ref`,
   :func:`flash_bwd_kv_ref`, :func:`flash_bwd_q_ref`; :func:`flash_bwd_ref`
   runs both): the whole score matrix in f32. The backward is
   the recomputation from the LSE, not autograd of the forward, so it is a
   yardstick for the backward kernels in its own right.
 * the **kernels**, CUDA C++ for ``sm_90a``:
-  ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
-  (dK/dV and dQ, the JAX package's two-kernel split), built on first use
-  by ``serve/_cuda.py``.
+  ``csrc/flash_attention_fwd.cu`` (bf16 on wgmma fed by TMA, f32 on the
+  CUDA cores) and ``csrc/flash_attention_bwd.cu`` (dK/dV and dQ, the JAX
+  package's two-kernel split), built on first use by ``serve/_cuda.py``.
 
 :func:`flash_attention` is the differentiable entry point (the JAX
 ``custom_vjp`` ``_flash`` becomes a ``torch.autograd.Function``).
@@ -52,6 +54,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd_q": 0,
 }
 
+#: forward launches by the design its launcher took, since the last reset
+DESIGN_LAUNCHES: Dict[str, int] = {"flash_attention_fwd[wgmma]": 0,
+                                   "flash_attention_fwd[f32]": 0}
+
 #: head dims and dtypes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
@@ -60,8 +66,9 @@ _CUDA_MAX_HEADS = 65535
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _mask(S: int, T: int, causal: bool, device) -> Optional[torch.Tensor]:
@@ -198,9 +205,11 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     B, S, H, dk = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    code = _dtype_code(q.dtype)
     _cuda.launch("flash_attention_fwd", [q, k, v, out, lse],
-                 [B, S, k.shape[1], H, dk, int(causal), _dtype_code(q.dtype)], [scale])
+                 [B, S, k.shape[1], H, dk, int(causal), code], [scale])
     LAUNCHES["flash_attention_fwd"] += 1
+    DESIGN_LAUNCHES[f"flash_attention_fwd[{_cuda.design('flash_attention_fwd', code)}]"] += 1
     return out, lse
 
 

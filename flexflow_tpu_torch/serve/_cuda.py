@@ -13,9 +13,9 @@ Every kernel ``<name>`` has a launcher
 which returns ``cudaGetLastError()`` after the launch, in the library of
 its source (``SOURCES``; its own name unless listed), which also exports
 ``const char* error_string(int)``. A pointer argument may be null (an
-absent optional tensor). The paged kernels' libraries also export
-``int <name>_design(int C, int H, int KV, int dtype)``, the block design
-their launcher takes (:func:`design`).
+absent optional tensor). The libraries of the kernels in ``DESIGNS``
+also export ``int <name>_design(int...)``, the block design their
+launcher takes for the given sizes (:func:`design`).
 """
 from __future__ import annotations
 
@@ -52,10 +52,16 @@ SOURCES = {
     "flash_attention_bwd_q": "flash_attention_bwd",
 }
 
-#: kernels whose library exports ``<name>_design``
-DESIGNED = ("ragged_paged_attention", "fused_rope_paged_attention")
-#: the block designs of the paged kernels, by the code ``<name>_design`` returns
-DESIGNS = ("decode", "mma", "f32-tile")
+#: the paged kernels' block designs, by the code their ``<name>_design`` returns
+PAGED_DESIGNS = ("decode", "mma", "f32-tile")
+#: kernels whose library exports ``int <name>_design(int...)``: the block
+#: designs by the code it returns, and its arguments
+DESIGNS = {
+    "ragged_paged_attention": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
+    "fused_rope_paged_attention": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
+    "verify_attention": (("rows8", "mma", "f32"), ("C", "H", "KV", "dtype")),
+    "flash_attention_fwd": (("f32", "wgmma"), ("dtype",)),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -130,9 +136,9 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                            + [ctypes.c_float] * n_float + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        for kernel in DESIGNED:
+        for kernel, (_, args) in DESIGNS.items():
             if source(kernel) == src:
-                getattr(lib, f"{kernel}_design").argtypes = [ctypes.c_int] * 4
+                getattr(lib, f"{kernel}_design").argtypes = [ctypes.c_int] * len(args)
                 getattr(lib, f"{kernel}_design").restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
@@ -164,8 +170,12 @@ def launch(name: str, tensors: List[Optional[torch.Tensor]], ints: List[int],
         )
 
 
-def design(name: str, C: int, H: int, KV: int, dtype: int) -> str:
-    """The block design (one of ``DESIGNS``) that paged kernel ``name``'s
-    launcher takes for C query tokens per slot, H query and KV key/value
-    heads and q of dtype code ``dtype``."""
-    return DESIGNS[getattr(_lib(name), f"{name}_design")(C, H, KV, dtype)]
+def design(name: str, *ints: int) -> str:
+    """The block design (one of ``DESIGNS[name][0]``) that kernel
+    ``name``'s launcher takes for the sizes ``DESIGNS[name][1]`` (C query
+    tokens per slot, H query and KV key/value heads, the dtype code of
+    q)."""
+    names, args = DESIGNS[name]
+    if len(ints) != len(args):
+        raise ValueError(f"{name}_design takes {', '.join(args)}")
+    return names[getattr(_lib(name), f"{name}_design")(*ints)]

@@ -129,14 +129,19 @@ class ServingConfig:
     kv_shard: str = "none"
     context_shards: int = 0
     cache_policy: str = "complete"
-    # Decode-step fusions. "rope_kv_write" (paged layout): RoPE and the
+    # Decode-step fusions. "sampling": the pipelined step samples with the
+    # head mode the batch needs (sampling.choose_sample_mode) instead of
+    # the full-sort head. "rope_kv_write" (paged layout): RoPE and the
     # K/V page write run inside the paged attention kernel
-    # (serve/kernels.fused_rope_paged_attention). "whole_step" (paged
+    # (serve/kernels.fused_rope_paged_attention); a step wider than the
+    # kernel's commit (kernels._FUSED_MAX_CHUNK lines a slot) runs the
+    # unfused step, its bitwise twin. "whole_step" (paged
     # layout): the whole decode step — and the mixed step when the gate
     # prices it — runs as one persistent kernel
     # (serve/kernels.whole_step_decode, model.serve_step_whole), with the
     # output-column tile count the engine's gate picks; below the gate's
-    # floor the engine falls back to the per-layer path.
+    # floor, and for a mixed step wider than the kernel's commit, the
+    # engine falls back to the per-layer path.
     fused_decode: Tuple[str, ...] = ()
     quantized_allreduce: Optional[str] = None
     replicas: int = 1
@@ -175,14 +180,8 @@ class ServingConfig:
         for name in self.fused_decode:
             if name not in ("rope_kv_write", "sampling", "whole_step"):
                 raise ValueError(
-                    f"unknown fused_decode entry {name!r} (expected "
-                    "'rope_kv_write', 'sampling' and/or 'whole_step')"
-                )
-            if name == "sampling":
-                raise NotImplementedError(
-                    "ServingConfig.fused_decode='sampling' is not ported: the eager step "
-                    "already samples on the device, so it waits for a later slice whose "
-                    "step has a head to fuse"
+                    f"unknown fused_decode entry {name!r} (expected 'sampling', or "
+                    "on the paged layout 'rope_kv_write' and/or 'whole_step')"
                 )
         paged = self.kv_layout == "paged"
         if "whole_step" in self.fused_decode and not paged:
@@ -310,11 +309,34 @@ class InferenceEngine:
             model.whole_step_weight_layout(params, cfg)
             self.whole_step_on = True
         self.device = resolve_device(device)
+        self._check_cuda_shapes()
+        # steps of fused_decode=("rope_kv_write",) wider than the fused
+        # kernel's commit, served by the unfused step instead
+        self.fused_reroutes = 0
         self.params = params
         self.pager: Optional[PageAllocator] = None  # host-side page tables
         self.cache = self._alloc_cache()
         if self.whole_step_on:
             self._whole_step_smem_gate()
+
+    def _check_cuda_shapes(self):
+        """Raise ValueError at construction for a shape the CUDA kernels
+        are not built for (``kernels="cuda"`` on a GPU): a head dim
+        outside ``kernels._CUDA_HEAD_DIMS`` or, paged, a page size outside
+        ``kernels._CUDA_PAGE_SIZES``. On the CPU the plain versions take
+        any shape."""
+        if self.serving.kernels != "cuda" or self.device.type != "cuda":
+            return
+        from . import kernels as _k
+
+        if self.cfg.head_dim not in _k._CUDA_HEAD_DIMS:
+            raise ValueError(
+                f"kernels='cuda' has no head dim {self.cfg.head_dim} (the CUDA kernels "
+                f"take {_k._CUDA_HEAD_DIMS}); serve with kernels='torch'")
+        if self.paged and self.serving.page_size not in _k._CUDA_PAGE_SIZES:
+            raise ValueError(
+                f"kernels='cuda' has no page size {self.serving.page_size} (the CUDA "
+                f"paged kernels take {_k._CUDA_PAGE_SIZES})")
 
     def _whole_step_smem_gate(self):
         """Pick the whole-step kernel's output-column tile count for each
@@ -323,7 +345,9 @@ class InferenceEngine:
         priced block footprint (serve/kernels.whole_step_smem_bytes) fits
         ``kernels.WHOLE_STEP_SMEM_BUDGET``. A shape no tiling fits stays
         on the per-layer path and counts one ``whole_step_fallbacks``;
-        the decode shape failing turns the walk off altogether."""
+        the decode shape failing turns the walk off altogether. A mixed
+        step wider than the kernel's commit (``kernels._FUSED_MAX_CHUNK``
+        lines a slot) is unpriceable and falls back the same way."""
         from ..logging_utils import get_logger
         from . import kernels as _k
 
@@ -352,6 +376,12 @@ class InferenceEngine:
         if C <= 1:
             self.whole_step_mixed_on = True
             self.whole_step_mixed_tiles = self.whole_step_tiles
+            return
+        if C > _k._FUSED_MAX_CHUNK:
+            self.whole_step_fallbacks += 1
+            log.warning("whole_step: the C=%d mixed step is wider than the kernel's %d-line "
+                        "commit; mixed steps stay on the per-layer path", C,
+                        _k._FUSED_MAX_CHUNK)
             return
         mtiles, mest = pick(C)
         if mtiles is None:
@@ -451,12 +481,17 @@ class InferenceEngine:
         sc = self.serving
         with torch.inference_mode():
             if self.paged:
+                from .kernels import _FUSED_MAX_CHUNK
+
+                fused = "rope_kv_write" in sc.fused_decode
+                if fused and tokens.shape[1] > _FUSED_MAX_CHUNK:
+                    fused = False  # the unfused step is the fused one's bitwise twin
+                    self.fused_reroutes += 1
                 logits, self.cache = self.model.serve_step_paged(
                     self.params, self.cache, tokens, positions, logits_idx, mask,
                     cache_positions, self.page_table_device(), cfg=self.cfg,
                     cache_len=sc.cache_len, all_logits=all_logits,
-                    kernels=sc.kernels, kv_quant=sc.kv_quant,
-                    fused_rope="rope_kv_write" in sc.fused_decode,
+                    kernels=sc.kernels, kv_quant=sc.kv_quant, fused_rope=fused,
                 )
             else:
                 logits, self.cache = self.model.serve_step(
@@ -497,23 +532,29 @@ class InferenceEngine:
         tokens = torch.cat([first[:, None], host[:, 1:]], dim=1)
         positions = self._tensor(positions, torch.int64)
         logits_idx = self._tensor(logits_idx, torch.int64)
-        gtoks = None
         if self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on):
             # the whole-step kernel owns the decode step and, when the gate
             # priced it, the mixed step; greedy rows take its argmax
             logits, gtoks = self._step_whole(tokens, positions, logits_idx)
+            toks = self._sample(logits, generator, greedy, temperature, topp, topk, gtoks)
         else:
             logits = self._step(tokens, positions, logits_idx)
-        toks = self._sample(logits, generator, greedy, temperature, topp, topk, gtoks)
+            # the full-sort head unless the "sampling" fusion picks the
+            # batch's mode, as the JAX engine's mixed step does
+            toks = self._sample(logits, generator, greedy, temperature, topp, topk,
+                                choose="sampling" in self.serving.fused_decode)
         if with_logits:
             return toks, logits
         return toks
 
-    def _sample(self, logits, generator, greedy, temperature, topp, topk, greedy_toks=None):
+    def _sample(self, logits, generator, greedy, temperature, topp, topk, greedy_toks=None,
+                choose: bool = True):
         """Each slot's decode head on (R, V) logits, in the cheapest mode
-        the batch allows; an all-greedy batch takes ``greedy_toks`` (the
-        whole-step kernel's argmax) when given."""
-        mode, cap = choose_sample_mode(greedy, topp, topk, self.cfg.vocab_size)
+        the batch allows (``choose``) or the full-sort head; an all-greedy
+        batch takes ``greedy_toks`` (the whole-step kernel's argmax) when
+        given."""
+        mode, cap = (choose_sample_mode(greedy, topp, topk, self.cfg.vocab_size) if choose
+                     else ("full", 0))
         if mode == "greedy" and greedy_toks is not None:
             return greedy_toks
         with torch.inference_mode():
@@ -541,7 +582,7 @@ class InferenceEngine:
     def run_sampled(self, bc: BatchConfig, generator, greedy, temperature, topp, topk,
                     with_logits: bool = False):
         """The sync step with its sampling in the same call (the
-        ``"whole_step"`` fusion's sync path): the
+        ``"sampling"`` and ``"whole_step"`` fusions' sync path): the
         whole-step kernel when it owns the step's shape (no explicit mask
         or cache positions), else the per-layer step; then each slot's
         head, drawing from ``generator``. Returns the sampled tokens (R,)

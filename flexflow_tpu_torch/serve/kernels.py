@@ -3,17 +3,17 @@ whole serving step in one kernel (:func:`whole_step_decode`).
 
 Each kernel here has three parts side by side:
 
-* the **wrapper** (:func:`decode_attention`, :func:`verify_attention`,
-  :func:`ragged_paged_attention`, :func:`fused_rope_paged_attention`,
-  :func:`whole_step_decode`):
+* the **wrapper** (:func:`decode_attention`, :func:`verify_attention`
+  and :func:`verify_attention_bits`, :func:`ragged_paged_attention`,
+  :func:`fused_rope_paged_attention`, :func:`whole_step_decode`):
   checks device, dtype, shape and contiguity, then either runs the plain
   version (the tensors lie on the CPU) or launches the CUDA kernel (the
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
   version. Each launch adds one to ``LAUNCHES[name]``; the paged kernels
   and the whole-step kernel count per pool type,
-  ``name[bf16|f32|int8|int4]``, and the paged kernels also per block
-  design, as their launcher reports it, in ``DESIGN_LAUNCHES``
-  (``name[decode|mma|f32-tile]``).
+  ``name[bf16|f32|int8|int4]``, and the paged and verify kernels also
+  per block design, as their launcher reports it, in ``DESIGN_LAUNCHES``
+  (``name[decode|mma|f32-tile]``, ``verify_attention[rows8|mma|f32]``).
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -59,10 +59,13 @@ LAUNCHES: Dict[str, int] = {
     **{f"{k}[{t}]": 0 for k in PAGED_KERNELS + ("whole_step_decode",) for t in POOL_TYPES},
 }
 
-#: launches of the paged kernels by the block design their launcher took
-#: (``_cuda.DESIGNS``: "decode" for C * G <= 8, else "mma" for bf16 q on
-#: the tensor cores, "f32-tile" for f32 q), since the last reset
-DESIGN_LAUNCHES: Dict[str, int] = {f"{k}[{d}]": 0 for k in PAGED_KERNELS for d in DESIGNS}
+#: launches of the paged and verify kernels by the block design their
+#: launcher took (``_cuda.DESIGNS``; paged: "decode" for C * G <= 8, else
+#: "mma" for bf16 q on the tensor cores, "f32-tile" for f32 q; verify:
+#: "mma" for bf16 q at C * G > 8, "rows8" for bf16 q at C * G <= 8, "f32"),
+#: since the last reset
+DESIGN_LAUNCHES: Dict[str, int] = {
+    f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention",) for d in DESIGNS[k][0]}
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
@@ -78,15 +81,21 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def _count_design(name: str, q: torch.Tensor, KV: int) -> None:
+    """Count one launch of kernel ``name`` (q (R, C, H, dk), KV key/value
+    heads) by the block design its launcher took."""
+    from . import _cuda
+
+    _, C, H, _ = q.shape
+    design = _cuda.design(name, C, H, KV, _dtype_code(q.dtype))
+    DESIGN_LAUNCHES[f"{name}[{design}]"] += 1
+
+
 def _count_paged(name: str, q: torch.Tensor, k_pool: torch.Tensor) -> None:
     """Count one launch of paged kernel ``name``, by pool type and by the
     block design its launcher took."""
-    from . import _cuda
-
     LAUNCHES[f"{name}[{pool_type(k_pool)}]"] += 1
-    _, C, H, _ = q.shape
-    design = _cuda.design(name, C, H, k_pool.shape[2], _dtype_code(q.dtype))
-    DESIGN_LAUNCHES[f"{name}[{design}]"] += 1
+    _count_design(name, q, k_pool.shape[2])
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +178,37 @@ def verify_attention_ref(q, k_cache, v_cache, mask, *,
     return out.permute(0, 3, 1, 2, 4).reshape(R, C, H, dk).to(q.dtype)
 
 
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """A bool mask (R, C, S1) as (R, C, W) int64 words, W = ceil(S1 / 64):
+    bit j of word w is line 64 w + j (the high bits of the last word are
+    0). The serving step packs its mask once for every layer's verify
+    launch."""
+    R, C, S1 = mask.shape
+    W = -(-S1 // 64)
+    m = mask.to(torch.uint8).contiguous()
+    if W * 64 != S1:
+        m = torch.cat([m, m.new_zeros(R, C, W * 64 - S1)], dim=-1)
+    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8, device=mask.device)
+    # bytes of 8 lines each (little-endian bit order), then 8 bytes a word
+    nbytes = (m.view(R, C, W * 8, 8) * weights).sum(dim=-1, dtype=torch.uint8)
+    return nbytes.view(torch.int64)
+
+
+def unpack_mask_bits(bits: torch.Tensor, S1: int) -> torch.Tensor:
+    """The bool mask (R, C, S1) that :func:`pack_mask_bits` packed."""
+    R, C, W = bits.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    lines = (bits.contiguous().view(torch.uint8)[..., None] >> shifts) & 1
+    return lines.reshape(R, C, W * 64)[..., :S1].bool()
+
+
 def verify_attention(q, k_cache, v_cache, mask, *,
                      scale: Optional[float] = None):
     """Fused verify attention: every one of the C query tokens per slot
     attends the cache lines its ``mask`` row allows, in one pass over the
     cache. q (R, C, H, dk); k/v (R, S1, KV, dk); mask (R, C, S1) bool.
-    Returns (R, C, H, dk)."""
+    Returns (R, C, H, dk). On the GPU the mask is packed
+    (:func:`pack_mask_bits`) and :func:`verify_attention_bits` runs."""
     R, C, H, dk = q.shape
     _check_cache(q, k_cache, v_cache, R, H, dk)
     S1 = k_cache.shape[1]
@@ -185,20 +219,43 @@ def verify_attention(q, k_cache, v_cache, mask, *,
         )
     if q.device.type == "cpu":
         return verify_attention_ref(q, k_cache, v_cache, mask, scale=scale)
+    if mask.device != q.device:
+        raise ValueError("mask must lie on q's device")
+    return verify_attention_bits(q, k_cache, v_cache, pack_mask_bits(mask), S1,
+                                 scale=scale)
+
+
+def verify_attention_bits(q, k_cache, v_cache, bits, S1: int, *,
+                          scale: Optional[float] = None):
+    """:func:`verify_attention` with the mask packed by
+    :func:`pack_mask_bits`: bits (R, C, ceil(S1 / 64)) int64. On the CPU
+    it unpacks the mask and runs the plain version."""
+    R, C, H, dk = q.shape
+    _check_cache(q, k_cache, v_cache, R, H, dk)
+    W = -(-S1 // 64)
+    if k_cache.shape[1] != S1:
+        raise ValueError(f"S1={S1} != the cache's {k_cache.shape[1]} lines")
+    if bits.shape != (R, C, W) or bits.dtype != torch.int64:
+        raise ValueError(f"bits must be int64 ({R}, {C}, {W}); got {bits.dtype} "
+                         f"{tuple(bits.shape)}")
+    if q.device.type == "cpu":
+        return verify_attention_ref(q, k_cache, v_cache, unpack_mask_bits(bits, S1),
+                                    scale=scale)
     _check_cuda(q, k_cache, v_cache, dk)
-    if mask.device != q.device or not mask.is_contiguous():
-        raise ValueError("mask must be contiguous on q's device")
+    if bits.device != q.device or not bits.is_contiguous():
+        raise ValueError("bits must be contiguous on q's device")
     from . import _cuda
 
     KV = k_cache.shape[2]
     out = torch.empty_like(q)
     _cuda.launch(
         "verify_attention",
-        [q, k_cache, v_cache, mask, out],
+        [q, k_cache, v_cache, bits, out],
         [R, C, S1, H, KV, dk, _dtype_code(q.dtype)],
         [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
     LAUNCHES["verify_attention"] += 1
+    _count_design("verify_attention", q, KV)
     return out
 
 

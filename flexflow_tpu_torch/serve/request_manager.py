@@ -712,8 +712,9 @@ class RequestManager:
         decoding = self._active(RequestStatus.DECODING)
         decode_only = bool(decoding) and not prefilling
         t0 = time.perf_counter()
-        if "whole_step" in self.engine.serving.fused_decode:
-            # the walk's sync path: the step and its sampling in one call
+        fused = self.engine.serving.fused_decode
+        if "sampling" in fused or "whole_step" in fused:
+            # the fusions' sync path: the step and its sampling in one call
             greedy, temp, topp, topk = self._decode_head_params(
                 [self.requests[r] for r in self.slots if r is not None])
             sampled = self.engine.run_sampled(bc, self._generator, greedy, temp, topp,

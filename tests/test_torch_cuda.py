@@ -1,7 +1,7 @@
-"""The port's CUDA attention kernels (dense decode and verify, ragged
-paged and fused RoPE + KV-write paged attention in each block design,
-training flash attention forward and backward) held against their plain
-PyTorch versions on the GPU, and bf16 train steps through each attention
+"""The port's CUDA attention kernels (dense decode; verify, ragged paged
+and fused RoPE + KV-write paged attention in each block design; training
+flash attention forward and backward) held against their plain PyTorch
+versions on the GPU, and bf16 train steps through each attention
 path under each remat setting. Every test here needs a CUDA GPU and skips
 without one; the file imports neither JAX nor the JAX package, so on a
 machine with a GPU and no JAX it runs as
@@ -86,6 +86,98 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
             tk.fused_rope_paged_attention(q, kv_new, kv_new, None, None, pool, pool, table,
                                           i, i, mask)
     assert {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES} == before
+
+
+# ---------------------------------------------------------------------------
+# verify attention in each block design
+
+
+def _verify_case(gen, dev, dtype, C, G, dk, S1, R=3, KV=2):
+    """q, caches and the mask of a serving step over a dense cache of S1
+    lines (line S1 - 1 the scratch line): slot 0 a prefill chunk ending at
+    the scratch line, its columns past the cache padding; slot 1 a random
+    tree-like mask whose row 0 attends nothing; slot 2 one decode token,
+    every other column padding. Padding columns attend every line but the
+    scratch one, as on the serving path."""
+    H = KV * G
+    q = torch.randn(R, C, H, dk, generator=gen, device=dev).to(dtype)
+    k = torch.randn(R, S1, KV, dk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(R, S1, KV, dk, generator=gen, device=dev).to(dtype)
+    scratch = S1 - 1
+    pos = torch.full((R, C), scratch, device=dev)
+    n = min(C, scratch)
+    pos[0, :n] = torch.arange(scratch - n, scratch, device=dev)
+    pos[2, 0] = scratch // 2
+    mask = tk.causal_serve_mask(pos, S1)
+    mask[1] = torch.rand(C, S1, generator=gen, device=dev) < 0.3
+    mask[1, 0] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("S1", [65, 2113])
+@pytest.mark.parametrize("dk", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("C", [2, 8, 9, 16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_verify_attention_designs_match_plain_version(cuda_device, dtype, C, G, dk, S1):
+    """Every design at the widths the engine sends (prefill chunks, tree
+    widths up to 64, 256-wide chunks): the output within the kernel
+    tolerance of the plain version, a fully masked row exactly 0, the bits
+    entry bitwise the bool entry, one launch counted in the design the
+    launcher reports ("mma" for bf16 at C * G > 8, "rows8" for bf16 below,
+    "f32")."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, mask = _verify_case(gen, cuda_device, dtype, C, G, dk, S1)
+    if dtype == torch.float32:
+        design = "f32"
+    else:
+        design = "mma" if C * G > 8 else "rows8"
+    before = dict(tk.DESIGN_LAUNCHES)
+    out = tk.verify_attention(q, k, v, mask)
+    moved = {k_: n - before[k_] for k_, n in tk.DESIGN_LAUNCHES.items() if n != before[k_]}
+    assert moved == {f"verify_attention[{design}]": 1}
+    bits = tk.pack_mask_bits(mask)
+    assert torch.equal(tk.verify_attention_bits(q, k, v, bits, S1), out)
+    ref = tk.verify_attention_ref(q, k, v, mask)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    assert (out[1, 0] == 0).all()
+
+
+@pytest.mark.parametrize("dk", [64, 128])
+def test_cuda_verify_mma_ignores_stale_shared_memory(cuda_device, poison_smem, dk):
+    """The tensor-core verify tile reads no shared memory it did not
+    write: after every SM's shared memory is filled with NaN bits, the
+    output is finite and matches the plain version (a last tile past the
+    cache's 100 lines, a 128-row pass with 48 rows past the last)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, mask = _verify_case(gen, cuda_device, torch.bfloat16, 20, 4, dk, 100)
+    ref = tk.verify_attention_ref(q, k, v, mask)
+    poison_smem()
+    out = tk.verify_attention(q, k, v, mask)
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dk", [64, 128])
+def test_cuda_flash_wgmma_ignores_stale_shared_memory(cuda_device, poison_smem, dk, causal):
+    """The wgmma forward reads no shared memory it did not write (rows past
+    S and lines past T arrive as TMA's zeros): after every SM's shared
+    memory is filled with NaN bits, out and lse are finite and match the
+    plain version."""
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    B, H, S, T = 2, 3, 130, 77
+    q = torch.randn(B, S, H, dk, generator=gen, device=cuda_device).to(torch.bfloat16)
+    k = torch.randn(B, T, H, dk, generator=gen, device=cuda_device).to(torch.bfloat16)
+    v = torch.randn(B, T, H, dk, generator=gen, device=cuda_device).to(torch.bfloat16)
+    out_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal, dk ** -0.5)
+    poison_smem()
+    out, lse = fa.flash_fwd(q, k, v, causal, dk ** -0.5)
+    assert out.isfinite().all() and lse.isfinite().all()
+    torch.testing.assert_close(out, out_ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +435,8 @@ def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_sme
 @pytest.mark.parametrize("dk", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain_versions(cuda_device, dtype, dk, causal, S, T):
+    """Forward and both backward kernels against their plain versions;
+    the forward launched in its design ("wgmma" for bf16)."""
     from flexflow_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -354,7 +448,11 @@ def test_cuda_flash_attention_matches_plain_versions(cuda_device, dtype, dk, cau
     q, k, v, do = rnd(B, S, H, dk), rnd(B, T, H, dk), rnd(B, T, H, dk), rnd(B, S, H, dk)
     scale = dk ** -0.5
     before = dict(fa.LAUNCHES)
+    designs = dict(fa.DESIGN_LAUNCHES)
     out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    key = "flash_attention_fwd[{}]".format("wgmma" if dtype == torch.bfloat16 else "f32")
+    assert {k_: n - designs[k_] for k_, n in fa.DESIGN_LAUNCHES.items()
+            if n != designs[k_]} == {key: 1}
     out_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal, scale)
     torch.testing.assert_close(out, out_ref, **TOL[dtype])
     torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
@@ -366,6 +464,45 @@ def test_cuda_flash_attention_matches_plain_versions(cuda_device, dtype, dk, cau
         torch.testing.assert_close(g, w, **TOL[dtype], msg=name)
     for name in fa.LAUNCHES:
         assert fa.LAUNCHES[name] == before[name] + 1
+
+
+# every pair of 1, 63, 65, 130 and 2048 lines (one line, one partial
+# 64-line tile, a tile and one line, a 128-row block and two lines, the
+# training length)
+FLASH_WGMMA_SIZES = [(S, T) for S in (1, 63, 65, 130, 2048) for T in (1, 63, 65, 130, 2048)]
+
+
+@pytest.mark.parametrize("S,T", FLASH_WGMMA_SIZES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dk", [64, 128])
+def test_cuda_flash_wgmma_forward_matches_plain_version(cuda_device, dk, causal, S, T):
+    """The bf16 forward (design "wgmma": TMA tiles of 128 query rows and
+    64 key lines, zeros past S and T) at every pair of ragged and aligned
+    lengths, S != T both ways: out within the bf16 tolerance of the plain
+    version, lse to 1e-5; both backward kernels, which read that lse,
+    within the bf16 tolerance of theirs."""
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    B, H = 2, 3
+    dtype = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(B, S, H, dk), rnd(B, T, H, dk), rnd(B, T, H, dk), rnd(B, S, H, dk)
+    scale = dk ** -0.5
+    designs = dict(fa.DESIGN_LAUNCHES)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    assert fa.DESIGN_LAUNCHES["flash_attention_fwd[wgmma]"] == (
+        designs["flash_attention_fwd[wgmma]"] + 1)
+    out_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal, scale)
+    torch.testing.assert_close(out, out_ref, **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    grads = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    want = fa.flash_bwd_ref(q, k, v, out, lse, do, causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        torch.testing.assert_close(g, w, **TOL[dtype], msg=name)
 
 
 def test_cuda_flash_wrappers_raise_instead_of_falling_back(cuda_device):

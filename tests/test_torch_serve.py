@@ -120,8 +120,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
 
 @pytest.mark.parametrize("field,value,exc", [
     pytest.param("kv_shard", "context", NotImplementedError, id="kv_shard-context"),
-    # fused_decode "whole_step" is ported and needs the paged layout
-    pytest.param("fused_decode", ("sampling",), NotImplementedError, id="fused_decode-value1"),
+    # fused_decode "sampling" and "whole_step" are ported; an unknown entry
+    # raises, and "whole_step" needs the paged layout
+    pytest.param("fused_decode", ("sampling", "bogus"), ValueError, id="fused_decode-value1"),
     pytest.param("fused_decode", ("whole_step",), ValueError, id="fused_decode-value2"),
     pytest.param("prefix_caching", True, NotImplementedError, id="prefix_caching-True"),
     pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
