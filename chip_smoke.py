@@ -52,6 +52,18 @@ on bf16, int8 and int4 pools (no paged attention kernel may run), holds
 the teacher-forced logits of each arm to its plain twin, and the f32
 phase checks its greedy tokens against the unfused runs.
 
+Slice 7: the train step's LM head runs bf16 products with f32 results
+(``llama.lm_head``; the head is never copied to f32), its Adam update one
+kernel launch a leaf (``adam_update``, bitwise its plain version), the
+flash backward's bf16 pair on ``wgmma`` fed by TMA (design "wgmma",
+rows carry ``design`` and ``device_ms``; the build line reports both
+instantiations; an untimed f32 S 2048, T 1 case holds the f32 kernels'
+summation to twice the plain version's error from f64), and the unfused
+quantized paged step commits K and V in one launch a layer
+(``paged_commit[int8|int4]``, bitwise ``quant_line_write``). Their rows
+carry ``bitwise``; the train profile line splits the step's device time
+into the LM head, Adam, the flash forward and the flash backward.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -186,6 +198,22 @@ def _verify_mma_smem(dk):
     return 3 * 2 * 64 * (dk + 8) * 2 + 8 * 32 * 128 + 32 * 4
 
 
+def _flash_bwd_kv_smem(dk):
+    """Dynamic shared bytes of ``flash_bwd_kv_wgmma_kernel<DK>``
+    (``bwg::KvSmem`` in ``csrc/flash_attention_bwd.cu``): K and V boxes of
+    128 lines, three stages of Q and dO boxes of 64 rows, two buffers of a
+    tile's lse and delta for each consumer, 1024 bytes of alignment
+    slack."""
+    return 2 * (dk // 64) * 128 * 128 + 3 * 2 * (dk // 64) * 64 * 128 + 2 * 2 * 512 + 1024
+
+
+def _flash_bwd_q_smem(dk):
+    """Dynamic shared bytes of ``flash_bwd_q_wgmma_kernel<DK>``
+    (``bwg::QSmem``): Q and dO boxes of 128 rows, three stages of K and V
+    boxes of 64 lines, 1024 bytes of alignment slack."""
+    return 2 * (dk // 64) * 128 * 128 + 3 * 2 * (dk // 64) * 64 * 128 + 1024
+
+
 def _flash_wgmma_smem(dk):
     """Dynamic shared bytes of ``flash_fwd_wgmma_kernel<DK>``
     (``wg::Smem`` in ``csrc/flash_attention_fwd.cu``): Q boxes of 128 rows,
@@ -204,14 +232,18 @@ MMA_KERNELS = (
     ("verify_attention", r"verify_mma_kernelILi(\d+)E", ("dk",), 256, _verify_mma_smem),
     ("flash_attention_fwd", r"flash_fwd_wgmma_kernelILi(\d+)E", ("dk",), 384,
      _flash_wgmma_smem),
+    ("flash_attention_bwd", r"flash_bwd_kv_wgmma_kernelILi(\d+)E", ("dk",), 384,
+     _flash_bwd_kv_smem),
+    ("flash_attention_bwd", r"flash_bwd_q_wgmma_kernelILi(\d+)E", ("dk",), 384,
+     _flash_bwd_q_smem),
 )
 
 
 def _mma_report(reports):
     """Each tensor-core kernel instantiation (the paged kernels' by pool
-    and dk, verify's and the flash forward's by dk) from its ``ptxas -v``
-    report: registers and spill bytes a thread (the flash forward's
-    registers are its launch count; setmaxnreg moves them between its
+    and dk, verify's and the flash kernels' by dk) from its ``ptxas -v``
+    report: registers and spill bytes a thread (the wgmma flash kernels'
+    registers are their launch count; setmaxnreg moves them between their
     warpgroups), shared bytes a block (ptxas's static bytes plus the
     dynamic layout) and the blocks an SM holds, by threads, registers and
     shared memory."""
@@ -229,12 +261,26 @@ def _mma_report(reports):
             warp_regs = -(-regs * 32 // 256) * 256
             blocks = min(SM_THREADS // threads, SM_REGISTERS // (threads // 32 * warp_regs),
                          SM_SMEM // (smem + 1024))
-            row = {"kernel": src, **dict(zip(fields, vals)), "registers": regs,
+            name = src if src != "flash_attention_bwd" else (
+                "flash_attention_bwd_kv" if "_kv_" in pattern else "flash_attention_bwd_q")
+            row = {"kernel": name, **dict(zip(fields, vals)), "registers": regs,
                    "spill_store_bytes": spills, "smem_bytes": smem, "blocks_per_sm": blocks}
             if "pool" in row:
                 row["pool"] = ("bf16", "int8", "int4")[row["pool"]]
             rows.append(row)
     return sorted(rows, key=lambda x: (x["kernel"], x.get("pool", ""), x["dk"]))
+
+
+# record_function ranges of the port (``llama.lm_head``); a trace shows
+# each also as a device-side span over its kernels, which is no kernel
+RANGES = ("lm_head", "lm_head.backward")
+
+
+def _kernel_events(prof):
+    """The device's kernel and copy events of a profile: its CUDA events
+    but the device-side spans of RANGES."""
+    return [ev for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.name() not in RANGES]
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -249,8 +295,7 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ns = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
-             if ev.device_type() == torch.autograd.DeviceType.CUDA)
+    ns = sum(ev.duration_ns() for ev in _kernel_events(prof))
     return ns / 1e6 / iters
 
 
@@ -750,6 +795,62 @@ def run_fused_check(label, case, dtype, quant):
     return row
 
 
+def run_commit_check(label, case, dtype, quant):
+    """The commit kernel (``K.commit_paged`` on CUDA tensors) against its
+    plain version, quant_line_write on K and on V, at the paged slice's
+    shapes: pools and scales of every page but the scratch page bitwise
+    equal; both timed with the pools restored before each call. Bound:
+    the new lines read, their code bytes and the touched pages' scales
+    written, and the pages whose scale moved (this data's requantization)
+    read and written."""
+    R, C, KV, dk, ps, P = (case[k] for k in ("R", "C", "KV", "dk", "ps", "P"))
+    table, pos = case["table"], case["pos"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(R * C + KV + 1)
+    k_new, v_new = _rand((R, C, KV, dk), dtype, gen), _rand((R, C, KV, dk), dtype, gen)
+    phys = table.long().gather(1, (pos // ps).long())
+    off = pos % ps
+    qmax = KQ.SPECS[quant].qmax
+    start = [case[k] for k in ("kp", "vp", "ks", "vs")]
+    a, b = [t.clone() for t in start], [t.clone() for t in start]
+    before = K.LAUNCHES[f"paged_commit[{quant}]"]
+    K.commit_paged(a[0], a[1], k_new, v_new, phys, off, a[2], a[3], qmax)
+    K.commit_paged(b[0], b[1], k_new, v_new, phys, off, b[2], b[3], qmax, kernels="torch")
+    torch.cuda.synchronize()
+    check(K.LAUNCHES[f"paged_commit[{quant}]"] == before + 1,
+          f"paged_commit[{label}]: not one launch")
+    bitwise = all(bool(torch.equal(x[:P], y[:P])) for x, y in zip(a, b))
+    check(bitwise, f"paged_commit[{label}]: non-scratch pools or scales differ from "
+                   "quant_line_write")
+    dkp, pisz, isz = start[0].shape[3], start[0].element_size(), k_new.element_size()
+    written = int((phys * ps + off).unique().numel())
+    touched = int(phys.unique().numel())
+    moved = sum(int((x[:P] != y[:P]).sum()) for x, y in zip(a[2:], start[2:]))
+    nbytes = (2 * k_new.numel() * isz + 2 * R * C * 8 + 2 * written * KV * dkp * pisz
+              + 2 * 2 * touched * KV * 4 + 2 * moved * ps * dkp * pisz)
+
+    def restore(dst):
+        def run():
+            for x, y in zip(dst, start):
+                x.copy_(y)
+        return run
+
+    row = {"phase": "kernels", "kernel": f"paged_commit[{quant}]", "case": label,
+           "dtype": str(dtype).replace("torch.", ""), "pool": quant,
+           "shape": {k: case[k] for k in ("R", "C", "KV", "dk", "ps", "P")},
+           "branch": "per-line" if R * C < P + 1 else "whole-pool",
+           "bitwise": bitwise, "max_abs_err": 0.0, "pages_requantized": moved,
+           "ms": cuda_ms_restored(lambda: K.commit_paged(
+               a[0], a[1], k_new, v_new, phys, off, a[2], a[3], qmax), restore(a)),
+           "plain_ms": cuda_ms_restored(lambda: K.commit_paged(
+               b[0], b[1], k_new, v_new, phys, off, b[2], b[3], qmax, kernels="torch"),
+               restore(b), iters=5),
+           "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    emit(row)
+    return row
+
+
 # (label, q dtype, pool quantization, KV heads, step kind); every case is timed
 PAGED_CASES = (
     ("bf16-decode", torch.bfloat16, None, 32, "decode"),
@@ -767,7 +868,8 @@ PAGED_CASES = (
 
 def phase_paged_kernels(seed):
     """Both paged kernels against their plain versions in every pool
-    type; the rows of the kernels line are the mixed C = 128 cases."""
+    type, and the commit kernel in the quantized ones; the rows of the
+    kernels line are the mixed C = 128 cases."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 2)
     rng = np.random.default_rng(seed + 2)
@@ -780,10 +882,13 @@ def phase_paged_kernels(seed):
                 else "f32-tile")
         check(ragged["design"] == fused["design"] == want,
               f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
+        commit = run_commit_check(label, case, dtype, quant) if quant else None
         if kind == "mixed" and "gqa" not in label:
             pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
             main[f"ragged_paged_attention[{pool}]"] = ragged
             main[f"fused_rope_paged_attention[{pool}]"] = fused
+            if commit:
+                main[f"paged_commit[{quant}]"] = commit
         del case
         gc.collect()
         torch.cuda.empty_cache()
@@ -1159,9 +1264,13 @@ def _logit_diff(a_steps, b_steps):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q"):  # f32 and mma kernels
+    for kernel in ("flash_fwd", "flash_bwd_kv", "flash_bwd_q"):  # f32 and wgmma kernels
         if kernel in n:
             return kernel
+    if "adam_kernel" in n:
+        return "adam_update"
+    if "paged_commit_kernel" in n:
+        return "paged_commit"
     if any(k in n for k in ("ragged_decode_kernel", "ragged_tile_kernel", "ragged_mma_kernel")):
         return "ragged_paged_attention"
     if "fused_kernel" in n or "fused_mma_kernel" in n:
@@ -1194,10 +1303,9 @@ def _profile(run, path):
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
     by_name = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            ms, count = by_name.get(ev.name(), (0.0, 0))
-            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
+    for ev in _kernel_events(prof):
+        ms, count = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
     by_class, kernels = {}, []
     for name, (ms, count) in by_name.items():
         c = _kernel_class(name)
@@ -1211,6 +1319,52 @@ def _profile(run, path):
             "share_of_busy": {c: ms / 1e3 / busy_s for c, ms in by_class.items()},
             "reduce_s": time.perf_counter() - t1,
             "top_kernels": [{"name": n, "ms": ms, "count": k} for ms, n, k in kernels[:10]]}
+
+
+def _profile_train(run, head_shape):
+    """One train step ``run()`` under torch.profiler, host and device, with
+    input shapes: ``_profile``'s device time by kernel class, plus the
+    device time of the LM head (its "lm_head" and "lm_head.backward"
+    ranges, ``llama.lm_head``), and the bf16 to f32 copies of a tensor of
+    the head's shape (``head_f32_copies``: neither the head nor its
+    gradient is copied to f32; the plain Adam update would copy the
+    gradient)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, by_name = {}, {}
+    for ev in _kernel_events(prof):
+        c = _kernel_class(ev.name())
+        by_class[c] = by_class.get(c, 0.0) + ev.duration_ns() / 1e6
+        ms, count = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
+    shapes = (list(head_shape), list(head_shape)[::-1])
+    copies = sum(1 for ev in prof.profiler.kineto_results.events()
+                 if ev.name() == "aten::copy_" and ev.shapes()
+                 and list(ev.shapes()[0]) in shapes
+                 and ev.dtypes()[:2] == ["float", "c10::BFloat16"])
+    busy_ms = sum(by_class.values())
+    head_ms = {}
+    for ev in prof.key_averages():
+        if ev.key in RANGES:
+            head_ms[ev.key] = getattr(ev, "device_time_total",
+                                      getattr(ev, "cuda_time_total", 0.0)) / 1e3
+    split = {"lm_head": sum(head_ms.values()), "adam": by_class.get("adam_update", 0.0),
+             "flash_forward": by_class.get("flash_fwd", 0.0),
+             "flash_backward": by_class.get("flash_bwd_kv", 0.0)
+             + by_class.get("flash_bwd_q", 0.0)}
+    split["rest"] = busy_ms - sum(split.values())
+    return {"phase": "profile", "path": "train", "wall_s": wall, "device_busy_s": busy_ms / 1e3,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / wall, "device_ms_by_class": by_class,
+            "device_ms_split": split, "lm_head_ms": head_ms, "head_f32_copies": copies,
+            "top_kernels": [{"name": n[:100], "ms": ms, "count": k} for n, (ms, k) in
+                            sorted(by_name.items(), key=lambda x: -x[1][0])[:12]]}
 
 
 def profile_slice(llm, prompts, new, path):
@@ -1386,6 +1540,9 @@ def phase_paged(seed, holder, arms):
                   f"{path}: the whole-step gate fell back ({extra})")
             paged = [k for k in line["launches"] if k.split("[")[0] in K.PAGED_KERNELS]
             check(not paged, f"{path}: paged attention kernels ran: {paged}")
+        if quant is not None and not fused:
+            check(line["launches"].get(f"paged_commit[{quant}]", 0) > 0,
+                  f"{path}: the commit kernel was never launched")
         if quant is None:
             check(line["preemptions"] > 0, f"{path}: the 17-page budget caused no preemption")
         t_prof = time.perf_counter()
@@ -1567,6 +1724,9 @@ F32_TRAIN_RTOL = 1e-5
 # within FLASH_REL_L2.
 FLASH_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2), torch.float32: TOL[torch.float32]}
 FLASH_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+# The f32 backward kernels at S 2048, T 1 against an f64 recomputation:
+# at most this many times the plain version's error (its cuBLAS sums)
+F32_BWD_VS_PLAIN = 2.0
 # (label, dtype, B, H, S, T, dk, causal, timed); the first is the train
 # slice's; the last holds the wgmma forward at T != S, full attention
 FLASH_CASES = (
@@ -1635,8 +1795,12 @@ def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal, timed=True):
     want = "wgmma" if dtype == torch.bfloat16 else "f32"
     check(took == [want], f"flash_attention_fwd[{label}]: designs {took}, want {want}")
     delta = FA.delta_rows(out, do).contiguous()
+    before = dict(FA.DESIGN_LAUNCHES)
     dk_, dv = FA.flash_bwd_kv(q, k, v, do, lse, delta, causal, scale)
     dq = FA.flash_bwd_q(q, k, v, do, lse, delta, causal, scale)
+    took = sorted(k_ for k_, n in FA.DESIGN_LAUNCHES.items() if n != before[k_])
+    check(took == [f"flash_attention_bwd_kv[{want}]", f"flash_attention_bwd_q[{want}]"],
+          f"flash backward[{label}]: designs {took}, want {want}")
     torch.cuda.synchronize()
     name = f"[{label}]"
     err, rel = {}, {}
@@ -1674,8 +1838,9 @@ def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal, timed=True):
                                      "causal": causal},
                            "max_abs_err": err[kname], "tol": FLASH_TOL[dtype],
                            "rel_l2": rel[kname], "rel_l2_tol": FLASH_REL_L2[dtype]}
+            rows[kname]["design"] = want
             if kname == "flash_attention_fwd":
-                rows[kname].update(design=want, lse_max_abs_err=lse_err)
+                rows[kname]["lse_max_abs_err"] = lse_err
             emit(rows[kname])
         return rows
     lib_fwd, lib_bwd = _flash_library_ms(q, k, v, do, causal)
@@ -1700,9 +1865,9 @@ def run_flash_check(label, gen, dtype, B, H, S, T, dk, causal, timed=True):
                "rel_l2": rel[kname], "rel_l2_tol": FLASH_REL_L2[dtype], "flop": flops,
                "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5),
                "library_ms": lib, "bound_ms": bound_ms, "bound_by": bound_by}
+        row.update(design=want, device_ms=back_to_back_ms(kernel))
         if kname == "flash_attention_fwd":
-            row.update(lse_max_abs_err=lse_err, design=want,
-                       device_ms=back_to_back_ms(kernel), vs_library=row["ms"] / lib)
+            row.update(lse_max_abs_err=lse_err, vs_library=row["ms"] / lib)
         gc.collect()
         torch.cuda.empty_cache()
         emit(row)
@@ -1722,7 +1887,101 @@ def phase_flash_kernels(seed):
         rows = run_flash_check(case[0], gen, *case[1:])
         if i == 0:
             main.update(rows)
+    # SDPA's one backward call computes dq, dk and dv: the pair against it
+    kv, q = main["flash_attention_bwd_kv"], main["flash_attention_bwd_q"]
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": FLASH_CASES[0][0],
+          "pair_ms": kv["ms"] + q["ms"], "library_ms": kv["library_ms"],
+          "pair_vs_library": (kv["ms"] + q["ms"]) / kv["library_ms"],
+          "pair_bound_ms": kv["bound_ms"] + q["bound_ms"]})
+    for dk in (64, 128):
+        run_flash_f32_accuracy(gen, dk)
     return main
+
+
+def _bwd_f64(q, k, v, do, lse, delta, scale):
+    """dq, dk, dv of the causal backward recomputed in f64 from the same
+    lse and delta."""
+    q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
+    s = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    S, T = q.shape[1], k.shape[1]
+    mask = torch.arange(S, device=DEV)[:, None] >= torch.arange(T, device=DEV)[None, :]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bshd,bthd->bhst", do, v) - delta[..., None]) * scale
+    return (torch.einsum("bhst,bthd->bshd", ds, k), torch.einsum("bhst,bshd->bthd", ds, q),
+            torch.einsum("bhst,bshd->bthd", p, do))
+
+
+def run_flash_f32_accuracy(gen, dk, B=2, H=3, S=2048, T=1):
+    """The f32 backward kernels at S 2048, T 1 (one key line sums every
+    row), untimed: each gradient's largest error from an f64 recomputation
+    at most F32_BWD_VS_PLAIN times the plain version's."""
+    q, do = _rand((B, S, H, dk), torch.float32, gen), _rand((B, S, H, dk), torch.float32, gen)
+    k, v = _rand((B, T, H, dk), torch.float32, gen), _rand((B, T, H, dk), torch.float32, gen)
+    scale = 1.0 / math.sqrt(dk)
+    out, lse = FA.flash_fwd(q, k, v, True, scale)
+    delta = FA.delta_rows(out, do).contiguous()
+    got = (FA.flash_bwd_q(q, k, v, do, lse, delta, True, scale),
+           *FA.flash_bwd_kv(q, k, v, do, lse, delta, True, scale))
+    plain = (FA.flash_bwd_q_ref(q, k, v, do, lse, delta, True, scale),
+             *FA.flash_bwd_kv_ref(q, k, v, do, lse, delta, True, scale))
+    exact = _bwd_f64(q, k, v, do, lse, delta, scale)
+    err = {}
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        err[name] = {"kernel": float((a.double() - x).abs().max()),
+                     "plain": float((b.double() - x).abs().max()),
+                     "max_abs": float(x.abs().max())}
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": f"f32-accuracy-dk{dk}",
+          "shape": {"B": B, "H": H, "S": S, "T": T, "dk": dk, "causal": True},
+          "err_vs_f64": err, "tol": f"kernel <= {F32_BWD_VS_PLAIN} * plain"})
+    for name, e in err.items():
+        check(e["kernel"] <= F32_BWD_VS_PLAIN * e["plain"],
+              f"f32 backward {name} (dk {dk}): {e['kernel']} from f64, plain {e['plain']}")
+
+
+ADAM_STEPS = 3
+
+
+def run_adam_check(seed):
+    """The Adam kernel against its plain version on the train slice's
+    largest leaf (the stacked w1 of TRAIN_LAYERS layers at LLaMA-7B width,
+    bf16, with f32 moments): ADAM_STEPS steps bitwise equal in p, m and
+    v, then both timed (each call updates in place). Bound: the bytes one
+    update must move, p and g read and p written in bf16, m and v read and
+    written in f32 (22 bytes a parameter). No single PyTorch call computes
+    this update (torch.optim's fused Adam places eps elsewhere)."""
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=TRAIN_LAYERS)
+    shape = (TRAIN_LAYERS, cfg.hidden_size, cfg.intermediate_size)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 11)
+    p = _rand(shape, torch.bfloat16, gen)
+    kern = [p, torch.zeros(shape, device=DEV), torch.zeros(shape, device=DEV)]
+    plain = [t.clone() for t in kern]
+    lr = torch.tensor(TRAIN_LR, device=DEV)
+    bitwise = True
+    for t in range(1, ADAM_STEPS + 1):
+        g = _rand(shape, torch.bfloat16, gen)
+        tt = torch.tensor(float(t), device=DEV)
+        alpha = lr * torch.sqrt(1.0 - torch.pow(0.999, tt)) / (1.0 - torch.pow(0.9, tt))
+        O.adam_update(kern[0], g, kern[1], kern[2], alpha, 0.9, 0.999, 1e-8)
+        O.adam_update_ref(plain[0], g, plain[1], plain[2], alpha, 0.9, 0.999, 1e-8)
+        bitwise = bitwise and all(bool(torch.equal(x, y)) for x, y in zip(kern, plain))
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(kern, plain))
+    check(bitwise, f"adam_update: the kernel differs from its plain version by {err}")
+    n = p.numel()
+    nbytes = n * (2 + 2 + 2 + 4 * 4)
+    row = {"phase": "kernels", "kernel": "adam_update", "case": "llama7b-w1-stack",
+           "dtype": "bfloat16", "shape": list(shape), "steps": ADAM_STEPS,
+           "bitwise": bitwise, "max_abs_err": err, "bytes": nbytes,
+           "ms": cuda_ms(lambda: O.adam_update(kern[0], g, kern[1], kern[2], alpha,
+                                               0.9, 0.999, 1e-8)),
+           "plain_ms": cuda_ms(lambda: O.adam_update_ref(plain[0], g, plain[1], plain[2],
+                                                         alpha, 0.9, 0.999, 1e-8), iters=5),
+           "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(row)
+    del kern, plain, g, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"adam_update": row}
 
 
 def _rel_l2(a, b) -> float:
@@ -1846,7 +2105,9 @@ def phase_train_parity(seed):
 def phase_train(seed):
     """The train slice through make_train_step: ten Adam steps with
     attention="flash" and full remat on one seeded batch; the loss must be
-    finite and fall. Returns the flash launches of the ten steps."""
+    finite and fall, every flash launch take "wgmma", the Adam kernel
+    launch once a leaf a step, and a profiled step copy no LM head to
+    f32. Returns the flash and Adam launches of the ten steps."""
     cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=TRAIN_LAYERS)
     toks = _train_tokens(seed + 7, cfg, TRAIN_BATCH)
     init, step = llama.make_train_step(cfg, O.AdamOptimizer(lr=TRAIN_LR), device=DEV,
@@ -1859,16 +2120,18 @@ def phase_train(seed):
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launch_counts()
+    O.reset_launch_counts()
+    counts = lambda: {**FA.LAUNCHES, **O.LAUNCHES}  # noqa: E731
     losses, step_s, per_step = [], [], []
     for _ in range(TRAIN_STEPS):
-        before = dict(FA.LAUNCHES)
+        before = counts()
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, toks)
         losses.append(float(loss))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        per_step.append({k: FA.LAUNCHES[k] - before[k] for k in FA.LAUNCHES})
-    launches = dict(FA.LAUNCHES)
+        per_step.append({k: n - before[k] for k, n in counts().items()})
+    launches = counts()
     design_launches = {k: v for k, v in FA.DESIGN_LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated()
     _PEAKS.append(peak)
@@ -1882,16 +2145,23 @@ def phase_train(seed):
           "init_s": init_s, "losses": losses, "step_s": step_s, "step_ms_median": steady * 1e3,
           "tokens_per_s": tokens / steady, "mfu": flops / steady / PEAK_FLOPS[torch.bfloat16],
           "model_flop_per_step": flops, "peak_memory_bytes": peak,
-          "flash_launches_per_step": per_step[-1], "launches": launches,
+          "launches_per_step": per_step[-1], "launches": launches,
           "design_launches": design_launches})
     check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
     for name in FLASH_KERNELS:
         check(all(p[name] > 0 for p in per_step), f"{name} missed a train step: {per_step}")
-    check(design_launches == {"flash_attention_fwd[wgmma]": launches["flash_attention_fwd"]},
-          f"the train steps' forward launches were not all wgmma: {design_launches}")
-    # one more step under the profiler
-    emit(_profile(lambda: float(step(params, opt, toks)[2]), "train"))
+    check(design_launches == {f"{k}[wgmma]": launches[k] for k in FLASH_KERNELS},
+          f"the train steps' flash launches were not all wgmma: {design_launches}")
+    leaves = len(O.tree_leaves(params))
+    check(all(p["adam_update"] == leaves for p in per_step),
+          f"the Adam kernel did not launch once a leaf ({leaves}) each step: {per_step}")
+    # one more step under the profiler: the LM head is never copied to f32
+    prof = _profile_train(lambda: float(step(params, opt, toks)[2]),
+                          (cfg.hidden_size, cfg.vocab_size))
+    emit(prof)
+    check(prof["head_f32_copies"] == 0, f"the LM head was copied: {prof['head_f32_copies']}")
+    check(prof["lm_head_ms"].get("lm_head", 0) > 0, "the profile shows no LM head time")
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1915,6 +2185,12 @@ SOURCES = {
                                "flexflow_tpu/ops/flash_attention.py:142"),
     "flash_attention_bwd_q": ("flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
                               "flexflow_tpu/ops/flash_attention.py:203"),
+    # no Pallas kernel: XLA fuses these in the JAX package
+    "adam_update": ("flexflow_tpu_torch/csrc/adam_update.cu",
+                    "flexflow_tpu/optimizers.py:94 (AdamOptimizer.update, no TPU kernel)"),
+    **{f"paged_commit[{t}]": ("flexflow_tpu_torch/csrc/paged_commit.cu",
+                              "flexflow_tpu/serve/kv_quant.py:147 (quant_line_write, "
+                              "no TPU kernel)") for t in K.QUANT_POOL_TYPES},
     # one kernel replaces both TPU kernels of the whole-step walk
     **{f"whole_step_decode[{t}]": (
         "flexflow_tpu_torch/csrc/whole_step_decode.cu",
@@ -1948,6 +2224,7 @@ def main(argv=None) -> int:
         main_rows.update(phase_paged_kernels(args.seed))
         main_rows.update(phase_whole_kernels(args.seed))
         main_rows.update(phase_flash_kernels(args.seed))
+        main_rows.update(run_adam_check(args.seed))
         mark("kernels")
     if "slice" in phases:
         holder = [None]
@@ -1980,9 +2257,11 @@ def main(argv=None) -> int:
                      "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
-        if name.split("[")[0] in K.PAGED_KERNELS + ("verify_attention", "flash_attention_fwd"):
+        if name.split("[")[0] in K.PAGED_KERNELS + ("verify_attention",) + FLASH_KERNELS:
             rows[-1].update(design=m.get("design"), vs_library=m.get("vs_library"),
                             device_ms=m.get("device_ms"))
+        if name.split("[")[0] in ("adam_update", "paged_commit"):
+            rows[-1]["bitwise"] = m.get("bitwise")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
                             for i, (name, t) in enumerate(marks)},

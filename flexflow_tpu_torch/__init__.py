@@ -9,8 +9,9 @@ Ported so far: LLaMA serving through ``serve.LLM.generate`` on the dense
 and the paged KV cache (bf16, f32, int8 and int4 pages, preemption), and
 single-device LLaMA training through ``models.llama.make_train_step``
 with the ``optimizers`` (SGD, Adam) and per-block remat. Their kernels —
-decode, verify, ragged paged, fused RoPE + KV-write paged attention and
-flash attention forward and backward — are CUDA C++ for ``sm_90a`` under
+decode, verify, ragged paged, fused RoPE + KV-write paged attention, the
+whole serving step, the quantized paged commit, flash attention forward
+and backward and the Adam update — are CUDA C++ for ``sm_90a`` under
 ``csrc/``, built on first use into ``_build/``.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks

@@ -1,13 +1,13 @@
 // Tiles shared by the training flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): the tile shape, the
-// loaders of a head's rows from the (B, S, H, dk) layout into shared
-// memory, the 4 x 4 register-blocked score product of the f32 kernels and
-// the bf16 kernels' loaders (their mma.sync fragments are in mma.cuh).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): the f32 kernels' tile
+// shape, the loader of a head's rows from the (B, S, H, dk) layout into
+// shared memory, the 4 x 4 register-blocked score product (summed over dk
+// in chunks of 32), and the
+// causal rule (the bf16 kernels, on wgmma, use hopper.cuh and their own
+// tiles).
 //
-// The f32 kernels and the bf16 backward kernels work on tiles of 64 query
-// rows and 64 key lines (the bf16 forward, on wgmma, is
-// flash_attention_fwd.cu's own). The f32 kernels run 256 threads on the
-// CUDA cores: in the score phase thread t
+// The f32 kernels work on tiles of 64 query rows and 64 key lines and run
+// 256 threads on the CUDA cores: in the score phase thread t
 // owns rows i0 .. i0 + 3 of the query
 // tile (i0 = 4 * (t / 16)) and lines tx, tx + 16, tx + 32, tx + 48 of the
 // key tile (tx = t % 16): the 16 threads sharing a row group are 16
@@ -60,36 +60,53 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
 }
 
 // acc[a][b] = dot(X row i0 + a, Y row tx + 16 b) over dk, both tiles with
-// row stride DK + 4.
+// row stride DK + 4. Each 32 dims' partial dot goes into a fresh
+// accumulator, added into the total once a chunk: one f32 running sum over
+// all dk terms was several times less accurate than cuBLAS's, and the
+// backward's ds = p * (dp - delta) cancels to that error where dp and
+// delta nearly agree.
 template <int DK>
 __device__ __forceinline__ void dot_tile(const float* __restrict__ X,
                                          const float* __restrict__ Y, int i0,
                                          int tx, float (&acc)[4][4]) {
   constexpr int L = Ld<DK>::kRow;
+  constexpr int kChunk = 32;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll 1
+  for (int d0 = 0; d0 < DK; d0 += kChunk) {
+    float part[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) part[a][b] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < DK; d += 4) {
-    float4 xv[4], yv[4];
+    for (int d = d0; d < d0 + kChunk; d += 4) {
+      float4 xv[4], yv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        xv[a] = *reinterpret_cast<const float4*>(X + (i0 + a) * L + d);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        yv[b] = *reinterpret_cast<const float4*>(Y + (tx + kLanes * b) * L + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float x = part[a][b];
+          x = fmaf(xv[a].x, yv[b].x, x);
+          x = fmaf(xv[a].y, yv[b].y, x);
+          x = fmaf(xv[a].z, yv[b].z, x);
+          x = fmaf(xv[a].w, yv[b].w, x);
+          part[a][b] = x;
+        }
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a)
-      xv[a] = *reinterpret_cast<const float4*>(X + (i0 + a) * L + d);
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      yv[b] = *reinterpret_cast<const float4*>(Y + (tx + kLanes * b) * L + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        float x = acc[a][b];
-        x = fmaf(xv[a].x, yv[b].x, x);
-        x = fmaf(xv[a].y, yv[b].y, x);
-        x = fmaf(xv[a].z, yv[b].z, x);
-        x = fmaf(xv[a].w, yv[b].w, x);
-        acc[a][b] = x;
-      }
+      for (int b = 0; b < 4; ++b) acc[a][b] += part[a][b];
   }
 }
 
@@ -98,39 +115,6 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ X,
 // the JAX kernels, for S != T too).
 __device__ __forceinline__ bool attends(int r, int c, int S, int T, int causal) {
   return r < S && c < T && (!causal || r >= c);
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core tiles (bf16 inputs): 4 warps of 16 rows (or lines) each run
-// mma.sync.m16n8k16 with f32 accumulation on the fragments of mma.cuh.
-// Probabilities and score gradients, f32 in registers, enter an mma as a
-// hi + lo pair of bf16 operands, as the TPU kernels keep them in f32.
-
-constexpr int kMmaThreads = 128;
-
-// Rows [r0, r0 + NROWS) of one bf16 head into dst with row stride DK + 8,
-// zeros past n; transposed (dst (d, r) at d * (NROWS + 8) + r) with
-// TRANSPOSE.
-template <int DK, int NROWS, bool TRANSPOSE>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* __restrict__ dst,
-                                               const __nv_bfloat16* __restrict__ base,
-                                               int r0, int n, size_t rstride) {
-  constexpr int kPerRow = DK / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < NROWS * kPerRow; idx += kMmaThreads) {
-    // transposed: neighbouring threads take neighbouring rows, so their
-    // 2-byte stores land side by side
-    const int r = TRANSPOSE ? idx % NROWS : idx / kPerRow;
-    const int d = (TRANSPOSE ? idx / NROWS : idx % kPerRow) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) x = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * rstride + d);
-    if constexpr (TRANSPOSE) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(d + j) * LdH<NROWS>::kRow + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * LdH<DK>::kRow + d) = x;
-    }
-  }
 }
 
 template <typename Kernel>

@@ -105,7 +105,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb) {
         ok[bb] = attends(r, t0 + tx + kLanes * bb, S, T_, causal);
-        sc[a][bb] = ok[bb] ? sc[a][bb] * scale : kNegInf;
+        sc[a][bb] = ok[bb] ? __fmul_rn(sc[a][bb], scale) : kNegInf;
         mx = fmaxf(mx, sc[a][bb]);
       }
 #pragma unroll
@@ -410,57 +410,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (B, L, H, dk) bf16 tensor at base as a 4-D map (dk, H, L, B),
-// boxes of 64 columns x 1 head x ``rows`` x 1, 128-byte swizzle, zeros
-// outside the tensor.
-cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, int H, int dk,
-                     int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(dk), cuuint64_t(H), cuuint64_t(L), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(dk) * 2, cuuint64_t(H) * dk * 2,
-                                 cuuint64_t(L) * H * dk * 2};
-  const cuuint32_t box[4] = {cuuint32_t(wg::kBoxCols), 1, cuuint32_t(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         float* lse, int B, int S, int T_, int H, int causal,
                         float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  cudaError_t err = make_map(&qmap, q, B, S, H, DK, wg::kRows);
-  if (err == cudaSuccess) err = make_map(&kmap, k, B, T_, H, DK, wg::kLines);
-  if (err == cudaSuccess) err = make_map(&vmap, v, B, T_, H, DK, wg::kLines);
+  cudaError_t err = hopper::make_map(&qmap, q, B, S, H, DK, wg::kRows);
+  if (err == cudaSuccess) err = hopper::make_map(&kmap, k, B, T_, H, DK, wg::kLines);
+  if (err == cudaSuccess) err = hopper::make_map(&vmap, v, B, T_, H, DK, wg::kLines);
   if (err != cudaSuccess) return err;
   constexpr size_t kSmem = wg::Smem<DK>::kBytes;
   err = set_smem(flash_fwd_wgmma_kernel<DK>, kSmem);

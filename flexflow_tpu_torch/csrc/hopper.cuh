@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels: mbarriers, TMA
-// tensor-tile loads, shared-memory matrix descriptors of the 128-byte
-// swizzle, warpgroup products (wgmma.mma_async) and the register
-// rebalancing of warp-specialised blocks (setmaxnreg).
+// Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
+// and backward): mbarriers, TMA tensor-tile loads and the host's tensor
+// maps, shared-memory matrix descriptors of the 128-byte swizzle,
+// warpgroup products (wgmma.mma_async) and the register rebalancing of
+// warp-specialised blocks (setmaxnreg).
 //
 // Layout the descriptors describe: a tile that TMA wrote with
 // CU_TENSOR_MAP_SWIZZLE_128B, in boxes of 64 bf16 columns (128 bytes) by
@@ -70,6 +71,51 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// --- tensor maps (host) -------------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (B, L, H, dk) bf16 tensor at base as a 4-D map (dk, H, L, B),
+// boxes of 64 columns x 1 head x ``rows`` x 1, 128-byte swizzle, zeros
+// outside the tensor.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, int H, int dk,
+                            int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(dk), cuuint64_t(H), cuuint64_t(L), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(dk) * 2, cuuint64_t(H) * dk * 2,
+                                 cuuint64_t(L) * H * dk * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // --- wgmma ------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // Tensor-core fragments and asynchronous copies shared by the bf16
-// kernels: the training flash-attention kernels (flash_attention.cuh),
-// the mixed-step tile of the paged kernels (paged_attention.cuh) and the
-// whole-step kernel's projections (whole_step_decode.cu).
+// kernels: the mixed-step tile of the paged kernels (paged_attention.cuh)
+// and the whole-step kernel's projections (whole_step_decode.cu); the
+// training flash-attention kernels, on wgmma (hopper.cuh), take its
+// softmax helpers and its accumulator-to-A-fragment split.
 //
 // mma.sync.m16n8k16 bf16 with f32 accumulation. In a warp, lane = 4 g + t
 // holds row g (and g + 8) of an A or C fragment and column g of a B

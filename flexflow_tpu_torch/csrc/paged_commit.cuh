@@ -97,14 +97,27 @@ __device__ __forceinline__ uint8_t pack_pair(float lo, float hi) {
 // round-half-to-even, so pool bytes and scales are bitwise those of the
 // unfused path. Lines of one page commit in order: the page's new scale
 // is the amax over all of its lines in the step.
+//
+// The per-line arrays live in shared memory the caller provides
+// (CommitLines, C entries each): the fused and whole-step kernels give
+// static arrays of kMaxChunk lines (commit_quant), the standalone commit
+// kernel (paged_commit.cu) dynamic ones sized from C.
+struct CommitLines {
+  float* lq;     // line amax / qmax
+  int* page;     // physical page of the line
+  int* lead;     // first line of the same page
+  float* nw;     // the page's new scale, at its first line
+  float* ratio;  // old / new, at its first line
+};
+
 template <typename TQ, int KIND, int DK, int NT>
-__device__ void commit_quant(const CommitArgs& f, int r, int h, const TQ* vals,
-                             void* pool, float* scale) {
-  __shared__ float sLq[kMaxChunk];    // line amax / qmax
-  __shared__ int sPage[kMaxChunk];    // physical page of the line
-  __shared__ int sLead[kMaxChunk];    // first line of the same page
-  __shared__ float sNew[kMaxChunk];   // the page's new scale, at its first line
-  __shared__ float sRatio[kMaxChunk]; // old / new, at its first line
+__device__ void commit_quant_lines(const CommitArgs& f, int r, int h, const TQ* vals,
+                                   void* pool, float* scale, const CommitLines& s) {
+  float* sLq = s.lq;
+  int* sPage = s.page;
+  int* sLead = s.lead;
+  float* sNew = s.nw;
+  float* sRatio = s.ratio;
   constexpr int kWarps = NT / 32;
   constexpr int DKP = DK / pack_of<KIND>();
   const PagedArgs& a = f.a;
@@ -203,6 +216,19 @@ __device__ void commit_quant(const CommitArgs& f, int r, int h, const TQ* vals,
     if (sLead[c] == c) scale[(size_t)sPage[c] * a.KV + h] = sNew[c];
   }
   __syncthreads();
+}
+
+// commit_quant_lines on static arrays of kMaxChunk lines (C <= kMaxChunk)
+template <typename TQ, int KIND, int DK, int NT>
+__device__ void commit_quant(const CommitArgs& f, int r, int h, const TQ* vals,
+                             void* pool, float* scale) {
+  __shared__ float sLq[kMaxChunk];
+  __shared__ int sPage[kMaxChunk];
+  __shared__ int sLead[kMaxChunk];
+  __shared__ float sNew[kMaxChunk];
+  __shared__ float sRatio[kMaxChunk];
+  commit_quant_lines<TQ, KIND, DK, NT>(f, r, h, vals, pool, scale,
+                                       CommitLines{sLq, sPage, sLead, sNew, sRatio});
 }
 
 // RoPE of q and the new K lines of KV head h of slot r (into q_rot and

@@ -210,6 +210,83 @@ def _mm(x, w):
 
 
 # ---------------------------------------------------------------------------
+# The LM head: f32 logits from the model-dtype hidden state
+
+
+def _mm_f32(a, b):
+    """a @ b of bf16 operands with an f32 result: cuBLAS with f32
+    accumulation, neither operand copied to f32 (the JAX package's
+    preferred_element_type=f32 product, which it leaves to XLA)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def split_hi_lo(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 tensor as a pair of bf16 tensors with ``hi + lo`` equal to
+    it to ~2^-16 relative (the split the flash kernels take for p and
+    ds)."""
+    hi = g.to(torch.bfloat16)
+    return hi, (g - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def head_backward_split(x, head, g, mm=_mm_f32, need=(True, True)):
+    """The LM head's gradients from f32 dlogits ``g`` (N, V), the hidden
+    state ``x`` (N, D) and ``head`` (D, V), both bf16: ``g`` split into
+    bf16 ``hi + lo`` (:func:`split_hi_lo`), then dx = hi·headᵀ + lo·headᵀ
+    and dW = xᵀ·hi + xᵀ·lo, each product of bf16 operands with an f32
+    result (``mm``). Returns f32 (dx, dW), None where ``need`` says so.
+    The split keeps g to ~2^-16, far below the bf16 rounding of dx and
+    dW that follows."""
+    hi, lo = split_hi_lo(g)
+    dx = mm(hi, head.T) + mm(lo, head.T) if need[0] else None
+    dw = mm(x.T, hi) + mm(x.T, lo) if need[1] else None
+    return dx, dw
+
+
+def _head_on_tensor_cores(x, head) -> bool:
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and head.dtype == torch.bfloat16)
+
+
+class _LMHead(torch.autograd.Function):
+    """logits (..., V) f32 = x (..., D) @ head (D, V). bf16 x and head
+    on a GPU: products of the bf16 operands with f32 results, forward
+    and backward (:func:`head_backward_split`); the (D, V) head is never
+    copied to f32. Anything else (an f32 model, CPU tensors): the f32
+    product of the operands cast to f32, and its gradients cast back."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        x2 = x.reshape(-1, x.shape[-1])
+        if _head_on_tensor_cores(x, head):
+            out = _mm_f32(x2, head)
+        else:
+            out = torch.mm(x2.to(torch.float32), head.to(torch.float32))
+        return out.reshape(*x.shape[:-1], head.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        x2, g2 = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1]).to(torch.float32)
+        need = ctx.needs_input_grad[:2]
+        with torch.profiler.record_function("lm_head.backward"):
+            if _head_on_tensor_cores(x, head):
+                dx, dw = head_backward_split(x2, head, g2, need=need)
+            else:
+                dx = torch.mm(g2, head.to(torch.float32).T) if need[0] else None
+                dw = torch.mm(x2.to(torch.float32).T, g2) if need[1] else None
+            return (None if dx is None else dx.to(x.dtype).reshape(x.shape),
+                    None if dw is None else dw.to(head.dtype))
+
+
+def lm_head(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the hidden state ``x`` (..., D) under ``head``
+    (D, V), differentiable (:class:`_LMHead`)."""
+    with torch.profiler.record_function("lm_head"):
+        return _LMHead.apply(x, head)
+
+
+# ---------------------------------------------------------------------------
 # Serving path (KV cache). One step function serves prefill (chunk C>1)
 # and incremental decode (C=1), all sharing the same KV buffers.
 
@@ -270,15 +347,13 @@ def _out_and_ffn(cfg: LLaMAConfig, p, x, attn):
 
 
 def _head(cfg: LLaMAConfig, params, x, logits_idx, all_logits: bool):
-    """Final norm and f32 LM head, at ``logits_idx`` (R,) or, with
-    ``all_logits``, at every chunk column."""
+    """Final norm and f32 LM head (:func:`lm_head`), at ``logits_idx``
+    (R,) or, with ``all_logits``, at every chunk column."""
     x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     if not all_logits:
         x = x[torch.arange(x.shape[0], device=x.device), logits_idx.long()]  # (R, D)
-    # f32 logits from the model-dtype hidden state, as the JAX package's
-    # preferred_element_type=f32 head
-    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    return lm_head(x, head)
 
 
 def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
@@ -441,7 +516,8 @@ def _block_paged_torch(cfg: LLaMAConfig, p, x, cos, sin, mask, k_pool, v_pool,
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    _k.commit_paged(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax)
+    _k.commit_paged(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax,
+                    kernels="torch")
     if qmax is not None:
         k_virt = _k.dequant_pages(k_pool, k_scale, page_table, q.dtype)
         v_virt = _k.dequant_pages(v_pool, v_scale, page_table, q.dtype)
@@ -735,9 +811,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LLaMAConfig, *,
         x = blk({name: ws[l] for name, ws in layers.items()}, x, cos, sin, mask)
     x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    # f32 logits from the model-dtype hidden state, as the JAX package's
-    # preferred_element_type=f32 head
-    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    return lm_head(x, head)
 
 
 def next_token_loss(params, tokens, cfg, **kw) -> torch.Tensor:

@@ -21,18 +21,19 @@ Each kernel has three parts side by side, as in ``serve/kernels.py``:
   :func:`flash_bwd_q`; :func:`flash_bwd` runs both): checks, then
   the plain version for tensors on the CPU, or the CUDA kernel for
   tensors on a GPU — never a fallback from a GPU tensor to the plain
-  version. Each launch adds one to ``LAUNCHES[name]``; the forward's also
-  to ``DESIGN_LAUNCHES`` by the design its launcher took ("wgmma" for
-  bf16, "f32" for float32).
+  version. Each launch adds one to ``LAUNCHES[name]`` and to
+  ``DESIGN_LAUNCHES`` by the design its launcher took ("wgmma" for bf16,
+  "f32" for float32).
 * the **plain PyTorch version** (:func:`flash_fwd_ref`,
   :func:`flash_bwd_kv_ref`, :func:`flash_bwd_q_ref`; :func:`flash_bwd_ref`
   runs both): the whole score matrix in f32. The backward is
   the recomputation from the LSE, not autograd of the forward, so it is a
   yardstick for the backward kernels in its own right.
 * the **kernels**, CUDA C++ for ``sm_90a``:
-  ``csrc/flash_attention_fwd.cu`` (bf16 on wgmma fed by TMA, f32 on the
-  CUDA cores) and ``csrc/flash_attention_bwd.cu`` (dK/dV and dQ, the JAX
-  package's two-kernel split), built on first use by ``serve/_cuda.py``.
+  ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
+  (dK/dV and dQ, the JAX package's two-kernel split), bf16 on wgmma fed
+  by TMA, f32 on the CUDA cores, built on first use by
+  ``serve/_cuda.py``.
 
 :func:`flash_attention` is the differentiable entry point (the JAX
 ``custom_vjp`` ``_flash`` becomes a ``torch.autograd.Function``).
@@ -54,9 +55,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd_q": 0,
 }
 
-#: forward launches by the design its launcher took, since the last reset
-DESIGN_LAUNCHES: Dict[str, int] = {"flash_attention_fwd[wgmma]": 0,
-                                   "flash_attention_fwd[f32]": 0}
+#: launches by the design each launcher took ("wgmma" for bf16, "f32"),
+#: since the last reset
+DESIGN_LAUNCHES: Dict[str, int] = {f"{k}[{d}]": 0 for k in LAUNCHES for d in ("wgmma", "f32")}
 
 #: head dims and dtypes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
@@ -208,9 +209,17 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     code = _dtype_code(q.dtype)
     _cuda.launch("flash_attention_fwd", [q, k, v, out, lse],
                  [B, S, k.shape[1], H, dk, int(causal), code], [scale])
-    LAUNCHES["flash_attention_fwd"] += 1
-    DESIGN_LAUNCHES[f"flash_attention_fwd[{_cuda.design('flash_attention_fwd', code)}]"] += 1
+    _count("flash_attention_fwd", code)
     return out, lse
+
+
+def _count(name: str, code: int) -> None:
+    """Count one launch of kernel ``name`` on q of dtype code ``code``,
+    also by the design its launcher took."""
+    from ..serve import _cuda
+
+    LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[f"{name}[{_cuda.design(name, code)}]"] += 1
 
 
 def _check_bwd(q, k, v, do, lse, delta):
@@ -248,7 +257,7 @@ def flash_bwd_kv(q, k, v, do, lse, delta, causal: bool, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _cuda.launch("flash_attention_bwd_kv", [q, k, v, do, lse, delta, dk, dv],
                  _bwd_dims(q, k, causal), [scale])
-    LAUNCHES["flash_attention_bwd_kv"] += 1
+    _count("flash_attention_bwd_kv", _dtype_code(q.dtype))
     return dk, dv
 
 
@@ -263,7 +272,7 @@ def flash_bwd_q(q, k, v, do, lse, delta, causal: bool, scale: float):
     dq = torch.empty_like(q)
     _cuda.launch("flash_attention_bwd_q", [q, k, v, do, lse, delta, dq],
                  _bwd_dims(q, k, causal), [scale])
-    LAUNCHES["flash_attention_bwd_q"] += 1
+    _count("flash_attention_bwd_q", _dtype_code(q.dtype))
     return dq
 
 
@@ -309,6 +318,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     already repeated; returns (B, S, H, dk).
 
     The JAX function's ``block_q``/``block_k`` (its VMEM tile sizes) have
-    no counterpart: the CUDA kernels tile by 64 rows and lines."""
+    no counterpart: the CUDA kernels choose their own tiles."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal, scale)

@@ -10,13 +10,28 @@ under ``torch.no_grad()`` — the JAX step donates both and returns new
 ones — and returns the same ``(params, opt_state)`` objects, so a call
 reads the same in both packages. It goes one parameter at a time, which
 bounds the f32 temporaries to the largest parameter.
+
+Adam's per-parameter update is a kernel (:func:`adam_update`): on CUDA
+tensors one launch of ``csrc/adam_update.cu`` a parameter, bitwise the
+plain version :func:`adam_update_ref` (the same f32 operations in the
+same order), counted in ``LAUNCHES["adam_update"]``; on the CPU the plain
+version itself.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+
+#: launches of the Adam kernel since the last :func:`reset_launch_counts`
+#: (a plain-version call on the CPU does not count)
+LAUNCHES: Dict[str, int] = {"adam_update": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -119,15 +134,59 @@ class AdamOptimizer(Optimizer):
         t = opt_state["step"].to(torch.float32)
         alpha_t = (opt_state["lr"] * torch.sqrt(1.0 - torch.pow(b2, t))
                    / (1.0 - torch.pow(b1, t)))
-        wd = self.weight_decay
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])):
-            g = g.to(torch.float32)
-            if wd:
-                g = g + wd * p.to(torch.float32)
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            upd = alpha_t * m
-            upd.div_(torch.sqrt(v).add_(self.epsilon))
-            p.copy_(p.to(torch.float32) - upd)
+            adam_update(p, g, m, v, alpha_t, b1, b2, self.epsilon, self.weight_decay)
         return params, opt_state
+
+
+def adam_update_ref(p, g, m, v, alpha_t, beta1: float, beta2: float, eps: float,
+                    weight_decay: float = 0.0) -> None:
+    """Plain version of one parameter's Adam step, in place: p (its
+    dtype), g, and the f32 moments m and v; ``alpha_t`` the step's
+    bias-corrected rate, an f32 device scalar. f32 math, the JAX
+    update's order and eps placement, a cast back to p's dtype."""
+    g = g.to(torch.float32)
+    if weight_decay:
+        g = g + weight_decay * p.to(torch.float32)
+    m.mul_(beta1).add_((1 - beta1) * g)
+    v.mul_(beta2).add_((1 - beta2) * g * g)
+    upd = alpha_t * m
+    upd.div_(torch.sqrt(v).add_(eps))
+    p.copy_(p.to(torch.float32) - upd)
+
+
+def adam_update(p, g, m, v, alpha_t, beta1: float, beta2: float, eps: float,
+                weight_decay: float = 0.0) -> None:
+    """One parameter's Adam step, in place (arguments as
+    :func:`adam_update_ref`): the plain version for tensors on the CPU,
+    one launch of the Adam kernel for tensors on a GPU, which reads
+    ``alpha_t`` from device memory (no host sync)."""
+    if p.shape != g.shape or p.shape != m.shape or p.shape != v.shape:
+        raise ValueError(f"p, g, m and v must share one shape; got {tuple(p.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(m.shape)}, {tuple(v.shape)}")
+    if p.device.type == "cpu":
+        adam_update_ref(p, g, m, v, alpha_t, beta1, beta2, eps, weight_decay)
+        return
+    if p.dtype not in (torch.float32, torch.bfloat16) or g.dtype != p.dtype:
+        raise ValueError(f"the Adam kernel takes float32 or bfloat16 p and g of one "
+                         f"dtype; got {p.dtype}, {g.dtype}")
+    if m.dtype != torch.float32 or v.dtype != torch.float32:
+        raise ValueError("the Adam kernel takes float32 moments")
+    if alpha_t.numel() != 1 or alpha_t.dtype != torch.float32:
+        raise ValueError("alpha_t must be one float32 value")
+    g = g.contiguous()
+    for name, t in (("p", p), ("g", g), ("m", m), ("v", v), ("alpha_t", alpha_t)):
+        if t.device != p.device:
+            raise ValueError(f"{name} must lie on {p.device}; got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "alpha_t" and t.data_ptr() % 16:  # 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
+    from .serve import _cuda
+
+    n = p.numel()
+    _cuda.launch("adam_update", [p, g, m, v, alpha_t],
+                 [n >> 30, n & ((1 << 30) - 1), 1 if p.dtype == torch.bfloat16 else 0],
+                 [beta1, 1 - beta1, beta2, 1 - beta2, eps, weight_decay])
+    LAUNCHES["adam_update"] += 1

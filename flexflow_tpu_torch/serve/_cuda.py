@@ -45,6 +45,8 @@ SIGNATURES = {
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
     "whole_step_decode": (27, 17, 3),
+    "paged_commit": (8, 9, 1),
+    "adam_update": (5, 3, 6),
 }
 #: kernels whose launcher lives in a source of another name
 SOURCES = {
@@ -61,6 +63,8 @@ DESIGNS = {
     "fused_rope_paged_attention": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
     "verify_attention": (("rows8", "mma", "f32"), ("C", "H", "KV", "dtype")),
     "flash_attention_fwd": (("f32", "wgmma"), ("dtype",)),
+    "flash_attention_bwd_kv": (("f32", "wgmma"), ("dtype",)),
+    "flash_attention_bwd_q": (("f32", "wgmma"), ("dtype",)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -5,13 +5,14 @@ Each kernel here has three parts side by side:
 
 * the **wrapper** (:func:`decode_attention`, :func:`verify_attention`
   and :func:`verify_attention_bits`, :func:`ragged_paged_attention`,
-  :func:`fused_rope_paged_attention`, :func:`whole_step_decode`):
+  :func:`fused_rope_paged_attention`, :func:`whole_step_decode`, and
+  :func:`commit_paged`, the unfused step's quantized K/V commit):
   checks device, dtype, shape and contiguity, then either runs the plain
   version (the tensors lie on the CPU) or launches the CUDA kernel (the
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
   version. Each launch adds one to ``LAUNCHES[name]``; the paged kernels
   and the whole-step kernel count per pool type,
-  ``name[bf16|f32|int8|int4]``, and the paged and verify kernels also
+  ``name[bf16|f32|int8|int4]`` (the commit kernel ``paged_commit[int8|int4]``), and the paged and verify kernels also
   per block design, as their launcher reports it, in ``DESIGN_LAUNCHES``
   (``name[decode|mma|f32-tile]``, ``verify_attention[rows8|mma|f32]``).
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
@@ -50,6 +51,8 @@ NEG_INF = -1e30
 #: pool types of the paged kernels, as their launch counters name them
 POOL_TYPES = ("bf16", "f32", "int8", "int4")
 PAGED_KERNELS = ("ragged_paged_attention", "fused_rope_paged_attention")
+#: pool types of the commit kernel (:func:`commit_paged` on quantized pools)
+QUANT_POOL_TYPES = ("int8", "int4")
 
 #: launches per kernel since the last :func:`reset_launch_counts` — a
 #: launch of the CUDA kernel counts, a plain-version call on the CPU not
@@ -57,6 +60,7 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "verify_attention": 0,
     **{f"{k}[{t}]": 0 for k in PAGED_KERNELS + ("whole_step_decode",) for t in POOL_TYPES},
+    **{f"paged_commit[{t}]": 0 for t in QUANT_POOL_TYPES},
 }
 
 #: launches of the paged and verify kernels by the block design their
@@ -493,18 +497,84 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
 
 
 def commit_paged(k_pool, v_pool, k, v, phys, off, k_scale=None, v_scale=None,
-                 qmax: Optional[float] = None):
+                 qmax: Optional[float] = None, *, kernels: str = "cuda"):
     """Write the new K/V lines (R, C, KV, dk) at physical page ``phys``,
-    in-page offset ``off`` (each (R, C) int64) in place: a scatter, or
+    in-page offset ``off`` (each (R, C) int) in place: a scatter, or
     ``kv_quant.quant_line_write`` with ``qmax`` on a quantized pool. The
     unfused paged step's commit, which the fused kernel matches bit for
-    bit."""
-    if qmax is not None:
+    bit.
+
+    On a quantized pool with CUDA tensors and ``kernels="cuda"`` one
+    launch of the commit kernel (``csrc/paged_commit.cu``) writes K and V,
+    bitwise ``quant_line_write``'s result on every page but the scratch
+    page (which several slots' padding lines write at once; only padding
+    rows read it); it counts in ``LAUNCHES["paged_commit[int8|int4]"]``.
+    CPU tensors and ``kernels="torch"`` run ``quant_line_write`` itself,
+    the plain version, which is bitwise the JAX package's."""
+    if kernels not in ("cuda", "torch"):
+        raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
+    if qmax is None:
+        k_pool[phys, off] = k.to(k_pool.dtype)
+        v_pool[phys, off] = v.to(v_pool.dtype)
+    elif kernels == "torch" or k.device.type == "cpu":
         quant_line_write(k_pool, k_scale, phys, off, k, qmax)
         quant_line_write(v_pool, v_scale, phys, off, v, qmax)
     else:
-        k_pool[phys, off] = k.to(k_pool.dtype)
-        v_pool[phys, off] = v.to(v_pool.dtype)
+        _commit_quant_cuda(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax)
+
+
+#: most new lines per slot the commit kernel takes (5 shared words a line)
+_COMMIT_MAX_LINES = 232448 // 20
+
+
+def _commit_quant_cuda(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax):
+    """The commit kernel's launch (see :func:`commit_paged`): checks, then
+    one launch for K and V."""
+    R, C, KV, dk = k.shape
+    P1 = k_pool.shape[0]
+    kind = {torch.int8: 1, torch.uint8: 2}.get(k_pool.dtype)
+    if kind is None or v_pool.dtype != k_pool.dtype or v_pool.shape != k_pool.shape:
+        raise ValueError("the commit kernel takes int8 or packed int4 pools of one shape")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None or t.shape != (P1, KV) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({P1}, {KV})")
+    if k_pool.shape[2] != KV or k_pool.shape[3] * pool_pack(k_pool) != dk:
+        raise ValueError(f"pools {tuple(k_pool.shape)} do not hold lines {tuple(k.shape)}")
+    if k.dtype not in _CUDA_DTYPES or dk not in _CUDA_HEAD_DIMS:
+        raise ValueError(f"the commit kernel takes float32 or bfloat16 lines of head dim "
+                         f"{_CUDA_HEAD_DIMS}; got {k.dtype}, {dk}")
+    if C > _COMMIT_MAX_LINES:
+        raise ValueError(f"the commit kernel takes at most {_COMMIT_MAX_LINES} lines a "
+                         f"slot; got C={C}")
+    if v.shape != k.shape or v.dtype != k.dtype:
+        raise ValueError(f"v must be {k.dtype} {tuple(k.shape)}")
+    if phys.shape != (R, C) or off.shape != (R, C):
+        raise ValueError(f"phys and off must be ({R}, {C})")
+    for name, t in (("k", k), ("v", v), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("k_scale", k_scale), ("v_scale", v_scale), ("phys", phys),
+                    ("off", off)):
+        if t.device != k.device:
+            raise ValueError(f"{name} must lie on {k.device}; got {t.device}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 8:  # codes move 8 bytes at a time
+            raise ValueError(f"{name} must be 8-byte aligned")
+    from . import _cuda
+
+    k, v = k.contiguous(), v.contiguous()
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:  # lines are read in 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _cuda.launch("paged_commit",
+                 [k, v, k_pool, v_pool, k_scale, v_scale,
+                  phys.to(torch.int32).contiguous(), off.to(torch.int32).contiguous()],
+                 [R, C, KV, dk, k_pool.shape[1], P1, _dtype_code(k.dtype), kind,
+                  int(R * C >= P1)],
+                 [qmax])
+    LAUNCHES[f"paged_commit[{pool_type(k_pool)}]"] += 1
 
 
 def fused_rope_paged_attention_ref(q, k_new, v_new, cos, sin, k_pool, v_pool,
@@ -523,7 +593,8 @@ def fused_rope_paged_attention_ref(q, k_new, v_new, cos, sin, k_pool, v_pool,
         q = _rope_rotate(q, cos[:, :, None, :], sin[:, :, None, :])
         k_new = _rope_rotate(k_new, cos[:, :, None, :], sin[:, :, None, :])
     phys = page_table.long().gather(1, logical.long())
-    commit_paged(k_pool, v_pool, k_new, v_new, phys, off.long(), k_scale, v_scale, qmax)
+    commit_paged(k_pool, v_pool, k_new, v_new, phys, off.long(), k_scale, v_scale, qmax,
+                 kernels="torch")
     return ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask,
                                       scale=scale, k_scale=k_scale, v_scale=v_scale)
 

@@ -161,10 +161,10 @@ def test_cuda_verify_mma_ignores_stale_shared_memory(cuda_device, poison_smem, d
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dk", [64, 128])
 def test_cuda_flash_wgmma_ignores_stale_shared_memory(cuda_device, poison_smem, dk, causal):
-    """The wgmma forward reads no shared memory it did not write (rows past
-    S and lines past T arrive as TMA's zeros): after every SM's shared
-    memory is filled with NaN bits, out and lse are finite and match the
-    plain version."""
+    """The wgmma forward and backward kernels read no shared memory they
+    did not write (rows past S and lines past T arrive as TMA's zeros):
+    after every SM's shared memory is filled with NaN bits, out, lse, dq,
+    dk and dv are finite and match the plain versions."""
     from flexflow_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda_device).manual_seed(8)
@@ -178,6 +178,21 @@ def test_cuda_flash_wgmma_ignores_stale_shared_memory(cuda_device, poison_smem, 
     assert out.isfinite().all() and lse.isfinite().all()
     torch.testing.assert_close(out, out_ref, **TOL[torch.bfloat16])
     torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    # both wgmma backward kernels, each after a fresh poisoning (their
+    # last tiles hold rows past S and lines past T, and the kv kernel's lse
+    # and delta tiles run past the last row)
+    do = torch.randn(B, S, H, dk, generator=gen, device=cuda_device).to(torch.bfloat16)
+    delta = fa.delta_rows(out, do).contiguous()
+    scale = dk ** -0.5
+    want_k, want_v = fa.flash_bwd_kv_ref(q, k, v, do, lse, delta, causal, scale)
+    want_q = fa.flash_bwd_q_ref(q, k, v, do, lse, delta, causal, scale)
+    poison_smem()
+    got_k, got_v = fa.flash_bwd_kv(q, k, v, do, lse, delta, causal, scale)
+    poison_smem()
+    got_q = fa.flash_bwd_q(q, k, v, do, lse, delta, causal, scale)
+    for name, g, w in (("dq", got_q, want_q), ("dk", got_k, want_k), ("dv", got_v, want_v)):
+        assert g.isfinite().all(), name
+        torch.testing.assert_close(g, w, **TOL[torch.bfloat16], msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +479,9 @@ def test_cuda_flash_attention_matches_plain_versions(cuda_device, dtype, dk, cau
         torch.testing.assert_close(g, w, **TOL[dtype], msg=name)
     for name in fa.LAUNCHES:
         assert fa.LAUNCHES[name] == before[name] + 1
+    design = "wgmma" if dtype == torch.bfloat16 else "f32"
+    assert {k_: n - designs[k_] for k_, n in fa.DESIGN_LAUNCHES.items()
+            if n != designs[k_]} == {f"{name}[{design}]": 1 for name in fa.LAUNCHES}
 
 
 # every pair of 1, 63, 65, 130 and 2048 lines (one line, one partial
@@ -526,7 +544,7 @@ def test_cuda_bf16_train_step_flash_and_torch(cuda_device, remat, policy, fwd_la
     within bf16's reach of each other that fall, gradients within bf16's
     reach of each other, and per 2-layer step the flash forward launched
     twice per layer under remat (the recompute), once without, and each
-    backward kernel once per layer."""
+    backward kernel once per layer, every launch in the "wgmma" design."""
     from flexflow_tpu_torch import optimizers as topt
     from flexflow_tpu_torch.models import llama as tl
     from flexflow_tpu_torch.ops import flash_attention as fa
@@ -551,10 +569,12 @@ def test_cuda_bf16_train_step_flash_and_torch(cuda_device, remat, policy, fwd_la
         params, opt, loss = step(params, opt, toks)
         torch.cuda.synchronize()
         launched = dict(fa.LAUNCHES)
+        by_design = {k_: n for k_, n in fa.DESIGN_LAUNCHES.items() if n}
         losses[attention] = [float(loss), float(step(params, opt, toks)[2])]
         if attention == "flash":
             assert launched == {"flash_attention_fwd": fwd_launches,
                                 "flash_attention_bwd_kv": 2, "flash_attention_bwd_q": 2}
+            assert by_design == {f"{k_}[wgmma]": n for k_, n in launched.items()}
         else:
             assert not any(launched.values())
     for attention, (first, second) in losses.items():
@@ -695,3 +715,186 @@ def test_cuda_whole_step_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         tl.serve_step_whole(p, c, one, one, one[0], table, cfg=small, cache_len=31,
                             kernels="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the f32 backward's summation, the train step's LM head and Adam, the
+# unfused quantized commit
+
+
+def _bwd_f64(q, k, v, do, lse, delta, scale):
+    """dq, dk, dv recomputed in f64 from the same lse and delta (causal)."""
+    q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
+    s = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    S, T = q.shape[1], k.shape[1]
+    mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(T, device=q.device)[None]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bshd,bthd->bhst", do, v) - delta[..., None]) * scale
+    return (torch.einsum("bhst,bthd->bshd", ds, k), torch.einsum("bhst,bshd->bthd", ds, q),
+            torch.einsum("bhst,bshd->bthd", p, do))
+
+
+@pytest.mark.parametrize("dk", [64, 128])
+def test_cuda_flash_f32_backward_sums_as_well_as_the_plain_version(cuda_device, dk):
+    """f32 at S 2048, T 1 (one key line sums all 2048 rows): each gradient
+    of the f32 kernels at most twice as far from an f64 recomputation as
+    the plain version's, and within the f32 tolerance of it."""
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    B, H, S, T = 2, 3, 2048, 1
+    q, do = (torch.randn(B, S, H, dk, generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(B, T, H, dk, generator=gen, device=cuda_device) for _ in range(2))
+    scale = dk ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.delta_rows(out, do).contiguous()
+    got = (fa.flash_bwd_q(q, k, v, do, lse, delta, True, scale),
+           *fa.flash_bwd_kv(q, k, v, do, lse, delta, True, scale))
+    plain = (fa.flash_bwd_q_ref(q, k, v, do, lse, delta, True, scale),
+             *fa.flash_bwd_kv_ref(q, k, v, do, lse, delta, True, scale))
+    exact = _bwd_f64(q, k, v, do, lse, delta, scale)
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        err_a = float((a.double() - x).abs().max())
+        err_b = float((b.double() - x).abs().max())
+        assert err_a <= 2 * err_b, (name, err_a, err_b)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["lm_head", "tied-embed"])
+def test_cuda_lm_head_bf16_keeps_f32_accuracy(cuda_device, tied):
+    """The bf16 head on the card (products of the bf16 operands with f32
+    results, the logits' gradient split hi + lo): logits within 1e-5
+    relative L2 of the f32 product of the same bf16 values, dx and dW
+    within 2^-12 of the f32 backward's (before their bf16 rounding)."""
+    from flexflow_tpu_torch.models import llama as tl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    N, D, V = 512, 1024, 4000
+    x = torch.randn(2, N // 2, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(V, D, generator=gen, device=cuda_device) / D ** 0.5).to(torch.bfloat16)
+    head = w.T if tied else w.T.contiguous()
+    g = torch.randn(2, N // 2, V, generator=gen, device=cuda_device)
+    xa = x.clone().requires_grad_(True)
+    ha = head.detach().clone().requires_grad_(True)
+    logits = tl.lm_head(xa, ha)
+    logits.backward(g)
+    x32, h32 = x.to(torch.float32), head.to(torch.float32)
+    want = torch.matmul(x32, h32)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    assert logits.dtype == torch.float32 and rel(logits.detach(), want) <= 1e-5
+    want_dx = torch.matmul(g, h32.T)
+    want_dw = torch.matmul(x32.reshape(N, D).T, g.reshape(N, V))
+    assert xa.grad.dtype == ha.grad.dtype == torch.bfloat16
+    # the gradients themselves are rounded to bf16 (2^-9): the f32 ones
+    # from the split products before that rounding
+    dx, dw = tl.head_backward_split(x.reshape(N, D), head, g.reshape(N, V))
+    assert rel(dx, want_dx.reshape(N, D)) <= 2.0 ** -12
+    assert rel(dw, want_dw) <= 2.0 ** -12
+    assert rel(xa.grad, want_dx) <= 2.0 ** -8 and rel(ha.grad, want_dw) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01], ids=["no-wd", "wd"])
+@pytest.mark.parametrize("n", [1000003, 4096, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_adam_kernel_bitwise_plain_version(cuda_device, dtype, n, wd):
+    """Ten steps of the Adam kernel equal ten steps of its plain version
+    bit for bit in p, m and v (a tail of fewer than 8 elements, a leaf of
+    fewer than 8, one a multiple of 8), one launch a step."""
+    from flexflow_tpu_torch import optimizers as topt
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    p = torch.randn(n, generator=gen, device=cuda_device).to(dtype)
+    a = [p.clone(), torch.zeros(n, device=cuda_device), torch.zeros(n, device=cuda_device)]
+    b = [t.clone() for t in a]
+    lr = torch.tensor(1e-3, device=cuda_device)
+    before = topt.LAUNCHES["adam_update"]
+    for t in range(1, 11):
+        g = torch.randn(n, generator=gen, device=cuda_device).to(dtype)
+        tt = torch.tensor(float(t), device=cuda_device)
+        alpha = lr * torch.sqrt(1.0 - torch.pow(0.999, tt)) / (1.0 - torch.pow(0.9, tt))
+        topt.adam_update(a[0], g, a[1], a[2], alpha, 0.9, 0.999, 1e-8, wd)
+        topt.adam_update_ref(b[0], g, b[1], b[2], alpha, 0.9, 0.999, 1e-8, wd)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert topt.LAUNCHES["adam_update"] == before + 10
+
+
+def test_cuda_adam_optimizer_launches_once_a_leaf(cuda_device):
+    from flexflow_tpu_torch import optimizers as topt
+
+    params = {"a": torch.zeros(10, 3, device=cuda_device, dtype=torch.bfloat16),
+              "b": {"c": torch.zeros(7, device=cuda_device)}}
+    opt = topt.AdamOptimizer(lr=0.1)
+    state = opt.init(params)
+    before = topt.LAUNCHES["adam_update"]
+    grads = {"a": torch.ones(10, 3, device=cuda_device, dtype=torch.bfloat16),
+             "b": {"c": torch.ones(7, device=cuda_device)}}
+    opt.update(grads, state, params)
+    assert topt.LAUNCHES["adam_update"] == before + 2
+    with pytest.raises(ValueError, match="one dtype"):
+        topt.adam_update(params["a"], grads["a"].float(), state["m"]["a"], state["v"]["a"],
+                         torch.tensor(0.1, device=cuda_device), 0.9, 0.999, 1e-8)
+
+
+# (C, R, pages a slot owns, pages no slot owns, padding slots): decode, a
+# 128-line chunk and a chunk past the fused kernel's 256 lines, each with
+# R * C below P + 1 (quant_line_write's per-line branch) and above it (its
+# whole-pool branch; at decode, slots of padding lines make it reachable)
+COMMIT_CASES = [(1, 4, 3, 2, 0), (1, 16, 1, 1, 4), (128, 2, 3, 260, 0), (128, 3, 3, 2, 0),
+                (300, 2, 6, 600, 0), (300, 2, 6, 2, 0)]
+
+
+def _commit_branch(case):
+    C, R, npages, extra, pad = case
+    P1 = (R - pad) * npages + extra + 1
+    return "per-line" if R * C < P1 else "whole-pool"
+
+
+@pytest.mark.parametrize("case", COMMIT_CASES,
+                         ids=lambda c: f"C{c[0]}-R{c[1]}-{_commit_branch(c)}")
+@pytest.mark.parametrize("dk", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_cuda_commit_kernel_bitwise_quant_line_write(cuda_device, quant, dtype, dk, case):
+    """One launch of the commit kernel writes K and V bitwise as
+    quant_line_write does on every page but the scratch page: codes and
+    scales, with offset-0 resets, lines of one page written together,
+    growing scales and (whole-pool branch) untouched pages of scale 0."""
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    C, R, npages, extra, pad = case
+    ps, KV = 64, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    P = (R - pad) * npages + extra  # the scratch page is P
+    P1 = P + 1
+    spec = kq.SPECS[quant]
+    codes = torch.randint(-127, 128, (2, P1, ps, KV, dk // spec.pack), generator=gen,
+                          device=cuda_device)
+    pools = [c.to(torch.int8) if quant == "int8" else (c + 128).to(torch.uint8) for c in codes]
+    scales = [torch.rand(P1, KV, generator=gen, device=cuda_device) * 0.05 for _ in range(2)]
+    for s_ in scales:
+        s_[P - 1] = 0.0  # a page no slot owns, never written
+    # slot r owns pages r * npages ..; its C new lines continue a prefix
+    start = torch.randint(0, ps, (R,), generator=gen, device=cuda_device)
+    start[0] = 0  # slot 0's first line resets its page's scale
+    pos = start[:, None] + torch.arange(C, device=cuda_device)[None]
+    assert int(pos.max()) < npages * ps
+    phys = torch.arange(R, device=cuda_device)[:, None] * npages + pos // ps
+    phys[R - pad:] = P  # padding slots: every line on the scratch page
+    phys[R - 1, C - 1] = P  # and a padding line at the end of the last slot
+    off = pos % ps
+    k, v = (torch.randn(R, C, KV, dk, generator=gen, device=cuda_device).to(dtype) * 3
+            for _ in range(2))
+    want = [t.clone() for t in (*pools, *scales)]
+    kq.quant_line_write(want[0], want[2], phys, off, k, spec.qmax)
+    kq.quant_line_write(want[1], want[3], phys, off, v, spec.qmax)
+    got = [t.clone() for t in (*pools, *scales)]
+    before = tk.LAUNCHES[f"paged_commit[{quant}]"]
+    tk.commit_paged(got[0], got[1], k, v, phys, off, got[2], got[3], spec.qmax)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[f"paged_commit[{quant}]"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x[:P], y[:P])
