@@ -23,7 +23,7 @@ fails without one. It imports nothing of JAX or of the JAX package.
 
 Mixed-step tiles on the tensor cores (slice 5): the paged kernels' rows
 name the block design their launcher took (``design``: "decode", "mma"
-for bf16 q, "f32-tile" for f32 q) and their time over the library call's
+for bf16 q, "tf32x3" for f32 q) and their time over the library call's
 (``vs_library``); the fused kernel's live-row output must equal the
 ragged kernel's bit for bit, and its ``commit_ms`` times the launch with
 a mask that attends nothing (RoPE and the commit alone), as the ragged
@@ -104,6 +104,10 @@ from flexflow_tpu_torch.serve.llm import LLM
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# TF32 tensor cores, dense: the rate of the f32 paged tile ("tf32x3"),
+# which runs each f32 product as three TF32 products (two on quantized
+# pools, whose codes are exact in TF32)
+TF32_FLOPS = 494.7e12
 # Kernel vs plain version. bf16: both compute in f32 and round the
 # output once to bf16, so they may differ by one bf16 ulp (<= 2^-7 |x|);
 # f32: summation order only.
@@ -179,15 +183,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 SM_REGISTERS, SM_SMEM, SM_THREADS = 65536, 233472, 2048
 
 
-def _mma_smem(pool, dk):
+def _mma_smem(f32, kind, dk):
     """Dynamic shared bytes of the tensor-core paged tile, as
-    ``MmaSmem<KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
-    them out: bf16 K/V tiles of 64 lines (three stages, or one that
-    quantized codes widen into, with three stages of raw codes), mask bits
-    of 32 tiles x 128 rows, page ids and scales of 128 pages, tile flags."""
-    bf16 = 2 * (3 if pool == "bf16" else 1) * 64 * (dk + 8) * 2
-    raw = 0 if pool == "bf16" else 3 * 2 * 64 * (dk // (2 if pool == "int4" else 1))
-    return bf16 + raw + 8 * 32 * 128 + 12 * 128 + 32 * 4
+    ``MmaSmem<TQ, KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
+    them out (q bf16, or f32 with ``f32``; pool ``kind`` 0 q's type, 1
+    int8, 2 int4): K/V tiles of 64 lines in q's type with rows of dk + 8
+    (bf16) or dk + 4 (f32), three stages of them, or one that quantized
+    codes widen into beside three stages of raw codes; for f32 q the
+    block's 128 Q rows; then the mask bits, page ids, scales and flags of
+    32 tiles. Two stages where three would pass the 224 KB budget with 16
+    tiles, and 16 tiles where 32 would (bf16 q always fits; f32 pages at
+    dk 128 take both)."""
+    budget = 232448 - 8192
+    pair = 2 * 64 * (dk + 4) * 4 if f32 else 2 * 64 * (dk + 8) * 2
+    raw = 2 * 64 * (dk // kind) if kind else 0  # int8: a byte a value, int4: two
+    q = 128 * (dk + 4) * 4 if f32 else 0
+
+    def meta(n):
+        return 8 * n * 128 + 12 * n * 4 + n * 4
+
+    def buffers(stages):
+        return pair + stages * raw if kind else stages * pair
+    stages = 3 if q + buffers(3) + meta(16) <= budget else 2
+    fixed = q + buffers(stages)
+    return fixed + meta(32 if fixed + meta(32) <= budget else 16)
 
 
 def _verify_mma_smem(dk):
@@ -224,10 +243,14 @@ def _flash_wgmma_smem(dk):
 
 # the tensor-core instantiations the build line reports: (source, name
 # pattern of the entry function, its fields, threads a block, dynamic
-# shared bytes from the fields)
+# shared bytes from the fields); the paged kernels' by q type: bf16 "mma",
+# f32 "tf32x3"
 MMA_KERNELS = (
-    *((src, r"_mma_kernelILi(\d)ELi(\d+)E", ("pool", "dk"), 256,
-       lambda pool, dk: _mma_smem(("bf16", "int8", "int4")[pool], dk))
+    *((src, r"_mma_kernelI13__nv_bfloat16Li(\d)ELi(\d+)E", ("pool", "dk"), 256,
+       lambda kind, dk: _mma_smem(False, kind, dk))
+      for src in K.PAGED_KERNELS),
+    *((src, r"_mma_kernelIfLi(\d)ELi(\d+)E", ("pool", "dk"), 256,
+       lambda kind, dk: _mma_smem(True, kind, dk))
       for src in K.PAGED_KERNELS),
     ("verify_attention", r"verify_mma_kernelILi(\d+)E", ("dk",), 256, _verify_mma_smem),
     ("flash_attention_fwd", r"flash_fwd_wgmma_kernelILi(\d+)E", ("dk",), 384,
@@ -266,9 +289,12 @@ def _mma_report(reports):
             row = {"kernel": name, **dict(zip(fields, vals)), "registers": regs,
                    "spill_store_bytes": spills, "smem_bytes": smem, "blocks_per_sm": blocks}
             if "pool" in row:
-                row["pool"] = ("bf16", "int8", "int4")[row["pool"]]
+                f32 = "_mma_kernelIf" in pattern
+                row["design"] = "tf32x3" if f32 else "mma"
+                row["pool"] = (("f32" if f32 else "bf16"), "int8", "int4")[row["pool"]]
             rows.append(row)
-    return sorted(rows, key=lambda x: (x["kernel"], x.get("pool", ""), x["dk"]))
+    return sorted(rows, key=lambda x: (x["kernel"], x.get("design", ""), x.get("pool", ""),
+                                       x["dk"]))
 
 
 # record_function ranges of the port (``llama.lm_head``); a trace shows
@@ -351,9 +377,17 @@ def phase_build():
     for name in _cuda.SIGNATURES:
         _cuda._lib(name)  # loads, or raises
     sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
+    mma = _mma_report(reports)
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
-          "ptxas": info, "mma_kernels": _mma_report(reports)})
+          "ptxas": info, "mma_kernels": mma})
+    # the f32 tensor-core tile: 3 pool types x 2 head dims in each paged
+    # source compiled by this run, none spilling
+    tf32 = [r for r in mma if r.get("design") == "tf32x3"]
+    want = 6 * sum(src in reports for src in K.PAGED_KERNELS)
+    check(len(tf32) == want, f"tf32x3 instantiations in the ptxas report: {len(tf32)}, "
+                             f"want {want}")
+    check(all(r["spill_store_bytes"] == 0 for r in tf32), "a tf32x3 instantiation spills")
 
 
 def _rand(shape, dtype, gen):
@@ -545,7 +579,7 @@ def phase_kernels(seed):
     run_verify_check("llama7b-gqa-mixed-c128", gen, bf16, R, S1, 32, 8, 128,
                      mixed, timed=True)
     run_verify_check("llama7b-f32-mixed-c128", gen, f32, R, S1, 32, 32, 128,
-                     mixed, timed=False)
+                     mixed, timed=True)
     run_verify_check("llama160m-tree-c16", gen, bf16, R, S1, 12, 12, 64,
                      _tree_mask(rng, R, 16, S1), timed=False)
     # SpecInfer's widest tree (ServingConfig.max_spec_tree_tokens)
@@ -625,7 +659,10 @@ def _paged_bound(case, q_dtype, extra_bytes=0):
     pages the mask opens (K and V, plus their scales; the scratch page
     that many slots open through their unallocated entries counts once),
     table, mask and q/out bytes over the HBM rate, or 4 * pairs * H * dk
-    FLOP over the q dtype's peak."""
+    FLOP over the rate of the unit that runs them: bf16 q the bf16 tensor
+    cores; f32 q the TF32 tensor cores, three TF32 products for each f32
+    one (two on quantized pools). Returns the bound, what bounds it and,
+    for f32 q, the operations' time on the f32 CUDA cores (67 TFLOP/s)."""
     kp, mask, table, ps = case["kp"], case["mask"], case["table"], case["ps"]
     R, C, NP = case["R"], case["C"], case["NP"]
     opened = mask.reshape(R, C, NP, ps).any(dim=3).any(dim=1)  # (R, NP)
@@ -636,8 +673,14 @@ def _paged_bound(case, q_dtype, extra_bytes=0):
     if case["ks"] is not None:
         nbytes += 2 * pages * kp.shape[2] * 4
     flops = 4 * int(mask.sum()) * case["H"] * case["dk"]
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q_dtype]
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    t_b = nbytes / HBM_BYTES_PER_S
+    cuda_core_ms = None
+    if q_dtype == torch.float32:
+        t_f = (2 if case["ks"] is not None else 3) * flops / TF32_FLOPS
+        cuda_core_ms = max(t_b, flops / PEAK_FLOPS[torch.float32]) * 1e3
+    else:
+        t_f = flops / PEAK_FLOPS[q_dtype]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), cuda_core_ms
 
 
 def _paged_library_ms(case, q, quant):
@@ -679,7 +722,23 @@ def _vs_library(row):
     return row["ms"] / row["library_ms"] if row.get("library_ms") else None
 
 
-def run_ragged_check(label, case, dtype, quant):
+def _paged_f64(q, kp, vp, ks, vs, table, mask):
+    """``ragged_paged_attention_ref``'s attention recomputed in f64 (codes
+    times their page's scale); a row with nothing to attend gives 0."""
+    R, C, H, dk = q.shape
+    ps, KV = kp.shape[1], kp.shape[2]
+    pack = K.pool_pack(kp) if ks is not None else 1
+    k, v = (K.unpack_codes(K.gather_pages(x, table), pack).double() for x in (kp, vp))
+    if ks is not None:
+        for x, sc in ((k, ks), (v, vs)):
+            x *= sc[table.long()].repeat_interleave(ps, dim=1).double()[..., None]
+    qg = q.double().reshape(R, C, KV, H // KV, dk)
+    s = torch.einsum("rckgd,rskd->rkgcs", qg, k) / math.sqrt(dk)
+    p = torch.softmax(s.masked_fill(~mask[:, None, None], -math.inf), dim=-1).nan_to_num(0.0)
+    return torch.einsum("rkgcs,rskd->rkgcd", p, v).permute(0, 3, 1, 2, 4).reshape(R, C, H, dk)
+
+
+def run_ragged_check(label, case, dtype, quant, timed=True):
     q, kp, vp, ks, vs, table = (case[k] for k in ("q", "kp", "vp", "ks", "vs", "table"))
     mask = case["mask"].clone()
     mask[case["R"] - 1, 0] = False  # a row with nothing to attend
@@ -689,11 +748,23 @@ def run_ragged_check(label, case, dtype, quant):
     ref = K.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     err = _compare(f"ragged_paged_attention[{label}]", out, ref, dtype)
     check(bool((out[case["R"] - 1, 0] == 0).all()), "ragged: empty row not zero")
-    del ref
     row = _paged_row("ragged_paged_attention", label, case, dtype, quant, err)
     row["design"] = design
+    if dtype == torch.float32:
+        # both f32 results against f64: how much of their distance is the
+        # plain version's own (its cuBLAS sums run the whole walk in f32)
+        exact = _paged_f64(q, kp, vp, ks, vs, table, mask)
+        row["err_vs_f64"] = {name: float((x.double() - exact).abs().max())
+                             for name, x in (("kernel", out), ("plain", ref))}
+        check(row["err_vs_f64"]["kernel"] <= TOL[dtype]["atol"],
+              f"ragged_paged_attention[{label}]: {row['err_vs_f64']['kernel']} from f64")
+        del exact
+    del ref
+    if not timed:
+        emit(row)
+        return row
     mask = case["mask"]
-    row["bound_ms"], row["bound_by"] = _paged_bound(case, dtype)
+    row["bound_ms"], row["bound_by"], row["bound_cuda_core_ms"] = _paged_bound(case, dtype)
     row.update(
         ms=cuda_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
                                                     k_scale=ks, v_scale=vs)),
@@ -713,7 +784,7 @@ def run_ragged_check(label, case, dtype, quant):
     return row
 
 
-def run_fused_check(label, case, dtype, quant):
+def run_fused_check(label, case, dtype, quant, timed=True):
     """The fused kernel against the port's unfused composition on the card
     (RoPE, then the scatter or quant_line_write, then the ragged kernel):
     non-scratch pool bytes and scales bit for bit, and the outputs of rows
@@ -760,6 +831,9 @@ def run_fused_check(label, case, dtype, quant):
                out_bitwise_vs_unfused=bitwise)
     check(bitwise, f"fused[{label}]: live-row output differs from the unfused path's")
     del ref, c, unfused
+    if not timed:
+        emit(row)
+        return row
     isz = q.element_size()
     dkp, pisz = case["kp"].shape[3], case["kp"].element_size()
     # inputs read once; the distinct lines written (every padding line
@@ -772,7 +846,7 @@ def run_fused_check(label, case, dtype, quant):
         moved = sum(int((x[:P] != case[k][:P]).sum()) for x, k in zip(a[2:], ("ks", "vs")))
         touched = int(phys.unique().numel())
         extra += 2 * touched * KV * 4 + moved * ps * dkp * pisz
-    row["bound_ms"], row["bound_by"] = _paged_bound(case, dtype, extra)
+    row["bound_ms"], row["bound_by"], row["bound_cuda_core_ms"] = _paged_bound(case, dtype, extra)
     row.update(
         ms=cuda_ms(lambda: K.fused_rope_paged_attention(
             q, k_new, v_new, cos, sin, a[0], a[1], table, logical, off, mask,
@@ -851,18 +925,21 @@ def run_commit_check(label, case, dtype, quant):
     return row
 
 
-# (label, q dtype, pool quantization, KV heads, step kind); every case is timed
+# (label, q dtype, pool quantization, KV heads, step kind, timed); the
+# untimed case holds the f32 tile's two-product arm (codes exact in TF32)
+# to the f32 tolerance
 PAGED_CASES = (
-    ("bf16-decode", torch.bfloat16, None, 32, "decode"),
-    ("bf16-mixed-c128", torch.bfloat16, None, 32, "mixed"),
-    ("int8-decode", torch.bfloat16, "int8", 32, "decode"),
-    ("int8-mixed-c128", torch.bfloat16, "int8", 32, "mixed"),
-    ("int4-decode", torch.bfloat16, "int4", 32, "decode"),
-    ("int4-mixed-c128", torch.bfloat16, "int4", 32, "mixed"),
-    ("f32-decode", torch.float32, None, 32, "decode"),
-    ("f32-mixed-c128", torch.float32, None, 32, "mixed"),
-    ("bf16-gqa-decode", torch.bfloat16, None, 8, "decode"),
-    ("bf16-gqa-mixed-c128", torch.bfloat16, None, 8, "mixed"),
+    ("bf16-decode", torch.bfloat16, None, 32, "decode", True),
+    ("bf16-mixed-c128", torch.bfloat16, None, 32, "mixed", True),
+    ("int8-decode", torch.bfloat16, "int8", 32, "decode", True),
+    ("int8-mixed-c128", torch.bfloat16, "int8", 32, "mixed", True),
+    ("int4-decode", torch.bfloat16, "int4", 32, "decode", True),
+    ("int4-mixed-c128", torch.bfloat16, "int4", 32, "mixed", True),
+    ("f32-decode", torch.float32, None, 32, "decode", True),
+    ("f32-mixed-c128", torch.float32, None, 32, "mixed", True),
+    ("bf16-gqa-decode", torch.bfloat16, None, 8, "decode", True),
+    ("bf16-gqa-mixed-c128", torch.bfloat16, None, 8, "mixed", True),
+    ("f32-int8-mixed-c128", torch.float32, "int8", 32, "mixed", False),
 )
 
 
@@ -874,16 +951,16 @@ def phase_paged_kernels(seed):
     gen.manual_seed(seed + 2)
     rng = np.random.default_rng(seed + 2)
     main = {}
-    for label, dtype, quant, KV, kind in PAGED_CASES:
+    for label, dtype, quant, KV, kind, timed in PAGED_CASES:
         case = _paged_case(gen, rng, dtype, quant, KV, kind)
-        ragged = run_ragged_check(label, case, dtype, quant)
-        fused = run_fused_check(label, case, dtype, quant)
+        ragged = run_ragged_check(label, case, dtype, quant, timed)
+        fused = run_fused_check(label, case, dtype, quant, timed)
         want = ("decode" if kind == "decode" else "mma" if dtype == torch.bfloat16
-                else "f32-tile")
+                else "tf32x3")
         check(ragged["design"] == fused["design"] == want,
               f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
-        commit = run_commit_check(label, case, dtype, quant) if quant else None
-        if kind == "mixed" and "gqa" not in label:
+        commit = run_commit_check(label, case, dtype, quant) if quant and timed else None
+        if kind == "mixed" and "gqa" not in label and timed:
             pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
             main[f"ragged_paged_attention[{pool}]"] = ragged
             main[f"fused_rope_paged_attention[{pool}]"] = fused
@@ -1638,8 +1715,10 @@ def phase_f32(seed):
     ("cuda" and "torch") on the dense layout and on f32, int8 and int4
     pools; fused, whole-step and unfused (f32, int8 and int4 pools); paged
     and dense. The int4 whole-step run alone may part from the unfused
-    runs, and only at a rounding tie (:func:`_divergence`). Returns the
-    launches of its paged runs."""
+    runs, and only at a rounding tie (:func:`_divergence`). Every paged launch
+    with f32 q takes the "decode" or the "tf32x3" design, and each paged
+    kernel takes "tf32x3" on the runs' mixed steps. Returns the launches
+    of its paged runs."""
     cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=2, dtype=torch.float32)
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
@@ -1662,7 +1741,7 @@ def phase_f32(seed):
         "int8-whole": dict(paged, kv_quant="int8", **whole),
         "int4-whole": dict(paged, kv_quant="int4", **whole),
     }
-    outs, launches, recs = {}, {}, {}
+    outs, launches, designs, recs = {}, {}, {}, {}
     for name, kw in runs.items():
         llm.compile(ServingConfig(cache_dtype=torch.float32, **kw))
         recs[name] = _record_steps(llm.engine)
@@ -1671,6 +1750,9 @@ def phase_f32(seed):
         for k, v in K.LAUNCHES.items():
             if v and "[f32]" in k:
                 launches[k] = launches.get(k, 0) + v
+        for k, v in K.DESIGN_LAUNCHES.items():
+            if v:
+                designs[k] = designs.get(k, 0) + v
         _free(llm)
     pairs = [("dense-cuda", "dense-torch"), ("paged-cuda", "paged-torch"),
              ("int8-cuda", "int8-torch"), ("int4-cuda", "int4-torch"),
@@ -1695,10 +1777,14 @@ def phase_f32(seed):
     emit({"phase": "f32_tokens", "layers": 2, "requests": len(prompts),
           "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs
                                       if f"{a} vs {b}" not in ties],
-          "parted_at_ties": ties, "launches": launches})
+          "parted_at_ties": ties, "launches": launches, "design_launches": designs})
     for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
               "whole_step_decode[f32]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")
+    for k in K.PAGED_KERNELS:
+        took = {d for d in K.DESIGNS[k][0] if designs.get(f"{k}[{d}]")}
+        check(took == {"decode", "tf32x3"},
+              f"{k} took designs {sorted(took)} with f32 q, want decode and tf32x3")
     return launches
 
 

@@ -44,12 +44,11 @@
 // small buffers of the wrapper, a few KB per slot at decode), and the
 // attention is ragged_paged_attention's, in the design the ragged
 // launcher would take (paged_design). Decode launches R * KV blocks of
-// 256 threads. A bf16 mixed step launches R * KV blocks of 8 warps that
-// walk ceil(C * G / 128) passes of attend_tile_mma (one at C = 128,
-// G = 1): each pass is the ragged kernel's row block, its rows on the
-// same warps, so the output of every row that reads no scratch line is
-// bitwise the ragged kernel's. f32 mixed steps walk attend_tile's 32-row
-// tiles in turn on 128 threads.
+// 256 threads. A mixed step (bf16 q "mma", f32 q "tf32x3") launches
+// R * KV blocks of 8 warps that walk ceil(C * G / 128) passes of
+// attend_tile_mma (one at C = 128, G = 1): each pass is the ragged
+// kernel's row block, its rows on the same warps, so the output of every
+// row that reads no scratch line is bitwise the ragged kernel's.
 #include <type_traits>
 
 #include "paged_commit.cuh"
@@ -59,32 +58,25 @@ namespace {
 
 using FusedArgs = CommitArgs;
 
-// GB > 0: the decode design with GB rows per call; GB == 0: the f32 tile design.
+// The decode design, GB rows per call.
 template <typename TQ, int KIND, int DK, int GB>
-__global__ void __launch_bounds__(GB > 0 ? kDecodeThreads : kTileThreads)
-fused_kernel(FusedArgs f) {
-  constexpr int NT = GB > 0 ? kDecodeThreads : kTileThreads;
+__global__ void __launch_bounds__(kDecodeThreads) fused_kernel(FusedArgs f) {
   const int h = blockIdx.x, r = blockIdx.y;
-  rope_and_commit<TQ, KIND, DK, NT>(f, r, h);
+  rope_and_commit<TQ, KIND, DK, kDecodeThreads>(f, r, h);
   const int rows = f.a.C * (f.a.H / f.a.KV);
-  if constexpr (GB > 0) {
-    for (int i0 = 0; i0 < rows; i0 += GB) attend_decode<TQ, KIND, DK, GB>(f.a, r, h, i0);
-  } else {
-    extern __shared__ __align__(16) float smem[];
-    for (int row0 = 0; row0 < rows; row0 += kTileRows)
-      attend_tile<TQ, KIND, DK>(f.a, r, h, row0, smem);
-  }
+  for (int i0 = 0; i0 < rows; i0 += GB) attend_decode<TQ, KIND, DK, GB>(f.a, r, h, i0);
 }
 
-// The mma design (bf16 q): every 128-row pass of the slot's KV head.
-template <int KIND, int DK>
+// The tensor-core designs ("mma": bf16 q, "tf32x3": f32 q): every 128-row
+// pass of the slot's KV head.
+template <typename TQ, int KIND, int DK>
 __global__ void __launch_bounds__(kMmaTileThreads, 1) fused_mma_kernel(FusedArgs f) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int h = blockIdx.x, r = blockIdx.y;
-  rope_and_commit<__nv_bfloat16, KIND, DK, kMmaTileThreads>(f, r, h);
+  rope_and_commit<TQ, KIND, DK, kMmaTileThreads>(f, r, h);
   const int rows = f.a.C * (f.a.H / f.a.KV);
   for (int row0 = 0; row0 < rows; row0 += kMmaTileRows)
-    attend_tile_mma<KIND, DK>(f.a, r, h, row0, smem_mma);
+    attend_tile_mma<TQ, KIND, DK>(f.a, r, h, row0, smem_mma);
 }
 
 template <typename TQ, int KIND, int DK>
@@ -99,18 +91,12 @@ cudaError_t launch_dk(const FusedArgs& f, cudaStream_t stream) {
     } else {
       fused_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kDecodeThreads, 0, stream>>>(f);
     }
-  } else if constexpr (kBf16) {  // kDesignMma
-    constexpr size_t kSmem = MmaSmem<KIND, DK>::kBytes;
+  } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
+    constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        fused_mma_kernel<KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+        fused_mma_kernel<TQ, KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return err;
-    fused_mma_kernel<KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(f);
-  } else {  // kDesignF32Tile
-    constexpr size_t kSmem = TileSmem<DK>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_kernel<TQ, KIND, DK, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return err;
-    fused_kernel<TQ, KIND, DK, 0><<<grid, kTileThreads, kSmem, stream>>>(f);
+    fused_mma_kernel<TQ, KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(f);
   }
   return cudaGetLastError();
 }
@@ -179,7 +165,7 @@ extern "C" int fused_rope_paged_attention_launch(
   return (int)err;
 }
 
-// The block design (0 decode, 1 mma, 2 f32-tile) the launcher takes for
+// The block design (0 decode, 1 mma, 2 tf32x3) the launcher takes for
 // these shapes and q dtype.
 extern "C" int fused_rope_paged_attention_design(int C, int H, int KV, int dtype) {
   return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);

@@ -1,8 +1,9 @@
-// Tensor-core fragments and asynchronous copies shared by the bf16
-// kernels: the mixed-step tile of the paged kernels (paged_attention.cuh)
-// and the whole-step kernel's projections (whole_step_decode.cu); the
-// training flash-attention kernels, on wgmma (hopper.cuh), take its
-// softmax helpers and its accumulator-to-A-fragment split.
+// Tensor-core fragments and asynchronous copies shared by the
+// tensor-core kernels: the mixed-step tile of the paged kernels
+// (paged_attention.cuh, bf16 and f32 q) and the whole-step kernel's
+// projections (whole_step_decode.cu); the training flash-attention
+// kernels, on wgmma (hopper.cuh), take its softmax helpers and its
+// accumulator-to-A-fragment split.
 //
 // mma.sync.m16n8k16 bf16 with f32 accumulation. In a warp, lane = 4 g + t
 // holds row g (and g + 8) of an A or C fragment and column g of a B
@@ -11,6 +12,10 @@
 // and the 16-byte rows of an ldmatrix (8 rows x 16 bytes) hit 32
 // different banks. f32 values (probabilities, score gradients) enter an
 // mma as a hi + lo pair of bf16 operands: their f32 value to ~2^-16.
+//
+// f32 products run as mma.sync.m16n8k8 TF32 in three products (3xTF32:
+// each operand split into TF32 hi + lo, lo * hi + hi * lo + hi * hi),
+// within ~2^-22 of an f32 product; one TF32 product alone keeps ~2^-11.
 #pragma once
 
 #include "common.cuh"
@@ -61,6 +66,55 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 8, row-major fragments) * b (8 x 8, column fragments), TF32
+// operands (f32 bit patterns whose low 13 mantissa bits are 0) and f32
+// accumulation. Lane 4 g + t holds a[0] = (g, t), a[1] = (g + 8, t),
+// a[2] = (g, t + 4), a[3] = (g + 8, t + 4); b0 = (t, g), b1 = (t + 4, g);
+// c as for m16n8k16.
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32, to nearest with ties away from zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x ≈ hi + lo, each TF32: hi = x rounded, lo = the rest (exact in f32)
+// rounded; their sum is x to ~2^-22 relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a * b in f32 on the TF32 tensor cores ("3xTF32"): a arrives split
+// (ah + al), b0 and b1 as f32 values. b is split too and the two small
+// products go into the accumulator before the large one (as CUTLASS's
+// OpMultiplyAddFastF32 orders them); with EXACT, b is already TF32 (a
+// quantized code: at most 8 significant bits) and takes al * b, ah * b.
+template <bool EXACT>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  if constexpr (EXACT) {
+    mma1688_tf32(c, al, __float_as_uint(b0), __float_as_uint(b1));
+    mma1688_tf32(c, ah, __float_as_uint(b0), __float_as_uint(b1));
+  } else {
+    uint32_t h0, l0, h1, l1;
+    split_tf32(b0, h0, l0);
+    split_tf32(b1, h1, l1);
+    mma1688_tf32(c, al, h0, h1);
+    mma1688_tf32(c, ah, l0, l1);
+    mma1688_tf32(c, ah, h0, h1);
+  }
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {

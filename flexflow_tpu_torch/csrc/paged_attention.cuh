@@ -19,7 +19,7 @@
 // precision pool uses the same formulas with both page scales 1.
 //
 // Three block designs (paged_design), chosen by the number of query rows
-// per KV head and q's dtype:
+// per KV head and q's dtype, and the CUDA-core tile of the whole step:
 //  * attend_decode ("decode", C * G <= 8: decode steps): one block of 8
 //    warps per (slot, KV head, up to 8 rows). One page is one tile: the
 //    block loads the page's mask for its rows, skips the page when no
@@ -50,16 +50,35 @@
 //    a tile no row of the block attends is never read and a warp whose 16
 //    rows attend nothing in a tile skips its math. A warp's math on one
 //    tile is mma_warp_tile, which the dense verify kernel shares.
-//  * attend_tile ("f32-tile": f32 q, C * G > 8): one block of 128
-//    threads per (slot, KV head, 32 rows), the register-blocked f32 tiles
-//    of verify_attention.cu over the same 64-line tiles on the CUDA
-//    cores (TF32 would miss the f32 kernels' 1e-5 tolerance). The whole-
-//    step kernel (whole_step_decode.cu) calls it at every dtype, with
-//    its own block size and its own tile-invariance contract.
+//  * attend_tile_mma<float> ("tf32x3", f32 q, C * G > 8): the same block,
+//    chunk loop and cp.async ring on f32 tiles (row stride dk + 4), with
+//    the block's Q rows in shared memory and each tile taken in two
+//    32-line halves (at dk 128, Q fragments in registers or 64-line
+//    scores made ptxas spill); f32 pages at dk 128 then leave room for
+//    two stages and the bits of 16 tiles.
+//    On the CUDA cores (attend_tile) an f32 mixed step at C = 128 ran
+//    5.3 times its 67 TFLOP/s bound. One TF32 product keeps ~11 bits of
+//    each operand and misses the f32 kernels' 1e-5 tolerance by 7-12
+//    times; split on one product alone it still misses (5-6e-5). So both
+//    products run as 3xTF32 on mma.sync.m16n8k8 (mma.cuh: every operand
+//    split into TF32 hi + lo, lo * hi and hi * lo before hi * hi), within
+//    ~2e-7 of the f32 result with IEEE f32 sums; the tensor cores' own
+//    f32 sums lose more, so each k-step of S and each half tile of PV sums
+//    in fresh accumulators, added up in f32. On int8/int4 pools the codes
+//    are exact in TF32 and only Q and P split (two products). Q splits
+//    per k-step; PV takes each 8-line group's lines in the order the S
+//    accumulator holds them (tf32_warp_tile). The bound is then 3 (2)
+//    products at the TF32 rate, 494.7 TFLOP/s.
+//  * attend_tile (f32 tiles of 32 rows on the CUDA cores, register-
+//    blocked as in verify_attention.cu): no paged launcher takes it now;
+//    the whole-step kernel (whole_step_decode.cu) calls it at every
+//    dtype, with its own block size and its own tile-invariance contract.
 //
 // Pool and q pointers are read with plain loads (never the read-only
 // cache): the fused kernel writes them earlier in the same launch.
 #pragma once
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -69,7 +88,7 @@ enum PoolKind : int { kPoolFloat = 0, kPoolInt8 = 1, kPoolInt4 = 2 };
 
 constexpr int kMaxPageSize = 128;
 
-enum PagedDesign : int { kDesignDecode = 0, kDesignMma = 1, kDesignF32Tile = 2 };
+enum PagedDesign : int { kDesignDecode = 0, kDesignMma = 1, kDesignTf32x3 = 2 };
 
 constexpr int kDecodeRows = 8;    // most query rows per KV head of a decode block
 
@@ -78,7 +97,7 @@ constexpr int kDecodeRows = 8;    // most query rows per KV head of a decode blo
 // export it to their wrappers.
 __host__ __device__ inline int paged_design(int rows, int dtype) {
   if (rows <= kDecodeRows) return kDesignDecode;
-  return dtype == kBFloat16 ? kDesignMma : kDesignF32Tile;
+  return dtype == kBFloat16 ? kDesignMma : kDesignTf32x3;
 }
 
 struct PagedArgs {
@@ -534,28 +553,58 @@ __device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* s
 }
 
 // ---------------------------------------------------------------------------
-// mma design (bf16 q)
+// tensor-core designs: "mma" (bf16 q) and "tf32x3" (f32 q)
 
 constexpr int kMmaTileWarps = 8;
 constexpr int kMmaTileThreads = kMmaTileWarps * 32;
 constexpr int kMmaTileRows = kMmaTileWarps * 16;  // query rows per block or pass
 constexpr int kMmaStages = 3;                     // K/V tile buffers: two copies in flight
 constexpr int kMetaTiles = 32;                    // tiles whose mask bits are staged at once
-constexpr int kMetaPages = kMetaTiles * kTileLines / 16;  // their pages at ps = 16
+// dynamic shared bytes a tensor-core tile may take: a block's 232,448 less
+// 8 KB for static buffers (the fused kernel's, paged_commit.cuh, take at
+// most 5,120)
+constexpr size_t kMmaSmemBudget = 232448 - 8192;
 
-template <int KIND, int DK>
+// Shared bytes of the mask bits, page ids, scales and flags of ``tiles``
+// tiles for the 128 rows of a tensor-core tile
+__host__ __device__ constexpr size_t mma_meta_bytes(int tiles) {
+  return sizeof(uint64_t) * tiles * kMmaTileRows                         // bits [tile][row]
+         + (2 * sizeof(float) + sizeof(int)) * (tiles * kTileLines / 16)  // pages at ps = 16
+         + size_t(tiles) * (kMmaTileRows / 32);                           // flags [tile][32 rows]
+}
+
+// Shared memory of attend_tile_mma for q of type TQ: K/V tiles of 64 lines
+// in TQ (kStages of them, or, for quantized pools, one that the raw codes
+// of kStages stages widen into); for f32 q the block's 128 Q rows (f32);
+// then the mask bits, page ids, scales and flags of kMeta tiles. bf16 q
+// takes three stages and 32 tiles; f32 q as many of each as fit (f32
+// pages at dk 128: two stages and 16 tiles).
+template <typename TQ, int KIND, int DK>
 struct MmaSmem {
   static constexpr bool kQuant = KIND != kPoolFloat;
-  static constexpr int kLd = LdH<DK>::kRow;                   // bf16 row stride
+  static constexpr bool kF32 = std::is_same<TQ, float>::value;
+  // row stride in elements: bf16 rows padded by 8 (mma.cuh); f32 rows by
+  // 4, so a stride of 4 (mod 32) words puts the TF32 fragment reads of a
+  // warp (8 rows x 4 dims of Q and K; 4 line pairs x 8 dims of V) on 32
+  // banks
+  static constexpr int kLd = kF32 ? DK + 4 : LdH<DK>::kRow;
   static constexpr int kRaw = DK / pack_of<KIND>();           // code bytes of a pool row
-  static constexpr size_t kTile = size_t(kTileLines) * kLd;   // bf16 elements of a K or V tile
-  // bf16 K/V tile pairs: one a stage, or one that the raw codes widen into
-  static constexpr size_t kBf16 = 2 * (kQuant ? 1 : kMmaStages) * kTile * sizeof(__nv_bfloat16);
-  static constexpr size_t kRawBytes = kQuant ? kMmaStages * 2 * size_t(kTileLines) * kRaw : 0;
-  static constexpr size_t kBits = sizeof(uint64_t) * kMetaTiles * kMmaTileRows;
-  static constexpr size_t kPages = (2 * sizeof(float) + sizeof(int)) * kMetaPages;
-  static constexpr size_t kFlags = size_t(kMetaTiles) * (kMmaTileRows / 32);  // per tile, per warp
-  static constexpr size_t kBytes = kBf16 + kRawBytes + kBits + kPages + kFlags;
+  static constexpr size_t kTile = size_t(kTileLines) * kLd;   // elements of a K or V tile
+  static constexpr size_t kPair = 2 * kTile * sizeof(TQ);     // bytes of a K/V tile pair
+  static constexpr size_t kRawPair = 2 * size_t(kTileLines) * kRaw;
+  static constexpr size_t kQ = kF32 ? size_t(kMmaTileRows) * kLd * sizeof(float) : 0;
+  static constexpr size_t kBuffers3 =  // K/V buffers at kMmaStages stages
+      kQuant ? kPair + kMmaStages * kRawPair : kMmaStages * kPair;
+  static constexpr int kStages =
+      kQ + kBuffers3 + mma_meta_bytes(kMetaTiles / 2) <= kMmaSmemBudget ? kMmaStages : 2;
+  static constexpr size_t kTiles = (kQuant ? 1 : kStages) * kPair;
+  static constexpr size_t kRawBytes = kQuant ? kStages * kRawPair : 0;
+  static constexpr int kMeta =
+      kQ + kTiles + kRawBytes + mma_meta_bytes(kMetaTiles) <= kMmaSmemBudget ? kMetaTiles
+                                                                             : kMetaTiles / 2;
+  static constexpr int kMetaPages = kMeta * kTileLines / 16;
+  static constexpr size_t kBytes = kTiles + kRawBytes + kQ + mma_meta_bytes(kMeta);
+  static_assert(kBytes <= kMmaSmemBudget, "tensor-core tile over the shared-memory budget");
 };
 
 // Bit j set when the mask row mrow attends line s0 + j, for the 64 lines
@@ -578,17 +627,82 @@ __device__ __forceinline__ uint64_t mask_bits(const uint8_t* mrow, int s0, int S
   return bits;
 }
 
+// The online softmax update of one warp's 16 query rows over the 8 * NT8
+// lines of a tile (64, or a 32-line half). On entry s[nt][e] holds the dot
+// product of row g (e < 2) or g + 8 with line 8 nt + 2 t + (e & 1) (an
+// m16n8 accumulator); its mask bit is bit 8 nt + 2 t + (e & 1) of ba (row
+// g) or bb (row g + 8). The score is the dot times kscale(nt) (the
+// softmax scale times log2(e),
+// and a quantized page's K scale). On return s holds each line's
+// probability (0 on masked lines), with QUANT multiplied by vscale(nt)
+// (the page's V scale; the sum l takes it unscaled); o is rescaled to
+// the new running maxima m (base 2), and l updated.
+template <int DK, bool QUANT, int NT8 = kTileLines / 8, typename KScale, typename VScale>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT8][4], uint64_t ba,
+                                             uint64_t bb, int t, KScale kscale,
+                                             VScale vscale, float (&o)[DK / 8][4],
+                                             float (&m)[2], float (&l)[2]) {
+  const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
+  // the row maxima and sums reduce as trees (short dependency chains:
+  // each scheduler runs only two warps)
+  float red_a[NT8], red_b[NT8];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    const float ksc = kscale(nt);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool on = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+      s[nt][e] = on ? s[nt][e] * ksc : kNegInf;
+    }
+    red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
+    red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
+  }
+  float mx[2] = {fmaxf(m[0], tree_max<NT8>(red_a)),
+                 fmaxf(m[1], tree_max<NT8>(red_b))};
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    corr[i] = exp2_ftz(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    bool on[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      on[e] = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
+      s[nt][e] = on[e] ? exp2_ftz(s[nt][e] - m[e >> 1]) : 0.f;
+    }
+    red_a[nt] = s[nt][0] + s[nt][1];
+    red_b[nt] = s[nt][2] + s[nt][3];
+    if constexpr (QUANT) {
+      // lines on pages past the chunk's last (past S) have no scale
+      // staged: read only on attended lines
+      const float vsc = vscale(nt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = on[e] ? s[nt][e] * vsc : 0.f;
+    }
+  }
+  l[0] = l[0] * corr[0] + tree_sum<NT8>(red_a);
+  l[1] = l[1] * corr[1] + tree_sum<NT8>(red_b);
+#pragma unroll
+  for (int nt = 0; nt < DK / 8; ++nt) {
+    o[nt][0] *= corr[0];
+    o[nt][1] *= corr[0];
+    o[nt][2] *= corr[1];
+    o[nt][3] *= corr[1];
+  }
+}
+
 // One warp's 16 query rows (A fragments qa; rows g and g + 8 of the warp
 // attend the 64 lines of the tile whose bits are set in ba and bb, bit j
-// for line j) against the 64-line K/V tile sK/sV (row stride DK + 8): the
-// online softmax update of the accumulators o, m, l (m in base 2). The
-// score of line 8 nt + j is dot * kscale(nt) (the softmax scale times
-// log2(e), and a quantized page's K scale); with QUANT a probability is
-// multiplied by vscale(nt) (the page's V scale) before it weighs V, and
-// the sum takes it unscaled. Warp-uniform: skips the math when neither
-// row of any lane attends a line of the tile. The paged tile
-// (attend_tile_mma) and the dense verify kernel (verify_attention.cu)
-// share it.
+// for line j) against the bf16 64-line K/V tile sK/sV (row stride DK + 8):
+// the online softmax update of the accumulators o, m, l (softmax_tile).
+// Warp-uniform: skips the math when neither row of any lane attends a
+// line of the tile. The paged tile (attend_tile_mma) and the dense verify
+// kernel (verify_attention.cu) share it.
 template <int DK, bool QUANT, typename KScale, typename VScale>
 __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
                                               const __nv_bfloat16* sK,
@@ -614,61 +728,7 @@ __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
       mma16816(s[2 * n2], qa[ks], b[0], b[1]);
       mma16816(s[2 * n2 + 1], qa[ks], b[2], b[3]);
     }
-
-  // s[nt][e]: row g (e < 2) or g + 8, line 8 nt + 2 t + (e & 1) of the
-  // tile; its mask bit is bit 8 nt + (e & 1) of xa or xb
-  const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
-  // the row maxima and sums reduce as trees (short dependency chains:
-  // each scheduler runs only two warps)
-  float red_a[kTileLines / 8], red_b[kTileLines / 8];
-#pragma unroll
-  for (int nt = 0; nt < kTileLines / 8; ++nt) {
-    const float ksc = kscale(nt);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool on = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
-      s[nt][e] = on ? s[nt][e] * ksc : kNegInf;
-    }
-    red_a[nt] = fmaxf(s[nt][0], s[nt][1]);
-    red_b[nt] = fmaxf(s[nt][2], s[nt][3]);
-  }
-  float mx[2] = {fmaxf(m[0], tree_max<kTileLines / 8>(red_a)),
-                 fmaxf(m[1], tree_max<kTileLines / 8>(red_b))};
-  float corr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    corr[i] = exp2_ftz(m[i] - mx[i]);
-    m[i] = mx[i];
-  }
-#pragma unroll
-  for (int nt = 0; nt < kTileLines / 8; ++nt) {
-    bool on[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      on[e] = (((e < 2 ? xa : xb) >> (nt * 8 + (e & 1))) & 1ull) != 0ull;
-      s[nt][e] = on[e] ? exp2_ftz(s[nt][e] - m[e >> 1]) : 0.f;
-    }
-    red_a[nt] = s[nt][0] + s[nt][1];
-    red_b[nt] = s[nt][2] + s[nt][3];
-    if constexpr (QUANT) {
-      // lines on pages past the chunk's last (past S) have no scale
-      // staged: read only on attended lines
-      const float vsc = vscale(nt);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = on[e] ? s[nt][e] * vsc : 0.f;
-    }
-  }
-  l[0] = l[0] * corr[0] + tree_sum<kTileLines / 8>(red_a);
-  l[1] = l[1] * corr[1] + tree_sum<kTileLines / 8>(red_b);
-#pragma unroll
-  for (int nt = 0; nt < DK / 8; ++nt) {
-    o[nt][0] *= corr[0];
-    o[nt][1] *= corr[0];
-    o[nt][2] *= corr[1];
-    o[nt][3] *= corr[1];
-  }
+  softmax_tile<DK, QUANT>(s, ba, bb, t, kscale, vscale, o, m, l);
   // O += P V, P as hi + lo bf16 fragments straight from the scores
 #pragma unroll
   for (int kt = 0; kt < kTileLines / 16; ++kt) {
@@ -686,45 +746,142 @@ __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
   }
 }
 
-// Rows [row0, row0 + 128) of KV head h of slot r, bf16 q, on the tensor
-// cores; smem holds MmaSmem<KIND, DK>::kBytes. Warp w always owns rows
-// row0 + 16 w .. row0 + 16 w + 15, and a row's result depends on its own
-// mask bits and the tiles it attends alone, taken in one order: the
-// ragged kernel (one block a pass) and the fused kernel (every pass in
-// one block) give the same bits. All kMmaTileThreads threads of the block
-// call it; it ends with a barrier.
-template <int KIND, int DK>
+// mma_warp_tile for f32 q ("tf32x3"): the warp's 16 f32 Q rows sQ
+// against the f32 64-line K/V tile sK/sV (all with row stride DK + 4),
+// both products in 3xTF32 (mma_3xtf32; with QUANT the tiles hold exact
+// codes and only Q and P are split), in two halves of 32 lines, each an
+// online softmax step of its own (S of a half takes 16 registers a
+// thread: with 64 ptxas spilled at dk 128). Q stays in shared memory (its
+// fragments would take 64 more) and is split per k-step. The tensor
+// cores' f32 sums lose more than IEEE sums, so each k-step of S and each
+// half's PV (NG column tiles at a time, P split again for each group) is
+// summed in fresh accumulators and added in f32: summed in O over a whole
+// walk (2176 lines at C = 128, LLaMA-7B widths) the output missed 1e-5
+// on an H100. The accumulator of S holds lines 2 t, 2 t + 1 of
+// each 8-line group where PV's A fragment wants k indices t, t + 4: PV
+// takes the group's lines in that order instead (k index t is line 2 t,
+// t + 4 is line 2 t + 1), so P enters PV with no shuffle and V's B
+// fragment reads lines 2 t and 2 t + 1.
+template <int DK, bool QUANT, typename KScale, typename VScale>
+__device__ __forceinline__ void tf32_warp_tile(const float* sQ, const float* sK,
+                                               const float* sV, uint64_t ba, uint64_t bb,
+                                               int lane, KScale kscale, VScale vscale,
+                                               float (&o)[DK / 8][4], float (&m)[2],
+                                               float (&l)[2]) {
+  constexpr int LD = DK + 4, HALF = kTileLines / 2, NT8 = HALF / 8;
+  constexpr int NG = 4;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const uint64_t ha = ba >> (HALF * hf), hb = bb >> (HALF * hf);
+    // warp-uniform: skip a half no line of which either row of any lane attends
+    if (!__any_sync(0xffffffffu, ((ha | hb) & 0xFFFFFFFFull) != 0ull)) continue;
+    const float* kh = sK + HALF * hf * LD;
+    const float* vh = sV + HALF * hf * LD;
+    float s[NT8][4];
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    const float* q = sQ + g * LD + t;  // A = Q: rows g, g + 8, dims t, t + 4
+#pragma unroll 2
+    for (int ks = 0; ks < DK / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      split_tf32(q[8 * ks], ah[0], al[0]);
+      split_tf32(q[8 * LD + 8 * ks], ah[1], al[1]);
+      split_tf32(q[8 * ks + 4], ah[2], al[2]);
+      split_tf32(q[8 * LD + 8 * ks + 4], ah[3], al[3]);
+      const float* k = kh + g * LD + 8 * ks + t;  // B = K^T: line 8 nt + g, dims t, t + 4
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        float f[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32<QUANT>(f, ah, al, k[8 * nt * LD], k[8 * nt * LD + 4]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += f[e];
+      }
+    }
+    softmax_tile<DK, QUANT, NT8>(
+        s, ha, hb, t, [&](int nt) { return kscale(NT8 * hf + nt); },
+        [&](int nt) { return vscale(NT8 * hf + nt); }, o, m, l);
+#pragma unroll
+    for (int n0 = 0; n0 < DK / 8; n0 += NG) {
+      float acc[NG][4];
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < NT8; ++kt) {
+        uint32_t ah[4], al[4];
+        split_tf32(s[kt][0], ah[0], al[0]);  // row g, line 2 t
+        split_tf32(s[kt][2], ah[1], al[1]);  // row g + 8, line 2 t
+        split_tf32(s[kt][1], ah[2], al[2]);  // row g, line 2 t + 1
+        split_tf32(s[kt][3], ah[3], al[3]);  // row g + 8, line 2 t + 1
+        const float* v = vh + (8 * kt + 2 * t) * LD + 8 * n0 + g;  // column 8 n + g
+#pragma unroll
+        for (int n = 0; n < NG; ++n) mma_3xtf32<QUANT>(acc[n], ah, al, v[8 * n], v[8 * n + LD]);
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n0 + n][e] += acc[n][e];
+    }
+  }
+}
+
+// Rows [row0, row0 + 128) of KV head h of slot r on the tensor cores: bf16
+// q ("mma", mma_warp_tile) or f32 q ("tf32x3", tf32_warp_tile); smem holds
+// MmaSmem<TQ, KIND, DK>::kBytes. Warp w always owns rows row0 + 16 w ..
+// row0 + 16 w + 15, and a row's result depends on its own mask bits and
+// the tiles it attends alone, taken in one order: the ragged kernel (one
+// block a pass) and the fused kernel (every pass in one block) give the
+// same bits. All kMmaTileThreads threads of the block call it; it ends
+// with a barrier.
+template <typename TQ, int KIND, int DK>
 __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
                                 unsigned char* smem) {
-  using bf16 = __nv_bfloat16;
-  using L = MmaSmem<KIND, DK>;
-  using PT = typename PoolT<bf16, KIND>::T;
-  constexpr int LD = L::kLd, RAW = L::kRaw;
-  constexpr int kRowBytes = L::kQuant ? RAW : DK * 2;  // pool bytes of one line
+  using L = MmaSmem<TQ, KIND, DK>;
+  using PT = typename PoolT<TQ, KIND>::T;
+  constexpr bool kF32 = L::kF32;
+  constexpr int LD = L::kLd, RAW = L::kRaw, META = L::kMeta, STAGES = L::kStages;
+  constexpr int kRowBytes = L::kQuant ? RAW : DK * int(sizeof(TQ));  // pool bytes of one line
   constexpr int kChunks = kRowBytes / 16;              // 16-byte copies of one line
-  bf16* sKV = reinterpret_cast<bf16*>(smem);           // [stage][K, V][64][LD]
-  uint8_t* sRaw = smem + L::kBf16;                     // quantized: [stage][K, V][64][RAW]
-  uint64_t* sBits = reinterpret_cast<uint64_t*>(sRaw + L::kRawBytes);  // [tile][row]
-  float* sPk = reinterpret_cast<float*>(sBits + kMetaTiles * kMmaTileRows);
-  float* sPv = sPk + kMetaPages;
-  int* sPid = reinterpret_cast<int*>(sPv + kMetaPages);
-  uint8_t* sFlag = reinterpret_cast<uint8_t*>(sPid + kMetaPages);  // [tile][4 warps]
+  TQ* sKV = reinterpret_cast<TQ*>(smem);               // [stage][K, V][64][LD]
+  uint8_t* sRaw = smem + L::kTiles;                    // quantized: [stage][K, V][64][RAW]
+  float* sQ = reinterpret_cast<float*>(sRaw + L::kRawBytes);  // f32 q: [128][LD]
+  uint64_t* sBits = reinterpret_cast<uint64_t*>(sRaw + L::kRawBytes + L::kQ);  // [tile][row]
+  float* sPk = reinterpret_cast<float*>(sBits + META * kMmaTileRows);
+  float* sPv = sPk + L::kMetaPages;
+  int* sPid = reinterpret_cast<int*>(sPv + L::kMetaPages);
+  uint8_t* sFlag = reinterpret_cast<uint8_t*>(sPid + L::kMetaPages);  // [tile][4 warps]
 
   const int G = a.H / a.KV, rows = a.C * G, ps = a.ps, S = a.NP * ps;
   const int ps_log = __ffs(ps) - 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int ra = row0 + 16 * warp + g, rb = ra + 8;  // this thread's rows
 
-  // the warp's Q fragments, zero past the last row
-  uint32_t qa[DK / 16][4];
-  {
-    const bf16* q = static_cast<const bf16*>(a.q);
-    auto at = [&](int i) -> const bf16* {
+  // Q, zero past the last row: bf16 q as the warp's A fragments in
+  // registers for the whole walk; f32 q as the block's rows in shared
+  // memory (read after the barrier that opens the first chunk)
+  uint32_t qa[kF32 ? 1 : DK / 16][4];
+  if constexpr (kF32) {
+    const float* q = static_cast<const float*>(a.q);
+    for (int idx = tid; idx < kMmaTileRows * DK / 4; idx += kMmaTileThreads) {
+      const int ii = idx / (DK / 4), d = idx % (DK / 4) * 4, i = row0 + ii;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < rows)
+        x = *reinterpret_cast<const float4*>(
+            q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + d);
+      *reinterpret_cast<float4*>(sQ + ii * LD + d) = x;
+    }
+  } else {
+    const TQ* q = static_cast<const TQ*>(a.q);
+    auto at = [&](int i) -> const TQ* {
       return i < rows ? q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + 2 * t
                       : nullptr;
     };
-    const bf16* pa = at(ra);
-    const bf16* pb = at(rb);
+    const TQ* pa = at(ra);
+    const TQ* pb = at(rb);
 #pragma unroll
     for (int ks = 0; ks < DK / 16; ++ks) {
       qa[ks][0] = pa ? ld32(pa + 16 * ks) : 0u;
@@ -756,14 +913,15 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
       }
       const int lk = st * 2 * kTileLines + j, lv = lk + kTileLines;
       cp_async16(L::kQuant ? static_cast<void*>(sRaw + lk * RAW + 16 * c)
-                           : static_cast<void*>(sKV + lk * LD + 8 * c),
+                           : static_cast<void*>(sKV + lk * LD + (16 / sizeof(TQ)) * c),
                  static_cast<const uint8_t*>(a.k_pool) + off, nbytes);
       cp_async16(L::kQuant ? static_cast<void*>(sRaw + lv * RAW + 16 * c)
-                           : static_cast<void*>(sKV + lv * LD + 8 * c),
+                           : static_cast<void*>(sKV + lv * LD + (16 / sizeof(TQ)) * c),
                  static_cast<const uint8_t*>(a.v_pool) + off, nbytes);
     }
   };
-  // widen the codes of stage st to bf16 codes in the one bf16 tile pair
+  // widen the codes of stage st to TQ codes (exact in bf16 and in TF32) in
+  // the one K/V tile pair
   auto widen = [&](int st) {
     constexpr int kItems = RAW / 8;  // 8 code bytes an item
     for (int idx = tid; idx < 2 * kTileLines * kItems; idx += kMmaTileThreads) {
@@ -772,8 +930,21 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
       const uint2 w = *reinterpret_cast<const uint2*>(
           sRaw + ((st * 2 + kv) * kTileLines + j) * RAW + c8);
       const uint8_t* b = reinterpret_cast<const uint8_t*>(&w);
-      bf16* dst = sKV + (kv * kTileLines + j) * LD + c8;
-      if constexpr (KIND == kPoolInt8) {
+      TQ* dst = sKV + (kv * kTileLines + j) * LD + c8;
+      if constexpr (kF32) {
+        float x[8], y[8];  // dims c8 .. c8 + 7 (int4: and c8 + DK / 2 ..)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if constexpr (KIND == kPoolInt8) {
+            x[i] = float(int8_t(b[i]));
+          } else {
+            x[i] = float(int(b[i] & 0xF) - 8);
+            y[i] = float(int(b[i] >> 4) - 8);
+          }
+        }
+        store8<float>(dst, x);
+        if constexpr (KIND == kPoolInt4) store8<float>(dst + DK / 2, y);
+      } else if constexpr (KIND == kPoolInt8) {
         uint4 x;
         x.x = pack_bf16(float(int8_t(b[0])), float(int8_t(b[1])));
         x.y = pack_bf16(float(int8_t(b[2])), float(int8_t(b[3])));
@@ -797,8 +968,8 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
 
   const uint8_t* mslot = a.mask + (size_t)r * a.C * S;
   const int ntiles = (S + kTileLines - 1) / kTileLines;
-  for (int c0 = 0; c0 < ntiles; c0 += kMetaTiles) {
-    const int nct = min(kMetaTiles, ntiles - c0);
+  for (int c0 = 0; c0 < ntiles; c0 += META) {
+    const int nct = min(META, ntiles - c0);
     const int p0 = (c0 * kTileLines) >> ps_log;  // the chunk's first page
     const int npc = ((min((c0 + nct) * kTileLines, S) - c0 * kTileLines) + ps - 1) >> ps_log;
     __syncthreads();  // the last chunk's bits, pages and flags are read
@@ -826,9 +997,9 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
     for (int tt = 0; tt < nct; ++tt)
       todo |= uint32_t(reinterpret_cast<const uint32_t*>(sFlag)[tt] != 0u) << tt;
 
-    // the attended tiles stream through kMmaStages buffers, two copies in
-    // flight while one tile is multiplied: one commit group a tile (empty
-    // past the last), issued in the order the tiles are taken
+    // the attended tiles stream through STAGES buffers, STAGES - 1 copies
+    // in flight while one tile is multiplied: one commit group a tile
+    // (empty past the last), issued in the order the tiles are taken
     uint32_t pend = todo;
     auto issue_next = [&](int st) {
       if (pend) {
@@ -837,33 +1008,37 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
       }
       cp_async_commit();
     };
-    issue_next(0);
-    issue_next(1);
-    for (int st = 0; todo; st = st + 1 == kMmaStages ? 0 : st + 1) {
+#pragma unroll
+    for (int st = 0; st + 1 < STAGES; ++st) issue_next(st);
+    for (int st = 0; todo; st = st + 1 == STAGES ? 0 : st + 1) {
       const int tt = __ffs(todo) - 1, u = c0 + tt;
       todo &= todo - 1;
-      cp_async_wait<kMmaStages - 2>();  // this tile's group has landed
+      cp_async_wait<STAGES - 2>();  // this tile's group has landed
       __syncthreads();  // ... for every thread, and every warp is done with the last tile
-      issue_next(st == 0 ? kMmaStages - 1 : st - 1);  // into the last tile's buffer
-      const bf16* sK = sKV + (L::kQuant ? 0 : st * 2 * L::kTile);
+      issue_next(st == 0 ? STAGES - 1 : st - 1);  // into the last tile's buffer
+      const TQ* sK = sKV + (L::kQuant ? 0 : st * 2 * L::kTile);
       if constexpr (L::kQuant) {
         widen(st);
         __syncthreads();
       }
-      const bf16* sV = sK + L::kTile;
+      const TQ* sV = sK + L::kTile;
 
       const uint64_t ba = sBits[tt * kMmaTileRows + 16 * warp + g];
       const uint64_t bb = sBits[tt * kMmaTileRows + 16 * warp + g + 8];
       // lines 8 nt .. 8 nt + 7 of the tile lie on page (u * 64 + 8 nt) / ps
       const int pt = ((u * kTileLines) >> ps_log) - p0;
-      mma_warp_tile<DK, L::kQuant>(
-          qa, sK, sV, ba, bb, lane,
-          [&](int nt) { return sPk[pt + ((nt * 8) >> ps_log)]; },
-          [&](int nt) { return sPv[pt + ((nt * 8) >> ps_log)]; }, o, m, l);
+      auto kscale = [&](int nt) { return sPk[pt + ((nt * 8) >> ps_log)]; };
+      auto vscale = [&](int nt) { return sPv[pt + ((nt * 8) >> ps_log)]; };
+      if constexpr (kF32) {
+        tf32_warp_tile<DK, L::kQuant>(sQ + 16 * warp * LD, sK, sV, ba, bb, lane, kscale, vscale,
+                                      o, m, l);
+      } else {
+        mma_warp_tile<DK, L::kQuant>(qa, sK, sV, ba, bb, lane, kscale, vscale, o, m, l);
+      }
     }
   }
 
-  bf16* out = static_cast<bf16*>(a.out);
+  TQ* out = static_cast<TQ*>(a.out);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -871,11 +1046,17 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
     const int row = i ? rb : ra;
     if (row >= rows) continue;
     const float inv = 1.f / fmaxf(l[i], kMinDenominator);
-    bf16* orow = out + (((size_t)r * a.C + row / G) * a.H + (size_t)h * G + row % G) * DK + 2 * t;
+    TQ* orow = out + (((size_t)r * a.C + row / G) * a.H + (size_t)h * G + row % G) * DK + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < DK / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(orow + nt * 8) =
-          pack_bf16(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+    for (int nt = 0; nt < DK / 8; ++nt) {
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(orow + nt * 8) =
+            make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+      } else {
+        *reinterpret_cast<uint32_t*>(orow + nt * 8) =
+            pack_bf16(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+      }
+    }
   }
   __syncthreads();  // the shared buffers may be rewritten by the next call
 }

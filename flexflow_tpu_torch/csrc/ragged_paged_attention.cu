@@ -16,11 +16,13 @@
 //  * bytes: the pages the mask opens, 2 * pages * ps * KV * (dk / pack)
 //    * itemsize, plus scales, table, mask and q/out, over 3.35 TB/s;
 //  * operations: 4 * (attended (row, line) pairs) * G * dk FLOP, over the
-//    rate of the unit that runs them (bf16 tensor cores 989 TFLOP/s, f32
-//    CUDA cores 67 TFLOP/s).
+//    rate of the unit that runs them: bf16 tensor cores 989 TFLOP/s; for
+//    f32 q the TF32 tensor cores' 494.7 TFLOP/s three times over (3xTF32:
+//    each f32 product is three TF32 products; the f32 CUDA cores' 67
+//    TFLOP/s would be 2.5 times longer).
 // Decode steps are bound by bytes. A mixed step at C = 128 is bound by
 // bytes on bf16 pools and by operations on int8 and int4 pools (1/2 and
-// 1/4 of the bytes, the same FLOP) and f32 ones (the CUDA cores' rate).
+// 1/4 of the bytes, the same FLOP) and f32 ones.
 //
 // Design against that bound (paged_design picks the block design):
 //  * Pages or tiles no row of a block attends are skipped after a look at
@@ -37,10 +39,16 @@
 //    quantized pools move 1/2 and 1/4 of the bf16 bytes and the page
 //    scales multiply the scores and the probabilities, never the K/V
 //    elements.
-//  * f32 mixed steps ("f32-tile"): attend_tile, each K/V tile staged once
-//    in shared memory as f32 and reused by 32 query rows in 4 x 4 register
-//    blocks on the CUDA cores; the whole-step kernel shares it.
-//  * No wgmma, TMA or split-K over the cache yet: those are later work.
+//  * f32 mixed steps ("tf32x3"): the same block on f32 tiles, QK^T and PV
+//    on mma.sync m16n8k8 TF32 with every f32 operand split into TF32
+//    hi + lo (3xTF32; quantized codes are exact in TF32 and not split).
+//    One TF32 product per f32 product misses the f32 tolerance of 1e-5
+//    7-12 times over, a split of one of the two products 5-6 times; with
+//    both split the result is within ~2e-7 of f32
+//    (tests/test_torch_tf32_split.py emulates the three).
+//  * No wgmma, TMA or split-K over the cache yet: those are later work
+//    (wgmma takes TF32 operands from shared memory K-major only, so V
+//    would be transposed on the way in).
 #include <type_traits>
 
 #include "paged_attention.cuh"
@@ -53,16 +61,11 @@ __global__ void __launch_bounds__(kDecodeThreads) ragged_decode_kernel(PagedArgs
   attend_decode<TQ, KIND, DK, GB>(a, blockIdx.z, blockIdx.y, blockIdx.x * GB);
 }
 
+// The tensor-core designs: "mma" (bf16 q) and "tf32x3" (f32 q).
 template <typename TQ, int KIND, int DK>
-__global__ void __launch_bounds__(kTileThreads) ragged_tile_kernel(PagedArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  attend_tile<TQ, KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kTileRows, smem);
-}
-
-template <int KIND, int DK>
 __global__ void __launch_bounds__(kMmaTileThreads, 1) ragged_mma_kernel(PagedArgs a) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  attend_tile_mma<KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kMmaTileRows, smem_mma);
+  attend_tile_mma<TQ, KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kMmaTileRows, smem_mma);
 }
 
 template <typename TQ, int KIND, int DK>
@@ -77,21 +80,14 @@ cudaError_t launch_dk(const PagedArgs& a, cudaStream_t stream) {
       ragged_decode_kernel<TQ, KIND, DK, kDecodeRows>
           <<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
     }
-  } else if constexpr (kBf16) {  // kDesignMma
-    constexpr size_t kSmem = MmaSmem<KIND, DK>::kBytes;
+  } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
+    constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        ragged_mma_kernel<KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((rows + kMmaTileRows - 1) / kMmaTileRows, a.KV, a.R);
-    ragged_mma_kernel<KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(a);
-  } else {  // kDesignF32Tile
-    constexpr size_t kSmem = TileSmem<DK>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        ragged_tile_kernel<TQ, KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ragged_mma_kernel<TQ, KIND, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kSmem);
     if (err != cudaSuccess) return err;
-    dim3 grid((rows + kTileRows - 1) / kTileRows, a.KV, a.R);
-    ragged_tile_kernel<TQ, KIND, DK><<<grid, kTileThreads, kSmem, stream>>>(a);
+    dim3 grid((rows + kMmaTileRows - 1) / kMmaTileRows, a.KV, a.R);
+    ragged_mma_kernel<TQ, KIND, DK><<<grid, kMmaTileThreads, kSmem, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -138,7 +134,7 @@ extern "C" int ragged_paged_attention_launch(
   return (int)err;
 }
 
-// The block design (0 decode, 1 mma, 2 f32-tile) the launcher takes for
+// The block design (0 decode, 1 mma, 2 tf32x3) the launcher takes for
 // these shapes and q dtype.
 extern "C" int ragged_paged_attention_design(int C, int H, int KV, int dtype) {
   return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);

@@ -55,7 +55,7 @@ SOURCES = {
 }
 
 #: the paged kernels' block designs, by the code their ``<name>_design`` returns
-PAGED_DESIGNS = ("decode", "mma", "f32-tile")
+PAGED_DESIGNS = ("decode", "mma", "tf32x3")
 #: kernels whose library exports ``int <name>_design(int...)``: the block
 #: designs by the code it returns, and its arguments
 DESIGNS = {

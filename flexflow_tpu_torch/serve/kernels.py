@@ -14,7 +14,7 @@ Each kernel here has three parts side by side:
   and the whole-step kernel count per pool type,
   ``name[bf16|f32|int8|int4]`` (the commit kernel ``paged_commit[int8|int4]``), and the paged and verify kernels also
   per block design, as their launcher reports it, in ``DESIGN_LAUNCHES``
-  (``name[decode|mma|f32-tile]``, ``verify_attention[rows8|mma|f32]``).
+  (``name[decode|mma|tf32x3]``, ``verify_attention[rows8|mma|f32]``).
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -65,7 +65,8 @@ LAUNCHES: Dict[str, int] = {
 
 #: launches of the paged and verify kernels by the block design their
 #: launcher took (``_cuda.DESIGNS``; paged: "decode" for C * G <= 8, else
-#: "mma" for bf16 q on the tensor cores, "f32-tile" for f32 q; verify:
+#: "mma" for bf16 q on the tensor cores, "tf32x3" for f32 q on the TF32
+#: tensor cores, each f32 product as three TF32 products; verify:
 #: "mma" for bf16 q at C * G > 8, "rows8" for bf16 q at C * G <= 8, "f32"),
 #: since the last reset
 DESIGN_LAUNCHES: Dict[str, int] = {

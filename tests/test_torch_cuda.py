@@ -237,8 +237,13 @@ def _paged_case(gen, dev, dtype, quant, R, C, H, KV, dk, ps, NP):
 # partial), at G = 1 and 4; page sizes 16 (four pages a 64-line tile), 64
 # and 128; head dims 64 and 128; a cache of 4352 lines (68 tiles: three
 # chunks of the 32 whose mask bits the tensor-core tile stages at once)
+# and a dk-128 cache of 1280 lines (20 tiles: two chunks of the 16 that
+# the f32 tile on f32 pages stages at dk 128); last, LLaMA-7B's longest
+# walk at dk 128, a 2048-token context in 17 pages of 128 (the serving
+# slices' page count) under a 128-token mixed step at G = 2
 PAGED_SHAPES = [
     (20, 8, 2, 64, 128, 34),
+    (20, 8, 2, 128, 64, 20),
     (1, 8, 2, 64, 16, 3),
     (1, 8, 2, 64, 128, 3),
     (1, 8, 2, 128, 16, 4),
@@ -251,13 +256,14 @@ PAGED_SHAPES = [
     (128, 2, 2, 128, 64, 4),
     (37, 8, 2, 64, 128, 2),
     (100, 8, 2, 128, 16, 12),
+    (128, 4, 2, 128, 128, 17),
 ]
 
 
 def _design(C, H, KV, dtype):
     if C * (H // KV) <= 8:
         return "decode"
-    return "mma" if dtype == torch.bfloat16 else "f32-tile"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _one_launch(before, name, pool, design):
@@ -405,30 +411,32 @@ def poison_smem(cuda_device, tmp_path):
 @pytest.mark.parametrize("shape", [(3, 8, 2, 128, 16, 5), (20, 2, 2, 64, 32, 3)],
                          ids=lambda s: "C{}-H{}-KV{}-dk{}-ps{}".format(*s))
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
-def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_smem, quant,
-                                                         shape):
-    """The tensor-core tile reads no shared memory it did not write: after
-    every SM's shared memory is filled with NaN bits, the ragged and fused
-    kernels' outputs are finite and match the plain version."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_smem, dtype,
+                                                         quant, shape):
+    """The tensor-core tiles ("mma" for bf16 q, "tf32x3" for f32 q) read
+    no shared memory they did not write: after every SM's shared memory is
+    filled with NaN bits, the ragged and fused kernels' outputs are finite
+    and match the plain version."""
     from flexflow_tpu_torch.serve import kv_quant as kq
 
     C, H, KV, dk, ps, NP = shape
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    q, kp, vp, ks, vs, table, mask = _paged_case(gen, cuda_device, torch.bfloat16, quant,
+    q, kp, vp, ks, vs, table, mask = _paged_case(gen, cuda_device, dtype, quant,
                                                  3, C, H, KV, dk, ps, NP)
-    assert _design(C, H, KV, torch.bfloat16) == "mma"
+    assert _design(C, H, KV, dtype) == ("mma" if dtype == torch.bfloat16 else "tf32x3")
     ref = tk.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     poison_smem()
     out = tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
     assert out.isfinite().all()
-    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+    torch.testing.assert_close(out, ref, **TOL[dtype])
     # the fused kernel, with no new line (C lines written back unchanged
     # would move the scales of a quantized page): RoPE off, every line on
     # the scratch page, whose lines no compared row reads
     P = 3 * NP
     logical = torch.full((3, C), NP - 1, dtype=torch.int32, device=cuda_device)
     off = torch.zeros(3, C, dtype=torch.int32, device=cuda_device)
-    zeros = torch.zeros(3, C, KV, dk, dtype=torch.bfloat16, device=cuda_device)
+    zeros = torch.zeros(3, C, KV, dk, dtype=dtype, device=cuda_device)
     qmax = None if quant is None else kq.SPECS[quant].qmax
     pools = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
     poison_smem()
@@ -437,8 +445,7 @@ def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_sme
                                           v_scale=pools[3], qmax=qmax)
     reads_scratch = (mask & (table == P).repeat_interleave(ps, dim=1)[:, None]).any(-1)
     assert fused[~reads_scratch].isfinite().all()
-    torch.testing.assert_close(fused[~reads_scratch], ref[~reads_scratch],
-                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(fused[~reads_scratch], ref[~reads_scratch], **TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
