@@ -64,6 +64,19 @@ quantized paged step commits K and V in one launch a layer
 carry ``bitwise``; the train profile line splits the step's device time
 into the LM head, Adam, the flash forward and the flash backward.
 
+Slice 9: the whole-step kernel's per-stage timer (one ``whole_stages``
+line a whole-step case: milliseconds by stage from the kernel's own
+global-timer stamps, beside the launch's event time); its attention stage
+on the paged kernels' designs (rows and slice lines name the design:
+"mma" or "tf32x3" on mixed steps, "decode" at decode) and its bf16 mixed
+projections on wgmma fed by TMA; the build line lists every whole-step
+instantiation's registers, spills and shared bytes (the run fails at its
+end if one spills), checks the library's tile bytes against the gate's
+mirror (``K.mma_smem_bytes``) and the static bytes against the gate's
+price. Dense verify with f32 q at C * G > 8 runs "tf32x3" (3xTF32 on the
+tensor cores): its rows carry ``err_vs_f64``, and the f32 phase fails
+unless the dense mixed steps took it.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -183,38 +196,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 SM_REGISTERS, SM_SMEM, SM_THREADS = 65536, 233472, 2048
 
 
-def _mma_smem(f32, kind, dk):
-    """Dynamic shared bytes of the tensor-core paged tile, as
-    ``MmaSmem<TQ, KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
-    them out (q bf16, or f32 with ``f32``; pool ``kind`` 0 q's type, 1
-    int8, 2 int4): K/V tiles of 64 lines in q's type with rows of dk + 8
-    (bf16) or dk + 4 (f32), three stages of them, or one that quantized
-    codes widen into beside three stages of raw codes; for f32 q the
-    block's 128 Q rows; then the mask bits, page ids, scales and flags of
-    32 tiles. Two stages where three would pass the 224 KB budget with 16
-    tiles, and 16 tiles where 32 would (bf16 q always fits; f32 pages at
-    dk 128 take both)."""
-    budget = 232448 - 8192
-    pair = 2 * 64 * (dk + 4) * 4 if f32 else 2 * 64 * (dk + 8) * 2
-    raw = 2 * 64 * (dk // kind) if kind else 0  # int8: a byte a value, int4: two
-    q = 128 * (dk + 4) * 4 if f32 else 0
-
-    def meta(n):
-        return 8 * n * 128 + 12 * n * 4 + n * 4
-
-    def buffers(stages):
-        return pair + stages * raw if kind else stages * pair
-    stages = 3 if q + buffers(3) + meta(16) <= budget else 2
-    fixed = q + buffers(stages)
-    return fixed + meta(32 if fixed + meta(32) <= budget else 16)
-
-
 def _verify_mma_smem(dk):
     """Dynamic shared bytes of ``verify_mma_kernel<DK>``
     (``VerifyMmaSmem`` in ``csrc/verify_attention.cu``): three stages of
     bf16 K/V tiles of 64 lines, the words of 32 tiles x 128 rows, tile
     flags."""
     return 3 * 2 * 64 * (dk + 8) * 2 + 8 * 32 * 128 + 32 * 4
+
+
+def _verify_tf32_smem(dk):
+    """Dynamic shared bytes of ``verify_tf32_kernel<DK>``
+    (``VerifyTf32Smem``): f32 K/V tiles of 64 lines with rows of dk + 4
+    floats, the block's 128 Q rows, the words and flags of the staged
+    tiles; three stages and 32 tiles, or two and 16 where those pass the
+    tile budget (dk 128)."""
+    pair, q = 2 * 64 * (dk + 4) * 4, 128 * (dk + 4) * 4
+
+    def meta(n):
+        return 8 * n * 128 + n * 4
+    stages = 3 if q + 3 * pair + meta(16) <= K.MMA_SMEM_BUDGET else 2
+    fixed = q + stages * pair
+    return fixed + meta(32 if fixed + meta(32) <= K.MMA_SMEM_BUDGET else 16)
 
 
 def _flash_bwd_kv_smem(dk):
@@ -247,12 +249,13 @@ def _flash_wgmma_smem(dk):
 # f32 "tf32x3"
 MMA_KERNELS = (
     *((src, r"_mma_kernelI13__nv_bfloat16Li(\d)ELi(\d+)E", ("pool", "dk"), 256,
-       lambda kind, dk: _mma_smem(False, kind, dk))
+       lambda kind, dk: K.mma_smem_bytes(False, kind, dk))
       for src in K.PAGED_KERNELS),
     *((src, r"_mma_kernelIfLi(\d)ELi(\d+)E", ("pool", "dk"), 256,
-       lambda kind, dk: _mma_smem(True, kind, dk))
+       lambda kind, dk: K.mma_smem_bytes(True, kind, dk))
       for src in K.PAGED_KERNELS),
     ("verify_attention", r"verify_mma_kernelILi(\d+)E", ("dk",), 256, _verify_mma_smem),
+    ("verify_attention", r"verify_tf32_kernelILi(\d+)E", ("dk",), 256, _verify_tf32_smem),
     ("flash_attention_fwd", r"flash_fwd_wgmma_kernelILi(\d+)E", ("dk",), 384,
      _flash_wgmma_smem),
     ("flash_attention_bwd", r"flash_bwd_kv_wgmma_kernelILi(\d+)E", ("dk",), 384,
@@ -292,9 +295,45 @@ def _mma_report(reports):
                 f32 = "_mma_kernelIf" in pattern
                 row["design"] = "tf32x3" if f32 else "mma"
                 row["pool"] = (("f32" if f32 else "bf16"), "int8", "int4")[row["pool"]]
+            elif src == "verify_attention":
+                row["design"] = "tf32x3" if "tf32" in pattern else "mma"
             rows.append(row)
     return sorted(rows, key=lambda x: (x["kernel"], x.get("design", ""), x.get("pool", ""),
                                        x["dk"]))
+
+
+def _whole_report(report):
+    """Each whole-step kernel instantiation (q dtype x pool x dk) from its
+    ``ptxas -v`` report (registers, spill bytes, static shared bytes) and
+    from its library (``_cuda.whole_step_smem``: the tensor-core tile's
+    dynamic bytes, the static bytes the runtime gives); checks that the
+    library's tile bytes are the gate's mirror (``K.mma_smem_bytes``), that
+    the gate's static price covers the static bytes, that the tile and the
+    static bytes fit one block, and that no instantiation spills."""
+    rows = []
+    for fn in report.split("Compiling entry function '")[1:]:
+        m = re.search(r"whole_step_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)E", fn.split("'")[0])
+        if not m:
+            continue
+        f32, kind, dk = m[1] == "f", int(m[2]), int(m[3])
+        static_ptxas = re.search(r"(\d+) bytes smem", fn)
+        mma, static = _cuda.whole_step_smem(0 if f32 else 1, kind, dk)
+        row = {"dtype": "f32" if f32 else "bf16",
+               "pool": (("f32" if f32 else "bf16"), "int8", "int4")[kind], "dk": dk,
+               "registers": int(re.search(r"Used (\d+) registers", fn)[1]),
+               "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores", fn)[1]),
+               "static_smem_ptxas": int(static_ptxas[1]) if static_ptxas else 0,
+               "static_smem_runtime": static, "mma_smem_bytes": mma,
+               "mma_smem_mirror": K.mma_smem_bytes(f32, kind, dk)}
+        rows.append(row)
+        what = f"whole_step_kernel[{row['dtype']}, {row['pool']}, dk {dk}]"
+        check(mma == row["mma_smem_mirror"], f"{what}: tile {mma} bytes, mirror "
+                                             f"{row['mma_smem_mirror']}")
+        check(static <= K._WS_STATIC_SMEM, f"{what}: {static} static bytes over the gate's "
+                                           f"{K._WS_STATIC_SMEM}")
+        check(mma + static <= K.WHOLE_STEP_SMEM_BUDGET, f"{what}: {mma} + {static} bytes")
+    check(len(rows) == 12, f"whole-step instantiations in the ptxas report: {len(rows)}")
+    return sorted(rows, key=lambda r: (r["dtype"], r["pool"], r["dk"]))
 
 
 # record_function ranges of the port (``llama.lm_head``); a trace shows
@@ -378,16 +417,24 @@ def phase_build():
         _cuda._lib(name)  # loads, or raises
     sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
     mma = _mma_report(reports)
+    whole = _whole_report(reports["whole_step_decode"]) if "whole_step_decode" in reports else []
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
-          "ptxas": info, "mma_kernels": mma})
+          "ptxas": info, "mma_kernels": mma, "whole_step_kernels": whole})
     # the f32 tensor-core tile: 3 pool types x 2 head dims in each paged
     # source compiled by this run, none spilling
-    tf32 = [r for r in mma if r.get("design") == "tf32x3"]
+    tf32 = [r for r in mma if r.get("design") == "tf32x3" and r["kernel"] in K.PAGED_KERNELS]
     want = 6 * sum(src in reports for src in K.PAGED_KERNELS)
     check(len(tf32) == want, f"tf32x3 instantiations in the ptxas report: {len(tf32)}, "
                              f"want {want}")
     check(all(r["spill_store_bytes"] == 0 for r in tf32), "a tf32x3 instantiation spills")
+    # a whole-step function that spills fails the run at its end, after
+    # every phase has printed its measurements
+    return [f"{r['dtype']}/{r['pool']}/dk{r['dk']}: {r['spill_store_bytes']} bytes"
+            for r in whole if r["spill_store_bytes"]] + (
+        ["a function of the whole-step library spills"]
+        if re.search(r"[1-9]\d* bytes spill stores", reports.get("whole_step_decode", ""))
+        else [])
 
 
 def _rand(shape, dtype, gen):
@@ -413,9 +460,12 @@ def _decode_bound(q, k, sl):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def _verify_bound(q, k, mask):
+def _verify_bound(q, k, mask, design):
     """The serving path's call, the bits entry: q, the packed mask words
-    and out once, the K/V lines some row of a slot attends."""
+    and out once, the K/V lines some row of a slot attends; or its
+    operations over the rate of the unit that runs them ("tf32x3": three
+    TF32 products for each f32 one). Returns the bound, what bounds it
+    and, for "tf32x3", the operations' time on the f32 CUDA cores."""
     R, C, H, dk = q.shape
     KV = k.shape[2]
     isz = q.element_size()
@@ -424,7 +474,23 @@ def _verify_bound(q, k, mask):
               + 2 * lines * KV * dk * isz)
     flops = 4 * int(mask.sum()) * H * dk
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    cuda_core_ms = None
+    if design == "tf32x3":
+        cuda_core_ms = max(t_b, t_f) * 1e3
+        t_f = 3 * flops / TF32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), cuda_core_ms
+
+
+def _verify_f64(q, k, v, mask):
+    """``verify_attention_ref``'s attention recomputed in f64; a row with
+    nothing to attend gives 0."""
+    R, C, H, dk = q.shape
+    KV = k.shape[2]
+    qg = q.double().reshape(R, C, KV, H // KV, dk)
+    s = torch.einsum("rckgd,rskd->rkgcs", qg, k.double()) / math.sqrt(dk)
+    p = torch.softmax(s.masked_fill(~mask[:, None, None], -math.inf), dim=-1).nan_to_num(0.0)
+    return torch.einsum("rkgcs,rskd->rkgcd", p, v.double()).permute(0, 3, 1, 2, 4).reshape(
+        R, C, H, dk)
 
 
 def _sdpa_inputs(q, k, v, mask):
@@ -506,16 +572,20 @@ def _tree_mask(rng, R, C, S1):
 
 def run_verify_check(label, gen, dtype, R, S1, H, KV, dk, mask, timed):
     """The kernel against its plain version in the design its launcher
-    takes ("mma" for bf16 at C * G > 8, "rows8" below, "f32"), the bits
-    entry bitwise the bool entry. Timed: ``ms`` and ``device_ms`` of the
-    bits entry (the serving path's per-layer call), ``pack_ms`` of the
-    once-a-step packing."""
+    takes ("mma" and "tf32x3" for bf16 and f32 q at C * G > 8, "rows8" and
+    "f32" below), the bits entry bitwise the bool entry; f32 results also
+    against f64 (``err_vs_f64``, kernel and plain; the kernel within the
+    f32 tolerance). Timed: ``ms`` and ``device_ms`` of the bits entry (the
+    serving path's per-layer call), ``pack_ms`` of the once-a-step
+    packing."""
     C = mask.shape[1]
     q = _rand((R, C, H, dk), dtype, gen)
     k = _rand((R, S1, KV, dk), dtype, gen)
     v = _rand((R, S1, KV, dk), dtype, gen)
     out, design = _design_of("verify_attention", lambda: K.verify_attention(q, k, v, mask))
-    want = "f32" if dtype == torch.float32 else ("mma" if C * H // KV > 8 else "rows8")
+    wide = C * H // KV > 8
+    want = (("tf32x3" if wide else "f32") if dtype == torch.float32
+            else ("mma" if wide else "rows8"))
     check(design == want, f"verify_attention[{label}]: design {design}, want {want}")
     bits = K.pack_mask_bits(mask)
     check(torch.equal(K.verify_attention_bits(q, k, v, bits, S1), out),
@@ -530,9 +600,16 @@ def run_verify_check(label, gen, dtype, R, S1, H, KV, dk, mask, timed):
            "dtype": str(dtype).replace("torch.", ""), "design": design,
            "shape": {"R": R, "C": C, "S1": S1, "H": H, "KV": KV, "dk": dk},
            "attended_pairs": int(mask.sum()), "max_abs_err": err, "tol": TOL[dtype]}
+    if dtype == torch.float32:
+        exact = _verify_f64(q, k, v, mask)
+        row["err_vs_f64"] = {name: float((x.double() - exact).abs().max())
+                             for name, x in (("kernel", out), ("plain", ref))}
+        check(row["err_vs_f64"]["kernel"] <= TOL[dtype]["atol"],
+              f"verify_attention[{label}]: {row['err_vs_f64']['kernel']} from f64")
+        del exact
     del ref
     if timed:
-        bound_ms, bound_by = _verify_bound(q, k, mask)
+        bound_ms, bound_by, row["bound_cuda_core_ms"] = _verify_bound(q, k, mask, design)
         sq, sk, svv, smask = _sdpa_inputs(q, k, v, mask)
         row.update(
             ms=cuda_ms(lambda: K.verify_attention_bits(q, k, v, bits, S1)),
@@ -1134,16 +1211,25 @@ def run_whole_check(label, case):
         for k, v in cache.items():
             work[k].copy_(v)
 
-    def run(kernels, tiles, prm=params, c=None, cf=cfg):
+    def run(kernels, tiles, prm=params, c=None, cf=cfg, stamps=None):
         c = c if c is not None else work
         return llama.serve_step_whole(prm, c, *step, cfg=cf, cache_len=case["cache_len"],
-                                      kv_quant=quant, tiles=tiles, kernels=kernels)
+                                      kv_quant=quant, tiles=tiles, kernels=kernels,
+                                      stamps=stamps)
 
     outs = {}
+    G = cfg.num_attention_heads // cfg.num_key_value_heads
+    want = ("decode" if case["C"] * G <= 8
+            else "mma" if dtype == torch.bfloat16 else "tf32x3")
     for name, kernels, tiles in (("gate", "cuda", gate), ("other", "cuda", other),
                                  ("plain", "torch", gate)):
         restore()
-        logits, toks, _ = run(kernels, tiles)
+        if kernels == "cuda":
+            (logits, toks, _), design = _design_of("whole_step_decode",
+                                                   lambda: run(kernels, tiles))
+            check(design == want, f"whole[{label}]: attention design {design}, want {want}")
+        else:
+            logits, toks, _ = run(kernels, tiles)
         torch.cuda.synchronize()
         outs[name] = (logits.clone(), toks.clone(), {k: v[:, :P].clone() for k, v in work.items()})
     # slots whose logits_idx column is padding read the scratch page, which
@@ -1170,7 +1256,8 @@ def run_whole_check(label, case):
                      "KV": cfg.num_key_value_heads, "F": cfg.intermediate_size,
                      "V": cfg.vocab_size, "ps": case["ps"], "NP": case["NP"], "P": P},
            "live_slots": int(live.sum()),
-           "live_rows": int((case["pos"] < case["cache_len"]).sum()), "tiles": gate, "tiles_other": other,
+           "live_rows": int((case["pos"] < case["cache_len"]).sum()), "design": design,
+           "tiles": gate, "tiles_other": other,
            "smem_est": est, "bitwise_across_tiles": bitwise,
            "max_abs_err": float((lg - lp).abs().max()),
            "logits_rel_l2_vs_plain": _rel(lg, lp),
@@ -1241,8 +1328,30 @@ def run_whole_check(label, case):
             **unfused_kw), restore),
         library_ms=None)
     emit(row)
+    emit(_whole_stages(label, row, lambda stamps: run("cuda", gate, stamps=stamps), restore,
+                       cfg.num_hidden_layers))
     del work
     return row
+
+
+def _whole_stages(label, row, launch, restore, layers):
+    """One more launch at the gate's tile count with the kernel's per-stage
+    timer: milliseconds by stage (K.whole_step_stage_ms) beside the event
+    time of the same launch and the case's median ``ms``."""
+    stamps = torch.zeros(K.whole_step_stamp_count(layers), dtype=torch.int64, device=DEV)
+    restore()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    launch(stamps)
+    b.record()
+    b.synchronize()
+    t = stamps.tolist()
+    check(all(x > 0 for x in t) and t == sorted(t), f"whole[{label}]: stamps do not rise: {t}")
+    stages = K.whole_step_stage_ms(t, layers)
+    return {"phase": "whole_stages", "case": label, "layers": layers, "tiles": row["tiles"],
+            "design": row["design"],
+            "event_ms": a.elapsed_time(b), "ms": row["ms"], "stages_ms": stages,
+            "stages_sum_ms": sum(stages.values())}
 
 
 def phase_whole_kernels(seed):
@@ -1617,6 +1726,13 @@ def phase_paged(seed, holder, arms):
                   f"{path}: the whole-step gate fell back ({extra})")
             paged = [k for k in line["launches"] if k.split("[")[0] in K.PAGED_KERNELS]
             check(not paged, f"{path}: paged attention kernels ran: {paged}")
+            took = {k: v for k, v in line["design_launches"].items()
+                    if k.startswith("whole_step_decode[")}
+            emit({"phase": "whole_designs", "path": path, "design_launches": took,
+                  "steps": line["steps"]})
+            check(set(took) == {"whole_step_decode[mma]", "whole_step_decode[decode]"},
+                  f"{path}: the whole step's attention took {took}, want mma on its mixed "
+                  "steps and decode on the rest")
         if quant is not None and not fused:
             check(line["launches"].get(f"paged_commit[{quant}]", 0) > 0,
                   f"{path}: the commit kernel was never launched")
@@ -1777,14 +1893,19 @@ def phase_f32(seed):
     emit({"phase": "f32_tokens", "layers": 2, "requests": len(prompts),
           "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs
                                       if f"{a} vs {b}" not in ties],
-          "parted_at_ties": ties, "launches": launches, "design_launches": designs})
+          "parted_at_ties": ties, "launches": launches, "design_launches": designs,
+          "verify_designs": {k: v for k, v in designs.items()
+                             if k.startswith("verify_attention[")}})
     for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
               "whole_step_decode[f32]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")
-    for k in K.PAGED_KERNELS:
+    for k in K.PAGED_KERNELS + ("whole_step_decode",):
         took = {d for d in K.DESIGNS[k][0] if designs.get(f"{k}[{d}]")}
         check(took == {"decode", "tf32x3"},
               f"{k} took designs {sorted(took)} with f32 q, want decode and tf32x3")
+    # the dense f32 runs' mixed steps verify on the TF32 tensor cores
+    check(designs.get("verify_attention[tf32x3]", 0) > 0,
+          f"dense f32 mixed steps took no tf32x3 verify: {designs}")
     return launches
 
 
@@ -2302,7 +2423,7 @@ def main(argv=None) -> int:
     def mark(name):
         marks.append((name, time.perf_counter()))
     phase_device()
-    phase_build()
+    spills = phase_build()
     mark("build")
     main_rows, launches = {}, {}
     if "kernels" in phases:
@@ -2344,8 +2465,7 @@ def main(argv=None) -> int:
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
         if name.split("[")[0] in K.PAGED_KERNELS + ("verify_attention",) + FLASH_KERNELS:
-            rows[-1].update(design=m.get("design"), vs_library=m.get("vs_library"),
-                            device_ms=m.get("device_ms"))
+            rows[-1].update(design=m.get("design"), device_ms=m.get("device_ms"))
         if name.split("[")[0] in ("adam_update", "paged_commit"):
             rows[-1]["bitwise"] = m.get("bitwise")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -2353,6 +2473,7 @@ def main(argv=None) -> int:
                             for i, (name, t) in enumerate(marks)},
           "peak_memory_bytes": max(_PEAKS + [torch.cuda.max_memory_allocated()])})
     print(json.dumps({"kernels": rows}), flush=True)
+    check(not spills, f"whole-step functions spill (ptxas -v): {spills}")
     if phases != set(PHASES):
         return 0  # a partial run proves nothing: no ok line
     for r in rows:

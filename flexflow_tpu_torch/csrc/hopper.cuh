@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
-// and backward): mbarriers, TMA tensor-tile loads and the host's tensor
-// maps, shared-memory matrix descriptors of the 128-byte swizzle,
-// warpgroup products (wgmma.mma_async) and the register rebalancing of
-// warp-specialised blocks (setmaxnreg).
+// and backward, the whole-step kernel's projections): mbarriers, TMA
+// tensor-tile loads and the host's tensor maps, shared-memory matrix
+// descriptors of the 128-byte swizzle, warpgroup products
+// (wgmma.mma_async) and the register rebalancing of warp-specialised
+// blocks (setmaxnreg).
 //
 // Layout the descriptors describe: a tile that TMA wrote with
 // CU_TENSOR_MAP_SWIZZLE_128B, in boxes of 64 bf16 columns (128 bytes) by
@@ -73,6 +74,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the box of a 2-D (c0, c1) or 3-D (c0, c1, c2) tensor map into dst, as
+// tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy ones (TMA writes into a buffer that ordinary
+// loads and stores used before)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- tensor maps (host) -------------------------------------------------------
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
@@ -99,23 +126,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (B, L, H, dk) bf16 tensor at base as a 4-D map (dk, H, L, B),
-// boxes of 64 columns x 1 head x ``rows`` x 1, 128-byte swizzle, zeros
-// outside the tensor.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, int H, int dk,
-                            int rows) {
+// A bf16 tensor of ``rank`` dims at base (dims innermost first, strides
+// in bytes of dims 1 ..) as a map of ``box`` boxes, 128-byte swizzle,
+// zeros outside the tensor.
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                 const cuuint64_t* dims, const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The (B, L, H, dk) bf16 tensor at base as a 4-D map (dk, H, L, B),
+// boxes of 64 columns x 1 head x ``rows`` x 1.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, int H, int dk,
+                            int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(dk), cuuint64_t(H), cuuint64_t(L), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(dk) * 2, cuuint64_t(H) * dk * 2,
                                  cuuint64_t(L) * H * dk * 2};
   const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map_bf16(map, base, 4, dims, strides, box);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -127,6 +162,50 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L, in
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
   return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d (64 x 256, f32) += a * b: A (64 x 16) K-major and B (16 x 256) MN-major
+// (the transpose bit set; its four 64-column chunks LBO bytes apart), both
+// in shared memory
+__device__ __forceinline__ void wgmma_ss_t_n256(float (&d)[32][4], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // orders the registers' earlier writes before the products that read them

@@ -19,7 +19,7 @@
 // precision pool uses the same formulas with both page scales 1.
 //
 // Three block designs (paged_design), chosen by the number of query rows
-// per KV head and q's dtype, and the CUDA-core tile of the whole step:
+// per KV head and q's dtype:
 //  * attend_decode ("decode", C * G <= 8: decode steps): one block of 8
 //    warps per (slot, KV head, up to 8 rows). One page is one tile: the
 //    block loads the page's mask for its rows, skips the page when no
@@ -30,8 +30,8 @@
 //    in the model dtype): one block of 8 warps per (slot, KV head, 128
 //    rows), on the tensor cores. A bf16 mixed step at C = 128 is bound by
 //    the bytes of the pages it opens, its FLOP about a quarter of that
-//    time at the bf16 tensor-core rate; on the CUDA cores in f32
-//    (attend_tile) the same FLOP bound it many times over. So: QK^T and
+//    time at the bf16 tensor-core rate; on the CUDA cores in f32 (an
+//    earlier tile) the same FLOP bound it many times over. So: QK^T and
 //    PV run as mma.sync.m16n8k16 bf16 with f32 accumulation (mma.cuh),
 //    warp w owning rows 16 w .. 16 w + 15 with its Q fragments in
 //    registers for the whole walk and the scores and (m, l) in the
@@ -56,7 +56,7 @@
 //    32-line halves (at dk 128, Q fragments in registers or 64-line
 //    scores made ptxas spill); f32 pages at dk 128 then leave room for
 //    two stages and the bits of 16 tiles.
-//    On the CUDA cores (attend_tile) an f32 mixed step at C = 128 ran
+//    On the CUDA cores (an earlier tile) an f32 mixed step at C = 128 ran
 //    5.3 times its 67 TFLOP/s bound. One TF32 product keeps ~11 bits of
 //    each operand and misses the f32 kernels' 1e-5 tolerance by 7-12
 //    times; split on one product alone it still misses (5-6e-5). So both
@@ -69,10 +69,9 @@
 //    per k-step; PV takes each 8-line group's lines in the order the S
 //    accumulator holds them (tf32_warp_tile). The bound is then 3 (2)
 //    products at the TF32 rate, 494.7 TFLOP/s.
-//  * attend_tile (f32 tiles of 32 rows on the CUDA cores, register-
-//    blocked as in verify_attention.cu): no paged launcher takes it now;
-//    the whole-step kernel (whole_step_decode.cu) calls it at every
-//    dtype, with its own block size and its own tile-invariance contract.
+// The whole-step kernel (whole_step_decode.cu) runs the same designs in
+// its attention stage: attend_decode a row at a time, attend_tile_mma in
+// 128-row passes.
 //
 // Pool and q pointers are read with plain loads (never the read-only
 // cache): the fused kernel writes them earlier in the same launch.
@@ -323,234 +322,9 @@ __device__ void attend_decode(const PagedArgs& a, int r, int h, int i0) {
 }
 
 // ---------------------------------------------------------------------------
-// tile design
+// tile designs
 
-constexpr int kTileRows = 32;                // query rows per block
 constexpr int kTileLines = 64;               // virtual lines per tile
-constexpr int kTileThreads = 128;
-constexpr int kRowGroup = 16;                // threads sharing 4 rows
-constexpr int kRowsPerThread = kTileRows / (kTileThreads / kRowGroup);  // 4
-constexpr int kLinesPerThread = kTileLines / kRowGroup;                 // 4
-constexpr int kTilePages = kTileLines / 16;  // pages per tile at ps = 16
-constexpr int kChunk = 8;                    // dims per staging load
-
-template <int DK, int ROWS = kTileRows>
-struct TileSmem {
-  static constexpr int kStrideK = DK + 4;    // padded: conflict-free reads
-  static constexpr int kStrideP = kTileLines + 4;
-  static constexpr size_t kK = size_t(kTileLines) * kStrideK;
-  static constexpr size_t kV = size_t(kTileLines) * DK;
-  static constexpr size_t kQ = size_t(ROWS) * kStrideK;
-  static constexpr size_t kP = size_t(ROWS) * kStrideP;
-  static constexpr size_t kLine = 2 * size_t(kTileLines);   // per-line scales
-  static constexpr size_t kPage = 3 * size_t(kTilePages);   // page id, scales
-  static constexpr size_t kBytes = sizeof(float) * (kK + kV + kQ + kP + kLine + kPage)
-                                   + size_t(ROWS) * kTileLines;  // mask
-};
-
-// Rows [row0, row0 + NT / 4) of KV head h of slot r (32 rows at the
-// default kTileThreads); smem holds TileSmem<DK, NT / 4>::kBytes. All NT
-// threads of the block call it; it ends with a barrier.
-template <typename TQ, int KIND, int DK, int NT = kTileThreads>
-__device__ void attend_tile(const PagedArgs& a, int r, int h, int row0, float* smem) {
-  constexpr int ROWS = NT / kRowGroup * kRowsPerThread;
-  using L = TileSmem<DK, ROWS>;
-  constexpr int kCols = DK / kRowGroup;  // output columns per thread
-  float* sK = smem;                // [64][DK + 4]
-  float* sV = sK + L::kK;          // [64][DK]
-  float* sQ = sV + L::kV;          // [ROWS][DK + 4]
-  float* sP = sQ + L::kQ;          // [ROWS][64 + 4] probability * v_scale
-  float* sLk = sP + L::kP;         // [64] line score factor k_scale * scale
-  float* sLv = sLk + kTileLines;   // [64] line v_scale
-  float* sPk = sLv + kTileLines;   // [kTilePages] per page of the tile
-  float* sPv = sPk + kTilePages;
-  int* sPid = reinterpret_cast<int*>(sPv + kTilePages);
-  uint8_t* sM = reinterpret_cast<uint8_t*>(sPid + kTilePages);  // [ROWS][64]
-
-  const int G = a.H / a.KV;
-  const int rows = a.C * G;
-  const int S = a.NP * a.ps;
-  const int tid = threadIdx.x;
-  const int tx = tid % kRowGroup;                       // line / column group
-  const int i0 = (tid / kRowGroup) * kRowsPerThread;    // first own row
-  const int npt = a.ps >= kTileLines ? 1 : kTileLines / a.ps;  // pages per tile
-  const TQ* q = static_cast<const TQ*>(a.q);
-
-  for (int idx = tid; idx < ROWS * DK; idx += NT) {
-    const int ii = idx / DK, d = idx % DK, rr = row0 + ii;
-    float x = 0.f;
-    if (rr < rows) {
-      const int c = rr / G, g = rr % G;
-      x = to_f32<TQ>(q[(((size_t)r * a.C + c) * a.H + (size_t)h * G + g) * DK + d]);
-    }
-    sQ[ii * L::kStrideK + d] = x;
-  }
-
-  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][kCols];
-#pragma unroll
-  for (int u = 0; u < kRowsPerThread; ++u) {
-    m[u] = kNegInf;
-    l[u] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kCols; ++e) acc[u][e] = 0.f;
-  }
-
-  const uint8_t* mrow = a.mask + (size_t)r * a.C * S;
-  for (int t0 = 0; t0 < S; t0 += kTileLines) {
-    int any = 0;
-    for (int idx = tid; idx < ROWS * kTileLines; idx += NT) {
-      const int ii = idx / kTileLines, j = idx % kTileLines;
-      const int rr = row0 + ii, s = t0 + j;
-      uint8_t bit = 0;
-      if (rr < rows && s < S) bit = mrow[(size_t)(rr / G) * S + s] != 0;
-      sM[idx] = bit;
-      any |= bit;
-    }
-    if (tid < npt) {
-      const int p = t0 / a.ps + tid;
-      if (p < a.NP) {
-        const int page = a.table[(size_t)r * a.NP + p];
-        sPid[tid] = page;
-        sPk[tid] = (KIND == kPoolFloat ? 1.f : a.k_scale[(size_t)page * a.KV + h]) * a.scale;
-        sPv[tid] = KIND == kPoolFloat ? 1.f : a.v_scale[(size_t)page * a.KV + h];
-      }
-    }
-    // skip the tile, K/V unread, when no row attends it (the barrier at
-    // the end of a processed tile protects the buffers from these writes)
-    if (!__syncthreads_or(any)) continue;
-
-    for (int idx = tid; idx < kTileLines * (DK / kChunk); idx += NT) {
-      const int j = idx / (DK / kChunk), d = (idx % (DK / kChunk)) * kChunk;
-      const int s = t0 + j;
-      float kx[kChunk], vx[kChunk];
-      float lk = 0.f, lv = 0.f;
-      if (s < S) {
-        const int pi = a.ps >= kTileLines ? 0 : j / a.ps;
-        const size_t off = pool_row<KIND, DK>(sPid[pi], s % a.ps, h, a.ps, a.KV);
-        load_dims<TQ, KIND, DK, kChunk>(pool_at<TQ, KIND>(a.k_pool, off), d, kx);
-        load_dims<TQ, KIND, DK, kChunk>(pool_at<TQ, KIND>(a.v_pool, off), d, vx);
-        lk = sPk[pi];
-        lv = sPv[pi];
-      } else {
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) kx[e] = vx[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < kChunk; e += 4) {
-        *reinterpret_cast<float4*>(sK + j * L::kStrideK + d + e) =
-            make_float4(kx[e], kx[e + 1], kx[e + 2], kx[e + 3]);
-        *reinterpret_cast<float4*>(sV + j * DK + d + e) =
-            make_float4(vx[e], vx[e + 1], vx[e + 2], vx[e + 3]);
-      }
-      if (d == 0) {
-        sLk[j] = lk;
-        sLv[j] = lv;
-      }
-    }
-    __syncthreads();
-
-    // scores of own rows i0 + u against lines tx + 16 b
-    float sc[kRowsPerThread][kLinesPerThread];
-#pragma unroll
-    for (int u = 0; u < kRowsPerThread; ++u)
-#pragma unroll
-      for (int b = 0; b < kLinesPerThread; ++b) sc[u][b] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DK; d += 4) {
-      float4 qv[kRowsPerThread], kv[kLinesPerThread];
-#pragma unroll
-      for (int u = 0; u < kRowsPerThread; ++u)
-        qv[u] = *reinterpret_cast<const float4*>(sQ + (i0 + u) * L::kStrideK + d);
-#pragma unroll
-      for (int b = 0; b < kLinesPerThread; ++b)
-        kv[b] = *reinterpret_cast<const float4*>(sK + (tx + kRowGroup * b) * L::kStrideK + d);
-#pragma unroll
-      for (int u = 0; u < kRowsPerThread; ++u)
-#pragma unroll
-        for (int b = 0; b < kLinesPerThread; ++b) {
-          float x = sc[u][b];
-          x = fmaf(qv[u].x, kv[b].x, x);
-          x = fmaf(qv[u].y, kv[b].y, x);
-          x = fmaf(qv[u].z, kv[b].z, x);
-          x = fmaf(qv[u].w, kv[b].w, x);
-          sc[u][b] = x;
-        }
-    }
-
-    // online softmax per own row; the row's 16 threads are 16
-    // consecutive lanes of one warp
-    float corr[kRowsPerThread];
-#pragma unroll
-    for (int u = 0; u < kRowsPerThread; ++u) {
-      const uint8_t* mt = sM + (i0 + u) * kTileLines;
-      float mx = m[u];
-#pragma unroll
-      for (int b = 0; b < kLinesPerThread; ++b) {
-        const int j = tx + kRowGroup * b;
-        sc[u][b] = mt[j] ? sc[u][b] * sLk[j] : kNegInf;
-        mx = fmaxf(mx, sc[u][b]);
-      }
-#pragma unroll
-      for (int o = kRowGroup / 2; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      corr[u] = expf(m[u] - mx);
-      float psum = 0.f;
-      float* prow = sP + (i0 + u) * L::kStrideP;
-#pragma unroll
-      for (int b = 0; b < kLinesPerThread; ++b) {
-        const int j = tx + kRowGroup * b;
-        const float pr = mt[j] ? expf(sc[u][b] - mx) : 0.f;
-        prow[j] = pr * sLv[j];
-        psum += pr;
-      }
-#pragma unroll
-      for (int o = kRowGroup / 2; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[u] = l[u] * corr[u] + psum;
-      m[u] = mx;
-    }
-    __syncwarp();  // own rows' probabilities are written and read in-warp
-
-    // PV: own rows x columns tx * 4 + e + 64 * hh
-#pragma unroll
-    for (int u = 0; u < kRowsPerThread; ++u)
-#pragma unroll
-      for (int e = 0; e < kCols; ++e) acc[u][e] *= corr[u];
-#pragma unroll 4
-    for (int j = 0; j < kTileLines; ++j) {
-      float pw[kRowsPerThread];
-#pragma unroll
-      for (int u = 0; u < kRowsPerThread; ++u) pw[u] = sP[(i0 + u) * L::kStrideP + j];
-#pragma unroll
-      for (int hh = 0; hh < kCols / 4; ++hh) {
-        const float4 vv = *reinterpret_cast<const float4*>(sV + j * DK + tx * 4 + 64 * hh);
-#pragma unroll
-        for (int u = 0; u < kRowsPerThread; ++u) {
-          acc[u][4 * hh + 0] = fmaf(pw[u], vv.x, acc[u][4 * hh + 0]);
-          acc[u][4 * hh + 1] = fmaf(pw[u], vv.y, acc[u][4 * hh + 1]);
-          acc[u][4 * hh + 2] = fmaf(pw[u], vv.z, acc[u][4 * hh + 2]);
-          acc[u][4 * hh + 3] = fmaf(pw[u], vv.w, acc[u][4 * hh + 3]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites the tile buffers
-  }
-
-  TQ* out = static_cast<TQ*>(a.out);
-#pragma unroll
-  for (int u = 0; u < kRowsPerThread; ++u) {
-    const int rr = row0 + i0 + u;
-    if (rr >= rows) continue;
-    const int c = rr / G, g = rr % G;
-    const float inv = 1.f / fmaxf(l[u], kMinDenominator);
-    TQ* o = out + (((size_t)r * a.C + c) * a.H + (size_t)h * G + g) * DK + tx * 4;
-#pragma unroll
-    for (int hh = 0; hh < kCols / 4; ++hh)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[64 * hh + e] = from_f32<TQ>(acc[u][4 * hh + e] * inv);
-  }
-  __syncthreads();  // sQ may be rewritten by the next call
-}
 
 // ---------------------------------------------------------------------------
 // tensor-core designs: "mma" (bf16 q) and "tf32x3" (f32 q)

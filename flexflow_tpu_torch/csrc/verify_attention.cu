@@ -21,12 +21,13 @@
 //    over 3.35 TB/s;
 //  * operations: 4 * (attended (row, line) pairs) * G * dk FLOP (QK^T and
 //    PV), over the rate of the unit that runs them (bf16 tensor cores
-//    989 TFLOP/s, f32 CUDA cores 67 TFLOP/s).
+//    989 TFLOP/s; f32 q at C * G > 8 three TF32 products for each, at
+//    494.7 TFLOP/s; f32 CUDA cores 67 TFLOP/s).
 // A bf16 mixed step at C = 128 is bound by bytes: each (slot, KV head)'s
 // cache lines are read once for all its rows. On the CUDA cores in f32
 // the same FLOP bound it many times over.
 //
-// Three block designs (verify_design), chosen by the query rows per KV
+// Four block designs (verify_design), chosen by the query rows per KV
 // head (C * G) and q's dtype:
 //  * "mma" (bf16 q, C * G > 8: mixed steps, prefill chunks, wide trees):
 //    verify_mma_kernel, one block of 8 warps per (slot, KV head, pass of
@@ -38,8 +39,19 @@
 //    shared buffers by cp.async, two copies in flight while the third is
 //    multiplied; a tile whose word is zero for every row of the pass is
 //    never copied. Line s of KV head kv is at ((r * S1 + s) * KV + kv) * dk.
-//  * "rows8" (bf16 q, C * G <= 8: narrow trees) and "f32" (f32 q):
-//    verify_kernel on the CUDA cores in f32, 32 rows a block, 64-line
+//  * "tf32x3" (f32 q, C * G > 8): verify_tf32_kernel, the same block and
+//    cp.async ring on f32 tiles (rows padded to dk + 4 floats) with the
+//    block's 128 Q rows in shared memory: the paged kernels' f32 tile
+//    (tf32_warp_tile, paged_attention.cuh) on dense addresses, both
+//    products as three TF32 products (each f32 operand split hi + lo), each
+//    k-step of S and each half tile of PV summed in fresh accumulators and
+//    added in f32 (the tensor cores' own f32 sums missed 1e-5 over a
+//    2176-line walk). On the CUDA cores ("f32" below) an f32 mixed step at
+//    C = 128 ran at 5.2 times its 67 TFLOP/s bound and 1.96 times SDPA;
+//    the bound here is three TF32 products at 494.7 TFLOP/s. Two stages and
+//    the words of 16 tiles at dk 128 (VerifyTf32Smem), three and 32 at 64.
+//  * "rows8" (bf16 q, C * G <= 8: narrow trees) and "f32" (f32 q, C * G
+//    <= 8): verify_kernel on the CUDA cores in f32, 32 rows a block, 64-line
 //    tiles: it reads the tile's words, skips the tile when no row of the
 //    block attends any of its lines (__syncthreads_or), else stages K and
 //    V once in shared memory as f32 with 16-byte loads. Each of the 128
@@ -49,20 +61,20 @@
 //    columns each; the 16 threads that share 4 rows reduce the rows' max
 //    and sum with 4 shuffles. K rows are padded by 4 floats so the 8
 //    lanes of a quarter-warp read 8 lines from 32 different banks. TF32
-//    would miss the f32 kernels' 1e-5 tolerance.
+//    alone would miss the f32 kernels' 1e-5 tolerance.
 #include <type_traits>
 
 #include "paged_attention.cuh"
 
 namespace fft {
 
-enum VerifyDesign : int { kVerifyRows8 = 0, kVerifyMma = 1, kVerifyF32 = 2 };
+enum VerifyDesign : int { kVerifyRows8 = 0, kVerifyMma = 1, kVerifyF32 = 2, kVerifyTf32x3 = 3 };
 
 // The block design of a verify call with ``rows`` = C * G query rows per
 // KV head and q of DType ``dtype``; the launcher routes by it and exports
 // it to the wrapper.
 inline int verify_design(int rows, int dtype) {
-  if (dtype != kBFloat16) return kVerifyF32;
+  if (dtype != kBFloat16) return rows <= kDecodeRows ? kVerifyF32 : kVerifyTf32x3;
   return rows <= kDecodeRows ? kVerifyRows8 : kVerifyMma;
 }
 
@@ -399,6 +411,136 @@ verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+// The tf32x3 design: rows [row0, row0 + 128) of KV head h of slot r, f32
+// q. The block's Q rows sit in shared memory (row stride dk + 4, split per
+// k-step by tf32_warp_tile); warp w owns rows row0 + 16 w .. + 15. The
+// words of kMeta tiles are staged at once; the tiles any row attends
+// stream through kStages f32 K/V buffers, kStages - 1 cp.async copies in
+// flight while one tile is multiplied.
+template <int DK>
+struct VerifyTf32Smem {
+  static constexpr int kLd = DK + 4;                          // f32 row stride
+  static constexpr size_t kTile = size_t(kTileLines) * kLd;   // floats of a K or V tile
+  static constexpr size_t kPair = 2 * kTile * sizeof(float);
+  static constexpr size_t kQ = size_t(kMmaTileRows) * kLd * sizeof(float);
+  static constexpr size_t meta(int tiles) {  // words [tile][row], flags [tile][4]
+    return sizeof(uint64_t) * tiles * kMmaTileRows + size_t(tiles) * (kMmaTileRows / 32);
+  }
+  static constexpr int kStages =
+      kQ + kMmaStages * kPair + meta(kMetaTiles / 2) <= kMmaSmemBudget ? kMmaStages : 2;
+  static constexpr int kMeta =
+      kQ + kStages * kPair + meta(kMetaTiles) <= kMmaSmemBudget ? kMetaTiles : kMetaTiles / 2;
+  static constexpr size_t kBytes = kStages * kPair + kQ + meta(kMeta);
+  static_assert(kBytes <= kMmaSmemBudget, "tf32x3 verify tile over the shared-memory budget");
+};
+
+template <int DK>
+__global__ void __launch_bounds__(kMmaTileThreads, 1)
+verify_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const uint64_t* __restrict__ bits,
+                   float* __restrict__ out, int C, int S1, int H, int KV, float scale) {
+  using L = VerifyTf32Smem<DK>;
+  constexpr int LD = L::kLd, STAGES = L::kStages, META = L::kMeta;
+  constexpr int kChunks = DK * 4 / 16;  // 16-byte copies of one line
+  extern __shared__ __align__(16) unsigned char smem_tf32[];
+  float* sKV = reinterpret_cast<float*>(smem_tf32);                  // [stage][K, V][64][LD]
+  float* sQ = sKV + STAGES * 2 * L::kTile;                           // [128][LD]
+  uint64_t* sBits = reinterpret_cast<uint64_t*>(sQ + kMmaTileRows * LD);  // [tile][row]
+  uint8_t* sFlag = reinterpret_cast<uint8_t*>(sBits + META * kMmaTileRows);  // [tile][4]
+
+  const int row0 = blockIdx.x * kMmaTileRows, h = blockIdx.y, r = blockIdx.z;
+  const int G = H / KV, rows = C * G, W = (S1 + kTileLines - 1) / kTileLines;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = row0 + 16 * warp + g, rb = ra + 8;  // this thread's rows
+
+  // the block's Q rows, zero past the last (read after the barrier that
+  // opens the first chunk)
+  for (int idx = tid; idx < kMmaTileRows * DK / 4; idx += kMmaTileThreads) {
+    const int ii = idx / (DK / 4), d = idx % (DK / 4) * 4, i = row0 + ii;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < rows)
+      x = *reinterpret_cast<const float4*>(
+          q + (((size_t)r * C + i / G) * H + (size_t)h * G + i % G) * DK + d);
+    *reinterpret_cast<float4*>(sQ + ii * LD + d) = x;
+  }
+  float o[DK / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < DK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const float kscale = scale * kLog2e;  // scores in base 2
+
+  // copy the K/V lines of tile u into stage st (lines at or past S1 zero)
+  auto issue = [&](int u, int st) {
+    constexpr int kLinesPerPass = kMmaTileThreads / kChunks;
+    const int c = tid % kChunks;
+#pragma unroll
+    for (int j = tid / kChunks; j < kTileLines; j += kLinesPerPass) {
+      const int s = u * kTileLines + j;
+      const size_t off = s < S1 ? (((size_t)r * S1 + s) * KV + h) * DK + 4 * c : 0;
+      const int nbytes = s < S1 ? 16 : 0;
+      const int lk = st * 2 * kTileLines + j, lv = lk + kTileLines;
+      cp_async16(sKV + lk * LD + 4 * c, k + off, nbytes);
+      cp_async16(sKV + lv * LD + 4 * c, v + off, nbytes);
+    }
+  };
+
+  const uint64_t* bslot = bits + (size_t)r * C * W;
+  for (int c0 = 0; c0 < W; c0 += META) {
+    const int nct = min(META, W - c0);
+    __syncthreads();  // the last chunk's words and flags are read
+#pragma unroll 4
+    for (int idx = tid; idx < nct * kMmaTileRows; idx += kMmaTileThreads) {
+      const int tt = idx / kMmaTileRows, ii = idx % kMmaTileRows, i = row0 + ii;
+      const uint64_t word = i < rows ? bslot[(size_t)(i / G) * W + c0 + tt] : 0ull;
+      sBits[idx] = word;
+      const bool any = __any_sync(0xffffffffu, word != 0ull);
+      if (lane == 0) sFlag[tt * (kMmaTileRows / 32) + ii / 32] = any;
+    }
+    __syncthreads();
+    uint32_t todo = 0;  // tiles any row of the block attends (block-uniform)
+    for (int tt = 0; tt < nct; ++tt)
+      todo |= uint32_t(reinterpret_cast<const uint32_t*>(sFlag)[tt] != 0u) << tt;
+
+    uint32_t pend = todo;
+    auto issue_next = [&](int st) {
+      if (pend) {
+        issue(c0 + __ffs(pend) - 1, st);
+        pend &= pend - 1;
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int st = 0; st + 1 < STAGES; ++st) issue_next(st);
+    for (int st = 0; todo; st = st + 1 == STAGES ? 0 : st + 1) {
+      const int tt = __ffs(todo) - 1;
+      todo &= todo - 1;
+      cp_async_wait<STAGES - 2>();  // this tile's group has landed
+      __syncthreads();  // ... for every thread, and every warp is done with the last tile
+      issue_next(st == 0 ? STAGES - 1 : st - 1);  // into the last tile's buffer
+      const float* sK = sKV + st * 2 * L::kTile;
+      tf32_warp_tile<DK, false>(
+          sQ + 16 * warp * LD, sK, sK + L::kTile, sBits[tt * kMmaTileRows + 16 * warp + g],
+          sBits[tt * kMmaTileRows + 16 * warp + g + 8], lane, [&](int) { return kscale; },
+          [&](int) { return 1.f; }, o, m, l);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = i ? rb : ra;
+    if (row >= rows) continue;
+    const float inv = 1.f / fmaxf(l[i], kMinDenominator);
+    float* orow = out + (((size_t)r * C + row / G) * H + (size_t)h * G + row % G) * DK + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < DK / 8; ++nt)
+      *reinterpret_cast<float2*>(orow + nt * 8) =
+          make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+  }
+}
+
 template <typename T, int DK>
 cudaError_t launch_dk(const void* q, const void* k, const void* v,
                       const uint64_t* bits, void* out, int R, int C, int S1,
@@ -418,6 +560,16 @@ cudaError_t launch_dk(const void* q, const void* k, const void* v,
           bits, static_cast<bf*>(out), C, S1, H, KV, scale);
       return cudaGetLastError();
     }
+  } else if (verify_design(rows, kFloat32) == kVerifyTf32x3) {
+    constexpr size_t kSmem = VerifyTf32Smem<DK>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        verify_tf32_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((rows + kMmaTileRows - 1) / kMmaTileRows, KV, R);
+    verify_tf32_kernel<DK><<<grid, kMmaTileThreads, kSmem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bits, static_cast<float*>(out), C, S1, H, KV, scale);
+    return cudaGetLastError();
   }
   constexpr size_t kSmem = Smem<DK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(

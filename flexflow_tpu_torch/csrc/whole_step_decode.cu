@@ -13,7 +13,11 @@
 //      the in-place commit of the new K/V lines into their pages (a
 //      scatter, or kv_quant.quant_line_write's arithmetic on quantized
 //      pools; paged_commit.cuh), then paged attention over the slot's
-//      table (attend_decode or attend_tile of paged_attention.cuh)
+//      table in the paged kernels' designs (paged_attention.cuh):
+//      attend_decode a row at a time for at most 8 query rows a KV head,
+//      else 128-row passes of the tensor-core tile attend_tile_mma ("mma"
+//      for bf16, "tf32x3" for f32), the stage's dynamic shared memory
+//      then MmaSmem's layout
 //   4. out-projection                        attn -> partial sums
 //   5. residual + RMS norm (rows)            x2 = x + o, h2
 //   6. w1 / w3 projections                   h2 -> partial sums
@@ -33,19 +37,33 @@
 // products are exact in f32, so this is the plain f32 head up to
 // summation order).
 //
-// Projections: one work item is (a row tile of 16, 32 or 64 rows, one
-// output-column tile of width N / tiles, one of KS contraction slices). The block
-// streams its weight columns and activation rows through shared memory in
-// 32-deep K chunks (cp.async, double-buffered) and accumulates in
-// registers: bf16 on the tensor cores (mma.sync.m16n8k16, f32
-// accumulation), f32 on the CUDA cores. The KS slices of an output
-// element are summed in slice order by the stage that reads them. KS
-// depends on the row count alone (and row tiles group rows only), so
-// every output element's contraction runs in one order at every tile
-// count: logits, tokens and pool bytes
-// are bitwise equal across the legal tile counts (the JAX contract that
-// tiles split only output columns). Weights are read through their
-// strides; a tied head reads embed (V, D) as the transposed head.
+// Projections, two designs, chosen by the step's shape alone (tc_path):
+//  * bf16 steps of more than 64 rows (mixed and prefill steps): wgmma
+//    m64n256k16, in work items of 128 rows (two warpgroups of 64) by 256
+//    columns, K in 64-deep stages that TMA brings into a 4-buffer ring (the
+//    activation rows K-major, the weight's 64 x 64 boxes MN-major, 128-
+//    byte swizzle); run_gemm_stage_tc. Before it, items of 16-64 rows on
+//    mma.sync read each layer's weights once per row tile, 64 times at C
+//    = 128 with 16 slots, from L2 and through scalar shared-memory loads:
+//    33 of the bf16 mixed step's 45.6 ms at 39-75 TFLOP/s (NVIDIA H100
+//    80GB HBM3, 700 W). 128-row items read them 16 times, in 128-byte
+//    boxes, with four stages in flight; an item whose rows are all
+//    padding (an idle slot's, their lines all on the scratch page) writes
+//    zeros instead.
+//  * otherwise (decode steps, f32): one work item is (a row tile of 16, 32
+//    or 64 rows, one output-column tile of width N / tiles, one of KS
+//    contraction slices). The block streams its weight columns and
+//    activation rows through shared memory in 32-deep K chunks (cp.async,
+//    double-buffered) and accumulates in registers: bf16 on the tensor
+//    cores (mma.sync.m16n8k16, f32 accumulation), f32 on the CUDA cores.
+// The KS slices of an output element are summed in slice order by the
+// stage that reads them. KS depends on the row count alone, row tiles
+// group rows only, and the wgmma items' 256-column chunks lie on the
+// weight's own grid, so every output element's contraction runs in one
+// order at every tile count: logits, tokens and pool bytes are bitwise
+// equal across the legal tile counts (the JAX contract that tiles split
+// only output columns). Weights are read through their strides; a tied
+// head reads embed (V, D) as the transposed head.
 //
 // Bound on an H100: a decode step reads every weight once (13.2 GB at
 // LLaMA-7B in bf16) plus the K/V lines it attends, over 3.35 TB/s; a
@@ -54,13 +72,14 @@
 // weights are read once per row tile (once per step at decode), the
 // K-split fills the SMs when a step has few rows, the hidden state lives
 // in a global scratch that L2 holds at decode, and no pool slice is ever
-// staged whole. Later work: wgmma and TMA for the projections.
+// staged whole.
 #include <algorithm>
 #include <climits>
 #include <cmath>
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "paged_commit.cuh"
 
 namespace fft {
@@ -73,7 +92,30 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;         // K depth of a staged chunk
 constexpr int kMaxFrags = 24;   // 16 x 8 accumulator fragments per warp
 constexpr int kHeadCols = 256;  // LM-head columns per work item
-constexpr int kAttnRows = kThreads / kRowGroup * kRowsPerThread;  // attend_tile rows
+static_assert(kThreads == kMmaTileThreads && kThreads == kDecodeThreads,
+              "the attention stage runs the paged designs' blocks of 256 threads");
+
+// bf16 projections of steps of more than kTcMinRows rows, on wgmma: work
+// items of 128 rows (two warpgroups of 64) by up to 256 columns (four
+// 64-column products), 64-deep K stages in a ring of kTcStages buffers
+// fed by TMA
+constexpr int kTcMinRows = 64;
+constexpr int kTcRows = 128;
+constexpr int kTcBK = 64;
+constexpr int kTcBlocks = 4;                                  // 64-column boxes of an item
+constexpr int kTcCols = 64 * kTcBlocks;                       // columns of an item
+constexpr int kTcStages = 4;
+constexpr uint32_t kTcABytes = kTcRows * kTcBK * 2;           // the rows' 64-deep slice
+constexpr uint32_t kTcBBox = kTcBK * 64 * 2;                  // 64 K rows x 64 columns
+constexpr uint32_t kTcStage = kTcABytes + kTcBlocks * kTcBBox;
+constexpr size_t kTcSmem = size_t(kTcStages) * kTcStage + 1024;  // + 1024-byte alignment
+
+// the tensor maps of a launch: the four activations the projections read
+// and the seven stacked weights
+enum WholeMap : int {
+  kMapH, kMapAttn, kMapH2, kMapAct, kMapWq, kMapWk, kMapWv, kMapWo, kMapW1, kMapW3, kMapW2,
+  kNumMaps
+};
 
 struct WholeArgs {
   // layer weights, stacked on a leading layer dim (model dtype)
@@ -96,8 +138,10 @@ struct WholeArgs {
   int* tokens;             // (R,) out
   void* scratch;           // model-dtype scratch, see Scratch
   float* work;             // (KS, R * C, Nw) f32 partial sums
+  long long* stamps;       // (1 + 8 L + 3,) %globaltimer ns, or null: see stamp()
   int L, R, C, D, H, KV, dk, F, V, ps, NP, P1, tiles, KS, tied;
   float eps, scale, qmax;
+  CUtensorMap maps[kNumMaps];  // WholeMap; encoded when tc_path()
 };
 
 // Model-dtype buffers carved out of WholeArgs::scratch, in this order
@@ -105,7 +149,7 @@ struct WholeArgs {
 template <typename T>
 struct Scratch {
   T *x, *h, *x2, *h2, *qraw, *qrot, *attn, *knew, *vnew, *krot, *act, *hf;
-  __device__ explicit Scratch(const WholeArgs& a) {
+  __host__ __device__ explicit Scratch(const WholeArgs& a) {
     const size_t M = (size_t)a.R * a.C, D = a.D, Q = (size_t)a.H * a.dk,
                  KVd = (size_t)a.KV * a.dk;
     T* p = static_cast<T*>(a.scratch);
@@ -124,14 +168,32 @@ struct Scratch {
   }
 };
 
-// Loads of data other blocks wrote earlier in this launch go through L2
-// (ld.global.cg): the SM's L1 is not kept coherent with other SMs' stores.
-template <typename T> __device__ __forceinline__ float ld_l2(const T* p);
-template <> __device__ __forceinline__ float ld_l2<float>(const float* p) { return __ldcg(p); }
-template <> __device__ __forceinline__ float ld_l2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+// Per-stage timer: with a stamps buffer, thread 0 of block 0 reads the
+// global timer (ns) at entry and after every grid barrier, the stage that
+// ends there: per layer norm, qkv, attention, out_proj, norm2, w1w3, act,
+// w2; then final_norm, head and the argmax (after block 0's rows). Without
+// one it does nothing. Stage i of a step is stamps[i + 1] - stamps[i]
+// (serve/kernels.whole_step_stage_ms).
+__device__ __forceinline__ void stamp(const WholeArgs& a, int& i) {
+  if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[i] = (long long)t;
+  }
+  ++i;
 }
 
+__host__ __device__ constexpr int dtype_of(size_t bytes) {
+  return bytes == 2 ? kBFloat16 : kFloat32;
+}
+
+// Whether the layer projections of a launch run on wgmma: bf16, more than
+// kTcMinRows rows, every contraction a whole number of 64-deep stages. A
+// function of the shapes alone, never of the tile count.
+__host__ __device__ inline bool tc_path(const WholeArgs& a, size_t elem_bytes) {
+  return elem_bytes == 2 && a.R * a.C > kTcMinRows && a.D % kTcBK == 0 &&
+         (a.H * a.dk) % kTcBK == 0 && a.F % kTcBK == 0;
+}
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
@@ -162,18 +224,6 @@ __device__ __forceinline__ float round_to(float x) { return to_f32<T>(from_f32<T
 __device__ __forceinline__ float partial_sum(const float* part, size_t slice, int KS, size_t i) {
   float s = __ldcg(part + i);
   for (int k = 1; k < KS; ++k) s = __fadd_rn(s, __ldcg(part + k * slice + i));
-  return s;
-}
-
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  x = warp_sum(x);
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  __syncthreads();  // red may be rewritten
   return s;
 }
 
@@ -350,6 +400,23 @@ struct GemmStage {
   size_t sk[3], sn[3];
   float* out;
   int ldo;
+  // on wgmma: the maps of A and of the weights, the layer, and each row's
+  // page (a row whose line goes to the scratch page is padding)
+  const CUtensorMap* amap;
+  const CUtensorMap* wmap[3];
+  int layer;
+  const int* phys;
+  int scratch;
+};
+
+// The TMA ring of the wgmma projections: a buffer's full barrier completes
+// when its bytes have landed, its empty barrier when every warp is done
+// multiplying it; and the count of stages this block has loaded (and
+// consumed) so far
+struct TcRing {
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t count;
 };
 
 // Not inlined: one copy per (T, MF) serves every stage of every kernel
@@ -390,8 +457,147 @@ __device__ __noinline__ void run_gemm_stage(const GemmStage& s, unsigned char* s
   }
 }
 
+// One projection stage on wgmma (bf16). A work item is (weight, column
+// tile, 256-column chunk, 128-row tile, K slice). The chunks lie on the
+// weight's own 256-column grid, whatever the tile count: a tile covers the
+// chunks its columns touch, and an item writes only its tile's columns.
+// So every output element is the same product at the same place of an
+// m64n256k16 instruction, its contraction summed in one order (64-deep
+// stages from kc0, four k16 steps each) at every tile count, and the
+// outputs are bitwise equal across tile counts. Thread 0 keeps kTcStages
+// stages of TMA loads in flight (the rows' 64-deep slice, K-major; the
+// weight's four 64 x 64 boxes, MN-major; 128-byte swizzle, zeros past the
+// tensors' ends); both warpgroups multiply, keeping one stage's products
+// in flight while they wait for the next stage, and a lane of every warp
+// frees a stage on its empty barrier once its products are done. One
+// n256 instruction a k16 step reads A from shared memory once for all 256
+// columns. Not inlined, like run_gemm_stage.
+__device__ __noinline__ void run_gemm_stage_tc(const GemmStage& s, unsigned char* smem_raw,
+                                               TcRing& ring) {
+  using namespace hopper;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int RT = (s.M + kTcRows - 1) / kTcRows, nch = s.K / kTcBK;
+  int total = 0, items[3], tiles[3], chunks[3];
+  for (int r = 0; r < s.n; ++r) {
+    tiles[r] = (s.N[r] + s.width[r] - 1) / s.width[r];
+    chunks[r] = 1;  // the most 256-column chunks a tile touches
+    for (int tl = 0; tl < tiles[r]; ++tl) {
+      const int t0 = tl * s.width[r], tw = min(s.width[r], s.N[r] - t0);
+      chunks[r] = max(chunks[r], ((t0 & (kTcCols - 1)) + tw + kTcCols - 1) / kTcCols);
+    }
+    items[r] = tiles[r] * chunks[r] * RT * s.KS;
+    total += items[r];
+  }
+  // the earlier stages' ordinary accesses of this shared memory come
+  // before the TMA writes
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t count = ring.count;  // thread 0 writes it back at the end
+  for (int u = blockIdx.x; u < total; u += gridDim.x) {
+    int rest = u, r = 0, col = 0;
+    while (rest >= items[r]) {
+      rest -= items[r];
+      col += s.N[r];
+      ++r;
+    }
+    const int ks = rest % s.KS, rt = rest / s.KS % RT, rc = rest / s.KS / RT;
+    const int t0 = rc / chunks[r] * s.width[r], tw = min(s.width[r], s.N[r] - t0);
+    const int n0 = (t0 & ~(kTcCols - 1)) + rc % chunks[r] * kTcCols;  // the chunk's first column
+    if (n0 >= t0 + tw) continue;  // block-uniform: this tile has fewer chunks
+    const int m0 = rt * kTcRows;
+    float* out = s.out + (size_t)ks * s.M * s.ldo + col;
+    // an item whose rows are all padding (an idle slot's) writes zeros: its
+    // rows' values are never read, and stay finite
+    if (!__syncthreads_or(tid < kTcRows && m0 + tid < s.M && s.phys[m0 + tid] != s.scratch)) {
+      const int c0 = max(n0, t0), c1 = min(n0 + kTcCols, t0 + tw);
+      for (int i = tid; i < kTcRows * (c1 - c0); i += kThreads) {
+        const int row = m0 + i / (c1 - c0);
+        if (row < s.M) out[(size_t)row * s.ldo + c0 + i % (c1 - c0)] = 0.f;
+      }
+      continue;
+    }
+    const int kc0 = ks * nch / s.KS, nk = (ks + 1) * nch / s.KS - kc0;
+    const bool rows_on = m0 + 64 * wg < s.M;  // warpgroup-uniform
+    const CUtensorMap* wmap = s.wmap[r];
+
+    auto issue = [&](int j) {  // thread 0: stage j of the item, once its buffer is free
+      const uint32_t q = count + j;
+      const int st = q % kTcStages;
+      unsigned char* sa = smem + st * kTcStage;
+      mbar_wait(&ring.empty[st], ((q / kTcStages) & 1) ^ 1);  // a fresh barrier passes
+      mbar_expect_tx(&ring.full[st], kTcStage);
+      tma_load_2d(sa, s.amap, &ring.full[st], (kc0 + j) * kTcBK, m0);
+      for (int b = 0; b < kTcBlocks; ++b)
+        tma_load_3d(sa + kTcABytes + b * kTcBBox, wmap, &ring.full[st], n0 + 64 * b,
+                    (kc0 + j) * kTcBK, s.layer);
+    };
+    if (tid == 0)
+      for (int j = 0; j < min(kTcStages, nk); ++j) issue(j);
+
+    float acc[kTcBlocks * 8][4];  // the accumulator of m64n256: columns 8 n8 + 2 t + (e & 1)
+#pragma unroll
+    for (int n8 = 0; n8 < kTcBlocks * 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n8][e] = 0.f;
+    for (int j = 0; j < nk; ++j) {
+      const uint32_t q = count + j;
+      const int st = q % kTcStages;
+      mbar_wait(&ring.full[st], (q / kTcStages) & 1);
+      if (rows_on) {
+        const unsigned char* sa = smem + st * kTcStage;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTcBK / 16; ++kk)
+          wgmma_ss_t_n256(acc, desc_sw128(sa + wg * 64 * 128 + kk * 32, 16, 1024),
+                          desc_sw128(sa + kTcABytes + kk * 16 * 128, kTcBBox, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();  // the last stage's products are done
+        fence_regs(acc);
+      }
+      if (j > 0) {  // free the last stage, refill it
+        const int prev = (q - 1) % kTcStages;
+        if (lane == 0) mbar_arrive(&ring.empty[prev]);
+        if (tid == 0 && j - 1 + kTcStages < nk) issue(j - 1 + kTcStages);
+      }
+    }
+    if (rows_on) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&ring.empty[(count + nk - 1) % kTcStages]);
+    count += nk;
+
+    // the tile's columns of the item, rows below M
+    if (!rows_on) continue;
+#pragma unroll
+    for (int n8 = 0; n8 < kTcBlocks * 8; ++n8) {
+      const int c = n0 + 8 * n8 + 2 * t;
+      if (c < t0 || c >= t0 + tw) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 64 * wg + 16 * warp + g + 8 * h;
+        if (row < s.M)
+          *reinterpret_cast<float2*>(out + (size_t)row * s.ldo + c) =
+              make_float2(acc[n8][2 * h], acc[n8][2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();  // every thread has read the count
+  if (tid == 0) ring.count = count;
+}
+
 template <typename T>
-__device__ void gemm_stage(const GemmStage& s, int mf, unsigned char* smem) {
+__device__ void gemm_stage(const GemmStage& s, int mf, unsigned char* smem, TcRing* ring) {
+  if constexpr (sizeof(T) == 2) {
+    if (ring != nullptr) {
+      run_gemm_stage_tc(s, smem, *ring);
+      return;
+    }
+  }
   if (mf == 4) {
     run_gemm_stage<T, 4>(s, smem);
   } else if (mf == 2) {
@@ -404,251 +610,389 @@ __device__ void gemm_stage(const GemmStage& s, int mf, unsigned char* smem) {
 // ---------------------------------------------------------------------------
 // row stages
 
-// x_out = x_in (+ the rounded partial sums of the previous projection,
-// when part is given), then h = rms(x_out) * gamma, for row m. x_in and
-// x_out may alias (the same thread reads and writes each element).
+// 8 consecutive elements at p (16-byte aligned) that other blocks wrote
+// earlier in this launch, as f32: through L2 (ld.global.cg), since the
+// SM's L1 is not kept coherent with other SMs' stores
+__device__ __forceinline__ void load8_l2(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __bfloat162float(e[i]);
+}
+__device__ __forceinline__ void load8_l2(const float* p, float (&o)[8]) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p + 4));
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
+}
+
+// x_out = x_in (+ the rounded partial sums of the previous projection, when
+// part is given), then h = rms(x_out) * gamma, for one row, by one warp (8
+// elements a lane at a time; D a multiple of 8). x_in and x_out may alias
+// (the same lane reads and writes each element).
 template <typename T>
 __device__ void residual_norm_row(const T* x_in, const float* part, size_t slice, int KS,
-                                  T* x_out, T* h, const T* gamma, int D, float eps, float* red) {
+                                  T* x_out, T* h, const T* gamma, int D, float eps) {
+  const int lane = threadIdx.x % 32;
   float ss = 0.f;
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float x = ld_l2<T>(x_in + d);
-    if (part != nullptr) x = round_to<T>(__fadd_rn(x, round_to<T>(partial_sum(part, slice, KS, d))));
-    x_out[d] = from_f32<T>(x);
-    ss = fmaf(x, x, ss);
+  for (int d = 8 * lane; d < D; d += 256) {
+    float x[8];
+    load8_l2(x_in + d, x);
+    if (part != nullptr) {
+      float p[8], q[8];
+      load8_l2(part + d, p);
+      for (int k = 1; k < KS; ++k) {  // the KS slices in slice order, as partial_sum
+        load8_l2(part + k * slice + d, q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) p[i] = __fadd_rn(p[i], q[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = round_to<T>(__fadd_rn(x[i], round_to<T>(p[i])));
+    }
+    store8<T>(x_out + d, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
   }
-  const float r = 1.f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)D) + eps);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    const float x = to_f32<T>(x_out[d]);
-    h[d] = from_f32<T>(__fmul_rn(round_to<T>(__fmul_rn(x, r)), to_f32<T>(gamma[d])));
+  const float r = 1.f / sqrtf(__fdiv_rn(warp_sum(ss), (float)D) + eps);
+  for (int d = 8 * lane; d < D; d += 256) {
+    float x[8], g[8];
+    load_f32<T, 8>(x_out + d, x);
+    load_f32<T, 8>(gamma + d, g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(round_to<T>(__fmul_rn(x[i], r)), g[i]);
+    store8<T>(h + d, x);
   }
 }
 
 // ---------------------------------------------------------------------------
-// the kernel
+// attention
 
+// The block's state between the kernel's calls of its stages: the
+// arguments, the loop counters of the kernel and of its attention stage,
+// that stage's commit and paged arguments and the TMA ring. It lives in
+// shared memory, where the non-inlined stage functions find it at a fixed
+// address: no value or pointer stays in a register across their calls.
+// (The calling convention saves every register a caller holds across a
+// call, ptxas counts those saves as spills, and a callee may use all 255.)
+// Thread 0 writes it, and a barrier follows before the block reads it.
+struct BlockState {
+  const WholeArgs* args;
+  int l;      // layer
+  int si;     // next stamp
+  int u;      // (slot, KV head) unit of the attention stage
+  int units;  // R * KV
+  int rows;   // query rows of a KV head, C * G
+  int row0;   // first row of an attention pass
+  bool tile;  // the attention takes the tensor-core tile (not attend_decode)
+  bool idle;  // the unit is an idle slot's (every line on the scratch page)
+  bool tc;    // the layer projections run on wgmma (tc_path)
+  TcRing ring;
+  CommitArgs commit;
+};
+__shared__ BlockState g_block;
+__shared__ __align__(8) uint64_t g_tc_full[kTcStages], g_tc_empty[kTcStages];
+
+// The grid barrier that ends a stage, and its stamp. The stages end with
+// it themselves: the kernel holds nothing between their calls.
+__device__ __forceinline__ void end_stage() {
+  coop::this_grid().sync();
+  if (threadIdx.x == 0) stamp(*g_block.args, g_block.si);
+}
+
+// One 128-row pass of the paged kernels' tensor-core tile ("mma" for bf16
+// q, "tf32x3" for f32 q) at the block's unit, rows from its row0. Not
+// inlined: the tile holds up to 253 registers a thread, and a call keeps
+// its allocation out of the rest of the stage.
 template <typename TQ, int KIND, int DK>
-__global__ void __launch_bounds__(kThreads, 1) whole_step_kernel(WholeArgs a) {
-  using T = TQ;
-  using P = typename PoolT<TQ, KIND>::T;
+__device__ __noinline__ void attend_rows_mma() {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[kWarps];
-  coop::grid_group grid = coop::this_grid();
+  const BlockState& b = g_block;
+  attend_tile_mma<TQ, KIND, DK>(b.commit.a, b.u / b.commit.a.KV, b.u % b.commit.a.KV, b.row0,
+                                smem);
+}
+
+// ---------------------------------------------------------------------------
+// the stages
+
+// Each stage is a function the kernel calls, ending with a grid barrier.
+// Not inlined: a stage keeps its own register allocation (with the stages
+// inlined in the kernel, its allocation spilled), and the block's state
+// stays in g_block.
+
+// 1. the residual of the previous layer's w2 (or x0) and the attention
+// norm, or 5. the attention residual and the MLP norm (``mlp``)
+template <typename T>
+__device__ __noinline__ void norm_stage(bool mlp) {
+  const WholeArgs& a = *g_block.args;
   const Scratch<T> s(a);
-  const int M = a.R * a.C, D = a.D, Q = a.H * DK, KVd = a.KV * DK, F = a.F;
-  const int G = a.H / a.KV;
-  const int dkp = DK / pack_of<KIND>();
-  const size_t pool_layer = (size_t)a.P1 * a.ps * a.KV * dkp;
-  const size_t scale_layer = (size_t)a.P1 * a.KV;
-  const int mf = row_frags(M, head_width_cap(a));
-
-  for (int l = 0; l < a.L; ++l) {
-    const T* attn_norm = static_cast<const T*>(a.attn_norm) + (size_t)l * D;
-    const T* ffn_norm = static_cast<const T*>(a.ffn_norm) + (size_t)l * D;
-
-    // 1. residual of the previous layer's w2 (or x0), attention norm
-    for (int m = blockIdx.x; m < M; m += gridDim.x) {
-      if (l == 0) {
-        residual_norm_row<T>(static_cast<const T*>(a.x0) + (size_t)m * D, nullptr, 0, 0,
-                             s.x + (size_t)m * D, s.h + (size_t)m * D, attn_norm, D, a.eps, red);
-      } else {
-        residual_norm_row<T>(s.x2 + (size_t)m * D, a.work + (size_t)m * D, (size_t)M * D, a.KS,
-                             s.x + (size_t)m * D, s.h + (size_t)m * D, attn_norm, D, a.eps,
-                             red);
-      }
+  const int l = g_block.l;
+  const int M = a.R * a.C, D = a.D;
+  const T* gamma = static_cast<const T*>(mlp ? a.ffn_norm : a.attn_norm) + (size_t)l * D;
+  for (int m = blockIdx.x * kWarps + threadIdx.x / 32; m < M; m += gridDim.x * kWarps) {
+    const size_t o = (size_t)m * D;
+    if (mlp) {
+      residual_norm_row<T>(s.x + o, a.work + o, (size_t)M * D, a.KS, s.x2 + o, s.h2 + o, gamma, D,
+                           a.eps);
+    } else if (l == 0) {
+      residual_norm_row<T>(static_cast<const T*>(a.x0) + o, nullptr, 0, 0, s.x + o, s.h + o,
+                           gamma, D, a.eps);
+    } else {
+      residual_norm_row<T>(s.x2 + o, a.work + o, (size_t)M * D, a.KS, s.x + o, s.h + o, gamma, D,
+                           a.eps);
     }
-    grid.sync();
-
-    // 2. Q, K, V
-    {
-      GemmStage st{};
-      st.A = s.h;
-      st.M = M;
-      st.K = D;
-      st.KS = a.KS;
-      st.n = 3;
-      const void* w[3] = {a.wq, a.wk, a.wv};
-      const int n[3] = {Q, KVd, KVd};
-      for (int r = 0; r < 3; ++r) {
-        st.W[r] = static_cast<const T*>(w[r]) + (size_t)l * D * n[r];
-        st.N[r] = n[r];
-        st.width[r] = n[r] / a.tiles;
-        st.sk[r] = n[r];
-        st.sn[r] = 1;
-      }
-      st.out = a.work;
-      st.ldo = Q + 2 * KVd;
-      gemm_stage<T>(st, mf, smem);
-    }
-    grid.sync();
-
-    // 3. Q/K/V lines, RoPE + commit, attention, per (slot, KV head)
-    {
-      const size_t sl = (size_t)M * (Q + 2 * KVd);
-      const int ld = Q + 2 * KVd;
-      PagedArgs pa{s.qrot,
-                   static_cast<P*>(a.k_pool) + l * pool_layer,
-                   static_cast<P*>(a.v_pool) + l * pool_layer,
-                   KIND == kPoolFloat ? nullptr : a.k_scale + l * scale_layer,
-                   KIND == kPoolFloat ? nullptr : a.v_scale + l * scale_layer,
-                   a.table, a.mask, s.attn, a.R, a.C, a.H, a.KV, a.ps, a.NP, a.scale};
-      CommitArgs f;
-      f.a = pa;
-      f.q_raw = s.qraw;
-      f.k_new = s.knew;
-      f.v_new = s.vnew;
-      f.cos = a.cos;
-      f.sin = a.sin;
-      f.k_pool = static_cast<P*>(a.k_pool) + l * pool_layer;
-      f.v_pool = static_cast<P*>(a.v_pool) + l * pool_layer;
-      f.k_scale = KIND == kPoolFloat ? nullptr : a.k_scale + l * scale_layer;
-      f.v_scale = KIND == kPoolFloat ? nullptr : a.v_scale + l * scale_layer;
-      f.q_rot = s.qrot;
-      f.k_rot = s.krot;
-      f.logical = nullptr;
-      f.phys = a.phys;
-      f.off = a.off;
-      f.rot = DK;
-      f.qmax = a.qmax;
-      for (int u = blockIdx.x; u < a.R * a.KV; u += gridDim.x) {
-        const int r = u / a.KV, kh = u % a.KV;
-        for (int idx = threadIdx.x; idx < a.C * (G + 2) * DK; idx += kThreads) {
-          const int d = idx % DK, j = idx / DK, c = j / (G + 2), e = j % (G + 2);
-          const size_t m = (size_t)r * a.C + c;
-          if (e < G) {
-            const int col = (kh * G + e) * DK + d;
-            s.qraw[m * Q + col] = from_f32<T>(partial_sum(a.work, sl, a.KS, m * ld + col));
-          } else {
-            const int col = kh * DK + d;
-            const int base = e == G ? Q : Q + KVd;
-            T* dst = e == G ? s.knew : s.vnew;
-            dst[m * KVd + col] = from_f32<T>(partial_sum(a.work, sl, a.KS, m * ld + base + col));
-          }
-        }
-        __syncthreads();
-        rope_and_commit<T, KIND, DK, kThreads>(f, r, kh);
-        const int rows = a.C * G;
-        if (rows == 1) {
-          attend_decode<T, KIND, DK, 1>(pa, r, kh, 0);
-        } else {
-          for (int row0 = 0; row0 < rows; row0 += kAttnRows)
-            attend_tile<T, KIND, DK, kThreads>(pa, r, kh, row0, reinterpret_cast<float*>(smem));
-        }
-      }
-    }
-    grid.sync();
-
-    // 4. out-projection
-    {
-      GemmStage st{};
-      st.A = s.attn;
-      st.M = M;
-      st.K = Q;
-      st.KS = a.KS;
-      st.n = 1;
-      st.W[0] = static_cast<const T*>(a.wo) + (size_t)l * Q * D;
-      st.N[0] = D;
-      st.width[0] = D / a.tiles;
-      st.sk[0] = D;
-      st.sn[0] = 1;
-      st.out = a.work;
-      st.ldo = D;
-      gemm_stage<T>(st, mf, smem);
-    }
-    grid.sync();
-
-    // 5. attention residual, MLP norm
-    for (int m = blockIdx.x; m < M; m += gridDim.x) {
-      residual_norm_row<T>(s.x + (size_t)m * D, a.work + (size_t)m * D, (size_t)M * D, a.KS,
-                           s.x2 + (size_t)m * D, s.h2 + (size_t)m * D, ffn_norm, D, a.eps, red);
-    }
-    grid.sync();
-
-    // 6. gate (w1) and up (w3)
-    {
-      GemmStage st{};
-      st.A = s.h2;
-      st.M = M;
-      st.K = D;
-      st.KS = a.KS;
-      st.n = 2;
-      st.W[0] = static_cast<const T*>(a.w1) + (size_t)l * D * F;
-      st.W[1] = static_cast<const T*>(a.w3) + (size_t)l * D * F;
-      for (int r = 0; r < 2; ++r) {
-        st.N[r] = F;
-        st.width[r] = F / a.tiles;
-        st.sk[r] = F;
-        st.sn[r] = 1;
-      }
-      st.out = a.work;
-      st.ldo = 2 * F;
-      gemm_stage<T>(st, mf, smem);
-    }
-    grid.sync();
-
-    // 7. act = silu(gate) * up, each rounded to the model dtype
-    {
-      const size_t sl = (size_t)M * 2 * F;
-      for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < (size_t)M * F;
-           i += (size_t)gridDim.x * kThreads) {
-        const size_t m = i / F, j = i % F;
-        const float gt = round_to<T>(partial_sum(a.work, sl, a.KS, m * 2 * F + j));
-        const float up = round_to<T>(partial_sum(a.work, sl, a.KS, m * 2 * F + F + j));
-        const float silu = round_to<T>(__fdiv_rn(gt, __fadd_rn(1.f, expf(-gt))));
-        s.act[i] = from_f32<T>(__fmul_rn(silu, up));
-      }
-    }
-    grid.sync();
-
-    // 8. down-projection (its residual is added by the next stage 1)
-    {
-      GemmStage st{};
-      st.A = s.act;
-      st.M = M;
-      st.K = F;
-      st.KS = a.KS;
-      st.n = 1;
-      st.W[0] = static_cast<const T*>(a.w2) + (size_t)l * F * D;
-      st.N[0] = D;
-      st.width[0] = D / a.tiles;
-      st.sk[0] = D;
-      st.sn[0] = 1;
-      st.out = a.work;
-      st.ldo = D;
-      gemm_stage<T>(st, mf, smem);
-    }
-    grid.sync();
   }
+  end_stage();
+}
 
-  // the last residual and the final norm, at each slot's logits_idx row
-  for (int r = blockIdx.x; r < a.R; r += gridDim.x) {
+enum Proj : int { kProjQkv, kProjOut, kProjW1W3, kProjW2 };
+
+// 2. Q, K, V; 4. the out-projection; 6. gate (w1) and up (w3); 8. the
+// down-projection (its residual is added by the next stage 1)
+template <typename T>
+__device__ __noinline__ void proj_stage(int which) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WholeArgs& a = *g_block.args;
+  const Scratch<T> s(a);
+  const int l = g_block.l;
+  const int M = a.R * a.C, D = a.D, Q = a.H * a.dk, KVd = a.KV * a.dk, F = a.F;
+  GemmStage st{};
+  st.M = M;
+  st.KS = a.KS;
+  st.out = a.work;
+  st.layer = l;
+  st.phys = a.phys;
+  st.scratch = a.P1 - 1;
+  const void* w[3] = {};
+  int n[3] = {}, K = 0;
+  if (which == kProjQkv) {
+    st.A = s.h;
+    st.amap = &a.maps[kMapH];
+    st.n = 3;
+    K = D;
+    w[0] = a.wq, w[1] = a.wk, w[2] = a.wv;
+    n[0] = Q, n[1] = KVd, n[2] = KVd;
+    st.wmap[0] = &a.maps[kMapWq], st.wmap[1] = &a.maps[kMapWk], st.wmap[2] = &a.maps[kMapWv];
+  } else if (which == kProjOut) {
+    st.A = s.attn;
+    st.amap = &a.maps[kMapAttn];
+    st.n = 1;
+    K = Q;
+    w[0] = a.wo;
+    n[0] = D;
+    st.wmap[0] = &a.maps[kMapWo];
+  } else if (which == kProjW1W3) {
+    st.A = s.h2;
+    st.amap = &a.maps[kMapH2];
+    st.n = 2;
+    K = D;
+    w[0] = a.w1, w[1] = a.w3;
+    n[0] = F, n[1] = F;
+    st.wmap[0] = &a.maps[kMapW1], st.wmap[1] = &a.maps[kMapW3];
+  } else {
+    st.A = s.act;
+    st.amap = &a.maps[kMapAct];
+    st.n = 1;
+    K = F;
+    w[0] = a.w2;
+    n[0] = D;
+    st.wmap[0] = &a.maps[kMapW2];
+  }
+  st.K = K;
+  st.ldo = 0;
+  for (int r = 0; r < st.n; ++r) {
+    st.W[r] = static_cast<const T*>(w[r]) + (size_t)l * K * n[r];
+    st.N[r] = n[r];
+    st.width[r] = n[r] / a.tiles;
+    st.sk[r] = n[r];
+    st.sn[r] = 1;
+    st.ldo += n[r];
+  }
+  gemm_stage<T>(st, row_frags(M, head_width_cap(a)), smem, g_block.tc ? &g_block.ring : nullptr);
+  end_stage();
+}
+
+// 3. per (slot, KV head): the Q/K/V lines from the partial sums, RoPE and
+// the commit (commit_unit), then attention in the paged kernels' designs
+// (paged_design): a row at a time at decode (in commit_unit), 128-row
+// passes of the tensor-core tile above 8 rows
+template <typename T, int KIND, int DK>
+__device__ __noinline__ void commit_unit() {
+  BlockState& b = g_block;
+  const WholeArgs& a = *b.args;
+  const CommitArgs& f = b.commit;
+  const Scratch<T> s(a);
+  const int M = a.R * a.C, Q = a.H * DK, KVd = a.KV * DK, G = a.H / a.KV;
+  const size_t sl = (size_t)M * (Q + 2 * KVd);
+  const int ld = Q + 2 * KVd;
+  const int r = b.u / a.KV, kh = b.u % a.KV;
+  // a unit whose lines all go to the scratch page is an idle slot's: its
+  // attention outputs are never read, so they are zeros, and its lines
+  // are not committed
+  bool live = false;
+  for (int c = threadIdx.x; c < a.C; c += kThreads)
+    live = live || a.phys[(size_t)r * a.C + c] != a.P1 - 1;
+  live = __syncthreads_or(live);
+  if (threadIdx.x == 0) b.idle = !live;
+  if (!live) {
+    const float zero[8] = {};
+    for (int idx = threadIdx.x; idx < a.C * G * (DK / 8); idx += kThreads) {
+      const int d = idx % (DK / 8) * 8, j = idx / (DK / 8);
+      store8<T>(s.attn + ((size_t)r * a.C + j / G) * Q + (kh * G + j % G) * DK + d, zero);
+    }
+    __syncthreads();
+    return;
+  }
+  // 8 dims a thread at a time: line e of column c is query head kh G + e
+  // (e < G), or the new K (e == G) or V line
+  for (int idx = threadIdx.x; idx < a.C * (G + 2) * (DK / 8); idx += kThreads) {
+    const int d = idx % (DK / 8) * 8, j = idx / (DK / 8), cc = j / (G + 2), e = j - cc * (G + 2);
+    const size_t m = (size_t)r * a.C + cc;
+    const int col = e < G ? (kh * G + e) * DK + d : (e == G ? Q : Q + KVd) + kh * DK + d;
+    float x[8], y[8];
+    load8_l2(a.work + m * ld + col, x);
+    for (int k = 1; k < a.KS; ++k) {  // the KS slices in slice order, as partial_sum
+      load8_l2(a.work + k * sl + m * ld + col, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = __fadd_rn(x[i], y[i]);
+    }
+    T* dst = e < G ? s.qraw + m * Q + (kh * G + e) * DK + d
+                   : (e == G ? s.knew : s.vnew) + m * KVd + kh * DK + d;
+    store8<T>(dst, x);
+  }
+  __syncthreads();
+  rope_and_commit<T, KIND, DK, kThreads>(f, r, kh);
+  if (!b.tile) {
+    for (int i = 0; i < b.rows; ++i) attend_decode<T, KIND, DK, 1>(f.a, r, kh, i);
+  }
+}
+
+template <typename T, int KIND, int DK>
+__device__ __noinline__ void attention_stage() {
+  using P = typename PoolT<T, KIND>::T;
+  BlockState& b = g_block;
+  if (threadIdx.x == 0) {
+    const WholeArgs& a = *b.args;
+    const Scratch<T> s(a);
+    const size_t pool_layer = (size_t)a.P1 * a.ps * a.KV * (DK / pack_of<KIND>());
+    const size_t scale_layer = (size_t)a.P1 * a.KV;
+    P* k_pool = static_cast<P*>(a.k_pool) + b.l * pool_layer;
+    P* v_pool = static_cast<P*>(a.v_pool) + b.l * pool_layer;
+    float* k_scale = KIND == kPoolFloat ? nullptr : a.k_scale + b.l * scale_layer;
+    float* v_scale = KIND == kPoolFloat ? nullptr : a.v_scale + b.l * scale_layer;
+    CommitArgs& f = b.commit;
+    f.a = PagedArgs{s.qrot, k_pool,  v_pool, k_scale, v_scale, a.table, a.mask,
+                    s.attn, a.R,     a.C,    a.H,     a.KV,    a.ps,    a.NP, a.scale};
+    f.q_raw = s.qraw;
+    f.k_new = s.knew;
+    f.v_new = s.vnew;
+    f.cos = a.cos;
+    f.sin = a.sin;
+    f.k_pool = k_pool;
+    f.v_pool = v_pool;
+    f.k_scale = k_scale;
+    f.v_scale = v_scale;
+    f.q_rot = s.qrot;
+    f.k_rot = s.krot;
+    f.logical = nullptr;
+    f.phys = a.phys;
+    f.off = a.off;
+    f.rot = DK;
+    f.qmax = a.qmax;
+    b.units = a.R * a.KV;
+    b.rows = a.C * (a.H / a.KV);
+    b.tile = paged_design(b.rows, dtype_of(sizeof(T))) != kDesignDecode;
+    b.u = blockIdx.x;
+  }
+  __syncthreads();
+  while (b.u < b.units) {
+    commit_unit<T, KIND, DK>();
+    if (b.tile && !b.idle) {
+      if (threadIdx.x == 0) b.row0 = 0;
+      __syncthreads();
+      while (b.row0 < b.rows) {
+        attend_rows_mma<T, KIND, DK>();  // ends with a barrier
+        if (threadIdx.x == 0) b.row0 += kMmaTileRows;
+        __syncthreads();
+      }
+    }
+    __syncthreads();  // every thread has read b.u
+    if (threadIdx.x == 0) b.u += gridDim.x;
+    __syncthreads();
+  }
+  end_stage();
+}
+
+// 7. act = silu(gate) * up, each rounded to the model dtype
+template <typename T>
+__device__ __noinline__ void act_stage() {
+  const WholeArgs& a = *g_block.args;
+  const Scratch<T> s(a);
+  const int M = a.R * a.C, F8 = a.F / 8;
+  const size_t sl = (size_t)M * 2 * a.F;
+  // 8 columns a thread at a time (F a multiple of 8)
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < M * F8; i += gridDim.x * kThreads) {
+    const int m = i / F8, j = i % F8 * 8;
+    const float* part = a.work + (size_t)m * 2 * a.F + j;
+    float gt[8], up[8], x[8];
+    load8_l2(part, gt);
+    load8_l2(part + a.F, up);
+    for (int k = 1; k < a.KS; ++k) {  // the KS slices in slice order, as partial_sum
+      load8_l2(part + k * sl, x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) gt[e] = __fadd_rn(gt[e], x[e]);
+      load8_l2(part + k * sl + a.F, x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[e] = __fadd_rn(up[e], x[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float g = round_to<T>(gt[e]);
+      const float silu = round_to<T>(__fdiv_rn(g, __fadd_rn(1.f, expf(-g))));
+      x[e] = __fmul_rn(silu, round_to<T>(up[e]));
+    }
+    store8<T>(s.act + (size_t)m * a.F + j, x);
+  }
+  end_stage();
+}
+
+// the last residual and the final norm, at each slot's logits_idx row
+template <typename T>
+__device__ __noinline__ void final_norm_stage() {
+  const WholeArgs& a = *g_block.args;
+  const Scratch<T> s(a);
+  const int M = a.R * a.C, D = a.D;
+  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < a.R; r += gridDim.x * kWarps) {
     const size_t m = (size_t)r * a.C + a.logits_idx[r];
     residual_norm_row<T>(s.x2 + m * D, a.work + m * D, (size_t)M * D, a.KS, s.x + m * D,
-                         s.hf + (size_t)r * D, static_cast<const T*>(a.final_norm), D, a.eps,
-                         red);
+                         s.hf + (size_t)r * D, static_cast<const T*>(a.final_norm), D, a.eps);
   }
-  grid.sync();
+  end_stage();
+}
 
-  // LM head: f32 logits (R, V)
-  {
-    GemmStage st{};
-    st.A = s.hf;
-    st.M = a.R;
-    st.K = D;
-    st.KS = 1;
-    st.n = 1;
-    st.W[0] = a.head;
-    st.N[0] = a.V;
-    st.width[0] = head_width(a);
-    st.sk[0] = a.tied ? 1 : a.V;
-    st.sn[0] = a.tied ? D : 1;
-    st.out = a.logits;
-    st.ldo = a.V;
-    gemm_stage<T>(st, row_frags(a.R, head_width(a)), smem);
-  }
-  grid.sync();
+// the LM head: f32 logits (R, V)
+template <typename T>
+__device__ __noinline__ void head_stage() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WholeArgs& a = *g_block.args;
+  GemmStage st{};
+  st.A = Scratch<T>(a).hf;
+  st.M = a.R;
+  st.K = a.D;
+  st.KS = 1;
+  st.n = 1;
+  st.W[0] = a.head;
+  st.N[0] = a.V;
+  st.width[0] = head_width(a);
+  st.sk[0] = a.tied ? 1 : a.V;
+  st.sn[0] = a.tied ? a.D : 1;
+  st.out = a.logits;
+  st.ldo = a.V;
+  gemm_stage<T>(st, row_frags(a.R, head_width(a)), smem, nullptr);
+  end_stage();
+}
 
-  // greedy head: the first maximal index of each row
+// the greedy head: the first maximal index of each row
+__device__ __noinline__ void argmax_stage() {
+  const WholeArgs& a = *g_block.args;
   __shared__ float best_v[kWarps];
   __shared__ int best_i[kWarps];
   for (int r = blockIdx.x; r < a.R; r += gridDim.x) {
@@ -687,6 +1031,48 @@ __global__ void __launch_bounds__(kThreads, 1) whole_step_kernel(WholeArgs a) {
     }
     __syncthreads();
   }
+  if (threadIdx.x == 0) stamp(a, g_block.si);
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+
+template <typename TQ, int KIND, int DK>
+__global__ void __launch_bounds__(kThreads, 1)
+whole_step_kernel(const __grid_constant__ WholeArgs a) {
+  using T = TQ;
+  BlockState& b = g_block;
+  if (threadIdx.x == 0) {
+    b.args = &a;
+    b.si = 0;
+    stamp(a, b.si);
+    b.l = 0;
+    b.tc = tc_path(a, sizeof(T));
+    b.ring = TcRing{g_tc_full, g_tc_empty, 0};
+    if (b.tc) {
+      for (int i = 0; i < kTcStages; ++i) {
+        hopper::mbar_init(&g_tc_full[i], 1);
+        hopper::mbar_init(&g_tc_empty[i], kWarps);  // a lane of every warp
+      }
+      hopper::fence_mbar_init();
+    }
+  }
+  __syncthreads();
+  while (b.l < a.L) {
+    norm_stage<T>(false);
+    proj_stage<T>(kProjQkv);
+    attention_stage<T, KIND, DK>();
+    proj_stage<T>(kProjOut);
+    norm_stage<T>(true);
+    proj_stage<T>(kProjW1W3);
+    act_stage<T>();
+    proj_stage<T>(kProjW2);
+    if (threadIdx.x == 0) ++b.l;  // every thread read b.l before the last grid barrier
+    __syncthreads();
+  }
+  final_norm_stage<T>();
+  head_stage<T>();
+  argmax_stage();
 }
 
 template <typename TQ>
@@ -699,22 +1085,52 @@ size_t gemm_smem(int rows, int w) {
 
 // Dynamic shared memory of a launch: the projections' double-buffered
 // chunks at the widest column tile (or an LM-head item), or the
-// attention's tile design when a KV head has more than one query row.
-template <typename TQ, int DK>
+// tensor-core attention tile when a KV head has more than 8 query rows.
+template <typename TQ, int KIND, int DK>
 size_t dynamic_smem(const WholeArgs& a) {
   const size_t gemm = std::max(gemm_smem<TQ>(a.R * a.C, head_width_cap(a)),
                                gemm_smem<TQ>(a.R, head_width(a)));
-  const size_t attn = a.C * (a.H / a.KV) > 1 ? TileSmem<DK, kAttnRows>::kBytes : 0;
-  return std::max(gemm, attn);
+  const bool tile = paged_design(a.C * (a.H / a.KV), dtype_of(sizeof(TQ))) != kDesignDecode;
+  return std::max(std::max(gemm, tc_path(a, sizeof(TQ)) ? kTcSmem : size_t(0)),
+                  tile ? MmaSmem<TQ, KIND, DK>::kBytes : size_t(0));
+}
+
+// The tensor maps of the wgmma projections: the activations (M, K) in
+// boxes of 64 K columns x 128 rows, the stacked weights (L, K, N) in boxes
+// of 64 columns x 64 K rows x 1 layer
+inline cudaError_t make_maps(WholeArgs& a) {
+  const Scratch<__nv_bfloat16> s(a);
+  const cuuint64_t M = (cuuint64_t)a.R * a.C, D = a.D, Q = (cuuint64_t)a.H * a.dk,
+                   KVd = (cuuint64_t)a.KV * a.dk, F = a.F, L = a.L;
+  const struct { int map; const void* base; cuuint64_t K; } acts[] = {
+      {kMapH, s.h, D}, {kMapAttn, s.attn, Q}, {kMapH2, s.h2, D}, {kMapAct, s.act, F}};
+  for (const auto& x : acts) {
+    const cuuint64_t dims[2] = {x.K, M}, strides[1] = {x.K * 2};
+    const cuuint32_t box[2] = {kTcBK, kTcRows};
+    const cudaError_t err = hopper::make_map_bf16(&a.maps[x.map], x.base, 2, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  const struct { int map; const void* base; cuuint64_t K, N; } weights[] = {
+      {kMapWq, a.wq, D, Q},  {kMapWk, a.wk, D, KVd}, {kMapWv, a.wv, D, KVd},
+      {kMapWo, a.wo, Q, D},  {kMapW1, a.w1, D, F},   {kMapW3, a.w3, D, F},
+      {kMapW2, a.w2, F, D}};
+  for (const auto& w : weights) {
+    const cuuint64_t dims[3] = {w.N, w.K, L}, strides[2] = {w.N * 2, w.K * w.N * 2};
+    const cuuint32_t box[3] = {64, kTcBK, 1};
+    const cudaError_t err = hopper::make_map_bf16(&a.maps[w.map], w.base, 3, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename TQ, int KIND, int DK>
 cudaError_t launch(WholeArgs a, cudaStream_t stream) {
   auto kernel = whole_step_kernel<TQ, KIND, DK>;
-  const size_t smem = dynamic_smem<TQ, DK>(a);
+  const size_t smem = dynamic_smem<TQ, KIND, DK>(a);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
+  if (tc_path(a, sizeof(TQ)) && (err = make_maps(a)) != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -731,18 +1147,46 @@ cudaError_t launch(WholeArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, int KIND>
-cudaError_t launch_kind(const WholeArgs& a, cudaStream_t stream) {
-  if (a.dk == 64) return launch<TQ, KIND, 64>(a, stream);
-  if (a.dk == 128) return launch<TQ, KIND, 128>(a, stream);
+template <typename TQ, int KIND, int DK>
+struct Launch {
+  static cudaError_t run(const WholeArgs& a, cudaStream_t stream) {
+    return launch<TQ, KIND, DK>(a, stream);
+  }
+};
+
+// The tensor-core tile's dynamic bytes and the kernel's static shared
+// bytes (from the runtime) of one instantiation
+template <typename TQ, int KIND, int DK>
+struct SmemReport {
+  static cudaError_t run(int* mma_bytes, int* static_bytes) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, whole_step_kernel<TQ, KIND, DK>);
+    *mma_bytes = (int)MmaSmem<TQ, KIND, DK>::kBytes;
+    *static_bytes = (int)attr.sharedSizeBytes;
+    return err;
+  }
+};
+
+// F<TQ, KIND, DK>::run(args...) at the runtime dtype, pool kind and head dim
+template <template <typename, int, int> class F, typename TQ, int KIND, typename... A>
+cudaError_t by_dk(int dk, A... args) {
+  if (dk == 64) return F<TQ, KIND, 64>::run(args...);
+  if (dk == 128) return F<TQ, KIND, 128>::run(args...);
   return cudaErrorInvalidValue;
 }
 
-template <typename TQ>
-cudaError_t launch_q(const WholeArgs& a, int pool_kind, cudaStream_t stream) {
-  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(a, stream);
-  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(a, stream);
-  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(a, stream);
+template <template <typename, int, int> class F, typename TQ, typename... A>
+cudaError_t by_kind(int pool_kind, int dk, A... args) {
+  if (pool_kind == kPoolFloat) return by_dk<F, TQ, kPoolFloat>(dk, args...);
+  if (pool_kind == kPoolInt8) return by_dk<F, TQ, kPoolInt8>(dk, args...);
+  if (pool_kind == kPoolInt4) return by_dk<F, TQ, kPoolInt4>(dk, args...);
+  return cudaErrorInvalidValue;
+}
+
+template <template <typename, int, int> class F, typename... A>
+cudaError_t dispatch(int dtype, int pool_kind, int dk, A... args) {
+  if (dtype == kBFloat16) return by_kind<F, __nv_bfloat16>(pool_kind, dk, args...);
+  if (dtype == kFloat32) return by_kind<F, float>(pool_kind, dk, args...);
   return cudaErrorInvalidValue;
 }
 
@@ -755,7 +1199,8 @@ extern "C" int whole_step_decode_launch(
     const void* final_norm, const void* head, const void* x0, const void* cos,
     const void* sin, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* table, const void* phys, const void* off, const void* mask,
-    const void* logits_idx, void* logits, void* tokens, void* scratch, void* work, int L,
+    const void* logits_idx, void* logits, void* tokens, void* scratch, void* work,
+    void* stamps, int L,
     int R, int C, int D, int H, int KV, int dk, int F, int V, int ps, int NP, int P1,
     int tiles, int KS, int tied, int dtype, int pool_kind, float eps, float scale,
     float qmax, void* stream) {
@@ -772,7 +1217,7 @@ extern "C" int whole_step_decode_launch(
   if ((wmax / 8 + kWarps - 1) / kWarps > kMaxFrags) return (int)cudaErrorInvalidValue;
   if (pool_kind != kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  WholeArgs a;
+  WholeArgs a{};
   a.attn_norm = attn_norm;
   a.wq = wq;
   a.wk = wk;
@@ -800,6 +1245,7 @@ extern "C" int whole_step_decode_launch(
   a.tokens = static_cast<int*>(tokens);
   a.scratch = scratch;
   a.work = static_cast<float*>(work);
+  a.stamps = static_cast<long long*>(stamps);
   a.L = L;
   a.R = R;
   a.C = C;
@@ -819,15 +1265,20 @@ extern "C" int whole_step_decode_launch(
   a.scale = scale;
   a.qmax = qmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    err = launch_q<__nv_bfloat16>(a, pool_kind, s);
-  } else if (dtype == kFloat32) {
-    err = launch_q<float>(a, pool_kind, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)dispatch<Launch>(dtype, pool_kind, dk, a, s);
+}
+
+// The attention design (PagedDesign) of the kernel's stage 3 for C query
+// tokens per slot, H query and KV key/value heads and q of DType dtype.
+extern "C" int whole_step_decode_design(int C, int H, int KV, int dtype) {
+  return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);
+}
+
+// The tensor-core attention tile's dynamic shared bytes (MmaSmem) and the
+// kernel's static shared bytes of the (dtype, pool_kind, dk) instantiation.
+extern "C" int whole_step_decode_smem(int dtype, int pool_kind, int dk, int* mma_bytes,
+                                      int* static_bytes) {
+  return (int)fft::dispatch<fft::SmemReport>(dtype, pool_kind, dk, mma_bytes, static_bytes);
 }
 
 extern "C" const char* error_string(int err) {

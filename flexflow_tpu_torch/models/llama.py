@@ -679,6 +679,7 @@ def serve_step_whole(
     kv_quant: Optional[str] = None,
     tiles: int = 1,
     kernels: str = "torch",
+    stamps: Optional[torch.Tensor] = None,
 ):
     """The whole paged serving step in one kernel: every layer (Q/K/V,
     RoPE and the K/V page commit, paged attention, out-projection, SwiGLU
@@ -688,7 +689,8 @@ def serve_step_whole(
     serve/kernels.whole_step_decode (the CUDA kernel on a GPU, its plain
     version on the CPU), ``"torch"`` straight to the plain version;
     ``tiles`` is the engine gate's output-column tile count, which the
-    kernel's answer does not depend on.
+    kernel's answer does not depend on; ``stamps`` asks the kernel for its
+    per-stage timer (serve/kernels.whole_step_stage_ms).
 
     Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)``, the
     cache updated in place. The plain version runs the ops of
@@ -722,7 +724,7 @@ def serve_step_whole(
     if kernels == "cuda":
         logits, toks, cache = _k.whole_step_decode(
             *args, block_fn=block_fn, head_fn=head_fn, tile_roles=whole_step_tile_roles(cfg),
-            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles)
+            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles, stamps=stamps)
     else:
         logits, toks, cache = _k.whole_step_decode_ref(*args, block_fn=block_fn,
                                                        head_fn=head_fn)

@@ -15,7 +15,8 @@ its source (``SOURCES``; its own name unless listed), which also exports
 ``const char* error_string(int)``. A pointer argument may be null (an
 absent optional tensor). The libraries of the kernels in ``DESIGNS``
 also export ``int <name>_design(int...)``, the block design their
-launcher takes for the given sizes (:func:`design`).
+launcher takes for the given sizes (:func:`design`); the whole-step
+library also reports its shared memory (:func:`whole_step_smem`).
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ SIGNATURES = {
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
-    "whole_step_decode": (27, 17, 3),
+    "whole_step_decode": (28, 17, 3),
     "paged_commit": (8, 9, 1),
     "adam_update": (5, 3, 6),
 }
@@ -61,7 +62,8 @@ PAGED_DESIGNS = ("decode", "mma", "tf32x3")
 DESIGNS = {
     "ragged_paged_attention": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
     "fused_rope_paged_attention": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
-    "verify_attention": (("rows8", "mma", "f32"), ("C", "H", "KV", "dtype")),
+    "verify_attention": (("rows8", "mma", "f32", "tf32x3"), ("C", "H", "KV", "dtype")),
+    "whole_step_decode": (PAGED_DESIGNS, ("C", "H", "KV", "dtype")),
     "flash_attention_fwd": (("f32", "wgmma"), ("dtype",)),
     "flash_attention_bwd_kv": (("f32", "wgmma"), ("dtype",)),
     "flash_attention_bwd_q": (("f32", "wgmma"), ("dtype",)),
@@ -144,6 +146,10 @@ def _lib(name: str) -> ctypes.CDLL:
             if source(kernel) == src:
                 getattr(lib, f"{kernel}_design").argtypes = [ctypes.c_int] * len(args)
                 getattr(lib, f"{kernel}_design").restype = ctypes.c_int
+        if src == "whole_step_decode":
+            lib.whole_step_decode_smem.argtypes = [ctypes.c_int] * 3 + [
+                ctypes.POINTER(ctypes.c_int)] * 2
+            lib.whole_step_decode_smem.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _LIBS[src] = lib
@@ -183,3 +189,19 @@ def design(name: str, *ints: int) -> str:
     if len(ints) != len(args):
         raise ValueError(f"{name}_design takes {', '.join(args)}")
     return names[getattr(_lib(name), f"{name}_design")(*ints)]
+
+
+def whole_step_smem(dtype: int, pool_kind: int, dk: int):
+    """The whole-step kernel's shared memory as its library reports it for
+    q of dtype code ``dtype``, pools of ``pool_kind`` (0 q's type, 1 int8,
+    2 int4) and head dim ``dk``: the tensor-core attention tile's dynamic
+    bytes (``MmaSmem``) and the kernel's static bytes (from
+    ``cudaFuncGetAttributes``; needs the GPU)."""
+    lib = _lib("whole_step_decode")
+    mma, static = ctypes.c_int(), ctypes.c_int()
+    err = lib.whole_step_decode_smem(dtype, pool_kind, dk, ctypes.byref(mma),
+                                     ctypes.byref(static))
+    if err != 0:
+        raise RuntimeError(f"whole_step_decode_smem failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+    return mma.value, static.value

@@ -14,7 +14,7 @@ Each kernel here has three parts side by side:
   and the whole-step kernel count per pool type,
   ``name[bf16|f32|int8|int4]`` (the commit kernel ``paged_commit[int8|int4]``), and the paged and verify kernels also
   per block design, as their launcher reports it, in ``DESIGN_LAUNCHES``
-  (``name[decode|mma|tf32x3]``, ``verify_attention[rows8|mma|f32]``).
+  (``name[decode|mma|tf32x3]``, ``verify_attention[rows8|mma|f32|tf32x3]``).
 * the **plain PyTorch version** (``*_ref``) with the kernel's semantics,
   used on the CPU and as the yardstick the kernel is held to on the GPU.
 * the **kernel**, CUDA C++ for ``sm_90a`` in ``flexflow_tpu_torch/csrc/``
@@ -63,14 +63,15 @@ LAUNCHES: Dict[str, int] = {
     **{f"paged_commit[{t}]": 0 for t in QUANT_POOL_TYPES},
 }
 
-#: launches of the paged and verify kernels by the block design their
-#: launcher took (``_cuda.DESIGNS``; paged: "decode" for C * G <= 8, else
-#: "mma" for bf16 q on the tensor cores, "tf32x3" for f32 q on the TF32
-#: tensor cores, each f32 product as three TF32 products; verify:
-#: "mma" for bf16 q at C * G > 8, "rows8" for bf16 q at C * G <= 8, "f32"),
-#: since the last reset
+#: launches of the paged, verify and whole-step kernels by the block design
+#: their launcher took (``_cuda.DESIGNS``; paged, and the whole step's
+#: attention stage: "decode" for C * G <= 8, else "mma" for bf16 q on the
+#: tensor cores, "tf32x3" for f32 q on the TF32 tensor cores, each f32
+#: product as three TF32 products; verify: "mma" and "tf32x3" at C * G >
+#: 8, "rows8" and "f32" on the CUDA cores below), since the last reset
 DESIGN_LAUNCHES: Dict[str, int] = {
-    f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention",) for d in DESIGNS[k][0]}
+    f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention", "whole_step_decode")
+    for d in DESIGNS[k][0]}
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
@@ -769,7 +770,6 @@ _WS_HEAD_COLS = 256      # most LM-head columns per work item
 #: static shared memory of the kernel (attention, commit and reductions;
 #: under 10 KB at head dim 128), priced on top of the dynamic part
 _WS_STATIC_SMEM = 12 * 1024
-_WS_ATTN_ROWS = 64       # query rows of the attention tile design
 
 
 def _ws_per_warp(width: int) -> int:
@@ -797,6 +797,20 @@ def _ws_k_slices(rows: int) -> int:
     return max(1, 8 // -(-rows // 16))
 
 
+#: the wgmma projections of bf16 steps of more than _WS_TC_MIN_ROWS rows
+#: (csrc tc_path): a ring of 4 stages, each 128 rows x 64 K of the
+#: activations and four 64 x 64 weight boxes, 1024 bytes of alignment
+_WS_TC_MIN_ROWS = 64
+_WS_TC_SMEM = 4 * (128 * 64 * 2 + 4 * 64 * 64 * 2) + 1024
+
+
+def _ws_tc(rows: int, isz: int, *dims: int) -> bool:
+    """Whether the kernel's layer projections run on wgmma (csrc
+    tc_path): bf16, more than _WS_TC_MIN_ROWS rows, every contraction
+    dim (D, H * dk, F) a multiple of 64."""
+    return isz == 2 and rows > _WS_TC_MIN_ROWS and all(d % 64 == 0 for d in dims)
+
+
 def _ws_item_bytes(rows: int, width: int, isz: int) -> int:
     """A projection work item's double-buffered weight (32 × width) and
     activation (rows × 32) chunks, padded as the kernel pads them, plus
@@ -805,11 +819,40 @@ def _ws_item_bytes(rows: int, width: int, isz: int) -> int:
     return 2 * (bm * (_WS_BK + pad) + _WS_BK * (width + pad)) * isz + 4 * bm * width
 
 
-def _ws_attn_smem(dk: int) -> int:
-    """Bytes of paged_attention.cuh's TileSmem<dk, 64>."""
-    floats = (64 * (dk + 4) + 64 * dk + _WS_ATTN_ROWS * (dk + 4)
-              + _WS_ATTN_ROWS * 68 + 2 * 64 + 3 * 4)
-    return 4 * floats + _WS_ATTN_ROWS * 64
+#: the tensor-core attention tile's budget for its dynamic shared bytes
+#: (csrc/paged_attention.cuh kMmaSmemBudget)
+MMA_SMEM_BUDGET = 232448 - 8192
+
+
+def mma_smem_bytes(f32: bool, kind: int, dk: int) -> int:
+    """Dynamic shared bytes of the tensor-core paged tile, as
+    ``MmaSmem<TQ, KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
+    them out (q bf16, or f32 with ``f32``; pool ``kind`` 0 q's type, 1
+    int8, 2 int4): K/V tiles of 64 lines in q's type with rows of dk + 8
+    (bf16) or dk + 4 (f32), three stages of them, or one that quantized
+    codes widen into beside three stages of raw codes; for f32 q the
+    block's 128 Q rows; then the mask bits, page ids, scales and flags of
+    32 tiles. Two stages where three would pass MMA_SMEM_BUDGET with 16
+    tiles, and 16 tiles where 32 would (bf16 q always fits; f32 pages at
+    dk 128 take both). The whole-step kernel's gate and ``chip_smoke.py``'s
+    build line read this one mirror."""
+    pair = 2 * 64 * (dk + 4) * 4 if f32 else 2 * 64 * (dk + 8) * 2
+    raw = 2 * 64 * (dk // kind) if kind else 0  # int8: a byte a value, int4: two
+    q = 128 * (dk + 4) * 4 if f32 else 0
+
+    def meta(n):  # bits [tile][128 rows], page ids and two scales, flags
+        return 8 * n * 128 + 12 * n * 4 + n * 4
+
+    def buffers(stages):
+        return pair + stages * raw if kind else stages * pair
+    stages = 3 if q + buffers(3) + meta(16) <= MMA_SMEM_BUDGET else 2
+    fixed = q + buffers(stages)
+    return fixed + meta(32 if fixed + meta(32) <= MMA_SMEM_BUDGET else 16)
+
+
+def _pool_kind(pool: torch.Tensor) -> int:
+    """The CUDA launchers' pool kind: 0 q's type, 1 int8, 2 int4."""
+    return {torch.int8: 1, torch.uint8: 2}.get(pool.dtype, 0)
 
 
 def _ws_widths(layer_arrays, tile_roles, tiles: int):
@@ -823,19 +866,26 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     of more than 16 rows) by one output-column tile of the widest tiled
     weight: the double-buffered weight chunk (32 × width) and activation
     chunk (rows × 32), padded as the kernel pads them, plus the f32
-    accumulators (rows × width, in registers); or, when larger, an LM-head
-    item (R rows × at most 256 columns) or the attention's tile design (a
-    KV head with more than one query row); plus the kernel's static shared
-    memory. ``x0`` (R, C, D) gives the step shape and the model dtype (a
-    "meta" tensor will do)."""
+    accumulators (rows × width, in registers); for a bf16 step of more
+    than 64 rows, whose projections run on wgmma in 128 × 256 items
+    whatever the tile count, the TMA ring's shared memory (_WS_TC_SMEM,
+    the accumulators in registers unpriced); or, when larger, an LM-head
+    item (R rows × at most 256 columns) or the tensor-core attention tile
+    (:func:`mma_smem_bytes`, a KV head with more than 8 query rows); plus
+    the kernel's static shared memory. ``x0`` (R, C, D) gives the step
+    shape and the model dtype (a "meta" tensor will do)."""
     R, C, D = x0.shape
     isz = x0.element_size()
     wmax = max(_ws_widths(layer_arrays, tile_roles, tiles))
-    item = max(_ws_item_bytes(R * C, wmax, isz),
-               _ws_item_bytes(R, min(_WS_HEAD_COLS, wmax), isz))
-    dk = int(layer_arrays[tile_roles["q"][0]].shape[-1]) // num_heads
+    Q = int(layer_arrays[tile_roles["q"][0]].shape[-1])
+    F = int(layer_arrays[tile_roles["gate"][0]].shape[-1])
+    layer = (_WS_TC_SMEM if _ws_tc(R * C, isz, D, Q, F)
+             else _ws_item_bytes(R * C, wmax, isz))
+    item = max(layer, _ws_item_bytes(R, min(_WS_HEAD_COLS, wmax), isz))
+    dk = Q // num_heads
     kv = int(cache["k"].shape[3])
-    attn = _ws_attn_smem(dk) if C * (num_heads // kv) > 1 else 0
+    rows = C * (num_heads // kv)
+    attn = mma_smem_bytes(isz == 4, _pool_kind(cache["k"]), dk) if rows > 8 else 0
     return _WS_STATIC_SMEM + max(item, attn)
 
 
@@ -904,9 +954,41 @@ _WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo"
              "gate": ("w1", None), "up": ("w3", None), "down": ("w2", None)}
 
 
+#: the stages of one layer of the whole-step kernel, each ended by a grid
+#: barrier, then the step's tail (csrc/whole_step_decode.cu stamp())
+WHOLE_STEP_STAGES = ("norm", "qkv", "attention", "out_proj", "norm2", "w1w3", "act", "w2")
+WHOLE_STEP_TAIL = ("final_norm", "head", "argmax")
+
+
+def whole_step_stamp_count(num_layers: int) -> int:
+    """Entries of the ``stamps`` buffer of :func:`whole_step_decode`: the
+    kernel's entry, the end of every stage of every layer, and the tail."""
+    return 1 + len(WHOLE_STEP_STAGES) * num_layers + len(WHOLE_STEP_TAIL)
+
+
+def whole_step_stage_ms(stamps, num_layers: int) -> Dict[str, float]:
+    """Milliseconds by stage of one whole-step launch from its ``stamps``
+    (global-timer nanoseconds, :func:`whole_step_stamp_count` of them):
+    each layer stage summed over the layers ("attention" includes the
+    RoPE and the K/V commit), then the tail stages."""
+    t = [int(x) for x in stamps]
+    if len(t) != whole_step_stamp_count(num_layers):
+        raise ValueError(f"{len(t)} stamps for {num_layers} layers; want "
+                         f"{whole_step_stamp_count(num_layers)}")
+    if any(b < a for a, b in zip(t, t[1:])):
+        raise ValueError("the stamps do not rise")
+    n = len(WHOLE_STEP_STAGES)
+    out = {name: sum(t[1 + n * l + i] - t[n * l + i] for l in range(num_layers)) / 1e6
+           for i, name in enumerate(WHOLE_STEP_STAGES)}
+    base = n * num_layers
+    for i, name in enumerate(WHOLE_STEP_TAIL):
+        out[name] = (t[base + i + 1] - t[base + i]) / 1e6
+    return out
+
+
 def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys,
                       off, mask, logits_idx, *, block_fn, head_fn, tile_roles, eps: float,
-                      qmax=None, tiles: int = 1):
+                      qmax=None, tiles: int = 1, stamps: Optional[torch.Tensor] = None):
     """The whole serving step of every layer in one kernel. ``layer_arrays``
     are the stacked (L, …) layer weights, ``head_arrays`` the final norm
     and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied);
@@ -915,8 +997,11 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     updated in place; page_table (R, NP); phys/off (R, C) the page and
     in-page offset of each new line; mask (R, C, NP*ps) bool; logits_idx
     (R,) the row whose logits each slot returns. ``tiles`` must be one of
-    :func:`whole_step_tile_candidates` for ``tile_roles``. Returns
-    ``(logits (R, V) f32, greedy tokens (R,) int32, cache)``.
+    :func:`whole_step_tile_candidates` for ``tile_roles``. ``stamps``, an
+    int64 tensor of :func:`whole_step_stamp_count` entries on x0's device,
+    asks the kernel for its per-stage timer (:func:`whole_step_stage_ms`);
+    only the kernel writes it, the plain version leaves it as it is.
+    Returns ``(logits (R, V) f32, greedy tokens (R,) int32, cache)``.
 
     On CPU tensors it runs the plain version, the walk through
     ``block_fn``/``head_fn`` (:func:`whole_step_decode_ref`): the tile
@@ -926,7 +1011,9 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     ``_WS_LAYER_NAMES``, RMS norms at ``eps``, rotate-half RoPE, SwiGLU,
     pools quantized at ``qmax``), or raises on a layout, shape, dtype,
     head dim or tile count it does not take. Each launch adds one to
-    ``LAUNCHES["whole_step_decode[<pool>]"]``."""
+    ``LAUNCHES["whole_step_decode[<pool>]"]`` and to
+    ``DESIGN_LAUNCHES["whole_step_decode[<design>]"]``, the design of its
+    attention stage."""
     candidates = whole_step_tile_candidates(layer_arrays, tile_roles)
     if tiles not in candidates:
         raise ValueError(f"whole_step tiles={tiles} is not a legal tile count "
@@ -937,11 +1024,12 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
                                      block_fn=block_fn, head_fn=head_fn)
     return _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache,
                                    page_table, phys, off, mask, logits_idx, tiles,
-                                   tile_roles, eps, qmax)
+                                   tile_roles, eps, qmax, stamps)
 
 
 def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
-                            phys, off, mask, logits_idx, tiles, tile_roles, eps, qmax):
+                            phys, off, mask, logits_idx, tiles, tile_roles, eps, qmax,
+                            stamps=None):
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     if tile_roles != _WS_ROLES:
@@ -1036,6 +1124,11 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
             raise ValueError("every operand of the whole-step kernel must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("every operand of the whole-step kernel must be 16-byte aligned")
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x0.device
+                               or tuple(stamps.shape) != (whole_step_stamp_count(L),)
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be contiguous int64 ({whole_step_stamp_count(L)},) "
+                         "on x0's device")
     from . import _cuda
 
     M = R * C
@@ -1050,10 +1143,12 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
         "whole_step_decode",
         tensors[:11] + [x0, cos, sin, k_pool, v_pool, cache.get("k_scale"),
                         cache.get("v_scale"), page_table, phys, off, mask, logits_idx,
-                        logits, tokens, scratch, work],
+                        logits, tokens, scratch, work, stamps],
         [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
          kind],
         [eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
     )
     LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1
+    design = _cuda.design("whole_step_decode", C, H, KV, _dtype_code(dt))
+    DESIGN_LAUNCHES[f"whole_step_decode[{design}]"] += 1
     return logits, tokens, cache

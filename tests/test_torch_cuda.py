@@ -8,6 +8,7 @@ machine with a GPU and no JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import dataclasses
 import math
 
 import pytest
@@ -124,12 +125,12 @@ def test_cuda_verify_attention_designs_match_plain_version(cuda_device, dtype, C
     widths up to 64, 256-wide chunks): the output within the kernel
     tolerance of the plain version, a fully masked row exactly 0, the bits
     entry bitwise the bool entry, one launch counted in the design the
-    launcher reports ("mma" for bf16 at C * G > 8, "rows8" for bf16 below,
-    "f32")."""
+    launcher reports ("mma" and "tf32x3" for bf16 and f32 at C * G > 8,
+    "rows8" and "f32" below)."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v, mask = _verify_case(gen, cuda_device, dtype, C, G, dk, S1)
     if dtype == torch.float32:
-        design = "f32"
+        design = "tf32x3" if C * G > 8 else "f32"
     else:
         design = "mma" if C * G > 8 else "rows8"
     before = dict(tk.DESIGN_LAUNCHES)
@@ -448,6 +449,29 @@ def test_cuda_paged_mma_tile_ignores_stale_shared_memory(cuda_device, poison_sme
     torch.testing.assert_close(fused[~reads_scratch], ref[~reads_scratch], **TOL[dtype])
 
 
+@pytest.mark.parametrize("S1", [100, 4352])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dk", [64, 128])
+def test_cuda_verify_tf32x3_ignores_stale_shared_memory(cuda_device, poison_smem, dk, G, S1):
+    """The f32 tensor-core verify tile ("tf32x3") reads no shared memory it
+    did not write, and keeps f32 accuracy over a long walk: after every
+    SM's shared memory is filled with NaN bits, the output is finite and
+    within the f32 tolerance (1e-5) of the plain version, MHA and GQA,
+    on a 100-line cache (a last tile past its end, a 128-row pass with rows
+    past the last) and on a 4352-line one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, mask = _verify_case(gen, cuda_device, torch.float32, 20, G, dk, S1)
+    ref = tk.verify_attention_ref(q, k, v, mask)
+    poison_smem()
+    before = dict(tk.DESIGN_LAUNCHES)
+    out = tk.verify_attention(q, k, v, mask)
+    assert tk.DESIGN_LAUNCHES["verify_attention[tf32x3]"] == (
+        before["verify_attention[tf32x3]"] + 1)
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    assert (out[1, 0] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # training flash attention
 
@@ -649,11 +673,33 @@ def test_cuda_whole_step_matches_plain_version(cuda_device, dtype, quant, C, KV,
     equal across the two counts; against the
     plain version, f32 logits to 1e-4 relative with equal tokens and pools
     to one code, bf16 logits and pools within bf16's rounding of each
-    other (relative L2 2e-2)."""
+    other (relative L2 2e-2). Each launch counts the attention design of
+    its C * G rows a KV head."""
+    _check_whole_step(cuda_device, dtype, quant, C, KV, ps)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_whole_step_mixed_c128_on_the_tensor_core_tile(cuda_device, poison_smem, dtype,
+                                                           quant):
+    """A C = 128 mixed step with GQA (256 rows a KV head: two 128-row
+    passes of the tensor-core tile, "mma" for bf16 and "tf32x3" for f32;
+    bf16 projections on wgmma) after NaN-filled shared memory, held as
+    above but for bf16, whose 128 new lines a slot carry the two paths'
+    roundings into more quantization codes: its logits and pool values
+    within twice the plain bf16 step's distance from the same step in f32
+    (chip_smoke.py's rule). Its per-stage timer's stamps rise, and the
+    stages sum to the stamped span."""
+    _check_whole_step(cuda_device, dtype, quant, 128, 2, 128, poison=poison_smem)
+
+
+def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None):
     from flexflow_tpu_torch.models import llama as tl
     from flexflow_tpu_torch.serve import kv_quant as kq
 
     cfg, params, cache, step, cache_len, P = _whole_case(cuda_device, dtype, quant, C, KV, ps)
+    G = cfg.num_attention_heads // KV
+    design = ("decode" if C * G <= 8 else "mma" if dtype == torch.bfloat16 else "tf32x3")
     la, _ = tl.whole_step_weight_layout(params, cfg)
     roles = tl.whole_step_tile_roles(cfg)
     x0 = torch.empty((3, C, cfg.hidden_size), dtype=dtype, device="meta")
@@ -664,12 +710,25 @@ def test_cuda_whole_step_matches_plain_version(cuda_device, dtype, quant, C, KV,
     for name, kernels, tiles in (("lo", "cuda", legal[0]), ("hi", "cuda", legal[-1]),
                                  ("plain", "torch", legal[0])):
         c = {k: v.clone() for k, v in cache.items()}
-        before = dict(tk.LAUNCHES)
+        before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
+        stamps = None
+        if kernels == "cuda" and poison is not None:
+            stamps = torch.zeros(tk.whole_step_stamp_count(cfg.num_hidden_layers),
+                                 dtype=torch.int64, device=cuda_device)
+            poison()
         logits, toks, _ = tl.serve_step_whole(params, c, *step, cfg=cfg, cache_len=cache_len,
-                                              kv_quant=quant, tiles=tiles, kernels=kernels)
+                                              kv_quant=quant, tiles=tiles, kernels=kernels,
+                                              stamps=stamps)
         torch.cuda.synchronize()
         key = f"whole_step_decode[{tk.pool_type(c['k'])}]"
         assert tk.LAUNCHES[key] == before[key] + (kernels == "cuda")
+        dkey = f"whole_step_decode[{design}]"
+        assert tk.DESIGN_LAUNCHES[dkey] == before[dkey] + (kernels == "cuda")
+        if stamps is not None:
+            t = stamps.tolist()
+            assert all(x > 0 for x in t) and t == sorted(t)
+            stages = tk.whole_step_stage_ms(t, cfg.num_hidden_layers)
+            assert sum(stages.values()) == pytest.approx((t[-1] - t[0]) / 1e6, rel=1e-9)
         runs[name] = (logits, toks, c)
     # slot 2 is idle: its logits read the scratch page, which every
     # padding line writes in no fixed order
@@ -690,7 +749,7 @@ def test_cuda_whole_step_matches_plain_version(cuda_device, dtype, quant, C, KV,
         for k in ("k", "v"):
             d = kq.unpack_codes(clo[k][:, :P], pack) - kq.unpack_codes(cpl[k][:, :P], pack)
             assert float(d.abs().max()) <= (1e-4 if quant is None else 1.0), k
-    else:
+    elif poison is None:
         assert rel(lo, pl) <= 2e-2
         for k in ("k", "v"):
             a, b = clo[k][:, :P], cpl[k][:, :P]
@@ -699,7 +758,31 @@ def test_cuda_whole_step_matches_plain_version(cuda_device, dtype, quant, C, KV,
                 a = kq.unpack_codes(a, pack) * clo[s][:, :P, None, :, None]
                 b = kq.unpack_codes(b, pack) * cpl[s][:, :P, None, :, None]
             assert rel(a, b) <= 2e-2, k
-    if quant is not None:
+    else:
+        # the plain step in f32: weights upcast, pools upcast (codes kept)
+        def f32(tree):
+            return ({k: f32(v) for k, v in tree.items()} if isinstance(tree, dict)
+                    else tree.to(torch.float32))
+
+        c32 = {k: (v.to(torch.float32) if quant is None or "scale" in k else v.clone())
+               for k, v in cache.items()}
+        exact = tl.serve_step_whole(f32(params), c32, *step,
+                                    cfg=dataclasses.replace(cfg, dtype=torch.float32),
+                                    cache_len=cache_len, kv_quant=quant, tiles=legal[0],
+                                    kernels="torch")[0][:2]
+        assert rel(lo, pl) <= 2 * rel(pl, exact)
+
+        def values(c, k):
+            v = kq.unpack_codes(c[k][:, :P], pack).to(torch.float32)
+            return v * c[f"{k}_scale"][:, :P, None, :, None] if quant is not None else v
+        for k in ("k", "v"):
+            assert rel(values(clo, k), values(cpl, k)) <= 2 * rel(values(cpl, k),
+                                                                  values(c32, k)), k
+        if quant is not None:
+            for k in ("k_scale", "v_scale"):
+                assert rel(clo[k][:, :P], cpl[k][:, :P]) <= 2 * rel(cpl[k][:, :P],
+                                                                    c32[k][:, :P]), k
+    if quant is not None and (dtype == torch.float32 or poison is None):
         for s in ("k_scale", "v_scale"):
             torch.testing.assert_close(clo[s][:, :P], cpl[s][:, :P],
                                        rtol=1e-4 if dtype == torch.float32 else 2e-2, atol=0)

@@ -203,27 +203,100 @@ def test_pick_tiles_smallest_that_fits_squeezed_and_floor(weights, C):
 
 def test_pricing_at_llama_7b_widths():
     """The gate's picks at LLaMA-7B widths, 16 slots, bf16: 16 column tiles
-    for the decode step (16-row tiles) and for the C = 128 mixed step
-    (32-row tiles); the kernel takes 8, 16 and 32 — 64 would cut F = 11008
-    into 172-wide tiles, not a whole number of 8-wide MMA columns, and 4
-    would need more accumulators than a warp holds."""
+    for the decode step (16-row tiles) and 8 for the C = 128 mixed step,
+    whose projections run on wgmma in 128 × 256 items at any tile count
+    (the TMA ring, 197,632 bytes, priced alone); the kernel takes 8, 16
+    and 32 — 64 would cut F = 11008 into 172-wide tiles, not a whole
+    number of 8-wide MMA columns, and 4 would need more accumulators than
+    a warp holds at decode. On every pool type (bf16, int8, int4) the C =
+    128 step prices the tensor-core attention tile (MmaSmem) too, and so
+    does an f32 model (projections on the CUDA cores) on f32, int8 and
+    int4 pools, which picks 32 tiles at both steps: its 219,968-byte tile
+    on f32 pages and the 12 KB static price leave 192 bytes of the
+    budget."""
     cfg = tl.LLaMAConfig.llama_7b()
     D, Fd, dk = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
-    meta = dict(dtype=torch.bfloat16, device="meta")
-    la = {"wq": torch.empty((1, D, D), **meta), "wk": torch.empty((1, D, D), **meta),
-          "wv": torch.empty((1, D, D), **meta), "wo": torch.empty((1, D, D), **meta),
-          "w1": torch.empty((1, D, Fd), **meta), "w2": torch.empty((1, Fd, D), **meta),
-          "w3": torch.empty((1, D, Fd), **meta)}
-    cache = {"k": torch.empty((1, 273, 128, 32, dk), **meta)}
     roles = tl.whole_step_tile_roles(cfg)
-    takes = [t for t in tk.whole_step_tile_candidates(la, roles)
-             if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
-    assert takes == [8, 16, 32]
-    for C in (1, 128):
-        x0 = torch.empty((16, C, D), **meta)
-        t, est = tk.whole_step_pick_tiles(la, cache, x0, 32, tile_roles=roles,
-                                          budget=tk.WHOLE_STEP_SMEM_BUDGET)
-        assert t == 16 and est <= tk.WHOLE_STEP_SMEM_BUDGET
+    for dtype, want in ((torch.bfloat16, {1: 16, 128: 8}), (torch.float32, {1: 32, 128: 32})):
+        meta = dict(dtype=dtype, device="meta")
+        la = {"wq": torch.empty((1, D, D), **meta), "wk": torch.empty((1, D, D), **meta),
+              "wv": torch.empty((1, D, D), **meta), "wo": torch.empty((1, D, D), **meta),
+              "w1": torch.empty((1, D, Fd), **meta), "w2": torch.empty((1, Fd, D), **meta),
+              "w3": torch.empty((1, D, Fd), **meta)}
+        takes = [t for t in tk.whole_step_tile_candidates(la, roles)
+                 if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
+        assert takes == [8, 16, 32]
+        f32 = dtype == torch.float32
+        for kind, pool_dtype, width in ((0, dtype, dk), (1, torch.int8, dk),
+                                        (2, torch.uint8, dk // 2)):
+            cache = {"k": torch.empty((1, 273, 128, 32, width), dtype=pool_dtype,
+                                      device="meta")}
+            for C in (1, 128):
+                x0 = torch.empty((16, C, D), **meta)
+                t, est = tk.whole_step_pick_tiles(la, cache, x0, 32, tile_roles=roles,
+                                                  budget=tk.WHOLE_STEP_SMEM_BUDGET)
+                assert t == want[C] and est <= tk.WHOLE_STEP_SMEM_BUDGET
+                tile = tk.mma_smem_bytes(f32, kind, dk)
+                if C == 128:  # the tile, with the static price on top, is priced
+                    assert est >= tile + tk._WS_STATIC_SMEM
+                    if not f32:  # the wgmma ring, the most of the three
+                        assert est == tk._WS_TC_SMEM + tk._WS_STATIC_SMEM == 209920
+                    for smaller in takes[:takes.index(t)]:
+                        assert tk.whole_step_smem_bytes(la, cache, x0, 32, tiles=smaller,
+                                                        tile_roles=roles) > est
+        if f32:
+            cache = {"k": torch.empty((1, 273, 128, 32, dk), **meta)}
+            x0 = torch.empty((16, 128, D), **meta)
+            assert tk.WHOLE_STEP_SMEM_BUDGET - tk.whole_step_smem_bytes(
+                la, cache, x0, 32, tiles=32, tile_roles=roles) == 192
+
+
+# MmaSmem<TQ, KIND, DK>::kBytes at dk 64 and 128, by (q f32, pool kind 0 q's
+# type / 1 int8 / 2 int4): the ragged kernels' shared bytes in the ptxas
+# table of PERF.md (the ragged kernels hold no static shared memory)
+MMA_SMEM = {(False, 0): (89728, 138880), (False, 1): (77440, 118400),
+            (False, 2): (65152, 93824), (True, 0): (173696, 219968),
+            (True, 1): (128640, 218752), (True, 2): (116352, 194176)}
+
+
+@pytest.mark.parametrize("f32,kind", sorted(MMA_SMEM))
+def test_mma_smem_mirror_pins_the_tile_layout(f32, kind):
+    """The port's one Python mirror of the tensor-core tile's shared
+    memory, which the whole-step gate prices, gives the bytes ptxas and
+    the kernels' layout gave on the card, within the tile's budget."""
+    for dk, want in zip((64, 128), MMA_SMEM[(f32, kind)]):
+        assert tk.mma_smem_bytes(f32, kind, dk) == want <= tk.MMA_SMEM_BUDGET
+
+
+def test_whole_step_stage_ms_on_synthetic_stamps():
+    """The kernel's stamps to milliseconds by stage: the entry, 8 stage
+    ends a layer, the tail's 3; each layer stage summed over the layers,
+    exactly, in ns / 1e6. A wrong count or a falling stamp raises."""
+    L = 3
+    n = tk.whole_step_stamp_count(L)
+    assert n == 1 + 8 * L + 3
+    stages = tk.WHOLE_STEP_STAGES
+    steps, want = [], dict.fromkeys(stages + tk.WHOLE_STEP_TAIL, 0)
+    for l in range(L):
+        for i, name in enumerate(stages):
+            steps.append(1000 * (i + 1) + 7 * l)
+            want[name] += 1000 * (i + 1) + 7 * l
+    for i, name in enumerate(tk.WHOLE_STEP_TAIL):
+        steps.append(500_000 * (i + 1))
+        want[name] = 500_000 * (i + 1)
+    t0 = 1_700_000_000_000_000_000  # a global-timer reading in ns
+    stamps = [t0]
+    for d in steps:
+        stamps.append(stamps[-1] + d)
+    got = tk.whole_step_stage_ms(torch.tensor(stamps, dtype=torch.int64), L)
+    assert list(got) == list(stages + tk.WHOLE_STEP_TAIL)
+    assert got == {k: v / 1e6 for k, v in want.items()}
+    assert sum(got.values()) == pytest.approx((stamps[-1] - stamps[0]) / 1e6, rel=1e-12)
+    with pytest.raises(ValueError, match="stamps for"):
+        tk.whole_step_stage_ms(stamps[:-1], L)
+    stamps[5] = stamps[4] - 1
+    with pytest.raises(ValueError, match="do not rise"):
+        tk.whole_step_stage_ms(stamps, L)
 
 
 SERVE = dict(max_requests_per_batch=3, max_sequence_length=32, prefill_chunk=4,
