@@ -27,7 +27,7 @@ for bf16 q, "tf32x3" for f32 q) and their time over the library call's
 (``vs_library``); the fused kernel's live-row output must equal the
 ragged kernel's bit for bit, and its ``commit_ms`` times the launch with
 a mask that attends nothing (RoPE and the commit alone), as the ragged
-rows' ``empty_device_ms`` does for the ragged kernel. The build line
+rows' ``empty_graph_ms`` does for the ragged kernel. The build line
 lists the registers, spills, shared memory and resident blocks of every
 mma kernel instantiation (from ``ptxas -v``), and every paged arm is profiled (each kernel
 class's share of busy device time; launches by design).
@@ -76,6 +76,20 @@ mirror (``K.mma_smem_bytes``) and the static bytes against the gate's
 price. Dense verify with f32 q at C * G > 8 runs "tf32x3" (3xTF32 on the
 tensor cores): its rows carry ``err_vs_f64``, and the f32 phase fails
 unless the dense mixed steps took it.
+
+The paged kernels' decode design, split over pages
+(``csrc/paged_decode.cuh``). The kernels line gains a decode row of each
+paged kernel per pool type (``name[pool/decode]``, launches from the
+serving arms' decode steps; the bf16 rows carry the GQA case as
+``gqa_kv8``), with the split count and the grid's blocks, and a bound
+that counts the lines the mask attends (the design reads no other). The
+paged rows' device time is ``graph_ms`` (a CUDA graph of 20 calls: the
+device's time without the host's, which events around one decode call
+are not, and which the profiler's sums gave bimodally), SDPA's too
+(``library_graph_ms``). The build line lists every split instantiation
+(``split_kernels``) and fails if one spills; each paged arm's profile
+line reports its decode launches' device time
+(``paged_decode_device_ms``).
 
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
@@ -302,6 +316,37 @@ def _mma_report(reports):
                                        x["dk"]))
 
 
+# the split decode design's kernels (csrc/paged_decode.cuh): q type, pool
+# kind, dk and GB (most query rows a KV head) of each instantiation
+SPLIT_KERNEL = r"(ragged|fused)_split_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)ELi(\d)E"
+
+
+def _split_report(reports):
+    """Each split decode instantiation of the two paged kernels (q dtype x
+    pool x dk x rows) from its ``ptxas -v`` report: registers, spill bytes
+    and static shared bytes a block of 128 threads, and the blocks an SM
+    holds by threads, registers and shared memory."""
+    rows = []
+    for src in K.PAGED_KERNELS:
+        for fn in reports.get(src, "").split("Compiling entry function '")[1:]:
+            m = re.search(SPLIT_KERNEL, fn.split("'")[0])
+            if not m:
+                continue
+            f32, kind = m[2] == "f", int(m[3])
+            regs = int(re.search(r"Used (\d+) registers", fn)[1])
+            static = re.search(r"(\d+) bytes smem", fn)
+            smem = int(static[1]) if static else 0
+            warp_regs = -(-regs * 32 // 256) * 256
+            rows.append({"kernel": src, "dtype": "f32" if f32 else "bf16",
+                         "pool": (("f32" if f32 else "bf16"), "int8", "int4")[kind],
+                         "dk": int(m[4]), "rows": int(m[5]), "registers": regs,
+                         "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores", fn)[1]),
+                         "smem_bytes": smem,
+                         "blocks_per_sm": min(SM_THREADS // 128, SM_REGISTERS // (4 * warp_regs),
+                                              SM_SMEM // (smem + 1024))})
+    return sorted(rows, key=lambda x: (x["kernel"], x["dtype"], x["pool"], x["dk"], x["rows"]))
+
+
 def _whole_report(report):
     """Each whole-step kernel instantiation (q dtype x pool x dk) from its
     ``ptxas -v`` report (registers, spill bytes, static shared bytes) and
@@ -364,6 +409,42 @@ def device_ms(fn, iters: int = 10) -> float:
     return ns / 1e6 / iters
 
 
+_CAPTURE_STREAM = []
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Median time of one call of ``fn`` from a CUDA graph of ``calls``
+    calls, by CUDA events around each of ``replays`` replays: the device's
+    time alone (with the gaps between launches), which events around one
+    call do not give when the host takes longer than the device. ``fn``
+    runs once first on the capture stream, one for the whole run (the
+    wrappers keep scratch per stream)."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    stream = _CAPTURE_STREAM[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def back_to_back_ms(fn, iters: int = 20) -> float:
     """Mean time of one call of ``fn`` from CUDA events around ``iters``
     calls launched back to back: the device's time alone when the host
@@ -418,9 +499,19 @@ def phase_build():
     sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
     mma = _mma_report(reports)
     whole = _whole_report(reports["whole_step_decode"]) if "whole_step_decode" in reports else []
+    split = _split_report(reports)
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
-          "ptxas": info, "mma_kernels": mma, "whole_step_kernels": whole})
+          "ptxas": info, "mma_kernels": mma, "split_kernels": split,
+          "whole_step_kernels": whole})
+    # the split decode design: 2 q types x 3 pool types x 2 head dims x 3
+    # row counts in each paged source compiled by this run, none spilling
+    want = 36 * sum(src in reports for src in K.PAGED_KERNELS)
+    check(len(split) == want, f"split decode instantiations in the ptxas report: {len(split)}, "
+                              f"want {want}")
+    check(all(r["spill_store_bytes"] == 0 for r in split),
+          "a split decode instantiation spills: " + str(
+              [r for r in split if r["spill_store_bytes"]]))
     # the f32 tensor-core tile: 3 pool types x 2 head dims in each paged
     # source compiled by this run, none spilling
     tf32 = [r for r in mma if r.get("design") == "tf32x3" and r["kernel"] in K.PAGED_KERNELS]
@@ -732,20 +823,32 @@ def _paged_case(gen, rng, dtype, quant, KV, kind):
 
 
 def _paged_bound(case, q_dtype, extra_bytes=0):
-    """Least time for the paged attention call: the distinct physical
-    pages the mask opens (K and V, plus their scales; the scratch page
-    that many slots open through their unallocated entries counts once),
-    table, mask and q/out bytes over the HBM rate, or 4 * pairs * H * dk
-    FLOP over the rate of the unit that runs them: bf16 q the bf16 tensor
-    cores; f32 q the TF32 tensor cores, three TF32 products for each f32
-    one (two on quantized pools). Returns the bound, what bounds it and,
-    for f32 q, the operations' time on the f32 CUDA cores (67 TFLOP/s)."""
+    """Least time for the paged attention call: the K and V bytes it must
+    read (plus their pages' scales), table, mask and q/out bytes over the
+    HBM rate, or 4 * pairs * H * dk FLOP over the rate of the unit that
+    runs them: bf16 q the bf16 tensor cores; f32 q the TF32 tensor cores,
+    three TF32 products for each f32 one (two on quantized pools). The K/V
+    bytes: at C * G <= DECODE_ROWS (the decode design, which loads a line
+    only where a row's mask bit is set) the distinct physical lines the
+    mask attends; above, the distinct physical pages it opens, whole (the
+    tiles' unit). Either way the scratch page, which many slots reach
+    through their unallocated entries, counts once. Returns the bound,
+    what bounds it and, for f32 q, the operations' time on the f32 CUDA
+    cores (67 TFLOP/s)."""
     kp, mask, table, ps = case["kp"], case["mask"], case["table"], case["ps"]
     R, C, NP = case["R"], case["C"], case["NP"]
-    opened = mask.reshape(R, C, NP, ps).any(dim=3).any(dim=1)  # (R, NP)
-    pages = int(table[opened].unique().numel())
-    row_bytes = ps * kp.shape[2] * kp.shape[3] * kp.element_size()
-    nbytes = 2 * pages * row_bytes + table.numel() * 4 + mask.numel()
+    line_bytes = kp.shape[2] * kp.shape[3] * kp.element_size()
+    if C * (case["H"] // case["KV"]) <= K.DECODE_ROWS:
+        read = mask.any(dim=1)  # (R, NP * ps): lines some row of the slot attends
+        phys = (table.long().repeat_interleave(ps, dim=1) * ps
+                + torch.arange(NP * ps, device=table.device) % ps)
+        lines = phys[read].unique()
+        n_lines, pages = int(lines.numel()), int((lines // ps).unique().numel())
+    else:
+        opened = mask.reshape(R, C, NP, ps).any(dim=3).any(dim=1)  # (R, NP)
+        pages = int(table[opened].unique().numel())
+        n_lines = pages * ps
+    nbytes = 2 * n_lines * line_bytes + table.numel() * 4 + mask.numel()
     nbytes += 2 * case["q"].numel() * case["q"].element_size() + extra_bytes
     if case["ks"] is not None:
         nbytes += 2 * pages * kp.shape[2] * 4
@@ -762,7 +865,7 @@ def _paged_bound(case, q_dtype, extra_bytes=0):
 
 def _paged_library_ms(case, q, quant):
     """SDPA over the virtual cache gathered beforehand (the gather is not
-    timed): its cuda_ms and device_ms; None for quantized pools, which no
+    timed): its cuda_ms and graph_ms; None for quantized pools, which no
     single PyTorch call attends."""
     if quant is not None:
         return None, None
@@ -772,17 +875,22 @@ def _paged_library_ms(case, q, quant):
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(sq, sk, svv, attn_mask=smask)
-    ms = cuda_ms(sdpa), device_ms(sdpa)
+    ms = cuda_ms(sdpa), graph_ms(sdpa)
     del kv, vv, sq, sk, svv, smask
     return ms
 
 
 def _paged_row(kernel, label, case, dtype, quant, err):
-    return {"phase": "kernels", "kernel": kernel, "case": label,
-            "dtype": str(dtype).replace("torch.", ""), "pool": quant or str(dtype).replace("torch.", ""),
-            "shape": {k: case[k] for k in ("R", "C", "H", "KV", "dk", "ps", "NP", "P")},
-            "attended_pairs": int(case["mask"].sum()), "max_abs_err": err,
-            "tol": TOL[dtype]}
+    row = {"phase": "kernels", "kernel": kernel, "case": label,
+           "dtype": str(dtype).replace("torch.", ""), "pool": quant or str(dtype).replace("torch.", ""),
+           "shape": {k: case[k] for k in ("R", "C", "H", "KV", "dk", "ps", "NP", "P")},
+           "attended_pairs": int(case["mask"].sum()), "max_abs_err": err,
+           "tol": TOL[dtype]}
+    if case["C"] * (case["H"] // case["KV"]) <= K.DECODE_ROWS:
+        # the decode design's grid: (splits, KV heads, slots) blocks
+        pages, n = K.paged_decode_split(case["R"], case["C"], case["KV"], case["NP"], case["ps"])
+        row.update(split_pages=pages, splits=n, blocks=case["R"] * case["KV"] * n)
+    return row
 
 
 def _design_of(kernel, call):
@@ -845,17 +953,17 @@ def run_ragged_check(label, case, dtype, quant, timed=True):
     row.update(
         ms=cuda_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
                                                     k_scale=ks, v_scale=vs)),
-        device_ms=device_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
-                                                             k_scale=ks, v_scale=vs)),
+        graph_ms=graph_ms(lambda: K.ragged_paged_attention(q, kp, vp, table, mask,
+                                                           k_scale=ks, v_scale=vs)),
         plain_ms=cuda_ms(lambda: K.ragged_paged_attention_ref(
             q, kp, vp, table, mask, k_scale=ks, v_scale=vs), iters=5),
     )
-    row["library_ms"], row["library_device_ms"] = _paged_library_ms(case, q, quant)
+    row["library_ms"], row["library_graph_ms"] = _paged_library_ms(case, q, quant)
     row["vs_library"] = _vs_library(row)
     # the same launch under a mask that attends nothing: the launch, the
     # mask's bits, the Q loads and the zero outputs, no tile read
     none = torch.zeros_like(mask)
-    row["empty_device_ms"] = device_ms(lambda: K.ragged_paged_attention(
+    row["empty_graph_ms"] = graph_ms(lambda: K.ragged_paged_attention(
         q, kp, vp, table, none, k_scale=ks, v_scale=vs))
     emit(row)
     return row
@@ -932,7 +1040,7 @@ def run_fused_check(label, case, dtype, quant, timed=True):
             q, k_new, v_new, cos, sin, b[0], b[1], table, logical, off, mask,
             k_scale=b[2], v_scale=b[3], qmax=qmax), iters=5),
     )
-    row["library_ms"], row["library_device_ms"] = _paged_library_ms(case, qr, quant)
+    row["library_ms"], row["library_graph_ms"] = _paged_library_ms(case, qr, quant)
     row["vs_library"] = _vs_library(row)
     none = torch.zeros_like(mask)
 
@@ -940,8 +1048,8 @@ def run_fused_check(label, case, dtype, quant, timed=True):
         return lambda: K.fused_rope_paged_attention(
             q, k_new, v_new, cos, sin, a[0], a[1], table, logical, off, m,
             k_scale=a[2], v_scale=a[3], qmax=qmax)
-    row.update(device_ms=device_ms(fused(mask)), commit_ms=cuda_ms(fused(none)),
-               commit_device_ms=device_ms(fused(none)))
+    row.update(graph_ms=graph_ms(fused(mask)), commit_ms=cuda_ms(fused(none)),
+               commit_graph_ms=graph_ms(fused(none)))
     emit(row)
     return row
 
@@ -1020,10 +1128,18 @@ PAGED_CASES = (
 )
 
 
+# what the bf16 decode rows of the kernels line carry of the GQA (KV 8)
+# decode case, which no serving arm runs
+GQA_KEYS = ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_graph_ms", "split_pages", "splits", "blocks")
+
+
 def phase_paged_kernels(seed):
     """Both paged kernels against their plain versions in every pool
     type, and the commit kernel in the quantized ones; the rows of the
-    kernels line are the mixed C = 128 cases."""
+    kernels line are the mixed C = 128 cases (``name[pool]``) and the
+    decode cases (``name[pool/decode]``, with the GQA case's numbers on
+    the bf16 row)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 2)
     rng = np.random.default_rng(seed + 2)
@@ -1037,12 +1153,19 @@ def phase_paged_kernels(seed):
         check(ragged["design"] == fused["design"] == want,
               f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
         commit = run_commit_check(label, case, dtype, quant) if quant and timed else None
+        pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
         if kind == "mixed" and "gqa" not in label and timed:
-            pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
             main[f"ragged_paged_attention[{pool}]"] = ragged
             main[f"fused_rope_paged_attention[{pool}]"] = fused
             if commit:
                 main[f"paged_commit[{quant}]"] = commit
+        elif kind == "decode" and timed:
+            for name, row in (("ragged_paged_attention", ragged),
+                              ("fused_rope_paged_attention", fused)):
+                if "gqa" in label:  # no serving arm: beside the bf16 decode row
+                    main[f"{name}[bf16/decode]"]["gqa_kv8"] = {k: row.get(k) for k in GQA_KEYS}
+                else:
+                    main[f"{name}[{pool}/decode]"] = row
         del case
         gc.collect()
         torch.cuda.empty_cache()
@@ -1457,9 +1580,9 @@ def _kernel_class(name: str) -> str:
         return "adam_update"
     if "paged_commit_kernel" in n:
         return "paged_commit"
-    if any(k in n for k in ("ragged_decode_kernel", "ragged_tile_kernel", "ragged_mma_kernel")):
+    if any(k in n for k in ("ragged_split_kernel", "ragged_mma_kernel")):
         return "ragged_paged_attention"
-    if "fused_kernel" in n or "fused_mma_kernel" in n:
+    if "fused_split_kernel" in n or "fused_mma_kernel" in n:
         return "fused_rope_paged_attention"
     if "decode_kernel" in n:
         return "decode_attention"
@@ -1499,8 +1622,12 @@ def _profile(run, path):
         kernels.append((ms, name[:100], count))
     busy_s = sum(by_class.values()) / 1e3
     kernels.sort(reverse=True)
+    # the paged kernels' decode launches (the split design's kernels)
+    split = [(ms, count) for ms, name, count in kernels if "_split_kernel" in name]
     return {"phase": "profile", "path": path, "wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
+            "paged_decode_device_ms": sum(ms for ms, _ in split),
+            "paged_decode_launches": sum(count for _, count in split),
             "device_ms_by_class": by_class,
             "share_of_busy": {c: ms / 1e3 / busy_s for c, ms in by_class.items()},
             "reduce_s": time.perf_counter() - t1,
@@ -1747,6 +1874,9 @@ def phase_paged(seed, holder, arms):
             seqs = [r.input_tokens + r.output_tokens[:-1] for r in results]
         for k, v in line["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        if not whole:  # the arm's decode launches, on its one pool type
+            key = f"{kind}[{quant or 'bf16'}/decode]"
+            launches[key] = launches.get(key, 0) + line["design_launches"].get(f"{kind}[decode]", 0)
         _free(llm)
         sc = dict(max_requests_per_batch=len(seqs), kv_layout="paged", kv_quant=quant,
                   fused_decode=fused)
@@ -1869,6 +1999,10 @@ def phase_f32(seed):
         for k, v in K.DESIGN_LAUNCHES.items():
             if v:
                 designs[k] = designs.get(k, 0) + v
+        if kw.get("kv_layout") == "paged" and "kv_quant" not in kw:  # f32 pools
+            for k in K.PAGED_KERNELS:
+                launches[f"{k}[f32/decode]"] = (launches.get(f"{k}[f32/decode]", 0)
+                                                + K.DESIGN_LAUNCHES[f"{k}[decode]"])
         _free(llm)
     pairs = [("dense-cuda", "dense-torch"), ("paged-cuda", "paged-torch"),
              ("int8-cuda", "int8-torch"), ("int4-cuda", "int4-torch"),
@@ -1897,7 +2031,8 @@ def phase_f32(seed):
           "verify_designs": {k: v for k, v in designs.items()
                              if k.startswith("verify_attention[")}})
     for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
-              "whole_step_decode[f32]"):
+              "whole_step_decode[f32]", "ragged_paged_attention[f32/decode]",
+              "fused_rope_paged_attention[f32/decode]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")
     for k in K.PAGED_KERNELS + ("whole_step_decode",):
         took = {d for d in K.DESIGNS[k][0] if designs.get(f"{k}[{d}]")}
@@ -2386,6 +2521,13 @@ SOURCES = {
     **{f"fused_rope_paged_attention[{t}]": (
         "flexflow_tpu_torch/csrc/fused_rope_paged_attention.cu",
         "flexflow_tpu/serve/kernels.py:1067") for t in K.POOL_TYPES},
+    # the decode design (csrc/paged_decode.cuh) of each, by pool type
+    **{f"ragged_paged_attention[{t}/decode]": (
+        "flexflow_tpu_torch/csrc/ragged_paged_attention.cu", "flexflow_tpu/serve/kernels.py:713")
+       for t in K.POOL_TYPES},
+    **{f"fused_rope_paged_attention[{t}/decode]": (
+        "flexflow_tpu_torch/csrc/fused_rope_paged_attention.cu",
+        "flexflow_tpu/serve/kernels.py:1067") for t in K.POOL_TYPES},
     "flash_attention_fwd": ("flexflow_tpu_torch/csrc/flash_attention_fwd.cu",
                             "flexflow_tpu/ops/flash_attention.py:101"),
     "flash_attention_bwd_kv": ("flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2464,8 +2606,15 @@ def main(argv=None) -> int:
                      "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
                      "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
                      "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms")})
-        if name.split("[")[0] in K.PAGED_KERNELS + ("verify_attention",) + FLASH_KERNELS:
+        if name.split("[")[0] in K.PAGED_KERNELS:
+            rows[-1].update(design=m.get("design"), graph_ms=m.get("graph_ms"),
+                            library_graph_ms=m.get("library_graph_ms"))
+        elif name.split("[")[0] in ("verify_attention",) + FLASH_KERNELS:
             rows[-1].update(design=m.get("design"), device_ms=m.get("device_ms"))
+        if name.endswith("/decode]"):
+            rows[-1].update(splits=m.get("splits"), blocks=m.get("blocks"))
+            if "gqa_kv8" in m:
+                rows[-1]["gqa_kv8"] = m["gqa_kv8"]
         if name.split("[")[0] in ("adam_update", "paged_commit"):
             rows[-1]["bitwise"] = m.get("bitwise")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

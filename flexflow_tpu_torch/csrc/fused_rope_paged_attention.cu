@@ -24,47 +24,64 @@
 //     over the pages as committed.
 // Steps 1 and 2 live in paged_commit.cuh, shared with whole_step_decode.cu.
 //
-// Races designed around: one block per (slot, KV head) commits that
-// head's slice of the slot's lines and then attends all C * G query rows
-// of that head. Pages are slot-private and a KV head's slice of a page
-// (its bytes and its scale) is touched by that head's block alone, so no
-// block reads a line another block is writing. The one exception is the
-// scratch page, which every padding line of every slot writes: its bytes
-// are garbage, and only padding rows, whose outputs nobody reads, see
-// them. The mma design reads the pages by cp.async.cg, through L2: the
-// barrier that ends rope_and_commit makes every thread's committed stores
-// visible to the whole block, those reads included.
+// Races designed around: pages are slot-private and a KV head's slice of
+// a page (its bytes and its scale) is written by one block alone, which
+// is the only block of the launch that reads it. The mixed-step designs
+// run one block per (slot, KV head), which commits that head's slice of
+// the slot's lines and then attends all C * G query rows of that head.
+// The decode design (paged_decode.cuh) runs one block per (slot, KV head,
+// split of whole pages); at C = 1 the block whose split holds the page of
+// the new line commits it (on quantized pools with the rescale of that
+// whole page) before it attends, and no other block reads that page; at
+// C > 1 the split rule gives one split per (slot, KV head). Every block
+// rotates its own copy of the query rows into shared memory, so no block
+// waits on another. The one exception is the scratch page, which every
+// padding line of every slot writes: its bytes are garbage, and only
+// padding rows, whose outputs nobody reads, see them. The mma design
+// reads the pages by cp.async.cg, through L2: the barrier that ends
+// rope_and_commit makes every thread's committed stores visible to the
+// whole block, those reads included.
 //
 // Bound on an H100: that of ragged_paged_attention plus the q, k_new,
 // v_new, cos and sin bytes read and the lines (and, quantized, the
 // rescaled pages and scales) written.
 //
 // Design against that bound: the rotated K/V lines are committed
-// straight from the block (the rotated q and K round-trip through two
-// small buffers of the wrapper, a few KB per slot at decode), and the
-// attention is ragged_paged_attention's, in the design the ragged
-// launcher would take (paged_design). Decode launches R * KV blocks of
-// 256 threads. A mixed step (bf16 q "mma", f32 q "tf32x3") launches
+// straight from the block (the rotated K, and on mixed steps q,
+// round-trip through small buffers of the wrapper), and the attention is
+// ragged_paged_attention's, in the design the ragged launcher would take
+// (paged_design) with the same split rule. Decode launches R * KV *
+// nsplit blocks of 128 threads (attend_split). A mixed step (bf16 q "mma", f32 q "tf32x3") launches
 // R * KV blocks of 8 warps that walk ceil(C * G / 128) passes of
 // attend_tile_mma (one at C = 128, G = 1): each pass is the ragged
 // kernel's row block, its rows on the same warps, so the output of every
 // row that reads no scratch line is bitwise the ragged kernel's.
 #include <type_traits>
 
-#include "paged_commit.cuh"
+#include "paged_decode.cuh"
 
 namespace fft {
 namespace {
 
 using FusedArgs = CommitArgs;
 
-// The decode design, GB rows per call.
+// The decode design: split blockIdx.x of KV head blockIdx.y of slot
+// blockIdx.z, its C * G <= GB query rows; the block whose split holds the
+// pages of the new lines (every block, with one split) commits them first.
 template <typename TQ, int KIND, int DK, int GB>
-__global__ void __launch_bounds__(kDecodeThreads) fused_kernel(FusedArgs f) {
-  const int h = blockIdx.x, r = blockIdx.y;
-  rope_and_commit<TQ, KIND, DK, kDecodeThreads>(f, r, h);
-  const int rows = f.a.C * (f.a.H / f.a.KV);
-  for (int i0 = 0; i0 < rows; i0 += GB) attend_decode<TQ, KIND, DK, GB>(f.a, r, h, i0);
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
+    fused_split_kernel(FusedArgs f, SplitArgs s) {
+  __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
+  TQ* sQ = reinterpret_cast<TQ*>(sQraw);
+  const int r = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
+  stage_q<TQ, DK>(f.a, r, h, static_cast<const TQ*>(f.q_raw), f.cos, f.sin, f.rot, sQ);
+  bool commits = s.nsplit == 1;
+  if (!commits) {  // C == 1
+    const int page = f.logical[r];
+    commits = page >= split * s.split_pages && page < (split + 1) * s.split_pages;
+  }
+  if (commits) rope_commit_kv<TQ, KIND, DK, kSplitThreads>(f, r, h);
+  attend_split<TQ, KIND, DK, GB>(f.a, s, r, h, split, sQ);
 }
 
 // The tensor-core designs ("mma": bf16 q, "tf32x3": f32 q): every 128-row
@@ -80,16 +97,19 @@ __global__ void __launch_bounds__(kMmaTileThreads, 1) fused_mma_kernel(FusedArgs
 }
 
 template <typename TQ, int KIND, int DK>
-cudaError_t launch_dk(const FusedArgs& f, cudaStream_t stream) {
+cudaError_t launch_dk(const FusedArgs& f, const SplitArgs& s, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
   const int rows = f.a.C * (f.a.H / f.a.KV);
   const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
   const dim3 grid(f.a.KV, f.a.R);
   if (design == kDesignDecode) {
+    const dim3 sgrid(s.nsplit, f.a.KV, f.a.R);
     if (rows == 1) {
-      fused_kernel<TQ, KIND, DK, 1><<<grid, kDecodeThreads, 0, stream>>>(f);
+      fused_split_kernel<TQ, KIND, DK, 1><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
+    } else if (rows <= 4) {  // G = 2, 4: 1.4-1.8 x faster than at 8 rows (H100)
+      fused_split_kernel<TQ, KIND, DK, 4><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
     } else {
-      fused_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kDecodeThreads, 0, stream>>>(f);
+      fused_split_kernel<TQ, KIND, DK, kDecodeRows><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
     }
   } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
     constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
@@ -102,30 +122,34 @@ cudaError_t launch_dk(const FusedArgs& f, cudaStream_t stream) {
 }
 
 template <typename TQ, int KIND>
-cudaError_t launch_kind(const FusedArgs& f, int dk, cudaStream_t stream) {
-  if (dk == 64) return launch_dk<TQ, KIND, 64>(f, stream);
-  if (dk == 128) return launch_dk<TQ, KIND, 128>(f, stream);
+cudaError_t launch_kind(const FusedArgs& f, const SplitArgs& s, int dk, cudaStream_t stream) {
+  if (dk == 64) return launch_dk<TQ, KIND, 64>(f, s, stream);
+  if (dk == 128) return launch_dk<TQ, KIND, 128>(f, s, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-cudaError_t launch_q(const FusedArgs& f, int dk, int pool_kind, cudaStream_t stream) {
-  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(f, dk, stream);
-  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(f, dk, stream);
-  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(f, dk, stream);
+cudaError_t launch_q(const FusedArgs& f, const SplitArgs& s, int dk, int pool_kind,
+                     cudaStream_t stream) {
+  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(f, s, dk, stream);
+  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(f, s, dk, stream);
+  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(f, s, dk, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace fft
 
+// ws and counters: the decode design's workspace (SplitArgs), null when
+// it takes one split (split_pages >= NP) or the launch takes another
+// design; more than one split needs C == 1.
 extern "C" int fused_rope_paged_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* cos,
     const void* sin, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* table, const void* logical, const void* off, const void* mask,
-    void* out, void* q_rot, void* k_rot, int R, int C, int H, int KV, int dk,
-    int ps, int NP, int rot, int dtype, int pool_kind, float scale, float qmax,
-    void* stream) {
+    void* out, void* q_rot, void* k_rot, void* ws, void* counters, int R, int C, int H,
+    int KV, int dk, int ps, int NP, int rot, int dtype, int pool_kind, int split_pages,
+    float scale, float qmax, void* stream) {
   if (R <= 0 || C <= 0 || C > fft::kMaxChunk || KV <= 0 || NP <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   if (ps != 16 && ps != 32 && ps != 64 && ps != 128) return (int)cudaErrorInvalidValue;
@@ -133,6 +157,13 @@ extern "C" int fused_rope_paged_attention_launch(
   if (cos != nullptr && (rot <= 0 || rot > dk || rot % 2 != 0)) return (int)cudaErrorInvalidValue;
   if (pool_kind != fft::kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (split_pages <= 0) return (int)cudaErrorInvalidValue;
+  const int nsplit = (NP + split_pages - 1) / split_pages;
+  if (nsplit > fft::kSplitMaxSplits) return (int)cudaErrorInvalidValue;
+  if (nsplit > 1 && (C != 1 || ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const fft::SplitArgs sp{static_cast<float*>(ws), static_cast<int*>(counters), split_pages,
+                          nsplit};
   fft::FusedArgs f;
   f.a = fft::PagedArgs{q_rot, k_pool, v_pool, static_cast<const float*>(k_scale),
                        static_cast<const float*>(v_scale), static_cast<const int*>(table),
@@ -156,9 +187,9 @@ extern "C" int fused_rope_paged_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == fft::kBFloat16) {
-    err = fft::launch_q<__nv_bfloat16>(f, dk, pool_kind, s);
+    err = fft::launch_q<__nv_bfloat16>(f, sp, dk, pool_kind, s);
   } else if (dtype == fft::kFloat32) {
-    err = fft::launch_q<float>(f, dk, pool_kind, s);
+    err = fft::launch_q<float>(f, sp, dk, pool_kind, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -20,12 +20,14 @@
 //
 // Three block designs (paged_design), chosen by the number of query rows
 // per KV head and q's dtype:
-//  * attend_decode ("decode", C * G <= 8: decode steps): one block of 8
-//    warps per (slot, KV head, up to 8 rows). One page is one tile: the
-//    block loads the page's mask for its rows, skips the page when no
-//    row attends any of its lines, else reads the page id and scales
-//    once; warps split the page's lines, every line is read once for all
-//    rows of the block. Bound by bytes, and near it.
+//  * "decode" (C * G <= 8: decode steps): the ragged and fused kernels run
+//    attend_split (paged_decode.cuh: one block per (slot, KV head, split
+//    of whole pages), its partials merged by the last block). The
+//    whole-step kernel runs attend_decode, here: one block of 8 warps per
+//    (slot, KV head, up to 8 rows). One page is one tile: the block loads
+//    the page's mask for its rows, skips the page when no row attends any
+//    of its lines, else reads the page id and scales once; warps split
+//    the page's lines, every line is read once for all rows of the block.
 //  * attend_tile_mma ("mma", bf16 q, C * G > 8: mixed and prefill steps
 //    in the model dtype): one block of 8 warps per (slot, KV head, 128
 //    rows), on the tensor cores. A bf16 mixed step at C = 128 is bound by
@@ -69,9 +71,8 @@
 //    per k-step; PV takes each 8-line group's lines in the order the S
 //    accumulator holds them (tf32_warp_tile). The bound is then 3 (2)
 //    products at the TF32 rate, 494.7 TFLOP/s.
-// The whole-step kernel (whole_step_decode.cu) runs the same designs in
-// its attention stage: attend_decode a row at a time, attend_tile_mma in
-// 128-row passes.
+// The whole-step kernel (whole_step_decode.cu) runs attend_decode a row
+// at a time and attend_tile_mma in 128-row passes in its attention stage.
 //
 // Pool and q pointers are read with plain loads (never the read-only
 // cache): the fused kernel writes them earlier in the same launch.

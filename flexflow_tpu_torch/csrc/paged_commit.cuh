@@ -231,29 +231,20 @@ __device__ void commit_quant(const CommitArgs& f, int r, int h, const TQ* vals,
                                        CommitLines{sLq, sPage, sLead, sNew, sRatio});
 }
 
-// RoPE of q and the new K lines of KV head h of slot r (into q_rot and
-// k_rot), then the commit of its new K/V lines. All NT threads of the
-// block call it; it ends with a barrier, after which the block may
-// attend the committed pages through q_rot.
+// RoPE of the new K lines of KV head h of slot r (into k_rot), then the
+// commit of its new K/V lines. All NT threads of the block call it; it
+// ends with a barrier, after which the block may read the committed
+// pages. The split decode design (paged_decode.cuh) runs it in the one
+// block whose split holds the pages of the new lines.
 template <typename TQ, int KIND, int DK, int NT>
-__device__ void rope_and_commit(const CommitArgs& f, int r, int h) {
+__device__ void rope_commit_kv(const CommitArgs& f, int r, int h) {
   const PagedArgs& a = f.a;
-  const int G = a.H / a.KV, C = a.C, tid = threadIdx.x;
-  const TQ* qin = static_cast<const TQ*>(f.q_raw);
+  const int C = a.C, tid = threadIdx.x;
   const TQ* kin = static_cast<const TQ*>(f.k_new);
   const TQ* vin = static_cast<const TQ*>(f.v_new);
-  TQ* qo = static_cast<TQ*>(f.q_rot);
   TQ* ko = static_cast<TQ*>(f.k_rot);
 
   constexpr int V = DK / 8;  // 8-dim vectors a head row
-  for (int idx = tid; idx < C * G * V; idx += NT) {
-    const int d0 = idx % V * 8, cg = idx / V, c = cg / G, g = cg % G;
-    const size_t rc = (size_t)r * C + c;
-    const size_t row = (rc * a.H + (size_t)h * G + g) * DK;
-    const float* cs = f.cos ? f.cos + rc * f.rot : nullptr;
-    const float* sn = f.sin ? f.sin + rc * f.rot : nullptr;
-    rope8<TQ>(qin + row, qo + row, d0, cs, sn, f.rot);
-  }
   for (int idx = tid; idx < C * V; idx += NT) {
     const int d0 = idx % V * 8, c = idx / V;
     const size_t rc = (size_t)r * C + c;
@@ -286,7 +277,30 @@ __device__ void rope_and_commit(const CommitArgs& f, int r, int h) {
     commit_quant<TQ, KIND, DK, NT>(f, r, h, ko, f.k_pool, f.k_scale);
     commit_quant<TQ, KIND, DK, NT>(f, r, h, vin, f.v_pool, f.v_scale);
   }
-  __syncthreads();  // the attention reads the committed pages and q_rot
+  __syncthreads();  // the attention reads the committed pages
+}
+
+// RoPE of q and the new K lines of KV head h of slot r (into q_rot and
+// k_rot), then the commit of its new K/V lines. All NT threads of the
+// block call it; it ends with a barrier, after which the block may
+// attend the committed pages through q_rot.
+template <typename TQ, int KIND, int DK, int NT>
+__device__ void rope_and_commit(const CommitArgs& f, int r, int h) {
+  const PagedArgs& a = f.a;
+  const int G = a.H / a.KV, C = a.C, tid = threadIdx.x;
+  const TQ* qin = static_cast<const TQ*>(f.q_raw);
+  TQ* qo = static_cast<TQ*>(f.q_rot);
+
+  constexpr int V = DK / 8;  // 8-dim vectors a head row
+  for (int idx = tid; idx < C * G * V; idx += NT) {
+    const int d0 = idx % V * 8, cg = idx / V, c = cg / G, g = cg % G;
+    const size_t rc = (size_t)r * C + c;
+    const size_t row = (rc * a.H + (size_t)h * G + g) * DK;
+    const float* cs = f.cos ? f.cos + rc * f.rot : nullptr;
+    const float* sn = f.sin ? f.sin + rc * f.rot : nullptr;
+    rope8<TQ>(qin + row, qo + row, d0, cs, sn, f.rot);
+  }
+  rope_commit_kv<TQ, KIND, DK, NT>(f, r, h);  // its first barrier covers q_rot too
 }
 
 }  // namespace fft

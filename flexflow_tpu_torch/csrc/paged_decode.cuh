@@ -1,0 +1,506 @@
+// The split decode design of ragged_paged_attention.cu and
+// fused_rope_paged_attention.cu (design "decode", C * G <= 8 query rows a
+// KV head): attend_split.
+//
+// What bounds it on an H100: the bytes of the pages the mask opens. A
+// decode step reads each opened K/V line once for the G rows of its KV
+// head and does 4 G dk FLOP on it, far under the card's ratio of
+// operations to bytes. The design before this one (attend_decode,
+// paged_attention.cuh, still the whole-step kernel's) ran one block per
+// (slot, KV head) over all of the slot's pages, a chain of loads and two
+// barriers a page, each lane reading dk / 32 elements of a line: 7-79% of
+// the byte bound, the quantized pools (2-4 x fewer bytes) slower than
+// bf16. Here:
+//  * Split over pages. The work unit is (slot, KV head, split), a split
+//    being split_pages consecutive whole pages; the host sets split_pages
+//    from the shapes alone (kernels.paged_decode_split), at most
+//    kSplitMaxSplits splits, and one split per (slot, KV head) when C > 1
+//    (the new lines of a chunk may span pages of two splits).
+//  * The walk's inputs first. A block stages the mask bits and page ids of
+//    up to kSplitChunk lines at once, behind one barrier, so every K/V
+//    load of the walk depends on shared memory alone (the page scales
+//    are read while the first loads are in flight). In the same round
+//    trip every block scans its slot's mask row (L2 hits) for the splits
+//    that attend a line: a split that attends none exits there, reading
+//    no K/V line and writing nothing.
+//  * Wide loads. A lane loads 16 bytes of a line (8 or 4 at G > 1 on
+//    quantized pools, so that q and the accumulator of up to 8 rows stay
+//    in registers): a dk-128 line is read by 16 lanes in bf16, 8 in int8,
+//    4 in int4, and a warp has 2, 4 or 8 lines in each load instruction,
+//    SplitGeom::kInFlight such loads of K and of V in flight a lane.
+//    Codes are widened after the load with one byte permute and one f32
+//    add each (2^23 + code, minus the bias), not one conversion each.
+//    Scores reduce within the line's lanes; exponentials are base 2, the
+//    softmax scale times log2(e) folded into the page's K scale.
+//  * One merge. Each split writes its partial (m, l, acc) in f32 to a
+//    workspace the wrapper keeps for the stream, indexed (slot, KV head,
+//    split, row). The last attended split of a (slot, KV head) to finish
+//    (a counter it then resets to 0) merges the attended partials in
+//    split order, so the output does not depend on which block finished
+//    last, and writes the output. One launch does it all; one split
+//    writes its output directly.
+// Measured (scripts/decode_split_probe.py, LLaMA-7B decode, 16 slots,
+// NVIDIA H100 80GB HBM3 at 700 W): 77-86% of the byte bound on bf16 and
+// f32 pools, 56% on int8; int4 and GQA (G = 4) sit at ~0.062 ms, 28-29%:
+// there the per-line instructions (widening, the softmax, the lane
+// reductions, G rows) and not the bytes bound the kernel.
+//
+// Invariants: two launches on the same inputs give the same bits (fixed
+// line order in a lane group, butterfly merges, splits merged in split
+// order, no float atomics); ragged and fused attend through this one
+// function with one split rule, so the fused kernel stays bitwise the
+// unfused path; a row with nothing to attend gives 0.
+#pragma once
+
+#include "paged_commit.cuh"  // rope8, and the fused kernel's commit
+
+namespace fft {
+
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSplitChunk = 256;                  // lines whose inputs a block stages at once
+constexpr int kSplitWords = kSplitChunk / 64;     // mask words a row and chunk
+constexpr int kSplitChunkPages = kSplitChunk / 16;
+constexpr int kSplitMaxSplits = 64;               // splits a (slot, KV head) at most
+
+// Where a split decode launch keeps its partials: ws holds acc (R, KV,
+// nsplit, rows, DK) f32, then (m, l) (R, KV, nsplit, rows, 2); counters
+// (R, KV) int32 are 0 before the launch and after it. Both are null when
+// nsplit is 1.
+struct SplitArgs {
+  float* ws;
+  int* counters;
+  int split_pages;  // pages a split
+  int nsplit;       // ceil(NP / split_pages)
+};
+
+// The most head dims a lane holds for one query row. 8-dim lanes, for
+// more blocks an SM, took int8 from 0.076 to 0.094 ms (LLaMA-7B decode,
+// 16 slots, 256-line splits, NVIDIA H100 80GB HBM3 at 700 W,
+// scripts/decode_split_probe.py); 16 were no faster than 32.
+constexpr int kSplitDims1 = 32;
+// The bytes of K (and as many of V) a lane has in flight. Twice as many
+// took bf16 from 0.104 to 0.113 ms and int8 from 0.076 to 0.087 (same
+// probe).
+constexpr int kSplitBytes = 64;
+// blocks an SM must hold, for __launch_bounds__: at one row 5 (96
+// registers a thread: 0.095 against 0.098 ms at bf16, 0.066 against 0.071
+// at int8, 256-line splits, scripts/decode_split_probe.py), 3 on int4
+// pools (168: at 128 the dk-64 instantiation spills); 2 above (255;
+// ptxas's own choice spilled)
+constexpr int kSplitMinBlocks1 = 5;
+
+template <int KIND, int GB>
+constexpr int kSplitMinBlocks = GB != 1 ? 2 : KIND == kPoolInt4 ? 3 : kSplitMinBlocks1;
+
+// A lane's share of a line: kLoad bytes (one vector load), kDims head
+// dims, kLanes lanes a line, kGroups lines a warp loads at once. q and the
+// accumulator of GB rows take 2 GB kDims registers, at most
+// 2 kSplitDims1 at GB = 1 and 128 above.
+template <typename TQ, int KIND, int DK, int GB>
+struct SplitGeom {
+  static constexpr int kMaxDims = GB == 1 ? kSplitDims1 : 8;
+  static constexpr int kRowBytes = KIND == kPoolFloat ? DK * int(sizeof(TQ)) : DK / pack_of<KIND>();
+  static constexpr int kLoad = KIND == kPoolFloat  ? 16
+                               : KIND == kPoolInt8 ? (kMaxDims < 16 ? kMaxDims : 16)
+                                                   : (kMaxDims / 2 < 16 ? kMaxDims / 2 : 16);
+  static constexpr int kWords = kLoad / 4;
+  static constexpr int kDims = KIND == kPoolFloat  ? kLoad / int(sizeof(TQ))
+                               : KIND == kPoolInt8 ? kLoad
+                                                   : 2 * kLoad;
+  static constexpr int kLanes = kRowBytes / kLoad;
+  static constexpr int kGroups = 32 / kLanes;
+  // lines a lane group loads before it computes
+  static constexpr int kInFlight = kSplitBytes / kLoad < (GB == 8 ? 2 : 4)
+                                       ? kSplitBytes / kLoad
+                                       : (GB == 8 ? 2 : 4);
+  static_assert(kRowBytes % kLoad == 0 && kLanes >= 1 && kLanes <= 32, "line split");
+  static_assert(kDims <= kMaxDims || KIND == kPoolFloat, "dims a lane");
+
+  // head dim of element e of lane sub's share (int4: the low nibbles are
+  // dims sub * kLoad.., the high ones DK / 2 + sub * kLoad..)
+  __device__ static __forceinline__ int dim(int sub, int e) {
+    if constexpr (KIND == kPoolInt4) {
+      return e < kLoad ? sub * kLoad + e : DK / 2 + sub * kLoad + (e - kLoad);
+    } else {
+      return sub * kDims + e;
+    }
+  }
+};
+
+template <int W>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[W]) {
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// The f32 values (codes for quantized pools, exact) of W words of a line,
+// in SplitGeom::dim order.
+template <typename TQ, int KIND, int W, int N>
+__device__ __forceinline__ void widen_words(const uint32_t (&w)[W], float (&x)[N]) {
+  if constexpr (KIND == kPoolFloat && std::is_same<TQ, float>::value) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[i] = __uint_as_float(w[i]);
+  } else if constexpr (KIND == kPoolFloat) {  // bf16: element 2 i is the low half
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  } else if constexpr (KIND == kPoolInt8) {
+    // byte b of (w ^ 0x80) is code + 128: 0x4B0000bb is 2^23 + code + 128
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[4 * i + k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + k)) - 8388736.f;
+    }
+  } else {  // int4: nibbles biased by 8, low ones first
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint32_t lo = w[i] & 0x0F0F0F0Fu, hi = (w[i] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        x[4 * i + k] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540u + k)) - 8388616.f;
+        x[N / 2 + 4 * i + k] =
+            __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540u + k)) - 8388616.f;
+      }
+    }
+  }
+}
+
+// Query rows i < C * G of KV head h of slot r into sQ (GB * DK, TQ): row
+// i is token c = i / G, query head h G + i % G. With cos / sin (R, C, rot)
+// rotate-half RoPE as rope8 rounds it (the fused kernel; the ragged
+// kernel passes null and copies). No barrier.
+template <typename TQ, int DK>
+__device__ __forceinline__ void stage_q(const PagedArgs& a, int r, int h, const TQ* q,
+                                        const float* cos, const float* sin, int rot, TQ* sQ) {
+  const int G = a.H / a.KV, rows = a.C * G;
+  constexpr int V = DK / 8;
+  for (int idx = threadIdx.x; idx < rows * V; idx += blockDim.x) {
+    const int i = idx / V, d0 = idx % V * 8, c = i / G;
+    const size_t rc = (size_t)r * a.C + c;
+    const float* cs = cos ? cos + rc * rot : nullptr;
+    const float* sn = sin ? sin + rc * rot : nullptr;
+    rope8<TQ>(q + (rc * a.H + (size_t)h * G + i % G) * DK, sQ + i * DK, d0, cs, sn, rot);
+  }
+}
+
+// Split ``split`` of KV head h of slot r, all its C * G <= GB rows, q in
+// sQ (stage_q, before this is called: its first barrier publishes sQ).
+// All kSplitThreads threads of the block call it. With one split it writes the output; else the
+// partial, and the last block of (r, h) merges every split's partial
+// into the output.
+template <typename TQ, int KIND, int DK, int GB>
+__device__ void attend_split(const PagedArgs& a, const SplitArgs& sp, int r, int h, int split,
+                             const TQ* sQ) {
+  using Geo = SplitGeom<TQ, KIND, DK, GB>;
+  using PT = typename PoolT<TQ, KIND>::T;
+  constexpr int ND = Geo::kDims, LB = Geo::kLoad, W = Geo::kWords, LPL = Geo::kLanes;
+  constexpr int U = Geo::kInFlight, NG = kSplitWarps * Geo::kGroups;  // line groups a block
+  __shared__ uint64_t sBits[kDecodeRows][kSplitWords];  // [token][word]: C <= 8
+  __shared__ uint64_t sAny[kSplitWords];                // lines any row attends
+  __shared__ int sPid[kSplitChunkPages];
+  __shared__ float sPk[kSplitChunkPages], sPv[kSplitChunkPages];
+  __shared__ float sM[kSplitWarps][GB], sL[kSplitWarps][GB];
+  __shared__ float sAcc[kSplitWarps][GB][DK];
+  __shared__ int sLast;
+
+  const int G = a.H / a.KV, rows = a.C * G, ps = a.ps, S = a.NP * ps;
+  const int ps_log = __ffs(ps) - 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int sub = lane % LPL, gi = warp * Geo::kGroups + lane / LPL;
+  const int s0 = split * sp.split_pages * ps, s1 = min(S, s0 + sp.split_pages * ps);
+  const uint8_t* kb = static_cast<const uint8_t*>(a.k_pool);
+  const uint8_t* vb = static_cast<const uint8_t*>(a.v_pool);
+  const uint8_t* mslot = a.mask + (size_t)r * a.C * S;
+
+  float qr[GB][ND], m[GB], l[GB], acc[GB][ND];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int e = 0; e < ND; ++e) acc[g][e] = 0.f;
+    m[g] = kNegInf;
+    l[g] = 0.f;
+  }
+
+  // With several splits (C == 1) every block also scans the slot's whole
+  // mask row, in the round trip of its first staging: bit s of ``live``
+  // is set when split s attends a line. A split that attends nothing
+  // exits after that round trip; the rest count themselves for the merge.
+  __shared__ unsigned long long sScan[kSplitWarps];
+  unsigned long long live = 0ull;  // block-uniform after the first barrier
+  if (sp.nsplit > 1) {
+    const int split_lines = sp.split_pages * ps;
+    unsigned long long mine = 0ull;
+    for (int w = tid; w < S / 16; w += kSplitThreads) {
+      const uint4 x = *reinterpret_cast<const uint4*>(mslot + 16 * w);
+      if (x.x | x.y | x.z | x.w) mine |= 1ull << (16 * w / split_lines);
+    }
+    const unsigned lo = __reduce_or_sync(0xffffffffu, unsigned(mine));
+    const unsigned hi = __reduce_or_sync(0xffffffffu, unsigned(mine >> 32));
+    if (lane == 0) sScan[warp] = (unsigned long long)hi << 32 | lo;
+  }
+
+  // Per chunk one barrier before the walk: the mask words and page ids,
+  // read together (and, at the first chunk, sQ, staged by the caller);
+  // the page scales are read while the first lines' loads are in flight.
+  bool attended = false;  // block-uniform: some row attends a line of the split
+  const bool one_token = a.C == 1;
+  for (int cs = s0; cs < s1; cs += kSplitChunk) {
+    const int n = min(kSplitChunk, s1 - cs);  // lines of the chunk, a multiple of 16
+    if (cs != s0) __syncthreads();            // the last chunk's inputs are read
+    if (tid < kSplitWords) {
+      uint64_t any = 0;
+      for (int c = 0; c < a.C; ++c) {
+        const uint64_t b = 64 * tid < n ? mask_bits(mslot + (size_t)c * S, cs + 64 * tid, cs + n)
+                                        : 0ull;
+        sBits[c][tid] = b;
+        any |= b;
+      }
+      sAny[tid] = any;
+    } else if (warp == 1 && lane < (n >> ps_log)) {
+      sPid[lane] = a.table[(size_t)r * a.NP + (cs >> ps_log) + lane];
+    }
+    __syncthreads();
+    if (cs == s0 && sp.nsplit > 1) {
+#pragma unroll
+      for (int w = 0; w < kSplitWarps; ++w) live |= sScan[w];
+      if (!((live >> split) & 1ull)) {  // block-uniform: nothing to attend here
+        if (live == 0ull && split == 0) {  // nor anywhere: zeros
+          TQ* out = static_cast<TQ*>(a.out);
+          for (int idx = tid; idx < rows * DK; idx += kSplitThreads) {
+            const int i = idx / DK;
+            out[(((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + idx % DK] =
+                from_f32<TQ>(0.f);
+          }
+        }
+        return;
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < kSplitWords; ++w) any |= sAny[w] != 0ull;
+    if (!any) continue;  // block-uniform: no K/V line of the chunk is read
+    if (!attended) {     // q, for the first attended chunk
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int e = 0; e < ND; ++e)
+          qr[g][e] = g < rows ? to_f32<TQ>(sQ[g * DK + Geo::dim(sub, e)]) : 0.f;
+    }
+    attended = true;
+
+    for (int j0 = 0; j0 < n; j0 += NG * U) {
+      uint32_t kw[U][W], vw[U][W];
+      bool on[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * NG + gi;
+        on[u] = j < n && ((sAny[j >> 6] >> (j & 63)) & 1ull);
+        if (on[u]) {
+          const size_t off =
+              pool_row<KIND, DK>(sPid[j >> ps_log], j & (ps - 1), h, ps, a.KV) * sizeof(PT) +
+              size_t(sub) * LB;
+          load_words<W>(kb + off, kw[u]);
+          load_words<W>(vb + off, vw[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < W; ++i) kw[u][i] = vw[u][i] = 0u;
+        }
+      }
+      if (j0 == 0) {  // block-uniform: the chunk's page scales
+        if (warp == 1 && lane < (n >> ps_log)) {
+          const int page = sPid[lane];
+          // scores in base 2: dot * (k_scale * scale) * log2(e), then exp2
+          sPk[lane] = (KIND == kPoolFloat ? 1.f : a.k_scale[(size_t)page * a.KV + h]) *
+                      a.scale * kLog2e;
+          sPv[lane] = KIND == kPoolFloat ? 1.f : a.v_scale[(size_t)page * a.KV + h];
+        }
+        __syncthreads();
+      }
+      bool some = false;
+#pragma unroll
+      for (int u = 0; u < U; ++u) some |= on[u];
+      if (!__any_sync(0xffffffffu, some)) continue;  // warp-uniform
+
+      // partial dots of each row with each line, then summed over the
+      // line's lanes (xor offsets below LPL stay inside the lane group)
+      float dot[GB][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kx[ND];
+        widen_words<TQ, KIND, W, ND>(kw[u], kx);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          float p = 0.f;
+#pragma unroll
+          for (int e = 0; e < ND; ++e) p = fmaf(qr[g][e], kx[e], p);
+          dot[g][u] = p;
+        }
+      }
+#pragma unroll
+      for (int o = LPL / 2; o > 0; o /= 2)
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          if (g >= rows) continue;  // block-uniform
+#pragma unroll
+          for (int u = 0; u < U; ++u) dot[g][u] += __shfl_xor_sync(0xffffffffu, dot[g][u], o);
+        }
+
+      // online softmax over the U lines (base 2), then the V lines; with
+      // one token (C == 1) every row's mask is the lines' ``on``
+      float wgt[GB][U];
+      bool onr[GB][U];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (g >= rows) continue;
+        const uint64_t* bits = sBits[g / G];
+        float sc[U], mx = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * NG + gi;
+          onr[g][u] = on[u] && (one_token || ((bits[j >> 6] >> (j & 63)) & 1ull));
+          sc[u] = onr[g][u] ? dot[g][u] * sPk[j >> ps_log] : kNegInf;
+          mx = fmaxf(mx, sc[u]);
+        }
+        const float corr = exp2_ftz(m[g] - mx);
+        m[g] = mx;
+        float psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float p = onr[g][u] ? exp2_ftz(sc[u] - mx) : 0.f;
+          psum += p;
+          wgt[g][u] = KIND == kPoolFloat ? p : p * sPv[(j0 + u * NG + gi) >> ps_log];
+        }
+        l[g] = l[g] * corr + psum;
+#pragma unroll
+        for (int e = 0; e < ND; ++e) acc[g][e] *= corr;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vx[ND];
+        widen_words<TQ, KIND, W, ND>(vw[u], vx);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          if (g >= rows) continue;
+          // a line another row attends may hold anything (the scratch page)
+          if (onr[g][u]) {
+#pragma unroll
+            for (int e = 0; e < ND; ++e) acc[g][e] = fmaf(wgt[g][u], vx[e], acc[g][e]);
+          }
+        }
+      }
+    }
+  }
+
+  // (m, l) partials after the acc ones; none with one split
+  float* const ml0 = sp.nsplit > 1 ? sp.ws + (size_t)a.R * a.KV * sp.nsplit * rows * DK : nullptr;
+  const size_t part = ((size_t)r * a.KV + h) * sp.nsplit + split;
+  TQ* out = static_cast<TQ*>(a.out);
+  auto out_at = [&](int i) {
+    return out + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK;
+  };
+  if (!attended) {  // one split (several: returned above): zeros
+    for (int idx = tid; idx < rows * DK; idx += kSplitThreads)
+      out_at(idx / DK)[idx % DK] = from_f32<TQ>(0.f);
+  } else {
+    // merge the warp's lane groups (butterfly over the groups), then the
+    // warps in shared memory
+#pragma unroll
+    for (int o = LPL; o < 32; o *= 2)
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (g >= rows) continue;
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+        const float M = fmaxf(m[g], mo), fa = exp2_ftz(m[g] - M), fb = exp2_ftz(mo - M);
+        l[g] = l[g] * fa + lo * fb;
+#pragma unroll
+        for (int e = 0; e < ND; ++e)
+          acc[g][e] = acc[g][e] * fa + __shfl_xor_sync(0xffffffffu, acc[g][e], o) * fb;
+        m[g] = M;
+      }
+    if (lane < LPL) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (g >= rows) continue;
+#pragma unroll
+        for (int e = 0; e < ND; ++e) sAcc[warp][g][Geo::dim(lane, e)] = acc[g][e];
+        if (lane == 0) {
+          sM[warp][g] = m[g];
+          sL[warp][g] = l[g];
+        }
+      }
+    }
+    __syncthreads();
+    float* const acc0 = sp.nsplit > 1 ? sp.ws + part * rows * DK : nullptr;
+    for (int idx = tid; idx < rows * DK; idx += kSplitThreads) {
+      const int g = idx / DK, d = idx % DK;
+      float M = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kSplitWarps; ++w) M = fmaxf(M, sM[w][g]);
+      float L = 0.f, O = 0.f;
+#pragma unroll
+      for (int w = 0; w < kSplitWarps; ++w) {
+        const float f = exp2_ftz(sM[w][g] - M);
+        L = fmaf(sL[w][g], f, L);
+        O = fmaf(sAcc[w][g][d], f, O);
+      }
+      if (sp.nsplit == 1) {
+        out_at(g)[d] = from_f32<TQ>(O / fmaxf(L, kMinDenominator));
+      } else {
+        acc0[idx] = O;
+        if (d == 0) {
+          ml0[(part * rows + g) * 2] = M;
+          ml0[(part * rows + g) * 2 + 1] = L;
+        }
+      }
+    }
+  }
+  if (sp.nsplit == 1) return;
+
+  // The last of the splits in ``live`` to get here merges them in split
+  // order: the barrier orders the block's partial before thread 0's
+  // fence, which orders it before the count.
+  __shared__ float sMl[kSplitMaxSplits * kDecodeRows * 2];
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    sLast = atomicAdd(sp.counters + (size_t)r * a.KV + h, 1) == __popcll(live) - 1;
+  }
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  const size_t first = ((size_t)r * a.KV + h) * sp.nsplit;
+  for (int i = tid; i < sp.nsplit * rows * 2; i += kSplitThreads)
+    if ((live >> (i / (2 * rows))) & 1ull) sMl[i] = __ldcg(ml0 + first * rows * 2 + i);
+  __syncthreads();
+  for (int idx = tid; idx < rows * DK; idx += kSplitThreads) {
+    const int g = idx / DK;
+    float M = kNegInf;
+    for (int s = 0; s < sp.nsplit; ++s)
+      if ((live >> s) & 1ull) M = fmaxf(M, sMl[(s * rows + g) * 2]);
+    float L = 0.f, O = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < sp.nsplit; ++s) {
+      if (!((live >> s) & 1ull)) continue;  // wrote no partial
+      const float f = exp2_ftz(sMl[(s * rows + g) * 2] - M);
+      L = fmaf(sMl[(s * rows + g) * 2 + 1], f, L);
+      O = fmaf(__ldcg(sp.ws + (first + s) * rows * DK + idx), f, O);
+    }
+    out_at(g)[idx % DK] = from_f32<TQ>(O / fmaxf(L, kMinDenominator));
+  }
+  if (tid == 0) sp.counters[(size_t)r * a.KV + h] = 0;
+}
+
+}  // namespace fft

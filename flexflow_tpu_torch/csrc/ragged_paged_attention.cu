@@ -28,8 +28,12 @@
 //  * Pages or tiles no row of a block attends are skipped after a look at
 //    their mask bits, before their K/V are read. The TPU kernel DMAs
 //    every page and skips only the compute.
-//  * Decode ("decode"): every K/V line is read once for all query heads of
-//    its group, as one coalesced segment per warp, four lines in flight.
+//  * Decode ("decode", C * G <= 8): the split design of paged_decode.cuh.
+//    One block of 4 warps per (slot, KV head, split of whole pages), the
+//    split's mask bits, page ids and scales staged first, every K/V line
+//    read once for all query rows of its group in 16-byte loads, each
+//    split's partial softmax merged in split order by the last block of
+//    its (slot, KV head).
 //  * bf16 mixed steps ("mma"): one block of 8 warps per (slot, KV head,
 //    128 rows), ceil(C * G / 128) row blocks on the grid. Each K/V tile of
 //    64 lines is read once for the block's 128 rows, by cp.async into one
@@ -46,19 +50,26 @@
 //    7-12 times over, a split of one of the two products 5-6 times; with
 //    both split the result is within ~2e-7 of f32
 //    (tests/test_torch_tf32_split.py emulates the three).
-//  * No wgmma, TMA or split-K over the cache yet: those are later work
-//    (wgmma takes TF32 operands from shared memory K-major only, so V
-//    would be transposed on the way in).
+//  * The mixed-step tiles take no wgmma, TMA or split over the cache yet:
+//    those are later work (wgmma takes TF32 operands from shared memory
+//    K-major only, so V would be transposed on the way in).
 #include <type_traits>
 
-#include "paged_attention.cuh"
+#include "paged_decode.cuh"
 
 namespace fft {
 namespace {
 
+// The decode design: split blockIdx.x of KV head blockIdx.y of slot
+// blockIdx.z, its C * G <= GB query rows.
 template <typename TQ, int KIND, int DK, int GB>
-__global__ void __launch_bounds__(kDecodeThreads) ragged_decode_kernel(PagedArgs a) {
-  attend_decode<TQ, KIND, DK, GB>(a, blockIdx.z, blockIdx.y, blockIdx.x * GB);
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
+    ragged_split_kernel(PagedArgs a, SplitArgs s) {
+  __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
+  TQ* sQ = reinterpret_cast<TQ*>(sQraw);
+  const int r = blockIdx.z, h = blockIdx.y;
+  stage_q<TQ, DK>(a, r, h, static_cast<const TQ*>(a.q), nullptr, nullptr, 0, sQ);
+  attend_split<TQ, KIND, DK, GB>(a, s, r, h, blockIdx.x, sQ);
 }
 
 // The tensor-core designs: "mma" (bf16 q) and "tf32x3" (f32 q).
@@ -69,16 +80,18 @@ __global__ void __launch_bounds__(kMmaTileThreads, 1) ragged_mma_kernel(PagedArg
 }
 
 template <typename TQ, int KIND, int DK>
-cudaError_t launch_dk(const PagedArgs& a, cudaStream_t stream) {
+cudaError_t launch_dk(const PagedArgs& a, const SplitArgs& s, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
   const int rows = a.C * (a.H / a.KV);
   const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
   if (design == kDesignDecode) {
+    const dim3 grid(s.nsplit, a.KV, a.R);
     if (rows == 1) {
-      ragged_decode_kernel<TQ, KIND, DK, 1><<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+      ragged_split_kernel<TQ, KIND, DK, 1><<<grid, kSplitThreads, 0, stream>>>(a, s);
+    } else if (rows <= 4) {  // G = 2, 4: 1.4-1.8 x faster than at 8 rows (H100)
+      ragged_split_kernel<TQ, KIND, DK, 4><<<grid, kSplitThreads, 0, stream>>>(a, s);
     } else {
-      ragged_decode_kernel<TQ, KIND, DK, kDecodeRows>
-          <<<dim3(1, a.KV, a.R), kDecodeThreads, 0, stream>>>(a);
+      ragged_split_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kSplitThreads, 0, stream>>>(a, s);
     }
   } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
     constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
@@ -93,41 +106,52 @@ cudaError_t launch_dk(const PagedArgs& a, cudaStream_t stream) {
 }
 
 template <typename TQ, int KIND>
-cudaError_t launch_kind(const PagedArgs& a, int dk, cudaStream_t stream) {
-  if (dk == 64) return launch_dk<TQ, KIND, 64>(a, stream);
-  if (dk == 128) return launch_dk<TQ, KIND, 128>(a, stream);
+cudaError_t launch_kind(const PagedArgs& a, const SplitArgs& s, int dk, cudaStream_t stream) {
+  if (dk == 64) return launch_dk<TQ, KIND, 64>(a, s, stream);
+  if (dk == 128) return launch_dk<TQ, KIND, 128>(a, s, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-cudaError_t launch_q(const PagedArgs& a, int dk, int pool_kind, cudaStream_t stream) {
-  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(a, dk, stream);
-  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(a, dk, stream);
-  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(a, dk, stream);
+cudaError_t launch_q(const PagedArgs& a, const SplitArgs& s, int dk, int pool_kind,
+                     cudaStream_t stream) {
+  if (pool_kind == kPoolFloat) return launch_kind<TQ, kPoolFloat>(a, s, dk, stream);
+  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(a, s, dk, stream);
+  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(a, s, dk, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace fft
 
+// ws and counters: the decode design's workspace (SplitArgs), null when
+// it takes one split (split_pages >= NP) or the launch takes another
+// design; more than one split needs C == 1.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* mask, void* out, int R,
-    int C, int H, int KV, int dk, int ps, int NP, int dtype, int pool_kind,
-    float scale, void* stream) {
+    const void* v_scale, const void* table, const void* mask, void* out, void* ws,
+    void* counters, int R, int C, int H, int KV, int dk, int ps, int NP, int dtype,
+    int pool_kind, int split_pages, float scale, void* stream) {
   if (R <= 0 || C <= 0 || KV <= 0 || NP <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (ps != 16 && ps != 32 && ps != 64 && ps != 128) return (int)cudaErrorInvalidValue;
   if (pool_kind != fft::kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (split_pages <= 0) return (int)cudaErrorInvalidValue;
+  const int nsplit = (NP + split_pages - 1) / split_pages;
+  if (nsplit > fft::kSplitMaxSplits) return (int)cudaErrorInvalidValue;
+  if (nsplit > 1 && (C != 1 || ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   fft::PagedArgs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                    static_cast<const float*>(v_scale), static_cast<const int*>(table),
                    static_cast<const uint8_t*>(mask), out, R, C, H, KV, ps, NP, scale};
+  const fft::SplitArgs sp{static_cast<float*>(ws), static_cast<int*>(counters), split_pages,
+                          nsplit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == fft::kBFloat16) {
-    err = fft::launch_q<__nv_bfloat16>(a, dk, pool_kind, s);
+    err = fft::launch_q<__nv_bfloat16>(a, sp, dk, pool_kind, s);
   } else if (dtype == fft::kFloat32) {
-    err = fft::launch_q<float>(a, dk, pool_kind, s);
+    err = fft::launch_q<float>(a, sp, dk, pool_kind, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -40,8 +40,8 @@ NVCC_FLAGS = (
 SIGNATURES = {
     "decode_attention": (5, 6, 1),
     "verify_attention": (5, 7, 1),
-    "ragged_paged_attention": (8, 9, 1),
-    "fused_rope_paged_attention": (16, 10, 2),
+    "ragged_paged_attention": (10, 10, 1),
+    "fused_rope_paged_attention": (18, 11, 2),
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),

@@ -39,7 +39,7 @@ path dequantizes the gathered lines first.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -65,7 +65,8 @@ LAUNCHES: Dict[str, int] = {
 
 #: launches of the paged, verify and whole-step kernels by the block design
 #: their launcher took (``_cuda.DESIGNS``; paged, and the whole step's
-#: attention stage: "decode" for C * G <= 8, else "mma" for bf16 q on the
+#: attention stage: "decode" for C * G <= 8 (the paged kernels: split over
+#: pages, :func:`paged_decode_split`), else "mma" for bf16 q on the
 #: tensor cores, "tf32x3" for f32 q on the TF32 tensor cores, each f32
 #: product as three TF32 products; verify: "mma" and "tf32x3" at C * G >
 #: 8, "rows8" and "f32" on the CUDA cores below), since the last reset
@@ -465,6 +466,73 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask, *,
     return out.permute(0, 3, 1, 2, 4).reshape(R, C, H, dk).to(q.dtype)
 
 
+#: the paged kernels' decode design (``paged_design`` in
+#: csrc/paged_attention.cuh) takes at most this many query rows C * G a KV head
+DECODE_ROWS = 8
+#: lines a split of the decode design streams, longest first: the rule
+#: takes the first whose grid reaches DECODE_SPLIT_BLOCKS blocks, else the
+#: last (a split is at least one page). At 16 slots of LLaMA-7B decode on
+#: an H100, 512-line splits ran faster than 256-line ones (int4 0.073 ->
+#: 0.061 ms, bf16 at KV 8 0.085 -> 0.062, the rest within 3%;
+#: scripts/decode_split_probe.py): a block's fixed round trips weigh less
+DECODE_SPLIT_LINES = (512, 256, 128, 64)
+#: blocks (of 4 warps) a grid should have: about one wave of an H100's
+#: 132 SMs at 3-5 blocks each
+DECODE_SPLIT_BLOCKS = 512
+#: most splits a (slot, KV head): longer caches take longer splits
+#: (``kSplitMaxSplits``: the merging block stages every split's (m, l))
+DECODE_MAX_SPLITS = 64
+
+
+def paged_decode_split(R: int, C: int, KV: int, NP: int, ps: int) -> Tuple[int, int]:
+    """(pages a split, splits a (slot, KV head)) of the paged kernels'
+    decode design (csrc/paged_decode.cuh) for R slots of C query tokens,
+    KV key/value heads and tables of NP pages of ps lines. A split is a
+    run of consecutive whole pages, and the count depends on these shapes
+    alone (the host cannot see the slots' lengths without a sync), and is
+    at most DECODE_MAX_SPLITS. C > 1 (a chunk or a tree, whose new lines
+    may span two splits' pages) takes one split. Both paged kernels take
+    this rule, so they cut a (slot, KV head) alike and the fused kernel
+    stays bitwise the unfused path."""
+    if C > 1:
+        return NP, 1
+    for lines in DECODE_SPLIT_LINES:
+        pages = max(1, lines // ps, -(-NP // DECODE_MAX_SPLITS))
+        n = -(-NP // pages)
+        if R * KV * n >= DECODE_SPLIT_BLOCKS:
+            break
+    return pages, n
+
+
+#: the decode design's scratch by (device, stream): the partials'
+#: workspace (f32) and the merge counters (int32, zero; each launch leaves
+#: them 0 again). Launches on one stream never overlap, so one stream's
+#: launches share them; a larger launch replaces them.
+_SPLIT_SCRATCH: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_workspace(q: torch.Tensor, KV: int, NP: int, ps: int):
+    """The decode design's split pages and scratch for a launch with q
+    (R, C, H, dk) on CUDA: (split_pages, partials, counters); the tensors
+    are None with one split or at C * G > DECODE_ROWS (another design)."""
+    R, C, H, dk = q.shape
+    rows = C * (H // KV)
+    if rows > DECODE_ROWS:
+        return NP, None, None
+    pages, n = paged_decode_split(R, C, KV, NP, ps)
+    if n == 1:
+        return pages, None, None
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    ws, counters = _SPLIT_SCRATCH.get(key, (None, None))
+    need = R * KV * n * rows * (dk + 2)
+    if ws is None or ws.numel() < need:
+        ws = torch.empty(need, dtype=torch.float32, device=q.device)
+    if counters is None or counters.numel() < R * KV:
+        counters = torch.zeros(R * KV, dtype=torch.int32, device=q.device)
+    _SPLIT_SCRATCH[key] = ws, counters
+    return pages, ws, counters
+
+
 def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
                            scale: Optional[float] = None,
                            k_scale=None, v_scale=None):
@@ -473,7 +541,9 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
     page table. q (R, C, H, dk); pools (P+1, ps, KV, dk/pack) in q's
     dtype, or int8/uint8 codes with ``k_scale``/``v_scale`` (P+1, KV)
     f32; page_table (R, NP) int32; mask (R, C, NP*ps) bool. Returns
-    (R, C, H, dk)."""
+    (R, C, H, dk). On the GPU a decode step (C * G <= DECODE_ROWS) runs
+    split over pages (:func:`paged_decode_split`), its partials in a
+    workspace kept for the stream, merged inside the one launch."""
     kind = _check_paged(q, k_pool, v_pool, page_table, mask, k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, k_pool, v_pool, page_table, mask,
@@ -483,11 +553,13 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, mask, *,
 
     R, C, H, dk = q.shape
     ps, KV = k_pool.shape[1], k_pool.shape[2]
+    NP = page_table.shape[1]
     out = torch.empty_like(q)
+    pages, ws, counters = _decode_workspace(q, KV, NP, ps)
     _cuda.launch(
         "ragged_paged_attention",
-        [q, k_pool, v_pool, k_scale, v_scale, page_table, mask, out],
-        [R, C, H, KV, dk, ps, page_table.shape[1], _dtype_code(q.dtype), kind],
+        [q, k_pool, v_pool, k_scale, v_scale, page_table, mask, out, ws, counters],
+        [R, C, H, KV, dk, ps, NP, _dtype_code(q.dtype), kind, pages],
         [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
     _count_paged("ragged_paged_attention", q, k_pool)
@@ -650,16 +722,19 @@ def fused_rope_paged_attention(q, k_new, v_new, cos, sin, k_pool, v_pool,
             raise ValueError(f"{name} must be contiguous")
     from . import _cuda
 
-    ps = k_pool.shape[1]
+    ps, NP = k_pool.shape[1], page_table.shape[1]
     out = torch.empty_like(q)
-    q_rot = torch.empty_like(q)
+    pages, ws, counters = _decode_workspace(q, KV, NP, ps)
+    # the rotated q goes through memory on mixed steps only (the decode
+    # design rotates each block's own copy in shared memory)
+    q_rot = torch.empty_like(q) if C * (H // KV) > DECODE_ROWS else None
     k_rot = torch.empty_like(k_new)
     _cuda.launch(
         "fused_rope_paged_attention",
         [q, k_new, v_new, cos, sin, k_pool, v_pool, k_scale, v_scale, page_table,
-         logical, off, mask, out, q_rot, k_rot],
-        [R, C, H, KV, dk, ps, page_table.shape[1],
-         cos.shape[-1] if cos is not None else 0, _dtype_code(q.dtype), kind],
+         logical, off, mask, out, q_rot, k_rot, ws, counters],
+        [R, C, H, KV, dk, ps, NP, cos.shape[-1] if cos is not None else 0,
+         _dtype_code(q.dtype), kind, pages],
         [scale if scale is not None else 1.0 / math.sqrt(dk),
          qmax if qmax is not None else 0.0],
     )

@@ -241,7 +241,11 @@ def _paged_case(gen, dev, dtype, quant, R, C, H, KV, dk, ps, NP):
 # and a dk-128 cache of 1280 lines (20 tiles: two chunks of the 16 that
 # the f32 tile on f32 pages stages at dk 128); last, LLaMA-7B's longest
 # walk at dk 128, a 2048-token context in 17 pages of 128 (the serving
-# slices' page count) under a 128-token mixed step at G = 2
+# slices' page count) under a 128-token mixed step at G = 2; then the
+# split decode design: LLaMA-7B MHA at page size 128 with 17 pages (17
+# one-page splits at R = 3), the same at KV 8 (G = 4), dk 64 at page size
+# 16 with 64 pages (16 splits of 4 pages: long walks), 8 rows a KV head
+# (C = 2 at G = 4: one split, two mask rows) and C = 4 at G = 1
 PAGED_SHAPES = [
     (20, 8, 2, 64, 128, 34),
     (20, 8, 2, 128, 64, 20),
@@ -258,6 +262,11 @@ PAGED_SHAPES = [
     (37, 8, 2, 64, 128, 2),
     (100, 8, 2, 128, 16, 12),
     (128, 4, 2, 128, 128, 17),
+    (1, 32, 32, 128, 128, 17),
+    (1, 32, 8, 128, 128, 17),
+    (1, 8, 2, 64, 16, 64),
+    (2, 8, 2, 64, 16, 5),
+    (4, 2, 2, 128, 32, 6),
 ]
 
 
@@ -470,6 +479,191 @@ def test_cuda_verify_tf32x3_ignores_stale_shared_memory(cuda_device, poison_smem
     assert out.isfinite().all()
     torch.testing.assert_close(out, ref, **TOL[torch.float32])
     assert (out[1, 0] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the split decode design (csrc/paged_decode.cuh)
+
+# (H, KV, dk, ps, NP): LLaMA-7B at page size 128 (MHA and KV 8), dk 64 at
+# page size 16 with 64 pages
+SPLIT_SHAPES = [(32, 32, 128, 128, 17), (32, 8, 128, 128, 17), (8, 2, 64, 16, 64)]
+
+
+def _decode_case(gen, dev, dtype, quant, H, KV, dk, ps, NP):
+    """A decode step (C = 1) of six slots whose lengths end on and around
+    the boundaries of the decode design's splits: 0 (an idle slot: its
+    line is padding, written to the scratch page, its row attends
+    nothing), 1, one split, one split and a line (its new line is the
+    first line of split 1), two splits less a line, and the whole table
+    but the scratch page. Returns q, pools, scales, the table (the pages a
+    slot holds distinct, the rest on the scratch page P), the causal mask,
+    the new lines' positions and the split length in lines."""
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    R = 6
+    pages, n = tk.paged_decode_split(R, 1, KV, NP, ps)
+    assert n > 1
+    L = pages * ps
+    lens = torch.tensor([0, 1, L, L + 1, 2 * L - 1, (NP - 1) * ps], device=dev)
+    assert int(lens.max()) <= (NP - 1) * ps and 2 * L - 1 <= (NP - 1) * ps
+    P = R * NP
+    q = torch.randn(R, 1, H, dk, generator=gen, device=dev).to(dtype)
+    lines = torch.randn(2, P + 1, ps, KV, dk, generator=gen, device=dev)
+    held = -(-lens // ps)
+    table = torch.randperm(P, generator=gen, device=dev).reshape(R, NP).to(torch.int32)
+    table[torch.arange(NP, device=dev)[None, :] >= held[:, None]] = P
+    mask = (torch.arange(NP * ps, device=dev)[None, :] < lens[:, None])[:, None]
+    pos = torch.where(lens > 0, lens - 1, NP * ps - 1)[:, None]
+    if quant is None:
+        return q, lines[0].to(dtype), lines[1].to(dtype), None, None, table, mask, pos, L
+    spec = kq.SPECS[quant]
+    s = lines.abs().amax(dim=(2, 4)) / spec.qmax + 1e-3
+    codes = torch.round(lines / s[:, :, None, :, None]).clamp(-spec.qmax, spec.qmax)
+    pools = kq.pack_codes(codes, spec.dtype, spec.pack)
+    return (q, pools[0].contiguous(), pools[1].contiguous(), s[0].contiguous(),
+            s[1].contiguous(), table, mask, pos, L)
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "H{}-KV{}-dk{}-ps{}-NP{}".format(*s))
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_split_boundaries_and_fused_bitwise(cuda_device, dtype, quant, shape):
+    """Decode lengths that end on a split boundary, a line past it and a
+    line before it: the ragged kernel within the tolerance of the plain
+    version (an idle slot gives zeros); the fused kernel bitwise the
+    unfused path (RoPE, commit, ragged kernel) on the outputs of the slots
+    that read no scratch line, on the non-scratch pools and on the
+    scales, with one slot's new line the first line of a split and, on
+    quantized pools, another slot's new line fifty times larger than its
+    page's lines, so that the page's scale grows and its codes are
+    requantized."""
+    from flexflow_tpu_torch.models import llama as tl
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    H, KV, dk, ps, NP = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, kp, vp, ks, vs, table, mask, pos, L = _decode_case(gen, cuda_device, dtype, quant,
+                                                          H, KV, dk, ps, NP)
+    R, P = q.shape[0], q.shape[0] * NP
+    q[4] /= 64  # see slot 4's new line below
+    assert int(pos[3, 0]) == L  # the first line of split 1
+    before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
+    out = tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    _one_launch(before, "ragged_paged_attention", kp, "decode")
+    ref = tk.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    assert (out[0] == 0).all()
+
+    k_new = torch.randn(R, 1, KV, dk, generator=gen, device=cuda_device).to(dtype)
+    v_new = torch.randn(R, 1, KV, dk, generator=gen, device=cuda_device).to(dtype)
+    # slot 4's new line, at in-page offset ps - 2 of a page its other lines
+    # fill, grows the page's scales; its query, 64 times smaller, spreads
+    # the softmax over the slot's lines, so the output stays near unit
+    # scale, where the f32 tolerance is stated
+    k_new[4] *= 50
+    v_new[4] *= 50
+    assert int(pos[4, 0]) % ps != 0
+    cos, sin = tl.rope_freqs(tl.LLaMAConfig(hidden_size=H * dk, num_attention_heads=H,
+                                            num_key_value_heads=KV), pos)
+    logical = (pos // ps).to(torch.int32)
+    off = (pos % ps).to(torch.int32)
+    qmax = None if quant is None else kq.SPECS[quant].qmax
+    a = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    b = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    before = {**tk.LAUNCHES, **tk.DESIGN_LAUNCHES}
+    fused = tk.fused_rope_paged_attention(q, k_new, v_new, cos, sin, a[0], a[1], table,
+                                          logical, off, mask, k_scale=a[2], v_scale=a[3],
+                                          qmax=qmax)
+    _one_launch(before, "fused_rope_paged_attention", kp, "decode")
+    qr, kr = tl.apply_rope(q, cos, sin), tl.apply_rope(k_new, cos, sin)
+    phys = table.long().gather(1, logical.long())
+    tk.commit_paged(b[0], b[1], kr, v_new, phys, off.long(), b[2], b[3], qmax)
+    unfused = tk.ragged_paged_attention(qr, b[0], b[1], table, mask, k_scale=b[2],
+                                        v_scale=b[3])
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        if x is not None:
+            assert torch.equal(x[:P], y[:P])
+    if quant is not None:
+        page = int(phys[4, 0])
+        assert a[2][page].ne(ks[page]).all()  # the page's K scale grew
+    assert torch.equal(fused[1:], unfused[1:])  # slot 0 alone wrote the scratch page
+    assert (fused[0] == 0).all()
+    c = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    ref = tk.fused_rope_paged_attention_ref(q, k_new, v_new, cos, sin, c[0], c[1], table,
+                                            logical, off, mask, k_scale=c[2], v_scale=c[3],
+                                            qmax=qmax)
+    torch.testing.assert_close(fused, ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_split_is_deterministic(cuda_device, dtype, quant):
+    """Two launches of either kernel on the same inputs give the same bits
+    (the splits merge in split order, whichever block finishes last), and
+    every launch leaves the merge counters at 0."""
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    H, KV, dk, ps, NP = SPLIT_SHAPES[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, kp, vp, ks, vs, table, mask, pos, _ = _decode_case(gen, cuda_device, dtype, quant,
+                                                          H, KV, dk, ps, NP)
+    outs = [tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    R = q.shape[0]
+    k_new = torch.randn(R, 1, KV, dk, generator=gen, device=cuda_device).to(dtype)
+    v_new = torch.randn(R, 1, KV, dk, generator=gen, device=cuda_device).to(dtype)
+    logical = (pos // ps).to(torch.int32)
+    off = (pos % ps).to(torch.int32)
+    qmax = None if quant is None else kq.SPECS[quant].qmax
+    runs = []
+    for _ in range(2):
+        pools = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+        out = tk.fused_rope_paged_attention(q, k_new, v_new, None, None, pools[0], pools[1],
+                                            table, logical, off, mask, k_scale=pools[2],
+                                            v_scale=pools[3], qmax=qmax)
+        runs.append([out] + [t for t in pools if t is not None])
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    for _, counters in tk._SPLIT_SCRATCH.values():
+        assert (counters == 0).all()
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "H{}-KV{}-dk{}-ps{}-NP{}".format(*s))
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_paged_decode_split_ignores_stale_shared_memory(cuda_device, poison_smem, dtype,
+                                                             quant, shape):
+    """The split decode design reads no shared memory it did not write:
+    after every SM's shared memory is filled with NaN bits, the ragged and
+    fused kernels' outputs are finite and match the plain version."""
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    H, KV, dk, ps, NP = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, kp, vp, ks, vs, table, mask, pos, _ = _decode_case(gen, cuda_device, dtype, quant,
+                                                          H, KV, dk, ps, NP)
+    ref = tk.ragged_paged_attention_ref(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    poison_smem()
+    out = tk.ragged_paged_attention(q, kp, vp, table, mask, k_scale=ks, v_scale=vs)
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    # the fused kernel with every new line on the scratch page (no RoPE),
+    # whose lines no row reads
+    R = q.shape[0]
+    logical = torch.full((R, 1), NP - 1, dtype=torch.int32, device=cuda_device)
+    off = torch.zeros(R, 1, dtype=torch.int32, device=cuda_device)
+    zeros = torch.zeros(R, 1, KV, dk, dtype=dtype, device=cuda_device)
+    qmax = None if quant is None else kq.SPECS[quant].qmax
+    pools = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    poison_smem()
+    fused = tk.fused_rope_paged_attention(q, zeros, zeros, None, None, pools[0], pools[1],
+                                          table, logical, off, mask, k_scale=pools[2],
+                                          v_scale=pools[3], qmax=qmax)
+    assert fused.isfinite().all()
+    torch.testing.assert_close(fused, ref, **TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
