@@ -91,6 +91,23 @@ are not, and which the profiler's sums gave bimodally), SDPA's too
 line reports its decode launches' device time
 (``paged_decode_device_ms``).
 
+One decode walk (slice 11): the dense ``decode_attention`` and the
+whole-step kernel's decode stage run the paged kernels' split walk
+(``csrc/paged_decode.cuh``). The decode rows are timed by ``graph_ms``,
+SDPA's too, and carry the split length, count and grid
+(``kernels.dense_decode_split``); a G = 16 (KV 2) case is timed at a
+small size and an MQA case (KV 1, four head groups) is checked. The
+build line lists the dense split instantiations among ``split_kernels``
+and checks the whole step's split scratch against the gate's mirror
+(``K.whole_step_split_smem_bytes``). The dense slice's padding rows
+(their token at the scratch line) launch with seq_len 0: its served
+tokens and teacher-forced logits must equal, bit for bit, those of the
+same runs with the padding rows walking the whole cache
+(``llama.decode_seq_lens`` replaced by the mask count), and its profile
+line reports the decode launches' device time. The whole bf16 arm adds a
+``whole_stages`` line of one stamped decode step at full depth (its
+engine's weights and tile count, ``DECODE_LENS`` over a fresh pool).
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -316,23 +333,27 @@ def _mma_report(reports):
                                        x["dk"]))
 
 
-# the split decode design's kernels (csrc/paged_decode.cuh): q type, pool
-# kind, dk and GB (most query rows a KV head) of each instantiation
+# the split decode walk's kernels (csrc/paged_decode.cuh): q type, pool
+# kind, dk and GB (most query rows a KV head) of each paged instantiation;
+# q type, dk and GB of each dense one (csrc/decode_attention.cu)
 SPLIT_KERNEL = r"(ragged|fused)_split_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)ELi(\d)E"
+DENSE_SPLIT_KERNEL = r"(dense)_split_kernelI(13__nv_bfloat16|f)()Li(\d+)ELi(\d)E"
 
 
 def _split_report(reports):
     """Each split decode instantiation of the two paged kernels (q dtype x
-    pool x dk x rows) from its ``ptxas -v`` report: registers, spill bytes
-    and static shared bytes a block of 128 threads, and the blocks an SM
-    holds by threads, registers and shared memory."""
+    pool x dk x rows) and of the dense one (q dtype x dk x rows) from its
+    ``ptxas -v`` report: registers, spill bytes and static shared bytes a
+    block of 128 threads, and the blocks an SM holds by threads, registers
+    and shared memory."""
     rows = []
-    for src in K.PAGED_KERNELS:
+    for src, pattern in ([(k, SPLIT_KERNEL) for k in K.PAGED_KERNELS]
+                         + [("decode_attention", DENSE_SPLIT_KERNEL)]):
         for fn in reports.get(src, "").split("Compiling entry function '")[1:]:
-            m = re.search(SPLIT_KERNEL, fn.split("'")[0])
+            m = re.search(pattern, fn.split("'")[0])
             if not m:
                 continue
-            f32, kind = m[2] == "f", int(m[3])
+            f32, kind = m[2] == "f", int(m[3] or 0)
             regs = int(re.search(r"Used (\d+) registers", fn)[1])
             static = re.search(r"(\d+) bytes smem", fn)
             smem = int(static[1]) if static else 0
@@ -352,8 +373,9 @@ def _whole_report(report):
     ``ptxas -v`` report (registers, spill bytes, static shared bytes) and
     from its library (``_cuda.whole_step_smem``: the tensor-core tile's
     dynamic bytes, the static bytes the runtime gives); checks that the
-    library's tile bytes are the gate's mirror (``K.mma_smem_bytes``), that
-    the gate's static price covers the static bytes, that the tile and the
+    library's tile bytes are the gate's mirror (``K.mma_smem_bytes``), and
+    so are its split walk's (``K.whole_step_split_smem_bytes``), that the
+    gate's static price covers the static bytes, that the tile and the
     static bytes fit one block, and that no instantiation spills."""
     rows = []
     for fn in report.split("Compiling entry function '")[1:]:
@@ -362,18 +384,22 @@ def _whole_report(report):
             continue
         f32, kind, dk = m[1] == "f", int(m[2]), int(m[3])
         static_ptxas = re.search(r"(\d+) bytes smem", fn)
-        mma, static = _cuda.whole_step_smem(0 if f32 else 1, kind, dk)
+        mma, static, split = _cuda.whole_step_smem(0 if f32 else 1, kind, dk)
         row = {"dtype": "f32" if f32 else "bf16",
                "pool": (("f32" if f32 else "bf16"), "int8", "int4")[kind], "dk": dk,
                "registers": int(re.search(r"Used (\d+) registers", fn)[1]),
                "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores", fn)[1]),
                "static_smem_ptxas": int(static_ptxas[1]) if static_ptxas else 0,
                "static_smem_runtime": static, "mma_smem_bytes": mma,
-               "mma_smem_mirror": K.mma_smem_bytes(f32, kind, dk)}
+               "mma_smem_mirror": K.mma_smem_bytes(f32, kind, dk),
+               "split_smem_bytes": split,
+               "split_smem_mirror": K.whole_step_split_smem_bytes(f32, dk, 0)}
         rows.append(row)
         what = f"whole_step_kernel[{row['dtype']}, {row['pool']}, dk {dk}]"
         check(mma == row["mma_smem_mirror"], f"{what}: tile {mma} bytes, mirror "
                                              f"{row['mma_smem_mirror']}")
+        check(split == row["split_smem_mirror"], f"{what}: split walk {split} bytes, mirror "
+                                                 f"{row['split_smem_mirror']}")
         check(static <= K._WS_STATIC_SMEM, f"{what}: {static} static bytes over the gate's "
                                            f"{K._WS_STATIC_SMEM}")
         check(mma + static <= K.WHOLE_STEP_SMEM_BUDGET, f"{what}: {mma} + {static} bytes")
@@ -504,9 +530,11 @@ def phase_build():
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info, "mma_kernels": mma, "split_kernels": split,
           "whole_step_kernels": whole})
-    # the split decode design: 2 q types x 3 pool types x 2 head dims x 3
-    # row counts in each paged source compiled by this run, none spilling
-    want = 36 * sum(src in reports for src in K.PAGED_KERNELS)
+    # the split decode walk: 2 q types x 3 pool types x 2 head dims x 3 row
+    # counts in each paged source compiled by this run, 2 x 2 x 3 in the
+    # dense one, none spilling
+    want = (36 * sum(src in reports for src in K.PAGED_KERNELS)
+            + 12 * ("decode_attention" in reports))
     check(len(split) == want, f"split decode instantiations in the ptxas report: {len(split)}, "
                               f"want {want}")
     check(all(r["spill_store_bytes"] == 0 for r in split),
@@ -604,6 +632,14 @@ def _compare(name, out, ref, dtype, tol=None):
 
 
 def run_decode_check(label, gen, dtype, R, S1, H, KV, dk, seq_lens, timed):
+    """The dense kernel against its plain version (a slot of length 0
+    exactly 0), with its split walk's grid: split length, splits, blocks
+    launched and blocks that walk lines (a split past its slot's length
+    exits before any load). Timed: ``ms`` by CUDA events around a call,
+    ``graph_ms`` (the device's time; a decode call's events time the
+    host), the plain version, and SDPA (``library_ms``,
+    ``library_graph_ms``) over the same lines; the bound counts the lines
+    attended."""
     q, k, v, sl = _decode_case(gen, dtype, R, S1, H, KV, dk, seq_lens)
     out = K.decode_attention(q, k, v, sl)
     torch.cuda.synchronize()
@@ -612,23 +648,36 @@ def run_decode_check(label, gen, dtype, R, S1, H, KV, dk, seq_lens, timed):
     zero_rows = [i for i, n in enumerate(seq_lens) if n == 0]
     if zero_rows:
         check(bool((out[zero_rows] == 0).all()), "decode: zero-length slot not zero")
+    groups = K.dense_head_groups(H // KV)
+    split, n = K.dense_decode_split(R, KV, S1, groups)
+    walking = sum(max(1, -(-min(x, S1) // split)) for x in seq_lens) * KV * groups
     row = {"phase": "kernels", "kernel": "decode_attention", "case": label,
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "design": "split",
            "shape": {"R": R, "S1": S1, "H": H, "KV": KV, "dk": dk},
-           "max_abs_err": err, "tol": TOL[dtype]}
+           "split_lines": split, "splits": n, "blocks": R * KV * groups * n,
+           "walking_blocks": walking, "max_abs_err": err, "tol": TOL[dtype]}
     if timed:
         bound_ms, bound_by = _decode_bound(q, k, sl)
         valid = (torch.arange(S1, device=DEV)[None, :] < sl[:, None])[:, None, :]
         sq, sk, svv, smask = _sdpa_inputs(q[:, None], k, v, valid)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(sq, sk, svv, attn_mask=smask)
         row.update(
             ms=cuda_ms(lambda: K.decode_attention(q, k, v, sl)),
+            graph_ms=graph_ms(lambda: K.decode_attention(q, k, v, sl)),
             plain_ms=cuda_ms(lambda: K.decode_attention_ref(q, k, v, sl), iters=5),
-            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                sq, sk, svv, attn_mask=smask)),
+            library_ms=cuda_ms(sdpa), library_graph_ms=graph_ms(sdpa),
             bound_ms=bound_ms, bound_by=bound_by,
         )
     emit(row)
     return row
+
+
+# what the decode_attention row of the kernels line carries of its GQA cases
+DECODE_GQA_KEYS = ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "library_graph_ms", "split_lines", "splits", "blocks",
+                   "walking_blocks", "shape")
 
 
 def _mixed_step_mask(rng, R, C, S1):
@@ -729,8 +778,15 @@ def phase_kernels(seed):
     main = {}
     main["decode_attention"] = run_decode_check(
         "llama7b", gen, bf16, R, S1, 32, 32, 128, lens, timed=True)
-    run_decode_check("llama7b-gqa", gen, bf16, R, S1, 32, 8, 128, lens, timed=True)
-    run_decode_check("llama7b-f32", gen, f32, R, S1, 32, 32, 128, lens, timed=False)
+    gqa = run_decode_check("llama7b-gqa", gen, bf16, R, S1, 32, 8, 128, lens, timed=True)
+    # G = 16 (KV 2): two head groups of 8 a KV head, at a small size
+    g16 = run_decode_check("gqa-g16-small", gen, bf16, 4, 513, 32, 2, 128, [0, 17, 256, 512],
+                           timed=True)
+    main["decode_attention"]["gqa_kv8"] = {k: gqa.get(k) for k in DECODE_GQA_KEYS}
+    main["decode_attention"]["gqa_g16"] = {k: g16.get(k) for k in DECODE_GQA_KEYS}
+    f32_row = run_decode_check("llama7b-f32", gen, f32, R, S1, 32, 32, 128, lens, timed=True)
+    main["decode_attention"]["f32"] = {k: f32_row.get(k) for k in DECODE_GQA_KEYS}
+    run_decode_check("llama7b-mqa", gen, bf16, R, S1, 32, 1, 128, lens, timed=False)
     run_decode_check("llama160m", gen, bf16, R, S1, 12, 12, 64, lens, timed=False)
     mixed = _mixed_step_mask(rng, R, sc.prefill_chunk, S1)
     main["verify_attention"] = run_verify_check(
@@ -1580,12 +1636,12 @@ def _kernel_class(name: str) -> str:
         return "adam_update"
     if "paged_commit_kernel" in n:
         return "paged_commit"
+    if "dense_split_kernel" in n:
+        return "decode_attention"
     if any(k in n for k in ("ragged_split_kernel", "ragged_mma_kernel")):
         return "ragged_paged_attention"
     if "fused_split_kernel" in n or "fused_mma_kernel" in n:
         return "fused_rope_paged_attention"
-    if "decode_kernel" in n:
-        return "decode_attention"
     if "verify_kernel" in n or "verify_mma_kernel" in n:
         return "verify_attention"
     if "memcpy" in n or "memset" in n:
@@ -1622,12 +1678,16 @@ def _profile(run, path):
         kernels.append((ms, name[:100], count))
     busy_s = sum(by_class.values()) / 1e3
     kernels.sort(reverse=True)
-    # the paged kernels' decode launches (the split design's kernels)
-    split = [(ms, count) for ms, name, count in kernels if "_split_kernel" in name]
+    # the decode launches of the split walk: the paged kernels', the dense one's
+    split = [(ms, count) for ms, name, count in kernels
+             if "ragged_split_kernel" in name or "fused_split_kernel" in name]
+    dense = [(ms, count) for ms, name, count in kernels if "dense_split_kernel" in name]
     return {"phase": "profile", "path": path, "wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
             "paged_decode_device_ms": sum(ms for ms, _ in split),
             "paged_decode_launches": sum(count for _, count in split),
+            "dense_decode_device_ms": sum(ms for ms, _ in dense),
+            "dense_decode_launches": sum(count for _, count in dense),
             "device_ms_by_class": by_class,
             "share_of_busy": {c: ms / 1e3 / busy_s for c, ms in by_class.items()},
             "reduce_s": time.perf_counter() - t1,
@@ -1783,7 +1843,17 @@ def phase_slice(seed):
     # the bf16 mixed steps (C * G = 128 rows a KV head) verify on the tensor cores
     check(line["design_launches"].get("verify_attention[mma]", 0) == launches["verify_attention"],
           f"dense: verify launches not all mma: {line['design_launches']}")
-    emit(profile_slice(llm, prompts, new, "dense"))
+    prof = profile_slice(llm, prompts, new, "dense")
+    prof["dense_decode_ms_a_launch"] = (prof["dense_decode_device_ms"]
+                                        / max(1, prof["dense_decode_launches"]))
+    emit(prof)
+    # the padding rule: the same requests with every padding row walking
+    # the whole cache (the lengths before the rule) serve the same tokens
+    full_walk = _full_walk_lengths()
+    with full_walk:
+        full = llm.generate(prompts, max_new_tokens=new)
+    same = [a.output_tokens == b.output_tokens for a, b in zip(results, full)]
+    check(all(same), f"dense: the padding rule changed served tokens: {same}")
 
     # hold the served path against the plain one, teacher-forced, and
     # both against the same computation in f32 (the bf16 weights upcast)
@@ -1794,6 +1864,14 @@ def phase_slice(seed):
     sc = dict(max_requests_per_batch=len(seqs))
     got = _teacher_forced_logits(cfg, params, ServingConfig(kernels="cuda", **sc),
                                  seqs, plens)
+    with full_walk:
+        walked = _teacher_forced_logits(cfg, params, ServingConfig(kernels="cuda", **sc),
+                                        seqs, plens)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, walked))
+    emit({"phase": "padding_rule", "path": "dense", "served_tokens_equal": all(same),
+          "teacher_forced_steps": len(got), "live_logits_bitwise": bitwise})
+    check(bitwise, "dense: the padding rule changed live rows' logits")
+    del walked
     want = _teacher_forced_logits(cfg, params, ServingConfig(kernels="torch", **sc),
                                   seqs, plens)
     params32 = _to_f32(params)
@@ -1806,6 +1884,73 @@ def phase_slice(seed):
     gc.collect()
     torch.cuda.empty_cache()
     return params, {k: launches.get(k, 0) for k in DENSE_KERNELS}
+
+
+class _full_walk_lengths:
+    """Within it, the dense step's padding rows attend their whole mask row
+    (every line below the scratch line), as before the padding rule: the
+    plain version of ``llama.decode_seq_lens``, the mask count."""
+
+    def __enter__(self):
+        self.rule = llama.decode_seq_lens
+        llama.decode_seq_lens = lambda mask, positions, S1: (
+            mask[:, 0, :].sum(dim=-1).to(torch.int32))
+
+    def __exit__(self, *exc):
+        llama.decode_seq_lens = self.rule
+
+
+def whole_stages_full_depth(llm, seed):
+    """One stamped decode step of a whole-step arm's engine at full depth:
+    its weights and its gate's tile count, 16 slots of ``DECODE_LENS``
+    lines (slot 0 idle) over a fresh pool of random bf16 lines, the new
+    lines committed in place. Warmed once, then stamped; milliseconds by
+    stage beside the event time of the stamped launch."""
+    eng, cfg = llm.engine, llm.cfg
+    sc = ServingConfig()
+    R, ps, NP = eng.num_slots, sc.page_size, sc.pages_per_slot
+    rng = np.random.default_rng(seed + 6)
+    pos = _paged_positions(rng, "decode", R, 1, sc.cache_len, ps)
+    held = [-(-(int(p) + 1) // ps) if p < sc.cache_len else 0 for p in pos[:, 0]]
+    P = sum(held)
+    table = np.full((R, NP), P, np.int32)
+    first = 0
+    for r, n in enumerate(held):
+        table[r, :n] = np.arange(first, first + n)
+        first += n
+    cache = llama.init_paged_kv_cache(cfg, P, ps, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 6)
+    for name in ("k", "v"):
+        for layer in cache[name]:
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=DEV))
+    step = (torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(R, 1))).to(DEV),
+            torch.from_numpy(pos).to(DEV), torch.zeros(R, dtype=torch.long, device=DEV),
+            torch.from_numpy(table).to(DEV))
+    L = cfg.num_hidden_layers
+
+    def launch(stamps=None):
+        return llama.serve_step_whole(llm.params, cache, *step, cfg=cfg, cache_len=sc.cache_len,
+                                      tiles=eng.whole_step_tiles, kernels="cuda", stamps=stamps)
+    _, design = _design_of("whole_step_decode", launch)
+    stamps = torch.zeros(K.whole_step_stamp_count(L), dtype=torch.int64, device=DEV)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    launch(stamps)
+    b.record()
+    b.synchronize()
+    t = stamps.tolist()
+    check(all(x > 0 for x in t) and t == sorted(t), f"whole full depth: stamps do not rise: {t}")
+    stages = K.whole_step_stage_ms(t, L)
+    row = {"phase": "whole_stages", "case": "bf16-decode-full-depth", "layers": L,
+           "tiles": eng.whole_step_tiles, "design": design, "live_slots": sum(n > 0 for n in held),
+           "pages": P, "event_ms": a.elapsed_time(b), "stages_ms": stages,
+           "stages_sum_ms": sum(stages.values()),
+           "attention_ms_a_layer": stages["attention"] / L}
+    del cache
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_paged(seed, holder, arms):
@@ -1868,6 +2013,8 @@ def phase_paged(seed, holder, arms):
         t_prof = time.perf_counter()
         if not whole or label == "bf16-whole":
             emit(profile_slice(llm, prompts, new, path))
+        if label == "bf16-whole":
+            emit(whole_stages_full_depth(llm, seed))
         t_tf = time.perf_counter()
         if seqs is None:
             # every arm is teacher-forced over the first bf16 arm's tokens
@@ -2611,10 +2758,12 @@ def main(argv=None) -> int:
                             library_graph_ms=m.get("library_graph_ms"))
         elif name.split("[")[0] in ("verify_attention",) + FLASH_KERNELS:
             rows[-1].update(design=m.get("design"), device_ms=m.get("device_ms"))
-        if name.endswith("/decode]"):
+        if name.endswith("/decode]") or name == "decode_attention":
             rows[-1].update(splits=m.get("splits"), blocks=m.get("blocks"))
-            if "gqa_kv8" in m:
-                rows[-1]["gqa_kv8"] = m["gqa_kv8"]
+            for extra in ("gqa_kv8", "gqa_g16", "f32", "graph_ms", "library_graph_ms",
+                          "design", "split_lines"):
+                if extra in m:
+                    rows[-1][extra] = m[extra]
         if name.split("[")[0] in ("adam_update", "paged_commit"):
             rows[-1]["bitwise"] = m.get("bitwise")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -13,205 +13,118 @@
 // token per line the arithmetic is ~2 FLOP per byte, far below the ~295
 // FLOP/byte where the tensor cores would become the limit.
 //
-// Design against that bound:
-//  * It reads only lines < seq_len. The TPU kernel DMAs every block of
-//    the cache and skips only the compute of invalid blocks.
-//  * One thread block per (slot, KV head, group of up to 8 query heads):
-//    the G query heads of a group sit in registers and every K/V line is
-//    read from device memory once for all of them.
-//  * The block's 8 warps split the lines: warp w takes lines 4w..4w+3,
-//    then 32 lines further on, and so on. A lane holds dk/32 consecutive
-//    elements of a line, so a warp reads each line as one coalesced
-//    segment, four lines in flight at a time. Scores reduce with warp
-//    shuffles and each warp keeps its own online softmax (max, sum,
-//    accumulator) in registers; the 8 partial results merge once through
-//    shared memory at the end.
-//  * No tensor cores, TMA or split-K across blocks: with R * KV blocks
-//    (512 at LLaMA-7B with 16 slots) the card is filled already; those
-//    are for later work.
-#include "common.cuh"
+// Design against that bound: the port's one decode walk (attend_split,
+// paged_decode.cuh) on dense addresses (DenseLines). One block of 4 warps
+// per (slot, KV head, head group, split): a head group is the KV head's
+// G query heads, or 8 of them when G > 8 (MQA: H 32 over KV 1 takes four
+// groups on the grid's y axis); a split is split_len consecutive lines
+// (kernels.dense_decode_split, from the shapes alone). Every K/V line is
+// read once for the group's rows in 16-byte loads, several lines in
+// flight a lane; the splits' partials merge in split order in the last
+// block of a (slot, KV head, group). The walk reads only lines < seq_len:
+// a split past them exits before any load, so a slot of length 0 (a
+// padding row: models/llama.py gives it 0) costs one block that writes
+// zeros. The TPU kernel DMAs every block of the cache and skips only the
+// compute of invalid blocks.
+#include "paged_decode.cuh"
 
 namespace fft {
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLines = 4;  // lines per warp per iteration
+struct DenseArgs {
+  const void* q;         // (R, H, dk)
+  const void* k;         // (R, S1, KV, dk)
+  const void* v;
+  const int* seq_lens;   // (R,)
+  void* out;             // (R, H, dk)
+  int R, S1, H, KV;
+  float scale;
+};
 
-template <typename T, int DK, int GB>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ seq_lens,
-              T* __restrict__ out, int S1, int H, int KV, float scale) {
-  constexpr int E = DK / 32;  // elements per lane
-  const int g_blk = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
-  const int G = H / KV;
-  const int g0 = g_blk * GB;
-  const int gc = min(GB, G - g0);  // query heads of this block
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = max(0, min(seq_lens[r], S1));
-
-  float qr[GB][E];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    if (g < gc) {
-      load_f32<T, E>(q + ((size_t)r * H + (size_t)h * G + g0 + g) * DK + lane * E, qr[g]);
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] *= scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] = 0.f;
-    }
-  }
-  float m[GB], l[GB], acc[GB][E];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  }
-
-  const size_t line_stride = (size_t)KV * DK;
-  const size_t base = ((size_t)r * S1 * KV + h) * DK + lane * E;
-  for (int s0 = warp * kLines; s0 < len; s0 += kWarps * kLines) {
-    float kr[kLines][E], vr[kLines][E];
-#pragma unroll
-    for (int u = 0; u < kLines; ++u) {
-      if (s0 + u < len) {
-        load_f32<T, E>(k + base + (size_t)(s0 + u) * line_stride, kr[u]);
-        load_f32<T, E>(v + base + (size_t)(s0 + u) * line_stride, vr[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kr[u][e] = vr[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      if (g >= gc) continue;  // block-uniform: the shuffles stay converged
-      float sc[kLines];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < kLines; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(qr[g][e], kr[u][e], part);
-        part = warp_sum(part);
-        sc[u] = (s0 + u < len) ? part : kNegInf;
-        mx = fmaxf(mx, sc[u]);
-      }
-      const float corr = expf(m[g] - mx);
-      float p[kLines];
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kLines; ++u) {
-        p[u] = (s0 + u < len) ? expf(sc[u] - mx) : 0.f;
-        psum += p[u];
-      }
-      l[g] = l[g] * corr + psum;
-      m[g] = mx;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float a = acc[g][e] * corr;
-#pragma unroll
-        for (int u = 0; u < kLines; ++u) a = fmaf(p[u], vr[u][e], a);
-        acc[g][e] = a;
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps][GB];
-  __shared__ float sm_l[kWarps][GB];
-  __shared__ float sm_acc[kWarps][GB][DK];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < gc * DK; idx += kThreads) {
-    const int g = idx / DK, d = idx % DK;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - M);
-      L = fmaf(sm_l[w][g], f, L);
-      O = fmaf(sm_acc[w][g][d], f, O);
-    }
-    out[((size_t)r * H + (size_t)h * G + g0 + g) * DK + d] =
-        from_f32<T>(O / fmaxf(L, kMinDenominator));
-  }
+// Query heads a block takes for G query heads a KV head: 1, 4 or 8, in
+// head groups of 8 when G > 8.
+__host__ __device__ inline int dense_rows(int G) {
+  return G == 1 ? 1 : G <= 4 ? 4 : kDecodeRows;
 }
 
-template <typename T, int DK, int GB>
-void launch_gb(const void* q, const void* k, const void* v, const int* seq_lens,
-               void* out, int R, int S1, int H, int KV, float scale,
-               cudaStream_t stream) {
-  const int G = H / KV;
-  dim3 grid((G + GB - 1) / GB, KV, R);
-  decode_kernel<T, DK, GB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seq_lens, static_cast<T*>(out), S1, H, KV, scale);
+// Split blockIdx.x of head group blockIdx.y % groups of KV head
+// blockIdx.y / groups of slot blockIdx.z.
+template <typename TQ, int DK, int GB>
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<kPoolFloat, GB>)
+    dense_split_kernel(DenseArgs d, SplitArgs s) {
+  __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
+  __shared__ SplitSmem<DK, GB, kSplitWarps, false> sm;
+  TQ* sQ = reinterpret_cast<TQ*>(sQraw);
+  const int G = d.H / d.KV, groups = (G + GB - 1) / GB;
+  const int r = blockIdx.z, h = blockIdx.y / groups, hg = blockIdx.y % groups;
+  const int split = blockIdx.x;
+  const int len = max(0, min(d.seq_lens[r], d.S1));
+  if (split > 0 && split * s.split_len >= len) return;  // past the slot's lines
+  const int g0 = hg * GB, rows = min(GB, G - g0);
+  // the group's rows are consecutive heads: rows * DK elements of q
+  constexpr int V = 16 / int(sizeof(TQ));
+  const TQ* q = static_cast<const TQ*>(d.q) + ((size_t)r * d.H + (size_t)h * G + g0) * DK;
+  for (int idx = threadIdx.x; idx < rows * DK / V; idx += kSplitThreads)
+    reinterpret_cast<uint4*>(sQ)[idx] = reinterpret_cast<const uint4*>(q)[idx];
+  const size_t base = ((size_t)r * d.S1 * d.KV + h) * DK * sizeof(TQ);
+  DenseLines ln;
+  ln.k = static_cast<const uint8_t*>(d.k) + base;
+  ln.v = static_cast<const uint8_t*>(d.v) + base;
+  ln.line_bytes = (size_t)d.KV * DK * sizeof(TQ);
+  ln.o = d.out;
+  ln.orow = (size_t)r * d.H + (size_t)h * G + g0;
+  ln.unit_ = ((size_t)r * d.KV + h) * groups + hg;
+  ln.units_ = (size_t)d.R * d.KV * groups;
+  ln.rows_ = rows;
+  ln.ws_rows_ = min(G, GB);
+  ln.len = len;
+  ln.kscale = d.scale * kLog2e;
+  attend_split<TQ, kPoolFloat, DK, GB, kSplitWarps>(ln, s, split, sQ, sm);
 }
 
-template <typename T, int DK>
-void launch_dk(const void* q, const void* k, const void* v, const int* seq_lens,
-               void* out, int R, int S1, int H, int KV, float scale,
-               cudaStream_t stream) {
-  const int G = H / KV;
-  if (G >= 8) {
-    launch_gb<T, DK, 8>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
-  } else if (G >= 4) {
-    launch_gb<T, DK, 4>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
-  } else if (G >= 2) {
-    launch_gb<T, DK, 2>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
+template <typename TQ, int DK>
+cudaError_t launch_dk(const DenseArgs& d, const SplitArgs& s, cudaStream_t stream) {
+  const int G = d.H / d.KV, gb = dense_rows(G);
+  const dim3 grid(s.nsplit, d.KV * ((G + gb - 1) / gb), d.R);
+  if (gb == 1) {
+    dense_split_kernel<TQ, DK, 1><<<grid, kSplitThreads, 0, stream>>>(d, s);
+  } else if (gb == 4) {
+    dense_split_kernel<TQ, DK, 4><<<grid, kSplitThreads, 0, stream>>>(d, s);
   } else {
-    launch_gb<T, DK, 1>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
-  }
-}
-
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const int* seq_lens, void* out, int R, int S1, int H,
-                     int KV, int dk, float scale, cudaStream_t stream) {
-  if (dk == 64) {
-    launch_dk<T, 64>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
-  } else if (dk == 128) {
-    launch_dk<T, 128>(q, k, v, seq_lens, out, R, S1, H, KV, scale, stream);
-  } else {
-    return cudaErrorInvalidValue;
+    dense_split_kernel<TQ, DK, kDecodeRows><<<grid, kSplitThreads, 0, stream>>>(d, s);
   }
   return cudaGetLastError();
+}
+
+template <typename TQ>
+cudaError_t launch_t(const DenseArgs& d, const SplitArgs& s, int dk, cudaStream_t stream) {
+  if (dk == 64) return launch_dk<TQ, 64>(d, s, stream);
+  if (dk == 128) return launch_dk<TQ, 128>(d, s, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace fft
 
-extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const void* seq_lens,
-                                       void* out, int R, int S1, int H, int KV,
-                                       int dk, int dtype, float scale,
-                                       void* stream) {
-  if (R <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const int* sl = static_cast<const int*>(seq_lens);
+// ws and counters: the split partials' workspace and the merge counters
+// (SplitArgs; units R * KV * ceil(G / rows)), null with one split
+// (split_len >= S1).
+extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
+                                       const void* seq_lens, void* out, void* ws,
+                                       void* counters, int R, int S1, int H, int KV, int dk,
+                                       int dtype, int split_len, float scale, void* stream) {
+  if (R <= 0 || S1 <= 0 || KV <= 0 || H % KV != 0 || split_len <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (S1 + split_len - 1) / split_len;
+  if (nsplit > fft::kSplitMaxSplits) return (int)cudaErrorInvalidValue;
+  if (nsplit > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  const fft::DenseArgs d{q, k, v, static_cast<const int*>(seq_lens), out, R, S1, H, KV, scale};
+  const fft::SplitArgs sp{static_cast<float*>(ws), static_cast<int*>(counters), split_len,
+                          nsplit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == fft::kBFloat16) {
-    err = fft::launch_t<__nv_bfloat16>(q, k, v, sl, out, R, S1, H, KV, dk, scale, s);
-  } else if (dtype == fft::kFloat32) {
-    err = fft::launch_t<float>(q, k, v, sl, out, R, S1, H, KV, dk, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (dtype == fft::kBFloat16) return (int)fft::launch_t<__nv_bfloat16>(d, sp, dk, s);
+  if (dtype == fft::kFloat32) return (int)fft::launch_t<float>(d, sp, dk, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

@@ -72,16 +72,18 @@ template <typename TQ, int KIND, int DK, int GB>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
     fused_split_kernel(FusedArgs f, SplitArgs s) {
   __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
+  __shared__ SplitSmem<DK, GB, kSplitWarps, true> sm;
   TQ* sQ = reinterpret_cast<TQ*>(sQraw);
   const int r = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
   stage_q<TQ, DK>(f.a, r, h, static_cast<const TQ*>(f.q_raw), f.cos, f.sin, f.rot, sQ);
   bool commits = s.nsplit == 1;
   if (!commits) {  // C == 1
     const int page = f.logical[r];
-    commits = page >= split * s.split_pages && page < (split + 1) * s.split_pages;
+    commits = page >= split * s.split_len && page < (split + 1) * s.split_len;
   }
   if (commits) rope_commit_kv<TQ, KIND, DK, kSplitThreads>(f, r, h);
-  attend_split<TQ, KIND, DK, GB>(f.a, s, r, h, split, sQ);
+  const PagedLines<false> ln{f.a, r, h, 0, f.a.C * (f.a.H / f.a.KV)};
+  attend_split<TQ, KIND, DK, GB, kSplitWarps>(ln, s, split, sQ, sm);
 }
 
 // The tensor-core designs ("mma": bf16 q, "tf32x3": f32 q): every 128-row

@@ -20,14 +20,10 @@
 //
 // Three block designs (paged_design), chosen by the number of query rows
 // per KV head and q's dtype:
-//  * "decode" (C * G <= 8: decode steps): the ragged and fused kernels run
-//    attend_split (paged_decode.cuh: one block per (slot, KV head, split
-//    of whole pages), its partials merged by the last block). The
-//    whole-step kernel runs attend_decode, here: one block of 8 warps per
-//    (slot, KV head, up to 8 rows). One page is one tile: the block loads
-//    the page's mask for its rows, skips the page when no row attends any
-//    of its lines, else reads the page id and scales once; warps split
-//    the page's lines, every line is read once for all rows of the block.
+//  * "decode" (C * G <= 8: decode steps): attend_split (paged_decode.cuh:
+//    one block per (slot, KV head, split of whole pages), its partials
+//    merged by the last block), in the ragged, fused and whole-step
+//    kernels alike.
 //  * attend_tile_mma ("mma", bf16 q, C * G > 8: mixed and prefill steps
 //    in the model dtype): one block of 8 warps per (slot, KV head, 128
 //    rows), on the tensor cores. A bf16 mixed step at C = 128 is bound by
@@ -71,8 +67,9 @@
 //    per k-step; PV takes each 8-line group's lines in the order the S
 //    accumulator holds them (tf32_warp_tile). The bound is then 3 (2)
 //    products at the TF32 rate, 494.7 TFLOP/s.
-// The whole-step kernel (whole_step_decode.cu) runs attend_decode a row
-// at a time and attend_tile_mma in 128-row passes in its attention stage.
+// The whole-step kernel (whole_step_decode.cu) runs attend_split on 8
+// warps an item and attend_tile_mma in 128-row passes in its attention
+// stage.
 //
 // Pool and q pointers are read with plain loads (never the read-only
 // cache): the fused kernel writes them earlier in the same launch.
@@ -85,8 +82,6 @@
 namespace fft {
 
 enum PoolKind : int { kPoolFloat = 0, kPoolInt8 = 1, kPoolInt4 = 2 };
-
-constexpr int kMaxPageSize = 128;
 
 enum PagedDesign : int { kDesignDecode = 0, kDesignMma = 1, kDesignTf32x3 = 2 };
 
@@ -120,206 +115,10 @@ template <typename TQ> struct PoolT<TQ, kPoolInt4> { using T = uint8_t; };
 template <int KIND>
 __host__ __device__ constexpr int pack_of() { return KIND == kPoolInt4 ? 2 : 1; }
 
-template <int BYTES>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t (&b)[BYTES]) {
-  if constexpr (BYTES == 8) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const uint8_t* t = reinterpret_cast<const uint8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) b[i] = t[i];
-  } else if constexpr (BYTES == 4) {
-    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-    const uint8_t* t = reinterpret_cast<const uint8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) b[i] = t[i];
-  } else if constexpr (BYTES == 2) {
-    const uint16_t raw = *reinterpret_cast<const uint16_t*>(p);
-    b[0] = uint8_t(raw & 0xFF);
-    b[1] = uint8_t(raw >> 8);
-  } else {
-#pragma unroll
-    for (int i = 0; i < BYTES; ++i) b[i] = p[i];
-  }
-}
-
-// N consecutive head dims [d0, d0 + N) of one (page, line, KV head) row
-// of a pool, as f32 codes (values for a full-precision pool). d0 is a
-// multiple of N, and for int4 the N dims lie in one half of the head.
-template <typename TQ, int KIND, int DK, int N>
-__device__ __forceinline__ void load_dims(const void* row, int d0, float (&o)[N]) {
-  if constexpr (KIND == kPoolFloat) {
-    load_f32<TQ, N>(static_cast<const TQ*>(row) + d0, o);
-  } else if constexpr (KIND == kPoolInt8) {
-    uint8_t b[N];
-    load_bytes<N>(static_cast<const uint8_t*>(row) + d0, b);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = float(int8_t(b[i]));
-  } else {
-    constexpr int kHalf = DK / 2;
-    const bool high = d0 >= kHalf;
-    uint8_t b[N];
-    load_bytes<N>(static_cast<const uint8_t*>(row) + (high ? d0 - kHalf : d0), b);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int nib = high ? (b[i] >> 4) & 0xF : b[i] & 0xF;
-      o[i] = float(nib - 8);
-    }
-  }
-}
-
 // Element offset of (page, line, KV head) in a pool of row width DK / pack.
 template <int KIND, int DK>
 __device__ __forceinline__ size_t pool_row(int page, int line, int h, int ps, int KV) {
   return (((size_t)page * ps + line) * KV + h) * (DK / pack_of<KIND>());
-}
-
-template <typename TQ, int KIND>
-__device__ __forceinline__ const void* pool_at(const void* pool, size_t off) {
-  using T = typename PoolT<TQ, KIND>::T;
-  return static_cast<const T*>(pool) + off;
-}
-
-// ---------------------------------------------------------------------------
-// decode design
-
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeThreads = kDecodeWarps * 32;
-constexpr int kDecodeLines = 4;   // lines per warp per iteration
-
-// Rows [i0, i0 + GB) of KV head h of slot r. All kDecodeThreads threads
-// of the block call it; it ends with a barrier, so it can be called
-// again for the next rows.
-template <typename TQ, int KIND, int DK, int GB>
-__device__ void attend_decode(const PagedArgs& a, int r, int h, int i0) {
-  constexpr int E = DK / 32;  // dims per lane
-  __shared__ uint8_t sM[GB][kMaxPageSize];
-  __shared__ float sm_m[kDecodeWarps][GB];
-  __shared__ float sm_l[kDecodeWarps][GB];
-  __shared__ float sm_acc[kDecodeWarps][GB][DK];
-
-  const int G = a.H / a.KV;
-  const int rows = a.C * G;
-  const int gc = min(GB, rows - i0);
-  const int S = a.NP * a.ps;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const TQ* q = static_cast<const TQ*>(a.q);
-
-  float qr[GB][E], m[GB], l[GB], acc[GB][E];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    if (g < gc) {
-      const int i = i0 + g, c = i / G, gg = i % G;
-      load_f32<TQ, E>(q + (((size_t)r * a.C + c) * a.H + (size_t)h * G + gg) * DK + lane * E, qr[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] = 0.f;
-    }
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int p = 0; p < a.NP; ++p) {
-    int any = 0;
-    for (int idx = tid; idx < GB * a.ps; idx += kDecodeThreads) {
-      const int g = idx / a.ps, j = idx % a.ps;
-      uint8_t bit = 0;
-      if (g < gc) {
-        const int c = (i0 + g) / G;
-        bit = a.mask[((size_t)r * a.C + c) * S + (size_t)p * a.ps + j] != 0;
-      }
-      sM[g][j] = bit;
-      any |= bit;
-    }
-    // skip the page, table and K/V unread, when no row attends it (the
-    // barrier at the end of a processed page protects sM from these writes)
-    if (!__syncthreads_or(any)) continue;
-
-    const int page = a.table[(size_t)r * a.NP + p];
-    const float ksc = (KIND == kPoolFloat ? 1.f : a.k_scale[(size_t)page * a.KV + h]) * a.scale;
-    const float vsc = KIND == kPoolFloat ? 1.f : a.v_scale[(size_t)page * a.KV + h];
-    for (int j0 = warp * kDecodeLines; j0 < a.ps; j0 += kDecodeWarps * kDecodeLines) {
-      float kr[kDecodeLines][E], vr[kDecodeLines][E];
-#pragma unroll
-      for (int u = 0; u < kDecodeLines; ++u) {
-        if (j0 + u < a.ps) {
-          const size_t off = pool_row<KIND, DK>(page, j0 + u, h, a.ps, a.KV);
-          load_dims<TQ, KIND, DK, E>(pool_at<TQ, KIND>(a.k_pool, off), lane * E, kr[u]);
-          load_dims<TQ, KIND, DK, E>(pool_at<TQ, KIND>(a.v_pool, off), lane * E, vr[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) kr[u][e] = vr[u][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        if (g >= gc) continue;  // block-uniform: the shuffles stay converged
-        float sc[kDecodeLines];
-        bool on[kDecodeLines];
-        float mx = m[g];
-#pragma unroll
-        for (int u = 0; u < kDecodeLines; ++u) {
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) part = fmaf(qr[g][e], kr[u][e], part);
-          part = warp_sum(part) * ksc;
-          on[u] = j0 + u < a.ps && sM[g][j0 + u];
-          sc[u] = on[u] ? part : kNegInf;
-          mx = fmaxf(mx, sc[u]);
-        }
-        const float corr = expf(m[g] - mx);
-        float pw[kDecodeLines];
-        float psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < kDecodeLines; ++u) {
-          const float pr = on[u] ? expf(sc[u] - mx) : 0.f;
-          psum += pr;
-          pw[u] = pr * vsc;
-        }
-        l[g] = l[g] * corr + psum;
-        m[g] = mx;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float x = acc[g][e] * corr;
-#pragma unroll
-          for (int u = 0; u < kDecodeLines; ++u) x = fmaf(pw[u], vr[u][e], x);
-          acc[g][e] = x;
-        }
-      }
-    }
-    __syncthreads();  // sM is rewritten for the next page
-  }
-
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-  TQ* out = static_cast<TQ*>(a.out);
-  for (int idx = tid; idx < gc * DK; idx += kDecodeThreads) {
-    const int g = idx / DK, d = idx % DK;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float f = expf(sm_m[w][g] - M);
-      L = fmaf(sm_l[w][g], f, L);
-      O = fmaf(sm_acc[w][g][d], f, O);
-    }
-    const int i = i0 + g, c = i / G, gg = i % G;
-    out[(((size_t)r * a.C + c) * a.H + (size_t)h * G + gg) * DK + d] =
-        from_f32<TQ>(O / fmaxf(L, kMinDenominator));
-  }
-  __syncthreads();  // sm_* may be rewritten by the next call
 }
 
 // ---------------------------------------------------------------------------

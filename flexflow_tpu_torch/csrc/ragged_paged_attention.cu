@@ -66,10 +66,12 @@ template <typename TQ, int KIND, int DK, int GB>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
     ragged_split_kernel(PagedArgs a, SplitArgs s) {
   __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
+  __shared__ SplitSmem<DK, GB, kSplitWarps, true> sm;
   TQ* sQ = reinterpret_cast<TQ*>(sQraw);
   const int r = blockIdx.z, h = blockIdx.y;
   stage_q<TQ, DK>(a, r, h, static_cast<const TQ*>(a.q), nullptr, nullptr, 0, sQ);
-  attend_split<TQ, KIND, DK, GB>(a, s, r, h, blockIdx.x, sQ);
+  const PagedLines<false> ln{a, r, h, 0, a.C * (a.H / a.KV)};
+  attend_split<TQ, KIND, DK, GB, kSplitWarps>(ln, s, blockIdx.x, sQ, sm);
 }
 
 // The tensor-core designs: "mma" (bf16 q) and "tf32x3" (f32 q).

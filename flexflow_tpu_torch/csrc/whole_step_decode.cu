@@ -13,11 +13,18 @@
 //      the in-place commit of the new K/V lines into their pages (a
 //      scatter, or kv_quant.quant_line_write's arithmetic on quantized
 //      pools; paged_commit.cuh), then paged attention over the slot's
-//      table in the paged kernels' designs (paged_attention.cuh):
-//      attend_decode a row at a time for at most 8 query rows a KV head,
-//      else 128-row passes of the tensor-core tile attend_tile_mma ("mma"
-//      for bf16, "tf32x3" for f32), the stage's dynamic shared memory
-//      then MmaSmem's layout
+//      table in the paged kernels' designs: for at most 8 query rows a
+//      KV head (decode steps) every unit commits, a grid barrier follows,
+//      and the blocks walk work items (live slot, KV head, row, split) of
+//      the paged kernels' split walk (attend_split, paged_decode.cuh; the
+//      split rule kernels.paged_decode_split; 8 warps an item, the walk's
+//      scratch in the dynamic shared memory, the partials in the f32
+//      scratch ``work``, merged in split order by the last split of a
+//      (slot, KV head, row)); above 8 rows, 128-row passes of the
+//      tensor-core tile
+//      attend_tile_mma ("mma" for bf16, "tf32x3" for f32) right after the
+//      unit's commit, the stage's dynamic shared memory then MmaSmem's
+//      layout
 //   4. out-projection                        attn -> partial sums
 //   5. residual + RMS norm (rows)            x2 = x + o, h2
 //   6. w1 / w3 projections                   h2 -> partial sums
@@ -80,7 +87,7 @@
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
-#include "paged_commit.cuh"
+#include "paged_decode.cuh"
 
 namespace fft {
 namespace {
@@ -92,8 +99,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;         // K depth of a staged chunk
 constexpr int kMaxFrags = 24;   // 16 x 8 accumulator fragments per warp
 constexpr int kHeadCols = 256;  // LM-head columns per work item
-static_assert(kThreads == kMmaTileThreads && kThreads == kDecodeThreads,
-              "the attention stage runs the paged designs' blocks of 256 threads");
+static_assert(kThreads == kMmaTileThreads,
+              "the attention stage runs the tensor-core tile's blocks of 256 threads");
 
 // bf16 projections of steps of more than kTcMinRows rows, on wgmma: work
 // items of 128 rows (two warpgroups of 64) by up to 256 columns (four
@@ -139,7 +146,9 @@ struct WholeArgs {
   void* scratch;           // model-dtype scratch, see Scratch
   float* work;             // (KS, R * C, Nw) f32 partial sums
   long long* stamps;       // (1 + 8 L + 3,) %globaltimer ns, or null: see stamp()
+  int* counters;           // (R * KV,) int32 zeros: the split walk's merge counters
   int L, R, C, D, H, KV, dk, F, V, ps, NP, P1, tiles, KS, tied;
+  int split_pages;         // pages a split of the decode design (paged_decode_split)
   float eps, scale, qmax;
   CUtensorMap maps[kNumMaps];  // WholeMap; encoded when tc_path()
 };
@@ -682,11 +691,14 @@ struct BlockState {
   int units;  // R * KV
   int rows;   // query rows of a KV head, C * G
   int row0;   // first row of an attention pass
-  bool tile;  // the attention takes the tensor-core tile (not attend_decode)
+  int item;   // split walk item (live slot, KV head, row, split) of the decode design
+  int items;  // live slots * KV * rows * splits
+  bool tile;  // the attention takes the tensor-core tile (not the split walk)
   bool idle;  // the unit is an idle slot's (every line on the scratch page)
   bool tc;    // the layer projections run on wgmma (tc_path)
   TcRing ring;
   CommitArgs commit;
+  SplitArgs split;  // the split walk's: partials in ``work``, the launch's counters
 };
 __shared__ BlockState g_block;
 __shared__ __align__(8) uint64_t g_tc_full[kTcStages], g_tc_empty[kTcStages];
@@ -696,6 +708,78 @@ __shared__ __align__(8) uint64_t g_tc_full[kTcStages], g_tc_empty[kTcStages];
 __device__ __forceinline__ void end_stage() {
   coop::this_grid().sync();
   if (threadIdx.x == 0) stamp(*g_block.args, g_block.si);
+}
+
+// The whole step's split walk takes one query row an item, its lanes at
+// most 8 head dims of a line (16-byte loads on bf16 and f32 pages, 8 on
+// int8, 4 on int4): a walk that holds more registers made ptxas spill in
+// the kernel's other stages, whose non-inlined functions share its
+// register allocation (ptxas -v for sm_90a, every instantiation: 4- and
+// 8-row walks 3,292 to 10,766 bytes across the library, one row at 32
+// and 16 dims a lane 52 and 32 bytes, at 8 none). A row a time reads a
+// KV head's lines once per row, as the design before this one did.
+constexpr int kWsSplitDims = 8;
+
+// The split walk's dynamic shared memory in the attention stage of a
+// decode-design step: the walk's scratch (SplitSmem) for one row and the
+// block's 8 warps, the item's query row, then the step's live slots (R
+// ints). serve/kernels.whole_step_split_smem_bytes mirrors it.
+template <typename T, int DK>
+struct SplitLayout {
+  static constexpr size_t kQ = (sizeof(SplitSmem<DK, 1, kWarps, true>) + 15) / 16 * 16;
+  static constexpr size_t kSlots = kQ + size_t(DK) * sizeof(T);  // live slots
+  static size_t bytes(int R) { return kSlots + 4 * size_t(R); }
+};
+
+// The live slots (a line off the scratch page) in slot order, after the
+// split walk's scratch, and the stage's item count: warp 0 ballots 32
+// slots at a time. Ends with a barrier.
+template <typename T, int DK>
+__device__ __noinline__ void list_live_slots() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BlockState& b = g_block;
+  const WholeArgs& a = *b.args;
+  int* live = reinterpret_cast<int*>(smem + SplitLayout<T, DK>::kSlots);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int r0 = 0; r0 < a.R; r0 += 32) {
+      const int r = r0 + lane;
+      bool on = false;
+      for (int c = 0; r < a.R && c < a.C; ++c) on = on || a.phys[(size_t)r * a.C + c] != a.P1 - 1;
+      const unsigned ballot = __ballot_sync(0xffffffffu, on);
+      if (on) live[n + __popc(ballot & ((1u << lane) - 1u))] = r;
+      n += __popc(ballot);
+    }
+    if (lane == 0) b.items = n * a.KV * b.rows * b.split.nsplit;
+  }
+  __syncthreads();
+}
+
+// The block's split walk item b.item: (live slot, KV head, query row,
+// split), on the block's 8 warps, its query row (rotated, a.q) staged
+// through L2: other blocks wrote it in the commit. Not inlined, like
+// attend_rows_mma.
+template <typename T, int KIND, int DK>
+__device__ __noinline__ void attend_row_split() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Layout = SplitLayout<T, DK>;
+  constexpr int V = DK * int(sizeof(T)) / 16;  // 16-byte vectors a row
+  const BlockState& b = g_block;
+  const PagedArgs& a = b.commit.a;
+  const int* live = reinterpret_cast<const int*>(smem + Layout::kSlots);
+  const int nsplit = b.split.nsplit, G = a.H / a.KV;
+  const int r = live[b.item / (a.KV * b.rows * nsplit)], h = b.item / (b.rows * nsplit) % a.KV;
+  const int i = b.item / nsplit % b.rows;
+  T* sQ = reinterpret_cast<T*>(smem + Layout::kQ);
+  const size_t row = ((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G;
+  if (threadIdx.x < V)
+    reinterpret_cast<uint4*>(sQ)[threadIdx.x] =
+        __ldcg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.q) + row * DK) +
+               threadIdx.x);
+  attend_split<T, KIND, DK, 1, kWarps, kWsSplitDims>(
+      PagedLines<true>{a, r, h, i, 1}, b.split, b.item % nsplit, sQ,
+      *reinterpret_cast<SplitSmem<DK, 1, kWarps, true>*>(smem));
 }
 
 // One 128-row pass of the paged kernels' tensor-core tile ("mma" for bf16
@@ -812,8 +896,9 @@ __device__ __noinline__ void proj_stage(int which) {
 
 // 3. per (slot, KV head): the Q/K/V lines from the partial sums, RoPE and
 // the commit (commit_unit), then attention in the paged kernels' designs
-// (paged_design): a row at a time at decode (in commit_unit), 128-row
-// passes of the tensor-core tile above 8 rows
+// (paged_design): at decode, after every unit's commit and a grid
+// barrier, the split walk's items; above 8 rows, 128-row passes of the
+// tensor-core tile after the unit's commit
 template <typename T, int KIND, int DK>
 __device__ __noinline__ void commit_unit() {
   BlockState& b = g_block;
@@ -860,9 +945,6 @@ __device__ __noinline__ void commit_unit() {
   }
   __syncthreads();
   rope_and_commit<T, KIND, DK, kThreads>(f, r, kh);
-  if (!b.tile) {
-    for (int i = 0; i < b.rows; ++i) attend_decode<T, KIND, DK, 1>(f.a, r, kh, i);
-  }
 }
 
 template <typename T, int KIND, int DK>
@@ -901,6 +983,8 @@ __device__ __noinline__ void attention_stage() {
     b.rows = a.C * (a.H / a.KV);
     b.tile = paged_design(b.rows, dtype_of(sizeof(T))) != kDesignDecode;
     b.u = blockIdx.x;
+    b.split = SplitArgs{a.work, a.counters, a.split_pages,
+                        (a.NP + a.split_pages - 1) / a.split_pages};
   }
   __syncthreads();
   while (b.u < b.units) {
@@ -916,6 +1000,27 @@ __device__ __noinline__ void attention_stage() {
     }
     __syncthreads();  // every thread has read b.u
     if (threadIdx.x == 0) b.u += gridDim.x;
+    __syncthreads();
+  }
+  if (b.tile) {
+    end_stage();
+  } else {  // grid-uniform: split_stage attends once every unit is committed
+    coop::this_grid().sync();
+  }
+}
+
+// 3, at decode (the decode design): the split walk's items, after every
+// unit's commit. Its time is the attention stage's.
+template <typename T, int KIND, int DK>
+__device__ __noinline__ void split_stage() {
+  BlockState& b = g_block;
+  list_live_slots<T, DK>();
+  if (threadIdx.x == 0) b.item = blockIdx.x;
+  __syncthreads();
+  while (b.item < b.items) {
+    attend_row_split<T, KIND, DK>();
+    __syncthreads();  // the walk's scratch and b.item are read
+    if (threadIdx.x == 0) b.item += gridDim.x;
     __syncthreads();
   }
   end_stage();
@@ -1062,6 +1167,7 @@ whole_step_kernel(const __grid_constant__ WholeArgs a) {
     norm_stage<T>(false);
     proj_stage<T>(kProjQkv);
     attention_stage<T, KIND, DK>();
+    if (!b.tile) split_stage<T, KIND, DK>();
     proj_stage<T>(kProjOut);
     norm_stage<T>(true);
     proj_stage<T>(kProjW1W3);
@@ -1084,15 +1190,16 @@ size_t gemm_smem(int rows, int w) {
 }
 
 // Dynamic shared memory of a launch: the projections' double-buffered
-// chunks at the widest column tile (or an LM-head item), or the
-// tensor-core attention tile when a KV head has more than 8 query rows.
+// chunks at the widest column tile (or an LM-head item), or the attention
+// stage's: the tensor-core tile when a KV head has more than 8 query
+// rows, else the split walk's (SplitLayout).
 template <typename TQ, int KIND, int DK>
 size_t dynamic_smem(const WholeArgs& a) {
   const size_t gemm = std::max(gemm_smem<TQ>(a.R * a.C, head_width_cap(a)),
                                gemm_smem<TQ>(a.R, head_width(a)));
   const bool tile = paged_design(a.C * (a.H / a.KV), dtype_of(sizeof(TQ))) != kDesignDecode;
   return std::max(std::max(gemm, tc_path(a, sizeof(TQ)) ? kTcSmem : size_t(0)),
-                  tile ? MmaSmem<TQ, KIND, DK>::kBytes : size_t(0));
+                  tile ? MmaSmem<TQ, KIND, DK>::kBytes : SplitLayout<TQ, DK>::bytes(a.R));
 }
 
 // The tensor maps of the wgmma projections: the activations (M, K) in
@@ -1154,15 +1261,17 @@ struct Launch {
   }
 };
 
-// The tensor-core tile's dynamic bytes and the kernel's static shared
-// bytes (from the runtime) of one instantiation
+// The tensor-core tile's dynamic bytes, the kernel's static shared bytes
+// (from the runtime) and the split walk's dynamic bytes before its live
+// slots (SplitLayout::kSlots) of one instantiation
 template <typename TQ, int KIND, int DK>
 struct SmemReport {
-  static cudaError_t run(int* mma_bytes, int* static_bytes) {
+  static cudaError_t run(int* mma_bytes, int* static_bytes, int* split_bytes) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, whole_step_kernel<TQ, KIND, DK>);
     *mma_bytes = (int)MmaSmem<TQ, KIND, DK>::kBytes;
     *static_bytes = (int)attr.sharedSizeBytes;
+    *split_bytes = (int)SplitLayout<TQ, DK>::kSlots;
     return err;
   }
 };
@@ -1200,10 +1309,10 @@ extern "C" int whole_step_decode_launch(
     const void* sin, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* table, const void* phys, const void* off, const void* mask,
     const void* logits_idx, void* logits, void* tokens, void* scratch, void* work,
-    void* stamps, int L,
+    void* stamps, void* counters, int L,
     int R, int C, int D, int H, int KV, int dk, int F, int V, int ps, int NP, int P1,
-    int tiles, int KS, int tied, int dtype, int pool_kind, float eps, float scale,
-    float qmax, void* stream) {
+    int tiles, int KS, int tied, int dtype, int pool_kind, int split_pages, float eps,
+    float scale, float qmax, void* stream) {
   using namespace fft;
   if (L <= 0 || R <= 0 || C <= 0 || C > kMaxChunk || KV <= 0 || H % KV != 0 || tiles <= 0 ||
       KS <= 0 || NP <= 0)
@@ -1216,6 +1325,12 @@ extern "C" int whole_step_decode_launch(
   const int wmax = imax(imax(H * dk, KV * dk), imax(D, F)) / tiles;
   if ((wmax / 8 + kWarps - 1) / kWarps > kMaxFrags) return (int)cudaErrorInvalidValue;
   if (pool_kind != kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the decode design's split walk: at most kSplitMaxSplits splits, one
+  // unless C == 1, merge counters with several
+  if (split_pages <= 0) return (int)cudaErrorInvalidValue;
+  const int nsplit = (NP + split_pages - 1) / split_pages;
+  if (nsplit > kSplitMaxSplits || (nsplit > 1 && (C != 1 || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   WholeArgs a{};
   a.attn_norm = attn_norm;
@@ -1246,6 +1361,8 @@ extern "C" int whole_step_decode_launch(
   a.scratch = scratch;
   a.work = static_cast<float*>(work);
   a.stamps = static_cast<long long*>(stamps);
+  a.counters = static_cast<int*>(counters);
+  a.split_pages = split_pages;
   a.L = L;
   a.R = R;
   a.C = C;
@@ -1274,11 +1391,14 @@ extern "C" int whole_step_decode_design(int C, int H, int KV, int dtype) {
   return fft::paged_design(C * (H / (KV > 0 ? KV : 1)), dtype);
 }
 
-// The tensor-core attention tile's dynamic shared bytes (MmaSmem) and the
-// kernel's static shared bytes of the (dtype, pool_kind, dk) instantiation.
+// The tensor-core attention tile's dynamic shared bytes (MmaSmem), the
+// kernel's static shared bytes and the split walk's dynamic bytes before
+// its R live slots (SplitLayout::kSlots) of the (dtype, pool_kind, dk)
+// instantiation.
 extern "C" int whole_step_decode_smem(int dtype, int pool_kind, int dk, int* mma_bytes,
-                                      int* static_bytes) {
-  return (int)fft::dispatch<fft::SmemReport>(dtype, pool_kind, dk, mma_bytes, static_bytes);
+                                      int* static_bytes, int* split_bytes) {
+  return (int)fft::dispatch<fft::SmemReport>(dtype, pool_kind, dk, mma_bytes, static_bytes,
+                                             split_bytes);
 }
 
 extern "C" const char* error_string(int err) {

@@ -356,13 +356,26 @@ def _head(cfg: LLaMAConfig, params, x, logits_idx, all_logits: bool):
     return lm_head(x, head)
 
 
+def decode_seq_lens(mask, positions, S1: int):
+    """The lines each slot's decode token attends, for the dense decode
+    kernel: the count of its mask row, and 0 for a padding row (its cache
+    position the scratch line S1 - 1). A padding row's output is never
+    read, and attention is per slot, so this moves no live row's bits:
+    its output is zeros, where the JAX package and ``kernels="torch"``
+    walk the whole cache for it. mask (R, 1, S1) bool, positions (R, 1)
+    → (R,) int32, computed on the device."""
+    lens = mask[:, 0, :].sum(dim=-1)
+    return torch.where(positions[:, 0] == S1 - 1, 0, lens).to(torch.int32)
+
+
 def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
                 positions, kernels: str = "torch", bits=None):
     """One transformer block on a serving step: project, RoPE, write the
     new K/V into ``k_cache``/``v_cache`` (one layer's (R, S1, KV, dk)
     views) IN PLACE at ``positions`` (cache line indices), attend over
     the whole cache. ``kernels="cuda"`` routes attention through the
-    hand-written kernels (serve/kernels.py: decode for C == 1, verify
+    hand-written kernels (serve/kernels.py: decode for C == 1, its
+    padding rows attending nothing (:func:`decode_seq_lens`), verify
     otherwise, on ``bits``, the step's mask packed by
     ``kernels.pack_mask_bits``, when given). Returns the block's
     output."""
@@ -378,7 +391,7 @@ def serve_block(cfg: LLaMAConfig, p, x, cos, sin, mask, k_cache, v_cache,
         from ..serve import kernels as _k
 
         if C == 1:
-            seq_lens = mask[:, 0, :].sum(dim=-1).to(torch.int32)
+            seq_lens = decode_seq_lens(mask, positions, k_cache.shape[1])
             attn = _k.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                        seq_lens)
             attn = attn.reshape(R, 1, H * dk)

@@ -38,14 +38,14 @@ NVCC_FLAGS = (
 )
 #: pointer, int and float argument counts of each kernel's launcher
 SIGNATURES = {
-    "decode_attention": (5, 6, 1),
+    "decode_attention": (7, 7, 1),
     "verify_attention": (5, 7, 1),
     "ragged_paged_attention": (10, 10, 1),
     "fused_rope_paged_attention": (18, 11, 2),
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
-    "whole_step_decode": (28, 17, 3),
+    "whole_step_decode": (29, 18, 3),
     "paged_commit": (8, 9, 1),
     "adam_update": (5, 3, 6),
 }
@@ -148,7 +148,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 getattr(lib, f"{kernel}_design").restype = ctypes.c_int
         if src == "whole_step_decode":
             lib.whole_step_decode_smem.argtypes = [ctypes.c_int] * 3 + [
-                ctypes.POINTER(ctypes.c_int)] * 2
+                ctypes.POINTER(ctypes.c_int)] * 3
             lib.whole_step_decode_smem.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
@@ -195,13 +195,14 @@ def whole_step_smem(dtype: int, pool_kind: int, dk: int):
     """The whole-step kernel's shared memory as its library reports it for
     q of dtype code ``dtype``, pools of ``pool_kind`` (0 q's type, 1 int8,
     2 int4) and head dim ``dk``: the tensor-core attention tile's dynamic
-    bytes (``MmaSmem``) and the kernel's static bytes (from
-    ``cudaFuncGetAttributes``; needs the GPU)."""
+    bytes (``MmaSmem``), the kernel's static bytes (from
+    ``cudaFuncGetAttributes``; needs the GPU) and the split decode walk's
+    dynamic bytes before its live slots (``SplitLayout::kSlots``)."""
     lib = _lib("whole_step_decode")
-    mma, static = ctypes.c_int(), ctypes.c_int()
+    mma, static, split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = lib.whole_step_decode_smem(dtype, pool_kind, dk, ctypes.byref(mma),
-                                     ctypes.byref(static))
+                                     ctypes.byref(static), ctypes.byref(split))
     if err != 0:
         raise RuntimeError(f"whole_step_decode_smem failed: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
-    return mma.value, static.value
+    return mma.value, static.value, split.value

@@ -134,7 +134,12 @@ def decode_attention(q, k_cache, v_cache, seq_lens, *,
                      scale: Optional[float] = None):
     """Fused decode attention: one query token per request slot against
     its cache prefix. q (R, H, dk); k/v (R, S1, KV, dk); seq_lens (R,)
-    int32 — lines [0, seq_len) are attended. Returns (R, H, dk)."""
+    int32 — lines [0, seq_len) are attended. Returns (R, H, dk). On the
+    GPU it runs the split decode walk of the paged kernels on dense
+    addresses: (slot, KV head, head group of at most DECODE_ROWS query
+    heads, split of :func:`dense_decode_split` lines) blocks, a split past
+    its slot's seq_len exiting before any load, the partials in a
+    workspace kept for the stream, merged inside the one launch."""
     R, H, dk = q.shape
     _check_cache(q, k_cache, v_cache, R, H, dk)
     if seq_lens.shape != (R,):
@@ -149,11 +154,19 @@ def decode_attention(q, k_cache, v_cache, seq_lens, *,
     from . import _cuda
 
     S1, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    groups = dense_head_groups(G)
+    split, n = dense_decode_split(R, KV, S1, groups)
+    ws = counters = None
+    if n > 1:
+        units = R * KV * groups
+        ws, counters = _split_scratch(q.device, units * n * min(G, DECODE_ROWS) * (dk + 2),
+                                      units)
     out = torch.empty_like(q)
     _cuda.launch(
         "decode_attention",
-        [q, k_cache, v_cache, seq_lens, out],
-        [R, S1, H, KV, dk, _dtype_code(q.dtype)],
+        [q, k_cache, v_cache, seq_lens, out, ws, counters],
+        [R, S1, H, KV, dk, _dtype_code(q.dtype), split],
         [scale if scale is not None else 1.0 / math.sqrt(dk)],
     )
     LAUNCHES["decode_attention"] += 1
@@ -484,6 +497,31 @@ DECODE_SPLIT_BLOCKS = 512
 DECODE_MAX_SPLITS = 64
 
 
+def dense_head_groups(G: int) -> int:
+    """Head groups a KV head's G query heads take in the dense decode
+    kernel: one of G <= DECODE_ROWS heads, else groups of DECODE_ROWS (the
+    last one shorter), each a block of the grid."""
+    return -(-G // DECODE_ROWS)
+
+
+def dense_decode_split(R: int, KV: int, S1: int, groups: int = 1) -> Tuple[int, int]:
+    """(lines a split, splits a (slot, KV head, head group)) of the dense
+    decode kernel (csrc/decode_attention.cu) for R slots, KV key/value
+    heads of ``groups`` head groups (:func:`dense_head_groups`) and a
+    cache of S1 lines: the ladder of :func:`paged_decode_split` without
+    its pages, the first of DECODE_SPLIT_LINES whose grid reaches
+    DECODE_SPLIT_BLOCKS blocks, at most DECODE_MAX_SPLITS splits. The
+    splits cover lines [0, S1) once each, from the shapes alone (the host
+    cannot see the slots' lengths without a sync); the kernel walks only
+    the splits below a slot's seq_len."""
+    for lines in DECODE_SPLIT_LINES:
+        split = max(lines, -(-S1 // DECODE_MAX_SPLITS))
+        n = -(-S1 // split)
+        if R * KV * groups * n >= DECODE_SPLIT_BLOCKS:
+            break
+    return split, n
+
+
 def paged_decode_split(R: int, C: int, KV: int, NP: int, ps: int) -> Tuple[int, int]:
     """(pages a split, splits a (slot, KV head)) of the paged kernels'
     decode design (csrc/paged_decode.cuh) for R slots of C query tokens,
@@ -504,11 +542,25 @@ def paged_decode_split(R: int, C: int, KV: int, NP: int, ps: int) -> Tuple[int, 
     return pages, n
 
 
-#: the decode design's scratch by (device, stream): the partials'
+#: the split decode walk's scratch by (device, stream): the partials'
 #: workspace (f32) and the merge counters (int32, zero; each launch leaves
-#: them 0 again). Launches on one stream never overlap, so one stream's
-#: launches share them; a larger launch replaces them.
-_SPLIT_SCRATCH: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: them 0 again), shared by the paged, dense and whole-step kernels.
+#: Launches on one stream never overlap, so one stream's launches share
+#: them; a larger launch replaces them.
+_SPLIT_SCRATCH: Dict[Tuple[torch.device, int], Tuple[Optional[torch.Tensor], torch.Tensor]] = {}
+
+
+def _split_scratch(device: torch.device, floats: int, units: int):
+    """The stream's split workspace of at least ``floats`` f32 (none asked
+    for at 0) and zeroed merge counters for ``units`` units."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws, counters = _SPLIT_SCRATCH.get(key, (None, None))
+    if floats and (ws is None or ws.numel() < floats):
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < units:
+        counters = torch.zeros(units, dtype=torch.int32, device=device)
+    _SPLIT_SCRATCH[key] = ws, counters
+    return ws, counters
 
 
 def _decode_workspace(q: torch.Tensor, KV: int, NP: int, ps: int):
@@ -522,14 +574,7 @@ def _decode_workspace(q: torch.Tensor, KV: int, NP: int, ps: int):
     pages, n = paged_decode_split(R, C, KV, NP, ps)
     if n == 1:
         return pages, None, None
-    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
-    ws, counters = _SPLIT_SCRATCH.get(key, (None, None))
-    need = R * KV * n * rows * (dk + 2)
-    if ws is None or ws.numel() < need:
-        ws = torch.empty(need, dtype=torch.float32, device=q.device)
-    if counters is None or counters.numel() < R * KV:
-        counters = torch.zeros(R * KV, dtype=torch.int32, device=q.device)
-    _SPLIT_SCRATCH[key] = ws, counters
+    ws, counters = _split_scratch(q.device, R * KV * n * rows * (dk + 2), R * KV)
     return pages, ws, counters
 
 
@@ -925,6 +970,21 @@ def mma_smem_bytes(f32: bool, kind: int, dk: int) -> int:
     return fixed + meta(32 if fixed + meta(32) <= MMA_SMEM_BUDGET else 16)
 
 
+def whole_step_split_smem_bytes(f32: bool, dk: int, R: int) -> int:
+    """Dynamic shared bytes of the whole-step kernel's split decode walk
+    (``SplitLayout`` in csrc/whole_step_decode.cu): the walk's scratch
+    (``SplitSmem`` for one row and 8 warps: the staged mask words, page
+    ids and scales of a chunk, 480 bytes; each warp's split mask, 64; (m,
+    l) and the accumulator of a warp's row; the merge's (m, l) of 64
+    splits, 512; the merge flag; 8-byte aligned), rounded up to 16 bytes;
+    the item's query row in the model dtype (f32 with ``f32``); the R live
+    slots' indices. The gate prices it at decode, in place of the
+    tensor-core tile; ``chip_smoke.py``'s build line checks it against the
+    library."""
+    scratch = -(-(480 + 64 + 2 * 8 * 4 + 8 * dk * 4 + 64 * 2 * 4 + 4) // 8) * 8
+    return -(-scratch // 16) * 16 + dk * (4 if f32 else 2) + 4 * R
+
+
 def _pool_kind(pool: torch.Tensor) -> int:
     """The CUDA launchers' pool kind: 0 q's type, 1 int8, 2 int4."""
     return {torch.int8: 1, torch.uint8: 2}.get(pool.dtype, 0)
@@ -945,10 +1005,12 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     than 64 rows, whose projections run on wgmma in 128 × 256 items
     whatever the tile count, the TMA ring's shared memory (_WS_TC_SMEM,
     the accumulators in registers unpriced); or, when larger, an LM-head
-    item (R rows × at most 256 columns) or the tensor-core attention tile
-    (:func:`mma_smem_bytes`, a KV head with more than 8 query rows); plus
-    the kernel's static shared memory. ``x0`` (R, C, D) gives the step
-    shape and the model dtype (a "meta" tensor will do)."""
+    item (R rows × at most 256 columns) or the attention stage's: the
+    tensor-core tile (:func:`mma_smem_bytes`, a KV head with more than 8
+    query rows), else the split decode walk
+    (:func:`whole_step_split_smem_bytes`); plus the kernel's static shared
+    memory. ``x0`` (R, C, D) gives the step shape and the model dtype (a
+    "meta" tensor will do)."""
     R, C, D = x0.shape
     isz = x0.element_size()
     wmax = max(_ws_widths(layer_arrays, tile_roles, tiles))
@@ -960,7 +1022,8 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     dk = Q // num_heads
     kv = int(cache["k"].shape[3])
     rows = C * (num_heads // kv)
-    attn = mma_smem_bytes(isz == 4, _pool_kind(cache["k"]), dk) if rows > 8 else 0
+    attn = (mma_smem_bytes(isz == 4, _pool_kind(cache["k"]), dk) if rows > DECODE_ROWS
+            else whole_step_split_smem_bytes(isz == 4, dk, R))
     return _WS_STATIC_SMEM + max(item, attn)
 
 
@@ -1208,19 +1271,28 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
 
     M = R * C
     KS = _ws_k_slices(M)
+    # the decode design's split walk (C * G <= DECODE_ROWS), a query row an
+    # item: the paged kernels' split rule, its partials in ``work`` after
+    # the Q/K/V sums are read, the stream's merge counters, one a (slot,
+    # KV head, row)
+    rows = C * (H // KV)
+    split_pages, nsplit = (paged_decode_split(R, C, KV, NP, ps) if rows <= DECODE_ROWS
+                           else (NP, 1))
+    counters = _split_scratch(x0.device, 0, R * KV * rows)[1] if nsplit > 1 else None
     logits = torch.empty((R, V), dtype=torch.float32, device=x0.device)
     tokens = torch.empty((R,), dtype=torch.int32, device=x0.device)
     scratch = torch.empty((M * (4 * D + 3 * Q + 3 * KVd + Fd) + R * D,), dtype=dt,
                           device=x0.device)
-    work = torch.empty((KS * M * max(Q + 2 * KVd, D, 2 * Fd),), dtype=torch.float32,
-                       device=x0.device)
+    work = torch.empty((max(KS * M * max(Q + 2 * KVd, D, 2 * Fd),
+                            R * KV * nsplit * rows * (dk + 2) if nsplit > 1 else 0),),
+                       dtype=torch.float32, device=x0.device)
     _cuda.launch(
         "whole_step_decode",
         tensors[:11] + [x0, cos, sin, k_pool, v_pool, cache.get("k_scale"),
                         cache.get("v_scale"), page_table, phys, off, mask, logits_idx,
-                        logits, tokens, scratch, work, stamps],
+                        logits, tokens, scratch, work, stamps, counters],
         [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
-         kind],
+         kind, split_pages],
         [eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
     )
     LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1

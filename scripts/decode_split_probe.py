@@ -22,12 +22,22 @@ kernels, prints each split decode instantiation's registers and spills
 once. ``--lens N`` gives every decode slot N lines in place of
 ``DECODE_LENS``; ``--kv N`` times the decode cases alone, each at N
 key/value heads (G = 32 / N query rows a KV head). Each line carries the
-case's bound (``chip_smoke._paged_bound``). Imports nothing of JAX;
-needs a CUDA GPU (``--build-only`` only nvcc).
+case's bound (``chip_smoke._paged_bound``); a decode case under the rule
+also carries a digest of the ragged kernel's output and of the fused
+kernel's output and pools (one call on fresh pools), so that two trees'
+lines show whether a change kept the paged decode bits. The digests
+leave out the scratch page and the rows that read it (the idle slot's
+padding row, whose fused output races its own commit to that page and is
+never read), as ``chip_smoke.run_fused_check`` compares. Unless ``--kv``
+is given, the dense decode kernel follows at chip_smoke's decode cases
+(``dense_graph_ms`` beside SDPA's ``sdpa_graph_ms`` and the bound, which
+counts the lines attended). Imports nothing of JAX; needs a CUDA GPU
+(``--build-only`` only nvcc).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -36,6 +46,22 @@ import numpy as np
 import torch
 
 THIS = Path(__file__).resolve().parent.parent
+
+# the dense decode cases of chip_smoke.phase_kernels: (label, dtype, R, S1,
+# H, KV, dk, lens; None: chip_smoke's 16 decode lengths)
+DENSE_CASES = (("llama7b", torch.bfloat16, 16, 2113, 32, 32, 128, None),
+               ("llama7b-gqa", torch.bfloat16, 16, 2113, 32, 8, 128, None),
+               ("llama7b-f32", torch.float32, 16, 2113, 32, 32, 128, None),
+               ("gqa-g16-small", torch.bfloat16, 4, 513, 32, 2, 128, [0, 17, 256, 512]))
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _load(root: Path):
@@ -127,12 +153,47 @@ def main(argv=None) -> int:
             err = float((got.float() - want.float()).abs().max())
             cs.check(bool(torch.isclose(got.float(), want.float(), atol=tol["atol"],
                                         rtol=tol["rtol"]).all()), f"{label} at {name}: {err}")
+            if name == "rule" and kind == "decode":
+                fresh = [None if case[k] is None else case[k].clone()
+                         for k in ("kp", "vp", "ks", "vs")]
+                out = K.fused_rope_paged_attention(q, k_new, v_new, cos, sin, fresh[0], fresh[1],
+                                                   table, logical, off, mask, k_scale=fresh[2],
+                                                   v_scale=fresh[3], qmax=qmax)
+                P = case["P"]
+                live = ~(mask & (table == P).repeat_interleave(ps, dim=1)[:, None]).any(-1)
+                line.update(ragged_sha=digest(got[live]), fused_sha=digest(
+                    out[live], *(None if t is None else t[:P] for t in fresh)))
+                del fresh, out
             line.update(max_abs_err=err, ragged_graph_ms=graph_ms(ragged),
                         fused_graph_ms=graph_ms(fused))
             if split:
                 K.DECODE_SPLIT_LINES, K.DECODE_SPLIT_BLOCKS = rule
             print(json.dumps(line), flush=True)
         del case, pools, want
+        torch.cuda.empty_cache()
+    if args.kv is not None:
+        return 0
+    gen.manual_seed(args.seed + 3)
+    for label, dtype, R, S1, H, KV, dk, lens in DENSE_CASES:
+        q, k, v, sl = cs._decode_case(gen, dtype, R, S1, H, KV, dk, lens or cs.DECODE_LENS)
+        want = K.decode_attention_ref(q, k, v, sl)
+        got = K.decode_attention(q, k, v, sl)
+        err = float((got.float() - want.float()).abs().max())
+        tol = cs.TOL[dtype]
+        cs.check(bool(torch.isclose(got.float(), want.float(), atol=tol["atol"],
+                                    rtol=tol["rtol"]).all()), f"dense {label}: {err}")
+        valid = (torch.arange(S1, device=cs.DEV)[None, :] < sl[:, None])[:, None, :]
+        sq, sk, svv, smask = cs._sdpa_inputs(q[:, None], k, v, valid)
+        line = {"tree": str(root), "case": f"dense-{label}", "max_abs_err": err,
+                "bound_ms": cs._decode_bound(q, k, sl)[0],
+                "dense_graph_ms": graph_ms(lambda: K.decode_attention(q, k, v, sl)),
+                "sdpa_graph_ms": graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    sq, sk, svv, attn_mask=smask))}
+        if hasattr(K, "dense_decode_split"):
+            line["split_lines"], line["splits"] = K.dense_decode_split(
+                R, KV, S1, K.dense_head_groups(H // KV))
+        print(json.dumps(line), flush=True)
+        del q, k, v, sq, sk, svv
         torch.cuda.empty_cache()
     return 0
 

@@ -15,9 +15,11 @@ device's time without the host's). It keeps each run's output in
 limit, then one JSON line per timed kernel row (``kernel``, ``case``)
 with its ``ms`` and its ``device_ms`` or ``graph_ms`` in each turn (the
 whole-step cases among them), one per whole-step case with the sum of its stamped stages
-and its attention stage (its ``whole_stages`` line), and one per paged
-case with both kernels' graph times. A run that fails stops the script
-with its exit code. Needs a CUDA GPU.
+and its attention stage (its ``whole_stages`` line), one per paged
+case with both kernels' graph times (and, at decode, the digests of
+their outputs, equal across the trees where a change kept the bits), and
+one per dense decode case with the kernel's and SDPA's graph times. A run
+that fails stops the script with its exit code. Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -43,7 +45,11 @@ def rows_of(log: str):
                                                  if o.get(k) is not None}
         elif "ragged_graph_ms" in o:  # decode_split_probe.py
             yield ("paged_graph", o["case"]), {k: o[k] for k in (
-                "ragged_graph_ms", "fused_graph_ms", "splits") if k in o}
+                "ragged_graph_ms", "fused_graph_ms", "splits", "ragged_sha", "fused_sha")
+                if k in o}
+        elif "dense_graph_ms" in o:
+            yield ("dense_graph", o["case"]), {k: o[k] for k in (
+                "dense_graph_ms", "sdpa_graph_ms", "bound_ms", "splits") if k in o}
         elif o.get("phase") == "whole_stages":
             yield ("whole_stages", o["case"]), {"stages_sum_ms": o["stages_sum_ms"],
                                                 "attention_ms": o["stages_ms"]["attention"]}

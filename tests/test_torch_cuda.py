@@ -667,6 +667,76 @@ def test_cuda_paged_decode_split_ignores_stale_shared_memory(cuda_device, poison
 
 
 # ---------------------------------------------------------------------------
+# the dense decode kernel on the split walk (csrc/decode_attention.cu)
+
+# (R, S1, H, KV, dk): LLaMA-7B's cache at 4 slots (MHA, KV 8, and KV 2:
+# G = 16, two head groups of 8), MQA (H 32 over KV 1: four groups) and
+# dk 64 at a short cache
+DENSE_SHAPES = [(6, 2113, 32, 32, 128), (6, 2113, 32, 8, 128), (6, 2113, 32, 2, 128),
+                (6, 700, 32, 1, 64), (6, 300, 8, 2, 64)]
+
+
+def _dense_case(gen, dev, dtype, R, S1, H, KV, dk):
+    """q and caches of a decode step whose slot lengths end on and around
+    the dense split rule's boundaries: 0 (a padding row), 1, one split,
+    one split and a line, two splits less a line, and every line of the
+    cache. Returns q, k, v, seq_lens and the split length in lines."""
+    split, n = tk.dense_decode_split(R, KV, S1, tk.dense_head_groups(H // KV))
+    assert n > 1
+    lens = [0, 1, split, split + 1, min(2 * split - 1, S1), S1]
+    q = torch.randn(R, H, dk, generator=gen, device=dev).to(dtype)
+    k = torch.randn(R, S1, KV, dk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(R, S1, KV, dk, generator=gen, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lens[:R], dtype=torch.int32, device=dev), split
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "R{}-S1{}-H{}-KV{}-dk{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, shape):
+    """Slot lengths on, one past and one before the dense rule's split
+    boundaries, a padding row (length 0) and a full cache, at every head
+    grouping (G 1, 4, 16, 32): within the kernel tolerance of the plain
+    version, the padding row exactly 0, one launch counted."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v, sl, _ = _dense_case(gen, cuda_device, dtype, *shape)
+    before = tk.LAUNCHES["decode_attention"]
+    out = tk.decode_attention(q, k, v, sl)
+    assert tk.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(out, tk.decode_attention_ref(q, k, v, sl), **TOL[dtype])
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dense_decode_split_is_deterministic(cuda_device, dtype):
+    """Two launches on the same inputs give the same bits (the splits merge
+    in split order, whichever block finishes last), with G = 16 in two
+    head groups, and every launch leaves the merge counters at 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v, sl, _ = _dense_case(gen, cuda_device, dtype, *DENSE_SHAPES[2])
+    outs = [tk.decode_attention(q, k, v, sl) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for _, counters in tk._SPLIT_SCRATCH.values():
+        assert (counters == 0).all()
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES[:3], ids=lambda s: "H{2}-KV{3}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dense_decode_split_ignores_stale_shared_memory(cuda_device, poison_smem, dtype,
+                                                            shape):
+    """The dense walk reads no shared memory it did not write: after every
+    SM's shared memory is filled with NaN bits, the output is finite and
+    matches the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v, sl, _ = _dense_case(gen, cuda_device, dtype, *shape)
+    ref = tk.decode_attention_ref(q, k, v, sl)
+    poison_smem()
+    out = tk.decode_attention(q, k, v, sl)
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
 # training flash attention
 
 
@@ -817,22 +887,22 @@ def test_cuda_bf16_train_step_flash_and_torch(cuda_device, remat, policy, fwd_la
 # whole-step serving kernel
 
 
-def _whole_case(dev, dtype, quant, C, KV, ps):
+def _whole_case(dev, dtype, quant, C, KV, ps, held=(9, 20, 0), NP=4):
     """A 2-layer LLaMA at small widths (D 256, 4 heads of 64, F 512, V
-    512) and a paged cache warmed by one unfused step: slot 0 holds 9
-    lines, slot 1 holds 20, slot 2 is idle. The step under test writes C
-    new lines per live slot (slot 2's columns are padding)."""
+    512) and a paged cache of NP pages a slot warmed by one unfused step:
+    slot r holds held[r] lines (by default slot 0 9, slot 1 20, slot 2
+    none: idle). The step under test writes C new lines per live slot
+    (an idle slot's columns are padding)."""
     from flexflow_tpu_torch.models import llama as tl
 
     cfg = tl.LLaMAConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
                          num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=KV,
                          max_position_embeddings=512, dtype=dtype)
     params = tl.init_params(torch.Generator(device=dev).manual_seed(4), cfg, device=dev)
-    R, NP = 3, 4
+    R = len(held)
     cache_len = NP * ps - 1
     P = R * NP
     cache = tl.init_paged_kv_cache(cfg, P, ps, kv_quant=quant, device=dev)
-    held = [9, 20, 0]
     table = torch.full((R, NP), P, dtype=torch.int32)
     for r, n in enumerate(held):
         pages = -(-(n + C) // ps)
@@ -849,9 +919,11 @@ def _whole_case(dev, dtype, quant, C, KV, ps):
                         cfg=cfg, cache_len=cache_len, kv_quant=quant)
     toks = torch.randint(1, cfg.vocab_size, (R, C), generator=gen)
     pos = torch.full((R, C), cache_len)
-    for r, n in enumerate(held[:2]):
-        pos[r] = torch.arange(n, n + C)
-    li = torch.tensor([C - 1, C - 2 if C > 1 else 0, 0])
+    li = torch.zeros(R, dtype=torch.long)
+    for r, n in enumerate(held):
+        if n > 0:
+            pos[r] = torch.arange(n, n + C)
+            li[r] = C - 1 if r % 2 == 0 else max(C - 2, 0)
     step = (toks.to(dev), pos.to(dev), li.to(dev), table)
     return cfg, params, cache, step, cache_len, P
 
@@ -887,16 +959,19 @@ def test_cuda_whole_step_mixed_c128_on_the_tensor_core_tile(cuda_device, poison_
     _check_whole_step(cuda_device, dtype, quant, 128, 2, 128, poison=poison_smem)
 
 
-def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None):
+def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None, held=(9, 20, 0),
+                      NP=4):
     from flexflow_tpu_torch.models import llama as tl
     from flexflow_tpu_torch.serve import kv_quant as kq
 
-    cfg, params, cache, step, cache_len, P = _whole_case(cuda_device, dtype, quant, C, KV, ps)
+    cfg, params, cache, step, cache_len, P = _whole_case(cuda_device, dtype, quant, C, KV, ps,
+                                                         held, NP)
+    live = torch.tensor([n > 0 for n in held], device=cuda_device)
     G = cfg.num_attention_heads // KV
     design = ("decode" if C * G <= 8 else "mma" if dtype == torch.bfloat16 else "tf32x3")
     la, _ = tl.whole_step_weight_layout(params, cfg)
     roles = tl.whole_step_tile_roles(cfg)
-    x0 = torch.empty((3, C, cfg.hidden_size), dtype=dtype, device="meta")
+    x0 = torch.empty((len(held), C, cfg.hidden_size), dtype=dtype, device="meta")
     legal = [t for t in tk.whole_step_tile_candidates(la, roles)
              if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
     assert len(legal) >= 2
@@ -924,10 +999,10 @@ def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None):
             stages = tk.whole_step_stage_ms(t, cfg.num_hidden_layers)
             assert sum(stages.values()) == pytest.approx((t[-1] - t[0]) / 1e6, rel=1e-9)
         runs[name] = (logits, toks, c)
-    # slot 2 is idle: its logits read the scratch page, which every
-    # padding line writes in no fixed order
+    # an idle slot's logits read the scratch page, which every padding
+    # line writes in no fixed order
     (lo, tlo, clo), (hi, thi, chi), (pl, tpl, cpl) = (
-        (lg[:2], tk_[:2], c) for lg, tk_, c in (runs["lo"], runs["hi"], runs["plain"]))
+        (lg[live], tk_[live], c) for lg, tk_, c in (runs["lo"], runs["hi"], runs["plain"]))
     assert torch.equal(lo, hi) and torch.equal(tlo, thi)
     for k in clo:
         assert torch.equal(clo[k][:, :P], chi[k][:, :P]), k
@@ -963,7 +1038,7 @@ def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None):
         exact = tl.serve_step_whole(f32(params), c32, *step,
                                     cfg=dataclasses.replace(cfg, dtype=torch.float32),
                                     cache_len=cache_len, kv_quant=quant, tiles=legal[0],
-                                    kernels="torch")[0][:2]
+                                    kernels="torch")[0][live]
         assert rel(lo, pl) <= 2 * rel(pl, exact)
 
         def values(c, k):
@@ -980,6 +1055,38 @@ def _check_whole_step(cuda_device, dtype, quant, C, KV, ps, poison=None):
         for s in ("k_scale", "v_scale"):
             torch.testing.assert_close(clo[s][:, :P], cpl[s][:, :P],
                                        rtol=1e-4 if dtype == torch.float32 else 2e-2, atol=0)
+
+
+# slots whose lengths span several splits of the decode design (pages of
+# 16, 40 a slot: the split rule cuts them into 10 splits of 4 pages) and
+# two idle slots, which take no split item
+WHOLE_SPLIT_HELD = (9, 300, 0, 620, 0, 64)
+
+
+@pytest.mark.parametrize("KV", [4, 1])
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_whole_step_decode_splits_match_plain_version(cuda_device, dtype, quant, KV):
+    """A decode step whose slots span several splits of the split walk
+    (MHA and G = 4), held as test_cuda_whole_step_matches_plain_version
+    holds the short ones; the split rule gives more than one split, and
+    every launch leaves the merge counters at 0."""
+    R, NP, ps = len(WHOLE_SPLIT_HELD), 40, 16
+    assert tk.paged_decode_split(R, 1, KV, NP, ps)[1] > 1
+    _check_whole_step(cuda_device, dtype, quant, 1, KV, ps, held=WHOLE_SPLIT_HELD, NP=NP)
+    for _, counters in tk._SPLIT_SCRATCH.values():
+        assert (counters == 0).all()
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_whole_step_decode_splits_ignore_stale_shared_memory(cuda_device, poison_smem,
+                                                                  dtype, quant):
+    """The whole step's split walk (its scratch in the kernel's dynamic
+    shared memory) after NaN-filled shared memory, GQA (G = 4): held to the
+    plain version by the bf16 rule of the C = 128 case, its stamps rising."""
+    _check_whole_step(cuda_device, dtype, quant, 1, 1, 16, poison=poison_smem,
+                      held=WHOLE_SPLIT_HELD, NP=40)
 
 
 def test_cuda_whole_step_raises_instead_of_falling_back(cuda_device):
