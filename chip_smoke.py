@@ -108,6 +108,24 @@ line reports the decode launches' device time. The whole bf16 arm adds a
 ``whole_stages`` line of one stamped decode step at full depth (its
 engine's weights and tile count, ``DECODE_LENS`` over a fresh pool).
 
+SpecInfer and beam search (slice 12; no new kernel): ``spec`` serves
+the dense slice's 8 requests with LLaMA-7B at full depth incrementally,
+beam-searches one of them (3 beams), and serves them through five
+SpecInfer arms (``SPEC_ARMS``: a 2-layer layer-skip SSM over the same
+weights with SpecConfig(2, 3); a 1-layer one with the adaptive ladder and
+verify-skip from (3, 8); the early-exit self-draft; the paged cache at 17
+pages with ``rope_kv_write``; int8 pages). Each arm's line gives
+speculation's numbers (``spec_step_reduction`` against the incremental
+arm, ``drafted_accept_rate``, ``tokens_per_verify_step``, rounds, skipped
+rounds) beside tokens/s, TTFT, preemptions and launches by kernel and
+design, and a profile line (every profile line now lists each attention
+kernel's device time, ``attention_kernels``). Each arm's served tokens
+must be greedy over their own prefix (``spec_greedy``: teacher-forced
+through the arm's kernels="cuda" engine, near-ties against bf16's own
+error counted), and the fused arm's first tree-verify steps must equal
+the unfused paged step bit for bit (``spec_fused_bitwise``). The f32
+phase adds spec runs on every layout and pool type and beam runs.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -140,10 +158,11 @@ from flexflow_tpu_torch.models import llama
 from flexflow_tpu_torch.ops import flash_attention as FA
 from flexflow_tpu_torch.serve import kernels as K
 from flexflow_tpu_torch.serve import _cuda
-from flexflow_tpu_torch.serve.batch_config import BatchConfig
+from flexflow_tpu_torch.serve.batch_config import BatchConfig, GenerationConfig
 from flexflow_tpu_torch.serve import kv_quant as KQ
 from flexflow_tpu_torch.serve.engine import InferenceEngine, ServingConfig
 from flexflow_tpu_torch.serve.llm import LLM
+from flexflow_tpu_torch.serve.specinfer import SpecConfig
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1651,6 +1670,10 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+ATTENTION_CLASSES = ("decode_attention", "verify_attention", "ragged_paged_attention",
+                     "fused_rope_paged_attention")
+
+
 def _profile(run, path):
     """``run()`` under torch.profiler: device time by kernel class and the
     device's idle share of the wall time. Only the device is traced, and
@@ -1682,8 +1705,19 @@ def _profile(run, path):
     split = [(ms, count) for ms, name, count in kernels
              if "ragged_split_kernel" in name or "fused_split_kernel" in name]
     dense = [(ms, count) for ms, name, count in kernels if "dense_split_kernel" in name]
+    # every attention kernel instantiation's device time and launches (the
+    # kernel names carry the block design: split, mma, verify rows/f32)
+    attention = {}
+    for name, (ms, count) in by_name.items():
+        if _kernel_class(name) in ATTENTION_CLASSES:
+            bare = name.replace("(anonymous namespace)::", "")
+            key = bare[:bare.find("(")].removeprefix("void ").split("::")[-1][:90]
+            ms0, count0 = attention.get(key, (0.0, 0))
+            attention[key] = (ms0 + ms, count0 + count)
+    attention = {k: {"ms": ms, "count": n, "ms_a_launch": ms / n}
+                 for k, (ms, n) in attention.items()}
     return {"phase": "profile", "path": path, "wall_s": wall, "device_busy_s": busy_s,
-            "device_idle_share": 1.0 - busy_s / wall,
+            "device_idle_share": 1.0 - busy_s / wall, "attention_kernels": attention,
             "paged_decode_device_ms": sum(ms for ms, _ in split),
             "paged_decode_launches": sum(count for _, count in split),
             "dense_decode_device_ms": sum(ms for ms, _ in dense),
@@ -2076,14 +2110,46 @@ def _record_steps(eng):
     return rec
 
 
-def _divergence(plens, got, want, rec_got, rec_want):
+def _record_spec(mgr):
+    """:func:`_record_steps` for a SpecInferManager: the logits of its
+    pipelined steps (the prefill phase) as there, plus every tree-verify
+    step's rows, kept until the run's tokens say which rows lay on the
+    served path. Returns ``(rec, resolve)``; ``resolve(prompts, outputs)``
+    (request i in slot i) adds the path rows to ``rec`` by (slot, position
+    of the row's token) and returns it."""
+    eng = mgr.engine
+    rec, run, trees = _record_steps(eng), eng.run, []
+
+    def run_tree(bc, all_logits=False):
+        logits = run(bc, all_logits=all_logits)
+        if all_logits and bc.mask is not None:
+            live = np.flatnonzero(bc.active)
+            trees.append((bc, live, logits[torch.from_numpy(live).to(logits.device)].cpu()))
+        return logits
+
+    def resolve(prompts, outputs):
+        for bc, live, lg in trees:
+            for j, s in enumerate(live):
+                seq, prefix = prompts[s] + outputs[s], int(bc.cache_positions[s, 0])
+                n = int(bc.spec_nodes[s])
+                for c in range(n):
+                    anc = np.flatnonzero(bc.mask[s, c, prefix:prefix + n])
+                    if all(bc.positions[s, a] < len(seq)
+                           and bc.tokens[s, a] == seq[bc.positions[s, a]] for a in anc):
+                        rec[(int(s), int(bc.positions[s, c]))] = lg[j, c]
+        return rec
+
+    eng.run = run_tree
+    return rec, resolve
+
+
+def _parting(plens, got, want, rec_got, rec_want):
     """Where two greedy runs part, read from the logits they served
     (request i sits in slot i of a fresh engine): for each request whose
     tokens differ, its first differing step t, the reference's top-two
     margin and the largest logit difference there, and the relative L2 of
     the two runs' logits over the request's steps 0..t (the same inputs
-    up to there). A token may part only at a tie: the margin within twice
-    the difference, and the logits within F32_TIE_REL_L2."""
+    up to there)."""
     out = []
     for i, (a_toks, b_toks) in enumerate(zip(got, want)):
         if a_toks == b_toks:
@@ -2095,11 +2161,19 @@ def _divergence(plens, got, want, rec_got, rec_want):
         check(a.argmax(-1).tolist() == a_toks[:t + 1] and b.argmax(-1).tolist() == b_toks[:t + 1],
               f"request {i}: the recorded logits are not the ones its tokens came from")
         top2 = b[-1].topk(2).values
-        d = {"request": i, "step": t, "margin": float(top2[0] - top2[1]),
-             "max_abs_diff": float((a[-1] - b[-1]).abs().max()), "rel_l2": _rel(a, b)}
+        out.append({"request": i, "step": t, "margin": float(top2[0] - top2[1]),
+                    "max_abs_diff": float((a[-1] - b[-1]).abs().max()), "rel_l2": _rel(a, b)})
+    return out
+
+
+def _divergence(plens, got, want, rec_got, rec_want):
+    """:func:`_parting`, held to the tie rule: a token may part only at a
+    tie, the margin within twice the difference, and the logits within
+    F32_TIE_REL_L2."""
+    out = _parting(plens, got, want, rec_got, rec_want)
+    for d in out:
         check(d["margin"] <= 2 * d["max_abs_diff"], f"f32 token parts at no tie: {d}")
-        check(d["rel_l2"] <= F32_TIE_REL_L2, f"f32 whole-step logits off: {d}")
-        out.append(d)
+        check(d["rel_l2"] <= F32_TIE_REL_L2, f"f32 logits off: {d}")
     return out
 
 
@@ -2107,8 +2181,16 @@ def phase_f32(seed):
     """Full width, 2 layers, f32: greedy tokens equal across kernels
     ("cuda" and "torch") on the dense layout and on f32, int8 and int4
     pools; fused, whole-step and unfused (f32, int8 and int4 pools); paged
-    and dense. The int4 whole-step run alone may part from the unfused
-    runs, and only at a rounding tie (:func:`_divergence`). Every paged launch
+    and dense. SpecInfer (a 1-layer layer-skip SSM, SpecConfig(2, 3)) on
+    the dense layout and on f32 (unfused and fused) pools against the
+    incremental run of the same cache, on int8 and int4 pools against the
+    same spec run with kernels="torch", and beam search (SPEC_BEAMS) equal
+    across kernels and layouts. The int4 whole-step run and the quantized
+    spec runs alone may part from their references, and only at a
+    rounding tie (:func:`_divergence`). The quantized spec runs' distance
+    from the incremental runs is printed, not held: their tree lines
+    raise their pages' scales, which requantizes the committed codes
+    there (the JAX package's manager does the same). Every paged launch
     with f32 q takes the "decode" or the "tf32x3" design, and each paged
     kernel takes "tf32x3" on the runs' mixed steps. Returns the launches
     of its paged runs."""
@@ -2151,6 +2233,42 @@ def phase_f32(seed):
                 launches[f"{k}[f32/decode]"] = (launches.get(f"{k}[f32/decode]", 0)
                                                 + K.DESIGN_LAUNCHES[f"{k}[decode]"])
         _free(llm)
+    # SpecInfer at 2 layers: a 1-layer layer-skip SSM, SpecConfig(2, 3),
+    # against the incremental run of the same cache
+    dcfg, dparams = layer_skip_draft(cfg, llm.params, 1)
+    spec_runs = {"spec-dense": {}, "spec-paged": paged, "spec-paged-fused": dict(paged, **fused),
+                 "spec-int8": dict(paged, kv_quant="int8"),
+                 "spec-int8-torch": dict(paged, kv_quant="int8", kernels="torch"),
+                 "spec-int4": dict(paged, kv_quant="int4"),
+                 "spec-int4-torch": dict(paged, kv_quant="int4", kernels="torch")}
+    spec_stats = {}
+    for name, kw in spec_runs.items():
+        llm.compile(ServingConfig(cache_dtype=torch.float32, **kw),
+                    ssms=[LLM(llama, dcfg, dparams, device=DEV)], spec=SpecConfig(2, 3))
+        rec, resolve = _record_spec(llm.rm)
+        K.reset_launch_counts()
+        res = llm.generate(prompts, max_new_tokens=16)
+        outs[name] = [r.output_tokens for r in res]
+        recs[name] = resolve(prompts, outs[name])
+        spec_stats[name] = {"rounds": llm.rm.stats.spec_rounds,
+                            "accepted": llm.rm.stats.spec_accepted,
+                            "drafted": llm.rm.stats.spec_drafted}
+        for k, v in K.LAUNCHES.items():
+            if v and "[f32]" in k:
+                launches[k] = launches.get(k, 0) + v
+        for k, v in K.DESIGN_LAUNCHES.items():
+            if v:
+                designs[k] = designs.get(k, 0) + v
+        _free(llm)
+    # beam search: equal tokens across kernels and layouts
+    beams = {}
+    for name, kw in (("dense-cuda", {}), ("dense-torch", dict(kernels="torch")),
+                     ("paged-cuda", paged)):
+        llm.compile(ServingConfig(cache_dtype=torch.float32, **kw))
+        beams[name] = llm.generate([prompts[0]], GenerationConfig(num_beams=SPEC_BEAMS),
+                                   max_new_tokens=16)[0].output_tokens
+        _free(llm)
+    check(len({tuple(b) for b in beams.values()}) == 1, f"f32 beam tokens differ: {beams}")
     pairs = [("dense-cuda", "dense-torch"), ("paged-cuda", "paged-torch"),
              ("int8-cuda", "int8-torch"), ("int4-cuda", "int4-torch"),
              ("paged-fused", "paged-cuda"),
@@ -2158,23 +2276,35 @@ def phase_f32(seed):
              ("paged-cuda", "dense-cuda"),
              ("paged-whole", "paged-cuda"), ("paged-whole", "paged-torch"),
              ("int8-whole", "int8-cuda"), ("int8-whole", "int8-torch"),
-             ("int4-whole", "int4-cuda"), ("int4-whole", "int4-torch")]
+             ("int4-whole", "int4-cuda"), ("int4-whole", "int4-torch"),
+             ("spec-dense", "dense-cuda"), ("spec-paged", "paged-cuda"),
+             ("spec-paged-fused", "paged-fused"), ("spec-int8", "spec-int8-torch"),
+             ("spec-int4", "spec-int4-torch")]
+    plens = [len(p) for p in prompts]
     ties = {}
     for a, b in pairs:
         if outs[a] == outs[b]:
             continue
-        # the whole-step kernel projects in its own summation order: on an
-        # int4 pool a K/V value at a rounding tie may take the other code
-        # (one code step is 1/7 of the page's amax). A greedy token may
-        # then part only where the reference's top two logits are closer
-        # than the logits moved; every other pair is equal token for token
-        check(a == "int4-whole", f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
-        ties[f"{a} vs {b}"] = _divergence([len(p) for p in prompts], outs[a], outs[b],
-                                          recs[a], recs[b])
+        # the whole-step kernel projects in its own summation order, and a
+        # quantized spec run's tree lines set its pages' scales: on a
+        # quantized pool a K/V value at a rounding tie may take the other
+        # code (one int4 code step is 1/7 of the page's amax). A greedy
+        # token may then part only where the reference's top two logits
+        # are closer than the logits moved; every other pair is equal
+        # token for token
+        check(a in ("int4-whole", "spec-int4", "spec-int8"),
+              f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
+        ties[f"{a} vs {b}"] = _divergence(plens, outs[a], outs[b], recs[a], recs[b])
+    # a reading, not held: the quantized spec runs against the incremental
+    # runs of the same pool (requantized committed codes, above)
+    requantized = {f"{a} vs {b}": _parting(plens, outs[a], outs[b], recs[a], recs[b])
+                   for a, b in (("spec-int8", "int8-cuda"), ("spec-int4", "int4-cuda"))}
     emit({"phase": "f32_tokens", "layers": 2, "requests": len(prompts),
           "new_tokens": 16, "equal": [f"{a} == {b}" for a, b in pairs
                                       if f"{a} vs {b}" not in ties],
-          "parted_at_ties": ties, "launches": launches, "design_launches": designs,
+          "parted_at_ties": ties, "quantized_spec_vs_incremental": requantized,
+          "spec": spec_stats, "beam_tokens_equal": list(beams),
+          "launches": launches, "design_launches": designs,
           "verify_designs": {k: v for k, v in designs.items()
                              if k.startswith("verify_attention[")}})
     for k in ("ragged_paged_attention[f32]", "fused_rope_paged_attention[f32]",
@@ -2188,6 +2318,334 @@ def phase_f32(seed):
     # the dense f32 runs' mixed steps verify on the TF32 tensor cores
     check(designs.get("verify_attention[tf32x3]", 0) > 0,
           f"dense f32 mixed steps took no tf32x3 verify: {designs}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# SpecInfer and beam search on LLaMA-7B (slice 12)
+
+# arms of the spec phase, on the dense slice's 16 slots and 8 requests:
+# (label, ServingConfig fields, SpecConfig fields, layers of the
+# layer-skip SSM that drafts over the target's own weights, or None for
+# the early-exit self-draft)
+SPEC_PAGED = dict(kv_layout="paged", max_cached_tokens=PAGED_BUDGET)
+SPEC_ARMS = (
+    ("dense", {}, dict(beam_width=2, beam_depth=3), 2),
+    # reaches the W = 1 rungs and the verify-skip rows
+    ("dense-adaptive", {}, dict(beam_width=3, beam_depth=8, adaptive=True, verify_skip=True),
+     1),
+    ("dense-early-exit", {}, dict(beam_width=2, beam_depth=3, draft="early_exit",
+                                  draft_layers=2), None),
+    # speculation under preemption, the tree committed by the fused kernel
+    ("paged-bf16-fused", dict(SPEC_PAGED, fused_decode=("rope_kv_write",)),
+     dict(beam_width=2, beam_depth=3), 2),
+    # the quantized commit (kv_quant.quant_commit_lines on the commit kernel)
+    ("paged-int8", dict(SPEC_PAGED, kv_quant="int8"), dict(beam_width=2, beam_depth=3), 2),
+)
+# controls of the greedy check: the same manager over plain attention
+# (kernels="torch") at the same tree shapes, so its served tokens part
+# from the teacher-forced argmax by bf16's own noise alone; (label,
+# ServingConfig fields, SpecConfig fields, draft layers, the SPEC_ARMS
+# whose near-ties it bounds)
+SPEC_CONTROLS = (
+    ("dense-torch", dict(kernels="torch"), dict(beam_width=2, beam_depth=3), 2,
+     ("dense", "dense-adaptive", "dense-early-exit", "paged-bf16-fused")),
+    ("paged-int8-torch", dict(SPEC_PAGED, kv_quant="int8", kernels="torch"),
+     dict(beam_width=2, beam_depth=3), 2, ("paged-int8",)),
+)
+# a spec arm may count at most this many times its control's near-ties
+SPEC_TIE_FACTOR = 2
+SPEC_BEAMS = 3
+# tree-verify steps of the fused arm held bitwise against the unfused step
+FUSED_TWIN_STEPS = 4
+
+
+def layer_skip_draft(cfg, params, k):
+    """The target's first ``k`` blocks as an SSM: the config cut to ``k``
+    layers, views of the stacked layer weights (nothing copied), the
+    embedding, final norm and head shared."""
+    dparams = dict(params)
+    dparams["layers"] = {n: w[:k] for n, w in params["layers"].items()}
+    return dataclasses.replace(cfg, num_hidden_layers=k), dparams
+
+
+def _next_token_logits(cfg, params, sc, prompts, outputs):
+    """Teacher-forced logits of every served token: prompt plus outputs
+    replayed through ``_teacher_forced_logits`` (one slot a request, a
+    fresh engine); a (requests, tokens, V) host tensor whose row (i, k)
+    predicts ``outputs[i][k]``."""
+    seqs = [p + o[:-1] for p, o in zip(prompts, outputs)]
+    plens = [len(p) for p in prompts]
+    steps = _teacher_forced_logits(cfg, params, sc, seqs, plens)
+    C = sc.prefill_chunk
+    n_pre = math.ceil(max(plens) / C)
+    out = []
+    for i, (pl, o) in enumerate(zip(plens, outputs)):
+        k = (pl - 1) // C  # the chunk that ends the prompt
+        rows = [j for j in range(len(prompts)) if plens[j] > k * C]
+        picked = [steps[k][rows.index(i)]]
+        for t in range(len(o) - 1):
+            rows = [j for j in range(len(prompts)) if plens[j] + t < len(seqs[j])]
+            picked.append(steps[n_pre + t][rows.index(i)])
+        out.append(torch.stack(picked))
+    return torch.stack(out)
+
+
+def _greedy_over_prefix(label, outputs, got, exact):
+    """Each served token against the argmax of the teacher-forced logits
+    ``got`` at its position (the model's greedy token over the served
+    prefix). Where they differ, the served token's logit must lie within
+    twice bf16's own error there of the argmax's: the served token came
+    from another bf16 evaluation of the same function (a tree-verify
+    row), and each such evaluation lies within that error of ``exact``,
+    the same computation in f32 (the dense slice's yardstick). Returns
+    the line's counts (the controls of the count: the incremental arm's
+    tokens, and SPEC_CONTROLS)."""
+    served = torch.tensor(outputs)
+    gap = got.amax(-1) - got.gather(-1, served[..., None])[..., 0]
+    err = (got - exact).abs().amax(-1)
+    mismatch = got.argmax(-1) != served
+    ties = mismatch & (gap <= 2 * err)
+    bad = mismatch & ~ties
+    row = {"positions": served.numel(), "argmax_equal": int((~mismatch).sum()),
+           "near_ties": int(ties.sum()), "not_greedy": int(bad.sum()),
+           "bf16_err_median": float(err.median()), "bf16_err_max": float(err.max())}
+    if bool(ties.any()):
+        row["tie_gaps"] = [float(g) for g in gap[ties]]
+        row["tie_bounds"] = [2 * float(e) for e in err[ties]]
+    check(not bool(bad.any()), f"{label}: served tokens that are not greedy over their "
+          f"prefix: {torch.nonzero(bad).tolist()[:8]}")
+    return row
+
+
+class _fused_verify_twin:
+    """Within it, the engine's first FUSED_TWIN_STEPS tree-verify steps
+    (all-positions logits under an explicit mask) run twice from the same
+    cache: the fused step (served), then the unfused paged step on a copy
+    of the cache as it was before. The live rows' logits and the pools
+    (the scratch page aside, which padding rows write) must be equal bit
+    for bit; the served step's cache is then put back."""
+
+    def __init__(self, eng):
+        self.eng, self.rows = eng, []
+
+    def __enter__(self):
+        eng, step = self.eng, self.eng._step
+        self.step = step
+
+        def twin(tokens, positions, logits_idx, mask=None, cache_positions=None,
+                 all_logits=False, num_layers=None):
+            args = (tokens, positions, logits_idx, mask, cache_positions, all_logits, num_layers)
+            if not (all_logits and mask is not None and len(self.rows) < FUSED_TWIN_STEPS):
+                return step(*args)
+            before = {k: v.clone() for k, v in eng.cache.items()}
+            fused = step(*args)
+            after = {k: v.clone() for k, v in eng.cache.items()}
+            for k, v in eng.cache.items():
+                v.copy_(before[k])
+            sc = eng.serving
+            eng.serving = dataclasses.replace(sc, fused_decode=())
+            try:
+                plain = step(*args)
+            finally:
+                eng.serving = sc
+            live = mask.any(-1)
+            P = eng.pager.num_pages
+            self.rows.append({
+                "C": tokens.shape[1], "live_rows": int(live.sum()),
+                "logits_bitwise": torch.equal(fused[live], plain[live]),
+                "pools_bitwise": all(torch.equal(v[:, :P], after[k][:, :P])
+                                     for k, v in eng.cache.items())})
+            for k, v in eng.cache.items():
+                v.copy_(after[k])
+            return fused
+
+        eng._step = twin
+        return self
+
+    def __exit__(self, *exc):
+        self.eng._step = self.step
+
+
+def _spec_line(label, results, line, stats, incr_steps):
+    """The spec arm's line: _serve's, plus speculation's own numbers
+    (bench.py's serve_bench definitions)."""
+    steps = sum(r.profile.llm_decoding_steps for r in results)
+    accepted = sum(r.profile.accepted_tokens for r in results)
+    drafted = sum(r.profile.speculated_tokens for r in results)
+    tokens = sum(len(r.output_tokens) for r in results)
+    return {"phase": "spec", "path": label, "model": "llama_7b", "layers": 32,
+            "dtype": "bfloat16", "spec_step_reduction": incr_steps / max(1, steps),
+            "drafted_accept_rate": accepted / max(1, drafted),
+            "tokens_per_verify_step": tokens / max(1, steps),
+            "llm_steps": steps, "spec_rounds": stats.spec_rounds,
+            "spec_resizes": stats.spec_resizes,
+            "verify_skipped_rounds": stats.verify_skipped_rounds,
+            "spec_reprobes": stats.spec_reprobes, **line}
+
+
+def phase_spec(seed):
+    """SpecInfer and beam search on LLaMA-7B at full width and depth
+    (random bf16 weights from the seed, the dense slice's 16 slots and 8
+    requests x 64 greedy tokens): the incremental arm, beam search on one
+    request, and the SPEC_ARMS through LLM.generate, each profiled. Every
+    arm's served tokens must be greedy over their own prefix
+    (:func:`_greedy_over_prefix`, teacher-forced through the arm's own
+    kernels="cuda" engine), and the near-ties an arm counts may be at
+    most SPEC_TIE_FACTOR times those of its SPEC_CONTROLS run, which
+    verifies the same trees through plain attention; the fused arm's tree
+    verify must equal the unfused paged step bit for bit. Returns the
+    launches of the arms' runs."""
+    cfg = llama.LLaMAConfig.llama_7b()
+    llm = LLM(llama, cfg, device=DEV, seed=seed)
+    params = llm.params
+    prompts, new = _slice_prompts(seed, cfg)
+    llm.compile(ServingConfig())
+    results, line = _serve(llm, prompts, new)
+    incr_steps = sum(r.profile.llm_decoding_steps for r in results)
+    emit({"phase": "spec", "path": "incremental", "model": "llama_7b", "layers": 32,
+          "dtype": "bfloat16", "llm_steps": incr_steps, **line})
+    launches = dict(line["launches"])
+    served = {"incremental": [r.output_tokens for r in results]}
+
+    # beam search: one request, SPEC_BEAMS hypotheses in slots 0..2
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam = llm.generate([prompts[1]], GenerationConfig(num_beams=SPEC_BEAMS),
+                        max_new_tokens=new)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(beam.output_tokens) == new and all(0 <= t < cfg.vocab_size
+                                                 for t in beam.output_tokens),
+          f"beam: {len(beam.output_tokens)} tokens, want {new} in range")
+    beam_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    emit({"phase": "spec", "path": "beam", "num_beams": SPEC_BEAMS, "requests": 1,
+          "prompt_len": len(prompts[1]), "new_tokens": new, "wall_s": wall,
+          "tokens_per_s": new / wall, "launches": beam_launches,
+          "design_launches": {k: v for k, v in K.DESIGN_LAUNCHES.items() if v},
+          "same_as_greedy": beam.output_tokens == results[1].output_tokens})
+    for k, v in beam_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    _free(llm)
+
+    for label, kw, spec_kw, draft_layers in SPEC_ARMS:
+        t_arm = time.perf_counter()
+        llm = LLM(llama, cfg, params, device=DEV)
+        ssms = []
+        if draft_layers:
+            dcfg, dparams = layer_skip_draft(cfg, params, draft_layers)
+            ssms = [LLM(llama, dcfg, dparams, device=DEV)]
+        llm.compile(ServingConfig(**kw), ssms=ssms, spec=SpecConfig(**spec_kw))
+        results, line = _serve(llm, prompts, new)
+        stats = llm.rm.stats
+        emit(_spec_line(label, results, line, stats, incr_steps))
+        check(stats.spec_rounds > 0, f"spec {label}: no speculation round ran")
+        quant = kw.get("kv_quant")
+        if kw.get("kv_layout") == "paged":
+            kind = ("fused_rope_paged_attention" if kw.get("fused_decode")
+                    else "ragged_paged_attention")
+            check(line["launches"].get(f"{kind}[{quant or 'bf16'}]", 0) > 0,
+                  f"spec {label}: {kind} was never launched")
+            key = f"{kind}[{quant or 'bf16'}/decode]"
+            launches[key] = launches.get(key, 0) + line["design_launches"].get(f"{kind}[decode]", 0)
+            if quant:
+                check(line["launches"].get(f"paged_commit[{quant}]", 0) > 0,
+                      f"spec {label}: the commit kernel was never launched")
+            else:
+                check(line["preemptions"] > 0, f"spec {label}: the 17-page budget caused "
+                      "no preemption")
+        else:
+            # trees of C = W and 1 + W * D rows verify on the small-C design
+            check(line["design_launches"].get("verify_attention[rows8]", 0) > 0,
+                  f"spec {label}: no tree step took verify's rows8 design")
+        if spec_kw.get("verify_skip"):
+            # the W = 1 rungs and the verify-skip rows decode
+            check(stats.verify_skipped_rounds > 0 and stats.spec_resizes > 0
+                  and line["launches"].get("decode_attention", 0) > 0,
+                  f"spec {label}: the ladder never reached its W = 1 and verify-skip rows")
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        t_prof = time.perf_counter()
+        emit(profile_slice(llm, prompts, new, f"spec-{label}"))
+        if kw.get("fused_decode"):
+            with _fused_verify_twin(llm.engine) as twin:
+                llm.generate(prompts[:4], max_new_tokens=8)
+            emit({"phase": "spec_fused_bitwise", "path": label, "steps": twin.rows})
+            check(len(twin.rows) == FUSED_TWIN_STEPS
+                  and all(r["logits_bitwise"] and r["pools_bitwise"] for r in twin.rows),
+                  f"spec {label}: fused tree verify differs from the unfused step: "
+                  f"{twin.rows}")
+        served[label] = [r.output_tokens for r in results]
+        emit({"phase": "arm_seconds", "path": f"spec-{label}", "serve_s": t_prof - t_arm,
+              "profile_s": time.perf_counter() - t_prof})
+        _free(llm)
+        del ssms
+
+    # the controls: served, not profiled; their launches are not the path's
+    for label, kw, spec_kw, draft_layers, _ in SPEC_CONTROLS:
+        llm = LLM(llama, cfg, params, device=DEV)
+        dcfg, dparams = layer_skip_draft(cfg, params, draft_layers)
+        llm.compile(ServingConfig(**kw), ssms=[LLM(llama, dcfg, dparams, device=DEV)],
+                    spec=SpecConfig(**spec_kw))
+        results, line = _serve(llm, prompts, new)
+        emit({"phase": "spec_control", "path": label, "wall_s": line["wall_s"],
+              "spec_rounds": llm.rm.stats.spec_rounds,
+              "drafted_accept_rate": llm.rm.stats.spec_accept_rate,
+              "preemptions": line["preemptions"]})
+        served[label] = [r.output_tokens for r in results]
+        _free(llm)
+
+    # greedy over the served prefix: the tokens of the arms, the controls
+    # and the incremental arm teacher-forced through the kernels="cuda"
+    # engine of their layout and pool, then the f32 computation of each
+    # pool type (runs that served the same tokens share them)
+    t_tf = time.perf_counter()
+    R = len(prompts)
+    checked = ([(label, kw) for label, kw, _, _ in SPEC_ARMS]
+               + [(label, kw) for label, kw, *_ in SPEC_CONTROLS] + [("incremental", {})])
+    tf_cuda, tf_sc = {}, {}
+    for label, kw in checked:
+        sc = {k: v for k, v in kw.items() if k not in ("max_cached_tokens", "kernels")}
+        key = (repr(sorted(sc.items())), repr(served[label]))
+        if key not in tf_cuda:
+            tf_cuda[key] = _next_token_logits(
+                cfg, params, ServingConfig(kernels="cuda", max_requests_per_batch=R, **sc),
+                prompts, served[label])
+        tf_sc[label] = key
+    params32 = _to_f32(params)
+    del params, llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    exact, rows = {}, {}
+    for label, kw in checked:
+        quant = kw.get("kv_quant")
+        key = (quant, repr(served[label]))
+        if key not in exact:
+            pool = dict(kv_layout="paged", kv_quant=quant) if quant else {}
+            exact[key] = _next_token_logits(
+                cfg32, params32, ServingConfig(kernels="torch", cache_dtype=torch.float32,
+                                               max_requests_per_batch=R, **pool),
+                prompts, served[label])
+        rows[label] = _greedy_over_prefix(label, served[label], tf_cuda[tf_sc[label]],
+                                          exact[key])
+    control = {a: c for c, *_, arms in SPEC_CONTROLS for a in arms}
+    for label, _ in checked:
+        extra = {"incremental_near_ties": rows["incremental"]["near_ties"]}
+        c = control.get(label)
+        if c:
+            extra.update(control=c, control_near_ties=rows[c]["near_ties"],
+                         tie_factor=SPEC_TIE_FACTOR)
+        emit({"phase": "spec_greedy", "path": label, **rows[label], **extra})
+        check(not c or rows[label]["near_ties"] <= SPEC_TIE_FACTOR * rows[c]["near_ties"],
+              f"spec {label}: {rows[label]['near_ties']} near-ties, over {SPEC_TIE_FACTOR} "
+              f"times its control {c}'s")
+    del params32, exact, tf_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "arm_seconds", "path": "spec-greedy-checks",
+          "teacher_forced_s": time.perf_counter() - t_tf})
     return launches
 
 
@@ -2693,7 +3151,7 @@ SOURCES = {
         "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode) and "
         "flexflow_tpu/serve/kernels.py:1612 (_whole_step_decode_tiled)") for t in K.POOL_TYPES},
 }
-PHASES = ("kernels", "slice", "paged", "whole", "f32", "train_parity", "train")
+PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -2702,8 +3160,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of kernels, slice, paged, whole, f32, train_parity, "
-                         "train (device and build always run; paged and whole need slice)")
+                    help="comma list of kernels, slice, paged, whole, spec, f32, "
+                         "train_parity, train (device and build always run; paged and "
+                         "whole need slice)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -2736,6 +3195,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mark("paged+whole")
+    if "spec" in phases:
+        for k, v in phase_spec(args.seed).items():
+            launches[k] = launches.get(k, 0) + v
+        mark("spec")
     if "f32" in phases:
         launches.update(phase_f32(args.seed))
         mark("f32")

@@ -1,9 +1,8 @@
 """Serving scheduler telemetry (a subset of
 ``flexflow_tpu/metrics.py:SchedulerStats``).
 
-The counters of the prefix cache, the host tier, speculation, context
-parallelism and the retrace sentinel come with the slices that port
-those features.
+The counters of the prefix cache, the host tier, context parallelism
+and the retrace sentinel come with the slices that port those features.
 """
 from __future__ import annotations
 
@@ -49,6 +48,19 @@ class SchedulerStats:
     # dispatch.
     whole_step_fallbacks: int = 0
     whole_step_smem_est: int = 0
+    # SpecInfer (serve/specinfer.py): per-request verify rounds, tree
+    # tokens the draft proposed, drafted tokens the verifier accepted
+    # (root and bonus tokens in neither; ProfileInfo.speculated_tokens),
+    # and the W×D ladder moves of the adaptive tree controllers.
+    spec_rounds: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_resizes: int = 0
+    # Verify-skip (SpecConfig.verify_skip): request-rounds that rode the
+    # incremental decode step instead of a tree (cold draft), and the
+    # periodic smallest-rung rounds that measure the draft again.
+    verify_skipped_rounds: int = 0
+    spec_reprobes: int = 0
 
     def record_step(
         self,
@@ -98,6 +110,14 @@ class SchedulerStats:
         return self._decode_ms_pct(0.99)
 
     @property
+    def spec_accept_rate(self) -> float:
+        """Drafted tokens the verifier accepted over drafted tokens (the
+        free root and bonus tokens on neither side)."""
+        if not self.spec_drafted:
+            return 0.0
+        return self.spec_accepted / self.spec_drafted
+
+    @property
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / self.steps if self.steps else 0.0
 
@@ -126,6 +146,13 @@ class SchedulerStats:
             "decode_step_ms_p99": round(self.decode_step_ms_p99, 3),
             "whole_step_fallbacks": self.whole_step_fallbacks,
             "whole_step_smem_est": self.whole_step_smem_est,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_resizes": self.spec_resizes,
+            "verify_skipped_rounds": self.verify_skipped_rounds,
+            "spec_reprobes": self.spec_reprobes,
+            "spec_accept_rate": round(self.spec_accept_rate, 4),
         }
 
     def report(self) -> str:
@@ -138,6 +165,10 @@ class SchedulerStats:
             f"prefill_toks={s['prefill_tokens']} "
             f"decode_toks={s['decode_tokens']} adm={s['admitted']} "
             f"preempt={s['preemptions']} failed={s['failed']} "
+            f"spec={s['spec_accepted']}/{s['spec_drafted']}"
+            f"@{s['spec_rounds']}r resize={s['spec_resizes']} "
+            f"vskip={s['verify_skipped_rounds']} "
+            f"reprobe={s['spec_reprobes']} "
             f"dstep_ms={s['decode_step_ms_p50']:.2f}/"
             f"{s['decode_step_ms_p99']:.2f}"
         )

@@ -31,9 +31,13 @@ Differences from the JAX package:
 the whole paged serving step in one persistent CUDA kernel
 (serve/kernels.whole_step_decode).
 
-Data, tensor, pipeline, sequence and context parallelism, microbatching,
-the whole-step walk of SpecInfer rounds and the early-exit ``num_layers``
-slice of the step functions come with later slices.
+SpecInfer (serve/specinfer.py) and beam search (serve/beam.py) run on
+the step functions' ``num_layers`` slice (the early-exit draft) and the
+K/V line moves :func:`commit_kv`, :func:`commit_kv_paged`,
+:func:`reorder_slots` and :func:`reorder_slots_paged`.
+
+Data, tensor, pipeline, sequence and context parallelism, microbatching
+and the whole-step walk of SpecInfer rounds come with later slices.
 """
 from __future__ import annotations
 
@@ -420,11 +424,18 @@ def serve_step(
     cfg: LLaMAConfig,
     all_logits: bool = False,
     kernels: str = "torch",
+    num_layers: Optional[int] = None,
 ):
     """One serving step over R request slots × C tokens each.
 
     ``cache_positions`` defaults to ``positions`` (they differ for tree
     tokens, whose siblings share a position but need distinct lines).
+
+    ``num_layers`` runs a layer-sliced step: only the first
+    ``num_layers`` blocks run and commit K/V (the deeper layers' cache is
+    left untouched), then the full model's final norm and head read the
+    truncated hidden state — SpecInfer's early-exit draft
+    (``SpecConfig.draft="early_exit"``). None runs the full stack.
 
     Returns (logits, cache): logits float32 (R, V) at ``logits_idx``, or
     (R, C, V) when ``all_logits``. ``cache`` is the dict that was passed
@@ -447,11 +458,20 @@ def serve_step(
 
         bits = pack_mask_bits(mask)  # once for every layer's verify launch
     layers = params["layers"]
-    for l in range(cfg.num_hidden_layers):
+    for l in range(_depth(cfg, num_layers)):
         p_l = {name: w[l] for name, w in layers.items()}
         x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l],
                         cache["v"][l], cache_positions, kernels, bits)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+def _depth(cfg: LLaMAConfig, num_layers: Optional[int]) -> int:
+    """The blocks a step runs: all of them, or the first ``num_layers``."""
+    if num_layers is None:
+        return cfg.num_hidden_layers
+    if num_layers < 1:
+        raise ValueError(f"num_layers must be >= 1 (got {num_layers})")
+    return min(num_layers, cfg.num_hidden_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -593,14 +613,16 @@ def serve_step_paged(
     kernels: str = "torch",
     kv_quant: Optional[str] = None,
     fused_rope: bool = False,
+    num_layers: Optional[int] = None,
 ):
     """Paged twin of :func:`serve_step`: the same contract plus the
     per-slot page table; prefill chunks, decode and explicit-mask steps
     all read and write K/V through the table. ``kv_quant`` selects the
     quantized pool layout (the commit quantizes in the step, attention
     dequantizes at read time); ``fused_rope`` folds RoPE and the K/V
-    page write into the CUDA kernel. Returns (logits, cache), the cache
-    tensors updated in place."""
+    page write into the CUDA kernel; ``num_layers`` is the early-exit
+    slice of :func:`serve_step` (the deeper pools and scales untouched).
+    Returns (logits, cache), the cache tensors updated in place."""
     if cache_positions is None:
         cache_positions = positions
     positions = positions.long()
@@ -619,7 +641,7 @@ def serve_step_paged(
 
         qmax = resolve_spec(kv_quant).qmax
     layers = params["layers"]
-    for l in range(cfg.num_hidden_layers):
+    for l in range(_depth(cfg, num_layers)):
         p_l = {name: w[l] for name, w in layers.items()}
         scales = ((cache["k_scale"][l], cache["v_scale"][l]) if qmax is not None
                   else (None, None))
@@ -627,6 +649,91 @@ def serve_step_paged(
                               cache["v"][l], phys, off, page_table, kernels,
                               *scales, qmax, fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+# ---------------------------------------------------------------------------
+# K/V line moves: SpecInfer's commit of an accepted tree path and beam
+# search's reorder of hypotheses across slots. Each gathers its source
+# lines into a temporary before it writes, so overlapping source and
+# destination lines are safe; scratch-to-scratch entries rewrite the
+# scratch line with itself. The cache tensors are updated in place: a
+# commit moves every layer's lines in one statement (a few lines a slot),
+# a reorder copies one layer at a time (the temporary is one layer's slots).
+
+
+def commit_kv(cache: Dict[str, torch.Tensor], src: torch.Tensor,
+              dst: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Move accepted speculative K/V lines to their committed positions
+    on the dense cache: slot r's line ``src[r, k]`` goes to ``dst[r, k]``
+    (src, dst (R, K) int; unused entries scratch to scratch). Returns
+    ``cache``."""
+    src, dst = src.long(), dst.long()
+    bidx = torch.arange(src.shape[0], device=src.device)[:, None]
+    for buf in cache.values():  # (L, R, S1, KV, dk)
+        buf[:, bidx, dst] = buf[:, bidx, src]
+    return cache
+
+
+def reorder_slots(cache: Dict[str, torch.Tensor],
+                  src: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Slot gather of the dense cache: new slot r holds old slot
+    ``src[r]``'s lines (beam search's hypothesis reorder). Only the slots
+    that change are copied. Returns ``cache``."""
+    src = src.long()
+    moved = torch.nonzero(src != torch.arange(src.shape[0], device=src.device))[:, 0]
+    if moved.numel():
+        for buf in cache.values():  # (L, R, S1, KV, dk)
+            for layer in buf:
+                layer[moved] = layer[src[moved]]
+    return cache
+
+
+def commit_kv_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor,
+                    src: torch.Tensor, dst: torch.Tensor, *,
+                    kv_quant: Optional[str] = None,
+                    kernels: str = "torch") -> Dict[str, torch.Tensor]:
+    """:func:`commit_kv` through the page table: the lines move between
+    table-resolved (page, offset) pairs. On a quantized pool the codes
+    cannot move verbatim (source and destination pages carry different
+    scales): the lines are dequantized at their source page's scale and
+    committed again as a fresh write would be
+    (``serve/kv_quant.quant_commit_lines``; the commit kernel on CUDA
+    tensors with ``kernels="cuda"``). Returns ``cache``."""
+    ps = cache["k"].shape[2]
+    s_phys, s_off = _page_lookup(page_table, src.long(), ps)
+    d_phys, d_off = _page_lookup(page_table, dst.long(), ps)
+    if kv_quant is not None:
+        from ..serve.kv_quant import quant_commit_lines, resolve_spec
+
+        quant_commit_lines(cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                           s_phys, s_off, d_phys, d_off, resolve_spec(kv_quant).qmax,
+                           kernels=kernels)
+        return cache
+    for buf in cache.values():  # (L, P+1, ps, KV, dk)
+        buf[:, d_phys, d_off] = buf[:, s_phys, s_off]
+    return cache
+
+
+def reorder_slots_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor,
+                        src: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """:func:`reorder_slots` for the paged layout: page ownership stays
+    with each slot (the host table is untouched) and page content is
+    copied — new slot r's pages receive slot ``src[r]``'s, scales
+    included. The destination slots must hold at least the source slots'
+    pages, which beam search guarantees (equal-length hypotheses). Only
+    the slots that change are copied; a table entry past a slot's pages
+    points at the scratch page, which may receive any source page's
+    content. Returns ``cache``."""
+    src = src.long()
+    moved = torch.nonzero(src != torch.arange(src.shape[0], device=src.device))[:, 0]
+    if moved.numel():
+        table = page_table.long()
+        src_pages = table[src[moved]].reshape(-1)
+        dst_pages = table[moved].reshape(-1)
+        for buf in cache.values():  # (L, P+1, ...)
+            for layer in buf:
+                layer[dst_pages] = layer[src_pages]
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,13 @@ takes a :class:`BatchConfig` and returns logits on the device;
 column token select, ``serve_step``, on-device sampling) returns the
 sampled tokens as a device tensor that the scheduler reads up to
 ``dispatch_ahead`` steps later.
+
+SpecInfer and beam search drive three more entry points:
+:meth:`InferenceEngine.run_speculate` (a whole token-tree expansion on
+the device, its tree fetched by the caller in one transfer),
+:meth:`InferenceEngine.commit` (accepted tree lines moved to their
+committed positions) and :meth:`InferenceEngine.reorder` (beam
+hypotheses gathered across slots).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 
 from .batch_config import BatchConfig
 from .paging import PageAllocator
-from .sampling import choose_sample_mode, sample_tokens
+from .sampling import beam_topk, choose_sample_mode, log_softmax, sample_tokens
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -477,8 +484,9 @@ class InferenceEngine:
         return t
 
     def _step(self, tokens, positions, logits_idx, mask=None,
-              cache_positions=None, all_logits=False):
+              cache_positions=None, all_logits=False, num_layers=None):
         sc = self.serving
+        kw = {} if num_layers is None else {"num_layers": num_layers}
         with torch.inference_mode():
             if self.paged:
                 from .kernels import _FUSED_MAX_CHUNK
@@ -491,13 +499,13 @@ class InferenceEngine:
                     self.params, self.cache, tokens, positions, logits_idx, mask,
                     cache_positions, self.page_table_device(), cfg=self.cfg,
                     cache_len=sc.cache_len, all_logits=all_logits,
-                    kernels=sc.kernels, kv_quant=sc.kv_quant, fused_rope=fused,
+                    kernels=sc.kernels, kv_quant=sc.kv_quant, fused_rope=fused, **kw,
                 )
             else:
                 logits, self.cache = self.model.serve_step(
                     self.params, self.cache, tokens, positions, logits_idx, mask,
                     cache_positions, cfg=self.cfg, all_logits=all_logits,
-                    kernels=sc.kernels,
+                    kernels=sc.kernels, **kw,
                 )
         return logits
 
@@ -517,14 +525,17 @@ class InferenceEngine:
 
     def run_mixed(self, last_tokens, host_tokens, use_last, positions,
                   logits_idx, generator, greedy, temperature, topp, topk,
-                  with_logits: bool = False):
+                  with_logits: bool = False, sample: bool = True):
         """Run one mixed step over (R, C) host data: column 0 takes the
         previous step's sampled token (a device tensor) where
         ``use_last`` is set, else the host token; then ``serve_step`` and
         per-slot sampling at each row's ``logits_idx``, drawing from
         ``generator``. Returns the sampled tokens (R,) as a device
         tensor — the caller reads them up to ``dispatch_ahead`` steps
-        later; ``with_logits`` also returns the (R, V) logits."""
+        later; ``with_logits`` also returns the (R, V) logits.
+        ``sample=False`` runs the step alone (no head, no draw) and
+        returns None: SpecInfer's draft mirrors, whose caches follow the
+        target's tokens."""
         host_tokens = np.asarray(host_tokens)
         host = self._tensor(host_tokens, torch.int64)
         use = self._tensor(use_last, torch.bool)
@@ -532,6 +543,9 @@ class InferenceEngine:
         tokens = torch.cat([first[:, None], host[:, 1:]], dim=1)
         positions = self._tensor(positions, torch.int64)
         logits_idx = self._tensor(logits_idx, torch.int64)
+        if not sample:
+            self._step(tokens, positions, logits_idx)
+            return None
         if self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on):
             # the whole-step kernel owns the decode step and, when the gate
             # priced it, the mixed step; greedy rows take its argmax
@@ -613,6 +627,91 @@ class InferenceEngine:
             np.zeros((R,), np.int32), generator, greedy, temperature, topp,
             topk,
         )
+
+    def run_speculate(self, root_tokens, prefix, active, W: int, D: int,
+                      num_layers: Optional[int] = None):
+        """One whole token-tree expansion (the JAX engine's speculate
+        scan, here a loop of D steps on the device): the frontier of up
+        to W nodes a slot runs through the step in tree-mask mode (RoPE
+        position ``prefix + d``; node (d, w) writes cache line ``prefix +
+        1 + d·W + w``, the root line ``prefix``), then the top W of its
+        W·V children by cumulative log-probability become the next
+        frontier. ``num_layers`` drafts through the first layers of this
+        engine's own model (the early-exit self-draft). The cache holds
+        every node's K/V at its line afterwards. Nothing leaves the
+        device: returns (tokens, parents, logprobs), each (D, R, W) —
+        ``parents`` index the previous depth's W nodes."""
+        R = self.num_slots
+        S1 = self.serving.cache_len + 1
+        scratch = self.scratch_pos
+        NEG = -1e30
+        dev = self.device
+        root = self._tensor(root_tokens, torch.int64)
+        prefix = self._tensor(prefix, torch.int64)
+        active = self._tensor(active, torch.bool)
+        key_pos = torch.arange(S1, device=dev)
+        w_iota = torch.arange(W, device=dev)
+        zeros = torch.zeros((R,), dtype=torch.int64, device=dev)
+        # the frontier: only node 0 (the root) is live at depth 0
+        f_valid = (w_iota == 0)[None, :] & active[:, None]              # (R, W)
+        f_tok = torch.where(f_valid, root[:, None], 0)
+        f_cum = torch.where(f_valid, 0.0, NEG).to(torch.float32)
+        f_line = torch.where(f_valid, prefix[:, None], scratch)
+        committed = key_pos[None, :] < prefix[:, None]                   # (R, S1)
+        f_mask = ((committed[:, None, :] | (key_pos == f_line[:, :, None]))
+                  & f_valid[:, :, None])                                 # (R, W, S1)
+        out_tok, out_par, out_lp = [], [], []
+        with torch.inference_mode():
+            for d in range(D):
+                pos = torch.where(f_valid, prefix[:, None] + d, scratch)
+                logits = self._step(f_tok, pos, zeros, f_mask, f_line, all_logits=True,
+                                    num_layers=num_layers)               # (R, W, V)
+                V = logits.shape[-1]
+                logp = log_softmax(logits) + f_cum[:, :, None]
+                logp = torch.where(f_valid[:, :, None], logp, NEG)
+                vals, flat = beam_topk(logp.reshape(R, W * V), W)
+                parent = flat // V
+                token = flat % V
+                child_valid = (vals > NEG / 2) & active[:, None]
+                new_line = torch.where(child_valid, prefix[:, None] + 1 + d * W + w_iota,
+                                       scratch)
+                parent_mask = torch.gather(f_mask, 1, parent[:, :, None].expand(-1, -1, S1))
+                f_mask = ((parent_mask | (key_pos == new_line[:, :, None]))
+                          & child_valid[:, :, None])
+                f_tok, f_cum, f_valid, f_line = token, vals, child_valid, new_line
+                out_tok.append(token)
+                out_par.append(parent)
+                out_lp.append(vals)
+        return torch.stack(out_tok), torch.stack(out_par), torch.stack(out_lp)
+
+    def commit(self, src, dst):
+        """Move accepted speculative cache lines to their committed
+        positions: slot r's line ``src[r, k]`` to ``dst[r, k]`` ((R, K)
+        host arrays; unused entries scratch to scratch). Dense, paged
+        and quantized paged caches (``model.commit_kv``,
+        ``model.commit_kv_paged``)."""
+        src = self._tensor(src, torch.int64)
+        dst = self._tensor(dst, torch.int64)
+        with torch.inference_mode():
+            if self.paged:
+                self.cache = self.model.commit_kv_paged(
+                    self.cache, self.page_table_device(), src, dst,
+                    kv_quant=self.serving.kv_quant, kernels=self.serving.kernels)
+            else:
+                self.cache = self.model.commit_kv(self.cache, src, dst)
+
+    def reorder(self, src_slots):
+        """Slot gather of the whole cache (beam search's hypothesis
+        reorder): new slot r holds old slot ``src_slots[r]``. Paged: page
+        ownership stays put and page content is copied through the table
+        (``model.reorder_slots_paged``)."""
+        src = self._tensor(src_slots, torch.int64)
+        with torch.inference_mode():
+            if self.paged:
+                self.cache = self.model.reorder_slots_paged(
+                    self.cache, self.page_table_device(), src)
+            else:
+                self.cache = self.model.reorder_slots(self.cache, src)
 
     def reset(self):
         """Drop all cached sequences: the KV cache is zeroed in place and,

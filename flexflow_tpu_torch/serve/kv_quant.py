@@ -26,8 +26,9 @@ Differences from the JAX package: :func:`quant_line_write` updates the
 pool and scale tensors **in place** (the JAX function returns new
 arrays), and every division that decides a code is tensor by tensor, so
 that CUDA computes it as an IEEE division rather than as a product with
-the divisor's reciprocal. ``quant_commit_lines`` (the SpecInfer KV move)
-comes with the SpecInfer slice.
+the divisor's reciprocal. :func:`quant_commit_lines` (the SpecInfer KV
+move) writes through ``kernels.commit_paged``, so CUDA pools take the
+commit kernel.
 """
 from __future__ import annotations
 
@@ -168,6 +169,41 @@ def quant_line_write(
     kq[phys, off] = pack_codes(q, kq.dtype, pack)
     scale.copy_(new)
     return kq, scale
+
+
+def quant_commit_lines(
+    k_pool: torch.Tensor,   # (L, P+1, ps, KV, dk/pack) quantized pools
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # (L, P+1, KV) f32
+    v_scale: torch.Tensor,
+    s_phys: torch.Tensor,   # (R, K) source physical pages
+    s_off: torch.Tensor,    # (R, K) source in-page offsets
+    d_phys: torch.Tensor,   # (R, K) destination physical pages
+    d_off: torch.Tensor,    # (R, K) destination in-page offsets
+    qmax: float,
+    *,
+    kernels: str = "cuda",
+) -> None:
+    """Move quantized K/V lines between table-resolved positions, in
+    place (the SpecInfer KV commit, ``models/llama.commit_kv_paged``):
+    codes cannot move verbatim, since source and destination pages carry
+    different scales, so each layer's source lines are dequantized at
+    their page scales (int4 nibbles unpacked) and committed again through
+    ``kernels.commit_paged`` — ``quant_line_write``'s arithmetic, the
+    commit kernel on CUDA tensors with ``kernels="cuda"``. A layer's K
+    and V source lines are all read before its first write: a
+    destination page may hold another request's source lines."""
+    from .kernels import commit_paged
+
+    s_phys, s_off = s_phys.long(), s_off.long()
+    pack = pool_pack(k_pool)
+    for l in range(k_pool.shape[0]):
+        rows = []
+        for pool, scale in ((k_pool[l], k_scale[l]), (v_pool[l], v_scale[l])):
+            codes = unpack_codes(pool[s_phys, s_off], pack)        # (R, K, KV, dk)
+            rows.append(codes * scale[s_phys][..., None])          # at the source scale
+        commit_paged(k_pool[l], v_pool[l], rows[0], rows[1], d_phys.long(), d_off.long(),
+                     k_scale[l], v_scale[l], qmax, kernels=kernels)
 
 
 def page_bytes(page_size: int, kv_heads: int, head_dim: int, itemsize: int,

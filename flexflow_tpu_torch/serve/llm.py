@@ -3,14 +3,19 @@
 Counterpart of ``flexflow_tpu/serve/llm.py``: a servable causal LM from
 in-memory (family, cfg, params) — random weights from ``seed`` when no
 params are given — compiled into an :class:`InferenceEngine` plus a
-:class:`RequestManager`, with a blocking ``generate``.
+:class:`RequestManager`, with a blocking ``generate``. ``compile(ssms=,
+spec=)`` serves SpecInfer (serve/specinfer.py): each SSM ``LLM`` gets an
+engine with the same ``ServingConfig`` and the manager becomes a
+:class:`SpecInferManager`; ``SpecConfig(draft="early_exit")`` without
+SSMs self-speculates. ``generate`` with ``num_beams > 1`` beam-searches
+(serve/beam.py).
 
-Loading a local HF checkpoint (``from_pretrained``), SpecInfer with SSMs,
-weight quantization, offload, beam search and clusters come with later
-slices of the port.
+Loading a local HF checkpoint (``from_pretrained``), weight
+quantization, offload and clusters come with later slices of the port.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -18,6 +23,7 @@ import torch
 from .batch_config import GenerationConfig, GenerationResult
 from .engine import InferenceEngine, ServingConfig, resolve_device
 from .request_manager import RequestManager
+from .specinfer import SpecConfig, SpecInferManager
 
 
 class LLM:
@@ -50,17 +56,32 @@ class LLM:
         self,
         serving: Optional[ServingConfig] = None,
         *,
+        ssms: Sequence["LLM"] = (),
+        spec: Optional[SpecConfig] = None,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
     ) -> None:
-        """Build the inference engine and request manager (reference
-        ``LLM.compile``). Params move to the LLM's device here."""
+        """Build the inference engine(s) and request manager (reference
+        ``LLM.compile``). Params move to the LLM's device here. With
+        ``ssms`` (or ``spec.draft == "early_exit"``) the manager runs the
+        SpecInfer loop; each SSM gets an engine on this LLM's device with
+        the same ``serving``."""
         serving = serving or ServingConfig()
         serving.validate()
         self.params = _to_device(self.params, self.device)
         self.engine = InferenceEngine(
             self.family, self.cfg, self.params, serving, device=self.device
         )
+        if ssms or getattr(spec, "draft", "ssm") == "early_exit":
+            for ssm in ssms:
+                ssm.params = _to_device(ssm.params, self.device)
+                ssm.engine = InferenceEngine(ssm.family, ssm.cfg, ssm.params, serving,
+                                             device=self.device)
+            self.rm = SpecInferManager(
+                self.engine, [s.engine for s in ssms], spec,
+                tokenizer=self.tokenizer, eos_token_id=eos_token_id, seed=seed,
+            )
+            return
         self.rm = RequestManager(
             self.engine,
             tokenizer=self.tokenizer,
@@ -77,9 +98,22 @@ class LLM:
         if self.rm is None:
             self.compile()
         if gen is not None and gen.num_beams > 1:
-            raise NotImplementedError(
-                "num_beams > 1 is not ported yet: beam search comes with a "
-                "later slice"
+            from .beam import generate_with_beams
+
+            if gen.do_sample:
+                # beam scoring ranks log-probabilities: sampling knobs
+                # cannot be honoured
+                raise ValueError(
+                    "num_beams > 1 is greedy-scored; do_sample cannot be "
+                    "honored — use num_beams=1 for sampling"
+                )
+            if max_new_tokens is not None:
+                gen = dataclasses.replace(gen, max_new_tokens=max_new_tokens)
+            if isinstance(prompts, str):
+                prompts = [prompts]
+            return generate_with_beams(
+                self.engine, prompts, gen,
+                eos_token_id=self.rm.eos_token_id, tokenizer=self.tokenizer,
             )
         return self.rm.generate(prompts, gen, max_new_tokens)
 

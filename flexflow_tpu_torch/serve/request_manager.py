@@ -22,6 +22,11 @@ prefilled again (prompt plus the tokens generated so far) on
 re-admission. A request that alone exceeds the pool fails with an
 error instead.
 
+Managers that keep a second engine's cache in step with the target's
+(SpecInfer, serve/specinfer.py) override the hooks :meth:`_run_batch`
+and :meth:`_mirror_dispatch` and turn off ``supports_fast_decode`` and
+``supports_fused_sampling``.
+
 Prefix caching, tracing and the cluster hooks come with the slices that
 port them.
 """
@@ -90,6 +95,14 @@ class Request:
 
 
 class RequestManager:
+    # Subclasses that keep a second engine's cache in sync (SpecInfer)
+    # must not use the target-only pipelined decode step.
+    supports_fast_decode = True
+    # The "sampling"/"whole_step" fusions' sync path (engine.run_sampled)
+    # bypasses the _run_batch hook; managers that override _run_batch opt
+    # out and keep the step plus the host-side head.
+    supports_fused_sampling = True
+
     def __init__(
         self,
         engine: InferenceEngine,
@@ -180,6 +193,14 @@ class RequestManager:
     def _release_pages(self, slot: int):
         for eng in self._engines():
             eng.pager.release(slot)
+
+    def _mirror_dispatch(self, last, host_tokens, use_last, positions, logits_idx,
+                         generator, greedy, temperature, topp, topk) -> None:
+        """Hook: a manager that keeps secondary engines' caches in sync
+        (SpecInfer's drafts) dispatches the same pipelined step there,
+        with the arguments the target engine got, so every cache advances
+        in lockstep without a host round trip. The base manager has no
+        secondary engine."""
 
     def _preempt(self, req: Request):
         """Evict an admitted request back to the front of the queue and
@@ -392,6 +413,12 @@ class RequestManager:
             bc.qlens[req.slot] = 1
         return bc
 
+    def _run_batch(self, bc: BatchConfig):
+        """Hook: run one prepared sync batch through the engine(s);
+        returns the target's logits. SpecInferManager overrides it to
+        feed the same batch to its drafts."""
+        return self.engine.run(bc)
+
     # ------------------------------------------------------------------
     # sampling glue
 
@@ -479,10 +506,14 @@ class RequestManager:
             req.pipeline_refs += 1
             snapshot.append((req.request_id, s, 1, True))
         t0 = time.perf_counter()
+        last = self._last_tokens()
         toks = self.engine.run_decode(
-            self._last_tokens(), host_tokens, use_last, positions,
+            last, host_tokens, use_last, positions,
             self._generator, greedy, temp, topp, topk,
         )
+        self._mirror_dispatch(last, host_tokens, use_last, positions,
+                              np.zeros((R,), np.int32), self._generator, greedy, temp,
+                              topp, topk)
         # the engine call's host wall time — the dispatch cost on this
         # pipelined path (the device runs ahead; no sync is added)
         self.stats.note_decode_step_ms((time.perf_counter() - t0) * 1e3)
@@ -556,10 +587,13 @@ class RequestManager:
                 req.inflight += 1
                 sampled_slots.add(s)
             snapshot.append((req.request_id, s, n, final))
+        last = self._last_tokens()
         toks = eng.run_mixed(
-            self._last_tokens(), bc.tokens, use_last, bc.positions,
+            last, bc.tokens, use_last, bc.positions,
             bc.logits_idx, self._generator, greedy, temp, topp, topk,
         )
+        self._mirror_dispatch(last, bc.tokens, use_last, bc.positions, bc.logits_idx,
+                              self._generator, greedy, temp, topp, topk)
         self._inflight.append((toks, snapshot))
         self._prev_dispatch_slots = sampled_slots
         self._step_counter += 1
@@ -668,16 +702,17 @@ class RequestManager:
         prefill under the flush-on-admit scheduler and the idle drain."""
         self._admit_pending()
         sc = self.engine.serving
-        self._reclaim_slots_for_admission()
-        prefilling = self._active(RequestStatus.PREFILLING)
-        decoding = self._active(RequestStatus.DECODING)
-        if decoding and not prefilling:
-            self._reserve_active_pages()
-            return self._step_pipelined(mixed=False)
-        if sc.continuous_batching and (prefilling or decoding):
-            self._reserve_active_pages(
-                lambda r: self._lines_needed(r, sc.mixed_chunk))
-            return self._step_pipelined(mixed=True)
+        if self.supports_fast_decode:
+            self._reclaim_slots_for_admission()
+            prefilling = self._active(RequestStatus.PREFILLING)
+            decoding = self._active(RequestStatus.DECODING)
+            if decoding and not prefilling:
+                self._reserve_active_pages()
+                return self._step_pipelined(mixed=False)
+            if sc.continuous_batching and (prefilling or decoding):
+                self._reserve_active_pages(
+                    lambda r: self._lines_needed(r, sc.mixed_chunk))
+                return self._step_pipelined(mixed=True)
         return self._step_sync()
 
     def _step_pipelined(self, mixed: bool) -> bool:
@@ -713,14 +748,14 @@ class RequestManager:
         decode_only = bool(decoding) and not prefilling
         t0 = time.perf_counter()
         fused = self.engine.serving.fused_decode
-        if "sampling" in fused or "whole_step" in fused:
+        if ("sampling" in fused or "whole_step" in fused) and self.supports_fused_sampling:
             # the fusions' sync path: the step and its sampling in one call
             greedy, temp, topp, topk = self._decode_head_params(
                 [self.requests[r] for r in self.slots if r is not None])
             sampled = self.engine.run_sampled(bc, self._generator, greedy, temp, topp,
                                               topk).cpu().numpy()
         else:
-            sampled = self._sample(self.engine.run(bc))
+            sampled = self._sample(self._run_batch(bc))
         if decode_only:
             # the full blocking step wall time (this path syncs by design)
             self.stats.note_decode_step_ms((time.perf_counter() - t0) * 1e3)

@@ -16,6 +16,9 @@ greedy/sampling batches run together, and the head is specialized by
 ``"full"``
     one shared descending sort feeds both filters.
 
+:func:`log_softmax` and :func:`beam_topk` are the heads of SpecInfer's
+tree expansion and of beam search.
+
 The categorical draw takes its noise from a ``torch.Generator``; it
 cannot reproduce ``jax.random``'s bits, so parity with the JAX package
 holds for the filtered logits and for greedy tokens, not for drawn ones.
@@ -176,3 +179,15 @@ def sample_tokens(
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     return torch.where(greedy, greedy_tok, sampled)
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Log-probabilities over the last dim, in float32."""
+    return torch.log_softmax(logits.to(torch.float32), dim=-1)
+
+
+def beam_topk(logprobs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last dim, largest first — the beam expansion head
+    (reference ``beam_topk.cc``). Returns (values, indices), each
+    (..., k)."""
+    return torch.topk(logprobs, k, dim=-1)
