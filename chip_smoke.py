@@ -126,6 +126,25 @@ error counted), and the fused arm's first tree-verify steps must equal
 the unfused paged step bit for bit (``spec_fused_bitwise``). The f32
 phase adds spec runs on every layout and pool type and beam runs.
 
+SpecInfer on the whole-step kernel and the entry points (slice 13): the
+kernel checks add the speculation fold (``WHOLE_FOLD_CASES``: verify at C
+= 7 and 25, the early-exit draft at C = 2 and 3 over the first layer;
+every pool type and GQA; a tree mask, slack lines across pages, the head
+over every row; bitwise at two tile counts and held to the plain version
+as the other whole-step cases; the design counted as ``<design>-tree``)
+and SpecInfer's tree shapes on the per-layer kernels (dense verify at C =
+2, 3, 7 on "rows8", both paged kernels at C = 7 and 2 on the one-split
+walk) with their bounds and SDPA times. ``spec`` adds two whole-step arms
+(``paged-bf16-whole``: early exit, 17 pages; ``paged-int8-whole``: a
+2-layer SSM whose engine runs the walk too, 33 pages): no per-layer paged
+attention may run, every tree step is a fold launch
+(``whole_step_decode[<pool>/tree]`` rows of the kernels line), and a
+stamped ``whole_stages`` line times one verify and one draft launch. The
+f32 phase holds whole-step spec runs to their ``kernels="torch"`` twins.
+``entry`` writes a checkpoint in HF naming and serves it through
+``LLM.from_pretrained``, ``generate_stream`` and ``python -m
+flexflow_tpu_torch serve``.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -144,9 +163,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -825,6 +846,12 @@ def phase_kernels(seed):
                      mixed, timed=True)
     run_verify_check("llama160m-tree-c16", gen, bf16, R, S1, 12, 12, 64,
                      _tree_mask(rng, R, 16, S1), timed=False)
+    # SpecInfer's tree steps of the dense spec arms (slice 12): the draft's
+    # C = W = 2 and 3 and the (2, 3) verify's C = 7, on "rows8"
+    for kind, C in (("draft", 2), ("draft", 3), ("verify", 7)):
+        tree = _tree_positions(rng, kind, R, C, sc.cache_len, sc.page_size)[2]
+        run_verify_check(f"llama7b-spec-{kind}-c{C}", gen, bf16, R, S1, 32, 32, 128,
+                         torch.from_numpy(tree).to(DEV), timed=True)
     # SpecInfer's widest tree (ServingConfig.max_spec_tree_tokens)
     run_verify_check("llama7b-tree-c64", gen, bf16, R, S1, 32, 32, 128,
                      _tree_mask(rng, R, sc.max_spec_tree_tokens, S1), timed=True)
@@ -871,10 +898,15 @@ def _paged_case(gen, rng, dtype, quant, KV, kind):
     cfg = llama.LLaMAConfig.llama_7b()
     R, H, dk = sc.max_requests_per_batch, cfg.num_attention_heads, cfg.head_dim
     ps, NP = sc.page_size, sc.pages_per_slot
-    C = 1 if kind == "decode" else sc.prefill_chunk
+    tree, spec = None, re.fullmatch(r"(verify|draft)(\d+)", kind)
+    if spec:  # a SpecInfer tree step, "verify7" or "draft2"
+        C = int(spec.group(2))
+        pos, cpos, tree = _tree_positions(rng, spec.group(1), R, C, sc.cache_len, ps)
+    else:
+        C = 1 if kind == "decode" else sc.prefill_chunk
+        pos = cpos = _paged_positions(rng, kind, R, C, sc.cache_len, ps)
     P = R * NP
-    pos = _paged_positions(rng, kind, R, C, sc.cache_len, ps)
-    held = np.where(pos < sc.cache_len, pos + 1, 0).max(axis=1)
+    held = np.where(cpos < sc.cache_len, cpos + 1, 0).max(axis=1)
     perm = rng.permutation(P).reshape(R, NP)
     table = np.where(np.arange(NP)[None, :] < -(-held[:, None] // ps), perm, P)
     lines = torch.randn((2, P + 1, ps, KV, dk), generator=gen, device=DEV)
@@ -890,9 +922,11 @@ def _paged_case(gen, rng, dtype, quant, KV, kind):
         del codes, pools
     del lines
     post = torch.from_numpy(pos).to(DEV)
+    tree = None if tree is None else torch.from_numpy(tree).to(DEV)
     return dict(q=_rand((R, C, H, dk), dtype, gen), kp=kp, vp=vp, ks=ks, vs=vs,
                 table=torch.from_numpy(table.astype(np.int32)).to(DEV), pos=post,
-                mask=K.paged_serve_mask(None, post, NP, ps, sc.cache_len),
+                cpos=torch.from_numpy(cpos).to(DEV),
+                mask=K.paged_serve_mask(tree, post, NP, ps, sc.cache_len),
                 R=R, C=C, H=H, KV=KV, dk=dk, ps=ps, NP=NP, P=P,
                 cache_len=sc.cache_len)
 
@@ -1058,8 +1092,9 @@ def run_fused_check(label, case, dtype, quant, timed=True):
     k_new = _rand((R, C, KV, dk), dtype, gen)
     v_new = _rand((R, C, KV, dk), dtype, gen)
     cos, sin = llama.rope_freqs(llama.LLaMAConfig.llama_7b(), pos)  # (R, C, dk) f32
-    logical = (pos // ps).to(torch.int32)
-    off = (pos % ps).to(torch.int32)
+    lines = case["cpos"]  # a tree step's lines are not its positions
+    logical = (lines // ps).to(torch.int32)
+    off = (lines % ps).to(torch.int32)
     qmax = None if quant is None else KQ.SPECS[quant].qmax
 
     def pools():
@@ -1138,12 +1173,12 @@ def run_commit_check(label, case, dtype, quant):
     written, and the pages whose scale moved (this data's requantization)
     read and written."""
     R, C, KV, dk, ps, P = (case[k] for k in ("R", "C", "KV", "dk", "ps", "P"))
-    table, pos = case["table"], case["pos"]
+    table, lines = case["table"], case["cpos"]  # the lines the step writes
     gen = torch.Generator(device=DEV)
     gen.manual_seed(R * C + KV + 1)
     k_new, v_new = _rand((R, C, KV, dk), dtype, gen), _rand((R, C, KV, dk), dtype, gen)
-    phys = table.long().gather(1, (pos // ps).long())
-    off = pos % ps
+    phys = table.long().gather(1, (lines // ps).long())
+    off = lines % ps
     qmax = KQ.SPECS[quant].qmax
     start = [case[k] for k in ("kp", "vp", "ks", "vs")]
     a, b = [t.clone() for t in start], [t.clone() for t in start]
@@ -1200,6 +1235,13 @@ PAGED_CASES = (
     ("bf16-gqa-decode", torch.bfloat16, None, 8, "decode", True),
     ("bf16-gqa-mixed-c128", torch.bfloat16, None, 8, "mixed", True),
     ("f32-int8-mixed-c128", torch.float32, "int8", 32, "mixed", False),
+    # SpecInfer's tree steps (slice 12's spec arms: the fused kernel on bf16
+    # pages, the ragged one on int8): verify at C = 7 and the draft at C =
+    # 2, each on the one-split walk of the decode design
+    ("bf16-tree-verify-c7", torch.bfloat16, None, 32, "verify7", True),
+    ("bf16-tree-draft-c2", torch.bfloat16, None, 32, "draft2", True),
+    ("int8-tree-verify-c7", torch.bfloat16, "int8", 32, "verify7", True),
+    ("int8-tree-draft-c2", torch.bfloat16, "int8", 32, "draft2", True),
 )
 
 
@@ -1223,8 +1265,8 @@ def phase_paged_kernels(seed):
         case = _paged_case(gen, rng, dtype, quant, KV, kind)
         ragged = run_ragged_check(label, case, dtype, quant, timed)
         fused = run_fused_check(label, case, dtype, quant, timed)
-        want = ("decode" if kind == "decode" else "mma" if dtype == torch.bfloat16
-                else "tf32x3")
+        want = ("decode" if case["C"] * (case["H"] // case["KV"]) <= K.DECODE_ROWS
+                else "mma" if dtype == torch.bfloat16 else "tf32x3")
         check(ragged["design"] == fused["design"] == want,
               f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
         commit = run_commit_check(label, case, dtype, quant) if quant and timed else None
@@ -1264,6 +1306,28 @@ WHOLE_CASES = (
     ("bf16-gqa-decode", torch.bfloat16, None, 8, "decode"),
     ("bf16-gqa-mixed-c128", torch.bfloat16, None, 8, "mixed"),
 )
+# the speculation fold (slice 13): SpecInfer's tree steps through the same
+# kernel at 2 layers: verify at C = 7 ((2, 3): the split walk at G = 1) and
+# C = 25 ((3, 8): the tensor-core tile), and the early-exit draft's last
+# depth at C = W = 2, 3 over the first layer (num_layers 1); every pool
+# type and GQA. (label, dtype, pool, KV, kind, C, num_layers)
+WHOLE_FOLD_CASES = (
+    ("bf16-verify-c7", torch.bfloat16, None, 32, "verify", 7, None),
+    ("bf16-verify-c25", torch.bfloat16, None, 32, "verify", 25, None),
+    ("bf16-draft-c2", torch.bfloat16, None, 32, "draft", 2, 1),
+    ("bf16-draft-c3", torch.bfloat16, None, 32, "draft", 3, 1),
+    ("f32-verify-c7", torch.float32, None, 32, "verify", 7, None),
+    ("f32-verify-c25", torch.float32, None, 32, "verify", 25, None),
+    ("f32-draft-c3", torch.float32, None, 32, "draft", 3, 1),
+    ("int8-verify-c7", torch.bfloat16, "int8", 32, "verify", 7, None),
+    ("int8-verify-c25", torch.bfloat16, "int8", 32, "verify", 25, None),
+    ("int8-draft-c2", torch.bfloat16, "int8", 32, "draft", 2, 1),
+    ("int4-verify-c7", torch.bfloat16, "int4", 32, "verify", 7, None),
+    ("int4-verify-c25", torch.bfloat16, "int4", 32, "verify", 25, None),
+    ("int4-draft-c3", torch.bfloat16, "int4", 32, "draft", 3, 1),
+    ("bf16-gqa-verify-c7", torch.bfloat16, None, 8, "verify", 7, None),
+    ("bf16-gqa-draft-c2", torch.bfloat16, None, 8, "draft", 2, 1),
+)
 # f32 kernel vs plain version: summation order only
 WHOLE_F32_RTOL = 1e-4
 # f32 logits of the kernel against a plain or unfused path on an int4
@@ -1276,22 +1340,70 @@ WHOLE_F32_RTOL = 1e-4
 F32_TIE_REL_L2 = 7e-3
 
 
-def _whole_case(gen, rng, dtype, quant, KV, kind):
+def _tree_positions(rng, kind, R, C, cache_len, ps):
+    """A SpecInfer tree step over R slots: each live slot holds a random
+    tree of 1 + W D nodes (W = 2 for C of 2 or 7, else 3; D = 3, or 8 at
+    C = 25), node i at cache line prefix + i and RoPE position prefix +
+    its depth, with prefixes of at most 1,023 lines (the spec phase's
+    prompts are 16-1,000 tokens), half of them putting the tree across a
+    page boundary. A verify step feeds every node; a draft step the W
+    nodes of the last depth, and in slot 3 only its first (the others are
+    padding, as the draft's first depth pads). Every eighth slot is idle.
+    Returns
+    (positions, cache lines, mask (R, C, cache_len + 1)): a node attends
+    the committed prefix and its ancestors-or-self, which are no prefix."""
+    W = 2 if C in (2, 7) else 3
+    D = 8 if C == 25 else 3
+    T = 1 + W * D
+    pos = np.full((R, C), cache_len, np.int64)
+    cpos = np.full((R, C), cache_len, np.int64)
+    mask = np.zeros((R, C, cache_len + 1), bool)
+    top = (cache_len // ps) * ps
+    for r in range(R):
+        if r % 8 == 7:
+            continue
+        prefix = ((r % 8 + 1) * ps - 1 - r % 3 if r % 2
+                  else int(rng.integers(0, min(top - T, 1000))))
+        parent = [-1] + [0 if i <= W else 1 + ((i - 1) // W - 1) * W + int(rng.integers(0, W))
+                         for i in range(1, T)]
+        depth = [0] + [(i - 1) // W + 1 for i in range(1, T)]
+        nodes = list(range(T)) if kind == "verify" else list(range(T - W, T))
+        if kind == "draft" and r == 3:
+            nodes = nodes[:1]
+        for c, i in enumerate(nodes):
+            pos[r, c] = prefix + depth[i]
+            cpos[r, c] = prefix + i
+            mask[r, c, :prefix] = True
+            while i >= 0:
+                mask[r, c, prefix + i] = True
+                i = parent[i]
+    return pos, cpos, mask
+
+
+def _whole_case(gen, rng, dtype, quant, KV, kind, C=None, num_layers=None):
     """Inputs of one whole-step call: random weights, a paged cache whose
     every page holds random lines (int8/int4 codes at per-page amax
     scales), the paged slice's shuffled table and the step's tokens,
     positions and logits_idx (decode: DECODE_LENS; mixed: prefill chunks,
-    decode rows and idle slots)."""
+    decode rows and idle slots; "verify" and "draft": a SpecInfer tree
+    step of C columns, :func:`_tree_positions`, through the first
+    ``num_layers`` layers)."""
     sc = ServingConfig()
     cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=WHOLE_CHECK_LAYERS,
                                      num_key_value_heads=KV, dtype=dtype)
     R, ps, NP = sc.max_requests_per_batch, sc.page_size, sc.pages_per_slot
     L, dk = cfg.num_hidden_layers, cfg.head_dim
-    C = 1 if kind == "decode" else sc.prefill_chunk
+    tree = kind in ("verify", "draft")
+    if not tree:
+        C = 1 if kind == "decode" else sc.prefill_chunk
     P = R * NP
     params = llama.init_params(gen, cfg, device=DEV)
-    pos = _paged_positions(rng, kind, R, C, sc.cache_len, ps)
-    held = np.where(pos < sc.cache_len, pos + 1, 0).max(axis=1)
+    mask = None
+    if tree:
+        pos, cpos, mask = _tree_positions(rng, kind, R, C, sc.cache_len, ps)
+    else:
+        pos = cpos = _paged_positions(rng, kind, R, C, sc.cache_len, ps)
+    held = np.where(cpos < sc.cache_len, cpos + 1, 0).max(axis=1)
     perm = rng.permutation(P).reshape(R, NP)
     table = np.where(np.arange(NP)[None, :] < -(-held[:, None] // ps), perm, P)
     cache = {}
@@ -1314,7 +1426,18 @@ def _whole_case(gen, rng, dtype, quant, KV, kind):
     return dict(cfg=cfg, params=params, cache=cache, tokens=toks,
                 pos=torch.from_numpy(pos).to(DEV), li=torch.from_numpy(li).to(DEV),
                 table=torch.from_numpy(table.astype(np.int32)).to(DEV), quant=quant,
-                R=R, C=C, ps=ps, NP=NP, P=P, cache_len=sc.cache_len)
+                R=R, C=C, ps=ps, NP=NP, P=P, cache_len=sc.cache_len,
+                cpos=torch.from_numpy(cpos).to(DEV),
+                mask=None if mask is None else torch.from_numpy(mask).to(DEV),
+                num_layers=num_layers if tree else None, fold=tree)
+
+
+def _fold_kw(case):
+    """The speculation fold's keywords of a tree case (none otherwise)."""
+    if not case["fold"]:
+        return {}
+    return dict(mask=case["mask"], cache_positions=case["cpos"], all_logits=True,
+                num_layers=case["num_layers"])
 
 
 def _whole_bound(case):
@@ -1327,23 +1450,27 @@ def _whole_bound(case):
     dtype's peak. A live row is one whose position is in the cache (the
     rest are padding the step need not compute), a live slot one whose
     logits_idx row is live: counted as the attention term counts the
-    mask's pairs."""
+    mask's pairs. A fold case counts its tree mask, its layers
+    (``num_layers``) and a head over every live row; the f32 logits are
+    written once."""
     cfg, p, cache = case["cfg"], case["params"], case["cache"]
     L, D, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
+    L = case["num_layers"] or L
     H, dk = cfg.num_attention_heads, cfg.head_dim
     R, ps, NP = case["R"], case["ps"], case["NP"]
     isz = p["embed"].element_size()
     layer_params = sum(w[0].numel() for w in p["layers"].values())
     proj_params = sum(p["layers"][n][0].numel() for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"))
-    mask = K.paged_serve_mask(None, case["pos"], NP, ps, case["cache_len"])
+    mask = K.paged_serve_mask(case["mask"], case["pos"], NP, ps, case["cache_len"])
     opened = mask.reshape(R, -1, NP, ps).any(dim=3).any(dim=1)
     pages = int(case["table"][opened].unique().numel())
-    rows = int((case["pos"] < case["cache_len"]).sum())
-    slots = int((case["pos"].gather(1, case["li"][:, None]) < case["cache_len"]).sum())
+    rows = int((case["cpos"] < case["cache_len"]).sum())
+    slots = (rows if case["fold"] else
+             int((case["pos"].gather(1, case["li"][:, None]) < case["cache_len"]).sum()))
     kp = cache["k"]
     page_bytes = ps * kp.shape[3] * kp.shape[4] * kp.element_size()
     nbytes = isz * (L * layer_params + D * V + D) + 2 * L * pages * page_bytes
-    nbytes += 2 * L * rows * kp.shape[3] * kp.shape[4] * kp.element_size()
+    nbytes += 2 * L * rows * kp.shape[3] * kp.shape[4] * kp.element_size() + 4 * slots * V
     if "k_scale" in cache:
         nbytes += 2 * L * pages * kp.shape[3] * 4
     flops = (2 * rows * L * proj_params + 2 * slots * D * V
@@ -1389,16 +1516,22 @@ def run_whole_check(label, case):
     SLICE_PATHS times the plain bf16 path's distance from the same step in
     f32. Times: the kernel, its plain
     version and the unfused kernels="cuda" step (cuBLAS + the ragged
-    kernel) on the same inputs, pools restored before each run."""
+    kernel) on the same inputs, pools restored before each run.
+    A fold case (SpecInfer's tree steps) runs the same checks at every
+    live row of the step (every row's logits and argmax), its layers
+    ``num_layers``, the deeper layers' pools untouched; its design is
+    counted as ``<design>-tree``."""
     cfg, params, cache = case["cfg"], case["params"], case["cache"]
     quant, P, dtype = case["quant"], case["P"], cfg.dtype
     step = (case["tokens"], case["pos"], case["li"], case["table"])
+    fold = _fold_kw(case)
     kw = dict(cfg=cfg, cache_len=case["cache_len"], kv_quant=quant)
     la, _ = llama.whole_step_weight_layout(params, cfg)
     roles = llama.whole_step_tile_roles(cfg)
     x0 = torch.empty((case["R"], case["C"], cfg.hidden_size), dtype=dtype, device="meta")
     gate, est = K.whole_step_pick_tiles(la, cache, x0, cfg.num_attention_heads,
-                                        tile_roles=roles, budget=K.WHOLE_STEP_SMEM_BUDGET)
+                                        tile_roles=roles, budget=K.WHOLE_STEP_SMEM_BUDGET,
+                                        all_logits=case["fold"])
     check(gate is not None, f"whole[{label}]: no tile count fits the budget")
     takes = [t for t in K.whole_step_tile_candidates(la, roles)
              if K.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
@@ -1413,12 +1546,12 @@ def run_whole_check(label, case):
         c = c if c is not None else work
         return llama.serve_step_whole(prm, c, *step, cfg=cf, cache_len=case["cache_len"],
                                       kv_quant=quant, tiles=tiles, kernels=kernels,
-                                      stamps=stamps)
+                                      stamps=stamps, **fold)
 
     outs = {}
     G = cfg.num_attention_heads // cfg.num_key_value_heads
     want = ("decode" if case["C"] * G <= 8
-            else "mma" if dtype == torch.bfloat16 else "tf32x3")
+            else "mma" if dtype == torch.bfloat16 else "tf32x3") + ("-tree" if fold else "")
     for name, kernels, tiles in (("gate", "cuda", gate), ("other", "cuda", other),
                                  ("plain", "torch", gate)):
         restore()
@@ -1433,6 +1566,11 @@ def run_whole_check(label, case):
     # slots whose logits_idx column is padding read the scratch page, which
     # every padding line writes in no fixed order: only live rows count
     live = case["pos"].gather(1, case["li"][:, None])[:, 0] < case["cache_len"]
+    if fold:  # every row's logits: the rows whose line is off the scratch page
+        live = case["cpos"] < case["cache_len"]
+        n = case["num_layers"] or cfg.num_hidden_layers
+        check(all(torch.equal(work[k][n:], cache[k][n:]) for k in cache),
+              f"whole[{label}]: the draft wrote layers past its {n}")
     (lg, tg, cg), (lo, to_, co), (lp, tp, cp) = (
         (lgt[live], tk[live], c) for lgt, tk, c in (outs["gate"], outs["other"], outs["plain"]))
     bitwise = (torch.equal(lg, lo) and torch.equal(tg, to_)
@@ -1453,8 +1591,10 @@ def run_whole_check(label, case):
                      "D": cfg.hidden_size, "H": cfg.num_attention_heads,
                      "KV": cfg.num_key_value_heads, "F": cfg.intermediate_size,
                      "V": cfg.vocab_size, "ps": case["ps"], "NP": case["NP"], "P": P},
-           "live_slots": int(live.sum()),
-           "live_rows": int((case["pos"] < case["cache_len"]).sum()), "design": design,
+           "live_slots": int((case["pos"].gather(1, case["li"][:, None]) < case["cache_len"])
+                             .sum()) if not fold else None,
+           "live_rows": int((case["cpos"] < case["cache_len"]).sum()), "design": design,
+           "num_layers": case["num_layers"] or cfg.num_hidden_layers,
            "tiles": gate, "tiles_other": other,
            "smem_est": est, "bitwise_across_tiles": bitwise,
            "max_abs_err": float((lg - lp).abs().max()),
@@ -1515,8 +1655,9 @@ def run_whole_check(label, case):
         del c32
     del outs
     row["bound_ms"], row["bound_by"], row["bytes"], row["flop"] = _whole_bound(case)
-    unfused_kw = dict(kw, kernels="cuda")
-    mask_args = (None, None, case["table"])
+    unfused_kw = dict(kw, kernels="cuda", **{k: v for k, v in fold.items()
+                                             if k in ("all_logits", "num_layers")})
+    mask_args = (case["mask"], case["cpos"] if fold else None, case["table"])
     row.update(
         ms=cuda_ms_restored(lambda: run("cuda", gate), restore),
         ms_tiles_other=cuda_ms_restored(lambda: run("cuda", other), restore),
@@ -1527,7 +1668,7 @@ def run_whole_check(label, case):
         library_ms=None)
     emit(row)
     emit(_whole_stages(label, row, lambda stamps: run("cuda", gate, stamps=stamps), restore,
-                       cfg.num_hidden_layers))
+                       case["num_layers"] or cfg.num_hidden_layers))
     del work
     return row
 
@@ -1552,20 +1693,30 @@ def _whole_stages(label, row, launch, restore, layers):
             "stages_sum_ms": sum(stages.values())}
 
 
+#: the kernels line's rows of the fold: the pool types of the whole-step
+#: spec arms, at their verify width
+FOLD_ROWS = {"bf16": "bf16-verify-c7", "int8": "int8-verify-c7"}
+
+
 def phase_whole_kernels(seed):
     """The whole-step kernel against its plain version in every
-    WHOLE_CASES case; the rows of the kernels line are the decode cases
-    (MHA) of each pool type."""
+    WHOLE_CASES and WHOLE_FOLD_CASES case; the rows of the kernels line are
+    the decode cases (MHA) of each pool type and the fold's verify cases of
+    the spec arms' pools (``whole_step_decode[<pool>/tree]``)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 4)
     rng = np.random.default_rng(seed + 4)
     main = {}
-    for label, dtype, quant, KV, kind in WHOLE_CASES:
-        case = _whole_case(gen, rng, dtype, quant, KV, kind)
+    cases = ([c + (None, None) for c in WHOLE_CASES]
+             + [c for c in WHOLE_FOLD_CASES])
+    for label, dtype, quant, KV, kind, C, num_layers in cases:
+        case = _whole_case(gen, rng, dtype, quant, KV, kind, C, num_layers)
         row = run_whole_check(label, case)
+        pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
         if kind == "decode" and KV == 32:
-            pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
             main[f"whole_step_decode[{pool}]"] = row
+        if label in FOLD_ROWS.values():  # the spec arms' pools, at C = 7
+            main[f"whole_step_decode[{pool}/tree]"] = row
         del case
         gc.collect()
         torch.cuda.empty_cache()
@@ -2184,10 +2335,12 @@ def phase_f32(seed):
     and dense. SpecInfer (a 1-layer layer-skip SSM, SpecConfig(2, 3)) on
     the dense layout and on f32 (unfused and fused) pools against the
     incremental run of the same cache, on int8 and int4 pools against the
-    same spec run with kernels="torch", and beam search (SPEC_BEAMS) equal
-    across kernels and layouts. The int4 whole-step run and the quantized
-    spec runs alone may part from their references, and only at a
-    rounding tie (:func:`_divergence`). The quantized spec runs' distance
+    same spec run with kernels="torch"; whole-step SpecInfer (the
+    speculation fold: the early-exit draft on f32 pools, the SSM on f32,
+    int8 and int4 pools) against the same manager with kernels="torch";
+    and beam search (SPEC_BEAMS) equal across kernels and layouts. The
+    int4 whole-step runs and the quantized spec runs alone may part from
+    their references, and only at a rounding tie (:func:`_divergence`). The quantized spec runs' distance
     from the incremental runs is printed, not held: their tree lines
     raise their pages' scales, which requantizes the committed codes
     there (the JAX package's manager does the same). Every paged launch
@@ -2241,10 +2394,25 @@ def phase_f32(seed):
                  "spec-int8-torch": dict(paged, kv_quant="int8", kernels="torch"),
                  "spec-int4": dict(paged, kv_quant="int4"),
                  "spec-int4-torch": dict(paged, kv_quant="int4", kernels="torch")}
+    # the speculation fold: whole-step spec runs (the early-exit draft's
+    # first layer, and the 1-layer SSM with its own walk) against the same
+    # managers with kernels="torch"
+    early = SpecConfig(2, 3, draft="early_exit", draft_layers=1)
+    for pool in ("f32", "int8", "int4"):
+        q = {} if pool == "f32" else dict(kv_quant=pool)
+        for draft in (("ee", "ssm") if pool == "f32" else ("ssm",)):
+            for kernels in ("cuda", "torch"):
+                spec_runs[f"spec-whole-{pool}-{draft}-{kernels}"] = (
+                    dict(paged, kernels=kernels, **q, **whole), early if draft == "ee" else None)
     spec_stats = {}
     for name, kw in spec_runs.items():
-        llm.compile(ServingConfig(cache_dtype=torch.float32, **kw),
-                    ssms=[LLM(llama, dcfg, dparams, device=DEV)], spec=SpecConfig(2, 3))
+        kw, spec = kw if isinstance(kw, tuple) else (kw, None)
+        ssms = [] if spec is not None else [LLM(llama, dcfg, dparams, device=DEV)]
+        llm.compile(ServingConfig(cache_dtype=torch.float32, **kw), ssms=ssms,
+                    spec=spec or SpecConfig(2, 3))
+        if kw.get("fused_decode") == ("whole_step",) and kw.get("kernels") != "torch":
+            check(all(e.whole_step_spec_on for e in llm.rm._engines()),
+                  f"{name}: the speculation fold is off")
         rec, resolve = _record_spec(llm.rm)
         K.reset_launch_counts()
         res = llm.generate(prompts, max_new_tokens=16)
@@ -2280,6 +2448,8 @@ def phase_f32(seed):
              ("spec-dense", "dense-cuda"), ("spec-paged", "paged-cuda"),
              ("spec-paged-fused", "paged-fused"), ("spec-int8", "spec-int8-torch"),
              ("spec-int4", "spec-int4-torch")]
+    pairs += [(a, a[:-4] + "torch") for a in spec_runs if a.startswith("spec-whole-")
+              and a.endswith("-cuda")]
     plens = [len(p) for p in prompts]
     ties = {}
     for a, b in pairs:
@@ -2292,7 +2462,7 @@ def phase_f32(seed):
         # token may then part only where the reference's top two logits
         # are closer than the logits moved; every other pair is equal
         # token for token
-        check(a in ("int4-whole", "spec-int4", "spec-int8"),
+        check(a in ("int4-whole", "spec-int4", "spec-int8", "spec-whole-int4-ssm-cuda"),
               f"f32 greedy tokens differ: {a} {outs[a]} vs {b} {outs[b]}")
         ties[f"{a} vs {b}"] = _divergence(plens, outs[a], outs[b], recs[a], recs[b])
     # a reading, not held: the quantized spec runs against the incremental
@@ -2311,6 +2481,8 @@ def phase_f32(seed):
               "whole_step_decode[f32]", "ragged_paged_attention[f32/decode]",
               "fused_rope_paged_attention[f32/decode]"):
         check(launches.get(k, 0) > 0, f"{k} was never launched on the f32 paged runs")
+    check(designs.get("whole_step_decode[decode-tree]", 0) > 0,
+          f"the f32 whole-step spec runs launched no fold: {designs}")
     for k in K.PAGED_KERNELS + ("whole_step_decode",):
         took = {d for d in K.DESIGNS[k][0] if designs.get(f"{k}[{d}]")}
         check(took == {"decode", "tf32x3"},
@@ -2341,6 +2513,14 @@ SPEC_ARMS = (
      dict(beam_width=2, beam_depth=3), 2),
     # the quantized commit (kv_quant.quant_commit_lines on the commit kernel)
     ("paged-int8", dict(SPEC_PAGED, kv_quant="int8"), dict(beam_width=2, beam_depth=3), 2),
+    # the speculation fold (slice 13): every step one whole-step launch; the
+    # early-exit draft the first 2 layers of the same kernel (bf16, 17
+    # pages: preemption), and a 2-layer SSM whose engine runs the walk too
+    # (int8, 33 pages)
+    ("paged-bf16-whole", dict(SPEC_PAGED, fused_decode=("whole_step",)),
+     dict(beam_width=2, beam_depth=3, draft="early_exit", draft_layers=2), None),
+    ("paged-int8-whole", dict(SPEC_PAGED, kv_quant="int8", fused_decode=("whole_step",)),
+     dict(beam_width=2, beam_depth=3), 2),
 )
 # controls of the greedy check: the same manager over plain attention
 # (kernels="torch") at the same tree shapes, so its served tokens part
@@ -2349,10 +2529,12 @@ SPEC_ARMS = (
 # whose near-ties it bounds)
 SPEC_CONTROLS = (
     ("dense-torch", dict(kernels="torch"), dict(beam_width=2, beam_depth=3), 2,
-     ("dense", "dense-adaptive", "dense-early-exit", "paged-bf16-fused")),
+     ("dense", "dense-adaptive", "dense-early-exit", "paged-bf16-fused", "paged-bf16-whole")),
     ("paged-int8-torch", dict(SPEC_PAGED, kv_quant="int8", kernels="torch"),
-     dict(beam_width=2, beam_depth=3), 2, ("paged-int8",)),
+     dict(beam_width=2, beam_depth=3), 2, ("paged-int8", "paged-int8-whole")),
 )
+# the per-layer paged attention kernels, none of which a whole-step arm may launch
+PER_LAYER_PAGED = tuple(f"{k}[{t}]" for k in K.PAGED_KERNELS for t in K.POOL_TYPES)
 # a spec arm may count at most this many times its control's near-ties
 SPEC_TIE_FACTOR = 2
 SPEC_BEAMS = 3
@@ -2416,6 +2598,72 @@ def _greedy_over_prefix(label, outputs, got, exact):
     check(not bool(bad.any()), f"{label}: served tokens that are not greedy over their "
           f"prefix: {torch.nonzero(bad).tolist()[:8]}")
     return row
+
+
+class _record_fold:
+    """Within it, each engine keeps the inputs of its speculation-fold
+    launch of each width with the most live rows (the step's tokens,
+    positions, logits_idx, spec keywords and page table), so that
+    :func:`_fold_stages` can time those launches stage by stage
+    afterwards."""
+
+    def __init__(self, engines):
+        self.engines, self.calls, self.live = engines, {}, {}
+
+    def __enter__(self):
+        self.orig = [e._step_whole for e in self.engines]
+        for eng, orig in zip(self.engines, self.orig):
+            def rec(tokens, positions, logits_idx, _eng=eng, _orig=orig, **spec):
+                key = (id(_eng), tokens.shape[1], spec.get("num_layers"))
+                live = int((spec["cache_positions"] < _eng.scratch_pos).sum()) if spec else 0
+                if spec and live > self.live.get(key, 0):
+                    self.live[key] = live
+                    self.calls[key] = (_eng, tokens.clone(), positions.clone(),
+                                       logits_idx.clone(),
+                                       {k: v.clone() if torch.is_tensor(v) else v
+                                        for k, v in spec.items()},
+                                       _eng.page_table_device().clone())
+                return _orig(tokens, positions, logits_idx, **spec)
+            eng._step_whole = rec
+        return self
+
+    def __exit__(self, *exc):
+        for eng, orig in zip(self.engines, self.orig):
+            eng._step_whole = orig
+
+
+def _fold_stages(label, calls):
+    """One stamped launch of each recorded fold width (a whole_stages line
+    each, :func:`_whole_stages`), on a copy of its engine's pools that is
+    put back after."""
+    lines = []
+    for (_, C, num_layers), (eng, toks, pos, li, spec, table) in sorted(
+            calls.items(), key=lambda kv: (kv[0][1], kv[0][2] or 0)):
+        saved = {k: v.clone() for k, v in eng.cache.items()}
+        tiles = eng.whole_step_spec_tiles[C]
+        layers = spec.get("num_layers") or eng.cfg.num_hidden_layers
+        sc = eng.serving
+
+        def restore():
+            for k, v in eng.cache.items():
+                v.copy_(saved[k])
+
+        def launch(stamps):
+            return llama.serve_step_whole(eng.params, eng.cache, toks, pos, li, table,
+                                          cfg=eng.cfg, cache_len=sc.cache_len,
+                                          kv_quant=sc.kv_quant, tiles=tiles, kernels="cuda",
+                                          stamps=stamps, **spec)
+
+        G = eng.cfg.num_attention_heads // eng.cfg.num_key_value_heads
+        row = {"tiles": tiles, "design": ("decode" if C * G <= 8 else "mma") + "-tree",
+               "ms": None}
+        kind = "verify" if num_layers is None and eng.cfg.num_hidden_layers > 2 else "draft"
+        line = _whole_stages(f"{label}-{kind}-c{C}", row, launch, restore, layers)
+        restore()
+        line["live_rows"] = int((spec["cache_positions"] < sc.cache_len).sum())
+        lines.append(line)
+        del saved
+    return lines
 
 
 class _fused_verify_twin:
@@ -2537,12 +2785,43 @@ def phase_spec(seed):
             dcfg, dparams = layer_skip_draft(cfg, params, draft_layers)
             ssms = [LLM(llama, dcfg, dparams, device=DEV)]
         llm.compile(ServingConfig(**kw), ssms=ssms, spec=SpecConfig(**spec_kw))
-        results, line = _serve(llm, prompts, new)
+        whole = "whole_step" in kw.get("fused_decode", ())
+        engines = llm.rm._engines()
+        with _record_fold(engines if whole else []) as folds:
+            results, line = _serve(llm, prompts, new)
         stats = llm.rm.stats
         emit(_spec_line(label, results, line, stats, incr_steps))
         check(stats.spec_rounds > 0, f"spec {label}: no speculation round ran")
         quant = kw.get("kv_quant")
-        if kw.get("kv_layout") == "paged":
+        if whole:
+            # every step one whole-step launch: no per-layer paged attention,
+            # every draft and verify step the fold (all engines' gates held)
+            pool = quant or "bf16"
+            per_layer = {k: line["launches"][k] for k in PER_LAYER_PAGED
+                         if line["launches"].get(k)}
+            tree = sum(v for k, v in line["design_launches"].items()
+                       if k.startswith("whole_step_decode[") and k.endswith("-tree]"))
+            check(not per_layer, f"spec {label}: per-layer paged launches {per_layer}")
+            check(tree > 0 and all(e.whole_step_spec_on and e.whole_step_fallbacks == 0
+                                   for e in engines),
+                  f"spec {label}: the fold did not serve the tree steps ({tree} launches, "
+                  f"fallbacks {[e.whole_step_fallbacks for e in engines]})")
+            launches[f"whole_step_decode[{pool}/tree]"] = (
+                launches.get(f"whole_step_decode[{pool}/tree]", 0) + tree)
+            emit({"phase": "spec_whole", "path": label, "fold_launches": tree,
+                  "spec_tiles": [e.whole_step_spec_tiles for e in engines],
+                  "decode_tiles": [e.whole_step_tiles for e in engines],
+                  "mixed_tiles": [e.whole_step_mixed_tiles if e.whole_step_mixed_on else None
+                                  for e in engines]})
+            for stage_line in _fold_stages(label, folds.calls):
+                emit(stage_line)
+            if quant:
+                check(line["launches"].get(f"paged_commit[{quant}]", 0) > 0,
+                      f"spec {label}: the commit kernel was never launched")
+            else:
+                check(line["preemptions"] > 0, f"spec {label}: the 17-page budget caused "
+                      "no preemption")
+        elif kw.get("kv_layout") == "paged":
             kind = ("fused_rope_paged_attention" if kw.get("fused_decode")
                     else "ragged_paged_attention")
             check(line["launches"].get(f"{kind}[{quant or 'bf16'}]", 0) > 0,
@@ -2568,7 +2847,7 @@ def phase_spec(seed):
             launches[k] = launches.get(k, 0) + v
         t_prof = time.perf_counter()
         emit(profile_slice(llm, prompts, new, f"spec-{label}"))
-        if kw.get("fused_decode"):
+        if "rope_kv_write" in kw.get("fused_decode", ()):
             with _fused_verify_twin(llm.engine) as twin:
                 llm.generate(prompts[:4], max_new_tokens=8)
             emit({"phase": "spec_fused_bitwise", "path": label, "steps": twin.rows})
@@ -2647,6 +2926,120 @@ def phase_spec(seed):
     emit({"phase": "arm_seconds", "path": "spec-greedy-checks",
           "teacher_forced_s": time.perf_counter() - t_tf})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the serving entry points (slice 13): a local HF checkpoint, streaming, the
+# command line
+
+ENTRY_LAYERS = 2
+ENTRY_PROMPTS = ([3, 17, 91, 42, 7], [20, 21, 22])
+ENTRY_NEW = 8
+
+
+def _hf_state_dict(cfg, params):
+    """The parameters in HF ``LlamaForCausalLM`` naming on the host:
+    Linear weights (out, in), one tensor a layer."""
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w1": "mlp.gate_proj", "w2": "mlp.down_proj",
+             "w3": "mlp.up_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"].cpu(),
+          "model.norm.weight": params["final_norm"].cpu(),
+          "lm_head.weight": params["lm_head"].t().contiguous().cpu()}
+    for i in range(cfg.num_hidden_layers):
+        lp = {n: w[i] for n, w in params["layers"].items()}
+        sd[f"model.layers.{i}.input_layernorm.weight"] = lp["attn_norm"].cpu()
+        sd[f"model.layers.{i}.post_attention_layernorm.weight"] = lp["ffn_norm"].cpu()
+        for n, hf in names.items():
+            sd[f"model.layers.{i}.{hf}.weight"] = lp[n].t().contiguous().cpu()
+    return sd
+
+
+def phase_entry(seed):
+    """The serving entry points on the card: a checkpoint in HF naming
+    (``config.json`` and ``pytorch_model.bin``, LLaMA-7B widths cut to
+    ENTRY_LAYERS layers, random bf16 weights from the seed) written to a
+    temporary directory; ``LLM.from_pretrained`` must give back those
+    tensors bit for bit, ``generate`` and ``rm.generate_stream`` the same
+    tokens, and ``python -m flexflow_tpu_torch serve --model-dir ...`` in a
+    subprocess must exit 0 and print them. No ``transformers`` or
+    ``safetensors`` is needed."""
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=ENTRY_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 13)
+    params = llama.init_params(gen, cfg, device=DEV)
+    d = tempfile.mkdtemp(prefix="flexflow_tpu_torch_entry_")
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+                       "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                       "intermediate_size": cfg.intermediate_size,
+                       "num_hidden_layers": cfg.num_hidden_layers,
+                       "num_attention_heads": cfg.num_attention_heads,
+                       "num_key_value_heads": cfg.num_key_value_heads,
+                       "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+                       "max_position_embeddings": cfg.max_position_embeddings,
+                       "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f)
+        torch.save(_hf_state_dict(cfg, params), os.path.join(d, "pytorch_model.bin"))
+        ckpt_bytes = os.path.getsize(os.path.join(d, "pytorch_model.bin"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        llm = LLM.from_pretrained(d, device=DEV)
+        t_load = time.perf_counter() - t0
+        got = dict(llm.params, **{f"layers.{k}": v for k, v in llm.params["layers"].items()})
+        want = dict(params, **{f"layers.{k}": v for k, v in params["layers"].items()})
+        same = {k: bool(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))
+                for k in want if k != "layers"}
+        check(all(same.values()), f"from_pretrained: tensors not bitwise the written ones {same}")
+        check(llm.cfg == cfg, f"from_pretrained: config {llm.cfg}, written {cfg}")
+        # no tokenizer files: no tokenizer, and nothing of transformers or
+        # safetensors loaded
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers",
+                                                                        "safetensors"))
+        check(llm.tokenizer is None and not loaded,
+              f"from_pretrained: tokenizer {type(llm.tokenizer)}, loaded {loaded[:5]}")
+        del params
+        serving = ServingConfig(max_requests_per_batch=4, max_sequence_length=512)
+        llm.compile(serving)
+        prompts = [list(p) for p in ENTRY_PROMPTS]
+        K.reset_launch_counts()
+        tokens = [r.output_tokens for r in llm.generate(prompts, max_new_tokens=ENTRY_NEW)]
+        check(K.LAUNCHES["decode_attention"] > 0, "entry: generate launched no decode kernel")
+        events = list(llm.rm.generate_stream(prompts, max_new_tokens=ENTRY_NEW))
+        streamed, done = {}, []
+        for ev in events:
+            check(ev.request_id not in done, f"entry: an event after request "
+                  f"{ev.request_id}'s terminal event")
+            if ev.done:
+                check(ev.error is None, f"entry: request {ev.request_id} failed: {ev.error}")
+                done.append(ev.request_id)
+            else:
+                streamed.setdefault(ev.request_id, []).append(ev.token)
+        check([streamed.get(r, []) for r in sorted(done)] == tokens and len(done) == len(prompts),
+              f"entry: generate_stream {streamed} != generate {tokens}")
+        llm.engine = llm.rm = None
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "flexflow_tpu_torch", "serve", "--model-dir", d,
+               "--max-new-tokens", str(ENTRY_NEW)]
+        for p in ENTRY_PROMPTS:
+            cmd += ["--prompt", ",".join(map(str, p))]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        check(out.returncode == 0, f"entry: serve exited {out.returncode}: {out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        cli = [json.loads(line) for line in lines[0::2]]
+        check(cli == tokens, f"entry: serve printed {cli}, generate gave {tokens}")
+        emit({"phase": "entry", "layers": ENTRY_LAYERS, "checkpoint_bytes": ckpt_bytes,
+              "write_s": t_write, "from_pretrained_s": t_load, "tensors_bitwise": len(same),
+              "tokens": tokens, "stream_events": len(events), "serve_cli_s": t_cli,
+              "serve_cli_profile_lines": lines[1::2]})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3150,8 +3543,15 @@ SOURCES = {
         "flexflow_tpu_torch/csrc/whole_step_decode.cu",
         "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode) and "
         "flexflow_tpu/serve/kernels.py:1612 (_whole_step_decode_tiled)") for t in K.POOL_TYPES},
+    # the speculation fold's launches (all_logits: SpecInfer's draft and
+    # verify steps) of the whole-step spec arms, by pool type
+    **{f"whole_step_decode[{t}/tree]": (
+        "flexflow_tpu_torch/csrc/whole_step_decode.cu",
+        "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode, with the spec fold of "
+        "flexflow_tpu/models/llama.py:1327 serve_step_whole)") for t in FOLD_ROWS},
 }
-PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "train_parity", "train")
+PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "train_parity",
+          "train")
 
 
 def main(argv=None) -> int:
@@ -3160,7 +3560,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of kernels, slice, paged, whole, spec, f32, "
+                    help="comma list of kernels, slice, paged, whole, spec, f32, entry, "
                          "train_parity, train (device and build always run; paged and "
                          "whole need slice)")
     args = ap.parse_args(argv)
@@ -3202,6 +3602,9 @@ def main(argv=None) -> int:
     if "f32" in phases:
         launches.update(phase_f32(args.seed))
         mark("f32")
+    if "entry" in phases:
+        phase_entry(args.seed)
+        mark("entry")
     if "train_parity" in phases:
         phase_train_parity(args.seed)
         mark("train_parity")

@@ -36,6 +36,14 @@
 // a grid-wide first-maximum argmax. A grid-wide barrier
 // (cooperative_groups grid sync) separates the stages.
 //
+// The speculation fold (a SpecInfer draft or verify step) is the same
+// kernel: the mask and the lines' (page, offset) are inputs, so a tree
+// mask and slack lines anywhere in a slot's pages need nothing of their
+// own; the early-exit draft is a launch over the first layers' weights and
+// pools (nothing here takes L for the model's depth); with ``all_logits``
+// the tail runs over every row of the step (the final norm of R * C rows,
+// the LM head writing (R * C, V), the argmax of each row).
+//
 // Rounding follows the plain PyTorch path (models/llama.py): each
 // projection output element rounds once to the model dtype; _rms rounds
 // (x * r) to the model dtype and then multiplies by gamma in the model
@@ -141,14 +149,15 @@ struct WholeArgs {
   const int* off;          // (R, C)
   const uint8_t* mask;     // (R, C, NP * ps)
   const int* logits_idx;   // (R,)
-  float* logits;           // (R, V) out
-  int* tokens;             // (R,) out
+  float* logits;           // (R, V) out, (R * C, V) with all_logits
+  int* tokens;             // (R,) out, (R * C,) with all_logits
   void* scratch;           // model-dtype scratch, see Scratch
   float* work;             // (KS, R * C, Nw) f32 partial sums
   long long* stamps;       // (1 + 8 L + 3,) %globaltimer ns, or null: see stamp()
   int* counters;           // (R * KV,) int32 zeros: the split walk's merge counters
   int L, R, C, D, H, KV, dk, F, V, ps, NP, P1, tiles, KS, tied;
   int split_pages;         // pages a split of the decode design (paged_decode_split)
+  int all_logits;          // the head over every row (the fold), else a row a slot
   float eps, scale, qmax;
   CUtensorMap maps[kNumMaps];  // WholeMap; encoded when tc_path()
 };
@@ -173,7 +182,7 @@ struct Scratch {
     vnew = p; p += M * KVd;
     krot = p; p += M * KVd;
     act = p; p += M * (size_t)a.F;
-    hf = p;
+    hf = p;  // the final norm's rows: head_rows(a) x D
   }
 };
 
@@ -214,6 +223,12 @@ __host__ __device__ inline int head_width_cap(const WholeArgs& a) {
 
 __host__ __device__ inline int head_width(const WholeArgs& a) {
   return imin(imin(kHeadCols, a.V), head_width_cap(a));
+}
+
+// The rows of the tail (final norm, LM head, argmax): one a slot at its
+// logits_idx, or every row of the step with all_logits.
+__host__ __device__ inline int head_rows(const WholeArgs& a) {
+  return a.all_logits ? a.R * a.C : a.R;
 }
 
 // 16-row fragments of a row tile: one for a step of at most 16 rows,
@@ -1059,28 +1074,29 @@ __device__ __noinline__ void act_stage() {
   end_stage();
 }
 
-// the last residual and the final norm, at each slot's logits_idx row
+// the last residual and the final norm, at each slot's logits_idx row, or
+// at every row with all_logits
 template <typename T>
 __device__ __noinline__ void final_norm_stage() {
   const WholeArgs& a = *g_block.args;
   const Scratch<T> s(a);
-  const int M = a.R * a.C, D = a.D;
-  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < a.R; r += gridDim.x * kWarps) {
-    const size_t m = (size_t)r * a.C + a.logits_idx[r];
+  const int M = a.R * a.C, D = a.D, rows = head_rows(a);
+  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < rows; r += gridDim.x * kWarps) {
+    const size_t m = a.all_logits ? (size_t)r : (size_t)r * a.C + a.logits_idx[r];
     residual_norm_row<T>(s.x2 + m * D, a.work + m * D, (size_t)M * D, a.KS, s.x + m * D,
                          s.hf + (size_t)r * D, static_cast<const T*>(a.final_norm), D, a.eps);
   }
   end_stage();
 }
 
-// the LM head: f32 logits (R, V)
+// the LM head: f32 logits (head_rows, V)
 template <typename T>
 __device__ __noinline__ void head_stage() {
   extern __shared__ __align__(16) unsigned char smem[];
   const WholeArgs& a = *g_block.args;
   GemmStage st{};
   st.A = Scratch<T>(a).hf;
-  st.M = a.R;
+  st.M = head_rows(a);
   st.K = a.D;
   st.KS = 1;
   st.n = 1;
@@ -1091,16 +1107,16 @@ __device__ __noinline__ void head_stage() {
   st.sn[0] = a.tied ? a.D : 1;
   st.out = a.logits;
   st.ldo = a.V;
-  gemm_stage<T>(st, row_frags(a.R, head_width(a)), smem, nullptr);
+  gemm_stage<T>(st, row_frags(st.M, head_width(a)), smem, nullptr);
   end_stage();
 }
 
-// the greedy head: the first maximal index of each row
+// the greedy head: the first maximal index of each row of the logits
 __device__ __noinline__ void argmax_stage() {
   const WholeArgs& a = *g_block.args;
   __shared__ float best_v[kWarps];
   __shared__ int best_i[kWarps];
-  for (int r = blockIdx.x; r < a.R; r += gridDim.x) {
+  for (int r = blockIdx.x; r < head_rows(a); r += gridDim.x) {
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int v = threadIdx.x; v < a.V; v += kThreads) {
@@ -1190,13 +1206,13 @@ size_t gemm_smem(int rows, int w) {
 }
 
 // Dynamic shared memory of a launch: the projections' double-buffered
-// chunks at the widest column tile (or an LM-head item), or the attention
+// chunks at the widest column tile (or an LM-head item of head_rows), or the attention
 // stage's: the tensor-core tile when a KV head has more than 8 query
 // rows, else the split walk's (SplitLayout).
 template <typename TQ, int KIND, int DK>
 size_t dynamic_smem(const WholeArgs& a) {
   const size_t gemm = std::max(gemm_smem<TQ>(a.R * a.C, head_width_cap(a)),
-                               gemm_smem<TQ>(a.R, head_width(a)));
+                               gemm_smem<TQ>(head_rows(a), head_width(a)));
   const bool tile = paged_design(a.C * (a.H / a.KV), dtype_of(sizeof(TQ))) != kDesignDecode;
   return std::max(std::max(gemm, tc_path(a, sizeof(TQ)) ? kTcSmem : size_t(0)),
                   tile ? MmaSmem<TQ, KIND, DK>::kBytes : SplitLayout<TQ, DK>::bytes(a.R));
@@ -1311,8 +1327,8 @@ extern "C" int whole_step_decode_launch(
     const void* logits_idx, void* logits, void* tokens, void* scratch, void* work,
     void* stamps, void* counters, int L,
     int R, int C, int D, int H, int KV, int dk, int F, int V, int ps, int NP, int P1,
-    int tiles, int KS, int tied, int dtype, int pool_kind, int split_pages, float eps,
-    float scale, float qmax, void* stream) {
+    int tiles, int KS, int tied, int dtype, int pool_kind, int split_pages, int all_logits,
+    float eps, float scale, float qmax, void* stream) {
   using namespace fft;
   if (L <= 0 || R <= 0 || C <= 0 || C > kMaxChunk || KV <= 0 || H % KV != 0 || tiles <= 0 ||
       KS <= 0 || NP <= 0)
@@ -1363,6 +1379,7 @@ extern "C" int whole_step_decode_launch(
   a.stamps = static_cast<long long*>(stamps);
   a.counters = static_cast<int*>(counters);
   a.split_pages = split_pages;
+  a.all_logits = all_logits != 0;
   a.L = L;
   a.R = R;
   a.C = C;

@@ -1,4 +1,4 @@
-from . import llama
+from . import hf_utils, llama
 
 # Model-family registry (flexflow_tpu/models/__init__.py FAMILIES); the
 # other families come with later slices of the port.
@@ -6,4 +6,4 @@ FAMILIES = {
     "llama": llama,
 }
 
-__all__ = ["llama", "FAMILIES"]
+__all__ = ["llama", "hf_utils", "FAMILIES"]

@@ -36,8 +36,8 @@ the step functions' ``num_layers`` slice (the early-exit draft) and the
 K/V line moves :func:`commit_kv`, :func:`commit_kv_paged`,
 :func:`reorder_slots` and :func:`reorder_slots_paged`.
 
-Data, tensor, pipeline, sequence and context parallelism, microbatching
-and the whole-step walk of SpecInfer rounds come with later slices.
+Data, tensor, pipeline, sequence and context parallelism and
+microbatching come with later slices.
 """
 from __future__ import annotations
 
@@ -99,6 +99,74 @@ class LLaMAConfig:
         )
         d.update(kw)
         return cls(**d)
+
+    @classmethod
+    def from_hf(cls, hf: Dict[str, Any], **kw) -> "LLaMAConfig":
+        """The config of an HF ``LlamaForCausalLM`` checkpoint
+        (``config.json`` as a dict); ``kw`` overrides (``dtype`` among
+        them)."""
+        d = dict(
+            vocab_size=hf.get("vocab_size", 32000),
+            hidden_size=hf.get("hidden_size", 4096),
+            intermediate_size=hf.get("intermediate_size", 11008),
+            num_hidden_layers=hf.get("num_hidden_layers", 32),
+            num_attention_heads=hf.get("num_attention_heads", 32),
+            num_key_value_heads=hf.get("num_key_value_heads",
+                                       hf.get("num_attention_heads", 32)),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            max_position_embeddings=hf.get("max_position_embeddings", 2048),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        )
+        d.update(kw)
+        return cls(**d)
+
+
+def from_hf(hf: Dict[str, Any], **kw) -> LLaMAConfig:
+    """The family's uniform entry point for :meth:`LLaMAConfig.from_hf`."""
+    return LLaMAConfig.from_hf(hf, **kw)
+
+
+def convert_hf_state_dict(sd: Dict[str, torch.Tensor], cfg: LLaMAConfig, *,
+                          device: Any = None) -> Dict[str, Any]:
+    """An HF ``LlamaForCausalLM`` state dict → this family's parameter
+    tree in ``cfg.dtype`` on ``device`` (``"cuda"`` unless the caller names
+    another): ``nn.Linear`` weights (out, in) transposed to (in, out), the
+    layers stacked on a leading dim, no ``lm_head`` when the embeddings
+    are tied. Each stacked tensor is filled a layer at a time on the
+    device."""
+    from ..serve.engine import resolve_device
+
+    dev, dt, L, pre = resolve_device(device), cfg.dtype, cfg.num_hidden_layers, "model."
+
+    def put(t):
+        return t.to(device=dev, dtype=dt).contiguous()
+
+    def stacked(fmt, linear):
+        first = sd[pre + fmt.format(0)]
+        shape = tuple(first.shape[::-1]) if linear else tuple(first.shape)
+        out = torch.empty((L,) + shape, dtype=dt, device=dev)
+        for i in range(L):
+            w = sd[pre + fmt.format(i)]
+            out[i].copy_(w.t() if linear else w)
+        return out
+
+    layers = {
+        "attn_norm": stacked("layers.{}.input_layernorm.weight", False),
+        "wq": stacked("layers.{}.self_attn.q_proj.weight", True),
+        "wk": stacked("layers.{}.self_attn.k_proj.weight", True),
+        "wv": stacked("layers.{}.self_attn.v_proj.weight", True),
+        "wo": stacked("layers.{}.self_attn.o_proj.weight", True),
+        "ffn_norm": stacked("layers.{}.post_attention_layernorm.weight", False),
+        "w1": stacked("layers.{}.mlp.gate_proj.weight", True),
+        "w2": stacked("layers.{}.mlp.down_proj.weight", True),
+        "w3": stacked("layers.{}.mlp.up_proj.weight", True),
+    }
+    params = {"embed": put(sd[pre + "embed_tokens.weight"]), "layers": layers,
+              "final_norm": put(sd[pre + "norm.weight"])}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = put(sd["lm_head.weight"].t())
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -778,6 +846,15 @@ def _whole_head_fn(cfg: LLaMAConfig, head, x, logits_idx):
     return _head(cfg, head, x, logits_idx, all_logits=False)
 
 
+def _whole_head_all_fn(cfg: LLaMAConfig, head, x, logits_idx):
+    """The all-positions epilogue of the speculation fold, op for op
+    :func:`serve_step_paged`'s ``all_logits=True`` tail (final norm, f32 LM
+    head over every chunk column; ``logits_idx`` unread): a verify step
+    needs logits at every tree node, a draft step at every frontier
+    column."""
+    return _head(cfg, head, x, logits_idx, all_logits=True)
+
+
 def whole_step_tile_roles(cfg: LLaMAConfig) -> Dict[str, Tuple[str, Optional[str]]]:
     """The weight (and bias: none in LLaMA) behind each role the kernel
     splits into output-column tiles: w1 gates, w3 lifts, w2 closes."""
@@ -800,6 +877,10 @@ def serve_step_whole(
     tiles: int = 1,
     kernels: str = "torch",
     stamps: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,             # (R, C, cache_len+1) bool
+    cache_positions: Optional[torch.Tensor] = None,  # (R, C) cache lines
+    all_logits: bool = False,
+    num_layers: Optional[int] = None,
 ):
     """The whole paged serving step in one kernel: every layer (Q/K/V,
     RoPE and the K/V page commit, paged attention, out-projection, SwiGLU
@@ -812,42 +893,59 @@ def serve_step_whole(
     kernel's answer does not depend on; ``stamps`` asks the kernel for its
     per-stage timer (serve/kernels.whole_step_stage_ms).
 
-    Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)``, the
-    cache updated in place. The plain version runs the ops of
-    :func:`serve_step_paged` (``kernels="torch"``) at every tile count, so
-    it is bitwise that step."""
+    The speculation fold takes :func:`serve_step_paged`'s four spec
+    keywords with their meaning there: an explicit tree ``mask``,
+    ``cache_positions`` (the slack lines a tree's nodes write, which need
+    not be contiguous), ``all_logits`` (logits and greedy tokens at every
+    chunk column) and ``num_layers`` (the early-exit draft: the walk over
+    the first layers' weights and pools; the deeper pools untouched). A
+    SpecInfer round's draft and verify steps are then launches of this
+    one kernel.
+
+    Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)`` —
+    with ``all_logits`` ``(R, C, V)`` and ``(R, C)`` — the cache updated in
+    place. The plain version runs the ops of :func:`serve_step_paged`
+    (``kernels="torch"``, the same keywords) at every tile count, so it is
+    bitwise that step."""
     if kernels not in ("cuda", "torch"):
         raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
     from ..serve import kernels as _k
 
+    if cache_positions is None:
+        cache_positions = positions
     positions = positions.long()
     ps = cache["k"].shape[2]
     x = params["embed"][tokens.long()]
     cos, sin = rope_freqs(cfg, positions)
-    mask = _k.paged_serve_mask(None, positions, page_table.shape[1], ps, cache_len)
-    phys, off = _page_lookup(page_table, positions, ps)
+    mask = _k.paged_serve_mask(mask, positions, page_table.shape[1], ps, cache_len)
+    phys, off = _page_lookup(page_table, cache_positions.long(), ps)
     qmax = None
     if kv_quant is not None:
         from ..serve.kv_quant import resolve_spec
 
         qmax = resolve_spec(kv_quant).qmax
     layer_arrays, head_arrays = whole_step_weight_layout(params, cfg)
+    walk_cache = cache
+    n = _depth(cfg, num_layers)
+    if n < cfg.num_hidden_layers:
+        # the early-exit draft: the walk over the first n layers' weights
+        # and pools (leading-dim slices, views of the same storage)
+        layer_arrays = {k: a[:n] for k, a in layer_arrays.items()}
+        walk_cache = {k: a[:n] for k, a in cache.items()}
 
     def block_fn(p_l, xv, cs, sn, mk, kb, vb, ks, vs, ph, of, pt):
         return _block_paged_torch(cfg, p_l, xv, cs, sn, mk, kb, vb, ph, of, pt, ks, vs, qmax)
 
-    def head_fn(head, xv, li):
-        return _whole_head_fn(cfg, head, xv, li)
-
-    args = (layer_arrays, head_arrays, x, cos, sin, cache, page_table, phys, off, mask,
+    head_fn = functools.partial(_whole_head_all_fn if all_logits else _whole_head_fn, cfg)
+    args = (layer_arrays, head_arrays, x, cos, sin, walk_cache, page_table, phys, off, mask,
             logits_idx)
     if kernels == "cuda":
-        logits, toks, cache = _k.whole_step_decode(
+        logits, toks, _ = _k.whole_step_decode(
             *args, block_fn=block_fn, head_fn=head_fn, tile_roles=whole_step_tile_roles(cfg),
-            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles, stamps=stamps)
+            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles, stamps=stamps,
+            all_logits=all_logits)
     else:
-        logits, toks, cache = _k.whole_step_decode_ref(*args, block_fn=block_fn,
-                                                       head_fn=head_fn)
+        logits, toks, _ = _k.whole_step_decode_ref(*args, block_fn=block_fn, head_fn=head_fn)
     return logits, toks.long(), cache
 
 

@@ -9,7 +9,7 @@ from .batch_config import (
     GenerationResult,
 )
 from .engine import InferenceEngine, ServingConfig
-from .llm import LLM
+from .llm import LLM, SSM
 from .paging import PageAllocator
 from .request_manager import Request, RequestManager, RequestStatus
 from .sampling import sample_tokens
@@ -21,6 +21,7 @@ __all__ = [
     "GenerationResult",
     "InferenceEngine",
     "LLM",
+    "SSM",
     "PageAllocator",
     "ServingConfig",
     "Request",

@@ -45,7 +45,7 @@ SIGNATURES = {
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
-    "whole_step_decode": (29, 18, 3),
+    "whole_step_decode": (29, 19, 3),
     "paged_commit": (8, 9, 1),
     "adam_update": (5, 3, 6),
 }

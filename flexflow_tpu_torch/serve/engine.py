@@ -269,7 +269,9 @@ class InferenceEngine:
     page_size, dtype, kv_quant, device=)``, ``serve_step_paged`` (the
     same arguments plus the page table, ``cache_len``, ``kv_quant`` and
     ``fused_rope``) and ``FUSED_DECODE``; for ``fused_decode=("whole_step",)``
-    also ``serve_step_whole``, ``whole_step_weight_layout`` and
+    also ``serve_step_whole`` (with the spec keywords ``mask``,
+    ``cache_positions``, ``all_logits`` and ``num_layers``: the
+    speculation fold), ``whole_step_weight_layout`` and
     ``whole_step_tile_roles``.
     """
 
@@ -305,6 +307,11 @@ class InferenceEngine:
         self.whole_step_mixed_tiles = 1
         self.whole_step_fallbacks = 0
         self.whole_step_smem_est = 0
+        # the speculation fold (whole_step_spec_on): tile counts of the
+        # SpecInfer chunk widths priced so far, and whether a pricing
+        # refused the fold
+        self.whole_step_spec_tiles: Dict[int, int] = {}
+        self.whole_step_spec_refused = False
         if "whole_step" in self.serving.fused_decode:
             if "whole_step" not in getattr(model, "FUSED_DECODE", ()):
                 raise ValueError(
@@ -359,18 +366,8 @@ class InferenceEngine:
         from . import kernels as _k
 
         budget = _k.WHOLE_STEP_SMEM_BUDGET
-        layer_arrays, _ = self.model.whole_step_weight_layout(self.params, self.cfg)
-        roles = self.model.whole_step_tile_roles(self.cfg)
-
-        def pick(C):
-            x0 = torch.empty((self.num_slots, C, self.cfg.hidden_size),
-                             dtype=self.params["embed"].dtype, device="meta")
-            return _k.whole_step_pick_tiles(layer_arrays, self.cache, x0,
-                                            self.cfg.num_attention_heads,
-                                            tile_roles=roles, budget=budget)
-
         log = get_logger("serve")
-        tiles, est = pick(1)
+        tiles, est = self._whole_step_pick(1)
         self.whole_step_smem_est = int(est)
         if tiles is None:
             self.whole_step_fallbacks += 1
@@ -390,7 +387,7 @@ class InferenceEngine:
                         "commit; mixed steps stay on the per-layer path", C,
                         _k._FUSED_MAX_CHUNK)
             return
-        mtiles, mest = pick(C)
+        mtiles, mest = self._whole_step_pick(C)
         if mtiles is None:
             self.whole_step_fallbacks += 1
             log.warning("whole_step: the C=%d mixed step prices %d bytes or more against "
@@ -399,6 +396,63 @@ class InferenceEngine:
             return
         self.whole_step_mixed_on = True
         self.whole_step_mixed_tiles = int(mtiles)
+
+    def _whole_step_pick(self, C: int, all_logits: bool = False):
+        """The gate's ``(tiles, priced bytes)`` for a step of C columns a
+        slot (``tiles`` None when no legal tiling fits the budget)."""
+        from . import kernels as _k
+
+        layer_arrays, _ = self.model.whole_step_weight_layout(self.params, self.cfg)
+        x0 = torch.empty((self.num_slots, C, self.cfg.hidden_size),
+                         dtype=self.params["embed"].dtype, device="meta")
+        return _k.whole_step_pick_tiles(
+            layer_arrays, self.cache, x0, self.cfg.num_attention_heads,
+            tile_roles=self.model.whole_step_tile_roles(self.cfg),
+            budget=_k.WHOLE_STEP_SMEM_BUDGET, all_logits=all_logits)
+
+    @property
+    def whole_step_spec_on(self) -> bool:
+        """Whether SpecInfer steps fold into the whole-step kernel: the
+        draft steps (the early-exit ``num_layers`` slice, or an SSM
+        engine's own walk) and the verify step (tree mask, slack-line
+        cache positions, all-positions head) launch the one kernel
+        instead of the per-layer step. On with the walk; off only after
+        :meth:`whole_step_spec_gate` refused a chunk width (counted in
+        ``whole_step_fallbacks``). The tile count is the gate's for each
+        chunk width, any legal one: the kernel's answer does not depend
+        on it."""
+        return self.whole_step_on and not self.whole_step_spec_refused
+
+    def whole_step_spec_gate(self, chunks) -> bool:
+        """Price the speculation fold's chunk widths (SpecInfer's draft
+        widths W and verify widths 1 + n W D) at the all-positions head:
+        each gets the smallest legal tile count that fits
+        ``kernels.WHOLE_STEP_SMEM_BUDGET``. A width that no tiling fits,
+        or one wider than the kernel's commit, turns the fold off for
+        this engine, counts one ``whole_step_fallbacks`` and logs it:
+        SpecInfer steps then run on the per-layer path. Returns
+        :attr:`whole_step_spec_on`."""
+        from ..logging_utils import get_logger
+        from . import kernels as _k
+
+        for C in sorted({int(c) for c in chunks}):
+            if not self.whole_step_spec_on:
+                break
+            if C in self.whole_step_spec_tiles:
+                continue
+            tiles, est = (None, 0) if C > _k._FUSED_MAX_CHUNK else self._whole_step_pick(
+                C, all_logits=True)
+            if tiles is None:
+                self.whole_step_fallbacks += 1
+                self.whole_step_spec_refused = True
+                get_logger("serve").warning(
+                    "whole_step: the C=%d SpecInfer step (all-positions head) prices %d "
+                    "bytes or more against the %d-byte budget, or is wider than the "
+                    "kernel's %d-line commit; SpecInfer steps run on the per-layer path",
+                    C, est, _k.WHOLE_STEP_SMEM_BUDGET, _k._FUSED_MAX_CHUNK)
+                break
+            self.whole_step_spec_tiles[C] = int(tiles)
+        return self.whole_step_spec_on
 
     def _num_pages(self) -> int:
         """Pages of the pool: ``ServingConfig.num_pages``, converted by
@@ -486,6 +540,12 @@ class InferenceEngine:
     def _step(self, tokens, positions, logits_idx, mask=None,
               cache_positions=None, all_logits=False, num_layers=None):
         sc = self.serving
+        if (all_logits and mask is not None and cache_positions is not None
+                and self.whole_step_spec_gate([tokens.shape[1]])):
+            # the speculation fold: a SpecInfer draft or verify step
+            return self._step_whole(tokens, positions, logits_idx, mask=mask,
+                                    cache_positions=cache_positions, all_logits=True,
+                                    num_layers=num_layers)[0]
         kw = {} if num_layers is None else {"num_layers": num_layers}
         with torch.inference_mode():
             if self.paged:
@@ -543,10 +603,14 @@ class InferenceEngine:
         tokens = torch.cat([first[:, None], host[:, 1:]], dim=1)
         positions = self._tensor(positions, torch.int64)
         logits_idx = self._tensor(logits_idx, torch.int64)
+        whole = self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on)
         if not sample:
-            self._step(tokens, positions, logits_idx)
+            if whole:
+                self._step_whole(tokens, positions, logits_idx)
+            else:
+                self._step(tokens, positions, logits_idx)
             return None
-        if self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on):
+        if whole:
             # the whole-step kernel owns the decode step and, when the gate
             # priced it, the mixed step; greedy rows take its argmax
             logits, gtoks = self._step_whole(tokens, positions, logits_idx)
@@ -581,16 +645,22 @@ class InferenceEngine:
                 mode=mode, topk_cap=cap,
             )
 
-    def _step_whole(self, tokens, positions, logits_idx):
+    def _step_whole(self, tokens, positions, logits_idx, **spec):
         """One step through ``model.serve_step_whole`` at the gate's tile
-        count for its shape; returns (logits, greedy tokens)."""
+        count for its shape; returns (logits, greedy tokens). ``spec``
+        (``mask``, ``cache_positions``, ``all_logits``, ``num_layers``) is
+        the speculation fold, at the tile count priced for its width."""
         sc = self.serving
-        tiles = self.whole_step_tiles if tokens.shape[1] == 1 else self.whole_step_mixed_tiles
+        C = tokens.shape[1]
+        if spec:
+            tiles = self.whole_step_spec_tiles[C]
+        else:
+            tiles = self.whole_step_tiles if C == 1 else self.whole_step_mixed_tiles
         with torch.inference_mode():
             logits, toks, self.cache = self.model.serve_step_whole(
                 self.params, self.cache, tokens, positions, logits_idx,
                 self.page_table_device(), cfg=self.cfg, cache_len=sc.cache_len,
-                kv_quant=sc.kv_quant, tiles=tiles, kernels=sc.kernels)
+                kv_quant=sc.kv_quant, tiles=tiles, kernels=sc.kernels, **spec)
         return logits, toks
 
     def run_sampled(self, bc: BatchConfig, generator, greedy, temperature, topp, topk,

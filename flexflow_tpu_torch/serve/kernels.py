@@ -69,10 +69,14 @@ LAUNCHES: Dict[str, int] = {
 #: pages, :func:`paged_decode_split`), else "mma" for bf16 q on the
 #: tensor cores, "tf32x3" for f32 q on the TF32 tensor cores, each f32
 #: product as three TF32 products; verify: "mma" and "tf32x3" at C * G >
-#: 8, "rows8" and "f32" on the CUDA cores below), since the last reset
+#: 8, "rows8" and "f32" on the CUDA cores below), since the last reset. A
+#: launch of the whole-step kernel's speculation fold (``all_logits``: a
+#: SpecInfer draft or verify step) counts as ``whole_step_decode[<design>-tree]``.
 DESIGN_LAUNCHES: Dict[str, int] = {
-    f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention", "whole_step_decode")
-    for d in DESIGNS[k][0]}
+    **{f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention", "whole_step_decode")
+       for d in DESIGNS[k][0]},
+    **{f"whole_step_decode[{d}-tree]": 0 for d in DESIGNS["whole_step_decode"][0]},
+}
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
 _CUDA_HEAD_DIMS = (64, 128)
@@ -995,7 +999,7 @@ def _ws_widths(layer_arrays, tile_roles, tiles: int):
 
 
 def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
-                          tiles: int, tile_roles) -> int:
+                          tiles: int, tile_roles, all_logits: bool = False) -> int:
     """On-chip bytes one block of the whole-step kernel holds for one
     projection work item — one row tile (16 rows, or up to 64 for a step
     of more than 16 rows) by one output-column tile of the widest tiled
@@ -1005,7 +1009,8 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     than 64 rows, whose projections run on wgmma in 128 × 256 items
     whatever the tile count, the TMA ring's shared memory (_WS_TC_SMEM,
     the accumulators in registers unpriced); or, when larger, an LM-head
-    item (R rows × at most 256 columns) or the attention stage's: the
+    item (R rows, or R · C with ``all_logits``, × at most 256 columns) or
+    the attention stage's: the
     tensor-core tile (:func:`mma_smem_bytes`, a KV head with more than 8
     query rows), else the split decode walk
     (:func:`whole_step_split_smem_bytes`); plus the kernel's static shared
@@ -1018,7 +1023,8 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     F = int(layer_arrays[tile_roles["gate"][0]].shape[-1])
     layer = (_WS_TC_SMEM if _ws_tc(R * C, isz, D, Q, F)
              else _ws_item_bytes(R * C, wmax, isz))
-    item = max(layer, _ws_item_bytes(R, min(_WS_HEAD_COLS, wmax), isz))
+    head_rows = R * C if all_logits else R
+    item = max(layer, _ws_item_bytes(head_rows, min(_WS_HEAD_COLS, wmax), isz))
     dk = Q // num_heads
     kv = int(cache["k"].shape[3])
     rows = C * (num_heads // kv)
@@ -1048,9 +1054,10 @@ def whole_step_kernel_takes(layer_arrays, *, tiles: int, tile_roles) -> bool:
 
 
 def whole_step_pick_tiles(layer_arrays, cache, x0, num_heads: int, *,
-                          tile_roles, budget: int):
+                          tile_roles, budget: int, all_logits: bool = False):
     """The SMALLEST candidate tile count the kernel takes whose priced
-    block footprint (:func:`whole_step_smem_bytes`) fits ``budget``.
+    block footprint (:func:`whole_step_smem_bytes`, the all-rows head with
+    ``all_logits``) fits ``budget``.
     Returns ``(tiles, est_bytes)``, or ``(None, best_est)`` when no legal
     tiling fits (the attention and static floor alone exceed the budget):
     the one condition under which the engine falls back to the per-layer
@@ -1060,7 +1067,7 @@ def whole_step_pick_tiles(layer_arrays, cache, x0, num_heads: int, *,
         if not whole_step_kernel_takes(layer_arrays, tiles=t, tile_roles=tile_roles):
             continue
         est = whole_step_smem_bytes(layer_arrays, cache, x0, num_heads,
-                                    tiles=t, tile_roles=tile_roles)
+                                    tiles=t, tile_roles=tile_roles, all_logits=all_logits)
         if best is None or est < best:
             best = est
         if est <= budget:
@@ -1074,7 +1081,9 @@ def whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache, page_t
     mask, k_pool, v_pool, k_scale, v_scale, phys, off, page_table) -> x``
     runs layer l on its weights ``p_l`` and its pool views (updated in
     place), then ``head_fn(head_arrays, x, logits_idx)`` gives the (R, V)
-    f32 logits. Returns ``(logits, greedy tokens (R,) int32, cache)``."""
+    f32 logits, or (R, C, V) from an all-positions head. The walk runs the
+    layers the stacks hold (a sliced stack is the early-exit draft).
+    Returns ``(logits, greedy tokens (R,) or (R, C) int32, cache)``."""
     quant = "k_scale" in cache
     x = x0
     for l in range(cache["k"].shape[0]):
@@ -1093,7 +1102,9 @@ _WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo"
 
 
 #: the stages of one layer of the whole-step kernel, each ended by a grid
-#: barrier, then the step's tail (csrc/whole_step_decode.cu stamp())
+#: barrier, then the step's tail (csrc/whole_step_decode.cu stamp()): with
+#: ``all_logits`` the tail's stages cover every row of the step (the final
+#: norm of R · C rows, the LM head over them, their argmax)
 WHOLE_STEP_STAGES = ("norm", "qkv", "attention", "out_proj", "norm2", "w1w3", "act", "w2")
 WHOLE_STEP_TAIL = ("final_norm", "head", "argmax")
 
@@ -1126,7 +1137,8 @@ def whole_step_stage_ms(stamps, num_layers: int) -> Dict[str, float]:
 
 def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys,
                       off, mask, logits_idx, *, block_fn, head_fn, tile_roles, eps: float,
-                      qmax=None, tiles: int = 1, stamps: Optional[torch.Tensor] = None):
+                      qmax=None, tiles: int = 1, stamps: Optional[torch.Tensor] = None,
+                      all_logits: bool = False):
     """The whole serving step of every layer in one kernel. ``layer_arrays``
     are the stacked (L, …) layer weights, ``head_arrays`` the final norm
     and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied);
@@ -1139,7 +1151,12 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     int64 tensor of :func:`whole_step_stamp_count` entries on x0's device,
     asks the kernel for its per-stage timer (:func:`whole_step_stage_ms`);
     only the kernel writes it, the plain version leaves it as it is.
-    Returns ``(logits (R, V) f32, greedy tokens (R,) int32, cache)``.
+    ``all_logits`` (the speculation fold's head; ``head_fn`` is then the
+    all-positions head) gives the logits and the argmax of every row.
+    The layer count is the stacks' leading dim, the pools' too: a
+    leading-dim slice of both is the early-exit draft.
+    Returns ``(logits (R, V) f32, greedy tokens (R,) int32, cache)``, with
+    ``all_logits`` ``(R, C, V)`` and ``(R, C)``.
 
     On CPU tensors it runs the plain version, the walk through
     ``block_fn``/``head_fn`` (:func:`whole_step_decode_ref`): the tile
@@ -1151,7 +1168,7 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     head dim or tile count it does not take. Each launch adds one to
     ``LAUNCHES["whole_step_decode[<pool>]"]`` and to
     ``DESIGN_LAUNCHES["whole_step_decode[<design>]"]``, the design of its
-    attention stage."""
+    attention stage (``[<design>-tree]`` with ``all_logits``)."""
     candidates = whole_step_tile_candidates(layer_arrays, tile_roles)
     if tiles not in candidates:
         raise ValueError(f"whole_step tiles={tiles} is not a legal tile count "
@@ -1162,12 +1179,12 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
                                      block_fn=block_fn, head_fn=head_fn)
     return _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache,
                                    page_table, phys, off, mask, logits_idx, tiles,
-                                   tile_roles, eps, qmax, stamps)
+                                   tile_roles, eps, qmax, stamps, all_logits)
 
 
 def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
                             phys, off, mask, logits_idx, tiles, tile_roles, eps, qmax,
-                            stamps=None):
+                            stamps=None, all_logits=False):
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     if tile_roles != _WS_ROLES:
@@ -1279,9 +1296,11 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
     split_pages, nsplit = (paged_decode_split(R, C, KV, NP, ps) if rows <= DECODE_ROWS
                            else (NP, 1))
     counters = _split_scratch(x0.device, 0, R * KV * rows)[1] if nsplit > 1 else None
-    logits = torch.empty((R, V), dtype=torch.float32, device=x0.device)
-    tokens = torch.empty((R,), dtype=torch.int32, device=x0.device)
-    scratch = torch.empty((M * (4 * D + 3 * Q + 3 * KVd + Fd) + R * D,), dtype=dt,
+    # the head's rows: one a slot at its logits_idx, or every row (the fold)
+    head_rows = M if all_logits else R
+    logits = torch.empty((head_rows, V), dtype=torch.float32, device=x0.device)
+    tokens = torch.empty((head_rows,), dtype=torch.int32, device=x0.device)
+    scratch = torch.empty((M * (4 * D + 3 * Q + 3 * KVd + Fd) + head_rows * D,), dtype=dt,
                           device=x0.device)
     work = torch.empty((max(KS * M * max(Q + 2 * KVd, D, 2 * Fd),
                             R * KV * nsplit * rows * (dk + 2) if nsplit > 1 else 0),),
@@ -1292,10 +1311,12 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
                         cache.get("v_scale"), page_table, phys, off, mask, logits_idx,
                         logits, tokens, scratch, work, stamps, counters],
         [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
-         kind, split_pages],
+         kind, split_pages, int(all_logits)],
         [eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
     )
     LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1
     design = _cuda.design("whole_step_decode", C, H, KV, _dtype_code(dt))
-    DESIGN_LAUNCHES[f"whole_step_decode[{design}]"] += 1
+    DESIGN_LAUNCHES[f"whole_step_decode[{design}{'-tree' if all_logits else ''}]"] += 1
+    if all_logits:
+        return logits.view(R, C, V), tokens.view(R, C), cache
     return logits, tokens, cache

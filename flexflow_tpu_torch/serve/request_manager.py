@@ -35,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ from .batch_config import (
     GenerationConfig,
     GenerationResult,
     ProfileInfo,
+    StreamEvent,
 )
 from .engine import InferenceEngine
 
@@ -829,3 +830,49 @@ class RequestManager:
         # dispatches (and their slots)
         self._flush_all()
         return [self.result(rid) for rid in rids]
+
+    def generate_stream(
+        self,
+        prompts: Union[str, Sequence[Union[str, Sequence[int]]]],
+        gen: Optional[GenerationConfig] = None,
+        max_new_tokens: Optional[int] = None,
+    ) -> Iterator[StreamEvent]:
+        """Streaming generate: a :class:`StreamEvent` per token as soon as
+        the host holds it (the pipeline delivers tokens up to
+        ``dispatch_ahead`` steps behind the device; a SpecInfer round
+        several at once), then one terminal event per request
+        (``done=True``; ``error`` set if the request failed). Events of
+        different requests interleave."""
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        gen = gen or GenerationConfig()
+        if max_new_tokens is not None:
+            gen = dataclasses.replace(gen, max_new_tokens=max_new_tokens)
+        rids = [self.register_request(p, gen) for p in prompts]
+        sent = {r: 0 for r in rids}
+        finished: set = set()
+
+        def drain_events():
+            for r in rids:
+                if r in finished:
+                    continue
+                req = self.requests[r]
+                out = req.output_tokens
+                while sent[r] < len(out):
+                    tok = out[sent[r]]
+                    sent[r] += 1
+                    yield StreamEvent(r, int(tok))
+                if req.status in TERMINAL_STATUSES:
+                    finished.add(r)
+                    yield StreamEvent(r, None, done=True, error=req.error)
+
+        while len(finished) < len(rids):
+            progressed = self.step()
+            yield from drain_events()
+            if not progressed and len(finished) < len(rids):
+                self._flush_all()
+                yield from drain_events()
+                if len(finished) < len(rids):
+                    break  # nothing schedulable remains
+        self._flush_all()
+        yield from drain_events()

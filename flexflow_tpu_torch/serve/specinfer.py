@@ -12,7 +12,9 @@ and the spec/tree attention kernels):
   ``prefix + node``, so beams fork without copying any cache.
 * The LLM **verifies the whole tree in one step** with an
   ancestors-or-self mask (the ported ``verify_attention`` or paged
-  kernels at C = 1 + n·W·D).
+  kernels at C = 1 + n·W·D, or — the speculation fold, on engines with
+  ``fused_decode=("whole_step",)`` — one launch of the whole-step kernel,
+  whose draft steps are launches of the same kernel).
 * The longest accepted root path is **committed** by moving its K/V lines
   inside both caches (``InferenceEngine.commit``), so the SSM never
   prefills committed tokens again.
@@ -27,9 +29,8 @@ batching (prefill-phase steps are mirrored into every SSM,
 ``draft_layers`` blocks draft over the same params and cache).
 
 Not ported yet: the composition with prefix caching (the port's engines
-refuse ``prefix_caching``), the distillation sink (``logit_sink``),
-tracer events, and the whole-step speculation fold — a manager over an
-engine with ``fused_decode=("whole_step",)`` raises.
+refuse ``prefix_caching``), the distillation sink (``logit_sink``) and
+tracer events.
 """
 from __future__ import annotations
 
@@ -518,14 +519,6 @@ class SpecInferManager(RequestManager):
         self.ssms: List[InferenceEngine] = list(ssm_engines or [])
         self.spec = spec or SpecConfig()
         for eng in [llm_engine, *self.ssms]:
-            if "whole_step" in eng.serving.fused_decode:
-                raise NotImplementedError(
-                    "SpecInfer on a fused_decode=('whole_step',) engine needs the "
-                    "whole-step speculation fold (a tree mask, cache positions, "
-                    "all-positions logits and num_layers inside "
-                    "csrc/whole_step_decode.cu), which comes with a later slice; "
-                    "serve SpecInfer without 'whole_step'"
-                )
             if eng.serving.prefix_caching:
                 raise NotImplementedError(
                     "SpecInfer with prefix_caching comes with the prefix-caching "
@@ -580,6 +573,19 @@ class SpecInferManager(RequestManager):
         # the dense FLOPs one drafted token costs in the draft stack
         # (2 × params), stamped into ProfileInfo.draft_flops_per_token
         self.draft_flops_per_token = self._price_draft_flops()
+        # the whole-step speculation fold: each whole-step engine's gate
+        # prices the chunk widths it will see (the draft widths on the
+        # drafting engine, the verify widths on the target); a refusal
+        # sends that engine's SpecInfer steps to the per-layer path
+        ladder = self.spec.bucket_ladder
+        drafts = {W for W, _ in ladder}
+        verifies = {1 + self.n_drafts * W * D for W, D in ladder}
+        if self.spec.draft == "early_exit":
+            llm_engine.whole_step_spec_gate(drafts | verifies)
+        else:
+            llm_engine.whole_step_spec_gate(verifies)
+            for ssm_engine in self.ssms:
+                ssm_engine.whole_step_spec_gate(drafts)
 
     def _price_draft_flops(self) -> float:
         """Dense FLOPs one drafted token costs in the draft stack (2 ×

@@ -1089,6 +1089,103 @@ def test_cuda_whole_step_decode_splits_ignore_stale_shared_memory(cuda_device, p
                       held=WHOLE_SPLIT_HELD, NP=40)
 
 
+@pytest.mark.parametrize("C,num_layers", [(7, None), (25, None), (3, 1)])
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_whole_step_fold_matches_plain_version(cuda_device, dtype, quant, C, num_layers):
+    """The speculation fold: a tree step (node i of a random tree at line
+    prefix + i, across a page boundary; rows that attend no prefix of the
+    cache; an idle slot) with the all-positions head, over every layer or
+    the first one. Every live row's logits and tokens and the non-scratch
+    pools are bitwise equal at two tile counts and held to the plain walk
+    as test_cuda_whole_step_matches_plain_version holds them; the layers
+    past num_layers keep their pools; the launch counts the "-tree"
+    design."""
+    from flexflow_tpu_torch.models import llama as tl
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    held = (9, 20, 0)
+    cfg, params, cache, (toks, _, li, table), cache_len, P = _whole_case(
+        cuda_device, dtype, quant, C, 2, 16, held, NP=8)
+    gen = torch.Generator().manual_seed(9)
+    pos = torch.full((3, C), cache_len)
+    cpos = torch.full((3, C), cache_len)
+    mask = torch.zeros((3, C, cache_len + 1), dtype=torch.bool)
+    for r, n in enumerate(held):
+        if n == 0:
+            continue
+        parent = [-1] + [int(torch.randint(0, i, (1,), generator=gen)) for i in range(1, C)]
+        for i in range(C):
+            depth, j = 0, i
+            mask[r, i, :n] = True
+            while j >= 0:
+                mask[r, i, n + j] = True
+                j, depth = parent[j], depth + 1
+            pos[r, i], cpos[r, i] = n + depth - 1, n + i
+    fold = dict(mask=mask.to(cuda_device), cache_positions=cpos.to(cuda_device),
+                all_logits=True, num_layers=num_layers)
+    step = (toks, pos.to(cuda_device), li, table)
+    live = (cpos < cache_len).to(cuda_device)
+    la, _ = tl.whole_step_weight_layout(params, cfg)
+    legal = [t for t in tk.whole_step_tile_candidates(la, tl.whole_step_tile_roles(cfg))
+             if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=tl.whole_step_tile_roles(cfg))]
+    design = ("decode" if C * 2 <= 8 else "mma" if dtype == torch.bfloat16 else "tf32x3")
+    runs = {}
+    for name, kernels, tiles in (("lo", "cuda", legal[0]), ("hi", "cuda", legal[-1]),
+                                 ("plain", "torch", legal[0])):
+        c = {k: v.clone() for k, v in cache.items()}
+        before = tk.DESIGN_LAUNCHES[f"whole_step_decode[{design}-tree]"]
+        logits, greedy, _ = tl.serve_step_whole(params, c, *step, cfg=cfg, cache_len=cache_len,
+                                                kv_quant=quant, tiles=tiles, kernels=kernels,
+                                                **fold)
+        torch.cuda.synchronize()
+        assert logits.shape == (3, C, cfg.vocab_size) and greedy.shape == (3, C)
+        assert (tk.DESIGN_LAUNCHES[f"whole_step_decode[{design}-tree]"]
+                == before + (kernels == "cuda"))
+        n = num_layers or cfg.num_hidden_layers
+        for k in c:
+            assert torch.equal(c[k][n:], cache[k][n:]), k
+        runs[name] = (logits[live], greedy[live], {k: v[:, :P] for k, v in c.items()})
+    (lo, tlo, clo), (hi, thi, chi), (pl, tpl, cpl) = runs["lo"], runs["hi"], runs["plain"]
+    assert torch.equal(lo, hi) and torch.equal(tlo, thi)
+    assert all(torch.equal(clo[k], chi[k]) for k in clo)
+    assert bool(torch.isfinite(lo).all()) and torch.equal(tlo, torch.argmax(lo, dim=-1))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    pack = 1 if quant is None else kq.SPECS[quant].pack
+    if dtype == torch.float32:
+        assert rel(lo, pl) <= 1e-4 and torch.equal(tlo, tpl)
+        for k in ("k", "v"):
+            d = kq.unpack_codes(clo[k], pack) - kq.unpack_codes(cpl[k], pack)
+            assert float(d.abs().max()) <= (1e-4 if quant is None else 1.0), k
+        return
+    # bf16: logits within bf16's rounding of the plain walk's; pool values
+    # within twice the plain bf16 pools' distance from the same step in f32
+    # (chip_smoke.py's rule, as the C = 128 case: a tree's C new lines a
+    # slot carry the two paths' roundings into more quantization codes)
+    assert rel(lo, pl) <= 2e-2
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.to(torch.float32))
+
+    c32 = {k: (v.to(torch.float32) if quant is None or "scale" in k else v.clone())
+           for k, v in cache.items()}
+    tl.serve_step_whole(f32(params), c32, *step, cfg=dataclasses.replace(cfg, dtype=torch.float32),
+                        cache_len=cache_len, kv_quant=quant, tiles=legal[0], kernels="torch",
+                        **fold)
+    c32 = {k: v[:, :P] for k, v in c32.items()}
+
+    def values(c, k):
+        v = kq.unpack_codes(c[k], pack).to(torch.float32)
+        return v * c[f"{k}_scale"][:, :, None, :, None] if quant is not None else v
+
+    for k in ("k", "v"):
+        assert rel(values(clo, k), values(cpl, k)) <= 2 * rel(values(cpl, k), values(c32, k)), k
+
+
 def test_cuda_whole_step_raises_instead_of_falling_back(cuda_device):
     from flexflow_tpu_torch.models import llama as tl
 

@@ -582,13 +582,8 @@ def test_llm_compile_with_ssms_and_early_exit(target, draft):
 
 
 def test_spec_refusals(target, draft):
-    """The whole-step speculation fold and the prefix-cache composition
-    are later slices; sampling is refused as in JAX."""
-    whole = _port_engine(target, kv_layout="paged", page_size=16, fused_decode=("whole_step",))
-    with pytest.raises(NotImplementedError, match="whole-step speculation fold"):
-        ts.SpecInferManager(whole, [_port_engine(draft, kv_layout="paged", page_size=16)])
-    with pytest.raises(NotImplementedError, match="whole-step speculation fold"):
-        ts.SpecInferManager(whole, None, ts.SpecConfig(draft="early_exit", draft_layers=1))
+    """The prefix-cache composition is a later slice; sampling is refused
+    as in JAX. (Whole-step engines are served: tests/test_torch_whole_spec.py.)"""
     m = LLM(tl, target[2], target[3], device="cpu")
     with pytest.raises(NotImplementedError, match="prefix"):
         m.compile(ServingConfig(cache_dtype=torch.float32, prefix_caching=True, **SERVE),
