@@ -145,6 +145,27 @@ f32 phase holds whole-step spec runs to their ``kernels="torch"`` twins.
 ``LLM.from_pretrained``, ``generate_stream`` and ``python -m
 flexflow_tpu_torch serve``.
 
+Prefix caching and the host tier (slice 14; no new kernel): ``prefix``
+serves 32 requests of LLaMA-7B (32 layers) that share a 1000-token system
+prompt through five arms, each against its twin (``PREFIX_ARMS``: bf16
+unfused, int8 ``rope_kv_write`` under ``cache_policy="prefill"``, bf16
+``whole_step``, int8 whole-step SpecInfer with a 2-layer SSM, each against
+the same engine with caching off; and int4 with the host tier, four
+families of system prompt in a pool that spills them, against a roomy
+warm twin). Each arm's line gives tokens/s, TTFT (the second wave's and
+all), prefill tokens, hits, copies, evictions, spills, re-admits and
+host bytes beside its twin's; a warm arm must dispatch fewer prefill
+tokens than a cold run by at least its hit tokens, leak no page after its
+drain, launch its kernels, and serve its twin's tokens or, where a
+copied int8 tail page parts them, tokens greedy over their own prefix;
+a chunk-aligned probe's first row must equal the cold run's bit for bit.
+``prefix_movers`` times ``copy_page``, ``fetch_page`` and ``upload_page``
+on one page (bf16 and int4) and checks a spilled page uploads byte for
+byte; ``prefix_f32`` holds cold, warm and spilled runs at 2 layers on
+every pool, fusion and SpecInfer to each other and to their
+``kernels="torch"`` twins, and a tight pool's preemptions with caching on
+to those with it off.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -183,7 +204,8 @@ from flexflow_tpu_torch.serve.batch_config import BatchConfig, GenerationConfig
 from flexflow_tpu_torch.serve import kv_quant as KQ
 from flexflow_tpu_torch.serve.engine import InferenceEngine, ServingConfig
 from flexflow_tpu_torch.serve.llm import LLM
-from flexflow_tpu_torch.serve.specinfer import SpecConfig
+from flexflow_tpu_torch.serve.request_manager import RequestManager
+from flexflow_tpu_torch.serve.specinfer import SpecConfig, SpecInferManager
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -3043,6 +3065,458 @@ def phase_entry(seed):
 
 
 # ---------------------------------------------------------------------------
+# prefix caching and the host tier (slice 14): no new kernel; a hit gives the
+# paged and whole-step kernels rows that start mid-sequence over spliced and
+# copied pages
+
+PREFIX_SYSTEM = 1000   # tokens of the shared system prompt
+PREFIX_OWN = 64        # tokens of each request's own after it
+PREFIX_REQUESTS = 32
+PREFIX_NEW = 32
+PREFIX_SERVE = dict(kv_layout="paged", page_size=128, prefill_chunk=128,
+                    max_requests_per_batch=16)
+# arms at full width and depth: (label, ServingConfig fields, SpecConfig
+# fields or None, layers of the layer-skip SSM); each against its cold twin,
+# the same engine with caching off. The pool is every slot's worst case:
+# no pressure.
+PREFIX_ARMS = (
+    ("prefix-bf16", dict(prefix_caching=True), None, None),
+    ("prefix-int8-fused", dict(prefix_caching=True, kv_quant="int8",
+                               fused_decode=("rope_kv_write",), cache_policy="prefill"),
+     None, None),
+    ("prefix-whole-bf16", dict(prefix_caching=True, fused_decode=("whole_step",)), None, None),
+    ("prefix-spec-int8-whole", dict(prefix_caching=True, kv_quant="int8",
+                                    fused_decode=("whole_step",)),
+     dict(beam_width=2, beam_depth=3), 2),
+)
+# the host arm: 4 families of system prompt, 4 requests of a family after
+# another's (8 slots: two families live at a time), a pool of the live
+# slots' worst case plus 12 pages (int4): the first wave's two families
+# spill while the next two prefill cold, and come back as host hits. Its
+# sequences (1096 lines) fit max_sequence_length 1200, which keeps one
+# slot's worst case (the pool's floor) under that pool.
+PREFIX_HOST_FAMILIES = 4
+PREFIX_HOST_BLOCK = 4
+PREFIX_HOST_SERVE = dict(kv_layout="paged", page_size=128, prefill_chunk=128,
+                         max_requests_per_batch=8, max_sequence_length=1200, kv_quant="int4",
+                         prefix_caching=True)
+PREFIX_HOST_SPARE = 4
+# the f32 sub-check: 2 layers, 8 requests, a 256-token system prompt a family
+PREFIX_F32_SERVE = dict(kv_layout="paged", page_size=128, prefill_chunk=128,
+                        max_requests_per_batch=8, max_sequence_length=512,
+                        cache_dtype=torch.float32)
+
+
+def _prefix_prompts(rng, cfg, systems, n, own, block=1):
+    """``n`` requests round-robin over the ``systems`` prompts, ``block``
+    requests at a time, each with ``own`` tokens of its own after it."""
+    return [systems[i // block % len(systems)]
+            + rng.integers(1, cfg.vocab_size, size=own).tolist() for i in range(n)]
+
+
+def _quant_budget(cfg, serve, pages):
+    """The max_cached_tokens whose pool (priced at cache_dtype, converted
+    to quantized pages) holds at least ``pages`` pages."""
+    sc = ServingConfig(**serve)
+    if sc.kv_quant is None:
+        return pages * sc.page_size
+    item = torch.empty((), dtype=sc.cache_dtype).element_size()
+    n = sc.pages_per_slot
+    while KQ.quantized_pool_pages(n, sc.page_size, cfg.num_key_value_heads, cfg.head_dim,
+                                  item, KQ.resolve_spec(sc.kv_quant)) < pages:
+        n += 1
+    return n * sc.page_size
+
+
+def _audit_pools(rm):
+    """No page leaks on any engine of the manager, after its drain: every
+    refcount is its table references plus its radix tree's."""
+    rm.drain()
+    caches = rm._prefix_caches() or [None] * len(rm._engines())
+    for eng, pc in zip(rm._engines(), caches):
+        eng.pager.check_no_leaks(external=pc.page_refs() if pc else None)
+
+
+def _prefix_figures(results, line, stats, wave, num_pages):
+    """An arm's figures: _serve's line, the TTFT of the second wave
+    (requests ``wave`` on) and of all, the cache's counters and the pool's
+    pages."""
+    def summary(xs):
+        return {"mean": statistics.mean(xs), "p50": statistics.median(xs), "max": max(xs)}
+
+    ttft = [r.profile.ttft_s for r in results]
+    return {"tokens_per_s": line["tokens_per_s"], "wall_s": line["wall_s"],
+            "ttft_s": summary(ttft), "ttft_s_second_wave": summary(ttft[wave:]),
+            "prefill_tokens": stats.prefill_tokens,
+            **{k: getattr(stats, k) for k in (
+                "prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_cows",
+                "prefix_evictions", "spills", "readmits", "host_hit_tokens", "host_bytes",
+                "preemptions")},
+            "decode_dispatch_ms_p50": line["decode_dispatch_ms"]["p50"],
+            "peak_gb": line["peak_memory_bytes"] / 1e9, "num_pages": num_pages,
+            "launches": line["launches"], "design_launches": line["design_launches"]}
+
+
+def _first_row(llm, prompt):
+    """The logits of ``prompt``'s first sampled token through the
+    manager's serving step (a hit starts its prefill at the matched
+    length)."""
+    rec = _record_steps(llm.engine)
+    try:
+        res = llm.generate([prompt], max_new_tokens=1)[0]
+    finally:
+        del llm.engine.run_mixed
+    return rec[(0, len(prompt) - 1)], res.profile.cached_prefix_len
+
+
+def _prefix_arm(cfg, params, serve, spec_kw, draft_layers, prompts, new, wave, probes=()):
+    """One served run of ``prompts`` through a fresh manager of these
+    fields; returns (llm, tokens, figures, each of ``probes``' first-row
+    logits and matched length, run in turn after the measured run)."""
+    llm = LLM(llama, cfg, params, device=DEV)
+    ssms = []
+    if draft_layers:
+        dcfg, dparams = layer_skip_draft(cfg, params, draft_layers)
+        ssms = [LLM(llama, dcfg, dparams, device=DEV)]
+    llm.compile(ServingConfig(**serve), ssms=ssms,
+                spec=SpecConfig(**spec_kw) if spec_kw else None)
+    results, line = _serve(llm, prompts, new)
+    fig = _prefix_figures(results, line, llm.rm.stats, wave, llm.engine.pager.num_pages)
+    _audit_pools(llm.rm)
+    rows = [_first_row(llm, probe) for probe in probes]
+    _audit_pools(llm.rm)
+    return llm, [r.output_tokens for r in results], fig, rows
+
+
+def _tokens_explained(label, cfg, params, serve, prompts, got, want):
+    """Warm tokens against the cold twin's: equal, or the warm tokens of
+    each request that parts held to :func:`_greedy_over_prefix`
+    (teacher-forced through the arm's kernels="cuda" engine, the f32
+    computation of its pool as the yardstick). Returns the line's entry."""
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not differ:
+        return {"tokens_equal": True}
+    layout = {k: v for k, v in serve.items()
+              if k in ("kv_layout", "kv_quant", "page_size", "prefill_chunk", "fused_decode")}
+    quant = serve.get("kv_quant")
+    pool = dict(kv_layout="paged", kv_quant=quant) if quant else {}
+    rows = []
+    for j in range(0, len(differ), 8):  # eight requests a teacher-forced run
+        part = differ[j:j + 8]
+        sub, served = [prompts[i] for i in part], [got[i] for i in part]
+        tf = _next_token_logits(cfg, params, ServingConfig(
+            kernels="cuda", max_requests_per_batch=len(sub), **layout), sub, served)
+        params32 = _to_f32(params)
+        exact = _next_token_logits(dataclasses.replace(cfg, dtype=torch.float32), params32,
+                                   ServingConfig(kernels="torch", cache_dtype=torch.float32,
+                                                 max_requests_per_batch=len(sub), **pool),
+                                   sub, served)
+        rows.append(_greedy_over_prefix(label, served, tf, exact))
+        del params32, tf, exact
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"tokens_equal": False, "requests_parted": differ,
+            "first_parting": [next(k for k, (x, y) in enumerate(zip(got[i], want[i])) if x != y)
+                              for i in differ], "greedy_over_prefix": rows}
+
+
+def _movers(eng):
+    """The host tier's page movers on one page of ``eng``'s pool: copy_page
+    against its byte bound, fetch_page issued and landed (after the
+    harvest), upload_page, and the page spilled then uploaded byte for
+    byte."""
+    nbytes = eng.page_host_bytes()
+    src, a, b = (eng.pager.claim_free_page() for _ in range(3))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    for t in eng.cache.values():  # a page of random bytes
+        t[:, src].view(torch.uint8).copy_(torch.randint(
+            0, 256, t[:, src].view(torch.uint8).shape, generator=gen, device=DEV,
+            dtype=torch.uint8))
+    copy_ms = cuda_ms(lambda: eng.copy_page(src, a))
+    eng.fetch_page(a).host_values()  # the pinned host allocator's first blocks
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spill = eng.fetch_page(a)
+        t1 = time.perf_counter()
+        host = spill.host_values()
+        times.append((t1 - t0, time.perf_counter() - t0))
+    issue_ms = statistics.median(t for t, _ in times) * 1e3
+    land_ms = statistics.median(t for _, t in times) * 1e3
+    upload_ms = cuda_ms(lambda: eng.upload_page(b, host))
+    before = {k: t[:, a].clone() for k, t in eng.cache.items()}
+    spill = eng.fetch_page(a)
+    eng.copy_page(b, a)      # the page is reused before the harvest
+    eng.upload_page(a, spill.host_values())
+    same = all(torch.equal(t[:, a].view(torch.uint8), before[k].view(torch.uint8))
+               for k, t in eng.cache.items())
+    for page in (src, a, b):
+        eng.pager.release_ref(page)
+    torch.cuda.synchronize()
+    return {"page_bytes": nbytes, "copy_page_ms": copy_ms,
+            "copy_page_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "fetch_issue_ms": issue_ms, "fetch_land_ms": land_ms, "upload_page_ms": upload_ms,
+            "d2h_gb_s": nbytes / land_ms / 1e6, "h2d_gb_s": nbytes / upload_ms / 1e6,
+            "spill_upload_byte_equal": same}
+
+
+def _check_arm(label, serve, fig, cold, cold_prefill):
+    """The warm arm's checks against its twin (``cold``): hits, fewer
+    prefill tokens than a cold run's ``cold_prefill`` by at least its hit
+    tokens, and the kernels of both runs launched (whole-step arms: no
+    per-layer paged attention)."""
+    check(fig["prefix_hits"] > 0 and fig["prefix_hit_tokens"] > 0, f"{label}: no cache hit")
+    check(fig["prefill_tokens"] <= cold_prefill - fig["prefix_hit_tokens"],
+          f"{label}: {fig['prefill_tokens']} prefill tokens, cold {cold_prefill} less "
+          f"{fig['prefix_hit_tokens']} hit tokens")
+    pool = serve.get("kv_quant") or "bf16"
+    fused = serve.get("fused_decode", ())
+    kind = ("whole_step_decode" if "whole_step" in fused else "fused_rope_paged_attention"
+            if fused else "ragged_paged_attention")
+    for f in (fig, cold):
+        check(f["launches"].get(f"{kind}[{pool}]", 0) > 0, f"{label}: {kind}[{pool}] never ran")
+        if "whole_step" in fused:
+            per_layer = [k for k in f["launches"] if k in PER_LAYER_PAGED]
+            check(not per_layer, f"{label}: per-layer paged launches {per_layer}")
+        if pool != "bf16" and "whole_step" not in fused and not fused:
+            check(f["launches"].get(f"paged_commit[{pool}]", 0) > 0,
+                  f"{label}: paged_commit[{pool}] never ran")
+
+
+def _prefix_f32(seed):
+    """2 layers, f32, 8 requests: cold, warm and spilled-then-re-admitted
+    runs of one family of prompts give equal tokens on f32, int8 and int4
+    pools, unfused, rope_kv_write and whole_step, and for SpecInfer with
+    an SSM on whole-step engines; each run equals its kernels="torch" twin
+    (int4 within the f32 phase's tie rule, :func:`_divergence`). A tight
+    pool counts preemptions with caching on and off."""
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=2, dtype=torch.float32)
+    llm = LLM(llama, cfg, device=DEV, seed=seed)
+    rng = np.random.default_rng(seed + 4)
+    systems = [rng.integers(1, cfg.vocab_size, size=256).tolist() for _ in range(6)]
+    # 8 tokens of a request's own: a warm request matches 263 lines of its
+    # own cold transcript, two pages and a copied tail. On int4 pools one
+    # token of its own: the match ends on a page boundary (a copied int4
+    # tail keeps the seeding run's amax scale, and a code step of 1/7 of it
+    # parts the tokens; the JAX package's tests align these matches too)
+    fams_by_own = {own: [_prefix_prompts(rng, cfg, [s], 8, own) for s in systems]
+                   for own in (8, 1)}
+    new = 16
+    dcfg, dparams = layer_skip_draft(cfg, llm.params, 1)
+    runs, ties, stats = {}, {}, {}
+    configs = [(pool, fused, None) for pool in (None, "int8", "int4")
+               for fused in ((), ("rope_kv_write",), ("whole_step",))]
+    configs.append((None, ("whole_step",), "ssm"))
+    for pool, fused, spec in configs:
+        serve = dict(PREFIX_F32_SERVE, kv_quant=pool, fused_decode=fused)
+        budget = _quant_budget(cfg, serve, 28)
+        name = f"{pool or 'f32'}-{'+'.join(fused) or 'unfused'}{'-spec' if spec else ''}"
+        fams = fams_by_own[1 if pool == "int4" else 8]
+        plens = [len(p) for p in fams[0]]
+        for kernels in ("cuda", "torch"):
+            sc = ServingConfig(**serve, kernels=kernels, prefix_caching=True,
+                               host_cache_bytes=1 << 34, max_cached_tokens=budget)
+            eng = InferenceEngine(llama, cfg, llm.params, sc, device=DEV)
+            # the SSM pool has no host tier: it gets every slot's worst case,
+            # so that its tree keeps the family the target's tier spills
+            rm = (SpecInferManager(eng, [InferenceEngine(
+                llama, dcfg, dparams, dataclasses.replace(sc, max_cached_tokens=None),
+                device=DEV)], SpecConfig(2, 3)) if spec else RequestManager(eng))
+            rec = {} if spec else _record_steps(eng)
+
+            def leg(fam):
+                rec.clear()
+                toks = [r.output_tokens for r in rm.generate(fams[fam], max_new_tokens=new)]
+                return toks, dict(rec)
+
+            out = {"cold": leg(0), "warm": leg(0)}
+            for fam in range(1, len(fams)):  # other families until family 0's
+                # prefix lies (in part) in the host tier
+                if any(n.host is not None
+                       for n in rm.prefix_cache._walk(fams[0][0], peek=True)[0]):
+                    break
+                leg(fam)
+            out["spilled"] = leg(0)
+            st = rm.stats
+            check(st.prefix_hits > 0 and st.spills > 0 and st.readmits > 0,
+                  f"prefix f32 {name}-{kernels}: hits {st.prefix_hits}, spills {st.spills}, "
+                  f"readmits {st.readmits}")
+            _audit_pools(rm)
+            stats[f"{name}-{kernels}"] = {k: getattr(st, k) for k in (
+                "prefix_hits", "prefix_cows", "spills", "readmits", "host_hit_tokens",
+                "preemptions")}
+            runs[f"{name}-{kernels}"] = out
+            del rm, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        pairs = [("cuda", "warm", "cuda", "cold"), ("cuda", "spilled", "cuda", "warm"),
+                 ("torch", "warm", "torch", "cold"), ("torch", "spilled", "torch", "warm"),
+                 *[("cuda", x, "torch", x) for x in ("cold", "warm", "spilled")]]
+        for ka, la, kb, lb in pairs:
+            (a, rec_a), (b, rec_b) = runs[f"{name}-{ka}"][la], runs[f"{name}-{kb}"][lb]
+            if a == b:
+                continue
+            # int4: one code step is 1/7 of a page's amax, so a K/V value at a
+            # rounding tie may take the other code (the f32 phase's rule);
+            # an int8 warm run against its cold one: the copied tail page
+            # keeps the seeding run's amax scale, so the warm request's lines
+            # there take other codes
+            allowed = pool == "int4" or (pool == "int8" and "cold" in (la, lb) and la != lb)
+            ties[f"{name} {ka}-{la} vs {kb}-{lb}"] = (
+                allowed, _parting(plens, a, b, rec_a, rec_b) if rec_a else [])
+    # a tight pool, one slot's worst case plus a page: caching may not add
+    # preemptions (reclaim runs before an allocation fails)
+    tight = {}
+    for caching in (False, True):
+        serve = dict(PREFIX_F32_SERVE, prefix_caching=caching)
+        sc = ServingConfig(**serve)
+        llm.compile(ServingConfig(**serve, max_cached_tokens=(sc.pages_per_slot + 1) * 128))
+        toks = [[r.output_tokens for r in llm.generate(fams_by_own[8][0], max_new_tokens=new)]
+                for _ in range(2)]
+        tight[caching] = (toks, llm.rm.stats.preemptions, llm.rm.stats.prefix_hits)
+        _audit_pools(llm.rm)
+        _free(llm)
+    emit({"phase": "prefix_f32", "layers": 2, "requests": 8, "new_tokens": new,
+          "runs": sorted(runs), "parted": {k: d for k, (_, d) in ties.items()},
+          "stats": stats,
+          "tight_pool": {"preemptions_off": tight[False][1], "preemptions_on": tight[True][1],
+                         "hits_on": tight[True][2]}})
+    for key, (allowed, parts) in ties.items():
+        check(allowed, f"prefix f32 tokens differ: {key}: {parts}")
+        for d in parts:  # :func:`_divergence`'s rule
+            check(d["margin"] <= 2 * d["max_abs_diff"], f"{key}: parts at no tie: {d}")
+            check(d["rel_l2"] <= F32_TIE_REL_L2, f"{key}: logits off: {d}")
+    check(tight[True][0] == tight[False][0], "prefix f32 tight pool: caching changed tokens")
+    check(tight[False][1] > 0, "prefix f32 tight pool: no preemption with caching off")
+    check(tight[True][1] <= tight[False][1],
+          f"prefix f32 tight pool: {tight[True][1]} preemptions with caching, "
+          f"{tight[False][1]} without")
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_prefix(seed):
+    """Prefix caching and the host tier on LLaMA-7B at full width and depth
+    (random bf16 weights from the seed): 32 requests, a 1000-token system
+    prompt and 64 tokens of their own each, 32 greedy tokens, through each
+    of PREFIX_ARMS and its cold twin (16 slots: the second wave hits), and
+    the host arm (4 families, 8 slots, int4, a pool that spills); the page
+    movers' line; the f32 sub-check. Returns the launches of the arms' runs."""
+    cfg = llama.LLaMAConfig.llama_7b()
+    llm = LLM(llama, cfg, device=DEV, seed=seed)
+    params = llm.params
+    del llm
+    rng = np.random.default_rng(seed + 5)
+    system = rng.integers(1, cfg.vocab_size, size=PREFIX_SYSTEM).tolist()
+    prompts = _prefix_prompts(rng, cfg, [system], PREFIX_REQUESTS, PREFIX_OWN)
+    # the first rows of two probes after the measured run: one matches the
+    # whole system prompt (a copied 104-line tail; its first chunk starts at
+    # line 1000, which the cold run computed inside its 896-1023 chunk), one
+    # its first 896 lines (7 pages: no copy, chunk-aligned)
+    def fresh(n, avoid):  # n tokens whose first one parts from ``avoid``
+        while True:
+            toks = rng.integers(1, cfg.vocab_size, size=n).tolist()
+            if toks[0] not in avoid:
+                return toks
+
+    probes = [system + fresh(PREFIX_OWN, {p[PREFIX_SYSTEM] for p in prompts}),
+              system[:896] + fresh(PREFIX_SYSTEM + PREFIX_OWN - 896, {system[896]})]
+    wave = PREFIX_SERVE["max_requests_per_batch"]
+    launches = {}
+
+    def count(fig):
+        for k, v in fig["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    for label, kw, spec_kw, draft_layers in PREFIX_ARMS:
+        t_arm = time.perf_counter()
+        serve = dict(PREFIX_SERVE, **kw)
+        cold_serve = dict(serve, prefix_caching=False)
+        llm, cold, cold_fig, cold_rows = _prefix_arm(cfg, params, cold_serve, spec_kw,
+                                                     draft_layers, prompts, PREFIX_NEW, wave,
+                                                     probes)
+        _free(llm)
+        llm, warm, fig, warm_rows = _prefix_arm(cfg, params, serve, spec_kw, draft_layers,
+                                                prompts, PREFIX_NEW, wave, probes)
+        if label == "prefix-bf16":
+            movers = {"bf16": _movers(llm.engine)}
+        _free(llm)
+        _check_arm(label, serve, fig, cold_fig, cold_fig["prefill_tokens"])
+        first = [{"match": w[1], "bitwise": bool(torch.equal(w[0], c[0])),
+                  "max_abs": float((w[0] - c[0]).abs().max()), "rel_l2": _rel(w[0], c[0])}
+                 for w, c in zip(warm_rows, cold_rows)]
+        check([f["match"] for f in first] == [PREFIX_SYSTEM, 896]
+              and [c[1] for c in cold_rows] == [0, 0],
+              f"{label}: the probes matched {[f['match'] for f in first]}")
+        # a chunk-aligned match over whole pages: the warm first row is the cold one
+        check(first[1]["bitwise"], f"{label}: the aligned probe's first row parts: {first[1]}")
+        explained = _tokens_explained(label, cfg, params, serve, prompts, warm, cold)
+        count(fig)
+        count(cold_fig)
+        emit({"phase": "prefix", "path": label, "model": "llama_7b", "layers": 32,
+              "requests": PREFIX_REQUESTS, "system_prompt": PREFIX_SYSTEM, "own": PREFIX_OWN,
+              "new_tokens": PREFIX_NEW, "serving": {k: v for k, v in serve.items()},
+              "warm": fig, "cold": cold_fig, "first_rows": first, **explained,
+              "arm_s": time.perf_counter() - t_arm})
+
+    # the host arm: families round-robin, a pool that spills idle families,
+    # against a warm run whose pool holds every family
+    t_arm = time.perf_counter()
+    systems = [rng.integers(1, cfg.vocab_size, size=PREFIX_SYSTEM).tolist()
+               for _ in range(PREFIX_HOST_FAMILIES)]
+    host_prompts = _prefix_prompts(rng, cfg, systems, PREFIX_REQUESTS, PREFIX_OWN,
+                                   PREFIX_HOST_BLOCK)
+    sc = ServingConfig(**PREFIX_HOST_SERVE)
+    per_req = -(-(PREFIX_SYSTEM + PREFIX_OWN + PREFIX_NEW + 1) // sc.page_size)
+    pages = sc.max_requests_per_batch * per_req + PREFIX_HOST_SPARE
+    host_serve = dict(PREFIX_HOST_SERVE, max_cached_tokens=_quant_budget(
+        cfg, PREFIX_HOST_SERVE, pages))
+    # the twin's pool holds every request's pages: nothing is evicted
+    twin_serve = dict(PREFIX_HOST_SERVE, max_cached_tokens=_quant_budget(
+        cfg, PREFIX_HOST_SERVE, (PREFIX_REQUESTS + 8) * per_req))
+    twin, twin_toks, twin_fig, _ = _prefix_arm(cfg, params, twin_serve, None, None,
+                                               host_prompts, PREFIX_NEW, 8)
+    _free(twin)
+    # the host tier holds twice the families' pages (an int4 page of LLaMA-7B
+    # is 16,785,408 bytes: codes and scales)
+    host_serve["host_cache_bytes"] = 2 * PREFIX_HOST_FAMILIES * per_req * 16_785_408
+    llm, toks, fig, _ = _prefix_arm(cfg, params, host_serve, None, None, host_prompts,
+                                    PREFIX_NEW, 8)
+    movers["int4"] = _movers(llm.engine)
+    emit({"phase": "prefix_movers", **movers})
+    for pool, row in movers.items():
+        check(row["spill_upload_byte_equal"],
+              f"prefix movers ({pool}): the page spilled then uploaded is not byte-equal")
+    _free(llm)
+    # a cold run dispatches every prompt token (the pools hold every live
+    # slot: nothing is preempted)
+    check(fig["preemptions"] == 0, f"prefix-host-int4: {fig['preemptions']} preemptions")
+    _check_arm("prefix-host-int4", host_serve, fig, twin_fig, sum(map(len, host_prompts)))
+    check(fig["spills"] > 0 and fig["readmits"] > 0 and fig["host_hit_tokens"] > 0,
+          f"prefix-host-int4: spills {fig['spills']}, readmits {fig['readmits']}, "
+          f"host hit tokens {fig['host_hit_tokens']}")
+    check(twin_fig["spills"] == 0 and twin_fig["prefix_evictions"] == 0,
+          "prefix-host-int4: the roomy twin evicted")
+    explained = _tokens_explained("prefix-host-int4", cfg, params, host_serve, host_prompts,
+                                  toks, twin_toks)
+    count(fig)
+    emit({"phase": "prefix", "path": "prefix-host-int4", "model": "llama_7b", "layers": 32,
+          "requests": PREFIX_REQUESTS, "families": PREFIX_HOST_FAMILIES,
+          "system_prompt": PREFIX_SYSTEM, "own": PREFIX_OWN, "new_tokens": PREFIX_NEW,
+          "block": PREFIX_HOST_BLOCK, "serving": host_serve, "twin_serving": twin_serve,
+          "warm": fig, "twin": twin_fig, **explained,
+          "arm_s": time.perf_counter() - t_arm})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _prefix_f32(seed)
+    emit({"phase": "arm_seconds", "path": "prefix-f32", "seconds": time.perf_counter() - t0})
+    return launches
+
+# ---------------------------------------------------------------------------
 # training: flash-attention kernels, train-step parity, the train slice
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv", "flash_attention_bwd_q")
@@ -3550,8 +4024,8 @@ SOURCES = {
         "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode, with the spec fold of "
         "flexflow_tpu/models/llama.py:1327 serve_step_whole)") for t in FOLD_ROWS},
 }
-PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "train_parity",
-          "train")
+PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "prefix",
+          "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -3561,7 +4035,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of kernels, slice, paged, whole, spec, f32, entry, "
-                         "train_parity, train (device and build always run; paged and "
+                         "prefix, train_parity, train (device and build always run; paged and "
                          "whole need slice)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3605,6 +4079,10 @@ def main(argv=None) -> int:
     if "entry" in phases:
         phase_entry(args.seed)
         mark("entry")
+    if "prefix" in phases:
+        for k, v in phase_prefix(args.seed).items():
+            launches[k] = launches.get(k, 0) + v
+        mark("prefix")
     if "train_parity" in phases:
         phase_train_parity(args.seed)
         mark("train_parity")

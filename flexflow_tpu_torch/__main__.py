@@ -14,9 +14,9 @@ plain PyTorch path. A prompt is text (it needs the checkpoint's
 tokenizer) or token ids, comma- or space-separated (``--prompt
 "3,17,91"``).
 
-The JAX command's parallelism degrees, prefix caching and the host tier,
-clusters and autoscaling, observability, weight quantization and offload
-come with later slices (ROADMAP.md queue 1).
+The JAX command's parallelism degrees, clusters and autoscaling,
+observability, weight quantization and offload come with later slices
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -60,6 +60,9 @@ def cmd_serve(args) -> None:
         page_size=args.page_size,
         max_cached_tokens=args.max_cached_tokens,
         kv_quant=args.kv_quant,
+        prefix_caching=args.prefix_caching,
+        host_cache_bytes=args.host_cache_bytes,
+        cache_policy=args.cache_policy,
         fused_decode=tuple(s for s in (args.fused_decode or "").split(",") if s),
         cache_dtype=llm.cfg.dtype,
     )
@@ -114,6 +117,23 @@ def main(argv=None) -> None:
                         "worst case; smaller preempts and recomputes)")
     s.add_argument("--kv-quant", choices=["int8", "int4"], default=None,
                    help="quantized paged KV pages (requires --kv-layout paged)")
+    s.add_argument("--prefix-caching", action="store_true",
+                   help="automatic prefix caching (paged layout only): "
+                        "reuse cached KV pages for shared prompt "
+                        "prefixes, prefilling only the uncached suffix")
+    s.add_argument("--host-cache-bytes", type=int, default=None,
+                   help="hierarchical KV cache: spill cold prefix-"
+                        "cache pages to host RAM (async DMA) instead "
+                        "of evicting, up to this many bytes, and "
+                        "re-admit them on a later prompt match — a "
+                        "host hit instead of a prefill recompute "
+                        "(requires --prefix-caching; re-admitted pages "
+                        "generate bitwise the warm path)")
+    s.add_argument("--cache-policy", choices=["complete", "prefill"],
+                   default="complete",
+                   help="when prompt blocks enter the prefix cache: at "
+                        "request completion incl. generated tokens "
+                        "(complete) or as soon as prefill ends (prefill)")
     s.add_argument("--fused-decode", default=None,
                    help="decode-step fusions, comma-separated (rope_kv_write, "
                         "sampling, whole_step; the first and last need "

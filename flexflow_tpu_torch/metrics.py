@@ -1,8 +1,8 @@
 """Serving scheduler telemetry (a subset of
 ``flexflow_tpu/metrics.py:SchedulerStats``).
 
-The counters of the prefix cache, the host tier, context parallelism
-and the retrace sentinel come with the slices that port those features.
+The counters of context parallelism and the retrace sentinel come with
+the slices that port those features.
 """
 from __future__ import annotations
 
@@ -34,6 +34,24 @@ class SchedulerStats:
     decode_tokens: int = 0        # decode tokens dispatched
     occupancy_sum: float = 0.0    # active slots / total, summed per step
     budget_fill_sum: float = 0.0  # prefill tokens / budget, per mixed step
+    # Automatic prefix caching (serve/prefix_cache.py): admissions that
+    # reused cached KV pages and cold admissions, tokens whose prefill the
+    # cache skipped, pages published to and evicted from the radix tree,
+    # and copy-on-write page copies of partially matched tails.
+    prefix_hits: int = 0
+    prefix_misses: int = 0
+    prefix_hit_tokens: int = 0
+    prefix_inserts: int = 0
+    prefix_evictions: int = 0
+    prefix_cows: int = 0
+    # The host tier (ServingConfig.host_cache_bytes): pages spilled to
+    # host memory instead of evicted, pages re-admitted on a later match,
+    # prompt tokens whose prefill a host hit skipped (also per request in
+    # ProfileInfo.host_hit_tokens), and the tier's bytes now (a gauge).
+    spills: int = 0
+    readmits: int = 0
+    host_hit_tokens: int = 0
+    host_bytes: int = 0
     # Host wall time of each decode step's engine call, in ms: on the
     # pipelined path the dispatch cost (the device runs ahead and no sync
     # is added), on the sync path the full blocking step. Bounded
@@ -110,6 +128,20 @@ class SchedulerStats:
         return self._decode_ms_pct(0.99)
 
     @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admissions that reused at least one cached page."""
+        n = self.prefix_hits + self.prefix_misses
+        return self.prefix_hits / n if n else 0.0
+
+    @property
+    def host_hit_rate(self) -> float:
+        """Fraction of the prefix cache's hit tokens served from the host
+        tier (re-admitted spilled pages) rather than live device pages."""
+        if not self.prefix_hit_tokens:
+            return 0.0
+        return self.host_hit_tokens / self.prefix_hit_tokens
+
+    @property
     def spec_accept_rate(self) -> float:
         """Drafted tokens the verifier accepted over drafted tokens (the
         free root and bonus tokens on neither side)."""
@@ -142,6 +174,18 @@ class SchedulerStats:
             "decode_tokens": self.decode_tokens,
             "mean_occupancy": round(self.mean_occupancy, 4),
             "mean_budget_fill": round(self.mean_budget_fill, 4),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_hit_rate": round(self.prefix_hit_rate, 4),
+            "prefix_inserts": self.prefix_inserts,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_cows": self.prefix_cows,
+            "spills": self.spills,
+            "readmits": self.readmits,
+            "host_hit_tokens": self.host_hit_tokens,
+            "host_hit_rate": round(self.host_hit_rate, 4),
+            "host_bytes": self.host_bytes,
             "decode_step_ms_p50": round(self.decode_step_ms_p50, 3),
             "decode_step_ms_p99": round(self.decode_step_ms_p99, 3),
             "whole_step_fallbacks": self.whole_step_fallbacks,
@@ -165,6 +209,11 @@ class SchedulerStats:
             f"prefill_toks={s['prefill_tokens']} "
             f"decode_toks={s['decode_tokens']} adm={s['admitted']} "
             f"preempt={s['preemptions']} failed={s['failed']} "
+            f"pfx_hit={s['prefix_hits']}/{s['prefix_hits'] + s['prefix_misses']}"
+            f" pfx_toks={s['prefix_hit_tokens']} "
+            f"pfx_evict={s['prefix_evictions']} pfx_cow={s['prefix_cows']} "
+            f"spill={s['spills']} readmit={s['readmits']} "
+            f"host_toks={s['host_hit_tokens']} host_B={s['host_bytes']} "
             f"spec={s['spec_accepted']}/{s['spec_drafted']}"
             f"@{s['spec_rounds']}r resize={s['spec_resizes']} "
             f"vskip={s['verify_skipped_rounds']} "

@@ -782,6 +782,34 @@ def commit_kv_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor,
     return cache
 
 
+def copy_page_kv(cache: Dict[str, torch.Tensor], src: int, dst: int) -> Dict[str, torch.Tensor]:
+    """Copy one physical page's content to another page in place, every
+    cache buffer (K/V pools and the quantized layout's (L, P+1, KV) scale
+    rows): the device half of prefix-cache copy-on-write. Codes and their
+    scales move together, byte for byte."""
+    for buf in cache.values():
+        buf[:, dst].copy_(buf[:, src])
+    return cache
+
+
+def gather_page_kv(cache: Dict[str, torch.Tensor], page: int) -> Dict[str, torch.Tensor]:
+    """One physical page's content out of every cache buffer, as fresh
+    tensors (never views of the pool): the device half of a host-tier
+    spill, which must survive the page being freed and reused."""
+    return {name: buf[:, page].clone(memory_format=torch.contiguous_format)
+            for name, buf in cache.items()}
+
+
+def scatter_page_kv(cache: Dict[str, torch.Tensor], page: int,
+                    values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Write a spilled page's content (what :func:`gather_page_kv`
+    returned) into pool row ``page`` in place: the device half of a
+    host-tier re-admit, byte for byte its inverse."""
+    for name, buf in cache.items():
+        buf[:, page].copy_(values[name])
+    return cache
+
+
 def reorder_slots_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor,
                         src: torch.Tensor) -> Dict[str, torch.Tensor]:
     """:func:`reorder_slots` for the paged layout: page ownership stays

@@ -1,8 +1,9 @@
 """Serving stack — continuous batching, incremental decoding, SpecInfer
 (token trees from SSMs or the target's own first layers, verified in one
 step) and beam search on the dense or the paged KV cache, with bf16,
-f32, int8 or int4 pages (counterpart of ``flexflow_tpu/serve``; prefix
-caching and clusters come with later slices)."""
+f32, int8 or int4 pages, and automatic prefix caching with its host tier
+on the paged one (counterpart of ``flexflow_tpu/serve``; clusters come
+with a later slice)."""
 from .batch_config import (
     BatchConfig,
     GenerationConfig,
@@ -11,6 +12,7 @@ from .batch_config import (
 from .engine import InferenceEngine, ServingConfig
 from .llm import LLM, SSM
 from .paging import PageAllocator
+from .prefix_cache import PrefixCache
 from .request_manager import Request, RequestManager, RequestStatus
 from .sampling import sample_tokens
 from .specinfer import SpecConfig, SpecInferManager, TokenTree, merge_trees
@@ -23,6 +25,7 @@ __all__ = [
     "LLM",
     "SSM",
     "PageAllocator",
+    "PrefixCache",
     "ServingConfig",
     "Request",
     "RequestManager",

@@ -16,6 +16,12 @@ column token select, ``serve_step``, on-device sampling) returns the
 sampled tokens as a device tensor that the scheduler reads up to
 ``dispatch_ahead`` steps later.
 
+The prefix cache (serve/prefix_cache.py) moves whole pages through
+:meth:`InferenceEngine.copy_page` (copy-on-write), and its host tier
+through :meth:`InferenceEngine.fetch_page` (a spill: a clone on the
+engine's stream, then a copy to pinned host memory on a side stream) and
+:meth:`InferenceEngine.upload_page` (a re-admit, on the engine's stream).
+
 SpecInfer and beam search drive three more entry points:
 :meth:`InferenceEngine.run_speculate` (a whole token-tree expansion on
 the device, its tree fetched by the caller in one transfer),
@@ -53,11 +59,8 @@ def resolve_device(device: Any = None) -> torch.device:
 #: that brings each. A value other than the field's default raises.
 _LATER_SLICES = {
     "inference_debugging": "the serving-triage slice",
-    "prefix_caching": "the prefix-caching slice",
-    "host_cache_bytes": "the prefix-caching slice (host tier)",
     "kv_shard": "the long-context slice",
     "context_shards": "the long-context slice",
-    "cache_policy": "the prefix-caching slice",
     "quantized_allreduce": "the parallel-serving slice",
     "replicas": "the cluster slice",
     "router_policy": "the cluster slice",
@@ -131,10 +134,20 @@ class ServingConfig:
     # max_cached_tokens stays a memory budget priced at cache_dtype, so
     # the same budget buys ~2x (int8) or ~4x (int4) the pages.
     kv_quant: Optional[str] = None
+    # Automatic prefix caching (paged layout; serve/prefix_cache.py):
+    # cached KV pages are spliced into a new request's table and its
+    # prefill starts at the first uncached token. On the dense layout it
+    # passes through and does nothing (there are no pages to share).
     prefix_caching: bool = False
+    # The host tier (needs the paged layout and prefix_caching): idle
+    # cached pages spill to pinned host memory, up to this many bytes,
+    # instead of being evicted, and a later match re-admits them.
     host_cache_bytes: Optional[int] = None
     kv_shard: str = "none"
     context_shards: int = 0
+    # When a request's blocks enter the prefix cache: at completion,
+    # prompt and generated tokens ("complete"), or when the prompt's last
+    # chunk is dispatched ("prefill").
     cache_policy: str = "complete"
     # Decode-step fusions. "sampling": the pipelined step samples with the
     # head mode the batch needs (sampling.choose_sample_mode) instead of
@@ -211,6 +224,17 @@ class ServingConfig:
             from .kv_quant import resolve_spec
 
             resolve_spec(self.kv_quant)
+        if self.cache_policy not in ("complete", "prefill"):
+            raise ValueError(
+                f"unknown cache_policy {self.cache_policy!r} "
+                "(expected 'complete' or 'prefill')"
+            )
+        if self.host_cache_bytes and not (paged and self.prefix_caching):
+            raise ValueError(
+                "host_cache_bytes requires kv_layout='paged' with "
+                "prefix_caching=True — the host tier spills cold prefix-cache "
+                "pages, so there is nothing to spill without the radix tree"
+            )
         if self.kernels not in ("cuda", "torch"):
             raise ValueError(
                 f"unknown kernels {self.kernels!r} (expected 'cuda' — the "
@@ -257,6 +281,30 @@ class ServingConfig:
                    -(-self.max_cached_tokens // self.page_size))
 
 
+class PageSpill:
+    """The handle of one page's spill (:meth:`InferenceEngine.fetch_page`):
+    ``device``, the page's content cloned on the engine's stream (dropped
+    at the harvest); ``host``, the pinned host buffers its copy lands in
+    (on the CPU, the clone itself); ``landed``, the event recorded after
+    that copy (None on the CPU)."""
+
+    __slots__ = ("device", "host", "landed")
+
+    def __init__(self, device, host, landed):
+        self.device = device
+        self.host = host
+        self.landed = landed
+
+    def host_values(self) -> Dict[str, torch.Tensor]:
+        """Wait for the copy to the host, drop the device clone and return
+        the host buffers (kept pinned: their upload does not block)."""
+        if self.landed is not None:
+            self.landed.synchronize()
+            self.landed = None
+        self.device = None
+        return self.host
+
+
 class InferenceEngine:
     """Owns the params and the KV cache on ``device`` and runs the
     serving step.
@@ -272,7 +320,8 @@ class InferenceEngine:
     also ``serve_step_whole`` (with the spec keywords ``mask``,
     ``cache_positions``, ``all_logits`` and ``num_layers``: the
     speculation fold), ``whole_step_weight_layout`` and
-    ``whole_step_tile_roles``.
+    ``whole_step_tile_roles``; for the prefix cache also
+    ``copy_page_kv``, ``gather_page_kv`` and ``scatter_page_kv``.
     """
 
     def __init__(
@@ -327,6 +376,8 @@ class InferenceEngine:
         # steps of fused_decode=("rope_kv_write",) wider than the fused
         # kernel's commit, served by the unfused step instead
         self.fused_reroutes = 0
+        # the side stream of the host tier's spill copies (fetch_page)
+        self._spill_stream = None
         self.params = params
         self.pager: Optional[PageAllocator] = None  # host-side page tables
         self.cache = self._alloc_cache()
@@ -782,6 +833,68 @@ class InferenceEngine:
                     self.cache, self.page_table_device(), src)
             else:
                 self.cache = self.model.reorder_slots(self.cache, src)
+
+    # ------------------------------------------------------------------
+    # page movers of the prefix cache and its host tier
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy one physical page's content (every layer, codes and
+        scales) to another page, in place on the engine's stream: the
+        device half of prefix-cache copy-on-write. On that stream the copy
+        reads the source after every write dispatched before it."""
+        with torch.inference_mode():
+            self.model.copy_page_kv(self.cache, int(src), int(dst))
+
+    def fetch_page(self, page: int) -> PageSpill:
+        """Start the spill of one physical page (the host tier): clone
+        the page's content on the engine's stream (fresh tensors, so the
+        page may be freed and reused at once), then, on a GPU, copy the
+        clone into pinned host buffers on a side stream that waits on an
+        event recorded after the clone. Returns at once with the handle;
+        :meth:`PageSpill.host_values` (the prefix cache's harvest, at the
+        scheduler's flush) waits for the copy and drops the clone."""
+        with torch.inference_mode():
+            clone = self.model.gather_page_kv(self.cache, int(page))
+        if self.device.type != "cuda":
+            return PageSpill(None, clone, None)
+        main = torch.cuda.current_stream(self.device)
+        if self._spill_stream is None:
+            self._spill_stream = torch.cuda.Stream(self.device)
+        side = self._spill_stream
+        cloned = torch.cuda.Event()
+        cloned.record(main)
+        side.wait_event(cloned)
+        host = {}
+        with torch.cuda.stream(side):
+            for name, t in clone.items():
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                host[name] = h
+            landed = torch.cuda.Event()
+            landed.record(side)
+        return PageSpill(clone, host, landed)
+
+    def upload_page(self, page: int, values) -> None:
+        """Write a spilled page back into pool row ``page`` (a host-tier
+        re-admit), on the engine's stream, so the write is ordered before
+        the prefill that reads the page. ``values`` is a :class:`PageSpill`
+        (its pinned host buffers once harvested, else its device clone) or
+        a mapping of buffer name to host or device values."""
+        if isinstance(values, PageSpill):
+            values = values.device if values.device is not None else values.host
+        dev = {}
+        for name, v in values.items():
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+            # a pinned host buffer uploads without blocking the host
+            dev[name] = t.to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            self.model.scatter_page_kv(self.cache, int(page), dev)
+
+    def page_host_bytes(self) -> int:
+        """Host bytes one spilled page occupies (every cache buffer's
+        per-page slice): the price of a page against ``host_cache_bytes``."""
+        return sum(t[:, 0].numel() * t.element_size() for t in self.cache.values())
 
     def reset(self):
         """Drop all cached sequences: the KV cache is zeroed in place and,

@@ -11,13 +11,22 @@ page: unallocated table entries point at it, so padding tokens' K/V
 writes and reads through unallocated entries land on a real buffer that
 no mask exposes to a live row.
 
-The prefix cache's page sharing (``acquire``, ``splice``, the reclaim
-hook, external references in the audit) and the context-parallel
-striping (``cp_shards``) come with the slices that port those features.
+Pages are reference counted so that the prefix cache
+(serve/prefix_cache.py) can keep a finished request's prompt pages alive
+and splice them into later requests' tables: a physical page may be
+referenced by several slot tables at once plus one reference held by the
+radix tree. Tree-held pages with no slot reference are idle, and
+``reclaim_cb`` frees them (evicts, or spills to the host tier) before an
+allocation fails, so the cache never causes a preemption that a cold
+pool would not.
+
+The ``shard`` parameters keep the JAX allocator's signatures over one
+shard: the context-parallel striping (``cp_shards``) comes with the
+long-context slice.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -25,10 +34,12 @@ import numpy as np
 class PageAllocator:
     """Refcounted free-list allocator over a physical KV page pool.
 
-    Invariants (tests/test_torch_paging.py drives them against the JAX
+    Invariants (tests/test_torch_paging.py and
+    tests/test_torch_prefix_cache.py drive them against the JAX
     allocator):
       * ``refcount[p]`` equals the number of slot-table entries pointing
-        at physical page ``p``;
+        at physical page ``p``, plus the external references (the prefix
+        cache's radix tree) the caller reports to :meth:`check_no_leaks`;
       * a page is on the free list iff its refcount is zero;
       * ``ensure`` either covers the requested lines fully or changes
         nothing;
@@ -55,6 +66,25 @@ class PageAllocator:
         # bumped on every table mutation: the engine caches the device
         # copy of the table against it
         self.version = 0
+        # last-resort page supplier: called with the shortfall (pages)
+        # when the free list cannot cover a request; it frees idle cached
+        # pages (the prefix cache's reclaim) and returns how many
+        self.reclaim_cb: Optional[Callable[[int], int]] = None
+
+    # ------------------------------------------------------------------
+    # the one shard (the JAX allocator's context-parallel partition)
+
+    @property
+    def _free_by_shard(self) -> List[List[int]]:
+        return [self._free]
+
+    def shard_of_logical(self, logical: int) -> int:
+        """Owning shard of a logical page: 0, the one shard."""
+        return 0
+
+    def shard_of_page(self, page: int) -> int:
+        """Owning shard of a physical page: 0, the one shard."""
+        return 0
 
     @property
     def free_pages(self) -> int:
@@ -68,6 +98,21 @@ class PageAllocator:
         """Logical pages needed to cover cache lines [0, num_lines)."""
         return -(-int(num_lines) // self.page_size)
 
+    def slot_pages(self, slot: int) -> int:
+        """Physical pages currently mapped by ``slot``'s table."""
+        return int((self.table[slot] != self.scratch_page).sum())
+
+    # ------------------------------------------------------------------
+    # reference counting (shared pages: prefix-cache splicing)
+
+    def acquire(self, page: int) -> None:
+        """Add one reference to ``page`` (a slot table or the prefix cache
+        now also points at it). The page must not be on the free list:
+        either it already has references, or it was just taken with
+        :meth:`take_free_page`."""
+        assert 0 <= page < self.num_pages, f"acquire of page {page}"
+        self.refcount[page] += 1
+
     def release_ref(self, page: int) -> bool:
         """Drop one reference; the page returns to the free list when its
         count drains to zero. Returns True iff the page was freed."""
@@ -78,16 +123,48 @@ class PageAllocator:
             return True
         return False
 
+    def _reclaim(self, shortfall: int, shard: int = 0) -> None:
+        """Ask the reclaim hook (prefix-cache LRU eviction or spill) to
+        free at least ``shortfall`` pages. Best effort: the free list
+        after the call is the only truth."""
+        if shortfall > 0 and self.reclaim_cb is not None:
+            self.reclaim_cb(shortfall)
+
+    def take_free_page(self, shard: int = 0) -> Optional[int]:
+        """Pop one page off the free list (reclaiming idle cached pages
+        first if it is dry), its refcount still zero: the caller follows
+        up with :meth:`acquire` or :meth:`splice` before control returns
+        to the scheduler. None when nothing can be freed."""
+        if not self._free:
+            self._reclaim(1, shard)
+        if not self._free:
+            return None
+        return self._free.pop()
+
+    def claim_free_page(self, shard: int = 0) -> Optional[int]:
+        """:meth:`take_free_page` plus the caller's own single reference
+        (refcount 1): the prefix cache's adoption of a page the tree owns
+        (host-tier re-admits, tree imports). None when nothing can be
+        freed."""
+        page = self.take_free_page(shard)
+        if page is not None:
+            self.refcount[page] = 1
+        return page
+
+    # ------------------------------------------------------------------
+
     def ensure(self, slot: int, num_lines: int) -> bool:
         """Grow ``slot``'s table to cover cache lines [0, num_lines).
         Already-covered prefixes are kept; growth pages get refcount 1.
-        Returns False with nothing allocated when the free list cannot
-        cover the growth (the caller preempts a victim and retries)."""
+        When the free list cannot cover the growth even after
+        ``reclaim_cb``, returns False with nothing allocated (the caller
+        preempts a victim and retries)."""
         need = min(self.pages_for(num_lines), self.pages_per_slot)
         row = self.table[slot]
         have = int((row[:need] != self.scratch_page).sum())
         if need - have <= 0:
             return True
+        self._reclaim(need - have - len(self._free))
         if need - have > len(self._free):
             return False
         for j in range(have, need):
@@ -101,18 +178,35 @@ class PageAllocator:
         self.version += 1
         return True
 
+    def splice(self, slot: int, pages: Sequence[int]) -> None:
+        """Map ``slot``'s leading logical pages to ``pages`` (a cached
+        prompt prefix), one reference per entry. The slot's table must be
+        empty: splicing is the first thing that happens to a slot's table
+        at admission, before :meth:`ensure` grows the uncached suffix
+        behind it."""
+        row = self.table[slot]
+        assert int((row != self.scratch_page).sum()) == 0, (
+            f"splice into non-empty slot {slot}"
+        )
+        assert len(pages) <= self.pages_per_slot
+        for j, page in enumerate(pages):
+            self.acquire(int(page))
+            row[j] = int(page)
+        if len(pages):
+            self.version += 1
+
     def cow(self, slot: int, logical: int) -> Optional[int]:
         """Copy-on-write bookkeeping for ``slot``'s logical page: allocate
         a private page, swap it into the table and drop this slot's
         reference on the shared one. Returns the new page (the caller
-        copies the content), or None with the table unchanged when the
-        pool is dry."""
+        copies the content, engine.copy_page), or None with the table
+        unchanged when no page can be had even after reclaim."""
         row = self.table[slot]
         old = int(row[logical])
         assert old != self.scratch_page, "COW of an unmapped logical page"
-        if not self._free:
+        fresh = self.take_free_page(self.shard_of_logical(logical))
+        if fresh is None:
             return None
-        fresh = self._free.pop()
         self.refcount[fresh] = 1
         row[logical] = fresh
         self.release_ref(old)
@@ -137,14 +231,17 @@ class PageAllocator:
             self.version += 1
         return freed
 
-    def check_no_leaks(self) -> None:
+    def check_no_leaks(self, external: Optional[Dict[int, int]] = None) -> None:
         """Full refcount audit: every page's refcount equals its table
-        references, and a page is free iff that count is zero."""
+        references plus ``external`` ones (the prefix cache's
+        ``page_refs()``), and a page is free iff that count is zero."""
         counts = np.zeros((self.num_pages,), np.int64)
         for row in self.table:
             for page in row:
                 if int(page) != self.scratch_page:
                     counts[int(page)] += 1
+        for page, n in (external or {}).items():
+            counts[int(page)] += int(n)
         free = set(self._free)
         assert len(free) == len(self._free), "free list holds duplicates"
         for page in range(self.num_pages):

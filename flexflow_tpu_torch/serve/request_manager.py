@@ -22,13 +22,21 @@ prefilled again (prompt plus the tokens generated so far) on
 re-admission. A request that alone exceeds the pool fails with an
 error instead.
 
-Managers that keep a second engine's cache in step with the target's
-(SpecInfer, serve/specinfer.py) override the hooks :meth:`_run_batch`
-and :meth:`_mirror_dispatch` and turn off ``supports_fast_decode`` and
-``supports_fused_sampling``.
+With ``ServingConfig.prefix_caching`` on the paged layout, admission
+first walks the radix tree (serve/prefix_cache.py): matched pages are
+spliced into the slot's table (the tail page copied on write when the
+match ends inside it) and prefill starts at the matched length. A
+request's blocks are published at completion (``cache_policy``
+"complete") or when its prompt's last chunk is dispatched ("prefill");
+the host tier's spills are harvested at each flush, after its blocking
+read.
 
-Prefix caching, tracing and the cluster hooks come with the slices that
-port them.
+Managers that keep a second engine's cache in step with the target's
+(SpecInfer, serve/specinfer.py) override the hooks :meth:`_run_batch`,
+:meth:`_mirror_dispatch` and :meth:`_cache_attach` and turn off
+``supports_fast_decode`` and ``supports_fused_sampling``.
+
+Tracing and the cluster hooks come with the slices that port them.
 """
 from __future__ import annotations
 
@@ -103,6 +111,10 @@ class RequestManager:
     # bypasses the _run_batch hook; managers that override _run_batch opt
     # out and keep the step plus the host-side head.
     supports_fused_sampling = True
+    # Automatic prefix caching: managers that mirror slot state across
+    # engines (SpecInfer) keep one radix tree a page pool and align the
+    # matched lengths through the _cache_attach/_cache_insert hooks.
+    supports_prefix_cache = True
 
     def __init__(
         self,
@@ -136,6 +148,34 @@ class RequestManager:
         self._prev_dispatch_slots: set = set()
         self.stats = SchedulerStats()
         self._log = get_logger("serve")
+        # Automatic prefix caching (paged layout only: on the dense layout
+        # prefix_caching passes through, there are no pages to share). The
+        # radix tree holds one reference a cached page; the allocator's
+        # reclaim hook frees idle cached pages before an allocation fails.
+        self.prefix_cache = None
+        sc = engine.serving
+        if self.supports_prefix_cache and sc.prefix_caching and engine.paged:
+            from .prefix_cache import PrefixCache
+
+            # the host tier: with a host_cache_bytes budget the cache spills
+            # cold pages to pinned host memory instead of evicting them, and
+            # harvests the spills at the flush (the scheduler's sync point)
+            host_kw = {}
+            if sc.host_cache_bytes:
+                host_kw = dict(
+                    fetch_page=engine.fetch_page,
+                    upload_page=engine.upload_page,
+                    host_cache_bytes=sc.host_cache_bytes,
+                    page_bytes=engine.page_host_bytes(),
+                )
+            self.prefix_cache = PrefixCache(
+                engine.pager,
+                copy_page=engine.copy_page,
+                policy=sc.cache_policy,
+                stats=lambda: self.stats,
+                **host_kw,
+            )
+            engine.pager.reclaim_cb = self.prefix_cache.reclaim
 
     # ------------------------------------------------------------------
     # registration (reference register_new_request, request_manager.cc:137)
@@ -194,6 +234,23 @@ class RequestManager:
     def _release_pages(self, slot: int):
         for eng in self._engines():
             eng.pager.release(slot)
+
+    def _prefix_caches(self):
+        """Every prefix cache this manager keeps (SpecInfer adds one radix
+        tree a draft pool)."""
+        return [] if self.prefix_cache is None else [self.prefix_cache]
+
+    def _cache_attach(self, slot: int, tokens: Sequence[int]) -> int:
+        """Hook: the admission's prefix-cache attach. SpecInfer attaches
+        the same matched length on every pool, or none at all."""
+        return self.prefix_cache.attach(slot, tokens)
+
+    def _cache_insert(self, slot: int, tokens: Sequence[int], valid: int) -> None:
+        """Hook: publish a slot's blocks into every radix tree this
+        manager keeps (SpecInfer's draft pools hold the same tokens' K/V
+        at the same lines, paged on their own)."""
+        for cache in self._prefix_caches():
+            cache.insert(slot, tokens, valid)
 
     def _mirror_dispatch(self, last, host_tokens, use_last, positions, logits_idx,
                          generator, greedy, temperature, topp, topk) -> None:
@@ -316,8 +373,15 @@ class RequestManager:
             rid = self.pending[0]
             req = self.requests[rid]
             req.slot = i
+            # the prefix cache's hit path: splice cached prompt pages into
+            # the (empty) slot table and start prefill past them. A rolled
+            # back admission releases the spliced references with the slot.
+            matched = 0
+            host_before = self.stats.host_hit_tokens
+            if self.prefix_cache is not None:
+                matched = self._cache_attach(i, req.tokens)
             if self._paged and not self._ensure_pages(
-                req, min(len(req.tokens), self.engine.serving.prefill_chunk)
+                req, min(len(req.tokens), matched + self.engine.serving.prefill_chunk)
             ):
                 # the pool cannot take the first chunk: stop admitting
                 # (a flush frees pages) and undo any partial grant
@@ -326,12 +390,22 @@ class RequestManager:
                 return
             self.pending.pop(0)
             req.status = RequestStatus.PREFILLING
-            req.n_cached = 0
-            req.n_sched = 0
+            req.n_cached = matched
+            req.n_sched = matched
             req.inflight = 0
             req.pipeline_refs = 0
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
+            req.profile.cached_prefix_len = matched
+            # the prefix's tokens that came back from the host tier (the
+            # counter moved inside attach's re-admissions)
+            req.profile.host_hit_tokens = self.stats.host_hit_tokens - host_before
+            if self.prefix_cache is not None:
+                if matched:
+                    self.stats.prefix_hits += 1
+                    self.stats.prefix_hit_tokens += matched
+                else:
+                    self.stats.prefix_misses += 1
             self.slots[i] = rid
             self.stats.admitted += 1
 
@@ -360,6 +434,13 @@ class RequestManager:
         req.status = RequestStatus.ERROR if error else RequestStatus.COMPLETED
         req.error = error
         req.profile.finish_time = time.perf_counter()
+        if (self.prefix_cache is not None and error is None and req.slot >= 0
+                and self.prefix_cache.policy == "complete"):
+            # publish the finished sequence's blocks (prompt and generated:
+            # the next turn of a conversation extends this transcript).
+            # Only lines written on the device count: the final sampled
+            # token's K/V never was.
+            self._cache_insert(req.slot, req.tokens, len(req.tokens) - 1)
         # With dispatches still in flight for this slot, defer the release
         # to the flush that drains the last of them: they keep writing
         # (garbage) K/V through the slot's table, so handing the slot or
@@ -450,19 +531,20 @@ class RequestManager:
             # the request's first generated token, as the host observes it
             # (TTFT the way a streaming client would measure it)
             req.profile.first_token_time = time.perf_counter()
+        done = self._completes(req, token)
         req.tokens.append(int(token))
-        gen_len = len(req.tokens) - req.prompt_len
-        eos = self.eos_token_id
-        max_total = self.engine.serving.max_sequence_length
-        stops = set(req.gen.stop_token_ids)
-        if eos is not None:
-            stops.add(eos)
-        if (
-            (int(token) in stops)
-            or gen_len >= req.gen.max_new_tokens
-            or len(req.tokens) >= max_total
-        ):
+        if done:
             self._finish(req)
+
+    def _completes(self, req: Request, token: int) -> bool:
+        """Whether appending ``token`` ends ``req``: a stop token, its
+        ``max_new_tokens`` reached, or ``max_sequence_length``."""
+        stops = set(req.gen.stop_token_ids)
+        if self.eos_token_id is not None:
+            stops.add(self.eos_token_id)
+        n = len(req.tokens) + 1
+        return (int(token) in stops or n - req.prompt_len >= req.gen.max_new_tokens
+                or n >= self.engine.serving.max_sequence_length)
 
     # ------------------------------------------------------------------
     # dispatch-ahead pipeline (reference request_manager.cc:2310)
@@ -587,6 +669,11 @@ class RequestManager:
                 req.status = RequestStatus.DECODING
                 req.inflight += 1
                 sampled_slots.add(s)
+                if self.prefix_cache is not None and self.prefix_cache.policy == "prefill":
+                    # every prompt line's write is dispatched: publish the
+                    # prompt now, so that same-prefix admissions hit before
+                    # this request finishes
+                    self._cache_insert(s, req.tokens[: req.prompt_len], req.prompt_len)
             snapshot.append((req.request_id, s, n, final))
         last = self._last_tokens()
         toks = eng.run_mixed(
@@ -640,6 +727,17 @@ class RequestManager:
                 and req.pipeline_refs == 0
             ):
                 self._release_slot(req)
+        # the read above blocked on the device: every spill copy enqueued
+        # before it has landed, so the handles become host buffers and
+        # their device clones are released
+        for cache in self._prefix_caches():
+            cache.harvest()
+
+    def drain(self):
+        """Flush every in-flight dispatch: appends the outstanding tokens
+        and releases the slots and pages of finished requests whose last
+        dispatches were still in the pipeline."""
+        self._flush_all()
 
     def _flush_all(self):
         if self._inflight:
@@ -772,6 +870,9 @@ class RequestManager:
             if req.n_cached >= len(req.tokens):
                 # prompt fully cached: first output token sampled now
                 req.status = RequestStatus.DECODING
+                if self.prefix_cache is not None and self.prefix_cache.policy == "prefill":
+                    self._cache_insert(req.slot, req.tokens[: req.prompt_len],
+                                       req.prompt_len)
                 req.profile.llm_decoding_steps += 1
                 self._append_token(req, sampled[req.slot])
         self._step_counter += 1

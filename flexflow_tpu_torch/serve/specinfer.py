@@ -26,11 +26,13 @@ cold draft ride the incremental decode step), composes with continuous
 batching (prefill-phase steps are mirrored into every SSM,
 :meth:`SpecInferManager._mirror_dispatch`), and can self-speculate
 (``SpecConfig.draft="early_exit"``: the target's own first
-``draft_layers`` blocks draft over the same params and cache).
+``draft_layers`` blocks draft over the same params and cache), and
+composes with prefix caching: a hit jumps the target and every SSM past
+the same cached prefix (one radix tree a pool, the matched lengths
+aligned across them, :meth:`SpecInferManager._cache_attach`); the
+early-exit draft shares the target's pool and tree.
 
-Not ported yet: the composition with prefix caching (the port's engines
-refuse ``prefix_caching``), the distillation sink (``logit_sink``) and
-tracer events.
+Not ported yet: the distillation sink (``logit_sink``) and tracer events.
 """
 from __future__ import annotations
 
@@ -518,12 +520,6 @@ class SpecInferManager(RequestManager):
             ssm_engines = [ssm_engines]
         self.ssms: List[InferenceEngine] = list(ssm_engines or [])
         self.spec = spec or SpecConfig()
-        for eng in [llm_engine, *self.ssms]:
-            if eng.serving.prefix_caching:
-                raise NotImplementedError(
-                    "SpecInfer with prefix_caching comes with the prefix-caching "
-                    "slice (one radix tree per draft pool)"
-                )
         if self.spec.draft == "early_exit":
             if self.ssms:
                 raise ValueError(
@@ -573,6 +569,20 @@ class SpecInferManager(RequestManager):
         # the dense FLOPs one drafted token costs in the draft stack
         # (2 × params), stamped into ProfileInfo.draft_flops_per_token
         self.draft_flops_per_token = self._price_draft_flops()
+        # prefix caching: one radix tree an SSM pool, kept in step with the
+        # target's through the _cache_attach/_cache_insert hooks. The SSM
+        # trees have no stats sink (the target pool's counters are the
+        # telemetry) and no host tier (a miss on an SSM pool only shortens
+        # the common match).
+        self.ssm_prefix_caches: List[Any] = []
+        if self.prefix_cache is not None:
+            from .prefix_cache import PrefixCache
+
+            for ssm_engine in self.ssms:
+                pc = PrefixCache(ssm_engine.pager, copy_page=ssm_engine.copy_page,
+                                 policy=llm_engine.serving.cache_policy)
+                ssm_engine.pager.reclaim_cb = pc.reclaim
+                self.ssm_prefix_caches.append(pc)
         # the whole-step speculation fold: each whole-step engine's gate
         # prices the chunk widths it will see (the draft widths on the
         # drafting engine, the verify widths on the target); a refusal
@@ -619,6 +629,31 @@ class SpecInferManager(RequestManager):
         lockstep (shared slots and serving limits; pools sized per
         engine)."""
         return [self.engine, *self.ssms]
+
+    def _prefix_caches(self):
+        return super()._prefix_caches() + self.ssm_prefix_caches
+
+    def _cache_attach(self, slot: int, tokens) -> int:
+        """Attach the same matched prefix on the target's pool and every
+        SSM pool, or none at all: the engines must jump past the same
+        prefix, or an SSM would draft over lines it never computed. The
+        common match is the least of the pools' probes; if a pool then
+        fails to materialize it (no page to copy a tail into), every pool
+        rolls back to a cold admission."""
+        caches = [self.prefix_cache, *self.ssm_prefix_caches]
+        m = min(pc.match_len(tokens) for pc in caches)
+        if m <= 0:
+            return 0
+        got = self.prefix_cache.attach(slot, tokens, limit=m)
+        ok = got > 0
+        for pc in self.ssm_prefix_caches:
+            if not ok:
+                break
+            ok = pc.attach(slot, tokens, limit=got) == got
+        if not ok:
+            self._release_pages(slot)
+            return 0
+        return got
 
     # ------------------------------------------------------------------
     # adaptive tree shaping
@@ -815,16 +850,14 @@ class SpecInferManager(RequestManager):
             req.profile.draft_flops_per_token = self.draft_flops_per_token
             # path nodes beyond the root are newly committed outputs; the
             # bonus token is the LLM's own next sample
-            new_tokens = [tree.tokens[n] for n in path[1:]] + [bonus]
-            # capture the slot now: _append_token may complete the
-            # request and free it
-            accepted[req.request_id] = (req.slot, [tree.tokens[n] for n in path])
+            accepted[req.request_id] = (req.slot, [tree.tokens[n] for n in path], bonus)
             req.n_cached += len(path)
-            for t in new_tokens:
-                if req.status is RequestStatus.DECODING:
-                    self._append_token(req, t)
-            if req.status is not RequestStatus.DECODING:
-                self._controllers.pop(req.request_id, None)
+        # commit before the tokens land: a request that completes here
+        # publishes its pages to the prefix cache and releases its slot,
+        # so the accepted lines must already sit at their committed
+        # positions (a commit through a released slot's table would write
+        # the scratch page and leave the published lines holding tree
+        # nodes)
         self.engine.commit(src, dst)
         if self.spec.draft == "early_exit":
             # self-draft: one cache — the commit above already moved the
@@ -839,6 +872,13 @@ class SpecInferManager(RequestManager):
             # pre-merge tree indices, so feed the accepted tokens through
             # every SSM at their committed positions instead
             self._refeed_accepted(reqs, accepted)
+        for req in reqs:
+            _, toks, bonus = accepted[req.request_id]
+            for t in toks[1:] + [bonus]:
+                if req.status is RequestStatus.DECODING:
+                    self._append_token(req, t)
+            if req.status is not RequestStatus.DECODING:
+                self._controllers.pop(req.request_id, None)
 
     def _refeed_accepted(self, reqs, accepted):
         """Write the accepted tokens' K/V into every SSM cache by running
@@ -848,7 +888,7 @@ class SpecInferManager(RequestManager):
         scratch = self.engine.scratch_pos
         bc = BatchConfig.empty(R, K, scratch)
         for req in reqs:
-            slot, toks = accepted[req.request_id]
+            slot, toks, _ = accepted[req.request_id]
             start = req.n_cached - len(toks)  # n_cached already advanced
             bc.tokens[slot, : len(toks)] = toks
             bc.positions[slot, : len(toks)] = np.arange(
@@ -912,6 +952,11 @@ class SpecInferManager(RequestManager):
                 self._ssm_lag[req.request_id] = (
                     self._ssm_lag.get(req.request_id, 0) + 1
                 )
+            if self.prefix_cache is not None and self._completes(req, int(sampled[req.slot])):
+                # completion publishes this slot's blocks on every pool:
+                # the SSM pools' lines must hold real K/V, not the skipped
+                # rounds' holes
+                self._sync_ssm_caches([req])
             self._append_token(req, int(sampled[req.slot]))
             if req.status is not RequestStatus.DECODING:
                 self._controllers.pop(req.request_id, None)

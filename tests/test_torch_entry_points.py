@@ -252,3 +252,30 @@ def test_serve_command_subprocess(untied):
     lines = out.stdout.strip().splitlines()
     assert [json.loads(line) for line in lines[0::2]] == want
     assert all(line.startswith("  [steps=") for line in lines[1::2])
+
+
+def test_serve_prefix_flags_reach_serving_config(monkeypatch, capsys):
+    """--prefix-caching, --host-cache-bytes and --cache-policy reach the
+    ServingConfig that LLM.compile gets, with JAX's defaults; the run
+    serves a repeated prompt from the cache on the paged layout."""
+    from flexflow_tpu_torch import __main__ as cli
+
+    seen = []
+    compile_ = LLM.compile
+
+    def compile_spy(self, serving=None, **kw):
+        seen.append((serving, self))
+        compile_(self, serving, **kw)
+        self.rm.generate([[3, 17, 91, 42, 7, 8, 9, 10, 11]], max_new_tokens=2)
+
+    monkeypatch.setattr(LLM, "compile", compile_spy)
+    base = ["serve", "--device", "cpu", "--kernels", "torch", "--max-new-tokens", "2",
+            "--kv-layout", "paged", "--page-size", "4", "--prompt", "3,17,91,42,7,8,9,10,11,12"]
+    cli.main(base)
+    cli.main(base + ["--prefix-caching", "--host-cache-bytes", "1048576",
+                     "--cache-policy", "prefill"])
+    (off, _), (on, llm) = seen
+    assert (off.prefix_caching, off.host_cache_bytes, off.cache_policy) == (False, None, "complete")
+    assert (on.prefix_caching, on.host_cache_bytes, on.cache_policy) == (True, 1048576, "prefill")
+    assert llm.rm.prefix_cache.spill_enabled and llm.rm.stats.prefix_hits == 1
+    assert "[steps=" in capsys.readouterr().out

@@ -18,7 +18,7 @@ def test_import_leaves_jax_and_the_jax_package_unloaded():
     code = (
         "import sys\n"
         "import flexflow_tpu_torch\n"
-        "from flexflow_tpu_torch.serve import kernels, _cuda, llm, engine, request_manager\n"
+        "from flexflow_tpu_torch.serve import kernels, _cuda, llm, engine, request_manager, prefix_cache\n"
         "from flexflow_tpu_torch.models import llama, hf_utils\n"
         "import flexflow_tpu_torch.__main__\n"
         "from flexflow_tpu_torch.ops import flash_attention\n"

@@ -196,7 +196,7 @@ SERVE_NO_PS = {k: v for k, v in SERVE.items() if k != "page_size"}
 
 def test_later_slice_fields_still_raise_and_head_dim_pack_is_checked(weights):
     cfg_t, params_t = weights[2], weights[3]
-    for serve in (dict(prefix_caching=True), dict(quantized_allreduce="int8")):
+    for serve in (dict(kv_shard="context"), dict(quantized_allreduce="int8")):
         with pytest.raises(NotImplementedError, match="slice"):
             InferenceEngine(tl, cfg_t, params_t,
                             ServingConfig(kv_layout="paged", **SERVE, **serve), device="cpu")

@@ -11,7 +11,7 @@ from flexflow_tpu.models import llama as jl
 from flexflow_tpu.serve import LLM as JaxLLM
 from flexflow_tpu.serve import ServingConfig as JaxServingConfig
 from flexflow_tpu_torch.models import llama as tl
-from flexflow_tpu_torch.serve import LLM, InferenceEngine, ServingConfig
+from flexflow_tpu_torch.serve import LLM, InferenceEngine, RequestManager, ServingConfig
 
 torch.set_num_threads(1)
 
@@ -124,16 +124,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
     # raises, and "whole_step" needs the paged layout
     pytest.param("fused_decode", ("sampling", "bogus"), ValueError, id="fused_decode-value1"),
     pytest.param("fused_decode", ("whole_step",), ValueError, id="fused_decode-value2"),
-    pytest.param("prefix_caching", True, NotImplementedError, id="prefix_caching-True"),
+    # ported: prefix_caching on the dense layout passes through (no pages)
+    pytest.param("prefix_caching", True, None, id="prefix_caching-True"),
     pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
     pytest.param("inference_debugging", "/nonexistent", NotImplementedError,
                  id="inference_debugging-/nonexistent"),
 ])
 def test_unported_serving_fields_raise(weights, field, value, exc):
     """A field of a later slice raises NotImplementedError naming it; a
-    ported one raises the JAX engine's ValueError on a bad layout."""
+    ported one raises the JAX engine's ValueError on a bad layout, or
+    (``exc`` None) passes through as in JAX."""
     cfg_t, params_t = weights[2], weights[3]
     sc = ServingConfig(**{field: value}, **SERVE)
+    if exc is None:
+        eng = InferenceEngine(tl, cfg_t, params_t, sc, device="cpu")
+        assert RequestManager(eng).prefix_cache is None
+        return
     with pytest.raises(exc, match="slice" if exc is NotImplementedError else "paged"):
         InferenceEngine(tl, cfg_t, params_t, sc, device="cpu")
 

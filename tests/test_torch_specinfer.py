@@ -582,11 +582,12 @@ def test_llm_compile_with_ssms_and_early_exit(target, draft):
 
 
 def test_spec_refusals(target, draft):
-    """The prefix-cache composition is a later slice; sampling is refused
-    as in JAX. (Whole-step engines are served: tests/test_torch_whole_spec.py.)"""
+    """A field of a later slice (context sharding) raises; sampling is
+    refused as in JAX. (Prefix caching composes: the tests below;
+    whole-step engines are served: tests/test_torch_whole_spec.py.)"""
     m = LLM(tl, target[2], target[3], device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        m.compile(ServingConfig(cache_dtype=torch.float32, prefix_caching=True, **SERVE),
+    with pytest.raises(NotImplementedError, match="long-context"):
+        m.compile(ServingConfig(cache_dtype=torch.float32, kv_shard="context", **SERVE),
                   spec=ts.SpecConfig(draft="early_exit", draft_layers=1))
     pm = ts.SpecInferManager(_port_engine(target), [_port_engine(draft)])
     from flexflow_tpu_torch.serve import GenerationConfig
@@ -608,3 +609,141 @@ def test_spec_stats_report(target, draft):
     assert f"spec={snap['spec_accepted']}/{snap['spec_drafted']}" in pm.stats.report()
     assert pm.draft_flops_per_token == js.SpecInferManager(
         _jax_engine(target), [_jax_engine(draft)]).draft_flops_per_token
+
+
+# ---------------------------------------------------------------------------
+# the composition with prefix caching (tests/test_adaptive_spec.py's
+# TestPrefixCacheComposition, on the port)
+
+
+@pytest.fixture(scope="module")
+def draft_2layer():
+    return _jax_params(7, num_hidden_layers=2)
+
+
+PREFIX = dict(kv_layout="paged", page_size=8, prefix_caching=True)
+PREFIX_PROMPT = [(i * 7 + 3) % 256 for i in range(20)]
+
+
+def _prefix_manager(target, ssms, spec, **kw):
+    return ts.SpecInferManager(_port_engine(target, **PREFIX, **kw),
+                               [_port_engine(s, **PREFIX, **kw) for s in ssms], spec)
+
+
+def _audit_pools(mgr):
+    mgr.drain()
+    for eng, pc in zip(mgr._engines(), mgr._prefix_caches()):
+        eng.pager.check_no_leaks(external=pc.page_refs())
+
+
+@pytest.mark.parametrize("fused", [(), ("whole_step",)])
+@pytest.mark.parametrize("kind", ["ssm", "early_exit"])
+def test_prefix_cold_vs_warm_bitwise_and_incremental(target, draft_2layer, kind, fused):
+    """A hit jumps the target and every SSM past the cached prefix: warm
+    tokens equal the cold run's, which equal incremental decoding, with a
+    2-layer SSM (its pool has a tree of its own) and with the early-exit
+    draft (it shares the target's pool and tree), on per-layer and on
+    whole-step engines (the fold reads the spliced table)."""
+    ssms = [draft_2layer] if kind == "ssm" else []
+    spec = (ts.SpecConfig(2, 3, adaptive=True) if kind == "ssm"
+            else ts.SpecConfig(2, 3, draft="early_exit", draft_layers=1))
+    kw = dict(fused_decode=fused)
+    ref = [r.output_tokens for r in RequestManager(_port_engine(
+        target, kv_layout="paged", page_size=8, **kw)).generate([PREFIX_PROMPT],
+                                                               max_new_tokens=10)]
+    mgr = _prefix_manager(target, ssms, spec, **kw)
+    assert len(mgr._prefix_caches()) == 1 + len(ssms)
+    cold = mgr.generate([PREFIX_PROMPT], max_new_tokens=10)[0]
+    warm = mgr.generate([PREFIX_PROMPT], max_new_tokens=10)[0]
+    assert [cold.output_tokens] == ref and warm.output_tokens == cold.output_tokens
+    assert warm.profile.cached_prefix_len == 19 and mgr.stats.prefix_hits == 1
+    assert mgr.stats.spec_rounds > 0
+    if fused:
+        assert all(e.whole_step_spec_on for e in mgr._engines())
+    _audit_pools(mgr)
+
+
+@pytest.mark.parametrize("kind", ["ssm", "early_exit"])
+def test_prefix_next_turn_reads_the_committed_lines(target, kind):
+    """The next turn of a conversation resends the whole transcript: its
+    hit covers lines that the finished request's last verify round
+    committed, which must have moved to their positions before the
+    completion published them (the SSM is the target's own weights, so
+    its trees are accepted whole; 9 new tokens end the early-exit run in
+    a round that commits lines). Warm tokens equal incremental decoding."""
+    ssms = [target] if kind == "ssm" else []
+    spec = (ts.SpecConfig(2, 3) if kind == "ssm"
+            else ts.SpecConfig(2, 3, draft="early_exit", draft_layers=1))
+    mgr = _prefix_manager(target, ssms, spec)
+    first = mgr.generate([PREFIX_PROMPT], max_new_tokens=9)[0]
+    assert first.profile.accepted_tokens > 0
+    # the target's published lines hold the transcript's K/V: those of a
+    # plain chunked prefill of it, up to summation order. (An SSM pool's
+    # lines are drafts: a committed node of the tree's last depth was
+    # never run through the SSM, here as in the JAX package.)
+    valid = PREFIX_PROMPT + first.output_tokens[:-1]
+    pages, n = mgr.prefix_cache.match(valid + [0])
+    assert n == len(valid)
+    ref = _port_engine(target, kernels="torch", kv_layout="paged", page_size=8)
+    assert ref.pager.ensure(0, n)
+    for off in range(0, n, 8):
+        bc = BatchConfig.empty(ref.num_slots, 8, ref.scratch_pos)
+        bc.tokens[0, :min(8, n - off)] = valid[off:off + 8]
+        bc.positions[0, :min(8, n - off)] = np.arange(off, min(off + 8, n))
+        bc.active[0] = True
+        ref.run(bc)
+    for k in ("k", "v"):
+        got = mgr.engine.cache[k][:, pages].flatten(1, 2)[:, :n]
+        want = ref.cache[k][:, ref.pager.table[0][:len(pages)]].flatten(1, 2)[:, :n]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    turn = PREFIX_PROMPT + first.output_tokens + [5, 9, 2]
+    inc = RequestManager(_port_engine(target, kv_layout="paged", page_size=8))
+    want = inc.generate([turn], max_new_tokens=10)[0].output_tokens
+    got = mgr.generate([turn], max_new_tokens=10)[0]
+    assert got.profile.cached_prefix_len == len(PREFIX_PROMPT) + len(first.output_tokens) - 1
+    assert got.output_tokens == want
+    _audit_pools(mgr)
+
+
+def test_prefix_pool_mismatch_falls_back_cold(target, draft):
+    """One pool's tree cleared behind the manager's back: the common match
+    is 0, a cold admission, never a half-spliced prefix."""
+    mgr = _prefix_manager(target, [draft], ts.SpecConfig(2, 3))
+    ref = mgr.generate([PREFIX_PROMPT], max_new_tokens=10)[0].output_tokens
+    mgr.ssm_prefix_caches[0].clear()
+    warm = mgr.generate([PREFIX_PROMPT], max_new_tokens=10)[0]
+    assert warm.output_tokens == ref and warm.profile.cached_prefix_len == 0
+    _audit_pools(mgr)
+
+
+def test_prefix_rollback_when_an_ssm_pool_cannot_materialize(target, draft):
+    """Every pool matches 20 tokens, which end inside a page; the SSM pool
+    has no page left for the tail's copy (its free list is held by
+    other slots, and its only idle cached pages are the matched path
+    itself): its attach comes back short and every pool rolls back to a
+    cold admission, its references released. With the page back, the
+    same prompt hits on every pool."""
+    # 45 pages a pool: three slots' worst case
+    mgr = _prefix_manager(target, [draft], ts.SpecConfig(2, 3), max_cached_tokens=360)
+    seed = PREFIX_PROMPT[:20]
+    mgr.generate([seed], max_new_tokens=5)  # publishes 24 lines: 3 full pages
+    ssm = mgr.ssm
+    assert mgr.ssm_prefix_caches[0].cached_pages == 3
+    pps = ssm.pager.pages_per_slot
+    for slot in (1, 2, 3):  # slot 0 stays empty for the admission
+        assert ssm.pager.ensure(slot, min(ssm.pager.free_pages, pps) * 8)
+    assert ssm.pager.free_pages == 0
+    prompt = seed + [77]
+    assert all(pc.match_len(prompt) == 20 for pc in mgr._prefix_caches())
+    assert mgr._cache_attach(0, prompt) == 0
+    for eng, pc in zip(mgr._engines(), mgr._prefix_caches()):
+        assert eng.pager.slot_pages(0) == 0
+        eng.pager.check_no_leaks(external=pc.page_refs())
+    for slot in (1, 2, 3):
+        ssm.pager.release(slot)
+    ref = RequestManager(_port_engine(target, kv_layout="paged", page_size=8)).generate(
+        [prompt], max_new_tokens=8)[0].output_tokens
+    got = mgr.generate([prompt], max_new_tokens=8)[0]
+    assert got.profile.cached_prefix_len == 20 and got.output_tokens == ref
+    assert mgr.stats.prefix_cows >= 1
+    _audit_pools(mgr)
