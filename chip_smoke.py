@@ -109,7 +109,8 @@ line reports the decode launches' device time. The whole bf16 arm adds a
 engine's weights and tile count, ``DECODE_LENS`` over a fresh pool).
 
 SpecInfer and beam search (slice 12; no new kernel): ``spec`` serves
-the dense slice's 8 requests with LLaMA-7B at full depth incrementally,
+the dense slice's 8 requests with LLaMA-7B (width 4096, cut to
+``SPEC_LAYERS`` layers) incrementally,
 beam-searches one of them (3 beams), and serves them through five
 SpecInfer arms (``SPEC_ARMS``: a 2-layer layer-skip SSM over the same
 weights with SpecConfig(2, 3); a 1-layer one with the adaptive ladder and
@@ -146,7 +147,7 @@ f32 phase holds whole-step spec runs to their ``kernels="torch"`` twins.
 flexflow_tpu_torch serve``.
 
 Prefix caching and the host tier (slice 14; no new kernel): ``prefix``
-serves 32 requests of LLaMA-7B (32 layers) that share a 1000-token system
+serves 32 requests of LLaMA-7B (``PREFIX_LAYERS`` layers) that share a 1000-token system
 prompt through five arms, each against its twin (``PREFIX_ARMS``: bf16
 unfused, int8 ``rope_kv_write`` under ``cache_policy="prefill"``, bf16
 ``whole_step``, int8 whole-step SpecInfer with a 2-layer SSM, each against
@@ -166,6 +167,23 @@ every pool, fusion and SpecInfer to each other and to their
 ``kernels="torch"`` twins, and a tight pool's preemptions with caching on
 to those with it off.
 
+The generic decoder and the other families: the kernel checks
+add the paged kernels (and the commit kernel) at head dims 80 (Phi-2) and
+256 (Gemma-7B) on every pool type at C = 128 and at decode, and Falcon-7B's
+MQA decode (G = 71, the tensor-core tile at C = 1), as rows
+``name[dk80|dk256|mqa-g71]`` of the kernels line, every case under
+``cases``. ``families`` serves Falcon-7B at full depth (the paged slice's
+8 requests; bf16, bf16 ``rope_kv_write``, int8 ``rope_kv_write``) and ten
+families at their published widths cut to 2 layers (OPT-6.7B,
+StarCoder-15B, Qwen2-7B, Mistral-7B across its 4096-token window,
+Mixtral-8x7B, Qwen1.5-MoE, Gemma-7B, Phi-2, GPT-2 XL, MPT-7B), each arm held
+to its ``kernels="torch"`` twin (teacher-forced logits under slice 1's
+rule, the first step's logits, tokens greedy over their prefix); MPT's
+ALiBi batches launch no paged kernel, each step counted on the plain path
+(``plain_attention_steps``). ``entry`` also serves a 2-layer Falcon
+checkpoint in HF naming (the fused ``query_key_value``) through
+``from_pretrained``, ``generate``, ``generate_stream`` and ``serve``.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -178,7 +196,9 @@ attention) on one seeded (4, 2049) batch, whose loss must fall.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -196,7 +216,9 @@ import torch
 
 from flexflow_tpu_torch import optimizers as O
 from flexflow_tpu_torch.metrics import SchedulerStats
-from flexflow_tpu_torch.models import llama
+from flexflow_tpu_torch.models import (falcon, gemma, gpt2, llama, mistral, mixtral, mpt, opt,
+                                       phi, qwen2, qwen2_moe, starcoder)
+from flexflow_tpu_torch.models import transformer as TD
 from flexflow_tpu_torch.ops import flash_attention as FA
 from flexflow_tpu_torch.serve import kernels as K
 from flexflow_tpu_torch.serve import _cuda
@@ -592,23 +614,26 @@ def phase_build():
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info, "mma_kernels": mma, "split_kernels": split,
           "whole_step_kernels": whole})
-    # the split decode walk: 2 q types x 3 pool types x 2 head dims x 3 row
+    # the split decode walk: 2 q types x 3 pool types x 4 head dims x 3 row
     # counts in each paged source compiled by this run, 2 x 2 x 3 in the
     # dense one, none spilling
-    want = (36 * sum(src in reports for src in K.PAGED_KERNELS)
+    want = (72 * sum(src in reports for src in K.PAGED_KERNELS)
             + 12 * ("decode_attention" in reports))
     check(len(split) == want, f"split decode instantiations in the ptxas report: {len(split)}, "
                               f"want {want}")
     check(all(r["spill_store_bytes"] == 0 for r in split),
           "a split decode instantiation spills: " + str(
               [r for r in split if r["spill_store_bytes"]]))
-    # the f32 tensor-core tile: 3 pool types x 2 head dims in each paged
-    # source compiled by this run, none spilling
+    # the f32 tensor-core tile: 3 pool types x 4 head dims in each paged
+    # source compiled by this run, none spilling below dk 256 (there the
+    # 128-register accumulator of a warp's 16 rows x 256 dims spills a few
+    # words: the build line lists them)
     tf32 = [r for r in mma if r.get("design") == "tf32x3" and r["kernel"] in K.PAGED_KERNELS]
-    want = 6 * sum(src in reports for src in K.PAGED_KERNELS)
+    want = 12 * sum(src in reports for src in K.PAGED_KERNELS)
     check(len(tf32) == want, f"tf32x3 instantiations in the ptxas report: {len(tf32)}, "
                              f"want {want}")
-    check(all(r["spill_store_bytes"] == 0 for r in tf32), "a tf32x3 instantiation spills")
+    check(all(r["spill_store_bytes"] == 0 for r in tf32 if r["dk"] != 256),
+          "a tf32x3 instantiation below dk 256 spills")
     # a whole-step function that spills fails the run at its end, after
     # every phase has printed its measurements
     return [f"{r['dtype']}/{r['pool']}/dk{r['dk']}: {r['spill_store_bytes']} bytes"
@@ -911,13 +936,19 @@ def _paged_positions(rng, kind, R, C, cache_len, ps):
     return pos
 
 
-def _paged_case(gen, rng, dtype, quant, KV, kind):
-    """Inputs of one paged attention call at LLaMA-7B widths: q, pools
-    (q's dtype, or int8/int4 codes quantized from random lines at
-    per-page amax scales), the shuffled page table (slots' unused
-    logical pages on the scratch page P) and the causal paged mask."""
+def _paged_case(gen, rng, dtype, quant, KV, kind, cfg=None):
+    """Inputs of one paged attention call at the widths of ``cfg`` (heads
+    and head dim; LLaMA-7B's when None): q, pools (q's dtype, or int8/int4
+    codes quantized from random lines at per-page amax scales), the
+    shuffled page table (slots' unused logical pages on the scratch page
+    P), the causal paged mask, and the model's RoPE tables (``rope``: the
+    rotary width of ``cfg``)."""
     sc = ServingConfig()
-    cfg = llama.LLaMAConfig.llama_7b()
+    if cfg is None:
+        cfg = llama.LLaMAConfig.llama_7b()
+        rope = functools.partial(llama.rope_freqs, cfg)
+    else:
+        rope = functools.partial(TD.rope_freqs, cfg)
     R, H, dk = sc.max_requests_per_batch, cfg.num_attention_heads, cfg.head_dim
     ps, NP = sc.page_size, sc.pages_per_slot
     tree, spec = None, re.fullmatch(r"(verify|draft)(\d+)", kind)
@@ -950,7 +981,7 @@ def _paged_case(gen, rng, dtype, quant, KV, kind):
                 cpos=torch.from_numpy(cpos).to(DEV),
                 mask=K.paged_serve_mask(tree, post, NP, ps, sc.cache_len),
                 R=R, C=C, H=H, KV=KV, dk=dk, ps=ps, NP=NP, P=P,
-                cache_len=sc.cache_len)
+                cache_len=sc.cache_len, rope=rope)
 
 
 def _paged_bound(case, q_dtype, extra_bytes=0):
@@ -1113,7 +1144,7 @@ def run_fused_check(label, case, dtype, quant, timed=True):
     gen.manual_seed(R * C + KV)
     k_new = _rand((R, C, KV, dk), dtype, gen)
     v_new = _rand((R, C, KV, dk), dtype, gen)
-    cos, sin = llama.rope_freqs(llama.LLaMAConfig.llama_7b(), pos)  # (R, C, dk) f32
+    cos, sin = case["rope"](pos)  # (R, C, rotary width) f32
     lines = case["cpos"]  # a tree step's lines are not its positions
     logical = (lines // ps).to(torch.int32)
     off = (lines % ps).to(torch.int32)
@@ -1126,7 +1157,7 @@ def run_fused_check(label, case, dtype, quant, timed=True):
     out, design = _design_of("fused_rope_paged_attention", lambda: K.fused_rope_paged_attention(
         q, k_new, v_new, cos, sin, a[0], a[1], table, logical, off, mask, k_scale=a[2],
         v_scale=a[3], qmax=qmax))
-    qr, kr = llama.apply_rope(q, cos, sin), llama.apply_rope(k_new, cos, sin)
+    qr, kr = TD.apply_rope(q, cos, sin), TD.apply_rope(k_new, cos, sin)
     phys = table.long().gather(1, logical.long())
     K.commit_paged(b[0], b[1], kr, v_new, phys, off.long(), b[2], b[3], qmax)
     unfused = K.ragged_paged_attention(qr, b[0], b[1], table, mask, k_scale=b[2],
@@ -1305,6 +1336,59 @@ def phase_paged_kernels(seed):
                     main[f"{name}[bf16/decode]"]["gqa_kv8"] = {k: row.get(k) for k in GQA_KEYS}
                 else:
                     main[f"{name}[{pool}/decode]"] = row
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return main
+
+
+# the paged kernels at the other families' shapes: head dims 80
+# (Phi-2: 32 heads, RoPE over the first 32 of each 80) and 256 (Gemma-7B: 16
+# heads) on every pool type at C = 128 and at decode, and Falcon-7B's MQA
+# decode on every pool type (71 query heads on one KV head: past the decode
+# design's 8 rows, one 128-row block of the tensor-core tile, 57 rows idle).
+# (group, label, model config, q dtype, pool quantization, step kind); each
+# group is a row of the kernels line (``name[group]``, its main numbers the
+# first case's, every case's under ``cases``)
+FAMILY_POOLS = (("bf16", torch.bfloat16, None), ("f32", torch.float32, None),
+                ("int8", torch.bfloat16, "int8"), ("int4", torch.bfloat16, "int4"))
+FAMILY_KERNEL_CASES = tuple(
+    (group, f"{group}-{pool}-{kind}", cfg_fn, dtype, quant, kind)
+    for group, cfg_fn, kinds in (("dk80", phi.phi_2, ("mixed", "decode")),
+                                 ("dk256", gemma.gemma_7b, ("mixed", "decode")),
+                                 ("mqa-g71", falcon.falcon_7b, ("decode",)))
+    for pool, dtype, quant in FAMILY_POOLS for kind in kinds)
+# what a row keeps of each of its cases
+CASE_KEYS = ("design", "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_graph_ms", "splits", "blocks")
+
+
+def phase_family_kernels(seed):
+    """Both paged kernels (and the commit kernel on quantized pools)
+    against their plain versions at FAMILY_KERNEL_CASES, as
+    phase_paged_kernels holds them at LLaMA-7B's; returns the kernels
+    line's rows ``name[group]``."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 15)
+    rng = np.random.default_rng(seed + 15)
+    main = {}
+    for group, label, cfg_fn, dtype, quant, kind in FAMILY_KERNEL_CASES:
+        cfg = cfg_fn()
+        case = _paged_case(gen, rng, dtype, quant, cfg.num_key_value_heads, kind, cfg)
+        rows = {"ragged_paged_attention": run_ragged_check(label, case, dtype, quant),
+                "fused_rope_paged_attention": run_fused_check(label, case, dtype, quant)}
+        want = ("decode" if case["C"] * (case["H"] // case["KV"]) <= K.DECODE_ROWS
+                else "mma" if dtype == torch.bfloat16 else "tf32x3")
+        check(all(r["design"] == want for r in rows.values()),
+              f"paged[{label}]: designs {[r['design'] for r in rows.values()]}, want {want}")
+        if quant and group.startswith("dk"):  # the commit kernel's new head dims
+            rows["paged_commit"] = run_commit_check(label, case, dtype, quant)
+        for name, row in rows.items():
+            key = f"{name}[{group}]"
+            if key not in main:  # the group's first case gives the row's numbers
+                main[key] = dict(row, cases={})
+            main[key]["cases"][label[len(group) + 1:]] = {k: row.get(k) for k in CASE_KEYS
+                                                          if k in row}
         del case
         gc.collect()
         torch.cuda.empty_cache()
@@ -1745,7 +1829,7 @@ def phase_whole_kernels(seed):
     return main
 
 
-def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens):
+def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens, family=llama):
     """Replay ``seqs`` (prompt + fed output tokens) through a fresh engine:
     lockstep chunked prefill, then one decode step per fed token, each
     through ``run_mixed(..., with_logits=True)`` — the serving step itself
@@ -1753,8 +1837,8 @@ def _teacher_forced_logits(cfg, params, sc, seqs, prompt_lens):
     always the per-layer step). Returns each step's logits of the rows
     active in it, on the host. A paged engine gets each slot's pages as
     its lines arrive (its pool is the default worst case: nothing is
-    preempted)."""
-    eng = InferenceEngine(llama, cfg, params, sc, device=DEV)
+    preempted). ``family`` is the model's family module."""
+    eng = InferenceEngine(family, cfg, params, sc, device=DEV)
     R, C, S = eng.num_slots, sc.prefill_chunk, eng.scratch_pos
     n = len(seqs)
     head = (np.ones((R,), bool), np.ones((R,), np.float32), np.full((R,), 2.0, np.float32),
@@ -1974,6 +2058,7 @@ def _serve(llm, prompts, new):
     _PEAKS.append(torch.cuda.max_memory_allocated())
     llm.rm.stats = SchedulerStats()
     K.reset_launch_counts()
+    llm.engine.plain_attention_steps = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = llm.generate(prompts, max_new_tokens=new)
@@ -2522,6 +2607,12 @@ def phase_f32(seed):
 # (label, ServingConfig fields, SpecConfig fields, layers of the
 # layer-skip SSM that drafts over the target's own weights, or None for
 # the early-exit self-draft)
+# the depths of the spec and prefix phases: LLaMA-7B's width cut to 8 and
+# 16 of its 32 layers (their arms were the run's largest after the paged
+# slice's; with the families phase the whole run must stay well inside its
+# 1200 s on a slower machine too)
+SPEC_LAYERS = 8
+PREFIX_LAYERS = 16
 SPEC_PAGED = dict(kv_layout="paged", max_cached_tokens=PAGED_BUDGET)
 SPEC_ARMS = (
     ("dense", {}, dict(beam_width=2, beam_depth=3), 2),
@@ -2573,15 +2664,22 @@ def layer_skip_draft(cfg, params, k):
     return dataclasses.replace(cfg, num_hidden_layers=k), dparams
 
 
-def _next_token_logits(cfg, params, sc, prompts, outputs):
+def _next_token_logits(cfg, params, sc, prompts, outputs, family=llama):
     """Teacher-forced logits of every served token: prompt plus outputs
     replayed through ``_teacher_forced_logits`` (one slot a request, a
     fresh engine); a (requests, tokens, V) host tensor whose row (i, k)
     predicts ``outputs[i][k]``."""
     seqs = [p + o[:-1] for p, o in zip(prompts, outputs)]
+    steps = _teacher_forced_logits(cfg, params, sc, seqs, [len(p) for p in prompts], family)
+    return _next_rows(steps, prompts, outputs, sc.prefill_chunk)
+
+
+def _next_rows(steps, prompts, outputs, C):
+    """The rows of teacher-forced ``steps`` (``_teacher_forced_logits`` over
+    prompts plus outputs) that predict each served token: (requests,
+    tokens, V)."""
+    seqs = [p + o[:-1] for p, o in zip(prompts, outputs)]
     plens = [len(p) for p in prompts]
-    steps = _teacher_forced_logits(cfg, params, sc, seqs, plens)
-    C = sc.prefill_chunk
     n_pre = math.ceil(max(plens) / C)
     out = []
     for i, (pl, o) in enumerate(zip(plens, outputs)):
@@ -2744,7 +2842,7 @@ def _spec_line(label, results, line, stats, incr_steps):
     accepted = sum(r.profile.accepted_tokens for r in results)
     drafted = sum(r.profile.speculated_tokens for r in results)
     tokens = sum(len(r.output_tokens) for r in results)
-    return {"phase": "spec", "path": label, "model": "llama_7b", "layers": 32,
+    return {"phase": "spec", "path": label, "model": "llama_7b", "layers": SPEC_LAYERS,
             "dtype": "bfloat16", "spec_step_reduction": incr_steps / max(1, steps),
             "drafted_accept_rate": accepted / max(1, drafted),
             "tokens_per_verify_step": tokens / max(1, steps),
@@ -2755,8 +2853,9 @@ def _spec_line(label, results, line, stats, incr_steps):
 
 
 def phase_spec(seed):
-    """SpecInfer and beam search on LLaMA-7B at full width and depth
-    (random bf16 weights from the seed, the dense slice's 16 slots and 8
+    """SpecInfer and beam search on LLaMA-7B at full width cut to
+    SPEC_LAYERS layers (random bf16 weights from the seed, the dense
+    slice's 16 slots and 8
     requests x 64 greedy tokens): the incremental arm, beam search on one
     request, and the SPEC_ARMS through LLM.generate, each profiled. Every
     arm's served tokens must be greedy over their own prefix
@@ -2766,14 +2865,14 @@ def phase_spec(seed):
     verifies the same trees through plain attention; the fused arm's tree
     verify must equal the unfused paged step bit for bit. Returns the
     launches of the arms' runs."""
-    cfg = llama.LLaMAConfig.llama_7b()
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=SPEC_LAYERS)
     llm = LLM(llama, cfg, device=DEV, seed=seed)
     params = llm.params
     prompts, new = _slice_prompts(seed, cfg)
     llm.compile(ServingConfig())
     results, line = _serve(llm, prompts, new)
     incr_steps = sum(r.profile.llm_decoding_steps for r in results)
-    emit({"phase": "spec", "path": "incremental", "model": "llama_7b", "layers": 32,
+    emit({"phase": "spec", "path": "incremental", "model": "llama_7b", "layers": SPEC_LAYERS,
           "dtype": "bfloat16", "llm_steps": incr_steps, **line})
     launches = dict(line["launches"])
     served = {"incremental": [r.output_tokens for r in results]}
@@ -2977,6 +3076,92 @@ def _hf_state_dict(cfg, params):
     return sd
 
 
+def _falcon_hf_state_dict(cfg, params):
+    """Falcon parameters in HF ``FalconForCausalLM`` naming (the old
+    decoder architecture) on the host: Q, K and V fused into one
+    ``query_key_value`` weight ([H query heads | KV key heads | KV value
+    heads] × dk rows), Linear weights (out, in), one tensor a layer."""
+    pre = "transformer."
+    sd = {pre + "word_embeddings.weight": params["embed"].cpu(),
+          pre + "ln_f.weight": params["final_norm_scale"].cpu(),
+          pre + "ln_f.bias": params["final_norm_bias"].cpu(),
+          "lm_head.weight": params["lm_head"].t().contiguous().cpu()}
+    for i in range(cfg.num_hidden_layers):
+        lp = {n: w[i] for n, w in params["layers"].items()}
+        h = f"{pre}h.{i}."
+        sd[h + "input_layernorm.weight"] = lp["attn_norm_scale"].cpu()
+        sd[h + "input_layernorm.bias"] = lp["attn_norm_bias"].cpu()
+        sd[h + "self_attention.query_key_value.weight"] = torch.cat(
+            [lp["wq"], lp["wk"], lp["wv"]], dim=1).t().contiguous().cpu()
+        for ours, hf in (("wo", "self_attention.dense"), ("w_up", "mlp.dense_h_to_4h"),
+                         ("w_down", "mlp.dense_4h_to_h")):
+            sd[h + hf + ".weight"] = lp[ours].t().contiguous().cpu()
+    return sd
+
+
+def _entry_falcon(seed):
+    """The entry points on a generic-decoder family: a Falcon checkpoint in
+    HF naming (Falcon-7B widths cut to ENTRY_LAYERS layers, the fused
+    ``query_key_value``, random bf16 weights from the seed) served on the
+    paged layout through ``LLM.from_pretrained`` (its tensors given back
+    bit for bit), ``generate`` and ``generate_stream`` (the same tokens) and
+    ``python -m flexflow_tpu_torch serve --kv-layout paged`` (exit 0, the
+    same tokens)."""
+    cfg = falcon.falcon_7b(num_hidden_layers=ENTRY_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 17)
+    params = falcon.init_params(gen, cfg, device=DEV)
+    d = tempfile.mkdtemp(prefix="flexflow_tpu_torch_entry_falcon_")
+    try:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"model_type": "falcon", "architectures": ["FalconForCausalLM"],
+                       "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                       "ffn_hidden_size": cfg.intermediate_size,
+                       "num_hidden_layers": cfg.num_hidden_layers,
+                       "num_attention_heads": cfg.num_attention_heads, "multi_query": True,
+                       "new_decoder_architecture": False, "parallel_attn": True,
+                       "bias": False, "alibi": False, "layer_norm_epsilon": cfg.norm_eps,
+                       "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f)
+        torch.save(_falcon_hf_state_dict(cfg, params), os.path.join(d, "pytorch_model.bin"))
+        llm = LLM.from_pretrained(d, device=DEV)
+        check(llm.family is falcon and llm.cfg == cfg,
+              f"from_pretrained(falcon): family {llm.family.__name__}, config {llm.cfg}")
+        got = dict(llm.params, **{f"layers.{k}": v for k, v in llm.params["layers"].items()})
+        want = dict(params, **{f"layers.{k}": v for k, v in params["layers"].items()})
+        same = {k: bool(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))
+                for k in want if k != "layers"}
+        check(all(same.values()), f"from_pretrained(falcon): tensors not bitwise {same}")
+        del params
+        llm.compile(ServingConfig(max_requests_per_batch=4, max_sequence_length=512,
+                                  kv_layout="paged"))
+        prompts = [list(p) for p in ENTRY_PROMPTS]
+        K.reset_launch_counts()
+        tokens = [r.output_tokens for r in llm.generate(prompts, max_new_tokens=ENTRY_NEW)]
+        check(K.LAUNCHES["ragged_paged_attention[bf16]"] > 0,
+              "entry(falcon): generate launched no paged kernel")
+        streamed = {}
+        for ev in llm.rm.generate_stream(prompts, max_new_tokens=ENTRY_NEW):
+            if not ev.done:
+                streamed.setdefault(ev.request_id, []).append(ev.token)
+        check([streamed[r] for r in sorted(streamed)] == tokens,
+              f"entry(falcon): generate_stream {streamed} != generate {tokens}")
+        _free(llm)
+        cmd = [sys.executable, "-m", "flexflow_tpu_torch", "serve", "--model-dir", d,
+               "--kv-layout", "paged", "--max-new-tokens", str(ENTRY_NEW)]
+        for p in ENTRY_PROMPTS:
+            cmd += ["--prompt", ",".join(map(str, p))]
+        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0,
+              f"entry(falcon): serve exited {out.returncode}: {out.stderr[-2000:]}")
+        cli = [json.loads(line) for line in out.stdout.strip().splitlines()[0::2]]
+        check(cli == tokens, f"entry(falcon): serve printed {cli}, generate gave {tokens}")
+        emit({"phase": "entry", "model": "falcon", "layers": ENTRY_LAYERS,
+              "tensors_bitwise": len(same), "tokens": tokens})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_entry(seed):
     """The serving entry points on the card: a checkpoint in HF naming
     (``config.json`` and ``pytorch_model.bin``, LLaMA-7B widths cut to
@@ -3062,6 +3247,267 @@ def phase_entry(seed):
               "serve_cli_profile_lines": lines[1::2]})
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    _entry_falcon(seed)
+
+
+# ---------------------------------------------------------------------------
+# the generic decoder and the other families: Falcon-7B at full
+# depth on the paged slice's traffic, and ten more families at their
+# published widths cut to two layers, through the paged kernels at their
+# head dims (64, 80, 128, 256) and MQA widths (G = 71, 48)
+
+# arms of the Falcon-7B slice: (label, kv_quant, fused_decode)
+FALCON_ARMS = (("bf16", None, ()), ("bf16-fused", None, ("rope_kv_write",)),
+               ("int8-fused", "int8", ("rope_kv_write",)))
+# the ten families at their published widths cut to FAMILY_LAYERS layers
+# (depth the only cut): (label, family module, preset)
+FAMILY_LAYERS = 2
+FAMILY_CHECKS = (("opt-6.7b", opt, opt.opt_6_7b), ("starcoder-15b", starcoder,
+                                                   starcoder.starcoder_15b),
+                 ("qwen2-7b", qwen2, qwen2.qwen2_7b), ("mistral-7b", mistral, mistral.mistral_7b),
+                 ("mixtral-8x7b", mixtral, mixtral.mixtral_8x7b),
+                 ("qwen1.5-moe-a2.7b", qwen2_moe, qwen2_moe.config),
+                 ("gemma-7b", gemma, gemma.gemma_7b), ("phi-2", phi, phi.phi_2),
+                 ("gpt2-xl", gpt2, gpt2.gpt2_xl), ("mpt-7b", mpt, mpt.mpt_7b))
+# their arms: bf16 pages on the ragged kernel, int8 pages on the fused
+# kernel; at head dims 80 and 256 also int8 pages with the commit kernel
+FAMILY_ARMS = (("bf16", None, ()), ("int8-fused", "int8", ("rope_kv_write",)))
+FAMILY_COMMIT_ARM = (("int8", "int8", ()),)
+FAMILY_PROMPT_LENS = (1000, 16, 300, 700)
+FAMILY_NEW = 16
+# Mistral's published window (4096) masks lines only past 4096 tokens: its
+# prompts cross it in a cache of 4608 + 64 lines
+MISTRAL_PROMPT_LENS = (4500, 16, 4200, 700)
+MISTRAL_MAX_SEQ = 4608
+FAMILY_SLOTS = 4
+
+
+class _count_mqa_decode:
+    """Within it, each kernels="cuda" paged attention call of one query
+    token a slot (a decode step) counts in ``self.calls`` by kernel name:
+    the MQA decode launches (C * G > 8) that DESIGN_LAUNCHES counts under
+    "mma" beside the mixed steps."""
+
+    NAMES = ("ragged_paged_attention", "fused_rope_paged_attention")
+
+    def __init__(self):
+        self.calls = dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self.orig = {}
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(K, name)
+
+            def wrapped(q, *a, _name=name, _fn=fn, **kw):
+                if q.device.type == DEV.type and q.shape[1] == 1:
+                    self.calls[_name] += 1
+                return _fn(q, *a, **kw)
+            setattr(K, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(K, name, fn)
+
+
+def _family_prompts(seed, vocab, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=int(n)).tolist() for n in lens]
+
+
+def _gb(n):
+    return round(n / 2 ** 30, 3)
+
+
+def _first_step_rule(label, first):
+    """The first step's logits (each request's last prompt position) of
+    the kernels path within bf16's own error of the plain path: their
+    relative L2 distance at most SLICE_PATHS times the plain path's from
+    the same computation in f32."""
+    d = {"cuda_vs_torch": float((first["cuda"] - first["torch"]).norm()
+                                / first["torch"].norm()),
+         "torch_vs_f32": float((first["torch"] - first["f32"]).norm() / first["f32"].norm())}
+    check(d["cuda_vs_torch"] <= SLICE_PATHS * d["torch_vs_f32"],
+          f"{label}: first-step logits {d}")
+    return d
+
+
+class _FamilyArm:
+    """One arm of the families phase: LLM.generate with kernels="cuda"
+    (measured by ``_serve``, inside the context ``during``), then its
+    served sequences teacher-forced through the arm's kernels="cuda" and
+    kernels="torch" engines (host logits kept); :meth:`hold` adds the f32
+    run and the rules, once the f32 weights exist (after every arm of the
+    model has served, so that they do not count in the arms' peaks)."""
+
+    def __init__(self, label, family, cfg, params, serving, prompts, new,
+                 during=contextlib.nullcontext()):
+        self.label, self.family, self.cfg, self.prompts = label, family, cfg, prompts
+        t0 = time.perf_counter()
+        llm = LLM(family, cfg, params, device=DEV)
+        llm.compile(serving)
+        with during:
+            results, self.line = _serve(llm, prompts, new)
+        self.line["plain_attention_steps"] = llm.engine.plain_attention_steps
+        _free(llm)
+        t1 = time.perf_counter()
+        self.sc = dataclasses.replace(serving, max_requests_per_batch=len(prompts))
+        self.outputs = [r.output_tokens for r in results]
+        self.seqs = [p + o[:-1] for p, o in zip(prompts, self.outputs)]
+        self.steps = {k: self._forced(params, dataclasses.replace(self.sc, kernels=k), cfg)
+                      for k in ("cuda", "torch")}
+        self.line["seconds"] = {"serve": t1 - t0, "teacher_forced": time.perf_counter() - t1}
+
+    def _forced(self, params, sc, cfg):
+        return _teacher_forced_logits(cfg, params, sc, self.seqs,
+                                      [len(p) for p in self.prompts], self.family)
+
+    def hold(self, params32):
+        """The arm against its kernels="torch" twin: the teacher-forced
+        logits under slice 1's rule (``_hold_to_plain``), the first step's
+        logits within bf16's own error (``_first_step_rule``), and each
+        served token greedy over its prefix under the arm's own
+        teacher-forced logits or at a near-tie (``_greedy_over_prefix``,
+        the spec phase's rule: a mixture of experts' router may part two
+        bf16 paths at a near-tie of its own, which no logit gap shows).
+        Returns the arm's line."""
+        cfg32 = dataclasses.replace(self.cfg, dtype=torch.float32)
+        self.steps["f32"] = self._forced(
+            params32, dataclasses.replace(self.sc, kernels="torch",
+                                          cache_dtype=torch.float32), cfg32)
+        _hold_to_plain(self.label, self.steps["cuda"], self.steps["torch"], self.steps["f32"])
+        nxt = {k: _next_rows(v, self.prompts, self.outputs, self.sc.prefill_chunk)
+               for k, v in self.steps.items()}
+        self.line.update(tokens=_greedy_over_prefix(self.label, self.outputs, nxt["cuda"],
+                                                    nxt["f32"]),
+                         first_step=_first_step_rule(self.label,
+                                                     {k: v[:, 0] for k, v in nxt.items()}),
+                         peak_memory_gb=_gb(self.line.pop("peak_memory_bytes")))
+        self.steps = None
+        return self.line
+
+
+def _steps_of(line):
+    return sum(line["steps"].values())
+
+
+def phase_families(seed):
+    """Falcon-7B at full depth (32 layers, width 4544, 71 heads on one KV
+    head, random bf16 weights from the seed, made on the card) serving the
+    paged slice's 8 requests in FALCON_ARMS, then the ten FAMILY_CHECKS at
+    two layers in their FAMILY_ARMS on FAMILY_PROMPT_LENS (Mistral's
+    crossing its window). Every arm is held to its kernels="torch" twin
+    (``_FamilyArm.hold``); every family's kernels must launch, MPT's ALiBi
+    batches none (each of its steps counted on the plain path). Returns
+    the launches by the kernels line's rows."""
+    launches = {}
+
+    def add(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    def weights(family, cfg, offset):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(seed + offset)
+        params = family.init_params(gen, cfg, device=DEV)
+        torch.cuda.synchronize()
+        return params, time.perf_counter() - t0
+
+    # Falcon-7B, full depth: MQA decode on the tensor-core tile
+    t_model = time.perf_counter()
+    cfg = falcon.falcon_7b()
+    params, init_s = weights(falcon, cfg, 21)
+    prompts, new = _slice_prompts(seed, cfg)
+    arms = []
+    for label, quant, fused in FALCON_ARMS:
+        mqa = _count_mqa_decode()
+        arm = _FamilyArm(f"falcon-7b-{label}", falcon, cfg, params,
+                         ServingConfig(kv_layout="paged", kv_quant=quant, fused_decode=fused),
+                         prompts, new, during=mqa)
+        arms.append((label, quant, fused, arm, mqa.calls))
+    params32 = _to_f32(params)
+    del params
+    for label, quant, fused, arm, calls in arms:
+        line = arm.hold(params32)
+        kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
+        emit({"phase": "families", "model": "falcon_7b", "arm": label,
+              "layers": cfg.num_hidden_layers, "init_s": init_s, "kv_quant": quant,
+              "fused_decode": list(fused), "mqa_decode_launches": calls, **line})
+        check(calls[kind] > 0 and line["design_launches"].get(f"{kind}[decode]", 0) == 0,
+              f"falcon-7b-{label}: MQA decode not on the tensor-core tile "
+              f"({calls}, {line['design_launches']})")
+        add(f"{kind}[mqa-g71]", calls[kind])
+    del params32, arms
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families_seconds", "model": "falcon_7b",
+          "seconds": time.perf_counter() - t_model})
+
+    # ten families at published widths, two layers
+    group = {80: "dk80", 256: "dk256"}
+    for label, family, preset in FAMILY_CHECKS:
+        t_model = time.perf_counter()
+        cfg = preset(num_hidden_layers=FAMILY_LAYERS)
+        params, init_s = weights(family, cfg, 22)
+        mistral_like = cfg.sliding_window > 0
+        lens = MISTRAL_PROMPT_LENS if mistral_like else FAMILY_PROMPT_LENS
+        prompts = _family_prompts(seed, cfg.vocab_size, lens)
+        base = dict(kv_layout="paged", max_requests_per_batch=FAMILY_SLOTS)
+        if mistral_like:
+            base["max_sequence_length"] = MISTRAL_MAX_SEQ
+        # the commit kernel's rows need int8 pages unfused at dk 80 and 256
+        fam_arms = FAMILY_ARMS + (FAMILY_COMMIT_ARM if cfg.head_dim in group else ())
+        arms = [(arm, quant, fused,
+                 _FamilyArm(f"{label}-{arm}", family, cfg, params,
+                            ServingConfig(kv_quant=quant, fused_decode=fused, **base),
+                            prompts, FAMILY_NEW))
+                for arm, quant, fused in fam_arms]
+        params32 = _to_f32(params)
+        del params
+        for arm_label, quant, fused, arm in arms:
+            line = arm.hold(params32)
+            emit({"phase": "families", "model": label, "arm": arm_label,
+                  "layers": FAMILY_LAYERS, "head_dim": cfg.head_dim,
+                  "heads": cfg.num_attention_heads, "kv_heads": cfg.num_key_value_heads,
+                  "init_s": init_s, "kv_quant": quant, "fused_decode": list(fused), **line})
+            kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
+            used = {k: v for k, v in line["launches"].items()
+                    if k.split("[")[0] in K.PAGED_KERNELS + ("paged_commit",)}
+            if cfg.positions == "alibi":
+                # no kernel takes the additive bias: every step on the plain path
+                check(not used and line["plain_attention_steps"] == _steps_of(line),
+                      f"{label}-{arm_label}: ALiBi launches {used}, plain steps "
+                      f"{line['plain_attention_steps']} of {_steps_of(line)}")
+                continue
+            check(line["launches"].get(f"{kind}[{quant or 'bf16'}]", 0) > 0
+                  and line["plain_attention_steps"] == 0,
+                  f"{label}-{arm_label}: {kind} not launched ({line['launches']})")
+            if quant and not fused:
+                check(line["launches"].get(f"paged_commit[{quant}]", 0) > 0,
+                      f"{label}-{arm_label}: the commit kernel was never launched")
+            if cfg.head_dim in group:
+                for k, v in used.items():
+                    add(f"{k.split('[')[0]}[{group[cfg.head_dim]}]", v)
+        if mistral_like:
+            # the window binds: the same weights with no window give the
+            # 4500-token prompt's last prefill chunk other logits
+            sc = ServingConfig(kernels="torch", cache_dtype=torch.float32, kv_layout="paged",
+                               max_requests_per_batch=len(prompts),
+                               max_sequence_length=MISTRAL_MAX_SEQ)
+            last = [_teacher_forced_logits(dataclasses.replace(cfg, dtype=torch.float32,
+                                                               sliding_window=w),
+                                           params32, sc, prompts, list(lens), family)[-1]
+                    for w in (cfg.sliding_window, 0)]
+            diff = float((last[0] - last[1]).norm() / last[1].norm())
+            emit({"phase": "families_window", "model": label, "window": cfg.sliding_window,
+                  "prompt_lens": list(lens), "last_chunk_rel_diff_vs_no_window": diff})
+            check(diff > 1e-5, f"{label}: the window masked no line ({diff})")
+        del params32, arms
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "families_seconds", "model": label,
+              "seconds": time.perf_counter() - t_model})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3398,13 +3844,14 @@ def _prefix_f32(seed):
 
 
 def phase_prefix(seed):
-    """Prefix caching and the host tier on LLaMA-7B at full width and depth
-    (random bf16 weights from the seed): 32 requests, a 1000-token system
+    """Prefix caching and the host tier on LLaMA-7B at full width cut to
+    PREFIX_LAYERS layers (random bf16 weights from the seed): 32 requests, a
+    1000-token system
     prompt and 64 tokens of their own each, 32 greedy tokens, through each
     of PREFIX_ARMS and its cold twin (16 slots: the second wave hits), and
     the host arm (4 families, 8 slots, int4, a pool that spills); the page
     movers' line; the f32 sub-check. Returns the launches of the arms' runs."""
-    cfg = llama.LLaMAConfig.llama_7b()
+    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=PREFIX_LAYERS)
     llm = LLM(llama, cfg, device=DEV, seed=seed)
     params = llm.params
     del llm
@@ -3455,7 +3902,7 @@ def phase_prefix(seed):
         explained = _tokens_explained(label, cfg, params, serve, prompts, warm, cold)
         count(fig)
         count(cold_fig)
-        emit({"phase": "prefix", "path": label, "model": "llama_7b", "layers": 32,
+        emit({"phase": "prefix", "path": label, "model": "llama_7b", "layers": PREFIX_LAYERS,
               "requests": PREFIX_REQUESTS, "system_prompt": PREFIX_SYSTEM, "own": PREFIX_OWN,
               "new_tokens": PREFIX_NEW, "serving": {k: v for k, v in serve.items()},
               "warm": fig, "cold": cold_fig, "first_rows": first, **explained,
@@ -3479,9 +3926,12 @@ def phase_prefix(seed):
     twin, twin_toks, twin_fig, _ = _prefix_arm(cfg, params, twin_serve, None, None,
                                                host_prompts, PREFIX_NEW, 8)
     _free(twin)
-    # the host tier holds twice the families' pages (an int4 page of LLaMA-7B
-    # is 16,785,408 bytes: codes and scales)
-    host_serve["host_cache_bytes"] = 2 * PREFIX_HOST_FAMILIES * per_req * 16_785_408
+    # the host tier holds twice the families' pages (an int4 page: K and V
+    # codes and scales of every layer; 16,785,408 bytes at LLaMA-7B's 32)
+    kv, dk = cfg.num_key_value_heads, cfg.head_dim
+    page_bytes = cfg.num_hidden_layers * 2 * (PREFIX_HOST_SERVE["page_size"] * kv * dk // 2
+                                              + kv * 4)
+    host_serve["host_cache_bytes"] = 2 * PREFIX_HOST_FAMILIES * per_req * page_bytes
     llm, toks, fig, _ = _prefix_arm(cfg, params, host_serve, None, None, host_prompts,
                                     PREFIX_NEW, 8)
     movers["int4"] = _movers(llm.engine)
@@ -3502,7 +3952,8 @@ def phase_prefix(seed):
     explained = _tokens_explained("prefix-host-int4", cfg, params, host_serve, host_prompts,
                                   toks, twin_toks)
     count(fig)
-    emit({"phase": "prefix", "path": "prefix-host-int4", "model": "llama_7b", "layers": 32,
+    emit({"phase": "prefix", "path": "prefix-host-int4", "model": "llama_7b",
+          "layers": PREFIX_LAYERS,
           "requests": PREFIX_REQUESTS, "families": PREFIX_HOST_FAMILIES,
           "system_prompt": PREFIX_SYSTEM, "own": PREFIX_OWN, "new_tokens": PREFIX_NEW,
           "block": PREFIX_HOST_BLOCK, "serving": host_serve, "twin_serving": twin_serve,
@@ -4023,8 +4474,17 @@ SOURCES = {
         "flexflow_tpu_torch/csrc/whole_step_decode.cu",
         "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode, with the spec fold of "
         "flexflow_tpu/models/llama.py:1327 serve_step_whole)") for t in FOLD_ROWS},
+    # the paged kernels at the other families' head dims and MQA width
+    # (FAMILY_KERNEL_CASES; launches from the families phase)
+    **{f"{k}[{g}]": (f"flexflow_tpu_torch/csrc/{k}.cu", line)
+       for g in ("dk80", "dk256", "mqa-g71")
+       for k, line in (("ragged_paged_attention", "flexflow_tpu/serve/kernels.py:713"),
+                       ("fused_rope_paged_attention", "flexflow_tpu/serve/kernels.py:1067"))},
+    **{f"paged_commit[{g}]": ("flexflow_tpu_torch/csrc/paged_commit.cu",
+                              "flexflow_tpu/serve/kv_quant.py:147 (quant_line_write, "
+                              "no TPU kernel)") for g in ("dk80", "dk256")},
 }
-PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "prefix",
+PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "families", "prefix",
           "train_parity", "train")
 
 
@@ -4035,8 +4495,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of kernels, slice, paged, whole, spec, f32, entry, "
-                         "prefix, train_parity, train (device and build always run; paged and "
-                         "whole need slice)")
+                         "families, prefix, train_parity, train (device and build always run; "
+                         "paged and whole need slice)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -4051,6 +4511,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         main_rows = phase_kernels(args.seed)
         main_rows.update(phase_paged_kernels(args.seed))
+        main_rows.update(phase_family_kernels(args.seed))
         main_rows.update(phase_whole_kernels(args.seed))
         main_rows.update(phase_flash_kernels(args.seed))
         main_rows.update(run_adam_check(args.seed))
@@ -4079,6 +4540,9 @@ def main(argv=None) -> int:
     if "entry" in phases:
         phase_entry(args.seed)
         mark("entry")
+    if "families" in phases:
+        launches.update(phase_families(args.seed))
+        mark("families")
     if "prefix" in phases:
         for k, v in phase_prefix(args.seed).items():
             launches[k] = launches.get(k, 0) + v
@@ -4110,6 +4574,8 @@ def main(argv=None) -> int:
                     rows[-1][extra] = m[extra]
         if name.split("[")[0] in ("adam_update", "paged_commit"):
             rows[-1]["bitwise"] = m.get("bitwise")
+        if "cases" in m:  # the other families' shapes: every case of the row's group
+            rows[-1]["cases"] = m["cases"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
                             for i, (name, t) in enumerate(marks)},

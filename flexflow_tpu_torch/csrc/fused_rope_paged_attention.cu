@@ -71,9 +71,8 @@ using FusedArgs = CommitArgs;
 template <typename TQ, int KIND, int DK, int GB>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
     fused_split_kernel(FusedArgs f, SplitArgs s) {
-  __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
   __shared__ SplitSmem<DK, GB, kSplitWarps, true> sm;
-  TQ* sQ = reinterpret_cast<TQ*>(sQraw);
+  TQ* sQ = split_q_rows<TQ, DK, GB>();
   const int r = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
   stage_q<TQ, DK>(f.a, r, h, static_cast<const TQ*>(f.q_raw), f.cos, f.sin, f.rot, sQ);
   bool commits = s.nsplit == 1;
@@ -98,6 +97,19 @@ __global__ void __launch_bounds__(kMmaTileThreads, 1) fused_mma_kernel(FusedArgs
     attend_tile_mma<TQ, KIND, DK>(f.a, r, h, row0, smem_mma);
 }
 
+template <typename TQ, int KIND, int DK, int GB>
+cudaError_t launch_split(const FusedArgs& f, const SplitArgs& s, cudaStream_t stream) {
+  constexpr int kQBytes = split_q_dyn_bytes<TQ, DK, GB>();
+  if (kQBytes > 0) {
+    cudaError_t err = cudaFuncSetAttribute(fused_split_kernel<TQ, KIND, DK, GB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kQBytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 sgrid(s.nsplit, f.a.KV, f.a.R);
+  fused_split_kernel<TQ, KIND, DK, GB><<<sgrid, kSplitThreads, kQBytes, stream>>>(f, s);
+  return cudaSuccess;
+}
+
 template <typename TQ, int KIND, int DK>
 cudaError_t launch_dk(const FusedArgs& f, const SplitArgs& s, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
@@ -105,14 +117,15 @@ cudaError_t launch_dk(const FusedArgs& f, const SplitArgs& s, cudaStream_t strea
   const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
   const dim3 grid(f.a.KV, f.a.R);
   if (design == kDesignDecode) {
-    const dim3 sgrid(s.nsplit, f.a.KV, f.a.R);
+    cudaError_t err;
     if (rows == 1) {
-      fused_split_kernel<TQ, KIND, DK, 1><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
+      err = launch_split<TQ, KIND, DK, 1>(f, s, stream);
     } else if (rows <= 4) {  // G = 2, 4: 1.4-1.8 x faster than at 8 rows (H100)
-      fused_split_kernel<TQ, KIND, DK, 4><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
+      err = launch_split<TQ, KIND, DK, 4>(f, s, stream);
     } else {
-      fused_split_kernel<TQ, KIND, DK, kDecodeRows><<<sgrid, kSplitThreads, 0, stream>>>(f, s);
+      err = launch_split<TQ, KIND, DK, kDecodeRows>(f, s, stream);
     }
+    if (err != cudaSuccess) return err;
   } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
     constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
@@ -126,7 +139,9 @@ cudaError_t launch_dk(const FusedArgs& f, const SplitArgs& s, cudaStream_t strea
 template <typename TQ, int KIND>
 cudaError_t launch_kind(const FusedArgs& f, const SplitArgs& s, int dk, cudaStream_t stream) {
   if (dk == 64) return launch_dk<TQ, KIND, 64>(f, s, stream);
+  if (dk == 80) return launch_dk<TQ, KIND, 80>(f, s, stream);
   if (dk == 128) return launch_dk<TQ, KIND, 128>(f, s, stream);
+  if (dk == 256) return launch_dk<TQ, KIND, 256>(f, s, stream);
   return cudaErrorInvalidValue;
 }
 

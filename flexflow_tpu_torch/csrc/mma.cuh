@@ -205,6 +205,21 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
                "r"(src_bytes)
                : "memory");
 }
+// B (16 or 8) bytes from global to shared memory: 16 through L2 alone
+// (cp_async16), 8 through L1 (cp.async.ca: .cg takes 16 bytes only); with
+// src_bytes 0 the destination is zero-filled and gmem not read.
+template <int B>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int src_bytes) {
+  static_assert(B == 16 || B == 8, "cp.async copies 16 or 8 bytes here");
+  if constexpr (B == 16) {
+    cp_async16(smem, gmem, src_bytes);
+  } else {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes)
+                 : "memory");
+  }
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -149,10 +149,16 @@ __host__ __device__ constexpr size_t mma_meta_bytes(int tiles) {
 
 // Shared memory of attend_tile_mma for q of type TQ: K/V tiles of 64 lines
 // in TQ (kStages of them, or, for quantized pools, one that the raw codes
-// of kStages stages widen into); for f32 q the block's 128 Q rows (f32);
-// then the mask bits, page ids, scales and flags of kMeta tiles. bf16 q
-// takes three stages and 32 tiles; f32 q as many of each as fit (f32
-// pages at dk 128: two stages and 16 tiles).
+// of kStages stages widen into); the block's 128 Q rows in TQ where they
+// live in shared memory (kQShared); then the mask bits, page ids, scales
+// and flags of kMeta tiles. Q rows go to shared memory for f32 q (split
+// per k-step there) and for bf16 q above dk 128 (at dk 256 its A
+// fragments in registers would add 64 a thread to the accumulator's 128),
+// where two stages fit beside them; f32 q at dk 256 fits no two stages
+// beside its rows (130 KB each) and reads them from global memory. Then as
+// many stages (3, 2 or 1) and mask tiles (32 or 16) as fit: bf16 q at dk
+// 64-128 takes three stages and 32 tiles, f32 pages at dk 128 two stages
+// and 16 tiles, f32 pages at dk 256 one stage and 32 tiles.
 template <typename TQ, int KIND, int DK>
 struct MmaSmem {
   static constexpr bool kQuant = KIND != kPoolFloat;
@@ -166,16 +172,22 @@ struct MmaSmem {
   static constexpr size_t kTile = size_t(kTileLines) * kLd;   // elements of a K or V tile
   static constexpr size_t kPair = 2 * kTile * sizeof(TQ);     // bytes of a K/V tile pair
   static constexpr size_t kRawPair = 2 * size_t(kTileLines) * kRaw;
-  static constexpr size_t kQ = kF32 ? size_t(kMmaTileRows) * kLd * sizeof(float) : 0;
-  static constexpr size_t kBuffers3 =  // K/V buffers at kMmaStages stages
-      kQuant ? kPair + kMmaStages * kRawPair : kMmaStages * kPair;
-  static constexpr int kStages =
-      kQ + kBuffers3 + mma_meta_bytes(kMetaTiles / 2) <= kMmaSmemBudget ? kMmaStages : 2;
+  static constexpr size_t kQRows = size_t(kMmaTileRows) * kLd * sizeof(TQ);
+  // K/V buffers at ``stages`` stages
+  static __host__ __device__ constexpr size_t buffers(int stages) {
+    return kQuant ? kPair + stages * kRawPair : stages * kPair;
+  }
+  static __host__ __device__ constexpr bool fits(size_t q, int stages, int meta) {
+    return q + buffers(stages) + mma_meta_bytes(meta) <= kMmaSmemBudget;
+  }
+  static constexpr bool kQShared = (kF32 || DK > 128) && fits(kQRows, 2, kMetaTiles / 2);
+  static constexpr size_t kQ = kQShared ? kQRows : 0;
+  static constexpr int kStages = fits(kQ, kMmaStages, kMetaTiles / 2) ? kMmaStages
+                                 : fits(kQ, 2, kMetaTiles / 2)      ? 2
+                                                                    : 1;
   static constexpr size_t kTiles = (kQuant ? 1 : kStages) * kPair;
   static constexpr size_t kRawBytes = kQuant ? kStages * kRawPair : 0;
-  static constexpr int kMeta =
-      kQ + kTiles + kRawBytes + mma_meta_bytes(kMetaTiles) <= kMmaSmemBudget ? kMetaTiles
-                                                                             : kMetaTiles / 2;
+  static constexpr int kMeta = fits(kQ, kStages, kMetaTiles) ? kMetaTiles : kMetaTiles / 2;
   static constexpr int kMetaPages = kMeta * kTileLines / 16;
   static constexpr size_t kBytes = kTiles + kRawBytes + kQ + mma_meta_bytes(kMeta);
   static_assert(kBytes <= kMmaSmemBudget, "tensor-core tile over the shared-memory budget");
@@ -270,20 +282,20 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT8][4], uint64_t ba,
   }
 }
 
-// One warp's 16 query rows (A fragments qa; rows g and g + 8 of the warp
-// attend the 64 lines of the tile whose bits are set in ba and bb, bit j
-// for line j) against the bf16 64-line K/V tile sK/sV (row stride DK + 8):
-// the online softmax update of the accumulators o, m, l (softmax_tile).
-// Warp-uniform: skips the math when neither row of any lane attends a
-// line of the tile. The paged tile (attend_tile_mma) and the dense verify
-// kernel (verify_attention.cu) share it.
-template <int DK, bool QUANT, typename KScale, typename VScale>
-__device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
-                                              const __nv_bfloat16* sK,
-                                              const __nv_bfloat16* sV, uint64_t ba,
-                                              uint64_t bb, int lane, KScale kscale,
-                                              VScale vscale, float (&o)[DK / 8][4],
-                                              float (&m)[2], float (&l)[2]) {
+// One warp's 16 query rows (A fragments qa(ks, a): k-step ks of rows g and
+// g + 8 of the warp; rows g and g + 8 attend the 64 lines of the tile whose
+// bits are set in ba and bb, bit j for line j) against the bf16 64-line
+// K/V tile sK/sV (row stride DK + 8): the online softmax update of the
+// accumulators o, m, l (softmax_tile). Warp-uniform: skips the math when
+// neither row of any lane attends a line of the tile. The paged tile
+// (attend_tile_mma) and the dense verify kernel (verify_attention.cu)
+// share it.
+template <int DK, bool QUANT, typename QFrag, typename KScale, typename VScale>
+__device__ __forceinline__ void mma_warp_tile_q(QFrag qa, const __nv_bfloat16* sK,
+                                                const __nv_bfloat16* sV, uint64_t ba,
+                                                uint64_t bb, int lane, KScale kscale,
+                                                VScale vscale, float (&o)[DK / 8][4],
+                                                float (&m)[2], float (&l)[2]) {
   constexpr int LD = LdH<DK>::kRow;
   if (!__any_sync(0xffffffffu, (ba | bb) != 0ull)) return;  // warp-uniform
   const int t = lane % 4;
@@ -294,14 +306,17 @@ __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < DK / 16; ++ks)
+  for (int ks = 0; ks < DK / 16; ++ks) {
+    uint32_t a[4];
+    qa(ks, a);
 #pragma unroll
     for (int n2 = 0; n2 < kTileLines / 16; ++n2) {
       uint32_t b[4];
       load_b_x4<LD>(sK, n2 * 16, ks * 16, lane, b);
-      mma16816(s[2 * n2], qa[ks], b[0], b[1]);
-      mma16816(s[2 * n2 + 1], qa[ks], b[2], b[3]);
+      mma16816(s[2 * n2], a, b[0], b[1]);
+      mma16816(s[2 * n2 + 1], a, b[2], b[3]);
     }
+  }
   softmax_tile<DK, QUANT>(s, ba, bb, t, kscale, vscale, o, m, l);
   // O += P V, P as hi + lo bf16 fragments straight from the scores
 #pragma unroll
@@ -320,6 +335,22 @@ __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
   }
 }
 
+// mma_warp_tile_q with the warp's A fragments held in registers, qa.
+template <int DK, bool QUANT, typename KScale, typename VScale>
+__device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
+                                              const __nv_bfloat16* sK,
+                                              const __nv_bfloat16* sV, uint64_t ba,
+                                              uint64_t bb, int lane, KScale kscale,
+                                              VScale vscale, float (&o)[DK / 8][4],
+                                              float (&m)[2], float (&l)[2]) {
+  mma_warp_tile_q<DK, QUANT>(
+      [&](int ks, uint32_t (&a)[4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+      },
+      sK, sV, ba, bb, lane, kscale, vscale, o, m, l);
+}
+
 // mma_warp_tile for f32 q ("tf32x3"): the warp's 16 f32 Q rows sQ
 // against the f32 64-line K/V tile sK/sV (all with row stride DK + 4),
 // both products in 3xTF32 (mma_3xtf32; with QUANT the tiles hold exact
@@ -336,14 +367,19 @@ __device__ __forceinline__ void mma_warp_tile(const uint32_t (&qa)[DK / 16][4],
 // takes the group's lines in that order instead (k index t is line 2 t,
 // t + 4 is line 2 t + 1), so P enters PV with no shuffle and V's B
 // fragment reads lines 2 t and 2 t + 1.
+//
+// tf32_warp_tile_rows takes the warp's rows g and g + 8 of this lane as
+// pointers qg and qg8 to their dim t (shared memory, or the q tensor where
+// the rows do not fit in shared memory: f32 at dk 256).
 template <int DK, bool QUANT, typename KScale, typename VScale>
-__device__ __forceinline__ void tf32_warp_tile(const float* sQ, const float* sK,
-                                               const float* sV, uint64_t ba, uint64_t bb,
-                                               int lane, KScale kscale, VScale vscale,
-                                               float (&o)[DK / 8][4], float (&m)[2],
-                                               float (&l)[2]) {
+__device__ __forceinline__ void tf32_warp_tile_rows(const float* qg, const float* qg8,
+                                                    const float* sK, const float* sV,
+                                                    uint64_t ba, uint64_t bb, int lane,
+                                                    KScale kscale, VScale vscale,
+                                                    float (&o)[DK / 8][4], float (&m)[2],
+                                                    float (&l)[2]) {
   constexpr int LD = DK + 4, HALF = kTileLines / 2, NT8 = HALF / 8;
-  constexpr int NG = 4;
+  constexpr int NG = (DK / 8) % 4 == 0 ? 4 : 2;  // column tiles of PV at a time
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -357,14 +393,13 @@ __device__ __forceinline__ void tf32_warp_tile(const float* sQ, const float* sK,
     for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    const float* q = sQ + g * LD + t;  // A = Q: rows g, g + 8, dims t, t + 4
 #pragma unroll 2
-    for (int ks = 0; ks < DK / 8; ++ks) {
+    for (int ks = 0; ks < DK / 8; ++ks) {  // A = Q: rows g, g + 8, dims t, t + 4
       uint32_t ah[4], al[4];
-      split_tf32(q[8 * ks], ah[0], al[0]);
-      split_tf32(q[8 * LD + 8 * ks], ah[1], al[1]);
-      split_tf32(q[8 * ks + 4], ah[2], al[2]);
-      split_tf32(q[8 * LD + 8 * ks + 4], ah[3], al[3]);
+      split_tf32(qg[8 * ks], ah[0], al[0]);
+      split_tf32(qg8[8 * ks], ah[1], al[1]);
+      split_tf32(qg[8 * ks + 4], ah[2], al[2]);
+      split_tf32(qg8[8 * ks + 4], ah[3], al[3]);
       const float* k = kh + g * LD + 8 * ks + t;  // B = K^T: line 8 nt + g, dims t, t + 4
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt) {
@@ -403,6 +438,18 @@ __device__ __forceinline__ void tf32_warp_tile(const float* sQ, const float* sK,
   }
 }
 
+// tf32_warp_tile_rows of the warp's 16 rows at sQ (row stride DK + 4).
+template <int DK, bool QUANT, typename KScale, typename VScale>
+__device__ __forceinline__ void tf32_warp_tile(const float* sQ, const float* sK,
+                                               const float* sV, uint64_t ba, uint64_t bb,
+                                               int lane, KScale kscale, VScale vscale,
+                                               float (&o)[DK / 8][4], float (&m)[2],
+                                               float (&l)[2]) {
+  const float* qg = sQ + (lane / 4) * (DK + 4) + lane % 4;
+  tf32_warp_tile_rows<DK, QUANT>(qg, qg + 8 * (DK + 4), sK, sV, ba, bb, lane, kscale, vscale,
+                                 o, m, l);
+}
+
 // Rows [row0, row0 + 128) of KV head h of slot r on the tensor cores: bf16
 // q ("mma", mma_warp_tile) or f32 q ("tf32x3", tf32_warp_tile); smem holds
 // MmaSmem<TQ, KIND, DK>::kBytes. Warp w always owns rows row0 + 16 w ..
@@ -419,10 +466,16 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
   constexpr bool kF32 = L::kF32;
   constexpr int LD = L::kLd, RAW = L::kRaw, META = L::kMeta, STAGES = L::kStages;
   constexpr int kRowBytes = L::kQuant ? RAW : DK * int(sizeof(TQ));  // pool bytes of one line
-  constexpr int kChunks = kRowBytes / 16;              // 16-byte copies of one line
+  // bytes a copy: 16, or 8 for a dk-80 int4 line (40 bytes, 8-byte aligned)
+  constexpr int kCopy = kRowBytes % 16 == 0 ? 16 : 8;
+  constexpr int kChunks = kRowBytes / kCopy;           // copies of one line
+  // Q: bf16 q at dk <= 128 as the warp's A fragments in registers for the
+  // whole walk; else the block's rows in shared memory (kQShared), or f32
+  // q at dk 256 read from q itself
+  constexpr bool kQRegs = !kF32 && !L::kQShared;
   TQ* sKV = reinterpret_cast<TQ*>(smem);               // [stage][K, V][64][LD]
   uint8_t* sRaw = smem + L::kTiles;                    // quantized: [stage][K, V][64][RAW]
-  float* sQ = reinterpret_cast<float*>(sRaw + L::kRawBytes);  // f32 q: [128][LD]
+  TQ* sQ = reinterpret_cast<TQ*>(sRaw + L::kRawBytes);  // kQShared: [128][LD]
   uint64_t* sBits = reinterpret_cast<uint64_t*>(sRaw + L::kRawBytes + L::kQ);  // [tile][row]
   float* sPk = reinterpret_cast<float*>(sBits + META * kMmaTileRows);
   float* sPv = sPk + L::kMetaPages;
@@ -433,29 +486,28 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
   const int ps_log = __ffs(ps) - 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int ra = row0 + 16 * warp + g, rb = ra + 8;  // this thread's rows
+  const TQ* q = static_cast<const TQ*>(a.q);
+  auto qrow = [&](int i) {  // query row i (token i / G, head h G + i % G)
+    return q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK;
+  };
 
-  // Q, zero past the last row: bf16 q as the warp's A fragments in
-  // registers for the whole walk; f32 q as the block's rows in shared
-  // memory (read after the barrier that opens the first chunk)
-  uint32_t qa[kF32 ? 1 : DK / 16][4];
-  if constexpr (kF32) {
-    const float* q = static_cast<const float*>(a.q);
-    for (int idx = tid; idx < kMmaTileRows * DK / 4; idx += kMmaTileThreads) {
-      const int ii = idx / (DK / 4), d = idx % (DK / 4) * 4, i = row0 + ii;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < rows)
-        x = *reinterpret_cast<const float4*>(
-            q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + d);
-      *reinterpret_cast<float4*>(sQ + ii * LD + d) = x;
+  // Q, zero past the last row (shared rows are read after the barrier that
+  // opens the first chunk); q read in place takes a row past the last as
+  // the last row's (finite; its output is never written)
+  uint32_t qa[kQRegs ? DK / 16 : 1][4];
+  const TQ* qg = qrow(min(ra, rows - 1)) + t;
+  const TQ* qg8 = qrow(min(rb, rows - 1)) + t;
+  if constexpr (L::kQShared) {
+    constexpr int V = 16 / int(sizeof(TQ));  // elements of a 16-byte vector
+    for (int idx = tid; idx < kMmaTileRows * DK / V; idx += kMmaTileThreads) {
+      const int ii = idx / (DK / V), d = idx % (DK / V) * V, i = row0 + ii;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (i < rows) x = *reinterpret_cast<const uint4*>(qrow(i) + d);
+      *reinterpret_cast<uint4*>(sQ + ii * LD + d) = x;
     }
-  } else {
-    const TQ* q = static_cast<const TQ*>(a.q);
-    auto at = [&](int i) -> const TQ* {
-      return i < rows ? q + (((size_t)r * a.C + i / G) * a.H + (size_t)h * G + i % G) * DK + 2 * t
-                      : nullptr;
-    };
-    const TQ* pa = at(ra);
-    const TQ* pb = at(rb);
+  } else if constexpr (kQRegs) {
+    const TQ* pa = ra < rows ? qrow(ra) + 2 * t : nullptr;
+    const TQ* pb = rb < rows ? qrow(rb) + 2 * t : nullptr;
 #pragma unroll
     for (int ks = 0; ks < DK / 16; ++ks) {
       qa[ks][0] = pa ? ld32(pa + 16 * ks) : 0u;
@@ -474,6 +526,7 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
   // kChunks threads a line, each line's pool offset computed once for K and V
   auto issue = [&](int u, int p0, int st) {
     constexpr int kLinesPerPass = kMmaTileThreads / kChunks;
+    if (tid >= kLinesPerPass * kChunks) return;  // kChunks 5, 10, 20: a few threads idle
     const int c = tid % kChunks;
 #pragma unroll
     for (int j = tid / kChunks; j < kTileLines; j += kLinesPerPass) {
@@ -482,16 +535,16 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
       int nbytes = 0;
       if (s < S) {
         off = pool_row<KIND, DK>(sPid[(s >> ps_log) - p0], s & (ps - 1), h, ps, a.KV) *
-                  sizeof(PT) + 16 * c;
-        nbytes = 16;
+                  sizeof(PT) + kCopy * c;
+        nbytes = kCopy;
       }
       const int lk = st * 2 * kTileLines + j, lv = lk + kTileLines;
-      cp_async16(L::kQuant ? static_cast<void*>(sRaw + lk * RAW + 16 * c)
-                           : static_cast<void*>(sKV + lk * LD + (16 / sizeof(TQ)) * c),
-                 static_cast<const uint8_t*>(a.k_pool) + off, nbytes);
-      cp_async16(L::kQuant ? static_cast<void*>(sRaw + lv * RAW + 16 * c)
-                           : static_cast<void*>(sKV + lv * LD + (16 / sizeof(TQ)) * c),
-                 static_cast<const uint8_t*>(a.v_pool) + off, nbytes);
+      cp_async<kCopy>(L::kQuant ? static_cast<void*>(sRaw + lk * RAW + kCopy * c)
+                                : static_cast<void*>(sKV + lk * LD + (kCopy / sizeof(TQ)) * c),
+                      static_cast<const uint8_t*>(a.k_pool) + off, nbytes);
+      cp_async<kCopy>(L::kQuant ? static_cast<void*>(sRaw + lv * RAW + kCopy * c)
+                                : static_cast<void*>(sKV + lv * LD + (kCopy / sizeof(TQ)) * c),
+                      static_cast<const uint8_t*>(a.v_pool) + off, nbytes);
     }
   };
   // widen the codes of stage st to TQ codes (exact in bf16 and in TF32) in
@@ -573,7 +626,8 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
 
     // the attended tiles stream through STAGES buffers, STAGES - 1 copies
     // in flight while one tile is multiplied: one commit group a tile
-    // (empty past the last), issued in the order the tiles are taken
+    // (empty past the last), issued in the order the tiles are taken; with
+    // one stage each tile is copied when the last is done, then waited for
     uint32_t pend = todo;
     auto issue_next = [&](int st) {
       if (pend) {
@@ -587,9 +641,16 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
     for (int st = 0; todo; st = st + 1 == STAGES ? 0 : st + 1) {
       const int tt = __ffs(todo) - 1, u = c0 + tt;
       todo &= todo - 1;
-      cp_async_wait<STAGES - 2>();  // this tile's group has landed
-      __syncthreads();  // ... for every thread, and every warp is done with the last tile
-      issue_next(st == 0 ? STAGES - 1 : st - 1);  // into the last tile's buffer
+      if constexpr (STAGES == 1) {
+        __syncthreads();  // every warp is done with the last tile
+        issue_next(0);
+        cp_async_wait<0>();
+        __syncthreads();  // this tile has landed for every thread
+      } else {
+        cp_async_wait<STAGES - 2>();  // this tile's group has landed
+        __syncthreads();  // ... for every thread, and every warp is done with the last tile
+        issue_next(st == 0 ? STAGES - 1 : st - 1);  // into the last tile's buffer
+      }
       const TQ* sK = sKV + (L::kQuant ? 0 : st * 2 * L::kTile);
       if constexpr (L::kQuant) {
         widen(st);
@@ -603,11 +664,18 @@ __device__ void attend_tile_mma(const PagedArgs& a, int r, int h, int row0,
       const int pt = ((u * kTileLines) >> ps_log) - p0;
       auto kscale = [&](int nt) { return sPk[pt + ((nt * 8) >> ps_log)]; };
       auto vscale = [&](int nt) { return sPv[pt + ((nt * 8) >> ps_log)]; };
-      if constexpr (kF32) {
+      if constexpr (kF32 && L::kQShared) {
         tf32_warp_tile<DK, L::kQuant>(sQ + 16 * warp * LD, sK, sV, ba, bb, lane, kscale, vscale,
                                       o, m, l);
-      } else {
+      } else if constexpr (kF32) {
+        tf32_warp_tile_rows<DK, L::kQuant>(qg, qg8, sK, sV, ba, bb, lane, kscale, vscale, o, m,
+                                           l);
+      } else if constexpr (kQRegs) {
         mma_warp_tile<DK, L::kQuant>(qa, sK, sV, ba, bb, lane, kscale, vscale, o, m, l);
+      } else {
+        mma_warp_tile_q<DK, L::kQuant>(
+            [&](int ks, uint32_t (&f)[4]) { load_a<LD>(sQ, 16 * warp, 16 * ks, g, t, f); }, sK,
+            sV, ba, bb, lane, kscale, vscale, o, m, l);
       }
     }
   }

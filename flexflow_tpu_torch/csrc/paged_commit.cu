@@ -104,7 +104,9 @@ cudaError_t launch(const CommitArgs& f, int P1, int sweep, cudaStream_t stream) 
 template <typename TQ, int KIND>
 cudaError_t launch_kind(const CommitArgs& f, int dk, int P1, int sweep, cudaStream_t s) {
   if (dk == 64) return launch<TQ, KIND, 64>(f, P1, sweep, s);
+  if (dk == 80) return launch<TQ, KIND, 80>(f, P1, sweep, s);
   if (dk == 128) return launch<TQ, KIND, 128>(f, P1, sweep, s);
+  if (dk == 256) return launch<TQ, KIND, 256>(f, P1, sweep, s);
   return cudaErrorInvalidValue;
 }
 

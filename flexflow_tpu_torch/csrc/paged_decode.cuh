@@ -107,27 +107,38 @@ constexpr int kSplitMinBlocks1 = 5;
 template <int KIND, int GB>
 constexpr int kSplitMinBlocks = GB != 1 ? 2 : KIND == kPoolInt4 ? 3 : kSplitMinBlocks1;
 
-// A lane's share of a line: kLoad bytes (one vector load), kDims head
-// dims, kLanes lanes a line, kGroups lines a warp loads at once. q and the
-// accumulator of GB rows take 2 GB kDims registers, at most 2 DIMS1 at
-// GB = 1 (kSplitDims1 but in the whole-step kernel) and 128 above.
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
+// A lane's share of a line: kLoad bytes (one vector load, two for an f32
+// line of dk 256), kDims head dims, kActive lanes a line reading it, in a
+// lane group of kLanes (the power of two at or above kActive: the lane
+// reductions are butterflies inside the group; at dk 80 the lanes past
+// kActive load nothing and add zeros), kGroups lines a warp loads at once.
+// A dk-80 int4 line (40 bytes) is read in 8-byte loads: its lines are
+// 8-byte aligned only. q and the accumulator of GB rows take 2 GB kDims
+// registers, at most 2 DIMS1 at GB = 1 (kSplitDims1 but in the whole-step
+// kernel) and 128 above.
 template <typename TQ, int KIND, int DK, int GB, int DIMS1 = kSplitDims1>
 struct SplitGeom {
   static constexpr int kMaxDims = GB == 1 ? DIMS1 : 8;
   static constexpr int kRowBytes = KIND == kPoolFloat ? DK * int(sizeof(TQ)) : DK / pack_of<KIND>();
-  static constexpr int kLoad = KIND == kPoolFloat  ? 16
-                               : KIND == kPoolInt8 ? (kMaxDims < 16 ? kMaxDims : 16)
-                                                   : (kMaxDims / 2 < 16 ? kMaxDims / 2 : 16);
+  static constexpr int kLoad0 = KIND == kPoolFloat  ? (kRowBytes > 512 ? 32 : 16)
+                                : KIND == kPoolInt8 ? (kMaxDims < 16 ? kMaxDims : 16)
+                                                    : (kMaxDims / 2 < 16 ? kMaxDims / 2 : 16);
+  static constexpr int kLoad = kRowBytes % kLoad0 == 0 ? kLoad0 : kLoad0 / 2;
   static constexpr int kWords = kLoad / 4;
   static constexpr int kDims = KIND == kPoolFloat  ? kLoad / int(sizeof(TQ))
                                : KIND == kPoolInt8 ? kLoad
                                                    : 2 * kLoad;
-  static constexpr int kLanes = kRowBytes / kLoad;
+  static constexpr int kActive = kRowBytes / kLoad;
+  static constexpr int kLanes = pow2_ceil(kActive);
   static constexpr int kGroups = 32 / kLanes;
   // lines a lane group loads before it computes
-  static constexpr int kInFlight = kSplitBytes / kLoad < (GB == 8 ? 2 : 4)
-                                       ? kSplitBytes / kLoad
-                                       : (GB == 8 ? 2 : 4);
+  static constexpr int kInFlightCap = GB == 8 ? (kLoad > 16 ? 1 : 2) : 4;
+  static constexpr int kInFlight =
+      kSplitBytes / kLoad < kInFlightCap ? kSplitBytes / kLoad : kInFlightCap;
   static_assert(kRowBytes % kLoad == 0 && kLanes >= 1 && kLanes <= 32, "line split");
   static_assert(kDims <= kMaxDims || KIND == kPoolFloat, "dims a lane");
 
@@ -142,10 +153,17 @@ struct SplitGeom {
   }
 };
 
-// W words at p, with plain loads or (L2) through L2 alone.
+// W words at p (W = 8: two 16-byte loads), with plain loads or (L2)
+// through L2 alone.
 template <int W, bool L2>
 __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[W]) {
-  if constexpr (W == 4) {
+  if constexpr (W == 8) {
+    uint32_t a[4], b[4];
+    load_words<4, L2>(p, a);
+    load_words<4, L2>(p + 16, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = a[i], w[4 + i] = b[i];
+  } else if constexpr (W == 4) {
     const uint4 v = L2 ? __ldcg(reinterpret_cast<const uint4*>(p))
                        : *reinterpret_cast<const uint4*>(p);
     w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
@@ -197,6 +215,25 @@ __device__ __forceinline__ void widen_words(const uint32_t (&w)[W], float (&x)[N
             __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540u + k)) - 8388616.f;
       }
     }
+  }
+}
+
+// The query rows a split block stages (GB rows of DK, TQ): static shared
+// memory, or at dk 256 dynamic shared memory of split_q_dyn_bytes (there
+// the walk's scratch, 37 KB with 8 rows, and the fused kernel's commit
+// arrays would pass the 48 KB of static shared memory with them).
+template <typename TQ, int DK, int GB>
+__host__ __device__ constexpr int split_q_dyn_bytes() {
+  return DK > 128 ? GB * DK * int(sizeof(TQ)) : 0;
+}
+template <typename TQ, int DK, int GB>
+__device__ __forceinline__ TQ* split_q_rows() {
+  if constexpr (split_q_dyn_bytes<TQ, DK, GB>() > 0) {
+    extern __shared__ __align__(16) unsigned char split_q_dyn[];
+    return reinterpret_cast<TQ*>(split_q_dyn);
+  } else {
+    __shared__ __align__(16) unsigned char raw[GB * DK * sizeof(TQ)];
+    return reinterpret_cast<TQ*>(raw);
   }
 }
 
@@ -311,6 +348,7 @@ __device__ void attend_split(const Lines& ln, const SplitArgs& sp, int split, co
   using PT = typename PoolT<TQ, KIND>::T;
   constexpr int kThreads = NW * 32;
   constexpr int ND = Geo::kDims, LB = Geo::kLoad, W = Geo::kWords, LPL = Geo::kLanes;
+  constexpr int ACT = Geo::kActive;  // lanes of a group that read the line
   constexpr int U = Geo::kInFlight, NG = NW * Geo::kGroups;  // line groups a block
   constexpr bool kPaged = Lines::kPaged;
 
@@ -425,7 +463,7 @@ __device__ void attend_split(const Lines& ln, const SplitArgs& sp, int split, co
       for (int g = 0; g < GB; ++g)
 #pragma unroll
         for (int e = 0; e < ND; ++e)
-          qr[g][e] = g < rows ? to_f32<TQ>(sQ[g * DK + Geo::dim(sub, e)]) : 0.f;
+          qr[g][e] = g < rows && sub < ACT ? to_f32<TQ>(sQ[g * DK + Geo::dim(sub, e)]) : 0.f;
     }
     attended = true;
 
@@ -440,7 +478,7 @@ __device__ void attend_split(const Lines& ln, const SplitArgs& sp, int split, co
         } else {
           on[u] = j < n;
         }
-        if (on[u]) {
+        if (on[u] && sub < ACT) {
           size_t off;
           if constexpr (kPaged) {
             off = pool_row<KIND, DK>(sm.pid[j >> ps_log], j & (ps - 1), ln.h, ps, KV) *
@@ -580,7 +618,7 @@ __device__ void attend_split(const Lines& ln, const SplitArgs& sp, int split, co
           acc[g][e] = acc[g][e] * fa + __shfl_xor_sync(0xffffffffu, acc[g][e], o) * fb;
         m[g] = M;
       }
-    if (lane < LPL) {
+    if (lane < ACT) {
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g >= rows) continue;

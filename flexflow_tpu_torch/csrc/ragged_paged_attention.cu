@@ -65,9 +65,8 @@ namespace {
 template <typename TQ, int KIND, int DK, int GB>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
     ragged_split_kernel(PagedArgs a, SplitArgs s) {
-  __shared__ __align__(16) unsigned char sQraw[GB * DK * sizeof(TQ)];
   __shared__ SplitSmem<DK, GB, kSplitWarps, true> sm;
-  TQ* sQ = reinterpret_cast<TQ*>(sQraw);
+  TQ* sQ = split_q_rows<TQ, DK, GB>();
   const int r = blockIdx.z, h = blockIdx.y;
   stage_q<TQ, DK>(a, r, h, static_cast<const TQ*>(a.q), nullptr, nullptr, 0, sQ);
   const PagedLines<false> ln{a, r, h, 0, a.C * (a.H / a.KV)};
@@ -81,20 +80,34 @@ __global__ void __launch_bounds__(kMmaTileThreads, 1) ragged_mma_kernel(PagedArg
   attend_tile_mma<TQ, KIND, DK>(a, blockIdx.z, blockIdx.y, blockIdx.x * kMmaTileRows, smem_mma);
 }
 
+template <typename TQ, int KIND, int DK, int GB>
+cudaError_t launch_split(const PagedArgs& a, const SplitArgs& s, cudaStream_t stream) {
+  constexpr int kQBytes = split_q_dyn_bytes<TQ, DK, GB>();
+  if (kQBytes > 0) {
+    cudaError_t err = cudaFuncSetAttribute(ragged_split_kernel<TQ, KIND, DK, GB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kQBytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(s.nsplit, a.KV, a.R);
+  ragged_split_kernel<TQ, KIND, DK, GB><<<grid, kSplitThreads, kQBytes, stream>>>(a, s);
+  return cudaSuccess;
+}
+
 template <typename TQ, int KIND, int DK>
 cudaError_t launch_dk(const PagedArgs& a, const SplitArgs& s, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TQ, __nv_bfloat16>::value;
   const int rows = a.C * (a.H / a.KV);
   const int design = paged_design(rows, kBf16 ? kBFloat16 : kFloat32);
   if (design == kDesignDecode) {
-    const dim3 grid(s.nsplit, a.KV, a.R);
+    cudaError_t err;
     if (rows == 1) {
-      ragged_split_kernel<TQ, KIND, DK, 1><<<grid, kSplitThreads, 0, stream>>>(a, s);
+      err = launch_split<TQ, KIND, DK, 1>(a, s, stream);
     } else if (rows <= 4) {  // G = 2, 4: 1.4-1.8 x faster than at 8 rows (H100)
-      ragged_split_kernel<TQ, KIND, DK, 4><<<grid, kSplitThreads, 0, stream>>>(a, s);
+      err = launch_split<TQ, KIND, DK, 4>(a, s, stream);
     } else {
-      ragged_split_kernel<TQ, KIND, DK, kDecodeRows><<<grid, kSplitThreads, 0, stream>>>(a, s);
+      err = launch_split<TQ, KIND, DK, kDecodeRows>(a, s, stream);
     }
+    if (err != cudaSuccess) return err;
   } else {  // kDesignMma (bf16 q), kDesignTf32x3 (f32 q)
     constexpr size_t kSmem = MmaSmem<TQ, KIND, DK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
@@ -110,7 +123,9 @@ cudaError_t launch_dk(const PagedArgs& a, const SplitArgs& s, cudaStream_t strea
 template <typename TQ, int KIND>
 cudaError_t launch_kind(const PagedArgs& a, const SplitArgs& s, int dk, cudaStream_t stream) {
   if (dk == 64) return launch_dk<TQ, KIND, 64>(a, s, stream);
+  if (dk == 80) return launch_dk<TQ, KIND, 80>(a, s, stream);
   if (dk == 128) return launch_dk<TQ, KIND, 128>(a, s, stream);
+  if (dk == 256) return launch_dk<TQ, KIND, 256>(a, s, stream);
   return cudaErrorInvalidValue;
 }
 

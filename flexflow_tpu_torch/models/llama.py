@@ -46,9 +46,11 @@ import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the weight bridge, under its old names
+from .hf_utils import _array_to_tensor, params_from_numpy  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,31 +240,6 @@ def init_params(generator: torch.Generator, cfg: LLaMAConfig, *,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = norm_init(std, (D, cfg.vocab_size))
     return params
-
-
-def _array_to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.require(a, requirements=["C", "W"])  # torch wants writable memory
-    # JAX bf16 arrays reach numpy as ml_dtypes.bfloat16, which
-    # torch.from_numpy refuses: reinterpret the bits through uint16.
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
-def params_from_numpy(tree: Any, *, device: Any,
-                      dtype: Optional[torch.dtype] = None) -> Any:
-    """Carry a JAX ``init_params`` pytree, given as numpy arrays (nested
-    dicts), across to the port's params on ``device``. Keys and layouts
-    are unchanged; ``dtype`` casts every leaf when given."""
-    if isinstance(tree, dict):
-        return {
-            k: params_from_numpy(v, device=device, dtype=dtype)
-            for k, v in tree.items()
-        }
-    t = _array_to_tensor(np.asarray(tree))
-    if dtype is not None:
-        t = t.to(dtype)
-    return t.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -727,6 +704,21 @@ def serve_step_paged(
 # scratch line with itself. The cache tensors are updated in place: a
 # commit moves every layer's lines in one statement (a few lines a slot),
 # a reorder copies one layer at a time (the temporary is one layer's slots).
+#
+# The same functions serve the generic decoder (models/transformer.py),
+# whose ALiBi and sliding-window caches carry a buffer "pos": the
+# sequence position of every line, (slots, max_len + 1) dense and
+# (num_pages + 1, page_size) paged, with no layer dim. It moves with the
+# lines it describes.
+
+#: the generic decoder's per-line position buffer (no layer dim)
+POS = "pos"
+
+
+def _layers(name: str, buf: torch.Tensor):
+    """The per-layer views of cache buffer ``name``: the position buffer
+    is one "layer" of its own."""
+    return (buf,) if name == POS else buf
 
 
 def commit_kv(cache: Dict[str, torch.Tensor], src: torch.Tensor,
@@ -737,8 +729,11 @@ def commit_kv(cache: Dict[str, torch.Tensor], src: torch.Tensor,
     ``cache``."""
     src, dst = src.long(), dst.long()
     bidx = torch.arange(src.shape[0], device=src.device)[:, None]
-    for buf in cache.values():  # (L, R, S1, KV, dk)
-        buf[:, bidx, dst] = buf[:, bidx, src]
+    for name, buf in cache.items():
+        if name == POS:  # (R, S1)
+            buf[bidx, dst] = buf[bidx, src]
+        else:            # (L, R, S1, KV, dk)
+            buf[:, bidx, dst] = buf[:, bidx, src]
     return cache
 
 
@@ -750,8 +745,8 @@ def reorder_slots(cache: Dict[str, torch.Tensor],
     src = src.long()
     moved = torch.nonzero(src != torch.arange(src.shape[0], device=src.device))[:, 0]
     if moved.numel():
-        for buf in cache.values():  # (L, R, S1, KV, dk)
-            for layer in buf:
+        for name, buf in cache.items():  # (L, R, S1, KV, dk); pos (R, S1)
+            for layer in _layers(name, buf):
                 layer[moved] = layer[src[moved]]
     return cache
 
@@ -776,9 +771,14 @@ def commit_kv_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor,
         quant_commit_lines(cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
                            s_phys, s_off, d_phys, d_off, resolve_spec(kv_quant).qmax,
                            kernels=kernels)
+        if POS in cache:  # exact metadata: moves verbatim
+            cache[POS][d_phys, d_off] = cache[POS][s_phys, s_off]
         return cache
-    for buf in cache.values():  # (L, P+1, ps, KV, dk)
-        buf[:, d_phys, d_off] = buf[:, s_phys, s_off]
+    for name, buf in cache.items():
+        if name == POS:  # (P+1, ps)
+            buf[d_phys, d_off] = buf[s_phys, s_off]
+        else:            # (L, P+1, ps, KV, dk)
+            buf[:, d_phys, d_off] = buf[:, s_phys, s_off]
     return cache
 
 
@@ -787,8 +787,11 @@ def copy_page_kv(cache: Dict[str, torch.Tensor], src: int, dst: int) -> Dict[str
     cache buffer (K/V pools and the quantized layout's (L, P+1, KV) scale
     rows): the device half of prefix-cache copy-on-write. Codes and their
     scales move together, byte for byte."""
-    for buf in cache.values():
-        buf[:, dst].copy_(buf[:, src])
+    for name, buf in cache.items():
+        if name == POS:  # (P+1, ps)
+            buf[dst].copy_(buf[src])
+        else:
+            buf[:, dst].copy_(buf[:, src])
     return cache
 
 
@@ -796,8 +799,8 @@ def gather_page_kv(cache: Dict[str, torch.Tensor], page: int) -> Dict[str, torch
     """One physical page's content out of every cache buffer, as fresh
     tensors (never views of the pool): the device half of a host-tier
     spill, which must survive the page being freed and reused."""
-    return {name: buf[:, page].clone(memory_format=torch.contiguous_format)
-            for name, buf in cache.items()}
+    return {name: (buf[page] if name == POS else buf[:, page]).clone(
+        memory_format=torch.contiguous_format) for name, buf in cache.items()}
 
 
 def scatter_page_kv(cache: Dict[str, torch.Tensor], page: int,
@@ -806,7 +809,7 @@ def scatter_page_kv(cache: Dict[str, torch.Tensor], page: int,
     returned) into pool row ``page`` in place: the device half of a
     host-tier re-admit, byte for byte its inverse."""
     for name, buf in cache.items():
-        buf[:, page].copy_(values[name])
+        (buf[page] if name == POS else buf[:, page]).copy_(values[name])
     return cache
 
 
@@ -826,8 +829,8 @@ def reorder_slots_paged(cache: Dict[str, torch.Tensor], page_table: torch.Tensor
         table = page_table.long()
         src_pages = table[src[moved]].reshape(-1)
         dst_pages = table[moved].reshape(-1)
-        for buf in cache.values():  # (L, P+1, ...)
-            for layer in buf:
+        for name, buf in cache.items():  # (L, P+1, ...); pos (P+1, ps)
+            for layer in _layers(name, buf):
                 layer[dst_pages] = layer[src_pages]
     return cache
 

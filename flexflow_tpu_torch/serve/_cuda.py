@@ -36,6 +36,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: flags of one source on top of NVCC_FLAGS: the paged sources instantiate
+#: 96 kernels each (2 q types x 3 pools x 4 head dims x 4 block shapes),
+#: which nvcc's optimizer takes in 4 threads (the fused source alone took
+#: 199 s in one, 87 s in 4 on the H100 machine's 8 cores)
+SOURCE_FLAGS = {
+    "ragged_paged_attention": ("--split-compile=4",),
+    "fused_rope_paged_attention": ("--split-compile=4",),
+}
 #: pointer, int and float argument counts of each kernel's launcher
 SIGNATURES = {
     "decode_attention": (7, 7, 1),
@@ -85,8 +93,12 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _flags(src_name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(src_name, ())
+
+
 def _target(src_name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(src_name)).encode())
     for src in [SRC_DIR / f"{src_name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(src.read_bytes())
     digest = h.hexdigest()[:16]
@@ -106,7 +118,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -363,19 +363,29 @@ class InferenceEngine:
         self.whole_step_spec_refused = False
         if "whole_step" in self.serving.fused_decode:
             if "whole_step" not in getattr(model, "FUSED_DECODE", ()):
+                later = getattr(model, "WHOLE_STEP_LATER", None)
                 raise ValueError(
                     "fused_decode='whole_step' requested but "
                     f"{getattr(model, '__name__', repr(model))} does not advertise "
-                    "it (model.FUSED_DECODE)"
+                    "it (model.FUSED_DECODE)" + (f": {later}" if later else "")
                 )
             # an unstreamable layout raises here, never mid-serve
             model.whole_step_weight_layout(params, cfg)
             self.whole_step_on = True
+        dense_refusal = getattr(model, "DENSE_CUDA", None)
+        if not self.paged and self.serving.kernels == "cuda" and dense_refusal:
+            # a family whose dense step reaches no kernel (the generic
+            # decoder): never its plain math under "cuda"
+            raise ValueError(dense_refusal)
         self.device = resolve_device(device)
         self._check_cuda_shapes()
         # steps of fused_decode=("rope_kv_write",) wider than the fused
         # kernel's commit, served by the unfused step instead
         self.fused_reroutes = 0
+        # paged kernels="cuda" steps that attend on the plain path: an ALiBi
+        # family's bias, which no kernel takes (models/transformer.py)
+        self.plain_attention_steps = 0
+        self._alibi = getattr(cfg, "positions", None) == "alibi"
         # the side stream of the host tier's spill copies (fetch_page)
         self._spill_stream = None
         self.params = params
@@ -385,19 +395,25 @@ class InferenceEngine:
             self._whole_step_smem_gate()
 
     def _check_cuda_shapes(self):
-        """Raise ValueError at construction for a shape the CUDA kernels
-        are not built for (``kernels="cuda"`` on a GPU): a head dim
-        outside ``kernels._CUDA_HEAD_DIMS`` or, paged, a page size outside
-        ``kernels._CUDA_PAGE_SIZES``. On the CPU the plain versions take
-        any shape."""
+        """Raise ValueError at construction for a shape the CUDA kernels of
+        this engine's path are not built for (``kernels="cuda"`` on a GPU):
+        a head dim outside ``kernels._PAGED_HEAD_DIMS`` (the paged and
+        commit kernels) or ``kernels._CUDA_HEAD_DIMS`` (the dense kernels,
+        and the whole-step kernel when it is on), or, paged, a page size
+        outside ``kernels._CUDA_PAGE_SIZES``. On the CPU the plain versions
+        take any shape."""
         if self.serving.kernels != "cuda" or self.device.type != "cuda":
             return
         from . import kernels as _k
 
-        if self.cfg.head_dim not in _k._CUDA_HEAD_DIMS:
-            raise ValueError(
-                f"kernels='cuda' has no head dim {self.cfg.head_dim} (the CUDA kernels "
-                f"take {_k._CUDA_HEAD_DIMS}); serve with kernels='torch'")
+        dk = self.cfg.head_dim
+        for on, dims, which in ((self.paged, _k._PAGED_HEAD_DIMS, "paged"),
+                                (not self.paged or self.whole_step_on, _k._CUDA_HEAD_DIMS,
+                                 "whole-step" if self.paged else "dense")):
+            if on and dk not in dims:
+                raise ValueError(
+                    f"kernels='cuda' has no head dim {dk} in the {which} kernels (they "
+                    f"take {dims}); serve with kernels='torch'")
         if self.paged and self.serving.page_size not in _k._CUDA_PAGE_SIZES:
             raise ValueError(
                 f"kernels='cuda' has no page size {self.serving.page_size} (the CUDA "
@@ -606,6 +622,8 @@ class InferenceEngine:
                 if fused and tokens.shape[1] > _FUSED_MAX_CHUNK:
                     fused = False  # the unfused step is the fused one's bitwise twin
                     self.fused_reroutes += 1
+                if self._alibi and sc.kernels == "cuda":
+                    self._count_plain_attention()
                 logits, self.cache = self.model.serve_step_paged(
                     self.params, self.cache, tokens, positions, logits_idx, mask,
                     cache_positions, self.page_table_device(), cfg=self.cfg,
@@ -619,6 +637,18 @@ class InferenceEngine:
                     kernels=sc.kernels, **kw,
                 )
         return logits
+
+    def _count_plain_attention(self):
+        """Count a kernels="cuda" paged step that attends on the plain path
+        (an ALiBi bias), logging the first."""
+        if not self.plain_attention_steps:
+            from ..logging_utils import get_logger
+
+            get_logger("serve").warning(
+                "ALiBi bias: %s attends on the plain path under kernels='cuda' (the "
+                "paged kernels take no additive bias); counted in "
+                "plain_attention_steps", getattr(self.model, "__name__", self.model))
+        self.plain_attention_steps += 1
 
     def run(self, bc: BatchConfig, all_logits: bool = False):
         """Run one step (reference ``InferenceManager::inference``).
@@ -894,7 +924,8 @@ class InferenceEngine:
     def page_host_bytes(self) -> int:
         """Host bytes one spilled page occupies (every cache buffer's
         per-page slice): the price of a page against ``host_cache_bytes``."""
-        return sum(t[:, 0].numel() * t.element_size() for t in self.cache.values())
+        return sum((t[0] if name == "pos" else t[:, 0]).numel() * t.element_size()
+                   for name, t in self.cache.items())
 
     def reset(self):
         """Drop all cached sequences: the KV cache is zeroed in place and,

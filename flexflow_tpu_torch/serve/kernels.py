@@ -78,8 +78,12 @@ DESIGN_LAUNCHES: Dict[str, int] = {
     **{f"whole_step_decode[{d}-tree]": 0 for d in DESIGNS["whole_step_decode"][0]},
 }
 
-#: head dims, q dtypes and page sizes the CUDA kernels are instantiated for
+#: head dims, q dtypes and page sizes the CUDA kernels are instantiated
+#: for: the dense kernels and the whole-step kernel take _CUDA_HEAD_DIMS,
+#: the paged kernels and the commit kernel _PAGED_HEAD_DIMS (Phi-2's 80
+#: and Gemma's 256 too)
 _CUDA_HEAD_DIMS = (64, 128)
+_PAGED_HEAD_DIMS = (64, 80, 128, 256)
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
 _CUDA_PAGE_SIZES = (16, 32, 64, 128)
 #: most new lines per slot the fused kernel commits in one launch
@@ -663,9 +667,9 @@ def _commit_quant_cuda(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax):
             raise ValueError(f"{name} must be float32 ({P1}, {KV})")
     if k_pool.shape[2] != KV or k_pool.shape[3] * pool_pack(k_pool) != dk:
         raise ValueError(f"pools {tuple(k_pool.shape)} do not hold lines {tuple(k.shape)}")
-    if k.dtype not in _CUDA_DTYPES or dk not in _CUDA_HEAD_DIMS:
+    if k.dtype not in _CUDA_DTYPES or dk not in _PAGED_HEAD_DIMS:
         raise ValueError(f"the commit kernel takes float32 or bfloat16 lines of head dim "
-                         f"{_CUDA_HEAD_DIMS}; got {k.dtype}, {dk}")
+                         f"{_PAGED_HEAD_DIMS}; got {k.dtype}, {dk}")
     if C > _COMMIT_MAX_LINES:
         raise ValueError(f"the commit kernel takes at most {_COMMIT_MAX_LINES} lines a "
                          f"slot; got C={C}")
@@ -852,8 +856,8 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, mask, k_scale, v_scale):
         raise ValueError(f"full-precision pools must be q's dtype {q.dtype}; got "
                          f"{k_pool.dtype}")
     dk = q.shape[-1]
-    if dk not in _CUDA_HEAD_DIMS:
-        raise ValueError(f"CUDA attention has no head dim {dk} (has {_CUDA_HEAD_DIMS})")
+    if dk not in _PAGED_HEAD_DIMS:
+        raise ValueError(f"CUDA paged attention has no head dim {dk} (has {_PAGED_HEAD_DIMS})")
     if k_pool.shape[1] not in _CUDA_PAGE_SIZES:
         raise ValueError(f"CUDA paged attention has no page size {k_pool.shape[1]} "
                          f"(has {_CUDA_PAGE_SIZES})")
@@ -953,25 +957,29 @@ def mma_smem_bytes(f32: bool, kind: int, dk: int) -> int:
     ``MmaSmem<TQ, KIND, DK>::kBytes`` in ``csrc/paged_attention.cuh`` lays
     them out (q bf16, or f32 with ``f32``; pool ``kind`` 0 q's type, 1
     int8, 2 int4): K/V tiles of 64 lines in q's type with rows of dk + 8
-    (bf16) or dk + 4 (f32), three stages of them, or one that quantized
-    codes widen into beside three stages of raw codes; for f32 q the
-    block's 128 Q rows; then the mask bits, page ids, scales and flags of
-    32 tiles. Two stages where three would pass MMA_SMEM_BUDGET with 16
-    tiles, and 16 tiles where 32 would (bf16 q always fits; f32 pages at
-    dk 128 take both). The whole-step kernel's gate and ``chip_smoke.py``'s
-    build line read this one mirror."""
-    pair = 2 * 64 * (dk + 4) * 4 if f32 else 2 * 64 * (dk + 8) * 2
+    (bf16) or dk + 4 (f32), up to three stages of them, or one that
+    quantized codes widen into beside up to three stages of raw codes; the
+    block's 128 Q rows in q's type for f32 q and for bf16 q above dk 128,
+    where two stages (and 16 tiles) fit beside them (f32 q at dk 256 reads
+    its rows in place); then the mask bits, page ids, scales and flags of
+    32 tiles. As many stages (3, 2, 1) as fit MMA_SMEM_BUDGET with 16
+    tiles, then 32 tiles where they fit, else 16. The whole-step kernel's
+    gate and ``chip_smoke.py``'s build line read this one mirror."""
+    isz, ld = (4, dk + 4) if f32 else (2, dk + 8)
+    pair = 2 * 64 * ld * isz
     raw = 2 * 64 * (dk // kind) if kind else 0  # int8: a byte a value, int4: two
-    q = 128 * (dk + 4) * 4 if f32 else 0
+    q_rows = 128 * ld * isz
 
     def meta(n):  # bits [tile][128 rows], page ids and two scales, flags
         return 8 * n * 128 + 12 * n * 4 + n * 4
 
-    def buffers(stages):
-        return pair + stages * raw if kind else stages * pair
-    stages = 3 if q + buffers(3) + meta(16) <= MMA_SMEM_BUDGET else 2
-    fixed = q + buffers(stages)
-    return fixed + meta(32 if fixed + meta(32) <= MMA_SMEM_BUDGET else 16)
+    def fits(q, stages, n):
+        return q + (pair + stages * raw if kind else stages * pair) + meta(n) <= MMA_SMEM_BUDGET
+
+    q = q_rows if (f32 or dk > 128) and fits(q_rows, 2, 16) else 0
+    stages = next(n for n in (3, 2, 1) if n == 1 or fits(q, n, 16))
+    fixed = q + (pair + stages * raw if kind else stages * pair)
+    return fixed + meta(32 if fits(q, stages, 32) else 16)
 
 
 def whole_step_split_smem_bytes(f32: bool, dk: int, R: int) -> int:

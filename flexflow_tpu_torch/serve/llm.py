@@ -34,37 +34,20 @@ from .specinfer import SpecConfig, SpecInferManager
 #: files of a tokenizer in an HF checkpoint directory
 TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
 
-#: the JAX package's model families (flexflow_tpu/models FAMILIES keys)
-#: that the port has not ported yet: they come with ROADMAP.md queue 1
-#: item 4 (the generic decoder and the other families)
-LATER_FAMILIES = ("opt", "falcon", "mpt", "starcoder", "gpt_bigcode", "qwen2", "mixtral",
-                  "mistral", "qwen2_moe", "gemma", "phi", "gpt2")
-
-
 def detect_family(hf_config: Dict[str, Any]):
-    """The model-family module of an HF config: by ``model_type``, else by
-    ``architectures`` (longest family name first). A family of the JAX
-    package that the port lacks raises NotImplementedError; an unknown
-    one ValueError."""
+    """The model-family module of an HF config (``models.FAMILIES``, the
+    JAX package's thirteen keys): by ``model_type``, else by
+    ``architectures`` (longest family name first). An unknown family
+    raises ValueError."""
     mt = hf_config.get("model_type", "")
-    known = {**{k: None for k in LATER_FAMILIES}, **zoo.FAMILIES}
-    key = mt if mt in known else None
-    if key is None:
-        for arch in hf_config.get("architectures", []):
-            for k in sorted(known, key=len, reverse=True):
-                if k.replace("_", "") in arch.lower().replace("_", ""):
-                    key = k
-                    break
-            if key is not None:
-                break
-    if key is None:
-        raise ValueError(f"unsupported model family: {mt!r} / "
-                         f"{hf_config.get('architectures')}")
-    if key not in zoo.FAMILIES:
-        raise NotImplementedError(
-            f"model family {key!r} is not ported yet: it comes with ROADMAP.md queue 1 "
-            "item 4 (the generic decoder and the eleven other families)")
-    return zoo.FAMILIES[key]
+    if mt in zoo.FAMILIES:
+        return zoo.FAMILIES[mt]
+    for arch in hf_config.get("architectures", []):
+        for k in sorted(zoo.FAMILIES, key=len, reverse=True):
+            if k.replace("_", "") in arch.lower().replace("_", ""):
+                return zoo.FAMILIES[k]
+    raise ValueError(f"unsupported model family: {mt!r} / "
+                     f"{hf_config.get('architectures')}")
 
 
 class LLM:

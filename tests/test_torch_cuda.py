@@ -267,6 +267,19 @@ PAGED_SHAPES = [
     (1, 8, 2, 64, 16, 64),
     (2, 8, 2, 64, 16, 5),
     (4, 2, 2, 128, 32, 6),
+    # head dims 80 (Phi-2) and 256 (Gemma): decode, mixed steps of 80 rows
+    # and C = 128, a 2176-line walk at dk 256 (the f32 tile's one stage)
+    (1, 8, 2, 80, 16, 3),
+    (20, 8, 2, 80, 64, 20),
+    (128, 4, 4, 80, 128, 5),
+    (1, 8, 1, 256, 16, 3),
+    (1, 4, 4, 256, 128, 3),
+    (20, 8, 2, 256, 64, 20),
+    (128, 2, 2, 256, 128, 17),
+    # MQA decode past the decode design's 8 rows: Falcon-7B (G = 71) and
+    # StarCoder (G = 48) on the tensor-core tile, one 128-row block
+    (1, 71, 1, 64, 128, 17),
+    (1, 48, 1, 128, 128, 17),
 ]
 
 
@@ -301,7 +314,8 @@ def test_cuda_ragged_paged_attention_matches_plain_version(cuda_device, dtype, q
     _one_launch(before, "ragged_paged_attention", kp, _design(C, H, KV, dtype))
 
 
-@pytest.mark.parametrize("partial", [False, True], ids=["rope-full", "rope-partial"])
+@pytest.mark.parametrize("partial", [False, True, None], ids=["rope-full", "rope-partial",
+                                                             "rope-none"])
 @pytest.mark.parametrize("shape", PAGED_SHAPES, ids=lambda s: "C{}-H{}-KV{}-dk{}-ps{}".format(*s))
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -312,9 +326,10 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
     scatter or quant_line_write, ragged kernel) bit for bit; the output
     is within the kernel tolerance of the plain version. Slot 2's last
     column is a padding token: its line goes to the scratch page. A
-    partial rotary width passes the head tails through: dk / 2 at dk 64
-    (16-byte RoPE), dk / 2 + 8 at dk 128 (a width the commit rotates one
-    dim at a time)."""
+    partial rotary width passes the head tails through: 32 at dk 64 and
+    80 (16-byte RoPE; Phi-2 rotates 32 of 80), dk / 2 + 8 at dk 128 and
+    256 (a width the commit rotates one dim at a time). ``partial`` None
+    passes no cos/sin: the commit alone (learned positions, ALiBi)."""
     from flexflow_tpu_torch.models import llama as tl
     from flexflow_tpu_torch.serve import kv_quant as kq
 
@@ -333,7 +348,7 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
     cos, sin = tl.rope_freqs(tl.LLaMAConfig(hidden_size=H * dk, num_attention_heads=H,
                                             num_key_value_heads=KV), pos)
     if partial:
-        rot = dk // 2 + (8 if dk == 128 else 0)
+        rot = 32 if dk <= 80 else dk // 2 + 8
         cos, sin = cos[..., :rot].contiguous(), sin[..., :rot].contiguous()
     logical = (pos // ps).to(torch.int32)
     off = (pos % ps).to(torch.int32)
@@ -342,7 +357,12 @@ def test_cuda_fused_rope_paged_attention_bitwise_vs_unfused(cuda_device, dtype, 
     def clones():
         return [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
 
+    if partial is None:
+        cos = sin = None
+
     def rope(x):
+        if partial is None:
+            return x
         if partial:
             return tk._rope_rotate(x, cos[:, :, None], sin[:, :, None])
         return tl.apply_rope(x, cos, sin)
@@ -486,7 +506,9 @@ def test_cuda_verify_tf32x3_ignores_stale_shared_memory(cuda_device, poison_smem
 
 # (H, KV, dk, ps, NP): LLaMA-7B at page size 128 (MHA and KV 8), dk 64 at
 # page size 16 with 64 pages
-SPLIT_SHAPES = [(32, 32, 128, 128, 17), (32, 8, 128, 128, 17), (8, 2, 64, 16, 64)]
+SPLIT_SHAPES = [(32, 32, 128, 128, 17), (32, 8, 128, 128, 17), (8, 2, 64, 16, 64),
+                (32, 32, 80, 128, 17), (16, 16, 256, 128, 17), (8, 1, 256, 16, 64),
+                (8, 1, 80, 16, 64)]
 
 
 def _decode_case(gen, dev, dtype, quant, H, KV, dk, ps, NP):

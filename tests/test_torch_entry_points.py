@@ -133,10 +133,14 @@ def test_load_state_dict_without_weights_raises(tmp_path):
 def test_detect_family():
     assert detect_family({"model_type": "llama"}) is tl
     assert detect_family({"architectures": ["LlamaForCausalLM"]}) is tl
-    for later in ({"model_type": "mistral"}, {"architectures": ["Qwen2MoeForCausalLM"]},
-                  {"model_type": "gpt_bigcode"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            detect_family(later)
+    # the other twelve keys resolve to their ported family modules (they
+    # raised NotImplementedError before the generic decoder was ported)
+    from flexflow_tpu_torch.models import mistral, qwen2_moe, starcoder
+
+    for hf, mod in (({"model_type": "mistral"}, mistral),
+                    ({"architectures": ["Qwen2MoeForCausalLM"]}, qwen2_moe),
+                    ({"model_type": "gpt_bigcode"}, starcoder)):
+        assert detect_family(hf) is mod
     with pytest.raises(ValueError, match="unsupported"):
         detect_family({"model_type": "bogus", "architectures": ["BogusLM"]})
 

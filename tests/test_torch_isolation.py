@@ -19,7 +19,9 @@ def test_import_leaves_jax_and_the_jax_package_unloaded():
         "import sys\n"
         "import flexflow_tpu_torch\n"
         "from flexflow_tpu_torch.serve import kernels, _cuda, llm, engine, request_manager, prefix_cache\n"
-        "from flexflow_tpu_torch.models import llama, hf_utils\n"
+        "from flexflow_tpu_torch.models import llama, hf_utils, transformer\n"
+        "from flexflow_tpu_torch.models import falcon, gemma, gpt2, mistral, mixtral, mpt\n"
+        "from flexflow_tpu_torch.models import opt, phi, qwen2, qwen2_moe, starcoder\n"
         "import flexflow_tpu_torch.__main__\n"
         "from flexflow_tpu_torch.ops import flash_attention\n"
         "from flexflow_tpu_torch import optimizers\n"
