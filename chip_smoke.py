@@ -184,6 +184,20 @@ ALiBi batches launch no paged kernel, each step counted on the plain path
 checkpoint in HF naming (the fused ``query_key_value``) through
 ``from_pretrained``, ``generate``, ``generate_stream`` and ``serve``.
 
+The generic decoder's whole step (slice 16): the whole-step kernel's
+checks add the generic body (``WHOLE_GENERIC_CASES``: Falcon-7B's MQA at
+G = 71 with a parallel block, Phi-2's head dim 80 with partial RoPE and
+every bias, Gemma-7B's head dim 256 with RMS by 1 + w and GeGLU-tanh,
+GPT-2 XL's learned positions and V = 50257; Phi-2 and Gemma on every
+pool type; ``WHOLE_GENERIC_FOLD_CASES``: Phi-2's fold), held as LLaMA's,
+rows ``whole_step_decode[<family>]`` of the kernels line. ``families``
+adds Falcon-7B's ``bf16-whole`` and ``int8-whole`` arms at full depth (a
+stamped ``whole_stages`` line of the bf16 arm's decode step) and a
+``bf16-whole`` arm to each 2-layer family the whole step takes; Mistral,
+Mixtral, Qwen1.5-MoE and MPT must refuse it at construction. The build
+line lists every whole-step function that spills (``whole_step_spills``:
+the dk-256 attention functions); one below dk 256 fails the run.
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -460,7 +474,7 @@ def _whole_report(report):
     library's tile bytes are the gate's mirror (``K.mma_smem_bytes``), and
     so are its split walk's (``K.whole_step_split_smem_bytes``), that the
     gate's static price covers the static bytes, that the tile and the
-    static bytes fit one block, and that no instantiation spills."""
+    static bytes fit one block. Spills are listed (:func:`_whole_spills`)."""
     rows = []
     for fn in report.split("Compiling entry function '")[1:]:
         m = re.search(r"whole_step_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)E", fn.split("'")[0])
@@ -487,8 +501,30 @@ def _whole_report(report):
         check(static <= K._WS_STATIC_SMEM, f"{what}: {static} static bytes over the gate's "
                                            f"{K._WS_STATIC_SMEM}")
         check(mma + static <= K.WHOLE_STEP_SMEM_BUDGET, f"{what}: {mma} + {static} bytes")
-    check(len(rows) == 12, f"whole-step instantiations in the ptxas report: {len(rows)}")
+    check(len(rows) == 24, f"whole-step instantiations in the ptxas report: {len(rows)}")
     return sorted(rows, key=lambda r: (r["dtype"], r["pool"], r["dk"]))
+
+
+def _whole_spills(report):
+    """Every function of the whole-step library that spills, from its
+    ``ptxas -v`` report: (function, stack frame, spill store and load
+    bytes). The dk-256 instantiations' attention functions spill a few
+    words at 255 registers, as the paged kernels' dk-256 tiles do."""
+    out, fn = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m[1]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None and int(m[2]):
+            name = re.search(r"([a-z][a-z_]+I(?:13__nv_bfloat16|f)(?:Li\d+E)*)", fn)
+            out.append({"function": name[1] if name else fn, "dk256": "Li256E" in fn,
+                        "stack_frame": int(m[1]), "spill_store_bytes": int(m[2]),
+                        "spill_load_bytes": int(m[3])})
+            fn = None
+    return out
 
 
 # record_function ranges of the port (``llama.lm_head``); a trace shows
@@ -609,11 +645,12 @@ def phase_build():
     sources = dict.fromkeys(_cuda.source(n) for n in _cuda.SIGNATURES)
     mma = _mma_report(reports)
     whole = _whole_report(reports["whole_step_decode"]) if "whole_step_decode" in reports else []
+    whole_spills = _whole_spills(reports.get("whole_step_decode", ""))
     split = _split_report(reports)
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info, "mma_kernels": mma, "split_kernels": split,
-          "whole_step_kernels": whole})
+          "whole_step_kernels": whole, "whole_step_spills": whole_spills})
     # the split decode walk: 2 q types x 3 pool types x 4 head dims x 3 row
     # counts in each paged source compiled by this run, 2 x 2 x 3 in the
     # dense one, none spilling
@@ -634,13 +671,14 @@ def phase_build():
                              f"want {want}")
     check(all(r["spill_store_bytes"] == 0 for r in tf32 if r["dk"] != 256),
           "a tf32x3 instantiation below dk 256 spills")
-    # a whole-step function that spills fails the run at its end, after
-    # every phase has printed its measurements
+    # a whole-step function below dk 256 that spills fails the run at its
+    # end, after every phase has printed its measurements; the dk-256
+    # instantiations' spills are on the build line (their attention holds a
+    # warp's 16 x 256 accumulator at 255 registers, as the paged tiles do)
     return [f"{r['dtype']}/{r['pool']}/dk{r['dk']}: {r['spill_store_bytes']} bytes"
-            for r in whole if r["spill_store_bytes"]] + (
-        ["a function of the whole-step library spills"]
-        if re.search(r"[1-9]\d* bytes spill stores", reports.get("whole_step_decode", ""))
-        else [])
+            for r in whole if r["spill_store_bytes"] and r["dk"] != 256] + [
+        f"{r['function']}: {r['spill_store_bytes']} bytes" for r in whole_spills
+        if not r["dk256"]]
 
 
 def _rand(shape, dtype, gen):
@@ -1434,6 +1472,35 @@ WHOLE_FOLD_CASES = (
     ("bf16-gqa-verify-c7", torch.bfloat16, None, 8, "verify", 7, None),
     ("bf16-gqa-draft-c2", torch.bfloat16, None, 8, "draft", 2, 1),
 )
+# the generic decoder's bodies on the same kernel (slice 16), at published
+# widths cut to 2 layers: Falcon-7B (MQA at G = 71, a parallel block on
+# one LayerNorm, GELU, an untied head), Phi-2 (head dim 80, RoPE over 32
+# of its dims, every bias, an untied biased head, gelu_tanh), Gemma-7B
+# (head dim 256, RMS by 1 + w, GeGLU-tanh, H * dk 4096 against D 3072, V
+# 256000) and GPT-2 XL (learned positions, no RoPE, V 50257 on a tied
+# head); Phi-2 and Gemma on every pool type. (label, family module, preset,
+# model dtype, pool quantization, step kind); a row of the kernels line
+# each family, its bf16 decode case
+WHOLE_GENERIC_CASES = (
+    ("falcon-7b-bf16-decode", falcon, falcon.falcon_7b, torch.bfloat16, None, "decode"),
+    ("falcon-7b-bf16-mixed-c128", falcon, falcon.falcon_7b, torch.bfloat16, None, "mixed"),
+    *((f"{name}-{pool}-{kind}", family, preset,
+       torch.float32 if pool == "f32" else torch.bfloat16,
+       pool if pool in ("int8", "int4") else None, kind.split("-")[0])
+      for name, family, preset in (("phi-2", phi, phi.phi_2), ("gemma-7b", gemma, gemma.gemma_7b))
+      for pool in ("bf16", "int8", "int4", "f32") for kind in ("decode", "mixed-c128")),
+    ("gpt2-xl-bf16-decode", gpt2, gpt2.gpt2_xl, torch.bfloat16, None, "decode"),
+    ("gpt2-xl-bf16-mixed-c128", gpt2, gpt2.gpt2_xl, torch.bfloat16, None, "mixed"),
+)
+# the fold on a generic body: Phi-2, a verify at C = 7 and a 1-layer
+# early-exit draft at C = 3 (label, family, preset, kind, C, num_layers)
+WHOLE_GENERIC_FOLD_CASES = (
+    ("phi-2-bf16-verify-c7", phi, phi.phi_2, "verify", 7, None),
+    ("phi-2-bf16-draft-c3", phi, phi.phi_2, "draft", 3, 1),
+)
+# the kernels line's rows of the generic body: each family's bf16 decode
+# case, with the launches of its families-phase whole-step arms
+WHOLE_GENERIC_ROWS = ("falcon-7b", "phi-2", "gemma-7b", "gpt2-xl")
 # f32 kernel vs plain version: summation order only
 WHOLE_F32_RTOL = 1e-4
 # f32 logits of the kernel against a plain or unfused path on an int4
@@ -1486,24 +1553,47 @@ def _tree_positions(rng, kind, R, C, cache_len, ps):
     return pos, cpos, mask
 
 
-def _whole_case(gen, rng, dtype, quant, KV, kind, C=None, num_layers=None):
+def _draw_vectors(params, gen):
+    """A generic decoder's norm scales at 1 + 0.2 N(0, 1) and biases at
+    0.2 N(0, 1), in place: their initial ones and zeros would leave a
+    wrong offset unseen."""
+    for tree in (params["layers"], params):
+        for name, t in tree.items():
+            if isinstance(t, dict) or name in ("embed", "pos_embed", "lm_head"):
+                continue
+            if "norm" in name or name.startswith("b") or name.endswith("_bias"):
+                noise = 0.2 * torch.randn(t.shape, generator=gen, device=t.device)
+                t.copy_((noise + (1.0 if name.endswith("_scale") else 0.0)).to(t.dtype))
+
+
+def _whole_case(gen, rng, dtype, quant, KV, kind, C=None, num_layers=None, family=None):
     """Inputs of one whole-step call: random weights, a paged cache whose
     every page holds random lines (int8/int4 codes at per-page amax
     scales), the paged slice's shuffled table and the step's tokens,
     positions and logits_idx (decode: DECODE_LENS; mixed: prefill chunks,
     decode rows and idle slots; "verify" and "draft": a SpecInfer tree
     step of C columns, :func:`_tree_positions`, through the first
-    ``num_layers`` layers)."""
+    ``num_layers`` layers). LLaMA-7B with KV heads by default; ``family``
+    (module, preset) a generic decoder at its published width (its KV
+    heads), its norms and biases drawn (:func:`_draw_vectors`)."""
     sc = ServingConfig()
-    cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=WHOLE_CHECK_LAYERS,
-                                     num_key_value_heads=KV, dtype=dtype)
+    if family is None:
+        model = llama
+        cfg = llama.LLaMAConfig.llama_7b(num_hidden_layers=WHOLE_CHECK_LAYERS,
+                                         num_key_value_heads=KV, dtype=dtype)
+    else:
+        model, preset = family
+        cfg = preset(num_hidden_layers=WHOLE_CHECK_LAYERS, dtype=dtype)
+        KV = cfg.num_key_value_heads
     R, ps, NP = sc.max_requests_per_batch, sc.page_size, sc.pages_per_slot
     L, dk = cfg.num_hidden_layers, cfg.head_dim
     tree = kind in ("verify", "draft")
     if not tree:
         C = 1 if kind == "decode" else sc.prefill_chunk
     P = R * NP
-    params = llama.init_params(gen, cfg, device=DEV)
+    params = model.init_params(gen, cfg, device=DEV)
+    if family is not None:
+        _draw_vectors(params, gen)
     mask = None
     if tree:
         pos, cpos, mask = _tree_positions(rng, kind, R, C, sc.cache_len, ps)
@@ -1529,7 +1619,7 @@ def _whole_case(gen, rng, dtype, quant, KV, kind, C=None, num_layers=None):
     if kind == "mixed":
         li[[r for r in range(R) if r % 4 in (0, 1)]] = C - 1
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(R, C))).to(DEV)
-    return dict(cfg=cfg, params=params, cache=cache, tokens=toks,
+    return dict(model=model, cfg=cfg, params=params, cache=cache, tokens=toks,
                 pos=torch.from_numpy(pos).to(DEV), li=torch.from_numpy(li).to(DEV),
                 table=torch.from_numpy(table.astype(np.int32)).to(DEV), quant=quant,
                 R=R, C=C, ps=ps, NP=NP, P=P, cache_len=sc.cache_len,
@@ -1566,7 +1656,8 @@ def _whole_bound(case):
     R, ps, NP = case["R"], case["ps"], case["NP"]
     isz = p["embed"].element_size()
     layer_params = sum(w[0].numel() for w in p["layers"].values())
-    proj_params = sum(p["layers"][n][0].numel() for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"))
+    proj_params = sum(p["layers"][w][0].numel()
+                      for w, _ in case["model"].whole_step_tile_roles(cfg).values())
     mask = K.paged_serve_mask(case["mask"], case["pos"], NP, ps, case["cache_len"])
     opened = mask.reshape(R, -1, NP, ps).any(dim=3).any(dim=1)
     pages = int(case["table"][opened].unique().numel())
@@ -1627,13 +1718,13 @@ def run_whole_check(label, case):
     live row of the step (every row's logits and argmax), its layers
     ``num_layers``, the deeper layers' pools untouched; its design is
     counted as ``<design>-tree``."""
-    cfg, params, cache = case["cfg"], case["params"], case["cache"]
+    model, cfg, params, cache = case["model"], case["cfg"], case["params"], case["cache"]
     quant, P, dtype = case["quant"], case["P"], cfg.dtype
     step = (case["tokens"], case["pos"], case["li"], case["table"])
     fold = _fold_kw(case)
     kw = dict(cfg=cfg, cache_len=case["cache_len"], kv_quant=quant)
-    la, _ = llama.whole_step_weight_layout(params, cfg)
-    roles = llama.whole_step_tile_roles(cfg)
+    la, _ = model.whole_step_weight_layout(params, cfg)
+    roles = model.whole_step_tile_roles(cfg)
     x0 = torch.empty((case["R"], case["C"], cfg.hidden_size), dtype=dtype, device="meta")
     gate, est = K.whole_step_pick_tiles(la, cache, x0, cfg.num_attention_heads,
                                         tile_roles=roles, budget=K.WHOLE_STEP_SMEM_BUDGET,
@@ -1641,7 +1732,8 @@ def run_whole_check(label, case):
     check(gate is not None, f"whole[{label}]: no tile count fits the budget")
     takes = [t for t in K.whole_step_tile_candidates(la, roles)
              if K.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
-    other = max(t for t in takes if t != gate)
+    # the next count the kernel takes (the one below at the largest)
+    other = takes[takes.index(gate) + 1] if gate != takes[-1] else takes[-2]
     work = {k: v.clone() for k, v in cache.items()}
 
     def restore():
@@ -1650,7 +1742,7 @@ def run_whole_check(label, case):
 
     def run(kernels, tiles, prm=params, c=None, cf=cfg, stamps=None):
         c = c if c is not None else work
-        return llama.serve_step_whole(prm, c, *step, cfg=cf, cache_len=case["cache_len"],
+        return model.serve_step_whole(prm, c, *step, cfg=cf, cache_len=case["cache_len"],
                                       kv_quant=quant, tiles=tiles, kernels=kernels,
                                       stamps=stamps, **fold)
 
@@ -1692,6 +1784,7 @@ def run_whole_check(label, case):
         return v * c[f"{k}_scale"][:, :, None, :, None] if quant else v
 
     row = {"phase": "kernels", "kernel": "whole_step_decode", "case": label,
+           "model": model.__name__.split(".")[-1],
            "dtype": str(dtype).replace("torch.", ""), "pool": quant or str(dtype).replace("torch.", ""),
            "shape": {"L": cfg.num_hidden_layers, "R": case["R"], "C": case["C"],
                      "D": cfg.hidden_size, "H": cfg.num_attention_heads,
@@ -1768,7 +1861,7 @@ def run_whole_check(label, case):
         ms=cuda_ms_restored(lambda: run("cuda", gate), restore),
         ms_tiles_other=cuda_ms_restored(lambda: run("cuda", other), restore),
         plain_ms=cuda_ms_restored(lambda: run("torch", gate), restore, iters=5),
-        unfused_ms=cuda_ms_restored(lambda: llama.serve_step_paged(
+        unfused_ms=cuda_ms_restored(lambda: model.serve_step_paged(
             params, work, case["tokens"], case["pos"], case["li"], *mask_args,
             **unfused_kw), restore),
         library_ms=None)
@@ -1813,16 +1906,23 @@ def phase_whole_kernels(seed):
     gen.manual_seed(seed + 4)
     rng = np.random.default_rng(seed + 4)
     main = {}
-    cases = ([c + (None, None) for c in WHOLE_CASES]
-             + [c for c in WHOLE_FOLD_CASES])
-    for label, dtype, quant, KV, kind, C, num_layers in cases:
-        case = _whole_case(gen, rng, dtype, quant, KV, kind, C, num_layers)
+    cases = ([c + (None, None, None) for c in WHOLE_CASES]
+             + [c + (None,) for c in WHOLE_FOLD_CASES]
+             + [(label, dtype, quant, None, kind, None, None, (family, preset))
+                for label, family, preset, dtype, quant, kind in WHOLE_GENERIC_CASES]
+             + [(label, torch.bfloat16, None, None, kind, C, n, (family, preset))
+                for label, family, preset, kind, C, n in WHOLE_GENERIC_FOLD_CASES])
+    for label, dtype, quant, KV, kind, C, num_layers, family in cases:
+        case = _whole_case(gen, rng, dtype, quant, KV, kind, C, num_layers, family)
         row = run_whole_check(label, case)
         pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
-        if kind == "decode" and KV == 32:
+        if family is None and kind == "decode" and KV == 32:
             main[f"whole_step_decode[{pool}]"] = row
         if label in FOLD_ROWS.values():  # the spec arms' pools, at C = 7
             main[f"whole_step_decode[{pool}/tree]"] = row
+        for name in WHOLE_GENERIC_ROWS:  # a family's bf16 decode case
+            if label == f"{name}-bf16-decode":
+                main[f"whole_step_decode[{name}]"] = row
         del case
         gc.collect()
         torch.cuda.empty_cache()
@@ -2192,13 +2292,14 @@ class _full_walk_lengths:
         llama.decode_seq_lens = self.rule
 
 
-def whole_stages_full_depth(llm, seed):
+def whole_stages_full_depth(llm, seed, case="bf16-decode-full-depth"):
     """One stamped decode step of a whole-step arm's engine at full depth:
     its weights and its gate's tile count, 16 slots of ``DECODE_LENS``
     lines (slot 0 idle) over a fresh pool of random bf16 lines, the new
     lines committed in place. Warmed once, then stamped; milliseconds by
-    stage beside the event time of the stamped launch."""
-    eng, cfg = llm.engine, llm.cfg
+    stage beside the event time of the stamped launch. The arm's family
+    module is ``llm.family`` (LLaMA or a generic decoder)."""
+    eng, cfg, model = llm.engine, llm.cfg, llm.family
     sc = ServingConfig()
     R, ps, NP = eng.num_slots, sc.page_size, sc.pages_per_slot
     rng = np.random.default_rng(seed + 6)
@@ -2210,7 +2311,7 @@ def whole_stages_full_depth(llm, seed):
     for r, n in enumerate(held):
         table[r, :n] = np.arange(first, first + n)
         first += n
-    cache = llama.init_paged_kv_cache(cfg, P, ps, device=DEV)
+    cache = model.init_paged_kv_cache(cfg, P, ps, device=DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 6)
     for name in ("k", "v"):
@@ -2222,7 +2323,7 @@ def whole_stages_full_depth(llm, seed):
     L = cfg.num_hidden_layers
 
     def launch(stamps=None):
-        return llama.serve_step_whole(llm.params, cache, *step, cfg=cfg, cache_len=sc.cache_len,
+        return model.serve_step_whole(llm.params, cache, *step, cfg=cfg, cache_len=sc.cache_len,
                                       tiles=eng.whole_step_tiles, kernels="cuda", stamps=stamps)
     _, design = _design_of("whole_step_decode", launch)
     stamps = torch.zeros(K.whole_step_stamp_count(L), dtype=torch.int64, device=DEV)
@@ -2235,7 +2336,7 @@ def whole_stages_full_depth(llm, seed):
     t = stamps.tolist()
     check(all(x > 0 for x in t) and t == sorted(t), f"whole full depth: stamps do not rise: {t}")
     stages = K.whole_step_stage_ms(t, L)
-    row = {"phase": "whole_stages", "case": "bf16-decode-full-depth", "layers": L,
+    row = {"phase": "whole_stages", "case": case, "layers": L,
            "tiles": eng.whole_step_tiles, "design": design, "live_slots": sum(n > 0 for n in held),
            "pages": P, "event_ms": a.elapsed_time(b), "stages_ms": stages,
            "stages_sum_ms": sum(stages.values()),
@@ -2607,12 +2708,12 @@ def phase_f32(seed):
 # (label, ServingConfig fields, SpecConfig fields, layers of the
 # layer-skip SSM that drafts over the target's own weights, or None for
 # the early-exit self-draft)
-# the depths of the spec and prefix phases: LLaMA-7B's width cut to 8 and
-# 16 of its 32 layers (their arms were the run's largest after the paged
-# slice's; with the families phase the whole run must stay well inside its
-# 1200 s on a slower machine too)
+# the depths of the spec and prefix phases: LLaMA-7B's width cut to 8 of
+# its 32 layers (their arms were the run's largest after the paged slice's;
+# with the families phase and the generic whole-step checks the whole run
+# must stay well inside its 1200 s on a slower machine too)
 SPEC_LAYERS = 8
-PREFIX_LAYERS = 16
+PREFIX_LAYERS = 8
 SPEC_PAGED = dict(kv_layout="paged", max_cached_tokens=PAGED_BUDGET)
 SPEC_ARMS = (
     ("dense", {}, dict(beam_width=2, beam_depth=3), 2),
@@ -3259,6 +3360,9 @@ def phase_entry(seed):
 # arms of the Falcon-7B slice: (label, kv_quant, fused_decode)
 FALCON_ARMS = (("bf16", None, ()), ("bf16-fused", None, ("rope_kv_write",)),
                ("int8-fused", "int8", ("rope_kv_write",)))
+# its whole-step arms (slice 16): the generic body, one kernel a step
+FALCON_WHOLE_ARMS = (("bf16-whole", None, ("whole_step",)),
+                     ("int8-whole", "int8", ("whole_step",)))
 # the ten families at their published widths cut to FAMILY_LAYERS layers
 # (depth the only cut): (label, family module, preset)
 FAMILY_LAYERS = 2
@@ -3273,6 +3377,11 @@ FAMILY_CHECKS = (("opt-6.7b", opt, opt.opt_6_7b), ("starcoder-15b", starcoder,
 # kernel; at head dims 80 and 256 also int8 pages with the commit kernel
 FAMILY_ARMS = (("bf16", None, ()), ("int8-fused", "int8", ("rope_kv_write",)))
 FAMILY_COMMIT_ARM = (("int8", "int8", ()),)
+# the whole step's arm of every family that takes it (slice 16); the
+# others raise at construction, with the JAX package's reason
+FAMILY_WHOLE_ARM = (("bf16-whole", None, ("whole_step",)),)
+WHOLE_REFUSED = {"mistral-7b": "ALiBi / sliding-window", "mixtral-8x7b": "mixture-of-experts",
+                 "qwen1.5-moe-a2.7b": "mixture-of-experts", "mpt-7b": "ALiBi / sliding-window"}
 FAMILY_PROMPT_LENS = (1000, 16, 300, 700)
 FAMILY_NEW = 16
 # Mistral's published window (4096) masks lines only past 4096 tokens: its
@@ -3341,7 +3450,7 @@ class _FamilyArm:
     model has served, so that they do not count in the arms' peaks)."""
 
     def __init__(self, label, family, cfg, params, serving, prompts, new,
-                 during=contextlib.nullcontext()):
+                 during=contextlib.nullcontext(), after=None):
         self.label, self.family, self.cfg, self.prompts = label, family, cfg, prompts
         t0 = time.perf_counter()
         llm = LLM(family, cfg, params, device=DEV)
@@ -3349,6 +3458,8 @@ class _FamilyArm:
         with during:
             results, self.line = _serve(llm, prompts, new)
         self.line["plain_attention_steps"] = llm.engine.plain_attention_steps
+        # ``after(llm)``: more of the arm's figures, outside the measured run
+        self.extra = after(llm) if after is not None else {}
         _free(llm)
         t1 = time.perf_counter()
         self.sc = dataclasses.replace(serving, max_requests_per_batch=len(prompts))
@@ -3391,6 +3502,35 @@ def _steps_of(line):
     return sum(line["steps"].values())
 
 
+def _whole_info(llm, seed=None, stages=None):
+    """A whole-step arm's gate (tile counts, priced bytes, fallbacks, the
+    mixed step on the kernel) and, with ``stages``, a stamped decode step
+    at full depth (:func:`whole_stages_full_depth`, that case label)."""
+    eng = llm.engine
+    info = {"tiles": eng.whole_step_tiles, "mixed_tiles": eng.whole_step_mixed_tiles,
+            "smem_est": eng.whole_step_smem_est, "fallbacks": llm.rm.stats.whole_step_fallbacks,
+            "mixed_on": eng.whole_step_mixed_on}
+    if stages is not None:
+        info["stages"] = whole_stages_full_depth(llm, seed, stages)
+    return info
+
+
+def _check_whole_arm(label, line, extra, pool, designs):
+    """A whole-step arm ran the kernel on every step: its launches on
+    ``pool``, no paged attention kernel, no gate fallback, the mixed step
+    on the kernel, and the attention designs ``designs`` (a set of
+    ``whole_step_decode[<design>]``) and no other. Returns its launches."""
+    n = line["launches"].get(f"whole_step_decode[{pool}]", 0)
+    check(n > 0, f"{label}: whole_step_decode[{pool}] was never launched ({line['launches']})")
+    paged = [k for k in line["launches"] if k.split("[")[0] in K.PAGED_KERNELS]
+    check(not paged, f"{label}: paged attention kernels ran: {paged}")
+    check(extra["fallbacks"] == 0 and extra["mixed_on"],
+          f"{label}: the whole-step gate fell back ({extra})")
+    took = {k for k in line["design_launches"] if k.startswith("whole_step_decode[")}
+    check(took == designs, f"{label}: the whole step's attention took {took}, want {designs}")
+    return n
+
+
 def phase_families(seed):
     """Falcon-7B at full depth (32 layers, width 4544, 71 heads on one KV
     head, random bf16 weights from the seed, made on the card) serving the
@@ -3413,26 +3553,39 @@ def phase_families(seed):
         torch.cuda.synchronize()
         return params, time.perf_counter() - t0
 
-    # Falcon-7B, full depth: MQA decode on the tensor-core tile
+    # Falcon-7B, full depth: MQA decode on the tensor-core tile; its whole
+    # step (G = 71: every step's attention on the tile, "mma")
     t_model = time.perf_counter()
     cfg = falcon.falcon_7b()
     params, init_s = weights(falcon, cfg, 21)
     prompts, new = _slice_prompts(seed, cfg)
     arms = []
-    for label, quant, fused in FALCON_ARMS:
+    for label, quant, fused in FALCON_ARMS + FALCON_WHOLE_ARMS:
         mqa = _count_mqa_decode()
+        after = None
+        if "whole_step" in fused:
+            after = functools.partial(_whole_info, seed=seed, stages=(
+                f"falcon-7b-{label}-decode-full-depth" if quant is None else None))
         arm = _FamilyArm(f"falcon-7b-{label}", falcon, cfg, params,
                          ServingConfig(kv_layout="paged", kv_quant=quant, fused_decode=fused),
-                         prompts, new, during=mqa)
+                         prompts, new, during=mqa, after=after)
         arms.append((label, quant, fused, arm, mqa.calls))
     params32 = _to_f32(params)
     del params
     for label, quant, fused, arm, calls in arms:
         line = arm.hold(params32)
-        kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
+        extra = arm.extra
+        stages = extra.pop("stages", None)
         emit({"phase": "families", "model": "falcon_7b", "arm": label,
               "layers": cfg.num_hidden_layers, "init_s": init_s, "kv_quant": quant,
-              "fused_decode": list(fused), "mqa_decode_launches": calls, **line})
+              "fused_decode": list(fused), "mqa_decode_launches": calls, **extra, **line})
+        if stages is not None:
+            emit(stages)
+        if "whole_step" in fused:
+            add("whole_step_decode[falcon-7b]", _check_whole_arm(
+                f"falcon-7b-{label}", line, extra, quant or "bf16", {"whole_step_decode[mma]"}))
+            continue
+        kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
         check(calls[kind] > 0 and line["design_launches"].get(f"{kind}[decode]", 0) == 0,
               f"falcon-7b-{label}: MQA decode not on the tensor-core tile "
               f"({calls}, {line['design_launches']})")
@@ -3455,21 +3608,44 @@ def phase_families(seed):
         base = dict(kv_layout="paged", max_requests_per_batch=FAMILY_SLOTS)
         if mistral_like:
             base["max_sequence_length"] = MISTRAL_MAX_SEQ
-        # the commit kernel's rows need int8 pages unfused at dk 80 and 256
-        fam_arms = FAMILY_ARMS + (FAMILY_COMMIT_ARM if cfg.head_dim in group else ())
+        # the commit kernel's rows need int8 pages unfused at dk 80 and 256;
+        # the whole step serves every family whose layout it takes
+        fam_arms = (FAMILY_ARMS + (FAMILY_COMMIT_ARM if cfg.head_dim in group else ())
+                    + (FAMILY_WHOLE_ARM if label not in WHOLE_REFUSED else ()))
         arms = [(arm, quant, fused,
                  _FamilyArm(f"{label}-{arm}", family, cfg, params,
                             ServingConfig(kv_quant=quant, fused_decode=fused, **base),
-                            prompts, FAMILY_NEW))
+                            prompts, FAMILY_NEW,
+                            after=_whole_info if "whole_step" in fused else None))
                 for arm, quant, fused in fam_arms]
         params32 = _to_f32(params)
         del params
+        if label in WHOLE_REFUSED:
+            # the whole step raises at construction, before any allocation
+            try:
+                InferenceEngine(family, cfg, params32, ServingConfig(
+                    fused_decode=("whole_step",), **base), device=DEV)
+                refused = None
+            except ValueError as err:
+                refused = str(err)
+            emit({"phase": "families_whole_refused", "model": label, "reason": refused})
+            check(refused is not None and refused.startswith(
+                f"whole_step is not composed with {WHOLE_REFUSED[label]}"),
+                f"{label}: fused_decode=('whole_step',) was not refused: {refused}")
         for arm_label, quant, fused, arm in arms:
             line = arm.hold(params32)
             emit({"phase": "families", "model": label, "arm": arm_label,
                   "layers": FAMILY_LAYERS, "head_dim": cfg.head_dim,
                   "heads": cfg.num_attention_heads, "kv_heads": cfg.num_key_value_heads,
-                  "init_s": init_s, "kv_quant": quant, "fused_decode": list(fused), **line})
+                  "init_s": init_s, "kv_quant": quant, "fused_decode": list(fused),
+                  **arm.extra, **line})
+            if "whole_step" in fused:
+                G = cfg.num_attention_heads // cfg.num_key_value_heads
+                add(f"whole_step_decode[{label}]", _check_whole_arm(
+                    f"{label}-{arm_label}", line, arm.extra, "bf16",
+                    {"whole_step_decode[mma]"} | (
+                        {"whole_step_decode[decode]"} if G <= K.DECODE_ROWS else set())))
+                continue
             kind = "fused_rope_paged_attention" if fused else "ragged_paged_attention"
             used = {k: v for k, v in line["launches"].items()
                     if k.split("[")[0] in K.PAGED_KERNELS + ("paged_commit",)}
@@ -4474,6 +4650,14 @@ SOURCES = {
         "flexflow_tpu_torch/csrc/whole_step_decode.cu",
         "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode, with the spec fold of "
         "flexflow_tpu/models/llama.py:1327 serve_step_whole)") for t in FOLD_ROWS},
+    # the generic decoder's body (slice 16): each family's bf16 decode case,
+    # its launches from the families phase's whole-step arms
+    **{f"whole_step_decode[{name}]": (
+        "flexflow_tpu_torch/csrc/whole_step_decode.cu",
+        "flexflow_tpu/serve/kernels.py:1385 (whole_step_decode) and "
+        "flexflow_tpu/serve/kernels.py:1612 (_whole_step_decode_tiled), with the body of "
+        "flexflow_tpu/models/transformer.py:1521 serve_step_whole")
+       for name in WHOLE_GENERIC_ROWS},
     # the paged kernels at the other families' head dims and MQA width
     # (FAMILY_KERNEL_CASES; launches from the families phase)
     **{f"{k}[{g}]": (f"flexflow_tpu_torch/csrc/{k}.cu", line)

@@ -1,15 +1,19 @@
-// whole_step_decode — the whole LLaMA serving step (all L layers, the
-// final norm, the LM head at logits_idx and the greedy argmax) as one
+// whole_step_decode — the whole serving step of a decoder (all L layers,
+// the final norm, the LM head at logits_idx and the greedy argmax) as one
 // persistent cooperative kernel, for sm_90a.
 //
 // Replaces both Pallas TPU kernels of the whole-step walk,
 // flexflow_tpu/serve/kernels.py whole_step_decode (grid (L,)) and
 // _whole_step_decode_tiled (grid (L, 4 K): the projection weights
 // streamed in K output-column tiles). It computes what
-// models/llama.serve_step_whole computes after the embedding: per layer
-//   1. RMS norm (rows)                       x -> h
+// models/llama.serve_step_whole and models/transformer.serve_step_whole
+// compute after the embedding, the layer body set at run time by
+// WholeArgs (the norm kind, the activation, GLU or not, a sequential or
+// parallel block, the rotary width, a bias on any projection): per layer
+//   1. the residual and the input norm (rows)          x -> h
 //   2. Q/K/V projections                     h -> partial sums
-//   3. per (slot, KV head): the Q/K/V lines from the partial sums, RoPE,
+//   3. per (slot, KV head): the Q/K/V lines from the partial sums (plus
+//      their biases), RoPE over the rotary width (or none),
 //      the in-place commit of the new K/V lines into their pages (a
 //      scatter, or kv_quant.quant_line_write's arithmetic on quantized
 //      pools; paged_commit.cuh), then paged attention over the slot's
@@ -26,11 +30,13 @@
 //      unit's commit, the stage's dynamic shared memory then MmaSmem's
 //      layout
 //   4. out-projection                        attn -> partial sums
-//   5. residual + RMS norm (rows)            x2 = x + o, h2
-//   6. w1 / w3 projections                   h2 -> partial sums
-//   7. SiLU(gate) * up (elementwise)         act
-//   8. w2 projection                         act -> partial sums, whose
+//   5. residual + the FFN's norm (rows)      x2 = x + o, h2 = norm(x2);
+//      a parallel block norms x (its second norm) or reads h (none)
+//   6. gate and up projections (up alone without GLU)  h2 -> partial sums
+//   7. act(gate) * up, or act(up) (elementwise)        act
+//   8. down projection                       act -> partial sums, whose
 //      residual the next layer's step 1 adds
+// The residual chain is round(round(x + o) + ffn) for both kinds of block.
 // then the last residual and the final norm of the logits_idx rows, the
 // f32 LM head (in column items no wider than the layers' widest tile) and
 // a grid-wide first-maximum argmax. A grid-wide barrier
@@ -44,13 +50,17 @@
 // the tail runs over every row of the step (the final norm of R * C rows,
 // the LM head writing (R * C, V), the argmax of each row).
 //
-// Rounding follows the plain PyTorch path (models/llama.py): each
-// projection output element rounds once to the model dtype; _rms rounds
-// (x * r) to the model dtype and then multiplies by gamma in the model
-// dtype; SiLU(gate) rounds to the model dtype before the product with up;
-// the LM head multiplies model-dtype values with f32 accumulation (bf16
-// products are exact in f32, so this is the plain f32 head up to
-// summation order).
+// Rounding follows the plain PyTorch path (models/llama.py,
+// models/transformer.py): each projection output element rounds once to
+// the model dtype, and a bias added to it rounds again; RMS rounds (x * r)
+// to the model dtype and then multiplies by gamma in the model dtype,
+// Gemma's RMS multiplies (x * r) by (1 + gamma) in f32 and rounds once,
+// LayerNorm rounds (x - mu) * r, its product with gamma and the sum with
+// beta; the activation is computed in f32 from its rounded input and
+// rounded once, and a GLU's product with up rounds again; the LM head
+// multiplies model-dtype values with f32 accumulation (bf16 products are
+// exact in f32, so this is the plain f32 head up to summation order) and
+// adds its bias in f32.
 //
 // Projections, two designs, chosen by the step's shape alone (tc_path):
 //  * bf16 steps of more than 64 rows (mixed and prefill steps): wgmma
@@ -63,8 +73,10 @@
 //    33 of the bf16 mixed step's 45.6 ms at 39-75 TFLOP/s (NVIDIA H100
 //    80GB HBM3, 700 W). 128-row items read them 16 times, in 128-byte
 //    boxes, with four stages in flight; an item whose rows are all
-//    padding (an idle slot's, their lines all on the scratch page) writes
-//    zeros instead.
+//    padding (their lines all on the scratch page) writes zeros instead:
+//    a bias then makes those rows' values nonzero, still finite, and no
+//    live row reads them (a padding row's line is on the scratch page,
+//    which no live row's mask opens).
 //  * otherwise (decode steps, f32): one work item is (a row tile of 16, 32
 //    or 64 rows, one output-column tile of width N / tiles, one of KS
 //    contraction slices). The block streams its weight columns and
@@ -77,8 +89,12 @@
 // weight's own grid, so every output element's contraction runs in one
 // order at every tile count: logits, tokens and pool bytes are bitwise
 // equal across the legal tile counts (the JAX contract that tiles split
-// only output columns). Weights are read through their strides; a tied
-// head reads embed (V, D) as the transposed head.
+// only output columns). A role's column tile is N / tiles rounded up to
+// whole 8-wide MMA columns (role_width: Falcon's 64-wide K/V at 16 or 32
+// tiles), the LM head's last item may be ragged (GPT-2's V = 50257, its
+// missing columns zeros in shared memory and never stored). Weights are
+// read through their strides; a tied head reads embed (V, D) as the
+// transposed head.
 //
 // Bound on an H100: a decode step reads every weight once (13.2 GB at
 // LLaMA-7B in bf16) plus the K/V lines it attends, over 3.35 TB/s; a
@@ -128,17 +144,27 @@ constexpr size_t kTcSmem = size_t(kTcStages) * kTcStage + 1024;  // + 1024-byte 
 // the tensor maps of a launch: the four activations the projections read
 // and the seven stacked weights
 enum WholeMap : int {
-  kMapH, kMapAttn, kMapH2, kMapAct, kMapWq, kMapWk, kMapWv, kMapWo, kMapW1, kMapW3, kMapW2,
-  kNumMaps
+  kMapH, kMapAttn, kMapH2, kMapAct, kMapWq, kMapWk, kMapWv, kMapWo, kMapWgate, kMapWup,
+  kMapWdown, kNumMaps
 };
 
+// The body's norm kinds and activations (serve/kernels._WS_NORMS,
+// _WS_ACTS), and its block kinds
+enum NormKind : int { kNormRms, kNormRmsPlusOne, kNormLayer };
+enum ActKind : int { kActSilu, kActGelu, kActGeluTanh, kActRelu };
+enum BlockKind : int { kSequential, kParallelOneNorm, kParallelTwoNorms };
+
 struct WholeArgs {
-  // layer weights, stacked on a leading layer dim (model dtype)
-  const void *attn_norm, *wq, *wk, *wv, *wo, *ffn_norm, *w1, *w2, *w3;
-  const void* final_norm;
+  // layer weights and biases, stacked on a leading layer dim (model
+  // dtype); a bias, the gate (no GLU) and the second norm (a parallel
+  // block with one norm) may be null
+  const void *attn_norm, *attn_norm_b, *wq, *wk, *wv, *bq, *bk, *bv, *wo, *bo;
+  const void *mlp_norm, *mlp_norm_b, *w_gate, *b_gate, *w_up, *b_up, *w_down, *b_down;
+  const void *final_norm, *final_norm_b;
   const void* head;        // lm_head (D, V), or embed (V, D) when tied
+  const void* head_b;      // (V,) or null
   const void* x0;          // (R, C, D) embedded step input
-  const float* cos;        // (R, C, dk)
+  const float* cos;        // (R, C, rot), or null: no RoPE
   const float* sin;
   void* k_pool;            // (L, P1, ps, KV, dk / pack)
   void* v_pool;
@@ -158,6 +184,7 @@ struct WholeArgs {
   int L, R, C, D, H, KV, dk, F, V, ps, NP, P1, tiles, KS, tied;
   int split_pages;         // pages a split of the decode design (paged_decode_split)
   int all_logits;          // the head over every row (the fold), else a row a slot
+  int norm_kind, act, glu, block, rot;  // NormKind, ActKind, a GLU FFN, BlockKind, RoPE dims
   float eps, scale, qmax;
   CUtensorMap maps[kNumMaps];  // WholeMap; encoded when tc_path()
 };
@@ -215,10 +242,15 @@ __host__ __device__ inline bool tc_path(const WholeArgs& a, size_t elem_bytes) {
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
+// The output-column tile of a role of n columns: n / tiles rounded up to
+// whole 8-wide MMA columns (serve/kernels._ws_tile_width)
+__host__ __device__ inline int role_width(int n, int tiles) { return (n / tiles + 7) / 8 * 8; }
+
 // The widest output-column tile of the layer projections; LM-head work
 // items are no wider (at most kHeadCols).
 __host__ __device__ inline int head_width_cap(const WholeArgs& a) {
-  return imax(imax(a.H * a.dk, a.KV * a.dk), imax(a.D, a.F)) / a.tiles;
+  return imax(imax(role_width(a.H * a.dk, a.tiles), role_width(a.KV * a.dk, a.tiles)),
+              imax(role_width(a.D, a.tiles), role_width(a.F, a.tiles)));
 }
 
 __host__ __device__ inline int head_width(const WholeArgs& a) {
@@ -237,7 +269,7 @@ __host__ __device__ inline int head_rows(const WholeArgs& a) {
 // arithmetic is the same whatever the tile.
 __host__ __device__ inline int row_frags(int rows, int w) {
   if (rows <= 16) return 1;
-  const int per_warp = (w / 8 + kWarps - 1) / kWarps;
+  const int per_warp = ((w + 7) / 8 + kWarps - 1) / kWarps;
   return per_warp <= kMaxFrags / 4 ? 4 : per_warp <= kMaxFrags / 2 ? 2 : 1;
 }
 
@@ -259,30 +291,35 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
 }
 
 // One projection work item: out[m * ldo + j] = sum over K chunks
-// [kc0, kc1) of A[m, k] * W(k, n0 + j), for rows [m0, m0 + 16 MF) below M
-// and columns j < width.
+// [kc0, kc1) of A[m, k] * W(k, n0 + j) (+ bias[n0 + j] in f32, the LM
+// head's), for rows [m0, m0 + 16 MF) below M and columns j < width.
 struct GemmItem {
   const void* A;        // (M, K) row-major
   int M, K;
   const void* W;        // element (k, n) at W[k * sk + n * sn]; sk == 1 or sn == 1
   size_t sk, sn;
-  int n0, width;        // width a multiple of 8
+  int n0, width;        // width a multiple of 8 but in the LM head's last item
   int m0, kc0, kc1;
   float* out;
   int ldo;
+  const void* bias;     // (N,) model dtype, or null
 };
+
+__host__ __device__ constexpr int round8(int n) { return (n + 7) / 8 * 8; }
 
 // Shared-memory elements of one stage buffer pair (A chunk and W chunk).
 template <typename T, int MF>
 __host__ __device__ constexpr size_t gemm_buf_elems(int width) {
-  return size_t(16 * MF) * (kBK + 16 / sizeof(T)) + size_t(kBK) * (width + 16 / sizeof(T));
+  return size_t(16 * MF) * (kBK + 16 / sizeof(T)) + size_t(kBK) * (round8(width) + 16 / sizeof(T));
 }
 
 template <typename T, int MF>
 __device__ void gemm_item(const GemmItem& it, unsigned char* smem_raw) {
   constexpr int BM = 16 * MF, NJ = kMaxFrags / MF, V8 = 16 / sizeof(T);
   constexpr int LA = kBK + V8;
-  const int W = it.width, LB = W + V8, NF = W / 8;
+  // a ragged width (the LM head's last item) rounds up to whole 8-column
+  // fragments, the columns past it zeros
+  const int W = it.width, W8 = round8(W), LB = W8 + V8, NF = W8 / 8;
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* sA[2] = {smem, smem + gemm_buf_elems<T, MF>(W)};
   T* sB[2] = {sA[0] + BM * LA, sA[1] + BM * LA};
@@ -301,10 +338,15 @@ __device__ void gemm_item(const GemmItem& it, unsigned char* smem_raw) {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    if (it.sn == 1) {
+    if (it.sn == 1 && W == W8 && it.sk % V8 == 0 && it.n0 % V8 == 0) {
       for (int idx = tid; idx < kBK * (W / V8); idx += kThreads) {
         const int k = idx / (W / V8), v = (idx % (W / V8)) * V8;
         cp_async16(sB[buf] + k * LB + v, Wp + (size_t)(kb + k) * it.sk + it.n0 + v);
+      }
+    } else if (it.sn == 1) {  // rows not 16-byte aligned, or a ragged width
+      for (int idx = tid; idx < kBK * W8; idx += kThreads) {
+        const int k = idx / W8, n = idx % W8;
+        sB[buf][k * LB + n] = n < W ? Wp[(size_t)(kb + k) * it.sk + it.n0 + n] : from_f32<T>(0.f);
       }
     } else {  // transposed: W(k, n) = head[n * sn + k], 16 bytes along k
       for (int idx = tid; idx < W * (kBK / V8); idx += kThreads) {
@@ -314,6 +356,8 @@ __device__ void gemm_item(const GemmItem& it, unsigned char* smem_raw) {
 #pragma unroll
         for (int i = 0; i < V8; ++i) sB[buf][(k + i) * LB + n] = e[i];
       }
+      for (int idx = tid; idx < kBK * (W8 - W); idx += kThreads)
+        sB[buf][idx / (W8 - W) * LB + W + idx % (W8 - W)] = from_f32<T>(0.f);
     }
   };
 
@@ -392,21 +436,32 @@ __device__ void gemm_item(const GemmItem& it, unsigned char* smem_raw) {
     __syncthreads();  // the next load overwrites this buffer
   }
 
+  const T* bias = static_cast<const T*>(it.bias);
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int nf = warp + kWarps * j;
     if (nf >= NF) continue;
     const int col = nf * 8 + 2 * t;
+    if (bias != nullptr) {
+      const float b0 = col < W ? to_f32<T>(bias[it.n0 + col]) : 0.f;
+      const float b1 = col + 1 < W ? to_f32<T>(bias[it.n0 + col + 1]) : 0.f;
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+        acc[j][mf][0] = __fadd_rn(acc[j][mf][0], b0);
+        acc[j][mf][1] = __fadd_rn(acc[j][mf][1], b1);
+        acc[j][mf][2] = __fadd_rn(acc[j][mf][2], b0);
+        acc[j][mf][3] = __fadd_rn(acc[j][mf][3], b1);
+      }
+    }
 #pragma unroll
     for (int mf = 0; mf < MF; ++mf) {
       const int r0 = it.m0 + mf * 16 + g;
-      if (r0 < it.M) {
-        it.out[(size_t)r0 * it.ldo + col] = acc[j][mf][0];
-        it.out[(size_t)r0 * it.ldo + col + 1] = acc[j][mf][1];
-      }
-      if (r0 + 8 < it.M) {
-        it.out[(size_t)(r0 + 8) * it.ldo + col] = acc[j][mf][2];
-        it.out[(size_t)(r0 + 8) * it.ldo + col + 1] = acc[j][mf][3];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= it.M) continue;
+        if (col < W) it.out[(size_t)row * it.ldo + col] = acc[j][mf][2 * h];
+        if (col + 1 < W) it.out[(size_t)row * it.ldo + col + 1] = acc[j][mf][2 * h + 1];
       }
     }
   }
@@ -424,6 +479,7 @@ struct GemmStage {
   size_t sk[3], sn[3];
   float* out;
   int ldo;
+  const void* bias;  // the LM head's (V,), added in f32 (CUDA-core items only)
   // on wgmma: the maps of A and of the weights, the layer, and each row's
   // page (a row whose line goes to the scratch page is padding)
   const CUtensorMap* amap;
@@ -477,6 +533,7 @@ __device__ __noinline__ void run_gemm_stage(const GemmStage& s, unsigned char* s
     it.kc1 = (ks + 1) * nch / s.KS;
     it.out = s.out + (size_t)ks * s.M * s.ldo + col + n0;
     it.ldo = s.ldo;
+    it.bias = s.bias;
     gemm_item<T, MF>(it, smem);
   }
 }
@@ -649,18 +706,30 @@ __device__ __forceinline__ void load8_l2(const float* p, float (&o)[8]) {
   o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
 }
 
-// x_out = x_in (+ the rounded partial sums of the previous projection, when
-// part is given), then h = rms(x_out) * gamma, for one row, by one warp (8
-// elements a lane at a time; D a multiple of 8). x_in and x_out may alias
-// (the same lane reads and writes each element).
+// x_out = x_in (+ the residual when part is given: the KS partial sums of
+// the previous projection, rounded, plus its bias, rounded again), then
+// h = norm(x_out), or norm(x_in) with of_input (a parallel block's second
+// norm reads the block's input), for one row, by one warp (8 elements a
+// lane at a time; D a multiple of 8); no norm when h is null (a parallel
+// block whose FFN reads the input norm). The norm as the plain path's
+// _norm rounds it: RMS (x r) rounded, times gamma; RMS by 1 + gamma, (x r)
+// (1 + gamma) in f32; LayerNorm (x - mu) r rounded, times gamma, rounded,
+// plus beta (when given). x_in and x_out are distinct buffers; every read
+// goes through L2: other blocks wrote x_in, this lane x_out.
 template <typename T>
-__device__ void residual_norm_row(const T* x_in, const float* part, size_t slice, int KS,
-                                  T* x_out, T* h, const T* gamma, int D, float eps) {
+__device__ void residual_norm_row(const T* x_in, const float* part, const T* bias, size_t slice,
+                                  int KS, T* x_out, T* h, const T* gamma, const T* beta, int D,
+                                  float eps, int kind, bool of_input) {
   const int lane = threadIdx.x % 32;
-  float ss = 0.f;
+  const bool layer = kind == kNormLayer;
+  float sum = 0.f;  // of x (LayerNorm) or of x^2 (RMS)
   for (int d = 8 * lane; d < D; d += 256) {
     float x[8];
     load8_l2(x_in + d, x);
+    if (of_input) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum = layer ? __fadd_rn(sum, x[i]) : fmaf(x[i], x[i], sum);
+    }
     if (part != nullptr) {
       float p[8], q[8];
       load8_l2(part + d, p);
@@ -669,20 +738,57 @@ __device__ void residual_norm_row(const T* x_in, const float* part, size_t slice
 #pragma unroll
         for (int i = 0; i < 8; ++i) p[i] = __fadd_rn(p[i], q[i]);
       }
+      if (bias != nullptr) {
+        load_f32<T, 8>(bias + d, q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) p[i] = __fadd_rn(round_to<T>(p[i]), q[i]);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i] = round_to<T>(__fadd_rn(x[i], round_to<T>(p[i])));
     }
     store8<T>(x_out + d, x);
+    if (!of_input) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
+      for (int i = 0; i < 8; ++i) sum = layer ? __fadd_rn(sum, x[i]) : fmaf(x[i], x[i], sum);
+    }
   }
-  const float r = 1.f / sqrtf(__fdiv_rn(warp_sum(ss), (float)D) + eps);
+  if (h == nullptr) return;
+  const T* src = of_input ? x_in : x_out;
+  float mu = 0.f, ss = warp_sum(sum);
+  if (layer) {  // the variance about the mean, a second pass
+    mu = __fdiv_rn(ss, (float)D);
+    float var = 0.f;
+    for (int d = 8 * lane; d < D; d += 256) {
+      float x[8];
+      load8_l2(src + d, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float c = __fsub_rn(x[i], mu);
+        var = fmaf(c, c, var);
+      }
+    }
+    ss = warp_sum(var);
+  }
+  const float r = 1.f / sqrtf(__fdiv_rn(ss, (float)D) + eps);
   for (int d = 8 * lane; d < D; d += 256) {
     float x[8], g[8];
-    load_f32<T, 8>(x_out + d, x);
+    load8_l2(src + d, x);
     load_f32<T, 8>(gamma + d, g);
+    if (kind == kNormRmsPlusOne) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(round_to<T>(__fmul_rn(x[i], r)), g[i]);
+      for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(__fmul_rn(x[i], r), __fadd_rn(1.f, g[i]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float c = layer ? __fsub_rn(x[i], mu) : x[i];
+        x[i] = __fmul_rn(round_to<T>(__fmul_rn(c, r)), g[i]);
+      }
+      if (beta != nullptr) {
+        load_f32<T, 8>(beta + d, g);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = __fadd_rn(round_to<T>(x[i]), g[i]);
+      }
+    }
     store8<T>(h + d, x);
   }
 }
@@ -817,26 +923,36 @@ __device__ __noinline__ void attend_rows_mma() {
 // inlined in the kernel, its allocation spilled), and the block's state
 // stays in g_block.
 
-// 1. the residual of the previous layer's w2 (or x0) and the attention
-// norm, or 5. the attention residual and the MLP norm (``mlp``)
+// Layer l's row of a stacked (L, n) tensor, or null
+template <typename T>
+__device__ __forceinline__ const T* layer_row(const void* p, int l, int n) {
+  return p == nullptr ? nullptr : static_cast<const T*>(p) + (size_t)l * n;
+}
+
+// 1. the residual of the previous layer's down projection (or x0) and the
+// input norm, or 5. the attention residual and the FFN's norm (``mlp``):
+// of x + o (sequential), of x (a parallel block's second norm) or none (a
+// parallel block with one norm: the FFN reads h)
 template <typename T>
 __device__ __noinline__ void norm_stage(bool mlp) {
   const WholeArgs& a = *g_block.args;
   const Scratch<T> s(a);
   const int l = g_block.l;
   const int M = a.R * a.C, D = a.D;
-  const T* gamma = static_cast<const T*>(mlp ? a.ffn_norm : a.attn_norm) + (size_t)l * D;
+  const T* gamma = layer_row<T>(mlp ? a.mlp_norm : a.attn_norm, l, D);
+  const T* beta = layer_row<T>(mlp ? a.mlp_norm_b : a.attn_norm_b, l, D);
   for (int m = blockIdx.x * kWarps + threadIdx.x / 32; m < M; m += gridDim.x * kWarps) {
     const size_t o = (size_t)m * D;
     if (mlp) {
-      residual_norm_row<T>(s.x + o, a.work + o, (size_t)M * D, a.KS, s.x2 + o, s.h2 + o, gamma, D,
-                           a.eps);
+      residual_norm_row<T>(s.x + o, a.work + o, layer_row<T>(a.bo, l, D), (size_t)M * D, a.KS,
+                           s.x2 + o, a.block == kParallelOneNorm ? nullptr : s.h2 + o, gamma,
+                           beta, D, a.eps, a.norm_kind, a.block == kParallelTwoNorms);
     } else if (l == 0) {
-      residual_norm_row<T>(static_cast<const T*>(a.x0) + o, nullptr, 0, 0, s.x + o, s.h + o,
-                           gamma, D, a.eps);
+      residual_norm_row<T>(static_cast<const T*>(a.x0) + o, nullptr, nullptr, 0, 0, s.x + o,
+                           s.h + o, gamma, beta, D, a.eps, a.norm_kind, false);
     } else {
-      residual_norm_row<T>(s.x2 + o, a.work + o, (size_t)M * D, a.KS, s.x + o, s.h + o, gamma, D,
-                           a.eps);
+      residual_norm_row<T>(s.x2 + o, a.work + o, layer_row<T>(a.b_down, l - 1, D), (size_t)M * D,
+                           a.KS, s.x + o, s.h + o, gamma, beta, D, a.eps, a.norm_kind, false);
     }
   }
   end_stage();
@@ -844,8 +960,10 @@ __device__ __noinline__ void norm_stage(bool mlp) {
 
 enum Proj : int { kProjQkv, kProjOut, kProjW1W3, kProjW2 };
 
-// 2. Q, K, V; 4. the out-projection; 6. gate (w1) and up (w3); 8. the
-// down-projection (its residual is added by the next stage 1)
+// 2. Q, K, V; 4. the out-projection; 6. gate (a GLU's) and up, from h2
+// (or h: a parallel block with one norm); 8. the down-projection (its
+// residual is added by the next stage 1). Biases are added by the stages
+// that read the sums.
 template <typename T>
 __device__ __noinline__ void proj_stage(int which) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -879,28 +997,31 @@ __device__ __noinline__ void proj_stage(int which) {
     n[0] = D;
     st.wmap[0] = &a.maps[kMapWo];
   } else if (which == kProjW1W3) {
-    st.A = s.h2;
-    st.amap = &a.maps[kMapH2];
-    st.n = 2;
+    const bool from_h = a.block == kParallelOneNorm;
+    st.A = from_h ? s.h : s.h2;
+    st.amap = &a.maps[from_h ? kMapH : kMapH2];
     K = D;
-    w[0] = a.w1, w[1] = a.w3;
-    n[0] = F, n[1] = F;
-    st.wmap[0] = &a.maps[kMapW1], st.wmap[1] = &a.maps[kMapW3];
+    if (a.glu) {
+      w[st.n] = a.w_gate, n[st.n] = F, st.wmap[st.n] = &a.maps[kMapWgate];
+      ++st.n;
+    }
+    w[st.n] = a.w_up, n[st.n] = F, st.wmap[st.n] = &a.maps[kMapWup];
+    ++st.n;
   } else {
     st.A = s.act;
     st.amap = &a.maps[kMapAct];
     st.n = 1;
     K = F;
-    w[0] = a.w2;
+    w[0] = a.w_down;
     n[0] = D;
-    st.wmap[0] = &a.maps[kMapW2];
+    st.wmap[0] = &a.maps[kMapWdown];
   }
   st.K = K;
   st.ldo = 0;
   for (int r = 0; r < st.n; ++r) {
     st.W[r] = static_cast<const T*>(w[r]) + (size_t)l * K * n[r];
     st.N[r] = n[r];
-    st.width[r] = n[r] / a.tiles;
+    st.width[r] = role_width(n[r], a.tiles);
     st.sk[r] = n[r];
     st.sn[r] = 1;
     st.ldo += n[r];
@@ -942,7 +1063,11 @@ __device__ __noinline__ void commit_unit() {
     return;
   }
   // 8 dims a thread at a time: line e of column c is query head kh G + e
-  // (e < G), or the new K (e == G) or V line
+  // (e < G), or the new K (e == G) or V line; a bias is added to the
+  // rounded sum and rounded again
+  const T* bq = layer_row<T>(a.bq, b.l, Q);
+  const T* bk = layer_row<T>(a.bk, b.l, KVd);
+  const T* bv = layer_row<T>(a.bv, b.l, KVd);
   for (int idx = threadIdx.x; idx < a.C * (G + 2) * (DK / 8); idx += kThreads) {
     const int d = idx % (DK / 8) * 8, j = idx / (DK / 8), cc = j / (G + 2), e = j - cc * (G + 2);
     const size_t m = (size_t)r * a.C + cc;
@@ -956,6 +1081,12 @@ __device__ __noinline__ void commit_unit() {
     }
     T* dst = e < G ? s.qraw + m * Q + (kh * G + e) * DK + d
                    : (e == G ? s.knew : s.vnew) + m * KVd + kh * DK + d;
+    const T* bias = e < G ? bq : e == G ? bk : bv;
+    if (bias != nullptr) {
+      load_f32<T, 8>(bias + (e < G ? (kh * G + e) * DK : kh * DK) + d, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = __fadd_rn(round_to<T>(x[i]), y[i]);
+    }
     store8<T>(dst, x);
   }
   __syncthreads();
@@ -992,7 +1123,7 @@ __device__ __noinline__ void attention_stage() {
     f.logical = nullptr;
     f.phys = a.phys;
     f.off = a.off;
-    f.rot = DK;
+    f.rot = a.rot;
     f.qmax = a.qmax;
     b.units = a.R * a.KV;
     b.rows = a.C * (a.H / a.KV);
@@ -1041,33 +1172,74 @@ __device__ __noinline__ void split_stage() {
   end_stage();
 }
 
-// 7. act = silu(gate) * up, each rounded to the model dtype
+// The activation of x in f32, as PyTorch's CPU kernels order it (F.silu,
+// F.gelu exact and tanh, torch.relu); __fmul_rn and __fadd_rn keep nvcc
+// from contracting products into FMAs
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == kActGelu)
+    return __fmul_rn(__fmul_rn(x, 0.5f),
+                     __fadd_rn(1.f, erff(__fmul_rn(x, 0.70710678118654752440f))));
+  if (act == kActGeluTanh) {
+    const float cube = __fmul_rn(__fmul_rn(x, x), x);
+    const float inner =
+        __fmul_rn(0.79788456080286535588f, __fadd_rn(x, __fmul_rn(0.044715f, cube)));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+  }
+  if (act == kActRelu) return fmaxf(x, 0.f);
+  return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
+}
+
+// 7. act = act(gate) * up (GLU) or act(up): each projection rounded to the
+// model dtype (plus its bias, rounded again), the activation of the
+// rounded value rounded once, the GLU product rounded again
 template <typename T>
 __device__ __noinline__ void act_stage() {
   const WholeArgs& a = *g_block.args;
   const Scratch<T> s(a);
-  const int M = a.R * a.C, F8 = a.F / 8;
-  const size_t sl = (size_t)M * 2 * a.F;
-  // 8 columns a thread at a time (F a multiple of 8)
+  const int l = g_block.l;
+  const int M = a.R * a.C, F8 = a.F / 8, nw = a.glu ? 2 : 1;
+  const size_t sl = (size_t)M * nw * a.F;
+  const T* b_gate = layer_row<T>(a.b_gate, l, a.F);
+  const T* b_up = layer_row<T>(a.b_up, l, a.F);
+  // 8 columns a thread at a time (F a multiple of 8); the gate's columns
+  // come first in a GLU's row of partial sums
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < M * F8; i += gridDim.x * kThreads) {
     const int m = i / F8, j = i % F8 * 8;
-    const float* part = a.work + (size_t)m * 2 * a.F + j;
-    float gt[8], up[8], x[8];
-    load8_l2(part, gt);
-    load8_l2(part + a.F, up);
+    const float* part = a.work + (size_t)m * nw * a.F + j;
+    float up[8], x[8];
+    load8_l2(part + (nw - 1) * a.F, up);
     for (int k = 1; k < a.KS; ++k) {  // the KS slices in slice order, as partial_sum
-      load8_l2(part + k * sl, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) gt[e] = __fadd_rn(gt[e], x[e]);
-      load8_l2(part + k * sl + a.F, x);
+      load8_l2(part + k * sl + (nw - 1) * a.F, x);
 #pragma unroll
       for (int e = 0; e < 8; ++e) up[e] = __fadd_rn(up[e], x[e]);
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float g = round_to<T>(gt[e]);
-      const float silu = round_to<T>(__fdiv_rn(g, __fadd_rn(1.f, expf(-g))));
-      x[e] = __fmul_rn(silu, round_to<T>(up[e]));
+    for (int e = 0; e < 8; ++e) up[e] = round_to<T>(up[e]);
+    if (b_up != nullptr) {
+      load_f32<T, 8>(b_up + j, x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[e] = round_to<T>(__fadd_rn(up[e], x[e]));
+    }
+    if (a.glu) {
+      float gt[8];
+      load8_l2(part, gt);
+      for (int k = 1; k < a.KS; ++k) {
+        load8_l2(part + k * sl, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gt[e] = __fadd_rn(gt[e], x[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) gt[e] = round_to<T>(gt[e]);
+      if (b_gate != nullptr) {
+        load_f32<T, 8>(b_gate + j, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gt[e] = round_to<T>(__fadd_rn(gt[e], x[e]));
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(round_to<T>(activate(gt[e], a.act)), up[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = activate(up[e], a.act);
     }
     store8<T>(s.act + (size_t)m * a.F + j, x);
   }
@@ -1083,13 +1255,15 @@ __device__ __noinline__ void final_norm_stage() {
   const int M = a.R * a.C, D = a.D, rows = head_rows(a);
   for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < rows; r += gridDim.x * kWarps) {
     const size_t m = a.all_logits ? (size_t)r : (size_t)r * a.C + a.logits_idx[r];
-    residual_norm_row<T>(s.x2 + m * D, a.work + m * D, (size_t)M * D, a.KS, s.x + m * D,
-                         s.hf + (size_t)r * D, static_cast<const T*>(a.final_norm), D, a.eps);
+    residual_norm_row<T>(s.x2 + m * D, a.work + m * D, layer_row<T>(a.b_down, a.L - 1, D),
+                         (size_t)M * D, a.KS, s.x + m * D, s.hf + (size_t)r * D,
+                         static_cast<const T*>(a.final_norm),
+                         static_cast<const T*>(a.final_norm_b), D, a.eps, a.norm_kind, false);
   }
   end_stage();
 }
 
-// the LM head: f32 logits (head_rows, V)
+// the LM head: f32 logits (head_rows, V), plus its bias
 template <typename T>
 __device__ __noinline__ void head_stage() {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1107,6 +1281,7 @@ __device__ __noinline__ void head_stage() {
   st.sn[0] = a.tied ? a.D : 1;
   st.out = a.logits;
   st.ldo = a.V;
+  st.bias = a.head_b;
   gemm_stage<T>(st, row_frags(st.M, head_width(a)), smem, nullptr);
   end_stage();
 }
@@ -1234,10 +1409,11 @@ inline cudaError_t make_maps(WholeArgs& a) {
     if (err != cudaSuccess) return err;
   }
   const struct { int map; const void* base; cuuint64_t K, N; } weights[] = {
-      {kMapWq, a.wq, D, Q},  {kMapWk, a.wk, D, KVd}, {kMapWv, a.wv, D, KVd},
-      {kMapWo, a.wo, Q, D},  {kMapW1, a.w1, D, F},   {kMapW3, a.w3, D, F},
-      {kMapW2, a.w2, F, D}};
+      {kMapWq, a.wq, D, Q},          {kMapWk, a.wk, D, KVd},   {kMapWv, a.wv, D, KVd},
+      {kMapWo, a.wo, Q, D},          {kMapWgate, a.w_gate, D, F}, {kMapWup, a.w_up, D, F},
+      {kMapWdown, a.w_down, F, D}};
   for (const auto& w : weights) {
+    if (w.base == nullptr) continue;  // no gate without GLU
     const cuuint64_t dims[3] = {w.N, w.K, L}, strides[2] = {w.N * 2, w.K * w.N * 2};
     const cuuint32_t box[3] = {64, kTcBK, 1};
     const cudaError_t err = hopper::make_map_bf16(&a.maps[w.map], w.base, 3, dims, strides, box);
@@ -1296,7 +1472,9 @@ struct SmemReport {
 template <template <typename, int, int> class F, typename TQ, int KIND, typename... A>
 cudaError_t by_dk(int dk, A... args) {
   if (dk == 64) return F<TQ, KIND, 64>::run(args...);
+  if (dk == 80) return F<TQ, KIND, 80>::run(args...);
   if (dk == 128) return F<TQ, KIND, 128>::run(args...);
+  if (dk == 256) return F<TQ, KIND, 256>::run(args...);
   return cudaErrorInvalidValue;
 }
 
@@ -1319,26 +1497,40 @@ cudaError_t dispatch(int dtype, int pool_kind, int dk, A... args) {
 }  // namespace fft
 
 extern "C" int whole_step_decode_launch(
-    const void* attn_norm, const void* wq, const void* wk, const void* wv, const void* wo,
-    const void* ffn_norm, const void* w1, const void* w2, const void* w3,
-    const void* final_norm, const void* head, const void* x0, const void* cos,
-    const void* sin, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
-    const void* table, const void* phys, const void* off, const void* mask,
-    const void* logits_idx, void* logits, void* tokens, void* scratch, void* work,
-    void* stamps, void* counters, int L,
-    int R, int C, int D, int H, int KV, int dk, int F, int V, int ps, int NP, int P1,
-    int tiles, int KS, int tied, int dtype, int pool_kind, int split_pages, int all_logits,
-    float eps, float scale, float qmax, void* stream) {
+    const void* attn_norm, const void* attn_norm_b, const void* wq, const void* wk,
+    const void* wv, const void* bq, const void* bk, const void* bv, const void* wo,
+    const void* bo, const void* mlp_norm, const void* mlp_norm_b, const void* w_gate,
+    const void* b_gate, const void* w_up, const void* b_up, const void* w_down,
+    const void* b_down, const void* final_norm, const void* final_norm_b, const void* head,
+    const void* head_b, const void* x0, const void* cos, const void* sin, void* k_pool,
+    void* v_pool, void* k_scale, void* v_scale, const void* table, const void* phys,
+    const void* off, const void* mask, const void* logits_idx, void* logits, void* tokens,
+    void* scratch, void* work, void* stamps, void* counters, int L, int R, int C, int D, int H,
+    int KV, int dk, int F, int V, int ps, int NP, int P1, int tiles, int KS, int tied,
+    int dtype, int pool_kind, int split_pages, int all_logits, int norm_kind, int act, int glu,
+    int block, int rot, float eps, float scale, float qmax, void* stream) {
   using namespace fft;
   if (L <= 0 || R <= 0 || C <= 0 || C > kMaxChunk || KV <= 0 || H % KV != 0 || tiles <= 0 ||
-      KS <= 0 || NP <= 0)
+      KS <= 0 || NP <= 0 || V <= 0)
     return (int)cudaErrorInvalidValue;
   if (ps != 16 && ps != 32 && ps != 64 && ps != 128) return (int)cudaErrorInvalidValue;
-  if (D % kBK || (H * dk) % kBK || F % kBK || V % 8) return (int)cudaErrorInvalidValue;
-  if ((H * dk) % (8 * tiles) || (KV * dk) % (8 * tiles) || D % (8 * tiles) || F % (8 * tiles))
+  if (D % kBK || (H * dk) % kBK || F % kBK) return (int)cudaErrorInvalidValue;
+  if ((H * dk) % tiles || (KV * dk) % tiles || D % tiles || F % tiles)
+    return (int)cudaErrorInvalidValue;
+  // the body: its kinds, the tensors each needs, a rotary width within the head
+  if (norm_kind < kNormRms || norm_kind > kNormLayer || act < kActSilu || act > kActRelu ||
+      block < kSequential || block > kParallelTwoNorms)
+    return (int)cudaErrorInvalidValue;
+  if (attn_norm == nullptr || wq == nullptr || wk == nullptr || wv == nullptr || wo == nullptr ||
+      w_up == nullptr || w_down == nullptr || final_norm == nullptr || head == nullptr ||
+      (glu != 0) != (w_gate != nullptr) || (block == kParallelOneNorm) != (mlp_norm == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((cos == nullptr) != (rot == 0) || (cos == nullptr) != (sin == nullptr) || rot % 2 ||
+      rot < 0 || rot > dk)
     return (int)cudaErrorInvalidValue;
   // every column tile's fragments fit a warp's accumulators
-  const int wmax = imax(imax(H * dk, KV * dk), imax(D, F)) / tiles;
+  const int wmax = imax(imax(role_width(H * dk, tiles), role_width(KV * dk, tiles)),
+                        imax(role_width(D, tiles), role_width(F, tiles)));
   if ((wmax / 8 + kWarps - 1) / kWarps > kMaxFrags) return (int)cudaErrorInvalidValue;
   if (pool_kind != kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1350,16 +1542,27 @@ extern "C" int whole_step_decode_launch(
     return (int)cudaErrorInvalidValue;
   WholeArgs a{};
   a.attn_norm = attn_norm;
+  a.attn_norm_b = attn_norm_b;
   a.wq = wq;
   a.wk = wk;
   a.wv = wv;
+  a.bq = bq;
+  a.bk = bk;
+  a.bv = bv;
   a.wo = wo;
-  a.ffn_norm = ffn_norm;
-  a.w1 = w1;
-  a.w2 = w2;
-  a.w3 = w3;
+  a.bo = bo;
+  a.mlp_norm = mlp_norm;
+  a.mlp_norm_b = mlp_norm_b;
+  a.w_gate = w_gate;
+  a.b_gate = b_gate;
+  a.w_up = w_up;
+  a.b_up = b_up;
+  a.w_down = w_down;
+  a.b_down = b_down;
   a.final_norm = final_norm;
+  a.final_norm_b = final_norm_b;
   a.head = head;
+  a.head_b = head_b;
   a.x0 = x0;
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
@@ -1380,6 +1583,11 @@ extern "C" int whole_step_decode_launch(
   a.counters = static_cast<int*>(counters);
   a.split_pages = split_pages;
   a.all_logits = all_logits != 0;
+  a.norm_kind = norm_kind;
+  a.act = act;
+  a.glu = glu != 0;
+  a.block = block;
+  a.rot = rot;
   a.L = L;
   a.R = R;
   a.C = C;

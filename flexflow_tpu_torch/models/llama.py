@@ -894,6 +894,16 @@ def whole_step_tile_roles(cfg: LLaMAConfig) -> Dict[str, Tuple[str, Optional[str
             "down": ("w2", None)}
 
 
+def whole_step_body(cfg: LLaMAConfig):
+    """What the whole-step kernel computes between the roles' projections
+    (serve/kernels.WholeBody): RMS norms, SiLU gating, a sequential block."""
+    from ..serve.kernels import WholeBody
+
+    return WholeBody(norm="rms", eps=cfg.rms_norm_eps, attn_norm=("attn_norm", None),
+                     mlp_norm=("ffn_norm", None), final_norm=("final_norm", None),
+                     activation="silu")
+
+
 def serve_step_whole(
     params: Dict[str, Any],
     cache: Dict[str, torch.Tensor],
@@ -973,7 +983,7 @@ def serve_step_whole(
     if kernels == "cuda":
         logits, toks, _ = _k.whole_step_decode(
             *args, block_fn=block_fn, head_fn=head_fn, tile_roles=whole_step_tile_roles(cfg),
-            eps=cfg.rms_norm_eps, qmax=qmax, tiles=tiles, stamps=stamps,
+            body=whole_step_body(cfg), qmax=qmax, tiles=tiles, stamps=stamps,
             all_logits=all_logits)
     else:
         logits, toks, _ = _k.whole_step_decode_ref(*args, block_fn=block_fn, head_fn=head_fn)

@@ -41,7 +41,9 @@ routes it: the kernels take no additive bias (the engine counts those
 steps, ``InferenceEngine.plain_attention_steps``). The dense step
 reaches no kernel in the JAX package either: here it runs
 ``kernels="torch"`` only, and ``"cuda"`` raises. The whole-step kernel
-does not run this decoder's block yet (``FUSED_DECODE``).
+(:func:`serve_step_whole`, serve/kernels.whole_step_decode) runs this
+decoder's block at head dims 64, 80, 128 and 256, but not for MoE FFNs,
+position-buffer families or weight-only quantized params.
 
 Expert FFNs, projections and the LM head are plain large products, left
 to ``torch.matmul`` / ``einsum`` as the JAX package leaves them to XLA.
@@ -49,6 +51,7 @@ to ``torch.matmul`` / ``einsum`` as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -74,10 +77,11 @@ from .llama import (  # noqa: F401  (the K/V line moves carry "pos" too)
 #: the config and the serving protocol the engine calls
 #: (serve/engine.InferenceEngine)
 __all__ = [
-    "DENSE_CUDA", "DecoderConfig", "FUSED_DECODE", "WHOLE_STEP_LATER", "commit_kv",
-    "commit_kv_paged", "copy_page_kv", "gather_page_kv", "init_kv_cache", "init_paged_kv_cache",
-    "init_params", "num_params", "params_from_numpy", "reorder_slots", "reorder_slots_paged",
-    "scatter_page_kv", "serve_step", "serve_step_paged",
+    "DENSE_CUDA", "DecoderConfig", "FUSED_DECODE", "commit_kv", "commit_kv_paged",
+    "copy_page_kv", "gather_page_kv", "init_kv_cache", "init_paged_kv_cache", "init_params",
+    "num_params", "params_from_numpy", "reorder_slots", "reorder_slots_paged",
+    "scatter_page_kv", "serve_step", "serve_step_paged", "serve_step_whole",
+    "whole_step_body", "whole_step_tile_roles", "whole_step_weight_layout",
 ]
 
 
@@ -581,16 +585,10 @@ def serve_step(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
 
 #: decode-step fusions this decoder's serving step supports
 #: (ServingConfig.fused_decode): "rope_kv_write" folds RoPE (or, with
-#: learned positions, just the K/V page write) into the paged kernel. The
-#: whole step is LLaMA's alone so far (see WHOLE_STEP_LATER).
-FUSED_DECODE = ("rope_kv_write",)
-
-#: where the generic decoder's whole-step kernel stands
-WHOLE_STEP_LATER = (
-    "the generic decoder's whole step comes with ROADMAP.md queue 1 item 5 (the whole "
-    "step for the generic decoder: LayerNorm with bias, GELU/ReLU/tanh-GELU without "
-    "GLU, parallel blocks, learned positions, partial rotary, biases, tied heads, head "
-    "dims 80 and 256); serve this family without fused_decode='whole_step'")
+#: learned positions, just the K/V page write) into the paged kernel;
+#: "whole_step" runs the whole step in one kernel (:func:`serve_step_whole`;
+#: :func:`whole_step_weight_layout` refuses the families it cannot run)
+FUSED_DECODE = ("rope_kv_write", "whole_step")
 
 
 def init_paged_kv_cache(cfg: DecoderConfig, num_pages: int, page_size: int, dtype=None,
@@ -720,3 +718,193 @@ def serve_step_paged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                               phys, off, page_table, kernels, *scales, qmax,
                               fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-step serving (ServingConfig.fused_decode=("whole_step",);
+# serve/kernels.whole_step_decode carries the kernel's design). The
+# generic decoder's half, the twin of models/llama.py's: the weight
+# layout the walk streams, the body the kernel computes, and the step
+# entry point binding this family's block and head math — the same
+# _block_paged_torch body the unfused step runs. The layout hook refuses
+# the configs whose block the kernel cannot run, at construction.
+
+
+def whole_step_weight_layout(params: Dict[str, Any], cfg: DecoderConfig):
+    """``(layer_arrays, head_arrays)``: every per-layer tensor as its
+    stacked (L, …) array and the epilogue params (the final norm's scale
+    and bias, the tied embedding or the LM head and its bias), nothing
+    copied. Raises ValueError, in the JAX package's words, for MoE FFNs,
+    ALiBi / sliding-window families (their attention reads the position
+    buffer) and weight-only quantized params."""
+    if cfg.num_local_experts:
+        raise ValueError(
+            "whole_step is not composed with mixture-of-experts FFNs — the routed expert "
+            "contraction has no streamed per-layer weight block yet; drop the whole_step "
+            "fusion for this family")
+    if needs_pos_cache(cfg):
+        raise ValueError(
+            "whole_step is not composed with ALiBi / sliding-window families — their "
+            "attention reads the per-line position buffer, which the layer walk does not "
+            "stream; drop the whole_step fusion for this family")
+    L = cfg.num_hidden_layers
+    layer_arrays = {}
+    for name, a in params["layers"].items():
+        if isinstance(a, dict):
+            raise ValueError(
+                "whole_step is not composed with weight-only quantization (layer tensor "
+                f"{name!r} is a quantized {{'q','scale'}} pair) — serve full-precision params "
+                "or drop the whole_step fusion")
+        if a.shape[0] != L:
+            raise ValueError(f"layer tensor {name!r} leading dim {a.shape[0]} != "
+                             f"num_hidden_layers {L}")
+        layer_arrays[name] = a
+    head_arrays = {"final_norm_scale": params["final_norm_scale"]}
+    if "final_norm_bias" in params:
+        head_arrays["final_norm_bias"] = params["final_norm_bias"]
+    if cfg.tie_word_embeddings:
+        head_arrays["embed"] = params["embed"]
+    else:
+        if isinstance(params["lm_head"], dict):
+            raise ValueError("whole_step is not composed with a weight-only quantized lm_head")
+        head_arrays["lm_head"] = params["lm_head"]
+        if "lm_head_bias" in params:
+            head_arrays["lm_head_bias"] = params["lm_head_bias"]
+    return layer_arrays, head_arrays
+
+
+def _whole_head_fn(cfg: DecoderConfig, head, x, logits_idx):
+    """The walk's epilogue, op for op :func:`serve_step_paged`'s tail
+    (final norm, the logits_idx row, f32 LM head and its bias)."""
+    return _head(cfg, head, x, logits_idx, all_logits=False)
+
+
+def _whole_head_all_fn(cfg: DecoderConfig, head, x, logits_idx):
+    """The all-positions epilogue of the speculation fold, op for op
+    :func:`serve_step_paged`'s ``all_logits=True`` tail (``logits_idx``
+    unread)."""
+    return _head(cfg, head, x, logits_idx, all_logits=True)
+
+
+def whole_step_tile_roles(cfg: DecoderConfig) -> Dict[str, Tuple[str, Optional[str]]]:
+    """The weight and bias behind each role the kernel splits into
+    output-column tiles: biases by the config's flags, "gate" in a GLU FFN
+    alone."""
+    roles = {
+        "q": ("wq", "bq" if cfg.qkv_bias else None),
+        "k": ("wk", "bk" if cfg.qkv_bias else None),
+        "v": ("wv", "bv" if cfg.qkv_bias else None),
+        "o": ("wo", "bo" if cfg.out_bias else None),
+        "up": ("w_up", "b_up" if cfg.mlp_bias else None),
+        "down": ("w_down", "b_down" if cfg.mlp_bias else None),
+    }
+    if cfg.glu:
+        roles["gate"] = ("w_gate", "b_gate" if cfg.mlp_bias else None)
+    return roles
+
+
+def whole_step_body(cfg: DecoderConfig):
+    """What the whole-step kernel computes between the roles' projections
+    (serve/kernels.WholeBody): the norm (LayerNorm with or without its
+    bias, RMS, or Gemma's RMS by 1 + w), the activation, and the block's
+    topology — a parallel block's FFN reads the input norm (``mlp_norm``
+    None) or its second norm of x. The JAX package's tiled walk carries the
+    same routing in ``_whole_tile_plan``'s closures; here the tile count
+    only groups the kernel's output columns, so the plain walk needs no
+    counterpart of them."""
+    from ..serve.kernels import WholeBody
+
+    ln = cfg.norm_type == "layernorm"
+
+    def norm(prefix):
+        return (f"{prefix}_scale", f"{prefix}_bias" if ln and cfg.norm_bias else None)
+
+    two = not cfg.parallel_block or cfg.parallel_two_norms
+    return WholeBody(
+        norm="layernorm" if ln else "rms_plus_one" if cfg.norm_plus_one else "rms",
+        eps=cfg.norm_eps, attn_norm=norm("attn_norm"),
+        mlp_norm=norm("mlp_norm") if two else None, final_norm=norm("final_norm"),
+        activation=cfg.activation, parallel=cfg.parallel_block)
+
+
+def serve_step_whole(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,      # (R, C) int — C=1 decode, C>1 mixed
+    positions: torch.Tensor,   # (R, C) int
+    logits_idx: torch.Tensor,  # (R,) int
+    page_table: torch.Tensor,  # (R, NP) int32
+    *,
+    cfg: DecoderConfig,
+    cache_len: int,
+    kv_quant: Optional[str] = None,
+    tiles: int = 1,
+    kernels: str = "torch",
+    stamps: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,             # (R, C, cache_len+1) bool
+    cache_positions: Optional[torch.Tensor] = None,  # (R, C) cache lines
+    all_logits: bool = False,
+    num_layers: Optional[int] = None,
+):
+    """The whole paged serving step of this decoder in one kernel — the
+    twin of models/llama.serve_step_whole, with its contract: every layer
+    (Q/K/V and their biases, RoPE over the rotary width or none, the K/V
+    page commit, paged attention, the out-projection, the FFN of the
+    family's activation, sequential or parallel), the final norm, the LM
+    head (and its bias) at ``logits_idx`` and the greedy argmax. The
+    embedding (learned positions and Gemma's scale included), RoPE
+    tables, mask and page lookup run before the kernel, as in the JAX
+    package. ``kernels="cuda"`` goes through serve/kernels.whole_step_decode
+    (the CUDA kernel on a GPU, its plain version on the CPU), ``"torch"``
+    straight to the plain version; ``tiles`` is the engine gate's
+    output-column tile count, which the answer does not depend on;
+    ``stamps`` asks the kernel for its per-stage timer. The speculation
+    fold's keywords (``mask``, ``cache_positions``, ``all_logits``,
+    ``num_layers``) have their meaning in :func:`serve_step_paged`.
+
+    Returns ``(logits (R, V) f32, greedy tokens (R,) int64, cache)`` —
+    with ``all_logits`` ``(R, C, V)`` and ``(R, C)`` — the cache updated in
+    place; the plain version is bitwise :func:`serve_step_paged`
+    (``kernels="torch"``, the same keywords) at every tile count."""
+    if kernels not in ("cuda", "torch"):
+        raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
+    from ..serve import kernels as _k
+
+    layer_arrays, head_arrays = whole_step_weight_layout(params, cfg)
+    if cache_positions is None:
+        cache_positions = positions
+    positions = positions.long()
+    ps = cache["k"].shape[2]
+    x = _embed_in(cfg, params, tokens, positions)
+    cos, sin = _rope(cfg, positions) or (None, None)
+    mask = _k.paged_serve_mask(mask, positions, page_table.shape[1], ps, cache_len)
+    phys, off = _page_lookup(page_table, cache_positions.long(), ps)
+    qmax = None
+    if kv_quant is not None:
+        from ..serve.kv_quant import resolve_spec
+
+        qmax = resolve_spec(kv_quant).qmax
+    walk_cache = cache
+    n = _depth(cfg, num_layers)
+    if n < cfg.num_hidden_layers:
+        # the early-exit draft: the walk over the first n layers' weights
+        # and pools (leading-dim slices, views of the same storage)
+        layer_arrays = {k: a[:n] for k, a in layer_arrays.items()}
+        walk_cache = {k: a[:n] for k, a in cache.items()}
+
+    def block_fn(p_l, xv, cs, sn, mk, kb, vb, ks, vs, ph, of, pt):
+        rope = None if cs is None else (cs, sn)
+        return _block_paged_torch(cfg, p_l, xv, rope, None, mk, kb, vb, ph, of, pt, ks, vs,
+                                  qmax)
+
+    head_fn = functools.partial(_whole_head_all_fn if all_logits else _whole_head_fn, cfg)
+    args = (layer_arrays, head_arrays, x, cos, sin, walk_cache, page_table, phys, off, mask,
+            logits_idx)
+    if kernels == "cuda":
+        logits, toks, _ = _k.whole_step_decode(
+            *args, block_fn=block_fn, head_fn=head_fn, tile_roles=whole_step_tile_roles(cfg),
+            body=whole_step_body(cfg), qmax=qmax, tiles=tiles, stamps=stamps,
+            all_logits=all_logits)
+    else:
+        logits, toks, _ = _k.whole_step_decode_ref(*args, block_fn=block_fn, head_fn=head_fn)
+    return logits, toks.long(), cache

@@ -39,10 +39,12 @@ NVCC_FLAGS = (
 #: flags of one source on top of NVCC_FLAGS: the paged sources instantiate
 #: 96 kernels each (2 q types x 3 pools x 4 head dims x 4 block shapes),
 #: which nvcc's optimizer takes in 4 threads (the fused source alone took
-#: 199 s in one, 87 s in 4 on the H100 machine's 8 cores)
+#: 199 s in one, 87 s in 4 on the H100 machine's 8 cores); the whole-step
+#: source 24 (2 x 3 x 4 head dims), the slowest of them to build
 SOURCE_FLAGS = {
     "ragged_paged_attention": ("--split-compile=4",),
     "fused_rope_paged_attention": ("--split-compile=4",),
+    "whole_step_decode": ("--split-compile=4",),
 }
 #: pointer, int and float argument counts of each kernel's launcher
 SIGNATURES = {
@@ -53,7 +55,7 @@ SIGNATURES = {
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
-    "whole_step_decode": (29, 19, 3),
+    "whole_step_decode": (40, 24, 3),
     "paged_commit": (8, 9, 1),
     "adam_update": (5, 3, 6),
 }

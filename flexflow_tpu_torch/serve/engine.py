@@ -319,8 +319,8 @@ class InferenceEngine:
     ``fused_rope``) and ``FUSED_DECODE``; for ``fused_decode=("whole_step",)``
     also ``serve_step_whole`` (with the spec keywords ``mask``,
     ``cache_positions``, ``all_logits`` and ``num_layers``: the
-    speculation fold), ``whole_step_weight_layout`` and
-    ``whole_step_tile_roles``; for the prefix cache also
+    speculation fold), ``whole_step_weight_layout``,
+    ``whole_step_tile_roles`` and ``whole_step_body``; for the prefix cache also
     ``copy_page_kv``, ``gather_page_kv`` and ``scatter_page_kv``.
     """
 
@@ -363,11 +363,10 @@ class InferenceEngine:
         self.whole_step_spec_refused = False
         if "whole_step" in self.serving.fused_decode:
             if "whole_step" not in getattr(model, "FUSED_DECODE", ()):
-                later = getattr(model, "WHOLE_STEP_LATER", None)
                 raise ValueError(
                     "fused_decode='whole_step' requested but "
                     f"{getattr(model, '__name__', repr(model))} does not advertise "
-                    "it (model.FUSED_DECODE)" + (f": {later}" if later else "")
+                    "it (model.FUSED_DECODE)"
                 )
             # an unstreamable layout raises here, never mid-serve
             model.whole_step_weight_layout(params, cfg)
@@ -378,6 +377,7 @@ class InferenceEngine:
             # decoder): never its plain math under "cuda"
             raise ValueError(dense_refusal)
         self.device = resolve_device(device)
+        self.params = params
         self._check_cuda_shapes()
         # steps of fused_decode=("rope_kv_write",) wider than the fused
         # kernel's commit, served by the unfused step instead
@@ -388,7 +388,6 @@ class InferenceEngine:
         self._alibi = getattr(cfg, "positions", None) == "alibi"
         # the side stream of the host tier's spill copies (fetch_page)
         self._spill_stream = None
-        self.params = params
         self.pager: Optional[PageAllocator] = None  # host-side page tables
         self.cache = self._alloc_cache()
         if self.whole_step_on:
@@ -398,18 +397,21 @@ class InferenceEngine:
         """Raise ValueError at construction for a shape the CUDA kernels of
         this engine's path are not built for (``kernels="cuda"`` on a GPU):
         a head dim outside ``kernels._PAGED_HEAD_DIMS`` (the paged and
-        commit kernels) or ``kernels._CUDA_HEAD_DIMS`` (the dense kernels,
-        and the whole-step kernel when it is on), or, paged, a page size
-        outside ``kernels._CUDA_PAGE_SIZES``. On the CPU the plain versions
-        take any shape."""
+        commit kernels), ``kernels._CUDA_HEAD_DIMS`` (the dense kernels) or
+        ``kernels._WHOLE_HEAD_DIMS`` (the whole-step kernel, when it is
+        on), or, paged, a page size outside ``kernels._CUDA_PAGE_SIZES``;
+        and with the whole step on, a weight layout or body its kernel
+        does not compute (``kernels.whole_step_check_layout``): on a GPU a
+        whole step runs the kernel or nothing, never its plain walk. On
+        the CPU the plain versions take any shape."""
         if self.serving.kernels != "cuda" or self.device.type != "cuda":
             return
         from . import kernels as _k
 
         dk = self.cfg.head_dim
         for on, dims, which in ((self.paged, _k._PAGED_HEAD_DIMS, "paged"),
-                                (not self.paged or self.whole_step_on, _k._CUDA_HEAD_DIMS,
-                                 "whole-step" if self.paged else "dense")):
+                                (not self.paged, _k._CUDA_HEAD_DIMS, "dense"),
+                                (self.whole_step_on, _k._WHOLE_HEAD_DIMS, "whole-step")):
             if on and dk not in dims:
                 raise ValueError(
                     f"kernels='cuda' has no head dim {dk} in the {which} kernels (they "
@@ -418,6 +420,12 @@ class InferenceEngine:
             raise ValueError(
                 f"kernels='cuda' has no page size {self.serving.page_size} (the CUDA "
                 f"paged kernels take {_k._CUDA_PAGE_SIZES})")
+        if self.whole_step_on:
+            layer_arrays, head_arrays = self.model.whole_step_weight_layout(self.params,
+                                                                            self.cfg)
+            _k.whole_step_check_layout(
+                layer_arrays, head_arrays, tile_roles=self.model.whole_step_tile_roles(self.cfg),
+                body=self.model.whole_step_body(self.cfg), head_dim=dk)
 
     def _whole_step_smem_gate(self):
         """Pick the whole-step kernel's output-column tile count for each

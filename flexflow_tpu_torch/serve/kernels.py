@@ -38,6 +38,7 @@ path dequantizes the gathered lines first.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -79,11 +80,12 @@ DESIGN_LAUNCHES: Dict[str, int] = {
 }
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated
-#: for: the dense kernels and the whole-step kernel take _CUDA_HEAD_DIMS,
-#: the paged kernels and the commit kernel _PAGED_HEAD_DIMS (Phi-2's 80
-#: and Gemma's 256 too)
+#: for: the dense kernels take _CUDA_HEAD_DIMS, the paged kernels and the
+#: commit kernel _PAGED_HEAD_DIMS (Phi-2's 80 and Gemma's 256 too), the
+#: whole-step kernel _WHOLE_HEAD_DIMS
 _CUDA_HEAD_DIMS = (64, 128)
 _PAGED_HEAD_DIMS = (64, 80, 128, 256)
+_WHOLE_HEAD_DIMS = (64, 80, 128, 256)
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
 _CUDA_PAGE_SIZES = (16, 32, 64, 128)
 #: most new lines per slot the fused kernel commits in one launch
@@ -1002,8 +1004,18 @@ def _pool_kind(pool: torch.Tensor) -> int:
     return {torch.int8: 1, torch.uint8: 2}.get(pool.dtype, 0)
 
 
+def _ws_tile_width(n: int, tiles: int) -> int:
+    """The kernel's column tile of a role of ``n`` output columns at
+    ``tiles`` (csrc role_width): n / tiles rounded up to whole 8-wide MMA
+    columns, so a role narrower than the tiling (Falcon's 64-wide K/V at
+    16 tiles) takes 8-column tiles. Tiles only group output columns: the
+    rounding changes no output bit."""
+    return -(-(n // tiles) // 8) * 8
+
+
 def _ws_widths(layer_arrays, tile_roles, tiles: int):
-    return [int(layer_arrays[w].shape[-1]) // tiles for (w, _b) in tile_roles.values()]
+    return [_ws_tile_width(int(layer_arrays[w].shape[-1]), tiles)
+            for (w, _b) in tile_roles.values()]
 
 
 def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
@@ -1028,7 +1040,7 @@ def whole_step_smem_bytes(layer_arrays, cache, x0, num_heads: int, *,
     isz = x0.element_size()
     wmax = max(_ws_widths(layer_arrays, tile_roles, tiles))
     Q = int(layer_arrays[tile_roles["q"][0]].shape[-1])
-    F = int(layer_arrays[tile_roles["gate"][0]].shape[-1])
+    F = int(layer_arrays[tile_roles["up"][0]].shape[-1])
     layer = (_WS_TC_SMEM if _ws_tc(R * C, isz, D, Q, F)
              else _ws_item_bytes(R * C, wmax, isz))
     head_rows = R * C if all_logits else R
@@ -1052,13 +1064,11 @@ def whole_step_tile_candidates(layer_arrays, tile_roles):
 
 
 def whole_step_kernel_takes(layer_arrays, *, tiles: int, tile_roles) -> bool:
-    """Whether the CUDA kernel takes this tile count: every column tile a
-    whole number of 8-wide MMA columns, and the widest one's accumulators
-    for 16 rows within a warp's share (24 fragments of 16 × 8)."""
-    widths = _ws_widths(layer_arrays, tile_roles, tiles)
-    if any(w % 8 or w <= 0 for w in widths):
-        return False
-    return _ws_per_warp(max(widths)) <= _WS_MAX_FRAGS
+    """Whether the CUDA kernel takes this tile count: the widest column
+    tile (:func:`_ws_tile_width`: whole 8-wide MMA columns) keeps its
+    accumulators for 16 rows within a warp's share (24 fragments of
+    16 × 8)."""
+    return _ws_per_warp(max(_ws_widths(layer_arrays, tile_roles, tiles))) <= _WS_MAX_FRAGS
 
 
 def whole_step_pick_tiles(layer_arrays, cache, x0, num_heads: int, *,
@@ -1103,10 +1113,105 @@ def whole_step_decode_ref(layer_arrays, head_arrays, x0, cos, sin, cache, page_t
     return logits, torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-#: the layer and head tensors the CUDA kernel takes (the LLaMA layout)
-_WS_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3")
-_WS_ROLES = {"q": ("wq", None), "k": ("wk", None), "v": ("wv", None), "o": ("wo", None),
-             "gate": ("w1", None), "up": ("w3", None), "down": ("w2", None)}
+#: the body kinds the kernel computes, by their code in csrc WholeArgs
+#: (norm_kind, act), and the projection roles it streams ("gate" only in
+#: a GLU FFN)
+_WS_NORMS = ("rms", "rms_plus_one", "layernorm")
+_WS_ACTS = ("silu", "gelu", "gelu_tanh", "relu")
+_WS_ROLE_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+@dataclasses.dataclass(frozen=True)
+class WholeBody:
+    """The layer body the whole-step kernel computes, beside the tile
+    roles' weights and biases (``tile_roles``: role → (weight, bias or
+    None) of ``layer_arrays``; an FFN with a "gate" role is a GLU, the
+    activation of the gate times the up projection):
+
+    * ``norm``: "rms" (``x·r`` rounded, times the scale), "rms_plus_one"
+      (Gemma: ``(x·r)·(1 + w)`` in f32, rounded once) or "layernorm"
+      (``(x − μ)·r`` rounded, times the scale, plus the bias), at ``eps``;
+    * ``attn_norm`` / ``mlp_norm``: the (scale, bias or None) layer
+      tensors of the block's input norm and of its second norm;
+      ``mlp_norm`` None in a parallel block whose FFN reads the input norm
+      (Falcon-7B, Phi);
+    * ``final_norm``: the (scale, bias or None) head tensors;
+    * ``activation``: "silu", "gelu" (erf), "gelu_tanh" or "relu";
+    * ``parallel``: x + attn + ffn (the FFN reads the input norm, or
+      ``mlp_norm`` of x), else sequential (the FFN reads ``mlp_norm`` of
+      x + attn).
+
+    Positions are the wrapper's ``cos``/``sin``: None for none (learned
+    positions live in the embedding), else the tables of the rotary
+    width, which may be narrower than the head (Phi's partial rotary)."""
+    norm: str
+    eps: float
+    attn_norm: Tuple[str, Optional[str]]
+    mlp_norm: Optional[Tuple[str, Optional[str]]]
+    final_norm: Tuple[str, Optional[str]]
+    activation: str = "silu"
+    parallel: bool = False
+
+
+def whole_step_check_layout(layer_arrays, head_arrays, *, tile_roles, body: WholeBody,
+                            head_dim: int):
+    """Raise ValueError for a layout the whole-step CUDA kernel does not
+    compute: a body kind it lacks, a role or layer tensor it does not
+    read, a shape or dtype out of line, a head dim outside
+    ``_WHOLE_HEAD_DIMS``, or D, H · dk or F not a multiple of ``_WS_BK``.
+    Returns ``(L, D, H, KV, F, V)``. Takes "meta" tensors: the engine
+    calls it at construction, so a refused layout never reaches a step."""
+    if body.norm not in _WS_NORMS or body.activation not in _WS_ACTS:
+        raise ValueError(f"the whole-step kernel has the norms {_WS_NORMS} and the activations "
+                         f"{_WS_ACTS}; got {body.norm!r} and {body.activation!r}")
+    if body.mlp_norm is None and not body.parallel:
+        raise ValueError("a sequential block needs its second norm (WholeBody.mlp_norm)")
+    norms = [n for n in (body.attn_norm, body.mlp_norm, body.final_norm) if n is not None]
+    if body.norm != "layernorm" and any(b is not None for _, b in norms):
+        raise ValueError("only a LayerNorm takes a bias in the whole-step kernel")
+    roles = dict(tile_roles)
+    if not set(_WS_ROLE_NAMES) - {"gate"} <= set(roles) <= set(_WS_ROLE_NAMES):
+        raise ValueError(f"the whole-step kernel takes the roles {_WS_ROLE_NAMES} ('gate' in "
+                         f"a GLU FFN alone); got {sorted(roles)}")
+    wq = layer_arrays[roles["q"][0]]
+    dt = wq.dtype
+    if dt not in _CUDA_DTYPES:
+        raise ValueError(f"the whole-step kernel takes float32 or bfloat16; got {dt}")
+    L, D, Q = wq.shape
+    KVd = int(layer_arrays[roles["k"][0]].shape[-1])
+    F = int(layer_arrays[roles["up"][0]].shape[-1])
+    outs = {"q": (D, Q), "k": (D, KVd), "v": (D, KVd), "o": (Q, D), "gate": (D, F),
+            "up": (D, F), "down": (F, D)}
+    shapes = {}
+    for role, (w, b) in roles.items():
+        shapes[w] = (L, *outs[role])
+        if b is not None:
+            shapes[b] = (L, outs[role][1])
+    for scale, bias in norms[:-1]:
+        shapes.update({n: (L, D) for n in (scale, bias) if n is not None})
+    tied = "lm_head" not in head_arrays
+    head = head_arrays["embed"] if tied else head_arrays["lm_head"]
+    V = int(head.shape[0] if tied else head.shape[-1])
+    head_shapes = {("embed" if tied else "lm_head"): (V, D) if tied else (D, V)}
+    head_shapes.update({n: (D,) for n in body.final_norm if n is not None})
+    if "lm_head_bias" in head_arrays:
+        head_shapes["lm_head_bias"] = (V,)
+    for arrays, want, what in ((layer_arrays, shapes, "layer"), (head_arrays, head_shapes, "head")):
+        if set(arrays) != set(want):
+            raise ValueError(f"the whole-step kernel reads the {what} tensors {sorted(want)}; "
+                             f"got {sorted(arrays)}")
+        for name, shape in want.items():
+            t = arrays[name]
+            if tuple(t.shape) != shape or t.dtype != dt:
+                raise ValueError(f"{name} must be {dt} {shape}; got {t.dtype} {tuple(t.shape)}")
+    dk = head_dim
+    if dk not in _WHOLE_HEAD_DIMS or Q % dk or KVd % dk or (Q // dk) % (KVd // dk):
+        raise ValueError(f"the whole-step kernel has no head dim {dk} with H*dk={Q}, "
+                         f"KV*dk={KVd} (head dims {_WHOLE_HEAD_DIMS})")
+    if D % _WS_BK or Q % _WS_BK or F % _WS_BK:
+        raise ValueError(f"the whole-step kernel needs D ({D}), H*dk ({Q}) and F ({F}) "
+                         f"multiples of {_WS_BK}")
+    return L, D, Q // dk, KVd // dk, F, V
 
 
 #: the stages of one layer of the whole-step kernel, each ended by a grid
@@ -1144,21 +1249,24 @@ def whole_step_stage_ms(stamps, num_layers: int) -> Dict[str, float]:
 
 
 def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table, phys,
-                      off, mask, logits_idx, *, block_fn, head_fn, tile_roles, eps: float,
-                      qmax=None, tiles: int = 1, stamps: Optional[torch.Tensor] = None,
-                      all_logits: bool = False):
+                      off, mask, logits_idx, *, block_fn, head_fn, tile_roles,
+                      body: WholeBody, qmax=None, tiles: int = 1,
+                      stamps: Optional[torch.Tensor] = None, all_logits: bool = False):
     """The whole serving step of every layer in one kernel. ``layer_arrays``
     are the stacked (L, …) layer weights, ``head_arrays`` the final norm
-    and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied);
-    x0 (R, C, D) the embedded step input; cos/sin (R, C, dk) f32; ``cache``
-    the paged pools (L, P+1, ps, KV, dk/pack) [+ (L, P+1, KV) scales],
-    updated in place; page_table (R, NP); phys/off (R, C) the page and
-    in-page offset of each new line; mask (R, C, NP*ps) bool; logits_idx
-    (R,) the row whose logits each slot returns. ``tiles`` must be one of
-    :func:`whole_step_tile_candidates` for ``tile_roles``. ``stamps``, an
-    int64 tensor of :func:`whole_step_stamp_count` entries on x0's device,
-    asks the kernel for its per-stage timer (:func:`whole_step_stage_ms`);
-    only the kernel writes it, the plain version leaves it as it is.
+    and the LM head (``lm_head`` (D, V), or ``embed`` (V, D) when tied,
+    and an optional ``lm_head_bias``); x0 (R, C, D) the embedded step
+    input; cos/sin (R, C, rot) f32 (rot ≤ dk the rotary width), or None
+    for no RoPE; ``cache`` the paged pools (L, P+1, ps, KV, dk/pack) [+
+    (L, P+1, KV) scales], updated in place; page_table (R, NP); phys/off
+    (R, C) the page and in-page offset of each new line; mask (R, C,
+    NP*ps) bool; logits_idx (R,) the row whose logits each slot returns.
+    ``tile_roles`` and ``body`` (:class:`WholeBody`) say what the layers
+    compute. ``tiles`` must be one of :func:`whole_step_tile_candidates`
+    for ``tile_roles``. ``stamps``, an int64 tensor of
+    :func:`whole_step_stamp_count` entries on x0's device, asks the kernel
+    for its per-stage timer (:func:`whole_step_stage_ms`); only the
+    kernel writes it, the plain version leaves it as it is.
     ``all_logits`` (the speculation fold's head; ``head_fn`` is then the
     all-positions head) gives the logits and the argmax of every row.
     The layer count is the stacks' leading dim, the pools' too: a
@@ -1170,10 +1278,9 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
     ``block_fn``/``head_fn`` (:func:`whole_step_decode_ref`): the tile
     count only groups output columns, so it gives the same answer at
     every count. On CUDA tensors it launches csrc/whole_step_decode.cu,
-    which computes the LLaMA block (the layer names of
-    ``_WS_LAYER_NAMES``, RMS norms at ``eps``, rotate-half RoPE, SwiGLU,
-    pools quantized at ``qmax``), or raises on a layout, shape, dtype,
-    head dim or tile count it does not take. Each launch adds one to
+    which computes the block ``tile_roles`` and ``body`` describe, pools
+    quantized at ``qmax``, or raises on a layout, shape, dtype, head dim
+    or tile count it does not take. Each launch adds one to
     ``LAUNCHES["whole_step_decode[<pool>]"]`` and to
     ``DESIGN_LAUNCHES["whole_step_decode[<design>]"]``, the design of its
     attention stage (``[<design>-tree]`` with ``all_logits``)."""
@@ -1187,62 +1294,36 @@ def whole_step_decode(layer_arrays, head_arrays, x0, cos, sin, cache, page_table
                                      block_fn=block_fn, head_fn=head_fn)
     return _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache,
                                    page_table, phys, off, mask, logits_idx, tiles,
-                                   tile_roles, eps, qmax, stamps, all_logits)
+                                   tile_roles, body, qmax, stamps, all_logits)
 
 
 def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page_table,
-                            phys, off, mask, logits_idx, tiles, tile_roles, eps, qmax,
+                            phys, off, mask, logits_idx, tiles, tile_roles, body, qmax,
                             stamps=None, all_logits=False):
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
-    if tile_roles != _WS_ROLES:
-        raise ValueError("the whole-step kernel computes the LLaMA block: it takes the "
-                         f"tile roles {_WS_ROLES}")
-    if sorted(layer_arrays) != sorted(_WS_LAYER_NAMES):
-        raise ValueError(f"the whole-step kernel takes the layer tensors {_WS_LAYER_NAMES}; "
-                         f"got {sorted(layer_arrays)}")
-    tied = "lm_head" not in head_arrays
-    head = head_arrays["embed"] if tied else head_arrays["lm_head"]
-    dt = x0.dtype
-    if dt not in _CUDA_DTYPES:
-        raise ValueError(f"the whole-step kernel takes float32 or bfloat16; got {dt}")
-    R, C, D = x0.shape
-    L, _, Q = layer_arrays["wq"].shape
-    KVd = layer_arrays["wk"].shape[-1]
-    Fd = layer_arrays["w1"].shape[-1]
-    V = head.shape[0] if tied else head.shape[1]
     k_pool, v_pool = cache["k"], cache["v"]
-    if k_pool.dim() != 5 or k_pool.shape != v_pool.shape or k_pool.shape[0] != L:
-        raise ValueError(f"pools must be (L={L}, P+1, ps, KV, dk/pack); got "
+    if k_pool.dim() != 5 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be (L, P+1, ps, KV, dk/pack); got "
                          f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
     _, P1, ps, KV, dkp = k_pool.shape
-    dk = KVd // KV
-    H = Q // dk
-    shapes = {"attn_norm": (L, D), "wq": (L, D, H * dk), "wk": (L, D, KV * dk),
-              "wv": (L, D, KV * dk), "wo": (L, H * dk, D), "ffn_norm": (L, D),
-              "w1": (L, D, Fd), "w2": (L, Fd, D), "w3": (L, D, Fd)}
-    for name, shape in shapes.items():
-        t = layer_arrays[name]
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"{name} must be {dt} {shape}; got {t.dtype} {tuple(t.shape)}")
-    if tuple(head.shape) != ((V, D) if tied else (D, V)) or head.dtype != dt:
-        raise ValueError(f"the LM head must be {dt} (D, V) (embed (V, D) when tied); got "
-                         f"{head.dtype} {tuple(head.shape)}")
-    if tuple(head_arrays["final_norm"].shape) != (D,) or head_arrays["final_norm"].dtype != dt:
-        raise ValueError(f"final_norm must be {dt} ({D},)")
-    if dk not in _CUDA_HEAD_DIMS or H * dk != Q or H % KV:
-        raise ValueError(f"the whole-step kernel has no head dim {dk} with H={H}, KV={KV} "
-                         f"(head dims {_CUDA_HEAD_DIMS})")
+    dk = int(layer_arrays[tile_roles["k"][0]].shape[-1]) // KV
+    L, D, H, _, Fd, V = whole_step_check_layout(layer_arrays, head_arrays,
+                                                tile_roles=tile_roles, body=body, head_dim=dk)
+    dt = x0.dtype
+    R, C, _ = x0.shape
+    if tuple(x0.shape) != (R, C, D) or layer_arrays[tile_roles["q"][0]].dtype != dt:
+        raise ValueError(f"x0 must be {layer_arrays[tile_roles['q'][0]].dtype} (R, C, {D})")
+    if k_pool.shape[0] != L:
+        raise ValueError(f"the pools hold {k_pool.shape[0]} layers, the stacks {L}")
+    Q, KVd = H * dk, KV * dk
     if ps not in _CUDA_PAGE_SIZES:
         raise ValueError(f"the whole-step kernel has no page size {ps} "
                          f"(has {_CUDA_PAGE_SIZES})")
     if C > _FUSED_MAX_CHUNK:
         raise ValueError(f"the whole-step kernel commits at most {_FUSED_MAX_CHUNK} lines "
                          f"per slot; got C={C}")
-    if D % _WS_BK or Q % _WS_BK or Fd % _WS_BK or V % 8:
-        raise ValueError(f"the whole-step kernel needs D ({D}), H*dk ({Q}) and F ({Fd}) "
-                         f"multiples of {_WS_BK} and V ({V}) of 8")
-    if not whole_step_kernel_takes(layer_arrays, tiles=tiles, tile_roles=_WS_ROLES):
+    if not whole_step_kernel_takes(layer_arrays, tiles=tiles, tile_roles=tile_roles):
         raise ValueError(f"the whole-step kernel does not take tiles={tiles} at these "
                          "widths (see whole_step_kernel_takes)")
     quant = "k_scale" in cache
@@ -1268,17 +1349,37 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
         raise ValueError(f"page_table must be int32 ({R}, NP)")
     if tuple(mask.shape) != (R, C, NP * ps) or mask.dtype != torch.bool:
         raise ValueError(f"mask must be bool ({R}, {C}, {NP * ps})")
+    if (cos is None) != (sin is None):
+        raise ValueError("cos and sin are both given (RoPE) or both None")
+    rot = 0 if cos is None else int(cos.shape[-1])
     for name, t in (("cos", cos), ("sin", sin)):
-        if t is None or tuple(t.shape) != (R, C, dk) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 ({R}, {C}, {dk})")
+        if t is not None and (tuple(t.shape) != (R, C, rot) or t.dtype != torch.float32
+                              or rot % 2 or not 0 < rot <= dk):
+            raise ValueError(f"{name} must be float32 ({R}, {C}, rot), rot even and at most "
+                             f"{dk}; got {t.dtype} {tuple(t.shape)}")
     phys, off = phys.to(torch.int32).contiguous(), off.to(torch.int32).contiguous()
     logits_idx = logits_idx.to(torch.int32).contiguous()
     if tuple(phys.shape) != (R, C) or tuple(off.shape) != (R, C) or logits_idx.shape != (R,):
         raise ValueError(f"phys/off must be ({R}, {C}) and logits_idx ({R},)")
-    tensors = [*(layer_arrays[n] for n in _WS_LAYER_NAMES), head_arrays["final_norm"], head,
-               x0, cos, sin, k_pool, v_pool, cache.get("k_scale"), cache.get("v_scale"),
-               page_table, phys, off, mask, logits_idx]
-    for t in tensors:
+
+    def layer(role_or_pair, i):
+        name = (tile_roles.get(role_or_pair, (None, None)) if isinstance(role_or_pair, str)
+                else role_or_pair or (None, None))[i]
+        return None if name is None else layer_arrays[name]
+
+    tied = "lm_head" not in head_arrays
+    weights = [layer(body.attn_norm, 0), layer(body.attn_norm, 1),
+               layer("q", 0), layer("k", 0), layer("v", 0),
+               layer("q", 1), layer("k", 1), layer("v", 1), layer("o", 0), layer("o", 1),
+               layer(body.mlp_norm, 0), layer(body.mlp_norm, 1),
+               layer("gate", 0), layer("gate", 1), layer("up", 0), layer("up", 1),
+               layer("down", 0), layer("down", 1),
+               head_arrays[body.final_norm[0]],
+               None if body.final_norm[1] is None else head_arrays[body.final_norm[1]],
+               head_arrays["embed" if tied else "lm_head"], head_arrays.get("lm_head_bias")]
+    step = [x0, cos, sin, k_pool, v_pool, cache.get("k_scale"), cache.get("v_scale"),
+            page_table, phys, off, mask, logits_idx]
+    for t in weights + step:
         if t is None:
             continue
         if t.device != x0.device:
@@ -1310,17 +1411,18 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
     tokens = torch.empty((head_rows,), dtype=torch.int32, device=x0.device)
     scratch = torch.empty((M * (4 * D + 3 * Q + 3 * KVd + Fd) + head_rows * D,), dtype=dt,
                           device=x0.device)
-    work = torch.empty((max(KS * M * max(Q + 2 * KVd, D, 2 * Fd),
+    glu = "gate" in tile_roles
+    work = torch.empty((max(KS * M * max(Q + 2 * KVd, D, (2 if glu else 1) * Fd),
                             R * KV * nsplit * rows * (dk + 2) if nsplit > 1 else 0),),
                        dtype=torch.float32, device=x0.device)
+    parallel = 0 if not body.parallel else 1 if body.mlp_norm is None else 2
     _cuda.launch(
         "whole_step_decode",
-        tensors[:11] + [x0, cos, sin, k_pool, v_pool, cache.get("k_scale"),
-                        cache.get("v_scale"), page_table, phys, off, mask, logits_idx,
-                        logits, tokens, scratch, work, stamps, counters],
+        weights + step + [logits, tokens, scratch, work, stamps, counters],
         [L, R, C, D, H, KV, dk, Fd, V, ps, NP, P1, tiles, KS, int(tied), _dtype_code(dt),
-         kind, split_pages, int(all_logits)],
-        [eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
+         kind, split_pages, int(all_logits), _WS_NORMS.index(body.norm),
+         _WS_ACTS.index(body.activation), int(glu), parallel, rot],
+        [body.eps, 1.0 / math.sqrt(dk), qmax if qmax is not None else 0.0],
     )
     LAUNCHES[f"whole_step_decode[{pool_type(k_pool)}]"] += 1
     design = _cuda.design("whole_step_decode", C, H, KV, _dtype_code(dt))

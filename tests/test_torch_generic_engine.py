@@ -101,13 +101,17 @@ def test_spec_infer_and_prefix_caching_over_the_position_pool():
 
 @pytest.mark.parametrize("name", ["falcon", "phi"])
 def test_whole_step_and_dense_cuda_raise_at_construction(name):
-    """fused_decode=("whole_step",) names the ROADMAP item that brings the
-    generic whole step; dense kernels="cuda" names the paged layout and
-    kernels="torch". Both raise before anything is allocated."""
+    """fused_decode=("whole_step",) constructs for the generic decoder and
+    serves the unfused engine's greedy tokens (the whole step's plain walk
+    on the CPU, through the pipelined step), its decode and mixed steps
+    both on the whole step; dense kernels="cuda" still names the paged
+    layout and kernels="torch", raising before anything is allocated."""
     _, tm, _, cfg_t, _, params_t = _weights(name)
-    with pytest.raises(ValueError, match="queue 1 item 5.*whole step"):
-        InferenceEngine(tm, cfg_t, params_t, ServingConfig(
-            kv_layout="paged", fused_decode=("whole_step",), **SERVE), device="cpu")
+    serve = dict(kv_layout="paged", kernels="cuda", **SERVE)
+    want = _tokens(_port(tm, cfg_t, params_t, **serve))
+    whole = _port(tm, cfg_t, params_t, fused_decode=("whole_step",), **serve)
+    assert whole.engine.whole_step_on and whole.engine.whole_step_mixed_on
+    assert _tokens(whole) == want
     with pytest.raises(ValueError, match="kv_layout='paged'.*kernels='torch'"):
         InferenceEngine(tm, cfg_t, params_t, ServingConfig(kernels="cuda", **SERVE),
                         device="cpu")
@@ -115,22 +119,62 @@ def test_whole_step_and_dense_cuda_raise_at_construction(name):
                     device="cpu")
 
 
+@pytest.mark.parametrize("name", ["mixtral", "mpt", "mistral"])
+def test_whole_step_refusals_at_construction(name):
+    """MoE FFNs (Mixtral), ALiBi (MPT) and the sliding window (Mistral):
+    fused_decode=("whole_step",) raises at construction with the JAX
+    package's reason."""
+    jm, tm, cfg_j, cfg_t, params_j, params_t = _weights(name)
+    with pytest.raises(ValueError) as want:
+        jm.whole_step_weight_layout(params_j, cfg_j)
+    with pytest.raises(ValueError) as got:
+        InferenceEngine(tm, cfg_t, params_t, ServingConfig(
+            kv_layout="paged", fused_decode=("whole_step",), **SERVE), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def _meta_params(cfg):
+    """The family's parameter tree as "meta" tensors (shapes alone)."""
+    from flexflow_tpu_torch.models import transformer as tt
+
+    specs = tt._param_specs(cfg)
+    return {k: ({n: torch.empty(s[0], dtype=cfg.dtype, device="meta") for n, s in v.items()}
+                if k == "layers" else torch.empty(v[0], dtype=cfg.dtype, device="meta"))
+            for k, v in specs.items()}
+
+
 def test_head_dims_are_checked_per_kernel_family(monkeypatch):
     """On a GPU (faked: the check runs before any allocation) kernels="cuda"
-    takes head dims 80 and 256 on the paged layout (Phi-2, Gemma), and a
-    head dim the paged kernels lack is refused there."""
+    takes head dims 80 and 256 on the paged layout (Phi-2, Gemma), the
+    whole step too (its own head dims, and its layout check on the
+    published weights), and a head dim the paged kernels lack is refused
+    there."""
     from flexflow_tpu_torch.serve import engine as eng_mod
+    from flexflow_tpu_torch.serve import kernels as tk
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     seen = []
     monkeypatch.setattr(eng_mod.InferenceEngine, "_alloc_cache",
                         lambda self: seen.append(self.cfg.head_dim) or {})
+    monkeypatch.setattr(eng_mod.InferenceEngine, "_whole_step_smem_gate", lambda self: None)
     for cfg in (tzoo.phi.phi_2(num_hidden_layers=1), tzoo.gemma.gemma_7b(num_hidden_layers=1)):
         InferenceEngine(tzoo.phi, cfg, {}, ServingConfig(kv_layout="paged"), device="cuda")
-    assert seen == [80, 256]
+        eng = InferenceEngine(tzoo.phi, cfg, _meta_params(cfg), ServingConfig(
+            kv_layout="paged", fused_decode=("whole_step",)), device="cuda")
+        assert eng.whole_step_on
+    assert seen == [80, 80, 256, 256]
+    assert 80 in tk._WHOLE_HEAD_DIMS and 256 in tk._WHOLE_HEAD_DIMS
+    assert tk._CUDA_HEAD_DIMS == (64, 128)  # the dense kernels keep theirs
     odd = tzoo.gemma.tiny(head_dim_override=96)
     with pytest.raises(ValueError, match="no head dim 96 in the paged kernels"):
         InferenceEngine(tzoo.gemma, odd, {}, ServingConfig(kv_layout="paged"), device="cuda")
+    # a whole step whose layout the kernel does not compute raises at
+    # construction on a GPU, never at a step (RMS norms with bias tensors,
+    # which the kernel does not read)
+    rms = tzoo.qwen2.tiny(hidden_size=256, num_attention_heads=4, norm_bias=True)
+    with pytest.raises(ValueError, match="reads the layer tensors"):
+        InferenceEngine(tzoo.qwen2, rms, _meta_params(rms), ServingConfig(
+            kv_layout="paged", fused_decode=("whole_step",)), device="cuda")
 
 
 def _engine_hooks():

@@ -184,7 +184,9 @@ def test_pick_tiles_smallest_that_fits_squeezed_and_floor(weights, C):
     legal = [t for t in tk.whole_step_tile_candidates(la, roles)
              if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
     est = {t: tk.whole_step_smem_bytes(*args, tiles=t, tile_roles=roles) for t in legal}
-    assert legal[0] == 1 and 32 not in legal  # a 32-wide K/V tile is one column
+    # a 32-wide K/V role at 32 tiles takes one 8-column tile (the kernel
+    # rounds a tile up to whole 8-wide MMA columns)
+    assert legal[0] == 1 and 32 in legal and tk._ws_tile_width(32, 32) == 8
     t1, e1 = tk.whole_step_pick_tiles(*args, tile_roles=roles, budget=1 << 40)
     assert (t1, e1) == (1, est[1])
     # squeezed between the untiled item and the next tiling: that tiling
@@ -205,10 +207,10 @@ def test_pricing_at_llama_7b_widths():
     """The gate's picks at LLaMA-7B widths, 16 slots, bf16: 16 column tiles
     for the decode step (16-row tiles) and 8 for the C = 128 mixed step,
     whose projections run on wgmma in 128 × 256 items at any tile count
-    (the TMA ring, 197,632 bytes, priced alone); the kernel takes 8, 16
-    and 32 — 64 would cut F = 11008 into 172-wide tiles, not a whole
-    number of 8-wide MMA columns, and 4 would need more accumulators than
-    a warp holds at decode. On every pool type (bf16, int8, int4) the C =
+    (the TMA ring, 197,632 bytes, priced alone); the kernel takes 8 to 256
+    — at 64 it rounds F = 11008's 172-wide tiles up to 176 columns (whole
+    8-wide MMA columns), and 4 would need more accumulators than a warp
+    holds at decode. On every pool type (bf16, int8, int4) the C =
     128 step prices the tensor-core attention tile (MmaSmem) too, and so
     does an f32 model (projections on the CUDA cores) on f32, int8 and
     int4 pools, which picks 32 tiles at both steps: its 219,968-byte tile
@@ -225,7 +227,7 @@ def test_pricing_at_llama_7b_widths():
               "w3": torch.empty((1, D, Fd), **meta)}
         takes = [t for t in tk.whole_step_tile_candidates(la, roles)
                  if tk.whole_step_kernel_takes(la, tiles=t, tile_roles=roles)]
-        assert takes == [8, 16, 32]
+        assert takes == [8, 16, 32, 64, 128, 256]
         f32 = dtype == torch.float32
         for kind, pool_dtype, width in ((0, dtype, dk), (1, torch.int8, dk),
                                         (2, torch.uint8, dk // 2)):
