@@ -210,10 +210,12 @@ attention) on one seeded (4, 2049) batch, whose loss must fall.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
 import gc
+import glob
 import json
 import math
 import os
@@ -228,11 +230,13 @@ import time
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import obs as OBS
 from flexflow_tpu_torch import optimizers as O
 from flexflow_tpu_torch.metrics import SchedulerStats
 from flexflow_tpu_torch.models import (falcon, gemma, gpt2, llama, mistral, mixtral, mpt, opt,
                                        phi, qwen2, qwen2_moe, starcoder)
 from flexflow_tpu_torch.models import transformer as TD
+from flexflow_tpu_torch.obs import export as OBS_EXPORT
 from flexflow_tpu_torch.ops import flash_attention as FA
 from flexflow_tpu_torch.serve import kernels as K
 from flexflow_tpu_torch.serve import _cuda
@@ -4146,6 +4150,349 @@ def phase_prefix(seed):
 # ---------------------------------------------------------------------------
 # training: flash-attention kernels, train-step parity, the train slice
 
+# ---------------------------------------------------------------------------
+# the obs phase (slice 17): tracing, the Prometheus export, the flight
+# recorder, the output file and inference_debugging's per-layer capture,
+# on LLaMA-7B at full width and depth (the slice phase's weights)
+
+#: the traced arms over bf16 pages under the paged slice's budget:
+#: (label, fused_decode), each served untraced and traced
+OBS_TRACED_ARMS = (("bf16-fused", ("rope_kv_write",)), ("bf16-whole", ("whole_step",)))
+#: the capture arms, kernels="cuda", 2 slots: (label, serving). The
+#: paged-bf16 arm's token budget is below OBS_FAIL_LEN: a third request of
+#: that length fails admission (the flight recorder's dump)
+OBS_FAIL_BUDGET = 256
+OBS_FAIL_LEN = 300
+OBS_DEBUG_ARMS = (("dense", dict(kv_layout="dense")),
+                  ("paged-bf16", dict(kv_layout="paged", max_cached_tokens=OBS_FAIL_BUDGET)),
+                  ("paged-int8", dict(kv_layout="paged", kv_quant="int8")),
+                  ("bf16-whole", dict(kv_layout="paged", fused_decode=("whole_step",))))
+OBS_DEBUG_LENS = (200, 16)
+OBS_DEBUG_NEW = 8
+
+
+#: the traced arms' run order (traced or not): untraced, traced, traced,
+#: untraced, so that neither side gains from running later
+OBS_ORDER = (False, True, True, False)
+
+
+def _obs_traced_arm(label, cfg, params, fused, prompts, new):
+    """One traced arm: the same requests served by one engine in
+    OBS_ORDER, untraced and traced (``obs.attach_observability``, a fresh
+    buffer a run), each run with the counts, stats and dispatch count set
+    to 0 just before it. Checks: the same tokens and ``dispatch_count``
+    every time; in each traced run every request's events run admit →
+    first_token → terminal in step order, the dispatch events are
+    ``dispatch_count``, and the Prometheus text passes the drift guard
+    with its counters the SchedulerStats'. Returns the arm's line."""
+    llm = LLM(llama, cfg, params, device=DEV)
+    llm.compile(ServingConfig(kv_layout="paged", max_cached_tokens=PAGED_BUDGET,
+                              fused_decode=fused))
+    llm.generate([[1, 2, 3]], max_new_tokens=2)  # warm-up
+    runs = []
+    for traced in OBS_ORDER:
+        buf = None
+        if traced:
+            buf = OBS.attach_observability(llm.rm)
+        else:
+            llm.rm.tracer = llm.engine.tracer = OBS.NULL_TRACER
+        llm.rm.stats = SchedulerStats()
+        llm.engine.dispatch_count = 0
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = llm.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        runs.append(dict(traced=traced, results=results, wall_s=time.perf_counter() - t0,
+                         dispatch=llm.engine.dispatch_count, stats=llm.rm.stats, buf=buf,
+                         launches={k: v for k, v in K.LAUNCHES.items() if v}))
+    first = runs[0]
+    kernel = "whole_step_decode[bf16]" if "whole_step" in fused else \
+        "fused_rope_paged_attention[bf16]"
+    for i, run in enumerate(runs):
+        for r in run["results"]:
+            check(r.error is None and len(r.output_tokens) == new,
+                  f"obs {label}: request {r.request_id}: {r.error}")
+        same = [a.output_tokens == b.output_tokens
+                for a, b in zip(first["results"], run["results"])]
+        check(all(same), f"obs {label}: run {i} served other tokens: {same}")
+        check(run["dispatch"] == first["dispatch"] > 0,
+              f"obs {label}: dispatch_count {[r['dispatch'] for r in runs]}")
+        check(run["launches"].get(kernel, 0) > 0, f"obs {label}: {kernel} never launched")
+    on = runs[1]
+    for run in runs:
+        if not run["traced"]:
+            continue
+        events = run["buf"].events
+        for r in run["results"]:
+            mine = [e for e in events if e["trace_id"] == r.request_id]
+            names = [e["name"] for e in mine]
+            check(names and names[0] == "admit" and names[-1] == "terminal"
+                  and names.count("terminal") == 1 and names.count("first_token") == 1,
+                  f"obs {label}: request {r.request_id} events {names}")
+            check(names.index("first_token") < len(names) - 1,
+                  f"obs {label}: request {r.request_id}: first_token after terminal")
+            steps = [e["step"] for e in mine]
+            check(steps == sorted(steps), f"obs {label}: request {r.request_id} steps {steps}")
+        kinds = collections.Counter(e["attrs"]["kind"] for e in events
+                                    if e["name"] == "dispatch")
+        check(sum(kinds.values()) == run["dispatch"],
+              f"obs {label}: {sum(kinds.values())} dispatch events, dispatch_count "
+              f"{run['dispatch']}")
+        stats = run["stats"]
+        text = OBS.prometheus_text(scheduler={"0": stats},
+                                   profiles=[r.profile for r in run["results"]])
+        OBS.check_export_coverage()
+        samples = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                       if not line.startswith("#"))
+        for field in sorted(OBS_EXPORT.SCHED_COUNTERS):
+            got = float(samples[f'flexflow_scheduler_{field}{{replica="0"}}'])
+            check(got == getattr(stats, field),
+                  f"obs {label}: exported {field} {got}, SchedulerStats {getattr(stats, field)}")
+
+    def by(traced, key):
+        return [r[key] for r in runs if r["traced"] == traced]
+    line = {"phase": "obs", "arm": label, "model": "llama_7b", "layers": cfg.num_hidden_layers,
+            "requests": len(prompts), "new_tokens": new, "fused_decode": list(fused),
+            "order": ["traced" if t else "untraced" for t in OBS_ORDER],
+            "tokens_equal": True, "dispatch_count": on["dispatch"],
+            "dispatch_kinds": dict(kinds), "events": len(on["buf"].events),
+            "preemptions": on["stats"].preemptions,
+            "decode_dispatch_ms": {k: {"p50": [s.decode_step_ms_p50 for s in by(t, "stats")],
+                                       "p99": [s.decode_step_ms_p99 for s in by(t, "stats")],
+                                       "decode_steps": on["stats"].decode_steps}
+                                   for k, t in (("untraced", False), ("traced", True))},
+            "wall_s": {k: by(t, "wall_s") for k, t in (("untraced", False), ("traced", True))},
+            "prometheus_samples": len(samples), "launches": on["launches"]}
+    _free(llm)
+    return line
+
+
+def _obs_debug_arm(label, family, cfg, params, params32, serve, prompts, new, root, head):
+    """One inference_debugging arm, ``kernels`` as ``serve`` gives it, 2
+    slots: the requests served with the switch off, then on (the flight
+    recorder and the output file attached). Each step's capture is the
+    engine's own (its files read back); the wrapper around it also
+    captures the step with kernels="torch" and, with ``params32``, in f32
+    (the cache upcast), and checks once, at the first decode step, that
+    the capture left the cache bitwise as it was. Checks: the same tokens
+    on and off; one dump a step; the cache unchanged; each served token
+    the argmax of the step's last-layer dump through ``head`` (the final
+    norm and LM head at ``logits_idx``) or a near-tie within twice bf16's
+    own error there (``_greedy_over_prefix``'s rule; exact without
+    ``params32``); with ``params32``, every layer's kernels capture within
+    SLICE_PATHS times the plain capture's distance from the f32 one; one
+    redacted dump a failed request, one output record a finished one.
+    Returns the arm's line."""
+    sc = ServingConfig(max_requests_per_batch=2, **serve)
+    llm = LLM(family, cfg, params, device=DEV)
+    llm.compile(sc)
+    off = llm.generate(prompts, max_new_tokens=new)
+    _free(llm)
+    d = os.path.join(root, label)
+    out_file = os.path.join(root, f"{label}.out")
+    llm = LLM(family, cfg, params, device=DEV)
+    llm.compile(dataclasses.replace(sc, inference_debugging=d), output_file=out_file)
+    eng, rm = llm.engine, llm.rm
+    check(not rm.supports_fast_decode, f"obs {label}: debugging left the pipelined path on")
+    rec = OBS.FlightRecorder(out_dir=os.path.join(root, f"{label}-flightrec"))
+    OBS.attach_observability(rm, recorder=rec)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    L = cfg.num_hidden_layers
+    sums = torch.zeros((L, 4), dtype=torch.float64)
+    steps, cache_checks = [], []
+    orig = eng._dump_debug
+
+    def dump(bc):
+        kw = {}
+        if eng.paged:
+            kw = dict(page_table=eng.page_table_device(), cache_len=eng.serving.cache_len,
+                      kv_quant=eng.serving.kv_quant)
+        args = (eng._tensor(bc.tokens, torch.int64), eng._tensor(bc.positions, torch.int64),
+                None if bc.mask is None else eng._tensor(bc.mask, torch.bool),
+                None if bc.cache_positions is None else eng._tensor(bc.cache_positions,
+                                                                    torch.int64))
+        plain = exact = None
+        if params32 is not None:
+            with torch.inference_mode():
+                plain = family.serve_debug_activations(params, eng.cache, *args, cfg=cfg,
+                                                       kernels="torch", **kw)
+                cache32 = {k: v.float() if v.dtype == torch.bfloat16 else v
+                           for k, v in eng.cache.items()}
+                exact = family.serve_debug_activations(params32, cache32, *args, cfg=cfg32,
+                                                       kernels="torch", **kw)
+                del cache32
+        before = None
+        if bc.chunk == 1 and not cache_checks:
+            before = {k: v.clone() for k, v in eng.cache.items()}
+        orig(bc)
+        if before is not None:
+            cache_checks.append(set(before) == set(eng.cache) and all(
+                torch.equal(eng.cache[k], v) for k, v in before.items()))
+            del before
+        files = sorted(glob.glob(os.path.join(d, "*", f"step{eng._debug_step - 1:05d}_layer*")))
+        check(len(files) == L, f"obs {label}: {len(files)} layer files, want {L}")
+        live = torch.from_numpy(bc.positions != eng.scratch_pos).to(DEV)
+        idx = torch.from_numpy(bc.logits_idx).long().to(DEV)
+        with torch.inference_mode():
+            last = torch.from_numpy(np.load(files[-1])).to(DEV)
+            logits = head(cfg, params, last.to(cfg.dtype), idx, False).float()
+            row = {"positions": bc.positions.copy(), "logits_idx": bc.logits_idx.copy(),
+                   "logits": logits.cpu()}
+            if params32 is not None:
+                for l in range(L):
+                    c = torch.from_numpy(np.load(files[l])).to(DEV)[live].double()
+                    t, f = plain[l].double()[live], exact[l].double()[live]
+                    sums[l] += torch.stack([(c - t).square().sum(), t.square().sum(),
+                                            (t - f).square().sum(), f.square().sum()]).cpu()
+                row["err"] = (logits - head(cfg32, params32, exact[-1], idx, False)
+                              ).abs().amax(-1).cpu()
+        steps.append(row)
+
+    eng._dump_debug = dump
+    K.reset_launch_counts()
+    on = llm.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    n_files = len(glob.glob(os.path.join(d, "*", "step*_tokens.npy")))
+    finished = [r for r in on if r.error is None]
+    same = [a.output_tokens == b.output_tokens and a.error == b.error for a, b in zip(off, on)]
+    check(all(same), f"obs {label}: inference_debugging changed served tokens: {same}")
+    check(n_files == rm.stats.sync_steps == len(steps) > 0 and rm.stats.decode_steps == 0,
+          f"obs {label}: {n_files} dumps for {rm.stats.sync_steps} sync steps "
+          f"({rm.stats.decode_steps} pipelined)")
+    check(cache_checks == [True], f"obs {label}: a capture changed the engine's cache")
+    # each sampled row's token against the argmax of its step's last dump
+    seqs = [p + r.output_tokens for p, r in zip(prompts, on)]
+    served, argmax_eq, ties, bad, gaps = 0, 0, 0, [], []
+    for k, row in enumerate(steps):
+        for r in range(2):
+            pos = int(row["positions"][r, row["logits_idx"][r]])
+            if pos == eng.scratch_pos or not len(prompts[r]) <= pos + 1 < len(seqs[r]):
+                continue
+            tok, lg = seqs[r][pos + 1], row["logits"][r]
+            served += 1
+            if int(lg.argmax()) == tok:
+                argmax_eq += 1
+                continue
+            gap = float(lg.max() - lg[tok])
+            if "err" in row and gap <= 2 * float(row["err"][r]):
+                ties += 1
+                gaps.append(gap)
+            else:
+                bad.append((k, r))
+    check(served == sum(len(r.output_tokens) for r in finished),
+          f"obs {label}: {served} sampled rows for {sum(len(r.output_tokens) for r in finished)} "
+          "served tokens")
+    check(not bad, f"obs {label}: served tokens that are not the argmax of their step's "
+          f"last dump: {bad[:8]}")
+    line = {"phase": "obs_debug", "arm": label, "model": family.__name__.rsplit(".", 1)[-1],
+            "layers": L, "kernels": sc.kernels, **{k: v for k, v in serve.items()
+                                                   if k != "fused_decode"},
+            "fused_decode": list(serve.get("fused_decode", ())), "requests": len(prompts),
+            "finished": len(finished), "sync_steps": rm.stats.sync_steps, "dumps": n_files,
+            "cache_bitwise": cache_checks == [True], "tokens_equal": all(same),
+            "tokens": {"served": served, "argmax_equal": argmax_eq, "near_ties": ties,
+                       "tie_gaps": gaps},
+            "launches": launches}
+    if params32 is not None:
+        ct = (sums[:, 0] / sums[:, 1]).sqrt()
+        tf = (sums[:, 2] / sums[:, 3]).sqrt()
+        ratio = ct / tf
+        line["layers_rel_l2"] = {"cuda_vs_torch_max": float(ct.max()),
+                                 "torch_vs_f32_min": float(tf.min()),
+                                 "worst_ratio": float(ratio.max()),
+                                 "worst_layer": int(ratio.argmax()),
+                                 "tol": f"cuda_vs_torch <= {SLICE_PATHS} * torch_vs_f32 "
+                                        "at every layer"}
+        check(bool((ratio <= SLICE_PATHS).all()),
+              f"obs {label}: layers whose kernels capture is further from the plain one than "
+              f"bf16 allows: {torch.nonzero(ratio > SLICE_PATHS).flatten().tolist()}")
+    failed = [r for r in on if r.error is not None]
+    check(len(rec.paths) == len(failed), f"obs {label}: {len(rec.paths)} flight-recorder dumps "
+          f"for {len(failed)} failed requests")
+    for path in rec.paths:
+        with open(path) as f:
+            doc = json.load(f)
+        check(doc["reason"] == "request_error" and doc["events"][-1]["name"] == "terminal"
+              and not any(OBS.REDACTED_ATTRS & (e.get("attrs") or {}).keys()
+                          for e in doc["events"]),
+              f"obs {label}: flight-recorder dump {doc['reason']}")
+    with open(out_file) as f:
+        records = f.read().count("[Profile] guid(")
+    check(records == len(finished), f"obs {label}: {records} output records for "
+          f"{len(finished)} finished requests")
+    line.update(failed=len(failed), flight_recorder_dumps=len(rec.paths), output_records=records)
+    _free(llm)
+    shutil.rmtree(d, ignore_errors=True)
+    return line
+
+
+def phase_obs(seed, params, smi):
+    """Serving triage and observability on LLaMA-7B (full width, 32
+    layers, the slice phase's bf16 weights ``params``): the traced arms
+    (OBS_TRACED_ARMS, the paged slice's 8 requests), the decode dispatch
+    p50 traced and untraced beside the card's name and power limit
+    (``smi``), inference_debugging's capture on OBS_DEBUG_ARMS with
+    kernels="cuda" (2 requests, OBS_DEBUG_NEW new tokens; the paged-bf16
+    arm adds a third request that fails admission), then Falcon-7B's
+    capture on the paged layout (the plain path, served plain). Returns
+    the launches of its runs."""
+    cfg = llama.LLaMAConfig.llama_7b()
+    prompts, new = _slice_prompts(seed, cfg)
+    lines = [_obs_traced_arm(label, cfg, params, fused, prompts, new)
+             for label, fused in OBS_TRACED_ARMS]
+    for line in lines:
+        emit(line)
+    emit({"phase": "obs_dispatch", "card": smi,
+          "decode_dispatch_ms_p50": {line["arm"]: {k: statistics.mean(v["p50"]) for k, v in
+                                                   line["decode_dispatch_ms"].items()}
+                                     for line in lines},
+          "note": "host wall ms of each pipelined decode dispatch (not a gate)"})
+    launches = collections.Counter()
+    for line in lines:
+        launches.update(line["launches"])
+    rng = np.random.default_rng(seed + 17)
+    debug_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in OBS_DEBUG_LENS]
+    root = tempfile.mkdtemp(prefix="flexflow_tpu_torch_obs_")
+    try:
+        params32 = _to_f32(params)
+        for label, serve in OBS_DEBUG_ARMS:
+            extra = ([rng.integers(1, cfg.vocab_size, size=OBS_FAIL_LEN).tolist()]
+                     if "max_cached_tokens" in serve else [])
+            line = _obs_debug_arm(label, llama, cfg, params, params32, serve,
+                                  debug_prompts + extra, OBS_DEBUG_NEW, root, llama._head)
+            emit(line)
+            launches.update(line["launches"])
+            for k in {"dense": ("decode_attention", "verify_attention"),
+                      "paged-bf16": ("ragged_paged_attention[bf16]",),
+                      "paged-int8": ("ragged_paged_attention[int8]", "paged_commit[int8]"),
+                      "bf16-whole": ("whole_step_decode[bf16]",
+                                     "ragged_paged_attention[bf16]")}[label]:
+                check(line["launches"].get(k, 0) > 0, f"obs {label}: {k} never launched")
+            if extra:
+                check(line["failed"] == 1 and line["flight_recorder_dumps"] == 1,
+                      f"obs {label}: the request over the budget: {line['failed']} failed, "
+                      f"{line['flight_recorder_dumps']} dumps")
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+        fcfg = falcon.falcon_7b()
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(seed + 21)
+        fparams = falcon.init_params(gen, fcfg, device=DEV)
+        fprompts = [rng.integers(1, fcfg.vocab_size, size=n).tolist() for n in OBS_DEBUG_LENS]
+        emit(_obs_debug_arm("falcon-paged", falcon, fcfg, fparams, None,
+                            dict(kv_layout="paged", kernels="torch"), fprompts,
+                            OBS_DEBUG_NEW, root, TD._head))
+        del fparams
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv", "flash_attention_bwd_q")
 # the train slice: LLaMA-7B at full width, depth cut to 8 layers (32 with
 # bf16 params and grads and f32 Adam moments is 80.9 GB, over the card's
@@ -4668,8 +5015,8 @@ SOURCES = {
                               "flexflow_tpu/serve/kv_quant.py:147 (quant_line_write, "
                               "no TPU kernel)") for g in ("dk80", "dk256")},
 }
-PHASES = ("kernels", "slice", "paged", "whole", "spec", "f32", "entry", "families", "prefix",
-          "train_parity", "train")
+PHASES = ("kernels", "slice", "obs", "paged", "whole", "spec", "f32", "entry", "families",
+          "prefix", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -4678,9 +5025,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of kernels, slice, paged, whole, spec, f32, entry, "
+                    help="comma list of kernels, slice, obs, paged, whole, spec, f32, entry, "
                          "families, prefix, train_parity, train (device and build always run; "
-                         "paged and whole need slice)")
+                         "paged and whole need slice; obs makes the slice's weights itself "
+                         "without it)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -4688,7 +5036,7 @@ def main(argv=None) -> int:
 
     def mark(name):
         marks.append((name, time.perf_counter()))
-    phase_device()
+    smi = phase_device()
     spills = phase_build()
     mark("build")
     main_rows, launches = {}, {}
@@ -4705,6 +5053,9 @@ def main(argv=None) -> int:
         holder[0], dense = phase_slice(args.seed)
         launches.update(dense)
         mark("slice")
+        if "obs" in phases:
+            phase_obs(args.seed, holder[0], smi)
+            mark("obs")
         arms = ((PAGED_ARMS if "paged" in phases else ())
                 + (WHOLE_ARMS if "whole" in phases else ()))
         if arms:
@@ -4714,6 +5065,14 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mark("paged+whole")
+    elif "obs" in phases:  # the slice's weights, made from the seed
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(args.seed)
+        phase_obs(args.seed, llama.init_params(gen, llama.LLaMAConfig.llama_7b(), device=DEV),
+                  smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("obs")
     if "spec" in phases:
         for k, v in phase_spec(args.seed).items():
             launches[k] = launches.get(k, 0) + v

@@ -5,7 +5,11 @@ Counterpart of ``flexflow_tpu/__main__.py``. One command so far:
   serve   incremental decoding, SpecInfer or beam search over a local HF
           checkpoint directory (``--model-dir``), or over a tiny model of
           random weights when it is omitted; prints each request's output
-          and a profile line.
+          and a profile line. ``--output-file`` appends each finished
+          request's record, ``--trace-out`` writes a Chrome trace of the
+          run, ``--metrics-out`` a Prometheus snapshot, and
+          ``--flight-recorder DIR`` dumps a redacted post-mortem of a
+          request that ends in an error.
 
 It runs on the GPU (``--device cuda``, the default; it raises without
 one) with the hand-written kernels (``--kernels cuda``, the default; the
@@ -14,9 +18,8 @@ plain PyTorch path. A prompt is text (it needs the checkpoint's
 tokenizer) or token ids, comma- or space-separated (``--prompt
 "3,17,91"``).
 
-The JAX command's parallelism degrees, clusters and autoscaling,
-observability, weight quantization and offload come with later slices
-(ROADMAP.md queue 1).
+The JAX command's parallelism degrees, clusters and autoscaling, weight
+quantization and offload come with later slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -78,11 +81,33 @@ def cmd_serve(args) -> None:
             dparams["layers"] = {n: v[:k] for n, v in llm.params["layers"].items()}
             ssms = [SSM(llm.family, dcfg, dparams, device=args.device)]
         spec = SpecConfig(beam_width=2, beam_depth=4)
-    llm.compile(sc, ssms=ssms, spec=spec)
+    llm.compile(sc, ssms=ssms, spec=spec, output_file=args.output_file)
+    obs_buf = recorder = None
+    if args.trace_out or args.metrics_out or args.flight_recorder:
+        # tracing and the flight recorder attach to the manager compile
+        # built; the exports are written after the run
+        from .obs import FlightRecorder, attach_observability
+
+        if args.flight_recorder:
+            recorder = FlightRecorder(out_dir=args.flight_recorder)
+        obs_buf = attach_observability(llm.rm, recorder=recorder)
     prompts = [_prompt(p) for p in args.prompt] if args.prompt else [[3, 17, 91, 42, 7]]
     gen = GenerationConfig(num_beams=args.num_beams)
     outs = llm.generate(prompts, gen=gen if args.num_beams > 1 else None,
                         max_new_tokens=args.max_new_tokens)
+    if obs_buf is not None:
+        from .obs import write_chrome_trace, write_prometheus
+
+        if args.trace_out:
+            doc = write_chrome_trace(args.trace_out, obs_buf)
+            print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out} "
+                  "(load in ui.perfetto.dev)")
+        if args.metrics_out:
+            write_prometheus(args.metrics_out, scheduler={"0": llm.rm.stats},
+                             profiles=[o.profile for o in outs])
+            print(f"metrics: prometheus snapshot -> {args.metrics_out}")
+        if recorder is not None and recorder.paths:
+            print(f"flight recorder: {len(recorder.paths)} dump(s) -> {args.flight_recorder}")
     for o in outs:
         p = o.profile
         print(o.output_text or o.output_tokens)
@@ -144,6 +169,19 @@ def main(argv=None) -> None:
     s.add_argument("--device", default="cuda",
                    help="the device to serve on (cuda, or cpu with --kernels torch "
                         "to run the plain path)")
+    # reference -output-file: append each finished request's latency,
+    # decoding steps and token ids
+    s.add_argument("--output-file", "-output-file", default=None)
+    s.add_argument("--trace-out", default=None,
+                   help="write a Chrome/Perfetto trace_event JSON of the run "
+                        "(load in ui.perfetto.dev)")
+    s.add_argument("--metrics-out", default=None,
+                   help="write a Prometheus text-format metrics snapshot "
+                        "(SchedulerStats/ProfileInfo, drift-guarded)")
+    s.add_argument("--flight-recorder", default=None, metavar="DIR",
+                   help="arm the failure flight recorder: a bounded event ring "
+                        "dumping a redacted JSON post-mortem into DIR when a "
+                        "request ends in an error")
     s.set_defaults(fn=cmd_serve)
     args = p.parse_args(argv)
     args.fn(args)

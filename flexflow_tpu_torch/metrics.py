@@ -1,13 +1,16 @@
-"""Serving scheduler telemetry (a subset of
-``flexflow_tpu/metrics.py:SchedulerStats``).
+"""Serving telemetry: the scheduler's :class:`SchedulerStats` (a subset
+of ``flexflow_tpu/metrics.py:SchedulerStats``) and the cluster's
+:class:`ClusterStats` (copied; the cluster slice drives it, the
+Prometheus exporter obs/export.py reads it).
 
 The counters of context parallelism and the retrace sentinel come with
-the slices that port those features.
+the slices that port those features; ``compute_metrics`` and
+``PerfMetrics`` (the training metrics) wait for the training-API slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 #: decode_step_ms reservoir bound (SchedulerStats.note_decode_step_ms)
 _DECODE_MS_CAP = 4096
@@ -220,4 +223,353 @@ class SchedulerStats:
             f"reprobe={s['spec_reprobes']} "
             f"dstep_ms={s['decode_step_ms_p50']:.2f}/"
             f"{s['decode_step_ms_p99']:.2f}"
+        )
+
+
+@dataclasses.dataclass
+class ClusterStats:
+    """Cluster-level serving telemetry (serve/cluster/): the front-end
+    router's own counters plus an aggregation hook over every replica's
+    :class:`SchedulerStats`. The ClusterManager updates the router
+    counters at placement/shed/migration time and passes the per-replica
+    stats as CALLABLES (the same indirection SchedulerStats uses for the
+    prefix cache and retrace guard), so bench-style stat swaps
+    (``rm.stats = SchedulerStats()``) keep counting."""
+
+    submitted: int = 0
+    # placements by HOW the router decided: "prefix" (longest radix-tree
+    # match), "affinity" (session stickiness), "round_robin",
+    # "least_loaded" (policy or prefix-miss fallback)
+    placements: Dict[str, int] = dataclasses.field(default_factory=dict)
+    affinity_hits: int = 0
+    sheds: int = 0                 # SLO admission rejections (ERROR, not hangs)
+    migrations: int = 0            # prefill→decode page hand-offs
+    migrated_pages: int = 0
+    migrated_bytes: int = 0
+    # Fault tolerance (serve/cluster/health.py + manager failover):
+    # step exceptions observed, replica state transitions (DOWN trips /
+    # half-open probes / closed circuits), requests re-admitted off a
+    # dead replica through recompute, total re-admission attempts
+    # (failovers + migration-drain recomputes), and requests that ended
+    # in a terminal error because retries exhausted or no healthy
+    # replica remained (the bounded alternative to a hang).
+    step_faults: int = 0
+    replica_down: int = 0
+    replica_suspect: int = 0
+    probes: int = 0
+    replica_recoveries: int = 0
+    failovers: int = 0
+    retries: int = 0
+    failover_errors: int = 0
+    # Migration back-pressure (ServingConfig.migration_queue_budget):
+    # failed migrate attempts (exceptions, retried with backoff), the
+    # bounded queue's current depth (gauge) and high-water mark, and
+    # held prefills that overflowed the budget and drained through
+    # recompute re-admission instead of parking with their pages.
+    migration_failures: int = 0
+    migration_queue_depth: int = 0
+    migration_queue_peak: int = 0
+    migration_queue_overflows: int = 0
+    # Replica RPC transport (serve/cluster/transport.py + remote.py):
+    # RPCs that exhausted their retries (each one is also a health
+    # observation), retry attempts the deadline/backoff machinery
+    # spent (absorbed losses — no health impact), cluster steps on
+    # which a remote replica had had no successful exchange for
+    # heartbeat_gap_steps (each one a SUSPECT observation), transport
+    # reconnects after a disconnect, standby replicas that adopted a
+    # DOWN replica's routing position (+ prefix families), and raw
+    # frame bytes both ways (requests+responses; migrated page bytes
+    # and shipped radix trees dominate).
+    rpc_errors: int = 0
+    rpc_retries: int = 0
+    heartbeat_gaps: int = 0
+    reconnects: int = 0
+    standby_adoptions: int = 0
+    wire_bytes_sent: int = 0
+    wire_bytes_received: int = 0
+    # Concurrent cluster stepping (serve/cluster/manager.py): the
+    # high-water mark of RPCs in flight inside one step's fan-out
+    # (gauge — 0 under the serial reference loop), plus bounded
+    # reservoirs of whole-cluster-step wall time and per-replica
+    # step-RPC round-trip time in milliseconds. The raw sample lists
+    # stay out of Prometheus; the derived ``cluster_step_ms_p50/p99``
+    # and ``rpc_rtt_ms_p50/p99`` properties export as gauges, and
+    # per-replica RTT percentiles ride the snapshot under
+    # ``rpc_rtt_ms_per_replica``.
+    rpc_inflight_peak: int = 0
+    cluster_step_ms_samples: List[float] = dataclasses.field(
+        default_factory=list
+    )
+    rpc_rtt_ms_samples: Dict[int, List[float]] = dataclasses.field(
+        default_factory=dict
+    )
+    # Elastic control plane (serve/cluster/{journal,reconfigure}.py):
+    # committed reconfigurations by kind (replicas added live, replicas
+    # drained + retired, prefill/decode pool flips), journal traffic
+    # (records + raw frame bytes appended; compactions that rewrote the
+    # log to the live set), manager restarts recovered from the journal,
+    # and unfinished requests a recovery re-admitted through recompute.
+    scale_outs: int = 0
+    scale_ins: int = 0
+    pool_flips: int = 0
+    journal_records: int = 0
+    journal_bytes: int = 0
+    journal_compactions: int = 0
+    manager_recoveries: int = 0
+    journal_replayed: int = 0
+    # Self-driving serving (serve/autotune): policy decisions taken
+    # (applied or advisory), speculation-bucket retunes advised, and
+    # the predicted-vs-measured throughput gauges the autoscaler
+    # refreshes every evaluation (tokens/sec — how far off the cost
+    # model is on this box). Per-replica arrival/completion counters
+    # and the bounded admission-time queue-delay reservoir feed the
+    # TrafficEstimator; the dict fields stay out of Prometheus (the
+    # derived ``queue_delay_s_p50/p99`` and the per-replica snapshot
+    # maps ride along instead).
+    autoscale_decisions: int = 0
+    retunes: int = 0
+    autoscale_predicted_tps: float = 0.0
+    autoscale_measured_tps: float = 0.0
+    arrivals_per_replica: Dict[int, int] = dataclasses.field(
+        default_factory=dict
+    )
+    completions_per_replica: Dict[int, int] = dataclasses.field(
+        default_factory=dict
+    )
+    queue_delay_s_samples: List[float] = dataclasses.field(
+        default_factory=list
+    )
+
+    def record_placement(self, how: str) -> None:
+        self.placements[how] = self.placements.get(how, 0) + 1
+        if how == "affinity":
+            self.affinity_hits += 1
+
+    def note_cluster_step_ms(self, ms: float) -> None:
+        """Record one whole-cluster-step wall sample (bounded
+        reservoir, same trim discipline as decode_step_ms)."""
+        s = self.cluster_step_ms_samples
+        s.append(float(ms))
+        if len(s) > _DECODE_MS_CAP:
+            del s[: len(s) - _DECODE_MS_CAP]
+
+    def note_arrival(self, replica: int) -> None:
+        """Count one first-time placement onto ``replica`` (failover
+        re-admissions are NOT arrivals — the request already counted)."""
+        r = int(replica)
+        self.arrivals_per_replica[r] = self.arrivals_per_replica.get(r, 0) + 1
+
+    def note_completion(self, replica: int) -> None:
+        """Count one successfully finished request against the replica
+        that first homed it (profile.replica_id — stable across
+        failovers, so arrivals and completions reconcile per home)."""
+        r = int(replica)
+        self.completions_per_replica[r] = (
+            self.completions_per_replica.get(r, 0) + 1
+        )
+
+    def note_queue_delay_s(self, delay_s: float) -> None:
+        """Record one admission-time queue-delay estimate (bounded
+        reservoir). Pre-envelope/cold-replica placements report 0.0 —
+        a real sample ("no estimated wait"), kept, not dropped: the
+        percentiles must reflect what admission actually saw."""
+        s = self.queue_delay_s_samples
+        s.append(max(0.0, float(delay_s)))
+        if len(s) > _DECODE_MS_CAP:
+            del s[: len(s) - _DECODE_MS_CAP]
+
+    def note_rpc_rtt_ms(self, replica: int, ms: float) -> None:
+        """Record one step-RPC round-trip sample for ``replica``
+        (bounded per-replica reservoir)."""
+        s = self.rpc_rtt_ms_samples.setdefault(int(replica), [])
+        s.append(float(ms))
+        if len(s) > _DECODE_MS_CAP:
+            del s[: len(s) - _DECODE_MS_CAP]
+
+    @staticmethod
+    def _pct(samples: Sequence[float], q: float) -> float:
+        if not samples:
+            return 0.0
+        ordered = sorted(samples)
+        idx = min(len(ordered) - 1, int(round(q * (len(ordered) - 1))))
+        return ordered[idx]
+
+    @property
+    def cluster_step_ms_p50(self) -> float:
+        return self._pct(self.cluster_step_ms_samples, 0.50)
+
+    @property
+    def cluster_step_ms_p99(self) -> float:
+        return self._pct(self.cluster_step_ms_samples, 0.99)
+
+    @property
+    def queue_delay_s_p50(self) -> float:
+        return self._pct(self.queue_delay_s_samples, 0.50)
+
+    @property
+    def queue_delay_s_p99(self) -> float:
+        return self._pct(self.queue_delay_s_samples, 0.99)
+
+    def arrivals_completions_per_replica(self) -> Dict[int, Dict[str, int]]:
+        """Per-replica arrival/completion reconciliation map — the
+        difference is the replica's live (or lost-to-error) load."""
+        out: Dict[int, Dict[str, int]] = {}
+        for idx in sorted(
+            set(self.arrivals_per_replica) | set(self.completions_per_replica)
+        ):
+            out[idx] = {
+                "arrivals": self.arrivals_per_replica.get(idx, 0),
+                "completions": self.completions_per_replica.get(idx, 0),
+            }
+        return out
+
+    def _all_rtt(self) -> List[float]:
+        return [
+            ms for s in self.rpc_rtt_ms_samples.values() for ms in s
+        ]
+
+    @property
+    def rpc_rtt_ms_p50(self) -> float:
+        return self._pct(self._all_rtt(), 0.50)
+
+    @property
+    def rpc_rtt_ms_p99(self) -> float:
+        return self._pct(self._all_rtt(), 0.99)
+
+    def rpc_rtt_ms_per_replica(self) -> Dict[int, Dict[str, float]]:
+        """Per-replica RTT p50/p99 over the bounded reservoirs."""
+        return {
+            idx: {
+                "p50": round(self._pct(s, 0.50), 3),
+                "p99": round(self._pct(s, 0.99), 3),
+            }
+            for idx, s in sorted(self.rpc_rtt_ms_samples.items())
+        }
+
+    def snapshot(
+        self, replicas: Sequence["SchedulerStats"] = ()
+    ) -> Dict[str, object]:
+        """Router counters + the SUM over every replica's scheduler
+        counters (numeric fields only; per-replica snapshots ride along
+        under ``per_replica`` so nothing is averaged away)."""
+        per = [r.snapshot() for r in replicas]
+        agg: Dict[str, float] = {}
+        for snap in per:
+            for k, v in snap.items():
+                if isinstance(v, (int, float)):
+                    agg[k] = agg.get(k, 0) + v
+        # rates do not sum — recompute them over the summed counters
+        if per:
+            hits = agg.get("prefix_hits", 0)
+            misses = agg.get("prefix_misses", 0)
+            agg["prefix_hit_rate"] = round(
+                hits / (hits + misses), 4
+            ) if hits + misses else 0.0
+            hit_toks = agg.get("prefix_hit_tokens", 0)
+            agg["host_hit_rate"] = round(
+                agg.get("host_hit_tokens", 0) / hit_toks, 4
+            ) if hit_toks else 0.0
+            drafted = agg.get("spec_drafted", 0)
+            agg["spec_accept_rate"] = round(
+                agg.get("spec_accepted", 0) / drafted, 4
+            ) if drafted else 0.0
+            # remote replicas mirror their stats from heartbeats — a
+            # snapshot taken before the first envelope is empty
+            agg["mean_occupancy"] = round(
+                sum(s.get("mean_occupancy", 0.0) for s in per) / len(per), 4
+            )
+            agg["mean_budget_fill"] = round(
+                sum(s.get("mean_budget_fill", 0.0) for s in per) / len(per),
+                4,
+            )
+            # percentiles do not sum either — report the replica mean
+            for k in ("decode_step_ms_p50", "decode_step_ms_p99"):
+                agg[k] = round(
+                    sum(s.get(k, 0.0) for s in per) / len(per), 3
+                )
+        return {
+            "submitted": self.submitted,
+            "placements": dict(self.placements),
+            "affinity_hits": self.affinity_hits,
+            "sheds": self.sheds,
+            "migrations": self.migrations,
+            "migrated_pages": self.migrated_pages,
+            "migrated_bytes": self.migrated_bytes,
+            "step_faults": self.step_faults,
+            "replica_down": self.replica_down,
+            "replica_suspect": self.replica_suspect,
+            "probes": self.probes,
+            "replica_recoveries": self.replica_recoveries,
+            "failovers": self.failovers,
+            "retries": self.retries,
+            "failover_errors": self.failover_errors,
+            "migration_failures": self.migration_failures,
+            "migration_queue_depth": self.migration_queue_depth,
+            "migration_queue_peak": self.migration_queue_peak,
+            "migration_queue_overflows": self.migration_queue_overflows,
+            "rpc_errors": self.rpc_errors,
+            "rpc_retries": self.rpc_retries,
+            "heartbeat_gaps": self.heartbeat_gaps,
+            "reconnects": self.reconnects,
+            "standby_adoptions": self.standby_adoptions,
+            "wire_bytes_sent": self.wire_bytes_sent,
+            "wire_bytes_received": self.wire_bytes_received,
+            "rpc_inflight_peak": self.rpc_inflight_peak,
+            "cluster_step_ms_p50": round(self.cluster_step_ms_p50, 3),
+            "cluster_step_ms_p99": round(self.cluster_step_ms_p99, 3),
+            "rpc_rtt_ms_p50": round(self.rpc_rtt_ms_p50, 3),
+            "rpc_rtt_ms_p99": round(self.rpc_rtt_ms_p99, 3),
+            "rpc_rtt_ms_per_replica": self.rpc_rtt_ms_per_replica(),
+            "scale_outs": self.scale_outs,
+            "scale_ins": self.scale_ins,
+            "pool_flips": self.pool_flips,
+            "journal_records": self.journal_records,
+            "journal_bytes": self.journal_bytes,
+            "journal_compactions": self.journal_compactions,
+            "manager_recoveries": self.manager_recoveries,
+            "journal_replayed": self.journal_replayed,
+            "autoscale_decisions": self.autoscale_decisions,
+            "retunes": self.retunes,
+            "autoscale_predicted_tps": self.autoscale_predicted_tps,
+            "autoscale_measured_tps": self.autoscale_measured_tps,
+            "queue_delay_s_p50": round(self.queue_delay_s_p50, 6),
+            "queue_delay_s_p99": round(self.queue_delay_s_p99, 6),
+            "arrivals_completions_per_replica": (
+                self.arrivals_completions_per_replica()
+            ),
+            "replicas": agg,
+            "per_replica": per,
+        }
+
+    def report(self, replicas: Sequence["SchedulerStats"] = ()) -> str:
+        s = self.snapshot(replicas)
+        place = " ".join(
+            f"{k}={v}" for k, v in sorted(s["placements"].items())
+        ) or "none"
+        agg = s["replicas"]
+        return (
+            f"[cluster {len(replicas)} replicas] sub={s['submitted']} "
+            f"place[{place}] affinity={s['affinity_hits']} "
+            f"shed={s['sheds']} migr={s['migrations']} "
+            f"migrB={s['migrated_bytes']} "
+            f"faults={s['step_faults']} down={s['replica_down']} "
+            f"failover={s['failovers']} migq={s['migration_queue_depth']} "
+            f"rpc_err={s['rpc_errors']} rpc_retry={s['rpc_retries']} "
+            f"hb_gaps={s['heartbeat_gaps']} reconn={s['reconnects']} "
+            f"inflight^={s['rpc_inflight_peak']} "
+            f"cstep_ms={s['cluster_step_ms_p50']:.2f}/"
+            f"{s['cluster_step_ms_p99']:.2f} "
+            f"rtt_ms={s['rpc_rtt_ms_p50']:.2f}/{s['rpc_rtt_ms_p99']:.2f} "
+            f"standby={s['standby_adoptions']} "
+            f"scale+{s['scale_outs']}/-{s['scale_ins']} "
+            f"flip={s['pool_flips']} jrnl={s['journal_records']}r/"
+            f"{s['journal_bytes']}B recov={s['manager_recoveries']} "
+            f"autoscale={s['autoscale_decisions']}d/{s['retunes']}rt "
+            f"qdelay_s={s['queue_delay_s_p50']:.3f}/"
+            f"{s['queue_delay_s_p99']:.3f} "
+            f"wireB={s['wire_bytes_sent']}/{s['wire_bytes_received']} "
+            f"pfx_hit_rate={agg.get('prefix_hit_rate', 0.0)} "
+            f"adm={agg.get('admitted', 0)} "
+            f"preempt={agg.get('preemptions', 0)} "
+            f"retraces={agg.get('retraces', 0)}"
         )

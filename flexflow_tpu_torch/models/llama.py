@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -694,6 +694,77 @@ def serve_step_paged(
                               cache["v"][l], phys, off, page_table, kernels,
                               *scales, qmax, fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+def serve_debug_activations(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    cache_positions: Optional[torch.Tensor] = None,
+    *,
+    cfg: LLaMAConfig,
+    kernels: str = "torch",
+    page_table: Optional[torch.Tensor] = None,
+    cache_len: Optional[int] = None,
+    kv_quant: Optional[str] = None,
+) -> List[torch.Tensor]:
+    """Per-layer hidden states of one serving step, for
+    ``inference_debugging`` (the reference's per-op tensor dumps): the
+    step's blocks one by one — :func:`serve_block` on the dense layout,
+    the unfused :func:`serve_block_paged` through ``page_table`` on the
+    paged one (``kv_quant``: the quantized pools) — with ``kernels`` as
+    the step runs them, each layer's output kept. The cache is left as it
+    was: each layer's block commits its K/V (and, quantized, its page
+    scales) into clones of that layer's tensors, made one layer at a time
+    so that a capture never holds two caches; the engine's step does the
+    real commit after. Slow by design: a triage tool, not a serving
+    path. Returns one (R, C, D) tensor a layer."""
+    if cache_positions is None:
+        cache_positions = positions
+    positions = positions.long()
+    cache_positions = cache_positions.long()
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_freqs(cfg, positions)
+    layers = params["layers"]
+    acts = []
+    if page_table is not None:  # the paged layout
+        from ..serve.kernels import paged_serve_mask
+
+        ps = cache["k"].shape[2]
+        mask = paged_serve_mask(mask, positions, page_table.shape[1], ps, cache_len)
+        phys, off = _page_lookup(page_table, cache_positions, ps)
+        qmax = None
+        if kv_quant is not None:
+            from ..serve.kv_quant import resolve_spec
+
+            qmax = resolve_spec(kv_quant).qmax
+        for l in range(cfg.num_hidden_layers):
+            p_l = {name: w[l] for name, w in layers.items()}
+            scales = ((cache["k_scale"][l].clone(), cache["v_scale"][l].clone())
+                      if qmax is not None else (None, None))
+            x = serve_block_paged(cfg, p_l, x, cos, sin, mask, cache["k"][l].clone(),
+                                  cache["v"][l].clone(), phys, off, page_table, kernels,
+                                  *scales, qmax)
+            acts.append(x)
+        return acts
+    S1 = cache["k"].shape[2]
+    if mask is None:
+        from ..serve.kernels import causal_serve_mask
+
+        mask = causal_serve_mask(positions, S1)
+    bits = None
+    if kernels == "cuda" and tokens.shape[1] > 1:
+        from ..serve.kernels import pack_mask_bits
+
+        bits = pack_mask_bits(mask)
+    for l in range(cfg.num_hidden_layers):
+        p_l = {name: w[l] for name, w in layers.items()}
+        x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l].clone(),
+                        cache["v"][l].clone(), cache_positions, kernels, bits)
+        acts.append(x)
+    return acts
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,8 +80,8 @@ __all__ = [
     "DENSE_CUDA", "DecoderConfig", "FUSED_DECODE", "commit_kv", "commit_kv_paged",
     "copy_page_kv", "gather_page_kv", "init_kv_cache", "init_paged_kv_cache", "init_params",
     "num_params", "params_from_numpy", "reorder_slots", "reorder_slots_paged",
-    "scatter_page_kv", "serve_step", "serve_step_paged", "serve_step_whole",
-    "whole_step_body", "whole_step_tile_roles", "whole_step_weight_layout",
+    "scatter_page_kv", "serve_debug_activations", "serve_step", "serve_step_paged",
+    "serve_step_whole", "whole_step_body", "whole_step_tile_roles", "whole_step_weight_layout",
 ]
 
 
@@ -718,6 +718,63 @@ def serve_step_paged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                               phys, off, page_table, kernels, *scales, qmax,
                               fused_rope=fused_rope, logical=logical)
     return _head(cfg, params, x, logits_idx, all_logits), cache
+
+
+def serve_debug_activations(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
+                            tokens: torch.Tensor, positions: torch.Tensor,
+                            mask: Optional[torch.Tensor],
+                            cache_positions: Optional[torch.Tensor] = None, *,
+                            cfg: DecoderConfig, kernels: str = "torch",
+                            page_table: Optional[torch.Tensor] = None,
+                            cache_len: Optional[int] = None,
+                            kv_quant: Optional[str] = None) -> List[torch.Tensor]:
+    """Per-layer hidden states of one serving step of this decoder, for
+    ``inference_debugging`` (the contract of
+    models/llama.serve_debug_activations). ``kernels`` is accepted for the
+    engine's call and ignored: the capture runs the plain blocks, as the
+    JAX package's does. The cache is left as it was: the position buffer
+    (where the family has one) and each layer's K/V and page scales are
+    written as clones, one layer at a time. Returns one (R, C, D) tensor a
+    layer."""
+    del kernels  # triage runs the plain blocks
+    if cache_positions is None:
+        cache_positions = positions
+    positions, cache_positions = positions.long(), cache_positions.long()
+    x = _embed_in(cfg, params, tokens, positions)
+    rope = _rope(cfg, positions)
+    cache = dict(cache)
+    if "pos" in cache:  # the step's prologue writes its positions there
+        cache["pos"] = cache["pos"].clone()
+    layers = params["layers"]
+    acts = []
+    if page_table is not None:  # the paged layout
+        phys, off, mask, bias = _paged_serve_context(cfg, cache, positions, cache_positions,
+                                                     mask, page_table, cache_len)
+        qmax = None
+        if kv_quant is not None:
+            from ..serve.kv_quant import resolve_spec
+
+            qmax = resolve_spec(kv_quant).qmax
+        for l in range(cfg.num_hidden_layers):
+            p_l = {name: w[l] for name, w in layers.items()}
+            scales = ((cache["k_scale"][l].clone(), cache["v_scale"][l].clone())
+                      if qmax is not None else (None, None))
+            x = serve_block_paged(cfg, p_l, x, rope, bias, mask, cache["k"][l].clone(),
+                                  cache["v"][l].clone(), phys, off, page_table, "torch",
+                                  *scales, qmax)
+            acts.append(x)
+        return acts
+    if mask is None:
+        from ..serve.kernels import causal_serve_mask
+
+        mask = causal_serve_mask(positions, cache["k"].shape[2])
+    mask, bias = _dense_context(cfg, cache, positions, cache_positions, mask)
+    for l in range(cfg.num_hidden_layers):
+        p_l = {name: w[l] for name, w in layers.items()}
+        x = serve_block(cfg, p_l, x, rope, bias, mask, cache["k"][l].clone(),
+                        cache["v"][l].clone(), cache_positions)
+        acts.append(x)
+    return acts
 
 
 # ---------------------------------------------------------------------------

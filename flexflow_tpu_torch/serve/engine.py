@@ -28,15 +28,26 @@ the device, its tree fetched by the caller in one transfer),
 :meth:`InferenceEngine.commit` (accepted tree lines moved to their
 committed positions) and :meth:`InferenceEngine.reorder` (beam
 hypotheses gathered across slots).
+
+Serving triage: every entry point above counts itself in
+``dispatch_count`` through :meth:`InferenceEngine.count_dispatch`, which
+is also the tracer's dispatch event (obs/). With
+``ServingConfig.inference_debugging`` (or ``FF_INFERENCE_DEBUGGING``)
+naming a directory, :meth:`InferenceEngine.run` and
+:meth:`InferenceEngine.run_sampled` first dump each layer's hidden
+states of the step (the model's ``serve_debug_activations``) as ``.npy``
+files.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..obs.tracer import NULL_TRACER
 from .batch_config import BatchConfig
 from .paging import PageAllocator
 from .sampling import beam_topk, choose_sample_mode, log_softmax, sample_tokens
@@ -58,7 +69,6 @@ def resolve_device(device: Any = None) -> torch.device:
 #: ServingConfig fields this slice does not serve, with the later slice
 #: that brings each. A value other than the field's default raises.
 _LATER_SLICES = {
-    "inference_debugging": "the serving-triage slice",
     "kv_shard": "the long-context slice",
     "context_shards": "the long-context slice",
     "quantized_allreduce": "the parallel-serving slice",
@@ -119,6 +129,11 @@ class ServingConfig:
     # width is min(prefill_chunk, max_tokens_per_step)); 0 = a full
     # prefill_chunk per row.
     max_tokens_per_step: int = 0
+    # Serving triage (reference inference_debugging): a directory that
+    # every step's per-layer hidden states are dumped into as .npy files
+    # (InferenceEngine._dump_debug). None reads FF_INFERENCE_DEBUGGING.
+    # Triage is slow by design: the scheduler serves every step on its
+    # sync path so that each one is dumped.
     inference_debugging: Optional[str] = None
     # KV cache layout. "dense": (slots, max_len + 1) lines per slot.
     # "paged": fixed-size token pages and a per-slot page table
@@ -336,7 +351,18 @@ class InferenceEngine:
         self.model = model
         self.cfg = cfg
         self.serving = serving or ServingConfig()
+        env_debug = os.environ.get("FF_INFERENCE_DEBUGGING")
+        if self.serving.inference_debugging is None and env_debug:
+            self.serving = dataclasses.replace(self.serving, inference_debugging=env_debug)
         self.serving.validate()
+        # the inference_debugging dumps' step counter (_dump_debug)
+        self._debug_step = 0
+        # Dispatch telemetry: engine calls of this engine's serving loop
+        # (count_dispatch), and the tracer that turns each into a dispatch
+        # event — NULL_TRACER until obs.attach_observability shares the
+        # owning scheduler's lane with it.
+        self.dispatch_count = 0
+        self.tracer = NULL_TRACER
         self.paged = self.serving.kv_layout == "paged"
         if ("rope_kv_write" in self.serving.fused_decode
                 and "rope_kv_write" not in getattr(model, "FUSED_DECODE", ())):
@@ -612,6 +638,72 @@ class InferenceEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def count_dispatch(self, kind: str = "step") -> None:
+        """Count one dispatched engine call of ``kind`` (the JAX engine's
+        kinds: "step", "step_sampled", "mixed", "whole_step",
+        "whole_step_mixed", "speculate", "commit", "reorder", "copy_page",
+        "fetch_page", "upload_page", and the scheduler's "host_sample").
+        One count is one call of an engine entry point — what the JAX
+        engine dispatches as one compiled program — never one kernel
+        launch: a step here launches a kernel a layer, a speculation D
+        steps (``kernels.LAUNCHES`` counts launches). With a tracer
+        attached each count is also a ``dispatch`` event."""
+        self.dispatch_count += 1
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("dispatch", kind=kind)
+
+    def _dump_debug(self, bc: BatchConfig) -> None:
+        """inference_debugging: the step's per-layer hidden states, from
+        the model's ``serve_debug_activations`` on the CURRENT cache
+        (which it leaves as it was), run before the step itself. Writes
+        ``<dir>/<family>-L<layers>-<id>/stepNNNNN_{tokens,positions,
+        layerLLL}.npy`` — one subdirectory an engine, so a SpecInfer pair
+        sharing the directory does not overwrite its own files. bf16
+        activations are written as f32 (exact: numpy has no bf16). A
+        model without the hook warns once and dumps nothing."""
+        fn = getattr(self.model, "serve_debug_activations", None)
+        if fn is None:
+            if not getattr(self, "_warned_no_debug_hook", False):
+                from ..logging_utils import get_logger
+
+                get_logger("serve").warning(
+                    "inference_debugging is enabled but %s has no serve_debug_activations "
+                    "hook — nothing will be dumped for this engine",
+                    getattr(self.model, "__name__", repr(self.model)))
+                self._warned_no_debug_hook = True
+            return
+        outdir = os.path.join(
+            self.serving.inference_debugging,
+            f"{self.model.__name__.rsplit('.', 1)[-1]}-"
+            f"L{self.cfg.num_hidden_layers}-{id(self) & 0xFFFF:04x}")
+        os.makedirs(outdir, exist_ok=True)
+        kw = dict(cfg=self.cfg, kernels=self.serving.kernels)
+        if self.paged:
+            kw.update(page_table=self.page_table_device(), cache_len=self.serving.cache_len)
+            if self.serving.kv_quant is not None:
+                kw["kv_quant"] = self.serving.kv_quant
+        with torch.inference_mode():
+            acts = fn(
+                self.params, self.cache, self._tensor(bc.tokens, torch.int64),
+                self._tensor(bc.positions, torch.int64),
+                self._tensor(bc.mask, torch.bool) if bc.mask is not None else None,
+                self._tensor(bc.cache_positions, torch.int64)
+                if bc.cache_positions is not None else None,
+                **kw)
+        step = self._debug_step
+        np.save(os.path.join(outdir, f"step{step:05d}_tokens.npy"), np.asarray(bc.tokens))
+        np.save(os.path.join(outdir, f"step{step:05d}_positions.npy"),
+                np.asarray(bc.positions))
+        for l, h in enumerate(acts):
+            if h.dtype == torch.bfloat16:
+                h = h.float()
+            # the triage dump reads each layer back: slow by design, and
+            # only on the sync path the scheduler takes with debugging on
+            np.save(os.path.join(outdir, f"step{step:05d}_layer{l:03d}.npy"),
+                    h.cpu().numpy())
+        self._debug_step += 1
+
     def _step(self, tokens, positions, logits_idx, mask=None,
               cache_positions=None, all_logits=False, num_layers=None):
         sc = self.serving
@@ -662,6 +754,14 @@ class InferenceEngine:
         """Run one step (reference ``InferenceManager::inference``).
         Returns float32 logits on the device; the cache advances in
         place."""
+        if self.serving.inference_debugging:
+            self._dump_debug(bc)
+        self.count_dispatch("step")
+        return self._run(bc, all_logits)
+
+    def _run(self, bc: BatchConfig, all_logits: bool = False):
+        """:meth:`run` without its dump and its count (the per-layer step
+        under :meth:`run_sampled`)."""
         args = (
             self._tensor(bc.tokens, torch.int64),
             self._tensor(bc.positions, torch.int64),
@@ -693,6 +793,8 @@ class InferenceEngine:
         positions = self._tensor(positions, torch.int64)
         logits_idx = self._tensor(logits_idx, torch.int64)
         whole = self.whole_step_on and (host_tokens.shape[1] == 1 or self.whole_step_mixed_on)
+        self.count_dispatch(("whole_step" if host_tokens.shape[1] == 1 else "whole_step_mixed")
+                            if whole else "mixed")
         if not sample:
             if whole:
                 self._step_whole(tokens, positions, logits_idx)
@@ -759,7 +861,11 @@ class InferenceEngine:
         whole-step kernel when it owns the step's shape (no explicit mask
         or cache positions), else the per-layer step; then each slot's
         head, drawing from ``generator``. Returns the sampled tokens (R,)
-        on the device, and the (R, V) logits with ``with_logits``."""
+        on the device, and the (R, V) logits with ``with_logits``. With
+        ``inference_debugging`` the step is dumped first, once, whichever
+        path serves it."""
+        if self.serving.inference_debugging:
+            self._dump_debug(bc)
         R = self.num_slots
         if (self.whole_step_on and (bc.chunk == 1 or self.whole_step_mixed_on)
                 and bc.mask is None and bc.cache_positions is None):
@@ -768,7 +874,8 @@ class InferenceEngine:
                 torch.zeros((R,), dtype=torch.int64, device=self.device), bc.tokens,
                 np.zeros((R,), bool), bc.positions, bc.logits_idx, generator, greedy,
                 temperature, topp, topk, with_logits=with_logits)
-        logits = self.run(bc)
+        self.count_dispatch("step_sampled")
+        logits = self._run(bc)
         toks = self._sample(logits, generator, greedy, temperature, topp, topk)
         if with_logits:
             return toks, logits
@@ -800,6 +907,7 @@ class InferenceEngine:
         every node's K/V at its line afterwards. Nothing leaves the
         device: returns (tokens, parents, logprobs), each (D, R, W) —
         ``parents`` index the previous depth's W nodes."""
+        self.count_dispatch("speculate")
         R = self.num_slots
         S1 = self.serving.cache_len + 1
         scratch = self.scratch_pos
@@ -849,6 +957,7 @@ class InferenceEngine:
         host arrays; unused entries scratch to scratch). Dense, paged
         and quantized paged caches (``model.commit_kv``,
         ``model.commit_kv_paged``)."""
+        self.count_dispatch("commit")
         src = self._tensor(src, torch.int64)
         dst = self._tensor(dst, torch.int64)
         with torch.inference_mode():
@@ -864,6 +973,7 @@ class InferenceEngine:
         reorder): new slot r holds old slot ``src_slots[r]``. Paged: page
         ownership stays put and page content is copied through the table
         (``model.reorder_slots_paged``)."""
+        self.count_dispatch("reorder")
         src = self._tensor(src_slots, torch.int64)
         with torch.inference_mode():
             if self.paged:
@@ -880,6 +990,7 @@ class InferenceEngine:
         scales) to another page, in place on the engine's stream: the
         device half of prefix-cache copy-on-write. On that stream the copy
         reads the source after every write dispatched before it."""
+        self.count_dispatch("copy_page")
         with torch.inference_mode():
             self.model.copy_page_kv(self.cache, int(src), int(dst))
 
@@ -891,6 +1002,7 @@ class InferenceEngine:
         event recorded after the clone. Returns at once with the handle;
         :meth:`PageSpill.host_values` (the prefix cache's harvest, at the
         scheduler's flush) waits for the copy and drops the clone."""
+        self.count_dispatch("fetch_page")
         with torch.inference_mode():
             clone = self.model.gather_page_kv(self.cache, int(page))
         if self.device.type != "cuda":
@@ -919,6 +1031,7 @@ class InferenceEngine:
         the prefill that reads the page. ``values`` is a :class:`PageSpill`
         (its pinned host buffers once harvested, else its device clone) or
         a mapping of buffer name to host or device values."""
+        self.count_dispatch("upload_page")
         if isinstance(values, PageSpill):
             values = values.device if values.device is not None else values.host
         dev = {}

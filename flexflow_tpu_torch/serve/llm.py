@@ -10,6 +10,9 @@ params are given — compiled into an :class:`InferenceEngine` plus a
 ``ServingConfig`` and the manager becomes a :class:`SpecInferManager`;
 ``SpecConfig(draft="early_exit")`` without SSMs self-speculates.
 ``generate`` with ``num_beams > 1`` beam-searches (serve/beam.py).
+``compile(output_file=)`` appends one record a finished request (the
+reference's ``-output-file``); triage and tracing are
+``ServingConfig.inference_debugging`` and ``obs.attach_observability(llm.rm)``.
 
 Weight quantization, offload and clusters come with later slices of the
 port.
@@ -123,12 +126,14 @@ class LLM:
         spec: Optional[SpecConfig] = None,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
+        output_file: Optional[str] = None,
     ) -> None:
         """Build the inference engine(s) and request manager (reference
         ``LLM.compile``). Params move to the LLM's device here. With
         ``ssms`` (or ``spec.draft == "early_exit"``) the manager runs the
         SpecInfer loop; each SSM gets an engine on this LLM's device with
-        the same ``serving``."""
+        the same ``serving``. ``output_file`` appends each finished
+        request's latency, decoding steps and token ids."""
         serving = serving or ServingConfig()
         serving.validate()
         self.params = _to_device(self.params, self.device)
@@ -143,6 +148,7 @@ class LLM:
             self.rm = SpecInferManager(
                 self.engine, [s.engine for s in ssms], spec,
                 tokenizer=self.tokenizer, eos_token_id=eos_token_id, seed=seed,
+                output_file=output_file,
             )
             return
         self.rm = RequestManager(
@@ -150,6 +156,7 @@ class LLM:
             tokenizer=self.tokenizer,
             eos_token_id=eos_token_id,
             seed=seed,
+            output_file=output_file,
         )
 
     def generate(

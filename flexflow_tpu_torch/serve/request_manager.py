@@ -36,7 +36,16 @@ Managers that keep a second engine's cache in step with the target's
 :meth:`_mirror_dispatch` and :meth:`_cache_attach` and turn off
 ``supports_fast_decode`` and ``supports_fused_sampling``.
 
-Tracing and the cluster hooks come with the slices that port them.
+Observability (obs/): every emission site below guards on
+``tracer.enabled`` before it builds an event, whose arguments are host
+values the scheduler already holds (never a read of a device tensor);
+``obs.attach_observability`` turns tracing on. A terminal request error
+dumps the flight recorder's ring. ``output_file`` appends one record a
+finished request in the reference's format. With
+``ServingConfig.inference_debugging`` the scheduler serves every step on
+its sync path, where the engine dumps it.
+
+The cluster hooks come with the cluster slice.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ import torch
 
 from ..logging_utils import get_logger
 from ..metrics import SchedulerStats
+from ..obs.tracer import NULL_TRACER
 from .batch_config import (
     BatchConfig,
     GenerationConfig,
@@ -122,10 +132,21 @@ class RequestManager:
         tokenizer=None,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
+        output_file: Optional[str] = None,
     ):
         self.engine = engine
+        if engine.serving.inference_debugging and getattr(
+                engine.model, "serve_debug_activations", None) is not None:
+            # the engine dumps a step in run / run_sampled, which the
+            # pipelined steps do not go through: triage serves every step
+            # on the sync path. A model without the hook keeps fast decode
+            # (nothing could be dumped; the engine warns instead).
+            self.supports_fast_decode = False
         self.tokenizer = tokenizer
         self.eos_token_id = eos_token_id
+        # Per-request telemetry sink (reference -output-file): one record
+        # appended per finished request (_write_output_record).
+        self.output_file = output_file
         if eos_token_id is None and tokenizer is not None:
             self.eos_token_id = getattr(tokenizer, "eos_token_id", None)
         self.requests: Dict[int, Request] = {}
@@ -148,6 +169,14 @@ class RequestManager:
         self._prev_dispatch_slots: set = set()
         self.stats = SchedulerStats()
         self._log = get_logger("serve")
+        # Observability (obs/): request-lifecycle tracing and the failure
+        # flight recorder, off by default. obs.attach_observability wires a
+        # live tracer in and shares it with the engines.
+        self.tracer = NULL_TRACER
+        self.flight_recorder = None
+        # rid -> trace id (bound by a cluster front end; a local run falls
+        # back to the rid itself — see trace_of)
+        self._trace_ids: Dict[int, int] = {}
         # Automatic prefix caching (paged layout only: on the dense layout
         # prefix_caching passes through, there are no pages to share). The
         # radix tree holds one reference a cached page; the allocator's
@@ -213,6 +242,11 @@ class RequestManager:
         self.pending.append(rid)
         return rid
 
+    def trace_of(self, rid: int) -> int:
+        """The trace id this request's events carry: the bound one, else
+        the rid itself (single-engine runs)."""
+        return self._trace_ids.get(rid, rid)
+
     # ------------------------------------------------------------------
     # paged-KV page management (serve/paging.py PageAllocator)
 
@@ -276,6 +310,9 @@ class RequestManager:
         req.inflight = 0
         self.pending.insert(0, req.request_id)
         self.stats.preemptions += 1
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("preempt", trace_id=self.trace_of(req.request_id), rid=req.request_id)
 
     def _lines_needed(self, req: Request, chunk: Optional[int] = None) -> int:
         """The cache lines the next step may touch, bounded from above."""
@@ -408,6 +445,13 @@ class RequestManager:
                     self.stats.prefix_misses += 1
             self.slots[i] = rid
             self.stats.admitted += 1
+            tr = self.tracer
+            if tr.enabled:
+                tid = self.trace_of(rid)
+                if self.prefix_cache is not None:
+                    tr.event("prefix_lookup", trace_id=tid, rid=rid, matched=matched)
+                tr.event("admit", trace_id=tid, rid=rid, slot=i,
+                         prompt_len=req.prompt_len, cached_prefix=matched)
 
     def _active(self, status: RequestStatus) -> List[Request]:
         out = []
@@ -434,6 +478,15 @@ class RequestManager:
         req.status = RequestStatus.ERROR if error else RequestStatus.COMPLETED
         req.error = error
         req.profile.finish_time = time.perf_counter()
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("terminal", trace_id=self.trace_of(req.request_id),
+                     rid=req.request_id, status=req.status.value, error=(error or "")[:200])
+        if error and self.flight_recorder is not None:
+            # a terminal request error dumps this lane's recent ring
+            self.flight_recorder.dump(
+                self.tracer.lane, "request_error", step=self._step_counter,
+                extra={"rid": req.request_id, "error": error[:500]})
         if (self.prefix_cache is not None and error is None and req.slot >= 0
                 and self.prefix_cache.policy == "complete"):
             # publish the finished sequence's blocks (prompt and generated:
@@ -448,6 +501,25 @@ class RequestManager:
         # cache.
         if req.slot >= 0 and req.pipeline_refs == 0:
             self._release_slot(req)
+        if self.output_file and error is None:
+            self._write_output_record(req)
+
+    def _write_output_record(self, req: Request):
+        """Append one finished request's telemetry in the reference's
+        output-file format (request_manager.cc: ``[Profile] guid(%d)
+        llm_decoding_steps(%d) latency(%.1lf)``, then the token ids and
+        the decoded output)."""
+        p = req.profile
+        latency_us = (p.finish_time - p.start_time) * 1e6
+        text = (self.tokenizer.decode(req.output_tokens)
+                if self.tokenizer is not None else "")
+        with open(self.output_file, "a") as f:
+            f.write(f"[Profile] guid({req.request_id}) "
+                    f"llm_decoding_steps({p.llm_decoding_steps}) "
+                    f"latency({latency_us:.1f})\n")
+            f.write(f"guid({req.request_id}) tokens("
+                    + " ".join(str(t) for t in req.tokens)
+                    + f") output({text})\n")
 
     def _fail_request(self, req: Request, reason: str):
         self.stats.failed += 1
@@ -524,13 +596,21 @@ class RequestManager:
         GenerationConfig (the sync path's decode head)."""
         head = self._decode_head_params(
             [self.requests[r] for r in self.slots if r is not None])
-        return self.engine._sample(logits, self._generator, *head).cpu().numpy()
+        toks = self.engine._sample(logits, self._generator, *head)
+        # the host-side decode head is its own dispatch (the JAX engine's
+        # "host_sample" program), the one the fused heads save
+        self.engine.count_dispatch("host_sample")
+        return toks.cpu().numpy()
 
     def _append_token(self, req: Request, token: int):
         if len(req.tokens) == req.prompt_len and not req.profile.first_token_time:
             # the request's first generated token, as the host observes it
             # (TTFT the way a streaming client would measure it)
             req.profile.first_token_time = time.perf_counter()
+            tr = self.tracer
+            if tr.enabled:
+                tr.event("first_token", trace_id=self.trace_of(req.request_id),
+                         rid=req.request_id)
         done = self._completes(req, token)
         req.tokens.append(int(token))
         if done:
@@ -607,6 +687,9 @@ class RequestManager:
             "decode", active_slots=len(decoding), num_slots=R,
             decode_tokens=len(decoding),
         )
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("decode_step", rows=len(decoding))
         self._maybe_log_stats()
 
     def _dispatch_mixed(self, prefilling: List[Request],
@@ -647,6 +730,7 @@ class RequestManager:
             snapshot.append((req.request_id, s, 1, True))
             sampled_slots.add(s)
         spent = 0
+        tr = self.tracer
         for req in sorted(prefilling, key=lambda r: r.admit_seq):
             n = min(C, len(req.tokens) - req.n_sched)
             if n <= 0:
@@ -675,6 +759,9 @@ class RequestManager:
                     # this request finishes
                     self._cache_insert(s, req.tokens[: req.prompt_len], req.prompt_len)
             snapshot.append((req.request_id, s, n, final))
+            if tr.enabled:
+                tr.event("prefill_chunk", trace_id=self.trace_of(req.request_id),
+                         rid=req.request_id, n=n, offset=off, final=final)
         last = self._last_tokens()
         toks = eng.run_mixed(
             last, bc.tokens, use_last, bc.positions,
@@ -690,6 +777,8 @@ class RequestManager:
             prefill_tokens=spent, decode_tokens=len(decoding),
             budget=C * max(1, len(prefilling)),
         )
+        if tr.enabled:
+            tr.event("mixed_step", prefill_tokens=spent, decode_rows=len(decoding))
         self._maybe_log_stats()
 
     def _flush_one(self):
@@ -704,6 +793,9 @@ class RequestManager:
         # the device finished dispatch_ahead steps ago
         toks = toks.cpu().numpy()
         self.stats.flushes += 1
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("flush", entries=len(snapshot))
         for rid, slot, ntoks, samples in snapshot:
             req = self.requests.get(rid)
             if req is None:
@@ -885,6 +977,9 @@ class RequestManager:
             ) if prefilling else 0,
             decode_tokens=len(decoding),
         )
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("sync_step", prefill_rows=len(prefilling), decode_rows=len(decoding))
         self._maybe_log_stats()
         return True
 

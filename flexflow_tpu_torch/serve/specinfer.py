@@ -32,7 +32,12 @@ the same cached prefix (one radix tree a pool, the matched lengths
 aligned across them, :meth:`SpecInferManager._cache_attach`); the
 early-exit draft shares the target's pool and tree.
 
-Not ported yet: the distillation sink (``logit_sink``) and tracer events.
+Tracing: a round emits ``spec_draft`` (its W×D bucket) and one
+``spec_verify`` a request (drafted and accepted tokens) on the
+manager's tracer (obs/). With ``inference_debugging`` the prefill phase
+takes the sync batch, where every engine dumps its step.
+
+Not ported yet: the distillation sink (``logit_sink``).
 """
 from __future__ import annotations
 
@@ -515,6 +520,7 @@ class SpecInferManager(RequestManager):
         tokenizer: Any = None,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
+        output_file: Optional[str] = None,
     ):
         if isinstance(ssm_engines, InferenceEngine):
             ssm_engines = [ssm_engines]
@@ -541,7 +547,7 @@ class SpecInferManager(RequestManager):
                 "SpecInferManager needs at least one SSM engine (or "
                 "SpecConfig(draft='early_exit') to self-speculate)"
             )
-        super().__init__(llm_engine, tokenizer, eos_token_id, seed)
+        super().__init__(llm_engine, tokenizer, eos_token_id, seed, output_file)
         for ssm_engine in self.ssms:
             assert (
                 ssm_engine.num_slots == llm_engine.num_slots
@@ -775,6 +781,9 @@ class SpecInferManager(RequestManager):
         trees merge with dedup (reference ``merge_dfs_trees``). The
         early-exit draft is the LLM engine itself through the
         layer-sliced step — one tree, nothing to merge."""
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("spec_draft", width=W, depth=D, rows=len(reqs), draft=self.spec.draft)
         if self.spec.draft == "early_exit":
             return self._grow_trees_one_ssm(
                 self.engine, reqs, W, D,
@@ -831,6 +840,10 @@ class SpecInferManager(RequestManager):
             self.stats.spec_rounds += 1
             self.stats.spec_drafted += drafted
             self.stats.spec_accepted += n_accepted
+            tr = self.tracer
+            if tr.enabled:
+                tr.event("spec_verify", trace_id=self.trace_of(req.request_id),
+                         rid=req.request_id, drafted=drafted, accepted=n_accepted)
             if self.spec.adaptive:
                 # the controller reads acceptance from the greedy walk
                 # already fetched — no extra transfer
@@ -1028,7 +1041,9 @@ class SpecInferManager(RequestManager):
             # the prefill phase mirrors decode rows into every SSM:
             # skip-lagged requests replay their missed lines first
             self._sync_ssm_caches(self._active(RequestStatus.DECODING))
-            if sc.continuous_batching:
+            # triage dumps a step in engine.run, which the pipelined mixed
+            # step does not go through: debugging takes the sync batch
+            if sc.continuous_batching and not sc.inference_debugging:
                 self._reclaim_slots_for_admission()
                 self._reserve_active_pages(
                     lambda r: self._lines_needed(r, sc.mixed_chunk)

@@ -127,7 +127,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
     # ported: prefix_caching on the dense layout passes through (no pages)
     pytest.param("prefix_caching", True, None, id="prefix_caching-True"),
     pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
-    pytest.param("inference_debugging", "/nonexistent", NotImplementedError,
+    # ported: the triage dump switch passes through (nothing is written
+    # before a step runs)
+    pytest.param("inference_debugging", "/nonexistent", None,
                  id="inference_debugging-/nonexistent"),
 ])
 def test_unported_serving_fields_raise(weights, field, value, exc):
