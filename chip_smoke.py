@@ -7,10 +7,11 @@ Builds the port's CUDA kernels from ``flexflow_tpu_torch/csrc/`` (nvcc,
 sm_90a, into ``flexflow_tpu_torch/_build/``, one nvcc per source, all
 started together), holds each kernel against its plain PyTorch version
 at the shapes the serving paths give it, then drives the two serving
-paths of LLaMA-7B (full width, all 32 layers, random bf16 weights from
-the seed) through ``LLM.generate``: the dense KV cache, and the paged KV
-cache under a 17-page budget that forces preemption, with bf16, int8
-and int4 pages, unfused and with ``fused_decode=("rope_kv_write",)``.
+paths of LLaMA-7B (full width, random bf16 weights from the seed) through
+``LLM.generate``: the dense KV cache (all 32 layers), and the paged KV
+cache (``PAGED_LAYERS`` layers) under a 17-page budget that forces
+preemption, with bf16, int8 and int4 pages, unfused and with
+``fused_decode=("rope_kv_write",)``.
 Each path's served logits are held against its plain
 ``kernels="torch"`` twin, and an f32 2-layer case checks tokens for
 equality across kernels, pool types, fusion and layouts. Each phase
@@ -172,7 +173,7 @@ add the paged kernels (and the commit kernel) at head dims 80 (Phi-2) and
 256 (Gemma-7B) on every pool type at C = 128 and at decode, and Falcon-7B's
 MQA decode (G = 71, the tensor-core tile at C = 1), as rows
 ``name[dk80|dk256|mqa-g71]`` of the kernels line, every case under
-``cases``. ``families`` serves Falcon-7B at full depth (the paged slice's
+``cases``. ``families`` serves Falcon-7B (``FALCON_LAYERS`` layers; the paged slice's
 8 requests; bf16, bf16 ``rope_kv_write``, int8 ``rope_kv_write``) and ten
 families at their published widths cut to 2 layers (OPT-6.7B,
 StarCoder-15B, Qwen2-7B, Mistral-7B across its 4096-token window,
@@ -191,12 +192,33 @@ every bias, Gemma-7B's head dim 256 with RMS by 1 + w and GeGLU-tanh,
 GPT-2 XL's learned positions and V = 50257; Phi-2 and Gemma on every
 pool type; ``WHOLE_GENERIC_FOLD_CASES``: Phi-2's fold), held as LLaMA's,
 rows ``whole_step_decode[<family>]`` of the kernels line. ``families``
-adds Falcon-7B's ``bf16-whole`` and ``int8-whole`` arms at full depth (a
+adds Falcon-7B's ``bf16-whole`` and ``int8-whole`` arms (a
 stamped ``whole_stages`` line of the bf16 arm's decode step) and a
 ``bf16-whole`` arm to each 2-layer family the whole step takes; Mistral,
 Mixtral, Qwen1.5-MoE and MPT must refuse it at construction. The build
 line lists every whole-step function that spills (``whole_step_spills``:
 the dk-256 attention functions); one below dk 256 fails the run.
+
+Weight-only quantization, offload and clusters (slice 18): the kernel
+checks add ``wq_matmul[int8|int4]`` (``csrc/wq_matmul.cu``: y = x @
+dequantize(q, scale) without a bf16 copy of the weight) against its plain
+version at LLaMA-7B's projection shapes at decode (M 16, design "rows")
+and at a 16-slot C = 128 mixed step (M 2048, "mma"), f32 cases ("rows",
+"f32") and Mixtral-8x7B's expert stack, each beside the bf16
+``torch.matmul`` of the dequantized weight. ``quant`` serves the paged
+slice's 8 requests with bf16, int8 and int4 weights and int8 with
+``rope_kv_write`` (LLaMA-7B, 32 layers, 72 pages: no preemption): every
+projection of a quantized arm runs wq_matmul (the plain dequantize path
+never), tokens greedy over their own teacher-forced prefix, first-step
+logits against the bf16 arm, param bytes, a profile of the quantized
+arms. ``offload`` serves 2 requests x 8 tokens with the layers in pinned
+host memory against the same weights resident (bf16 and int8): tokens
+and first-step logits bitwise, device memory lower by at least 90% of the
+layer bytes, the step beside the pinned copy rate. ``cluster`` drives
+in-process clusters: prefix routing against round robin at 32 layers,
+then at 8 layers 1 replica against the bare engine (bitwise),
+disaggregated 1 + 1 pools on bf16 and int8 pages (every migrated page
+byte-exact), a scripted crash (failover) and a warm standby's adoption.
 
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
@@ -276,6 +298,12 @@ DENSE_KERNELS = ("decode_attention", "verify_attention")
 # case allows (cache_len 2112 + the scratch line), against ~25 that the
 # 8 requests hold at their ends
 PAGED_BUDGET = 17 * 128
+# the depth of the paged, whole and obs phases: LLaMA-7B's width cut to 8
+# of its 32 layers (the whole run took 1180.7 s of its 1200 s with them at
+# full depth and 1069 s at 16, the quant, offload and cluster phases
+# added; the dense slice, quant, offload and the cluster's placement pair
+# keep all 32)
+PAGED_LAYERS = 8
 # arms of the paged slice: (label, kv_quant, fused_decode)
 PAGED_ARMS = (("bf16", None, ()), ("int8", "int8", ()), ("int4", "int4", ()),
               ("bf16-fused", None, ("rope_kv_write",)),
@@ -2016,6 +2044,8 @@ def _kernel_class(name: str) -> str:
         return "adam_update"
     if "paged_commit_kernel" in n:
         return "paged_commit"
+    if "wq_rows_kernel" in n or "wq_mma_kernel" in n:
+        return "wq_matmul"
     if "dense_split_kernel" in n:
         return "decode_attention"
     if any(k in n for k in ("ragged_split_kernel", "ragged_mma_kernel")):
@@ -2297,7 +2327,7 @@ class _full_walk_lengths:
 
 
 def whole_stages_full_depth(llm, seed, case="bf16-decode-full-depth"):
-    """One stamped decode step of a whole-step arm's engine at full depth:
+    """One stamped decode step of a whole-step arm's engine at its depth:
     its weights and its gate's tile count, 16 slots of ``DECODE_LENS``
     lines (slot 0 idle) over a fresh pool of random bf16 lines, the new
     lines committed in place. Warmed once, then stamped; milliseconds by
@@ -2361,8 +2391,7 @@ def phase_paged(seed, holder, arms):
     slice 1's rule. Returns the launches of the arms' runs. ``holder`` is
     a list holding the bf16 params, emptied here so that they are freed
     before the f32 runs."""
-    params = holder.pop()
-    cfg = llama.LLaMAConfig.llama_7b()
+    cfg, params = layer_skip_draft(llama.LLaMAConfig.llama_7b(), holder.pop(), PAGED_LAYERS)
     prompts, new = _slice_prompts(seed, cfg)
     launches, seqs = {}, None
     tf = {}
@@ -2411,7 +2440,8 @@ def phase_paged(seed, holder, arms):
         if not whole or label == "bf16-whole":
             emit(profile_slice(llm, prompts, new, path))
         if label == "bf16-whole":
-            emit(whole_stages_full_depth(llm, seed))
+            emit(whole_stages_full_depth(llm, seed,
+                                         case=f"bf16-decode-{PAGED_LAYERS}-layers"))
         t_tf = time.perf_counter()
         if seqs is None:
             # every arm is teacher-forced over the first bf16 arm's tokens
@@ -2712,12 +2742,13 @@ def phase_f32(seed):
 # (label, ServingConfig fields, SpecConfig fields, layers of the
 # layer-skip SSM that drafts over the target's own weights, or None for
 # the early-exit self-draft)
-# the depths of the spec and prefix phases: LLaMA-7B's width cut to 8 of
+# the depths of the spec and prefix phases: LLaMA-7B's width cut to 4 of
 # its 32 layers (their arms were the run's largest after the paged slice's;
-# with the families phase and the generic whole-step checks the whole run
-# must stay well inside its 1200 s on a slower machine too)
-SPEC_LAYERS = 8
-PREFIX_LAYERS = 8
+# with the families phase, the generic whole-step checks and the quant,
+# offload and cluster phases the whole run must stay well inside its 1200 s
+# on a slower machine too)
+SPEC_LAYERS = 4
+PREFIX_LAYERS = 4
 SPEC_PAGED = dict(kv_layout="paged", max_cached_tokens=PAGED_BUDGET)
 SPEC_ARMS = (
     ("dense", {}, dict(beam_width=2, beam_depth=3), 2),
@@ -3361,6 +3392,10 @@ def phase_entry(seed):
 # published widths cut to two layers, through the paged kernels at their
 # head dims (64, 80, 128, 256) and MQA widths (G = 71, 48)
 
+# the Falcon-7B slice's depth: its width cut to 4 of its 32 layers (its
+# five arms took ~140 s of a 1158 s run at full depth with the quant,
+# offload and cluster phases)
+FALCON_LAYERS = 4
 # arms of the Falcon-7B slice: (label, kv_quant, fused_decode)
 FALCON_ARMS = (("bf16", None, ()), ("bf16-fused", None, ("rope_kv_write",)),
                ("int8-fused", "int8", ("rope_kv_write",)))
@@ -3536,7 +3571,7 @@ def _check_whole_arm(label, line, extra, pool, designs):
 
 
 def phase_families(seed):
-    """Falcon-7B at full depth (32 layers, width 4544, 71 heads on one KV
+    """Falcon-7B at FALCON_LAYERS layers (width 4544, 71 heads on one KV
     head, random bf16 weights from the seed, made on the card) serving the
     paged slice's 8 requests in FALCON_ARMS, then the ten FAMILY_CHECKS at
     two layers in their FAMILY_ARMS on FAMILY_PROMPT_LENS (Mistral's
@@ -3557,10 +3592,10 @@ def phase_families(seed):
         torch.cuda.synchronize()
         return params, time.perf_counter() - t0
 
-    # Falcon-7B, full depth: MQA decode on the tensor-core tile; its whole
-    # step (G = 71: every step's attention on the tile, "mma")
+    # Falcon-7B: MQA decode on the tensor-core tile; its whole step (G =
+    # 71: every step's attention on the tile, "mma")
     t_model = time.perf_counter()
-    cfg = falcon.falcon_7b()
+    cfg = falcon.falcon_7b(num_hidden_layers=FALCON_LAYERS)
     params, init_s = weights(falcon, cfg, 21)
     prompts, new = _slice_prompts(seed, cfg)
     arms = []
@@ -3569,7 +3604,8 @@ def phase_families(seed):
         after = None
         if "whole_step" in fused:
             after = functools.partial(_whole_info, seed=seed, stages=(
-                f"falcon-7b-{label}-decode-full-depth" if quant is None else None))
+                f"falcon-7b-{label}-decode-{FALCON_LAYERS}-layers" if quant is None
+                else None))
         arm = _FamilyArm(f"falcon-7b-{label}", falcon, cfg, params,
                          ServingConfig(kv_layout="paged", kv_quant=quant, fused_decode=fused),
                          prompts, new, during=mqa, after=after)
@@ -4429,8 +4465,9 @@ def _obs_debug_arm(label, family, cfg, params, params32, serve, prompts, new, ro
 
 
 def phase_obs(seed, params, smi):
-    """Serving triage and observability on LLaMA-7B (full width, 32
-    layers, the slice phase's bf16 weights ``params``): the traced arms
+    """Serving triage and observability on LLaMA-7B (full width, cut to
+    PAGED_LAYERS layers of the slice phase's bf16 weights ``params``): the
+    traced arms
     (OBS_TRACED_ARMS, the paged slice's 8 requests), the decode dispatch
     p50 traced and untraced beside the card's name and power limit
     (``smi``), inference_debugging's capture on OBS_DEBUG_ARMS with
@@ -4438,7 +4475,7 @@ def phase_obs(seed, params, smi):
     arm adds a third request that fails admission), then Falcon-7B's
     capture on the paged layout (the plain path, served plain). Returns
     the launches of its runs."""
-    cfg = llama.LLaMAConfig.llama_7b()
+    cfg, params = layer_skip_draft(llama.LLaMAConfig.llama_7b(), params, PAGED_LAYERS)
     prompts, new = _slice_prompts(seed, cfg)
     lines = [_obs_traced_arm(label, cfg, params, fused, prompts, new)
              for label, fused in OBS_TRACED_ARMS]
@@ -4956,6 +4993,552 @@ def phase_train(seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 18: weight-only quantization (the wq_matmul kernel), parameter
+# offload and in-process cluster serving
+
+#: (M, K, N) of the wq_matmul checks: LLaMA-7B's projections at decode (16
+#: slots, C = 1) and at a mixed step (16 slots x C = 128)
+WQ_CASES = tuple((M, K, N) for M in (16, 2048)
+                 for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)))
+#: the f32 cases ("rows" and "f32"), test-sized f32 models' shapes
+WQ_F32_CASES = ((16, 4096, 4096), (256, 4096, 4096))
+#: Mixtral-8x7B's expert stack at decode: D 4096, F 14336, E 8
+WQ_EXPERT = (16, 4096, 14336, 8)
+WQ_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+#: the row of each wq_matmul line in the kernels line: decode, w1's shape
+WQ_ROW_CASE = (16, 4096, 11008)
+
+
+def _wq_bound(M, K, N, bits, dtype, E=1, x_batched=False):
+    """The least time of y = x @ dequantize(q, scale): codes, scales, x and
+    y moved once, or 2 M K N operations a weight matrix at the dtype's
+    peak (the tensor cores for bf16, the CUDA cores for f32)."""
+    isz = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (E * K * N * bits // 8 + E * N * 4 + (E if x_batched else 1) * M * K * isz
+              + E * M * N * isz)
+    ops = 2 * M * K * N * E
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_wq_check(label, gen, bits, dtype, M, Kd, N, E=None, form=None):
+    """One wq_matmul case against its plain version (dequantize, then the
+    product) on the same inputs: relative L2 within WQ_REL_L2, the design
+    the launcher took, kernel and plain graph ms, the bound, and the bf16
+    ``torch.matmul`` of the dequantized weight (the figure a quantized
+    decode must beat; no one PyTorch call computes this function)."""
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    shape = (Kd, N) if E is None else (E, Kd, N) if form != "down" else (E, N, Kd)
+    qw = quantize_tensor(torch.randn(shape, generator=gen, device=DEV), bits)
+    q, s = qw["q"], qw["scale"]
+    if form == "down":  # (M, E * F) @ (E * F, D), each expert's rows at its scale
+        q, s = q.reshape(-1, Kd), s.reshape(E, Kd)
+        x = _rand((M, E * N), dtype, gen)
+        M_, K_, N_, E_ = M, E * N, Kd, 1
+    else:
+        x = _rand((M, Kd), dtype, gen)
+        M_, K_, N_, E_ = M, Kd, N, (E or 1)
+    before = dict(K.DESIGN_LAUNCHES)
+    out = K.wq_matmul(x, q, s)
+    torch.cuda.synchronize()
+    took = [k for k, v in K.DESIGN_LAUNCHES.items() if v != before[k]]
+    ref = K.wq_matmul_ref(x, q, s)
+    err = _rel(out, ref)
+    check(bool(torch.isfinite(out).all()), f"wq_matmul {label}: non-finite output")
+    check(err <= WQ_REL_L2[dtype], f"wq_matmul {label}: rel. L2 {err} > {WQ_REL_L2[dtype]}")
+    dense = K._wq_dense(q, s, dtype)
+    bound, by = _wq_bound(M_, K_, N_, bits, dtype, E_)
+    row = {"phase": "kernel", "kernel": f"wq_matmul[int{bits}]", "case": label,
+           "M": M_, "K": K_, "N": N_, "E": E_, "dtype": str(dtype).split(".")[-1],
+           "design": took[0][len("wq_matmul["):-1] if took else None,
+           "max_abs_err": float((out.float() - ref.float()).abs().max()), "rel_l2": err,
+           "graph_ms": graph_ms(lambda: K.wq_matmul(x, q, s)),
+           "plain_graph_ms": graph_ms(lambda: K.wq_matmul_ref(x, q, s)),
+           "bf16_matmul_graph_ms": graph_ms(lambda: torch.matmul(x, dense)),
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    row["ms"], row["plain_ms"] = row["graph_ms"], row["plain_graph_ms"]
+    emit(row)
+    return row
+
+
+def phase_wq_kernels(seed):
+    """wq_matmul[int8|int4] against its plain version: LLaMA-7B's
+    projection shapes at decode (M 16: design "rows") and a 16-slot C =
+    128 mixed step (M 2048: "mma"), the f32 cases ("rows", "f32"), and
+    Mixtral-8x7B's expert stack at decode (E weights against one x; the
+    down projection as one K over the experts). The kernels line's rows
+    carry the decode w1 case, and every case under ``cases``."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    rows = {}
+    for bits in (8, 4):
+        cases = []
+        for M, Kd, N in WQ_CASES:
+            cases.append(run_wq_check(f"M{M}-{Kd}x{N}", gen, bits, torch.bfloat16, M, Kd, N))
+        for M, Kd, N in WQ_F32_CASES:
+            cases.append(run_wq_check(f"f32-M{M}-{Kd}x{N}", gen, bits, torch.float32, M, Kd, N))
+        M, D, F, E = WQ_EXPERT
+        cases.append(run_wq_check("mixtral-up", gen, bits, torch.bfloat16, M, D, F, E))
+        cases.append(run_wq_check("mixtral-down", gen, bits, torch.bfloat16, M, D, F, E,
+                                  form="down"))
+        designs = {c["design"] for c in cases}
+        check(designs == {"rows", "mma", "f32"}, f"wq_matmul[int{bits}] designs: {designs}")
+        main = next(c for c in cases if (c["M"], c["K"], c["N"]) == WQ_ROW_CASE
+                    and c["dtype"] == "bfloat16")
+        rows[f"wq_matmul[int{bits}]"] = dict(main, cases=[
+            {k: c[k] for k in ("case", "design", "rel_l2", "graph_ms", "plain_graph_ms",
+                               "bf16_matmul_graph_ms", "bound_ms", "bound_by")}
+            for c in cases])
+    return rows
+
+
+#: the quant phase: the paged slice's 8 requests at a budget with no
+#: preemption (>= 72 pages of 128), per-layer kernels, four weight arms
+QUANT_BUDGET = 72 * 128
+QUANT_ARMS = (("bf16", None, ()), ("int8", "int8", ()), ("int4", "int4", ()),
+              ("int8-fused", "int8", ("rope_kv_write",)))
+
+
+def _served_rows(rec, prompts, outputs):
+    """The logits each served token came from (``_record_steps``: request
+    i in slot i): (requests, tokens, V)."""
+    return torch.stack([torch.stack([rec[(i, len(p) - 1 + k)] for k in range(len(o))])
+                        for i, (p, o) in enumerate(zip(prompts, outputs))])
+
+
+def phase_quant(seed):
+    """LLaMA-7B, 32 layers, random bf16 weights (seed): the paged slice's
+    8 requests served with bf16, int8 and int4 weights and int8 with
+    ``rope_kv_write`` (``LLM.compile(quantization=)``). Every layer
+    projection of a quantized arm runs wq_matmul (launches by design; the
+    plain dequantize path never), its tokens are greedy over their own
+    teacher-forced prefix (near-ties within twice the distance of the two
+    bf16 evaluations), and its first-step logits are read against the
+    bf16-weights arm. Returns the launches of the arms' runs."""
+    from flexflow_tpu_torch.quantization import quantized_nbytes
+
+    cfg = llama.LLaMAConfig.llama_7b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    params = llama.init_params(gen, cfg, device=DEV)
+    prompts, new = _slice_prompts(seed, cfg)
+    launches, first = {}, {}
+    for label, quant, fused in QUANT_ARMS:
+        t0 = time.perf_counter()
+        llm = LLM(llama, cfg, params, device=DEV)
+        llm.compile(ServingConfig(kv_layout="paged", max_cached_tokens=QUANT_BUDGET,
+                                  fused_decode=fused), quantization=quant)
+        qparams = llm.params
+        rec = _record_steps(llm.engine)
+        results, line = _serve(llm, prompts, new)
+        plain = K.PLAIN_CALLS["wq_matmul"]
+        outputs = [r.output_tokens for r in results]
+        first[label] = torch.stack([rec[(i, len(p) - 1)] for i, p in enumerate(prompts)])
+        check(line["preemptions"] == 0, f"quant-{label}: the budget preempted")
+        check(plain == 0, f"quant-{label}: the plain dequantize path ran {plain} times")
+        wq = {k: v for k, v in line["design_launches"].items() if k.startswith("wq_matmul[")}
+        if quant:
+            check(line["launches"].get(f"wq_matmul[{quant}]", 0) > 0,
+                  f"quant-{label}: wq_matmul never launched")
+            check(set(wq) == {"wq_matmul[rows]", "wq_matmul[mma]"},
+                  f"quant-{label}: wq_matmul designs {wq}, want rows (decode) and mma (mixed)")
+        else:
+            check(not wq, f"quant-{label}: wq_matmul ran on dense weights")
+        prof = profile_slice(llm, prompts, new, f"quant-{label}") if quant and not fused else None
+        t1 = time.perf_counter()
+        served = _served_rows(rec, prompts, outputs)
+        _free(llm)
+        sc = ServingConfig(max_requests_per_batch=len(prompts), kv_layout="paged",
+                           fused_decode=fused)
+        forced = _next_token_logits(cfg, qparams, sc, prompts, outputs)
+        tokens = _greedy_over_prefix(f"quant-{label}", outputs, forced, served)
+        line.update(tokens=tokens, param_bytes=quantized_nbytes(qparams),
+                    layer_param_bytes=quantized_nbytes(qparams["layers"]),
+                    plain_dequantize_calls=plain,
+                    seconds={"serve": t1 - t0, "teacher_forced": time.perf_counter() - t1})
+        if prof is not None:
+            line["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_s",
+                                                     "device_idle_share")}
+            line["profile"]["wq_matmul_device_ms"] = prof["device_ms_by_class"].get(
+                "wq_matmul", 0.0)
+            line["profile"]["matmul_device_ms"] = prof["device_ms_by_class"].get("matmul", 0.0)
+        if label != "bf16":
+            line["first_step_vs_bf16_rel_l2"] = _rel(first[label], first["bf16"])
+        check(all(bool(torch.isfinite(f).all()) for f in first.values()),
+              f"quant-{label}: non-finite first-step logits")
+        emit({"phase": "quant", "path": label, "model": "llama_7b",
+              "layers": cfg.num_hidden_layers, "quantization": quant,
+              "fused_decode": list(fused), "max_cached_tokens": QUANT_BUDGET, **line})
+        for k, v in line["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del qparams, served, forced, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+OFFLOAD_PROMPT_LENS = (16, 40)
+OFFLOAD_NEW = 8
+
+
+def _h2d_gbps(nbytes=2 ** 30):
+    """The pinned host-to-device copy rate, by CUDA events around a copy
+    of ``nbytes`` (warm)."""
+    host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty((nbytes,), dtype=torch.uint8, device=DEV)
+    dev.copy_(host, non_blocking=True)
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=5, warmup=1)
+    del host, dev
+    return nbytes / (ms / 1e3) / 1e9
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.to("cpu")
+
+
+def _offload_arm(cfg, host_params, prompts, offload):
+    """One arm: LLM.compile(offload=) of host params, the device memory it
+    took, then LLM.generate with each step's logits recorded."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    llm = LLM(llama, cfg, host_params, device=DEV)
+    sc = ServingConfig(kv_layout="paged", max_requests_per_batch=len(prompts),
+                       max_sequence_length=256)
+    t0 = time.perf_counter()
+    llm.compile(sc, offload=offload)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    took = torch.cuda.memory_allocated() - base
+    rec = _record_steps(llm.engine)
+    llm.rm.stats = SchedulerStats()
+    t0 = time.perf_counter()
+    results = llm.generate(prompts, max_new_tokens=OFFLOAD_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in results:
+        check(r.error is None and len(r.output_tokens) == OFFLOAD_NEW,
+              f"offload arm: request {r.request_id} failed: {r.error}")
+    stats = llm.rm.stats.snapshot()
+    steps = sum(stats[k] for k in ("mixed_steps", "decode_steps", "sync_steps"))
+    out = {"tokens": [r.output_tokens for r in results],
+           "first": torch.stack([rec[(i, len(p) - 1)] for i, p in enumerate(prompts)]),
+           "device_bytes_after_compile": took, "compile_s": compile_s, "wall_s": wall,
+           "steps": steps, "ms_per_step": wall / steps * 1e3,
+           "copies": getattr(llm.params["layers"], "copies", 0)}
+    _free(llm)
+    return out
+
+
+def phase_offload(seed):
+    """LLaMA-7B, 32 layers, bf16 and int8 weights: 2 requests x 8 tokens
+    served with the layers in pinned host memory (``offload=True``: each
+    layer copied to one of two device buffers while the one before
+    computes) against the same weights resident. Tokens and first-step
+    logits bitwise equal; device memory after compile lower by at least
+    90% of the layer weights' bytes; the offloaded step's ms beside its
+    bound, the layer bytes over the pinned copy rate this phase
+    measures."""
+    from flexflow_tpu_torch.quantization import quantize_params, quantized_nbytes
+
+    cfg = llama.LLaMAConfig.llama_7b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    params = llama.init_params(gen, cfg, device=DEV)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in OFFLOAD_PROMPT_LENS]
+    hosts = {"int8": _host(quantize_params(params, 8)), "bf16": _host(params)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gbps = _h2d_gbps()
+    emit({"phase": "offload_h2d", "pinned_h2d_gb_per_s": gbps, "bytes": 2 ** 30})
+    for label in ("bf16", "int8"):
+        host = hosts.pop(label)
+        layer_bytes = quantized_nbytes(host["layers"])
+        arms = {name: _offload_arm(cfg, host, prompts, off)
+                for name, off in (("resident", False), ("offloaded", True))}
+        res, off = arms["resident"], arms["offloaded"]
+        saved = res["device_bytes_after_compile"] - off["device_bytes_after_compile"]
+        check(res["tokens"] == off["tokens"], f"offload-{label}: tokens differ")
+        check(torch.equal(res["first"], off["first"]),
+              f"offload-{label}: first-step logits not bitwise")
+        check(saved >= 0.9 * layer_bytes,
+              f"offload-{label}: device memory lower by {saved} bytes, want >= 90% of "
+              f"{layer_bytes}")
+        emit({"phase": "offload", "path": label, "model": "llama_7b",
+              "layers": cfg.num_hidden_layers, "prompt_lens": list(OFFLOAD_PROMPT_LENS),
+              "new_tokens": OFFLOAD_NEW, "layer_bytes": layer_bytes,
+              "device_bytes_saved": saved, "saved_share_of_layers": saved / layer_bytes,
+              "tokens_bitwise": True, "first_logits_bitwise": True,
+              "step_bound_ms": layer_bytes / (gbps * 1e9) * 1e3,
+              **{f"{name}_{k}": v for name, arm in arms.items()
+                 for k, v in arm.items() if k not in ("tokens", "first")}})
+        del host, arms, res, off
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+#: the cluster phase's placement pair: 11 prefix families x 3 requests,
+#: a 512-token family prefix and 16-64 own tokens, 32 new tokens, two
+#: replicas of 16 slots at 32 layers; the other arms at 8 layers
+CLUSTER_FAMILIES = 11
+CLUSTER_PREFIX = 512
+CLUSTER_NEW = 32
+CLUSTER_SMALL_LAYERS = 8
+CLUSTER_SMALL_NEW = 16
+CLUSTER_SERVE = dict(kv_layout="paged", max_sequence_length=1024, prefix_caching=True)
+
+
+def _cluster_prompts(rng, cfg):
+    fams = [rng.integers(1, cfg.vocab_size, size=CLUSTER_PREFIX).tolist()
+            for _ in range(CLUSTER_FAMILIES)]
+    return [[f + rng.integers(1, cfg.vocab_size, size=int(rng.integers(16, 65))).tolist()
+             for _ in range(3)] for f in fams]
+
+
+def _cluster_run(cm, waves, new):
+    """Each wave of prompts through ``cm.generate`` in turn (a family's
+    first request publishes its prefix before its relatives arrive);
+    returns the results and the figures of the run."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for wave in waves:
+        results += cm.generate(wave, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in results:
+        check(r.error is None and len(r.output_tokens) == new,
+              f"cluster: request {r.request_id} failed: {r.error}")
+    s = cm.cluster_stats()
+    ttft = [r.profile.ttft_s for r in results]
+    return results, {
+        "requests": len(results), "wall_s": wall,
+        "tokens_per_s": len(results) * new / wall, "ttft_s_mean": statistics.mean(ttft),
+        "ttft_s_max": max(ttft), "placements": s["placements"],
+        "prefix_hit_rate": s["replicas"]["prefix_hit_rate"],
+        "prefix_hits": s["replicas"]["prefix_hits"],
+        "by_replica": dict(collections.Counter(r.profile.replica_id for r in results))}
+
+
+def _hold_cluster_tokens(label, cfg, params, prompts, outputs, want, serving):
+    """Tokens of a cluster arm against the reference run's: bitwise where
+    the card gives that; otherwise each served token greedy over its own
+    prefix under the teacher-forced logits (near-ties within twice the
+    kernels and plain paths' distance there). Returns the contract that
+    held."""
+    if outputs == want:
+        return {"contract": "bitwise"}
+    sc = dataclasses.replace(serving, max_requests_per_batch=len(prompts), prefix_caching=False)
+    got = _next_token_logits(cfg, params, sc, prompts, outputs)
+    plain = _next_token_logits(cfg, params, dataclasses.replace(sc, kernels="torch"), prompts,
+                               outputs)
+    row = _greedy_over_prefix(label, outputs, got, plain)
+    return {"contract": "greedy under the tie rule", **row}
+
+
+class _record_migrations:
+    """Within it, every migration the cluster runs compares the source's
+    page bytes fetched before the source releases them with the
+    destination's after adoption (codes, quantized scale rows), and times
+    the hand-off."""
+
+    def __init__(self):
+        from flexflow_tpu_torch.serve.cluster import manager as CM
+
+        self.mod, self.orig, self.rows = CM, CM.migrate_request, []
+
+    def __enter__(self):
+        def wrapped(src, dst, rid, gen, **kw):
+            req = src.rm.requests[rid]
+            n = src.engine.pager.pages_for(req.prompt_len)
+            pages = [int(p) for p in src.engine.pager.table[req.slot][:n]]
+            before = [src.engine.fetch_page(p).host_values() for p in pages]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rid2 = self.orig(src, dst, rid, gen, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if rid2 is not None:
+                slot = dst.rm.requests[rid2].slot
+                for b, p in zip(before, dst.engine.pager.table[slot][:n]):
+                    after = dst.engine.fetch_page(int(p)).host_values()
+                    check(sorted(after) == sorted(b) and all(torch.equal(after[k], b[k])
+                                                             for k in b),
+                          "cluster: a migrated page is not byte-exact")
+                self.rows.append({"pages": n, "ms": ms})
+            return rid2
+        self.mod.migrate_request = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.migrate_request = self.orig
+
+
+def phase_cluster(seed):
+    """In-process clusters of LLaMA-7B replicas (full width, random bf16
+    weights from the seed, paged bf16, kernels="cuda"): the placement pair
+    at 32 layers (prefix routing against round robin: two replicas of 16
+    slots, CLUSTER_FAMILIES prefix families of three); then at
+    CLUSTER_SMALL_LAYERS layers the 1-replica cluster against the bare
+    engine (tokens and logits bitwise), disaggregated 1 + 1 pools on bf16
+    and int8 pages (every page byte-exact across the hand-off), a
+    scripted crash of replica 1 (failover: every request terminal with no
+    error, no leak or held slot on the survivor) and a warm standby's
+    adoption. Returns the launches of the placement pair's runs."""
+    from flexflow_tpu_torch.serve.cluster import ClusterManager, FaultPlan
+    from flexflow_tpu_torch.serve.cluster import Fault
+
+    cfg = llama.LLaMAConfig.llama_7b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    params = llama.init_params(gen, cfg, device=DEV)
+    rng = np.random.default_rng(seed)
+    fams = _cluster_prompts(rng, cfg)
+    waves = ([f[0] for f in fams], [p for f in fams for p in f[1:]])
+    K.reset_launch_counts()
+    pair = {}
+    for policy in ("prefix", "round_robin"):
+        cm = ClusterManager.build(llama, cfg, params,
+                                  ServingConfig(replicas=2, router_policy=policy,
+                                                **CLUSTER_SERVE), device=DEV)
+        cm.generate([[1, 2, 3]], max_new_tokens=2)  # warm-up
+        cm.stats = type(cm.stats)()
+        _, pair[policy] = _cluster_run(cm, waves, CLUSTER_NEW)
+        cm.check_no_leaks()
+        emit({"phase": "cluster", "path": f"placement-{policy}", "model": "llama_7b",
+              "layers": cfg.num_hidden_layers, "replicas": 2, "slots": 16,
+              "families": CLUSTER_FAMILIES, "prefix_tokens": CLUSTER_PREFIX, **pair[policy]})
+        del cm
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(pair["prefix"]["placements"].get("prefix", 0) > 0,
+          "cluster: prefix routing placed nothing by match")
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+
+    small = dataclasses.replace(cfg, num_hidden_layers=CLUSTER_SMALL_LAYERS)
+    sparams = dict(params, layers={n: w[:CLUSTER_SMALL_LAYERS]
+                                   for n, w in params["layers"].items()})
+    prompts, _ = _slice_prompts(seed, cfg)
+    new = CLUSTER_SMALL_NEW
+    serving = ServingConfig(kv_layout="paged")
+    # the bare engine, its logits recorded
+    llm = LLM(llama, small, sparams, device=DEV)
+    llm.compile(serving)
+    rec_bare = _record_steps(llm.engine)
+    bare = [r.output_tokens for r in llm.generate(prompts, max_new_tokens=new)]
+    _free(llm)
+    cm = ClusterManager.build(llama, small, sparams, dataclasses.replace(serving, replicas=1),
+                              device=DEV)
+    rec_one = _record_steps(cm.replicas[0].engine)
+    one = [r.output_tokens for r in cm.generate(prompts, max_new_tokens=new)]
+    check(one == bare, "cluster: 1 replica's tokens are not the bare engine's")
+    check(sorted(rec_one) == sorted(rec_bare)
+          and all(torch.equal(rec_one[k], rec_bare[k]) for k in rec_bare),
+          "cluster: 1 replica's logits are not bitwise the bare engine's")
+    emit({"phase": "cluster", "path": "one-replica", "layers": CLUSTER_SMALL_LAYERS,
+          "requests": len(prompts), "new_tokens": new, "tokens_bitwise": True,
+          "logits_bitwise": True, "logit_rows": len(rec_bare)})
+    del cm, rec_one, rec_bare
+    for quant in (None, "int8"):
+        sv = dataclasses.replace(serving, kv_quant=quant, replicas=2, prefill_replicas=1,
+                                 decode_replicas=1)
+        want = bare
+        if quant is not None:
+            llm = LLM(llama, small, sparams, device=DEV)
+            llm.compile(dataclasses.replace(serving, kv_quant=quant))
+            want = [r.output_tokens for r in llm.generate(prompts, max_new_tokens=new)]
+            _free(llm)
+        cm = ClusterManager.build(llama, small, sparams, sv, device=DEV)
+        with _record_migrations() as mig:
+            outs = cm.generate(prompts, max_new_tokens=new)
+        s = cm.cluster_stats()
+        check(all(r.error is None for r in outs), "cluster: a disaggregated request failed")
+        check(s["migrations"] == len(prompts) == len(mig.rows),
+              f"cluster: {s['migrations']} migrations for {len(prompts)} requests")
+        cm.check_no_leaks()
+        check(cm.replicas[0].rm.hold_finished == set(), "cluster: prefill pool holds slots")
+        got = [r.output_tokens for r in outs]
+        held = _hold_cluster_tokens(f"disagg-{quant or 'bf16'}", small, sparams, prompts, got,
+                                    want, dataclasses.replace(serving, kv_quant=quant))
+        emit({"phase": "cluster", "path": f"disaggregated-{quant or 'bf16'}",
+              "layers": CLUSTER_SMALL_LAYERS, "kv_quant": quant, "requests": len(prompts),
+              "migrations": s["migrations"], "migrated_pages": s["migrated_pages"],
+              "migrated_bytes": s["migrated_bytes"], "pages_byte_exact": True,
+              "migration_ms": {"mean": statistics.mean(r["ms"] for r in mig.rows),
+                               "max": max(r["ms"] for r in mig.rows)},
+              "tokens": held})
+        del cm
+        gc.collect()
+        torch.cuda.empty_cache()
+    # failover: a crash of replica 1 about a third of the way through its steps
+    rr = dataclasses.replace(serving, replicas=2, router_policy="round_robin")
+    cm = ClusterManager.build(llama, small, sparams, rr, device=DEV)
+    free_run = [r.output_tokens for r in cm.generate(prompts, max_new_tokens=new)]
+    crash_at = max(2, cm.replicas[1].steps_taken // 3)
+    del cm
+    cm = ClusterManager.build(llama, small, sparams, rr, device=DEV)
+    cm.attach_faults(FaultPlan([Fault("crash", replica=1, step=crash_at)]))
+    outs = cm.generate(prompts, max_new_tokens=new)
+    s = cm.cluster_stats()
+    check(all(r.error is None and len(r.output_tokens) == new for r in outs),
+          "cluster: a request failed across the failover")
+    check(all(cm._terminal(c) for c in cm.requests), "cluster: a request is not terminal")
+    check(s["failovers"] > 0 and s["replica_down"] == 1, f"cluster: failover counters {s}")
+    cm.check_no_leaks()
+    check(cm.replicas[0].rm.hold_finished == set(), "cluster: the survivor holds slots")
+    held = _hold_cluster_tokens("failover", small, sparams, prompts,
+                                [r.output_tokens for r in outs], free_run, serving)
+    emit({"phase": "cluster", "path": "failover", "layers": CLUSTER_SMALL_LAYERS,
+          "crash_at_step": crash_at, "failovers": s["failovers"], "retries": s["retries"],
+          "replica_down": s["replica_down"], "health": cm.health_snapshot(),
+          "moved": sum(r.profile.retries > 0 for r in outs), "tokens": held})
+    del cm
+    # a warm standby adopts the dead replica's position and prefix families
+    sb = dataclasses.replace(serving, replicas=2, router_policy="round_robin",
+                             prefix_caching=True, standby_replicas=1)
+    cm = ClusterManager.build(llama, small, sparams, sb, device=DEV)
+    first = [cm.generate([f[0]], max_new_tokens=4)[0].profile.replica_id for f in fams[:2]]
+    check(first == [0, 1], f"cluster: the two families landed on {first}")
+    cm.attach_faults(FaultPlan([Fault("crash", replica=1,
+                                      step=cm.replicas[1].steps_taken + 1)]))
+    cids = [cm.submit(f[1], max_new_tokens=4) for f in fams[:2]]
+    score = None
+    for _ in range(100):
+        cm.step()
+        if cm.stats.standby_adoptions:
+            score = cm.replicas[1].prefix_score(fams[1][1])
+            break
+    check(score is not None and score > 0,
+          f"cluster: the adopted standby scores {score} on the dead replica's family")
+    while not all(cm._terminal(c) for c in cids):
+        if not cm.step():
+            break
+    cm.drain()
+    res = [cm.result(c) for c in cids]
+    check(all(r.error is None and len(r.output_tokens) == 4 for r in res),
+          f"cluster: {[r.error for r in res]}")
+    check(cm.stats.standby_adoptions == 1, "cluster: standby adoptions != 1")
+    cm.check_no_leaks()
+    emit({"phase": "cluster", "path": "standby", "layers": CLUSTER_SMALL_LAYERS,
+          "standby_adoptions": cm.stats.standby_adoptions, "adopted_prefix_score": score,
+          "prefix_tokens": CLUSTER_PREFIX, "replica_ids": [r.index for r in cm.replicas],
+          "served_by": [r.profile.replica_id for r in res],
+          "failovers": cm.stats.failovers})
+    del cm, params, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 SOURCES = {
     "decode_attention": ("flexflow_tpu_torch/csrc/decode_attention.cu",
                          "flexflow_tpu/serve/kernels.py:166"),
@@ -5014,9 +5597,15 @@ SOURCES = {
     **{f"paged_commit[{g}]": ("flexflow_tpu_torch/csrc/paged_commit.cu",
                               "flexflow_tpu/serve/kv_quant.py:147 (quant_line_write, "
                               "no TPU kernel)") for g in ("dk80", "dk256")},
+    # weight-only quantized projections (slice 18): XLA fuses dequantize
+    # into the dot in the JAX package
+    **{f"wq_matmul[{t}]": ("flexflow_tpu_torch/csrc/wq_matmul.cu",
+                           "flexflow_tpu/quantization.py:66 (dequantize) in "
+                           "flexflow_tpu/models/llama.py:197 (_mm), no TPU kernel")
+       for t in K.QUANT_POOL_TYPES},
 }
 PHASES = ("kernels", "slice", "obs", "paged", "whole", "spec", "f32", "entry", "families",
-          "prefix", "train_parity", "train")
+          "prefix", "quant", "offload", "cluster", "train_parity", "train")
 
 
 def main(argv=None) -> int:
@@ -5026,7 +5615,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of kernels, slice, obs, paged, whole, spec, f32, entry, "
-                         "families, prefix, train_parity, train (device and build always run; "
+                         "families, prefix, quant, offload, cluster, train_parity, train "
+                         "(device and build always run; "
                          "paged and whole need slice; obs makes the slice's weights itself "
                          "without it)")
     args = ap.parse_args(argv)
@@ -5047,6 +5637,7 @@ def main(argv=None) -> int:
         main_rows.update(phase_whole_kernels(args.seed))
         main_rows.update(phase_flash_kernels(args.seed))
         main_rows.update(run_adam_check(args.seed))
+        main_rows.update(phase_wq_kernels(args.seed))
         mark("kernels")
     if "slice" in phases:
         holder = [None]
@@ -5090,6 +5681,12 @@ def main(argv=None) -> int:
         for k, v in phase_prefix(args.seed).items():
             launches[k] = launches.get(k, 0) + v
         mark("prefix")
+    for name, run in (("quant", phase_quant), ("offload", phase_offload),
+                      ("cluster", phase_cluster)):
+        if name in phases:
+            for k, v in (run(args.seed) or {}).items():
+                launches[k] = launches.get(k, 0) + v
+            mark(name)
     if "train_parity" in phases:
         phase_train_parity(args.seed)
         mark("train_parity")
@@ -5119,6 +5716,9 @@ def main(argv=None) -> int:
             rows[-1]["bitwise"] = m.get("bitwise")
         if "cases" in m:  # the other families' shapes: every case of the row's group
             rows[-1]["cases"] = m["cases"]
+        if name.startswith("wq_matmul["):
+            rows[-1].update(design=m.get("design"), graph_ms=m.get("graph_ms"),
+                            bf16_matmul_graph_ms=m.get("bf16_matmul_graph_ms"))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {name: t - (marks[i - 1][1] if i else t_start)
                             for i, (name, t) in enumerate(marks)},

@@ -9,7 +9,13 @@ Counterpart of ``flexflow_tpu/__main__.py``. One command so far:
           request's record, ``--trace-out`` writes a Chrome trace of the
           run, ``--metrics-out`` a Prometheus snapshot, and
           ``--flight-recorder DIR`` dumps a redacted post-mortem of a
-          request that ends in an error.
+          request that ends in an error. ``--quantization {int8,int4}``
+          serves weight-only quantized layer weights, ``--offload`` keeps
+          them in pinned host memory, ``--replicas N`` (or
+          ``--prefill-replicas``/``--decode-replicas``) serves an
+          in-process cluster behind the router (``--router-policy``,
+          ``--slo-queue-delay-s``, ``--migration-queue-budget``,
+          ``--standby-replicas``, ``--fault-plan``).
 
 It runs on the GPU (``--device cuda``, the default; it raises without
 one) with the hand-written kernels (``--kernels cuda``, the default; the
@@ -18,8 +24,10 @@ plain PyTorch path. A prompt is text (it needs the checkpoint's
 tokenizer) or token ids, comma- or space-separated (``--prompt
 "3,17,91"``).
 
-The JAX command's parallelism degrees, clusters and autoscaling, weight
-quantization and offload come with later slices (ROADMAP.md queue 1).
+The JAX command's parallelism degrees, the cluster's RPC transports and
+journal (``--replica-transport``, ``--replica-endpoints``,
+``--journal-dir``) and autoscaling come with later slices (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -68,6 +76,13 @@ def cmd_serve(args) -> None:
         cache_policy=args.cache_policy,
         fused_decode=tuple(s for s in (args.fused_decode or "").split(",") if s),
         cache_dtype=llm.cfg.dtype,
+        replicas=args.replicas,
+        router_policy=args.router_policy,
+        prefill_replicas=args.prefill_replicas,
+        decode_replicas=args.decode_replicas,
+        slo_queue_delay_s=args.slo_queue_delay_s,
+        migration_queue_budget=args.migration_queue_budget,
+        standby_replicas=args.standby_replicas,
     )
     ssms: Sequence[LLM] = []
     spec = None
@@ -81,7 +96,16 @@ def cmd_serve(args) -> None:
             dparams["layers"] = {n: v[:k] for n, v in llm.params["layers"].items()}
             ssms = [SSM(llm.family, dcfg, dparams, device=args.device)]
         spec = SpecConfig(beam_width=2, beam_depth=4)
-    llm.compile(sc, ssms=ssms, spec=spec, output_file=args.output_file)
+    llm.compile(sc, ssms=ssms, spec=spec, quantization=args.quantization,
+                offload=args.offload, output_file=args.output_file)
+    from .serve.cluster import ClusterManager, FaultPlan
+
+    clustered = isinstance(llm.rm, ClusterManager)
+    if args.fault_plan:
+        if not clustered:
+            raise SystemExit("--fault-plan requires a cluster (--replicas > 1 or "
+                             "disaggregated pools) — faults inject at the Replica surface")
+        llm.rm.attach_faults(FaultPlan.from_json(args.fault_plan))
     obs_buf = recorder = None
     if args.trace_out or args.metrics_out or args.flight_recorder:
         # tracing and the flight recorder attach to the manager compile
@@ -103,7 +127,12 @@ def cmd_serve(args) -> None:
             print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out} "
                   "(load in ui.perfetto.dev)")
         if args.metrics_out:
-            write_prometheus(args.metrics_out, scheduler={"0": llm.rm.stats},
+            if clustered:
+                sched = {str(r.index): r.rm.stats for r in llm.rm.replicas}
+                cluster = llm.rm.stats
+            else:
+                sched, cluster = {"0": llm.rm.stats}, None
+            write_prometheus(args.metrics_out, scheduler=sched, cluster=cluster,
                              profiles=[o.profile for o in outs])
             print(f"metrics: prometheus snapshot -> {args.metrics_out}")
         if recorder is not None and recorder.paths:
@@ -134,6 +163,12 @@ def main(argv=None) -> None:
     s.add_argument("--max-requests-per-batch", type=int, default=4)
     s.add_argument("--max-sequence-length", type=int, default=512)
     s.add_argument("--num-beams", type=int, default=1)
+    s.add_argument("--quantization", choices=["int8", "int4"], default=None,
+                   help="weight-only quantized layer weights (per output channel; "
+                        "their products run the dequantizing wq_matmul kernel)")
+    s.add_argument("--offload", action="store_true",
+                   help="keep the layer weights in pinned host memory and stream "
+                        "them to the GPU a layer at a time (no effect on the CPU)")
     s.add_argument("--kv-layout", choices=["dense", "paged"], default="dense",
                    help="paged = block-paged KV cache")
     s.add_argument("--page-size", type=int, default=128)
@@ -182,6 +217,37 @@ def main(argv=None) -> None:
                    help="arm the failure flight recorder: a bounded event ring "
                         "dumping a redacted JSON post-mortem into DIR when a "
                         "request ends in an error")
+    s.add_argument("--replicas", type=int, default=1,
+                   help="cluster serving (serve/cluster/): drive this many engine "
+                        "replicas — each its own KV pool — behind the router")
+    s.add_argument("--router-policy", choices=["prefix", "round_robin", "least_loaded"],
+                   default="prefix",
+                   help="replica placement: longest prefix-cache match (prefix; "
+                        "least-loaded on a miss), round_robin, or the smallest "
+                        "queue-delay estimate (least_loaded)")
+    s.add_argument("--prefill-replicas", type=int, default=0,
+                   help="disaggregated serving: the first N replicas only prefill; "
+                        "finished prefills migrate their KV pages to a decode-pool "
+                        "replica (needs --kv-layout paged; pairs with "
+                        "--decode-replicas, the two summing to --replicas)")
+    s.add_argument("--decode-replicas", type=int, default=0,
+                   help="disaggregated serving: the last N replicas only decode")
+    s.add_argument("--slo-queue-delay-s", type=float, default=None,
+                   help="SLO admission: shed a request (a terminal error, never a "
+                        "hang) when every replica's queue-delay estimate exceeds "
+                        "this many seconds")
+    s.add_argument("--migration-queue-budget", type=int, default=None,
+                   help="disaggregated back-pressure: at most this many finished "
+                        "prefills wait for decode-pool capacity holding their pages; "
+                        "the overflow drains through recompute re-admission")
+    s.add_argument("--fault-plan", default=None,
+                   help="deterministic fault injection (serve/cluster/faults.py; needs "
+                        "a cluster): a JSON list of faults, e.g. '[{\"kind\": "
+                        "\"crash\", \"replica\": 1, \"step\": 20}]' — kinds crash, "
+                        "transient, latency, migration, oom")
+    s.add_argument("--standby-replicas", type=int, default=0,
+                   help="warm standbys: built engines outside routing that adopt a "
+                        "circuit-broken replica's position and prefix families")
     s.set_defaults(fn=cmd_serve)
     args = p.parse_args(argv)
     args.fn(args)

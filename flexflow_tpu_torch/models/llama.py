@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..quantization import OFFLOAD_WHOLE_STEP, is_quantized, layer_params
 # the weight bridge, under its old names
 from .hf_utils import _array_to_tensor, params_from_numpy  # noqa: F401
 
@@ -254,7 +255,13 @@ def _rms(x, gamma, eps):
 
 def _mm(x, w):
     # bf16 products accumulate in f32 inside the GEMM and round once to
-    # x's dtype, as the JAX package's preferred_element_type=f32 + cast
+    # x's dtype, as the JAX package's preferred_element_type=f32 + cast; a
+    # weight-only quantized {"q", "scale"} weight goes through
+    # kernels.wq_matmul (the dequantizing kernel on the GPU)
+    if is_quantized(w):
+        from ..serve.kernels import quant_mm
+
+        return quant_mm(x, w)
     return torch.matmul(x, w).to(x.dtype)
 
 
@@ -504,7 +511,7 @@ def serve_step(
         bits = pack_mask_bits(mask)  # once for every layer's verify launch
     layers = params["layers"]
     for l in range(_depth(cfg, num_layers)):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l],
                         cache["v"][l], cache_positions, kernels, bits)
     return _head(cfg, params, x, logits_idx, all_logits), cache
@@ -687,7 +694,7 @@ def serve_step_paged(
         qmax = resolve_spec(kv_quant).qmax
     layers = params["layers"]
     for l in range(_depth(cfg, num_layers)):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         scales = ((cache["k_scale"][l], cache["v_scale"][l]) if qmax is not None
                   else (None, None))
         x = serve_block_paged(cfg, p_l, x, cos, sin, mask, cache["k"][l],
@@ -741,7 +748,7 @@ def serve_debug_activations(
 
             qmax = resolve_spec(kv_quant).qmax
         for l in range(cfg.num_hidden_layers):
-            p_l = {name: w[l] for name, w in layers.items()}
+            p_l = layer_params(layers, l)
             scales = ((cache["k_scale"][l].clone(), cache["v_scale"][l].clone())
                       if qmax is not None else (None, None))
             x = serve_block_paged(cfg, p_l, x, cos, sin, mask, cache["k"][l].clone(),
@@ -760,7 +767,7 @@ def serve_debug_activations(
 
         bits = pack_mask_bits(mask)
     for l in range(cfg.num_hidden_layers):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         x = serve_block(cfg, p_l, x, cos, sin, mask, cache["k"][l].clone(),
                         cache["v"][l].clone(), cache_positions, kernels, bits)
         acts.append(x)
@@ -921,6 +928,8 @@ def whole_step_weight_layout(params: Dict[str, Any], cfg: LLaMAConfig):
     a layout the walk cannot stream, so the engine fails at construction
     and never mid-serve."""
     L = cfg.num_hidden_layers
+    if getattr(params["layers"], "offloaded", False):
+        raise ValueError(OFFLOAD_WHOLE_STEP)
     layer_arrays = {}
     for name, a in params["layers"].items():
         if isinstance(a, dict):

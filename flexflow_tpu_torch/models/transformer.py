@@ -58,6 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..quantization import OFFLOAD_WHOLE_STEP, is_quantized, layer_params
 from .hf_utils import params_from_numpy  # noqa: F401  (the weight bridge)
 from .llama import (  # noqa: F401  (the K/V line moves carry "pos" too)
     _depth,
@@ -189,8 +190,43 @@ def _norm(cfg: DecoderConfig, x, scale, bias):
 
 def _mm(x, w):
     # f32 accumulation inside the GEMM, one rounding to x's dtype (the JAX
-    # package's preferred_element_type=f32 + cast)
+    # package's preferred_element_type=f32 + cast); a weight-only quantized
+    # {"q", "scale"} weight goes through kernels.wq_matmul
+    if is_quantized(w):
+        from ..serve.kernels import quant_mm
+
+        return quant_mm(x, w)
     return torch.matmul(x, w).to(x.dtype)
+
+
+def _expert_mm(h, w):
+    """``einsum("rcd,edf->rcef", h, w)`` of an expert stack ``w`` (E, D, F),
+    rounded once to h's dtype; a quantized stack through
+    ``kernels.wq_matmul``'s batched form (E weights against one x)."""
+    if not is_quantized(w):
+        return torch.einsum("rcd,edf->rcef", h, w).to(h.dtype)
+    from ..serve.kernels import wq_matmul
+
+    R, C, D = h.shape
+    y = wq_matmul(h.reshape(R * C, D), w["q"], w["scale"])  # (E, R * C, F)
+    return y.permute(1, 0, 2).reshape(R, C, *y.shape[::2])
+
+
+def _experts_down(weighted, w):
+    """The down projection of the experts' weighted activations (R, C, E,
+    Fe) summed over the experts: (R, C, E * Fe) @ (E * Fe, D) in one f32
+    accumulation, rounded once to the activations' dtype; a quantized
+    stack as one ``wq_matmul`` whose scale rows group its E experts."""
+    R, C = weighted.shape[:2]
+    if not is_quantized(w):
+        return torch.matmul(weighted.reshape(R, C, -1),
+                            w.reshape(-1, w.shape[-1])).to(weighted.dtype)
+    from ..serve.kernels import wq_matmul
+
+    E, CR, D = w["q"].shape
+    y = wq_matmul(weighted.reshape(R * C, -1), w["q"].reshape(E * CR, D),
+                  w["scale"].reshape(E, D))
+    return y.reshape(R, C, D)
 
 
 # ---------------------------------------------------------------------------
@@ -401,15 +437,13 @@ def _moe_ffn(cfg: DecoderConfig, p, h):
     else:
         gate = torch.gather(torch.softmax(router, dim=-1), -1, topi)
     combine = torch.zeros_like(router).scatter_add_(-1, topi, gate)        # (R, C, E)
-    up = torch.einsum("rcd,edf->rcef", h, p["w_up"]).to(h.dtype)
+    up = _expert_mm(h, p["w_up"])
     if cfg.glu:
-        act = _activation(cfg, torch.einsum("rcd,edf->rcef", h, p["w_gate"]).to(h.dtype)) * up
+        act = _activation(cfg, _expert_mm(h, p["w_gate"])) * up
     else:
         act = _activation(cfg, up)
     weighted = (act.to(torch.float32) * combine[..., None]).to(h.dtype)   # (R, C, E, Fe)
-    w_down = p["w_down"]
-    out = torch.matmul(weighted.reshape(R, C, -1),
-                       w_down.reshape(-1, w_down.shape[-1])).to(h.dtype)
+    out = _experts_down(weighted, p["w_down"])
     if cfg.moe_shared_expert_intermediate_size:
         s_act = _activation(cfg, _mm(h, p["w_shared_gate"])) * _mm(h, p["w_shared_up"])
         s_out = _mm(s_act, p["w_shared_down"])
@@ -574,7 +608,7 @@ def serve_step(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     mask, bias = _dense_context(cfg, cache, positions, cache_positions, mask)
     layers = params["layers"]
     for l in range(_depth(cfg, num_layers)):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         x = serve_block(cfg, p_l, x, rope, bias, mask, cache["k"][l], cache["v"][l],
                         cache_positions)
     return _head(cfg, params, x, logits_idx, all_logits), cache
@@ -711,7 +745,7 @@ def serve_step_paged(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
         qmax = resolve_spec(kv_quant).qmax
     layers = params["layers"]
     for l in range(_depth(cfg, num_layers)):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         scales = ((cache["k_scale"][l], cache["v_scale"][l]) if qmax is not None
                   else (None, None))
         x = serve_block_paged(cfg, p_l, x, rope, bias, mask, cache["k"][l], cache["v"][l],
@@ -756,7 +790,7 @@ def serve_debug_activations(params: Dict[str, Any], cache: Dict[str, torch.Tenso
 
             qmax = resolve_spec(kv_quant).qmax
         for l in range(cfg.num_hidden_layers):
-            p_l = {name: w[l] for name, w in layers.items()}
+            p_l = layer_params(layers, l)
             scales = ((cache["k_scale"][l].clone(), cache["v_scale"][l].clone())
                       if qmax is not None else (None, None))
             x = serve_block_paged(cfg, p_l, x, rope, bias, mask, cache["k"][l].clone(),
@@ -770,7 +804,7 @@ def serve_debug_activations(params: Dict[str, Any], cache: Dict[str, torch.Tenso
         mask = causal_serve_mask(positions, cache["k"].shape[2])
     mask, bias = _dense_context(cfg, cache, positions, cache_positions, mask)
     for l in range(cfg.num_hidden_layers):
-        p_l = {name: w[l] for name, w in layers.items()}
+        p_l = layer_params(layers, l)
         x = serve_block(cfg, p_l, x, rope, bias, mask, cache["k"][l].clone(),
                         cache["v"][l].clone(), cache_positions)
         acts.append(x)
@@ -805,6 +839,8 @@ def whole_step_weight_layout(params: Dict[str, Any], cfg: DecoderConfig):
             "attention reads the per-line position buffer, which the layer walk does not "
             "stream; drop the whole_step fusion for this family")
     L = cfg.num_hidden_layers
+    if getattr(params["layers"], "offloaded", False):
+        raise ValueError(OFFLOAD_WHOLE_STEP)
     layer_arrays = {}
     for name, a in params["layers"].items():
         if isinstance(a, dict):

@@ -17,10 +17,13 @@ failure flight recorder (counterpart of ``flexflow_tpu/obs``).
   that dumps a REDACTED post-mortem on a terminal request error.
 
 Entry point: :func:`attach_observability` wires a tracer (and
-optionally a recorder) onto a RequestManager or SpecInferManager; the
-CLI exposes ``--trace-out`` / ``--metrics-out`` / ``--flight-recorder``
-on ``python -m flexflow_tpu_torch serve``. Cluster targets (replicas,
-the cluster manager) come with the cluster slice.
+optionally a recorder) onto a RequestManager, a SpecInferManager, a
+cluster :class:`~flexflow_tpu_torch.serve.cluster.Replica` or a
+:class:`~flexflow_tpu_torch.serve.cluster.ClusterManager` (one lane a
+replica plus the router's lane; the flight recorder dumps a replica's
+lane when it circuit-breaks); the CLI exposes ``--trace-out`` /
+``--metrics-out`` / ``--flight-recorder`` on ``python -m
+flexflow_tpu_torch serve``.
 """
 from __future__ import annotations
 
@@ -65,6 +68,10 @@ def _attach_rm(rm, buffer: TraceBuffer, lane: str, recorder) -> None:
         eng.tracer = tr
 
 
+def _attach_replica(rep, buffer: TraceBuffer, recorder) -> None:
+    _attach_rm(rep.rm, buffer, f"replica{rep.index}", recorder)
+
+
 def attach_observability(
     target,
     *,
@@ -72,27 +79,34 @@ def attach_observability(
     recorder: Optional[FlightRecorder] = None,
     capacity: int = 200_000,
 ) -> TraceBuffer:
-    """Enable tracing on ``target`` — a RequestManager or
-    SpecInferManager — and return the :class:`TraceBuffer` that collects
-    the run's events (export it with :func:`write_chrome_trace` /
-    :func:`prometheus_text`). ``recorder`` additionally arms the flight
-    recorder's per-lane ring and its dump on a terminal request error.
-    Duck-typed, so the serve stack never imports this package on its hot
-    path. A cluster manager or a replica raises NotImplementedError: they
-    come with the cluster slice."""
-    if (hasattr(target, "replicas") and hasattr(target, "router")) or (
-            hasattr(target, "rm") and hasattr(target, "index")):
-        raise NotImplementedError(
-            f"attach_observability: {type(target).__name__} is a cluster target, "
-            "which comes with the cluster slice (ROADMAP.md queue 1 item 8)")
+    """Enable tracing on ``target`` — a ClusterManager, a Replica, or a
+    bare RequestManager/SpecInferManager — and return the
+    :class:`TraceBuffer` that collects the run's events (export it with
+    :func:`write_chrome_trace` / :func:`prometheus_text`). A cluster
+    traces its router and manager on the ``router`` lane (clocked by
+    cluster steps) and each replica, standbys included, on its own
+    ``replica<index>`` lane. ``recorder`` additionally arms the flight
+    recorder's per-lane ring and its dumps (a terminal request error; a
+    replica's DOWN trip dumps that replica's lane). Duck-typed, so the
+    serve stack never imports this package on its hot path."""
     if buffer is None:
         buffer = TraceBuffer(capacity)
     if recorder is not None:
         buffer.recorder = recorder
+    if hasattr(target, "replicas") and hasattr(target, "router"):
+        target.tracer = buffer.tracer("router", clock=lambda: target._step_counter)
+        target.flight_recorder = recorder
+        for rep in list(target.replicas) + list(getattr(target, "standbys", ())):
+            _attach_replica(rep, buffer, recorder)
+        return buffer
+    if hasattr(target, "rm") and hasattr(target, "index"):
+        _attach_replica(target, buffer, recorder)
+        return buffer
     if hasattr(target, "engine") and hasattr(target, "_engines"):
         _attach_rm(target, buffer, "engine", recorder)
         return buffer
     raise TypeError(
         f"attach_observability: unsupported target {type(target).__name__}"
-        " (expected a RequestManager or a SpecInferManager)"
+        " (expected a ClusterManager, a Replica, a RequestManager or a "
+        "SpecInferManager)"
     )

@@ -5,10 +5,11 @@ dumps a redacted post-mortem when something dies (counterpart of
 The recorder observes every event entering a
 :class:`~.tracer.TraceBuffer` (``buffer.recorder = recorder``) and
 keeps the last ``capacity`` events PER LANE, so a dump is that lane's
-final moments, not a run-wide haystack. The serve stack dumps on a
-**terminal request error** (a request the KV pool or the cache can
-never hold, RequestManager._finish); the cluster's triggers (health
-DOWN trips, failover errors) come with the cluster slice.
+final moments, not a run-wide haystack. Dumps fire on a **terminal
+request error** (a request the KV pool or the cache can never hold,
+RequestManager._finish; a shed or a request past its failover retries,
+ClusterManager) and on a cluster replica's **DOWN trip** (that replica's
+lane, from the ClusterManager's health-transition hook).
 
 Every dump is **redacted** before it leaves the process: attribute keys
 carrying user content (token ids, prompt text) are stripped, so a

@@ -1,14 +1,16 @@
 """Serving stack — continuous batching, incremental decoding, SpecInfer
 (token trees from SSMs or the target's own first layers, verified in one
 step) and beam search on the dense or the paged KV cache, with bf16,
-f32, int8 or int4 pages, and automatic prefix caching with its host tier
-on the paged one (counterpart of ``flexflow_tpu/serve``; clusters come
-with a later slice)."""
+f32, int8 or int4 pages, automatic prefix caching with its host tier on
+the paged one, weight-only int8/int4 quantized and offloaded params, and
+in-process clusters of engine replicas behind a router (serve/cluster/;
+counterpart of ``flexflow_tpu/serve``)."""
 from .batch_config import (
     BatchConfig,
     GenerationConfig,
     GenerationResult,
 )
+from .cluster import ClusterManager
 from .engine import InferenceEngine, ServingConfig
 from .llm import LLM, SSM
 from .paging import PageAllocator
@@ -19,6 +21,7 @@ from .specinfer import SpecConfig, SpecInferManager, TokenTree, merge_trees
 
 __all__ = [
     "BatchConfig",
+    "ClusterManager",
     "GenerationConfig",
     "GenerationResult",
     "InferenceEngine",

@@ -72,31 +72,22 @@ _LATER_SLICES = {
     "kv_shard": "the long-context slice",
     "context_shards": "the long-context slice",
     "quantized_allreduce": "the parallel-serving slice",
-    "replicas": "the cluster slice",
-    "router_policy": "the cluster slice",
-    "prefill_replicas": "the cluster slice",
-    "decode_replicas": "the cluster slice",
-    "slo_queue_delay_s": "the cluster slice",
-    "failover_retries": "the cluster slice",
-    "failover_backoff_steps": "the cluster slice",
-    "migration_queue_budget": "the cluster slice",
-    "replica_transport": "the cluster slice",
-    "replica_endpoints": "the cluster slice",
-    "standby_replicas": "the cluster slice",
-    "rpc_deadline_s": "the cluster slice",
-    "rpc_retries": "the cluster slice",
-    "rpc_backoff_s": "the cluster slice",
-    "concurrent_stepping": "the cluster slice",
-    "journal_dir": "the cluster slice",
-    "heartbeat_interval_steps": "the cluster slice",
-    "heartbeat_gap_steps": "the cluster slice",
+    "replica_transport": "the cluster transport slice",
+    "replica_endpoints": "the cluster transport slice",
+    "rpc_deadline_s": "the cluster transport slice",
+    "rpc_retries": "the cluster transport slice",
+    "rpc_backoff_s": "the cluster transport slice",
+    "concurrent_stepping": "the cluster transport slice",
+    "journal_dir": "the cluster transport slice",
+    "heartbeat_interval_steps": "the cluster transport slice",
+    "heartbeat_gap_steps": "the cluster transport slice",
     "sanitizers": "the analysis slice",
-    "autoscale": "the autotune slice",
-    "slo_ttft_s": "the autotune slice",
-    "slo_tpot_s": "the autotune slice",
-    "autoscale_cooldown_steps": "the autotune slice",
-    "autoscale_min_replicas": "the autotune slice",
-    "autoscale_max_replicas": "the autotune slice",
+    "autoscale": "the autotune slice (ROADMAP.md queue 1 item 11)",
+    "slo_ttft_s": "the autotune slice (ROADMAP.md queue 1 item 11)",
+    "slo_tpot_s": "the autotune slice (ROADMAP.md queue 1 item 11)",
+    "autoscale_cooldown_steps": "the autotune slice (ROADMAP.md queue 1 item 11)",
+    "autoscale_min_replicas": "the autotune slice (ROADMAP.md queue 1 item 11)",
+    "autoscale_max_replicas": "the autotune slice (ROADMAP.md queue 1 item 11)",
 }
 
 
@@ -104,8 +95,10 @@ _LATER_SLICES = {
 class ServingConfig:
     """Serving limits, with the field names of the JAX package's
     ``ServingConfig``. The port serves the dense and the paged KV
-    layouts; every field listed in ``_LATER_SLICES`` must keep its
-    default (see :meth:`validate`)."""
+    layouts and in-process clusters (``replicas`` and the pool, router,
+    SLO, failover, migration and standby fields; serve/cluster/); every
+    field listed in ``_LATER_SLICES`` must keep its default (see
+    :meth:`validate`)."""
 
     max_requests_per_batch: int = 16
     max_sequence_length: int = 2048
@@ -266,6 +259,72 @@ class ServingConfig:
                     f"ServingConfig.{f.name}={getattr(self, f.name)!r} is not "
                     f"ported yet: it comes with {slice_}"
                 )
+        self.validate_cluster()
+
+    def validate_cluster(self, *, specinfer: bool = False) -> None:
+        """Validation of the cluster fields (the JAX package's, for the
+        in-process cluster; the transport, journal and autoscale fields
+        are :meth:`validate`'s later slices). Called at engine
+        construction and by the cluster manager, so a bad value dies
+        before any replica exists. ``specinfer=True`` (``LLM.compile``
+        with SSMs or an early-exit draft) also refuses SpecInfer with
+        disaggregated pools: the prefill→decode hand-off ships the
+        target engine's pages, not the draft mirrors' caches."""
+        if specinfer and self.prefill_replicas:
+            raise ValueError(
+                "disaggregated prefill/decode pools are not composed with SpecInfer "
+                "ssms — the prefill→decode migration ships only the TARGET engine's "
+                "pages, not the draft mirrors' caches. Use replicas > 1 WITHOUT "
+                "prefill_replicas/decode_replicas (each replica then runs its own SSM "
+                "mirrors, serve/cluster/replica.py)")
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1 (got {self.replicas})")
+        if self.router_policy not in ("prefix", "round_robin", "least_loaded"):
+            raise ValueError(
+                f"unknown router_policy {self.router_policy!r} (expected 'prefix', "
+                "'round_robin' or 'least_loaded')")
+        if self.prefill_replicas < 0 or self.decode_replicas < 0:
+            raise ValueError("prefill_replicas/decode_replicas must be >= 0")
+        if bool(self.prefill_replicas) != bool(self.decode_replicas):
+            raise ValueError(
+                "disaggregated serving needs BOTH pools: set prefill_replicas and "
+                f"decode_replicas together (got prefill={self.prefill_replicas}, "
+                f"decode={self.decode_replicas})")
+        if self.prefill_replicas:
+            if self.prefill_replicas + self.decode_replicas != self.replicas:
+                raise ValueError(
+                    f"prefill_replicas ({self.prefill_replicas}) + decode_replicas "
+                    f"({self.decode_replicas}) must equal replicas ({self.replicas})")
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "disaggregated prefill/decode pools require kv_layout='paged' — "
+                    "prefill→decode migration ships KV PAGES, which the dense layout "
+                    "does not have")
+        if self.slo_queue_delay_s is not None and self.slo_queue_delay_s < 0:
+            raise ValueError(f"slo_queue_delay_s must be >= 0 (got {self.slo_queue_delay_s})")
+        if self.slo_queue_delay_s is not None and self.prefill_replicas:
+            raise ValueError(
+                "slo_queue_delay_s is not composed with disaggregated prefill/decode "
+                "pools: the router only sees the PREFILL pool's queue-delay estimates, "
+                "so the SLO would govern only prefill admission wait and silently ignore "
+                f"decode saturation (got slo_queue_delay_s={self.slo_queue_delay_s}, "
+                f"prefill_replicas={self.prefill_replicas})")
+        if self.failover_retries < 0:
+            raise ValueError(f"failover_retries must be >= 0 (got {self.failover_retries})")
+        if self.failover_backoff_steps < 1:
+            raise ValueError(
+                f"failover_backoff_steps must be >= 1 (got {self.failover_backoff_steps})")
+        if self.migration_queue_budget is not None and self.migration_queue_budget < 0:
+            raise ValueError(
+                f"migration_queue_budget must be >= 0 or None (got "
+                f"{self.migration_queue_budget})")
+        if self.standby_replicas < 0:
+            raise ValueError(f"standby_replicas must be >= 0 (got {self.standby_replicas})")
+        if self.standby_replicas and self.prefill_replicas:
+            raise ValueError(
+                "warm standbys are not composed with disaggregated prefill/decode pools "
+                "yet — a standby adopts ONE routing position, which is ambiguous across "
+                "split pools; use standby_replicas with mixed replicas")
 
     @property
     def cache_len(self) -> int:

@@ -1,12 +1,14 @@
-"""Hand-written CUDA kernels of the serving hot path: attention, and the
-whole serving step in one kernel (:func:`whole_step_decode`).
+"""Hand-written CUDA kernels of the serving hot path: attention, the
+whole serving step in one kernel (:func:`whole_step_decode`), and the
+product of a weight-only quantized weight (:func:`wq_matmul`).
 
 Each kernel here has three parts side by side:
 
 * the **wrapper** (:func:`decode_attention`, :func:`verify_attention`
   and :func:`verify_attention_bits`, :func:`ragged_paged_attention`,
   :func:`fused_rope_paged_attention`, :func:`whole_step_decode`, and
-  :func:`commit_paged`, the unfused step's quantized K/V commit):
+  :func:`commit_paged`, the unfused step's quantized K/V commit, and
+  :func:`wq_matmul`, the layer projections of quantized weights):
   checks device, dtype, shape and contiguity, then either runs the plain
   version (the tensors lie on the CPU) or launches the CUDA kernel (the
   tensors lie on a GPU) — never a fallback from a GPU tensor to the plain
@@ -62,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
     "verify_attention": 0,
     **{f"{k}[{t}]": 0 for k in PAGED_KERNELS + ("whole_step_decode",) for t in POOL_TYPES},
     **{f"paged_commit[{t}]": 0 for t in QUANT_POOL_TYPES},
+    **{f"wq_matmul[{t}]": 0 for t in QUANT_POOL_TYPES},
 }
 
 #: launches of the paged, verify and whole-step kernels by the block design
@@ -77,7 +80,13 @@ DESIGN_LAUNCHES: Dict[str, int] = {
     **{f"{k}[{d}]": 0 for k in PAGED_KERNELS + ("verify_attention", "whole_step_decode")
        for d in DESIGNS[k][0]},
     **{f"whole_step_decode[{d}-tree]": 0 for d in DESIGNS["whole_step_decode"][0]},
+    **{f"wq_matmul[{d}]": 0 for d in DESIGNS["wq_matmul"][0]},
 }
+
+#: calls of a plain version that the card's serving path must never take
+#: (:func:`wq_matmul_ref`: dequantize, then the product), since the last
+#: reset; a CPU run counts them too
+PLAIN_CALLS: Dict[str, int] = {"wq_matmul": 0}
 
 #: head dims, q dtypes and page sizes the CUDA kernels are instantiated
 #: for: the dense kernels take _CUDA_HEAD_DIMS, the paged kernels and the
@@ -93,7 +102,7 @@ _FUSED_MAX_CHUNK = 256
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+    for counts in (LAUNCHES, DESIGN_LAUNCHES, PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 
@@ -1430,3 +1439,118 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
     if all_logits:
         return logits.view(R, C, V), tokens.view(R, C), cache
     return logits, tokens, cache
+
+
+# ---------------------------------------------------------------------------
+# weight-only quantized matmul (quantization.py): y = x @ dequantize(q, scale)
+
+#: most rows the "rows" design takes; wider products run "mma" (bf16 x) or
+#: "f32" (f32 x) — the launcher's wq_matmul_design
+WQ_ROWS_MAX = 16
+#: the kernel's K and N granules (csrc/wq_matmul.cu): the mma design's K
+#: step and a scale group's rows, its 16-byte code vector's columns
+WQ_K_MULTIPLE = 32
+WQ_N_MULTIPLE = 16
+
+
+def _wq_dense(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The dense weight of codes ``q`` (…, K or K/2, N) and scales (…, G,
+    N), each group of K // G rows at its own scale row."""
+    from ..quantization import dequantize
+
+    G = scale.shape[-2]
+    if G == 1:
+        return dequantize({"q": q, "scale": scale}, dtype)
+    CR, N = q.shape[-2:]
+    w = dequantize({"q": q.reshape(*q.shape[:-2], G, CR // G, N),
+                    "scale": scale.reshape(*scale.shape[:-2], G, 1, N)}, dtype)
+    return w.reshape(*w.shape[:-3], -1, N)
+
+
+def wq_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`wq_matmul`: :func:`quantization.dequantize`
+    to x's dtype, then the product with f32 accumulation rounded once to
+    x's dtype (the JAX package's ``_mm`` of a quantized weight)."""
+    PLAIN_CALLS["wq_matmul"] += 1
+    return torch.matmul(x, _wq_dense(q, scale, x.dtype)).to(x.dtype)
+
+
+def wq_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x @ dequantize(q, scale)`` with each weight dequantized as
+    :func:`quantization.dequantize` does it (the f32 code times the f32
+    scale, rounded once to x's dtype) and the products accumulated in f32,
+    rounded once to x's dtype.
+
+    * ``x`` (M, K) against ``q`` (K, N) int8 or (K/2, N) packed int4 and
+      ``scale`` (G, N) f32 (G = 1: one scale a column; G > 1: row k at
+      scale row k // (K // G), the expert stack's down projection summed
+      over its experts) → (M, N);
+    * ``x`` (M, K) or (E, M, K) against ``E`` stacked weights ``q`` (E, K
+      or K/2, N), ``scale`` (E, 1, N) → (E, M, N) (the expert stack's
+      up and gate projections).
+
+    CPU tensors run :func:`wq_matmul_ref`. CUDA tensors launch
+    ``csrc/wq_matmul.cu`` (counted in ``LAUNCHES["wq_matmul[int8|int4]"]``
+    and, by the block design its launcher took, in
+    ``DESIGN_LAUNCHES["wq_matmul[rows|mma|f32]"]``) or raise for what the
+    kernel does not take."""
+    if x.device.type == "cpu":
+        return wq_matmul_ref(x, q, scale)
+    bits = {torch.int8: 8, torch.uint8: 4}.get(q.dtype)
+    if bits is None:
+        raise ValueError(f"wq_matmul takes int8 or packed int4 (uint8) codes; got {q.dtype}")
+    if x.dtype not in _CUDA_DTYPES:
+        raise ValueError(f"wq_matmul takes float32 or bfloat16 x; got {x.dtype}")
+    if scale.dtype != torch.float32:
+        raise ValueError(f"wq_matmul takes float32 scales; got {scale.dtype}")
+    if q.dim() not in (2, 3) or scale.dim() != q.dim():
+        raise ValueError(f"wq_matmul takes (K, N) or (E, K, N) codes with scales of "
+                         f"their rank; got {tuple(q.shape)}, {tuple(scale.shape)}")
+    B = q.shape[0] if q.dim() == 3 else 1
+    CR, N = q.shape[-2:]
+    K = CR * (2 if bits == 4 else 1)
+    G = scale.shape[-2]
+    if scale.shape[-1] != N or (q.dim() == 3 and (scale.shape[0] != B or G != 1)):
+        raise ValueError(f"scales {tuple(scale.shape)} do not fit codes {tuple(q.shape)}")
+    if x.dim() == 2:
+        M, x_batched = x.shape[0], 0
+    elif x.dim() == 3 and q.dim() == 3 and x.shape[0] == B:
+        M, x_batched = x.shape[1], 1
+    else:
+        raise ValueError(f"x {tuple(x.shape)} does not fit codes {tuple(q.shape)}")
+    if x.shape[-1] != K:
+        raise ValueError(f"x's last dim {x.shape[-1]} != the weight's input dim {K}")
+    if (K % WQ_K_MULTIPLE or N % WQ_N_MULTIPLE or K % G
+            or (K // G) % WQ_K_MULTIPLE):
+        raise ValueError(f"wq_matmul takes K and each scale group's rows in multiples of "
+                         f"{WQ_K_MULTIPLE} and N in multiples of {WQ_N_MULTIPLE}; got K={K}, "
+                         f"N={N}, G={G}")
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} must lie on {x.device}; got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    x = x.contiguous()
+    y = torch.empty(((B,) if q.dim() == 3 else ()) + (M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return y
+    from . import _cuda
+
+    # the "rows" and "f32" designs split K over blocks; their f32 partial
+    # sums meet in a second launch, in split order
+    splits = _cuda.wq_matmul_splits(B, M, K, N, _dtype_code(x.dtype))
+    part = (torch.empty((splits * B * M * N,), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    _cuda.launch("wq_matmul", [x, q, scale, y, part],
+                 [B, M, K, N, G, x_batched, bits, _dtype_code(x.dtype)], [])
+    LAUNCHES[f"wq_matmul[int{bits}]"] += 1
+    DESIGN_LAUNCHES[f"wq_matmul[{_cuda.design('wq_matmul', M, _dtype_code(x.dtype))}]"] += 1
+    return y
+
+
+def quant_mm(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``x (…, K) @ w`` for a quantized ``{"q", "scale"}`` weight (K, N):
+    :func:`wq_matmul` over x's rows flattened."""
+    lead = x.shape[:-1]
+    y = wq_matmul(x.reshape(-1, x.shape[-1]), w["q"], w["scale"])
+    return y.reshape(*lead, y.shape[-1])

@@ -14,14 +14,21 @@ params are given — compiled into an :class:`InferenceEngine` plus a
 reference's ``-output-file``); triage and tracing are
 ``ServingConfig.inference_debugging`` and ``obs.attach_observability(llm.rm)``.
 
-Weight quantization, offload and clusters come with later slices of the
-port.
+``compile(quantization="int8"|"int4")`` quantizes the layer matmul
+weights (quantization.py; their products run ``kernels.wq_matmul``) and
+``compile(offload=True)`` keeps every per-layer tensor in pinned host
+memory on a GPU, streamed to the device a layer at a time
+(``quantization.OffloadedLayers``; the embedding, the LM head and the
+final norm stay on the device); both apply to SpecInfer's SSMs too.
+``ServingConfig(replicas > 1)`` or prefill/decode pools make ``compile``
+build an in-process :class:`~.cluster.ClusterManager` (``llm.rm``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import os
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -29,6 +36,7 @@ import torch
 from .. import models as zoo
 from ..logging_utils import get_logger
 from ..models import hf_utils
+from ..quantization import OffloadedLayers, quantize_params
 from .batch_config import GenerationConfig, GenerationResult
 from .engine import InferenceEngine, ServingConfig, resolve_device
 from .request_manager import RequestManager
@@ -126,6 +134,8 @@ class LLM:
         spec: Optional[SpecConfig] = None,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
+        quantization: Optional[str] = None,
+        offload: bool = False,
         output_file: Optional[str] = None,
     ) -> None:
         """Build the inference engine(s) and request manager (reference
@@ -133,16 +143,41 @@ class LLM:
         ``ssms`` (or ``spec.draft == "early_exit"``) the manager runs the
         SpecInfer loop; each SSM gets an engine on this LLM's device with
         the same ``serving``. ``output_file`` appends each finished
-        request's latency, decoding steps and token ids."""
+        request's latency, decoding steps and token ids.
+
+        ``quantization`` ("int8" | "int4") converts the layer matmul
+        weights to ``{"q", "scale"}`` pairs before placement (the
+        reference's quantized loading). ``offload`` keeps every
+        ``params["layers"]`` tensor in pinned host memory on a GPU and
+        streams it a layer at a time (the reference's ``--offload``); on
+        the CPU it warns and does nothing. ``serving.replicas > 1`` or
+        prefill/decode pools build an in-process cluster
+        (:class:`~.cluster.ClusterManager`, params shared by reference
+        among the replicas); ``self.engine`` is then replica 0's."""
         serving = serving or ServingConfig()
         serving.validate()
-        self.params = _to_device(self.params, self.device)
+        speculating = bool(ssms) or getattr(spec, "draft", "ssm") == "early_exit"
+        serving.validate_cluster(specinfer=speculating)
+        if quantization not in (None, "int8", "int4"):
+            raise ValueError(f"unknown quantization {quantization!r} (expected 'int8' or "
+                             "'int4')")
+        self.params = _place_params(self.params, self.device, quantization, offload)
+        for ssm in ssms:
+            ssm.params = _place_params(ssm.params, self.device, quantization, offload)
+        if serving.replicas > 1 or serving.prefill_replicas:
+            from .cluster import ClusterManager
+
+            self.rm = ClusterManager.build(
+                self.family, self.cfg, self.params, serving, tokenizer=self.tokenizer,
+                eos_token_id=eos_token_id, seed=seed, device=self.device,
+                ssms=[(s.family, s.cfg, s.params) for s in ssms], spec=spec)
+            self.engine = self.rm.replicas[0].engine
+            return
         self.engine = InferenceEngine(
             self.family, self.cfg, self.params, serving, device=self.device
         )
-        if ssms or getattr(spec, "draft", "ssm") == "early_exit":
+        if speculating:
             for ssm in ssms:
-                ssm.params = _to_device(ssm.params, self.device)
                 ssm.engine = InferenceEngine(ssm.family, ssm.cfg, ssm.params, serving,
                                              device=self.device)
             self.rm = SpecInferManager(
@@ -198,3 +233,22 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _place_params(params: Dict[str, Any], device: torch.device,
+                  quantization: Optional[str], offload: bool) -> Dict[str, Any]:
+    """Quantize (optionally) and place params: on ``device``, or with
+    ``offload`` on a GPU the layers in pinned host memory
+    (:class:`~..quantization.OffloadedLayers`) and the rest on the device."""
+    if quantization is not None:
+        params = quantize_params(params, {"int8": 8, "int4": 4}[quantization])
+    if offload and device.type == "cuda":
+        if isinstance(params["layers"], OffloadedLayers):
+            return params
+        placed = _to_device({k: v for k, v in params.items() if k != "layers"}, device)
+        placed["layers"] = OffloadedLayers(params["layers"], device)
+        return placed
+    if offload:
+        warnings.warn(f"offload=True has no effect on {device.type} (params already live "
+                      "in host memory there)", stacklevel=3)
+    return _to_device(params, device)

@@ -45,7 +45,12 @@ finished request in the reference's format. With
 ``ServingConfig.inference_debugging`` the scheduler serves every step on
 its sync path, where the engine dumps it.
 
-The cluster hooks come with the cluster slice.
+Cluster hooks (serve/cluster/): :meth:`submit` binds a cluster-wide
+trace id; :meth:`hold_on_finish` keeps a finished request's slot and
+pages for the prefill→decode migration until :meth:`release_held`;
+:meth:`adopt_prefilled` admits a request prefilled on another replica
+straight into decoding, and :meth:`rollback_adopt` undoes that when the
+page hand-off fails.
 """
 from __future__ import annotations
 
@@ -177,6 +182,9 @@ class RequestManager:
         # rid -> trace id (bound by a cluster front end; a local run falls
         # back to the rid itself — see trace_of)
         self._trace_ids: Dict[int, int] = {}
+        # finished requests whose slot and pages stay allocated until
+        # release_held (cluster migration sources)
+        self.hold_finished: set = set()
         # Automatic prefix caching (paged layout only: on the dense layout
         # prefix_caching passes through, there are no pages to share). The
         # radix tree holds one reference a cached page; the allocator's
@@ -242,10 +250,115 @@ class RequestManager:
         self.pending.append(rid)
         return rid
 
+    def submit(
+        self,
+        prompt: Union[str, Sequence[int]],
+        gen: Optional[GenerationConfig] = None,
+        max_new_tokens: Optional[int] = None,
+        trace_id: Optional[int] = None,
+    ) -> int:
+        """Non-blocking submission: queue one request and return its id.
+        Drive the scheduler with :meth:`step`. ``trace_id`` binds a
+        cluster-wide trace id, so the request's events stitch with the
+        router's and the other replicas' (obs/tracer.py)."""
+        gen = gen or GenerationConfig()
+        if max_new_tokens is not None:
+            gen = dataclasses.replace(gen, max_new_tokens=max_new_tokens)
+        rid = self.register_request(prompt, gen)
+        if trace_id is not None:
+            self._trace_ids[rid] = int(trace_id)
+        return rid
+
+    def bind_trace(self, rid: int, trace_id: int) -> None:
+        """Bind ``rid``'s events to a cluster-wide trace id."""
+        self._trace_ids[int(rid)] = int(trace_id)
+
     def trace_of(self, rid: int) -> int:
         """The trace id this request's events carry: the bound one, else
         the rid itself (single-engine runs)."""
         return self._trace_ids.get(rid, rid)
+
+    # ------------------------------------------------------------------
+    # cluster hooks (serve/cluster/): hold-for-migration and adoption of
+    # a request prefilled elsewhere
+
+    def hold_on_finish(self, rid: int) -> None:
+        """Keep ``rid``'s slot and pages when it finishes: the prefill→
+        decode migration reads them from the pool afterwards. Pair with
+        :meth:`release_held`."""
+        self.hold_finished.add(rid)
+
+    def release_held(self, rid: int) -> None:
+        """Release the slot and pages of a finished held request (its
+        pages were shipped, or the hold is abandoned)."""
+        self.hold_finished.discard(rid)
+        req = self.requests.get(rid)
+        if (req is not None and req.status in TERMINAL_STATUSES and req.slot >= 0
+                and req.pipeline_refs == 0):
+            self._release_slot(req)
+
+    def adopt_prefilled(
+        self,
+        tokens: Sequence[int],
+        prompt_len: int,
+        gen: GenerationConfig,
+        *,
+        profile: Optional[ProfileInfo] = None,
+        prompt_text: str = "",
+        trace_id: Optional[int] = None,
+    ) -> Optional[int]:
+        """Admit a request prefilled on another replica straight into
+        DECODING: ``tokens`` is the prompt and the first sampled token,
+        and cache lines [0, prompt_len) are about to be filled by page
+        uploads into the slot this allocates. Returns the new id, or None
+        when no slot (or no pages) can be had now (the caller retries;
+        a page shortfall gives the slot back)."""
+        assert len(tokens) > prompt_len, "adopt needs the first output token"
+        slot = next((i for i, occ in enumerate(self.slots) if occ is None), None)
+        if slot is None:
+            return None
+        if self._paged:
+            for eng in self._engines():
+                if not eng.pager.ensure(slot, prompt_len):
+                    self._release_pages(slot)
+                    return None
+        rid = self._next_id
+        self._next_id += 1
+        req = Request(request_id=rid, prompt=prompt_text, tokens=[int(t) for t in tokens],
+                      prompt_len=int(prompt_len), gen=gen)
+        req.slot = slot
+        req.status = RequestStatus.DECODING
+        req.n_cached = int(prompt_len)
+        req.n_sched = int(prompt_len)
+        req.admit_seq = self._admit_counter
+        self._admit_counter += 1
+        if profile is not None:
+            req.profile = profile
+        self.requests[rid] = req
+        self.slots[slot] = rid
+        self.stats.admitted += 1
+        if trace_id is not None:
+            self._trace_ids[rid] = int(trace_id)
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("adopt", trace_id=self.trace_of(rid), rid=rid, slot=slot,
+                     prompt_len=int(prompt_len))
+        return rid
+
+    def rollback_adopt(self, rid: int) -> None:
+        """Undo :meth:`adopt_prefilled` before any step ran (the page
+        hand-off failed after the adoption): release the slot and pages
+        and forget the request. The source still holds the original."""
+        req = self.requests.pop(rid)
+        assert req.status is RequestStatus.DECODING, (
+            f"rollback_adopt of request {rid} in state {req.status}")
+        assert req.pipeline_refs == 0 and req.n_cached == req.prompt_len, (
+            "rollback_adopt after the adopted request already stepped")
+        if req.slot >= 0:
+            if self._paged:
+                self._release_pages(req.slot)
+            self.slots[req.slot] = None
+        self.stats.admitted -= 1
 
     # ------------------------------------------------------------------
     # paged-KV page management (serve/paging.py PageAllocator)
@@ -498,8 +611,10 @@ class RequestManager:
         # to the flush that drains the last of them: they keep writing
         # (garbage) K/V through the slot's table, so handing the slot or
         # its pages to another request now would corrupt that request's
-        # cache.
-        if req.slot >= 0 and req.pipeline_refs == 0:
+        # cache. Held requests (cluster migration sources) keep slot and
+        # pages until release_held.
+        if (req.slot >= 0 and req.pipeline_refs == 0
+                and req.request_id not in self.hold_finished):
             self._release_slot(req)
         if self.output_file and error is None:
             self._write_output_record(req)
@@ -817,6 +932,7 @@ class RequestManager:
                 req.status in TERMINAL_STATUSES
                 and req.slot == slot
                 and req.pipeline_refs == 0
+                and req.request_id not in self.hold_finished
             ):
                 self._release_slot(req)
         # the read above blocked on the device: every spill copy enqueued
@@ -852,7 +968,11 @@ class RequestManager:
                 continue
             req = self.requests[rid]
             if req.status in TERMINAL_STATUSES:
-                return True
+                # held slots (cluster migration sources) leave through
+                # release_held alone: flushing cannot reclaim them
+                if rid not in self.hold_finished:
+                    return True
+                continue
             if (
                 req.status is RequestStatus.DECODING
                 and self._sched_exhausted(req)

@@ -1646,3 +1646,119 @@ def test_cuda_commit_kernel_bitwise_quant_line_write(cuda_device, quant, dtype, 
     assert tk.LAUNCHES[f"paged_commit[{quant}]"] == before + 1
     for x, y in zip(got, want):
         assert torch.equal(x[:P], y[:P])
+
+
+# ---------------------------------------------------------------------------
+# wq_matmul: the weight-only quantized product (csrc/wq_matmul.cu)
+
+# the kernel and its plain version differ in summation order alone: bf16
+# outputs (one rounding each) within 2^-8 relative L2, f32 within 1e-5
+WQ_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("M", [1, 3, 16, 17, 64, 200])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wq_matmul_designs_match_plain_version(cuda_device, dtype, bits, M):
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    gen = torch.Generator(device=cuda_device).manual_seed(M * 10 + bits)
+    K, N = 512, 208
+    w = torch.randn((K, N), generator=gen, device=cuda_device)
+    qw = quantize_tensor(w, bits)
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(dtype)
+    want = "rows" if M <= tk.WQ_ROWS_MAX else "mma" if dtype == torch.bfloat16 else "f32"
+    before = dict(tk.DESIGN_LAUNCHES)
+    y = tk.wq_matmul(x, qw["q"], qw["scale"])
+    torch.cuda.synchronize()
+    assert tk.DESIGN_LAUNCHES[f"wq_matmul[{want}]"] == before[f"wq_matmul[{want}]"] + 1
+    ref = tk.wq_matmul_ref(x, qw["q"], qw["scale"])
+    assert y.shape == ref.shape and y.dtype == dtype
+    assert _rel_l2(y, ref) <= WQ_REL_L2[dtype]
+
+
+@pytest.mark.parametrize("M", [2, 48])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_wq_matmul_expert_stacks_match_plain_version(cuda_device, bits, M):
+    """The expert stack's forms: E weights against one x (up and gate),
+    against E x's, and the down projection as one K whose scale rows
+    group the experts."""
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    gen = torch.Generator(device=cuda_device).manual_seed(bits + M)
+    E, D, F = 3, 256, 96
+    up = quantize_tensor(torch.randn((E, D, F), generator=gen, device=cuda_device), bits)
+    down = quantize_tensor(torch.randn((E, F, D), generator=gen, device=cuda_device), bits)
+    x = torch.randn((M, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    xe = torch.randn((E, M, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    h = torch.randn((M, E * F), generator=gen, device=cuda_device).to(torch.bfloat16)
+    cases = [(x, up["q"], up["scale"]), (xe, up["q"], up["scale"]),
+             (h, down["q"].reshape(-1, D), down["scale"].reshape(E, D))]
+    for xx, q, s in cases:
+        y = tk.wq_matmul(xx, q, s)
+        torch.cuda.synchronize()
+        assert _rel_l2(y, tk.wq_matmul_ref(xx, q, s)) <= WQ_REL_L2[torch.bfloat16]
+
+
+def test_cuda_wq_matmul_raises_on_what_it_does_not_take(cuda_device):
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    qw = quantize_tensor(torch.randn((64, 24), device=cuda_device), 8)  # N % 16
+    with pytest.raises(ValueError, match="multiples"):
+        tk.wq_matmul(torch.randn((2, 64), device=cuda_device), qw["q"], qw["scale"])
+    qw = quantize_tensor(torch.randn((64, 32), device=cuda_device), 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tk.wq_matmul(torch.randn((2, 64), device=cuda_device).half(), qw["q"], qw["scale"])
+    with pytest.raises(ValueError, match="input dim"):
+        tk.wq_matmul(torch.randn((2, 32), device=cuda_device), qw["q"], qw["scale"])
+
+
+def _tiny_llama(device, dtype=torch.bfloat16):
+    from flexflow_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LLaMAConfig.tiny(dtype=dtype), hidden_size=128,
+                              intermediate_size=256, num_attention_heads=2,
+                              num_key_value_heads=2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return llama, cfg, llama.init_params(gen, cfg, device=device)
+
+
+@pytest.mark.parametrize("quantization", [None, "int8", "int4"])
+def test_cuda_offloaded_serving_is_bitwise_the_resident_run(cuda_device, quantization):
+    """Offloaded layers reach the kernels as the same bytes: tokens and
+    logits bitwise the resident run's; every layer projection of a
+    quantized model ran the wq_matmul kernel, the plain version never."""
+    from flexflow_tpu_torch.serve import LLM, ServingConfig
+
+    model, cfg, params = _tiny_llama(cuda_device)
+    sc = ServingConfig(max_requests_per_batch=4, max_sequence_length=128, prefill_chunk=32,
+                       max_spec_tree_tokens=8, kernels="cuda", cache_dtype=torch.bfloat16)
+    prompts = [[3, 17, 91, 42, 7] * 7, [9, 8, 7, 6, 5, 4]]
+    outs = []
+    for offload in (False, True):
+        llm = LLM(model, cfg, {k: (dict(v) if isinstance(v, dict) else v)
+                               for k, v in params.items()}, device=cuda_device)
+        llm.compile(sc, quantization=quantization, offload=offload)
+        tk.reset_launch_counts()
+        outs.append([r.output_tokens for r in llm.generate(prompts, max_new_tokens=8)])
+        if quantization:
+            assert tk.LAUNCHES[f"wq_matmul[{quantization}]"] > 0
+            assert tk.PLAIN_CALLS["wq_matmul"] == 0
+        assert getattr(llm.params["layers"], "offloaded", False) == offload
+    assert outs[0] == outs[1]
+
+
+def test_cuda_whole_step_refuses_offloaded_params(cuda_device):
+    from flexflow_tpu_torch.serve import LLM, ServingConfig
+
+    model, cfg, params = _tiny_llama(cuda_device)
+    llm = LLM(model, cfg, params, device=cuda_device)
+    with pytest.raises(ValueError, match="offloaded"):
+        llm.compile(ServingConfig(max_requests_per_batch=4, max_sequence_length=128,
+                                  kv_layout="paged", page_size=16,
+                                  fused_decode=("whole_step",)), offload=True)

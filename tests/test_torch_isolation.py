@@ -28,6 +28,9 @@ def test_import_leaves_jax_and_the_jax_package_unloaded():
         "from flexflow_tpu_torch.core import remat\n"
         "from flexflow_tpu_torch import metrics, obs, profiling\n"
         "from flexflow_tpu_torch.obs import export, flight_recorder, tracer\n"
+        "from flexflow_tpu_torch import quantization\n"
+        "from flexflow_tpu_torch.serve.cluster import faults, health, manager, migration\n"
+        "from flexflow_tpu_torch.serve.cluster import replica, router\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flexflow_tpu' or m.startswith('flexflow_tpu.'))\n"
         "print(','.join(bad))\n"

@@ -321,15 +321,41 @@ def test_export_drift_guard_catches_a_new_port_field(monkeypatch):
 
 
 def test_attach_observability_cluster_targets_raise(weights):
-    class Cluster:
-        replicas, router = (), None
+    """Cluster targets attach since the cluster slice: the manager's router
+    lane and a replica's own lane; an unknown target still raises."""
+    class Engine:
+        tracer = None
+
+    class Manager:
+        _step_counter = 0
+
+        def __init__(self):
+            self.engine = Engine()
+
+        def _engines(self):
+            return [self.engine]
 
     class Replica:
-        rm, index = None, 0
+        index = 3
 
-    for target in (Cluster(), Replica()):
-        with pytest.raises(NotImplementedError, match="cluster slice"):
-            tobs.attach_observability(target)
+        def __init__(self):
+            self.rm = Manager()
+
+    class Cluster:
+        _step_counter = 0
+        router = None
+
+        def __init__(self):
+            self.replicas, self.standbys = [Replica()], [Replica()]
+
+    cluster = Cluster()
+    tobs.attach_observability(cluster)
+    assert cluster.tracer.lane == "router"
+    for rep in cluster.replicas + cluster.standbys:
+        assert rep.rm.tracer.lane == "replica3" and rep.rm.engine.tracer is rep.rm.tracer
+    replica = Replica()
+    tobs.attach_observability(replica)
+    assert replica.rm.tracer.lane == "replica3"
     with pytest.raises(TypeError, match="unsupported target"):
         tobs.attach_observability(object())
 
@@ -598,8 +624,10 @@ def test_event_arguments_never_read_a_device_tensor():
             assert not _sync_calls(call), f"{where}: {_sync_calls(call)} in an event argument"
     # the serve stack's sites: admit, prefix_lookup, preempt, terminal,
     # first_token, decode_step, prefill_chunk, mixed_step, flush,
-    # sync_step, dispatch, spec_draft, spec_verify
-    assert sites == 13
+    # sync_step, dispatch, spec_draft, spec_verify, adopt; the cluster's:
+    # place, place_failed, health, request_error, failover,
+    # recompute_readmit, probe, migrate, abandon
+    assert sites == 23
 
 
 def test_walk_catches_unguarded_and_syncing_events():

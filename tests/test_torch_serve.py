@@ -126,7 +126,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(weights, monkeypatch)
     pytest.param("fused_decode", ("whole_step",), ValueError, id="fused_decode-value2"),
     # ported: prefix_caching on the dense layout passes through (no pages)
     pytest.param("prefix_caching", True, None, id="prefix_caching-True"),
-    pytest.param("replicas", 2, NotImplementedError, id="replicas-2"),
+    # ported: an engine takes the cluster fields (LLM.compile builds the
+    # cluster around engines)
+    pytest.param("replicas", 2, None, id="replicas-2"),
     # ported: the triage dump switch passes through (nothing is written
     # before a step runs)
     pytest.param("inference_debugging", "/nonexistent", None,
