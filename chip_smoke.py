@@ -202,14 +202,20 @@ the dk-256 attention functions); one below dk 256 fails the run.
 Weight-only quantization, offload and clusters (slice 18): the kernel
 checks add ``wq_matmul[int8|int4]`` (``csrc/wq_matmul.cu``: y = x @
 dequantize(q, scale) without a bf16 copy of the weight) against its plain
-version at LLaMA-7B's projection shapes at decode (M 16, design "rows")
-and at a 16-slot C = 128 mixed step (M 2048, "mma"), f32 cases ("rows",
-"f32") and Mixtral-8x7B's expert stack, each beside the bf16
-``torch.matmul`` of the dequantized weight. ``quant`` serves the paged
-slice's 8 requests with bf16, int8 and int4 weights and int8 with
-``rope_kv_write`` (LLaMA-7B, 32 layers, 72 pages: no preemption): every
+version at LLaMA-7B's projection shapes at decode (M 16, design
+"splitk": tensor cores, K split over a thread block cluster) and at a
+16-slot C = 128 mixed step (M 2048, "wgmma"), f32 cases ("rows", "f32")
+and Mixtral-8x7B's expert stack, each beside the bf16 ``torch.matmul`` of
+the dequantized weight (and, where the card's PyTorch has a CUDA kernel
+for it, ``aten._weight_int8pack_mm`` at the int8 shapes); bf16 cases
+bitwise from run to run; decode cases also timed cold, over enough
+copies of the weights that a graph's working set passes 150 MB.
+``quant`` serves the paged slice's 8 requests with bf16, int8 and int4
+weights and int8 with ``rope_kv_write`` (LLaMA-7B, 32 layers, 72 pages:
+no preemption): every
 projection of a quantized arm runs wq_matmul (the plain dequantize path
-never), tokens greedy over their own teacher-forced prefix, first-step
+never; every decode step 7 launches a layer of "splitk", every mixed step
+"wgmma"), tokens greedy over their own teacher-forced prefix, first-step
 logits against the bf16 arm, param bytes, a profile of the quantized
 arms. ``offload`` serves 2 requests x 8 tokens with the layers in pinned
 host memory against the same weights resident (bf16 and int8): tokens
@@ -662,6 +668,28 @@ def phase_device():
     return smi
 
 
+def _wq_report(text):
+    """Registers and spill bytes of each wq_matmul function (its template
+    arguments: bits, then rows) in a ptxas -v report."""
+    rows, fn, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and "wq_" in fn:
+            name = re.search(r"(wq_\w+?_kernel)", fn)
+            rows.append({"function": name.group(1) if name else fn,
+                         "template": [int(x) for x in re.findall(r"Li(\d+)E", fn)],
+                         "registers": int(m.group(1)), "spill_store_bytes": spill})
+            fn = None
+    return rows
+
+
 def phase_build():
     t0 = time.perf_counter()
     reports = _cuda.build()
@@ -682,7 +710,8 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info, "mma_kernels": mma, "split_kernels": split,
-          "whole_step_kernels": whole, "whole_step_spills": whole_spills})
+          "whole_step_kernels": whole, "whole_step_spills": whole_spills,
+          "wq_kernels": _wq_report(reports.get("wq_matmul", ""))})
     # the split decode walk: 2 q types x 3 pool types x 4 head dims x 3 row
     # counts in each paged source compiled by this run, 2 x 2 x 3 in the
     # dense one, none spilling
@@ -2044,7 +2073,8 @@ def _kernel_class(name: str) -> str:
         return "adam_update"
     if "paged_commit_kernel" in n:
         return "paged_commit"
-    if "wq_rows_kernel" in n or "wq_mma_kernel" in n:
+    if any(k in n for k in ("wq_splitk_kernel", "wq_wgmma_kernel", "wq_rows_kernel",
+                            "wq_reduce_kernel")):
         return "wq_matmul"
     if "dense_split_kernel" in n:
         return "decode_attention"
@@ -5008,6 +5038,9 @@ WQ_EXPERT = (16, 4096, 14336, 8)
 WQ_REL_L2 = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
 #: the row of each wq_matmul line in the kernels line: decode, w1's shape
 WQ_ROW_CASE = (16, 4096, 11008)
+#: a cold graph's working set: above three times the H100's 50 MB L2, as
+#: serving finds each of a step's 224 distinct weights
+WQ_COLD_BYTES = 150e6
 
 
 def _wq_bound(M, K, N, bits, dtype, E=1, x_batched=False):
@@ -5022,12 +5055,33 @@ def _wq_bound(M, K, N, bits, dtype, E=1, x_batched=False):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cold_graph_ms(make, nbytes):
+    """graph_ms of ``make(copy)()`` cycling over enough copies of its
+    operands (``nbytes`` a copy) that the graph's working set passes
+    WQ_COLD_BYTES: every call finds its weight out of L2, as serving does."""
+    copies = max(1, math.ceil(WQ_COLD_BYTES / nbytes))
+    fns = [make(i) for i in range(copies)]
+    turn = iter(range(1 << 30))
+    ms = graph_ms(lambda: fns[next(turn) % copies](), calls=max(20, copies))
+    del fns
+    return ms, copies
+
+
+def _has_cuda_kernel(op):
+    """Whether this PyTorch registers a CUDA kernel for aten ``op``."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(f"aten::{op}", "CUDA")
+
+
 def run_wq_check(label, gen, bits, dtype, M, Kd, N, E=None, form=None):
     """One wq_matmul case against its plain version (dequantize, then the
-    product) on the same inputs: relative L2 within WQ_REL_L2, the design
-    the launcher took, kernel and plain graph ms, the bound, and the bf16
-    ``torch.matmul`` of the dequantized weight (the figure a quantized
-    decode must beat; no one PyTorch call computes this function)."""
+    product) on the same inputs: relative L2 within WQ_REL_L2, bf16 outputs
+    bitwise from run to run, the design the launcher took, kernel and plain
+    graph ms, the bound, the bf16 ``torch.matmul`` of the dequantized
+    weight (the figure a quantized decode must beat; no one PyTorch call
+    computes this function) and, at the int8 shapes of one weight, the
+    card's ``aten._weight_int8pack_mm`` where it has one (bf16 scales
+    applied after the product: a yardstick only). Decode cases (M <= 16)
+    also time the kernel and the bf16 product cold."""
     from flexflow_tpu_torch.quantization import quantize_tensor
 
     shape = (Kd, N) if E is None else (E, Kd, N) if form != "down" else (E, N, Kd)
@@ -5044,20 +5098,54 @@ def run_wq_check(label, gen, bits, dtype, M, Kd, N, E=None, form=None):
     out = K.wq_matmul(x, q, s)
     torch.cuda.synchronize()
     took = [k for k, v in K.DESIGN_LAUNCHES.items() if v != before[k]]
+    check(len(took) == 1, f"wq_matmul {label}: designs {took} for one call")
     ref = K.wq_matmul_ref(x, q, s)
     err = _rel(out, ref)
     check(bool(torch.isfinite(out).all()), f"wq_matmul {label}: non-finite output")
     check(err <= WQ_REL_L2[dtype], f"wq_matmul {label}: rel. L2 {err} > {WQ_REL_L2[dtype]}")
+    bitwise = None
+    if dtype == torch.bfloat16:
+        again = K.wq_matmul(x, q, s)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(out, again))
+        check(bitwise, f"wq_matmul {label}: two runs differ")
+        del again
     dense = K._wq_dense(q, s, dtype)
     bound, by = _wq_bound(M_, K_, N_, bits, dtype, E_)
     row = {"phase": "kernel", "kernel": f"wq_matmul[int{bits}]", "case": label,
            "M": M_, "K": K_, "N": N_, "E": E_, "dtype": str(dtype).split(".")[-1],
            "design": took[0][len("wq_matmul["):-1] if took else None,
            "max_abs_err": float((out.float() - ref.float()).abs().max()), "rel_l2": err,
+           "bitwise_run_to_run": bitwise,
            "graph_ms": graph_ms(lambda: K.wq_matmul(x, q, s)),
            "plain_graph_ms": graph_ms(lambda: K.wq_matmul_ref(x, q, s)),
            "bf16_matmul_graph_ms": graph_ms(lambda: torch.matmul(x, dense)),
            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    if bits == 8 and q.dim() == 2 and s.shape[0] == 1 and dtype == torch.bfloat16:
+        if _has_cuda_kernel("_weight_int8pack_mm"):
+            qt, sl = q.t().contiguous(), s[0].to(dtype)
+            # ~0.1 s a call at M 2048 on the H100: a short graph there
+            row["library_ms"] = graph_ms(
+                lambda: torch.ops.aten._weight_int8pack_mm(x, qt, sl),
+                *((20, 5) if M_ <= K.WQ_ROWS_MAX else (2, 2)))
+            row["library"] = "aten._weight_int8pack_mm"
+            del qt, sl
+        else:
+            row["library"] = "no such call (aten._weight_int8pack_mm has no CUDA kernel)"
+    if M_ <= K.WQ_ROWS_MAX:
+        def copy_of(i):
+            qi, si = (q, s) if i == 0 else (q.clone(), s.clone())
+            return lambda: K.wq_matmul(x, qi, si)
+
+        def dense_of(i):
+            di = dense if i == 0 else dense.clone()
+            return lambda: torch.matmul(x, di)
+
+        row["cold_graph_ms"], row["cold_copies"] = cold_graph_ms(
+            copy_of, q.numel() * q.element_size() + s.numel() * 4)
+        row["bf16_matmul_cold_graph_ms"], _ = cold_graph_ms(
+            dense_of, dense.numel() * dense.element_size())
+        torch.cuda.empty_cache()
     row["ms"], row["plain_ms"] = row["graph_ms"], row["plain_graph_ms"]
     emit(row)
     return row
@@ -5065,8 +5153,8 @@ def run_wq_check(label, gen, bits, dtype, M, Kd, N, E=None, form=None):
 
 def phase_wq_kernels(seed):
     """wq_matmul[int8|int4] against its plain version: LLaMA-7B's
-    projection shapes at decode (M 16: design "rows") and a 16-slot C =
-    128 mixed step (M 2048: "mma"), the f32 cases ("rows", "f32"), and
+    projection shapes at decode (M 16: design "splitk") and a 16-slot C =
+    128 mixed step (M 2048: "wgmma"), the f32 cases ("rows", "f32"), and
     Mixtral-8x7B's expert stack at decode (E weights against one x; the
     down projection as one K over the experts). The kernels line's rows
     carry the decode w1 case, and every case under ``cases``."""
@@ -5084,12 +5172,15 @@ def phase_wq_kernels(seed):
         cases.append(run_wq_check("mixtral-down", gen, bits, torch.bfloat16, M, D, F, E,
                                   form="down"))
         designs = {c["design"] for c in cases}
-        check(designs == {"rows", "mma", "f32"}, f"wq_matmul[int{bits}] designs: {designs}")
+        check(designs == {"splitk", "wgmma", "rows", "f32"},
+              f"wq_matmul[int{bits}] designs: {designs}")
         main = next(c for c in cases if (c["M"], c["K"], c["N"]) == WQ_ROW_CASE
                     and c["dtype"] == "bfloat16")
         rows[f"wq_matmul[int{bits}]"] = dict(main, cases=[
-            {k: c[k] for k in ("case", "design", "rel_l2", "graph_ms", "plain_graph_ms",
-                               "bf16_matmul_graph_ms", "bound_ms", "bound_by")}
+            {k: c.get(k) for k in ("case", "design", "rel_l2", "graph_ms", "cold_graph_ms",
+                                   "plain_graph_ms", "bf16_matmul_graph_ms",
+                                   "bf16_matmul_cold_graph_ms", "library_ms", "bound_ms",
+                                   "bound_by", "bitwise_run_to_run")}
             for c in cases])
     return rows
 
@@ -5106,6 +5197,24 @@ def _served_rows(rec, prompts, outputs):
     i in slot i): (requests, tokens, V)."""
     return torch.stack([torch.stack([rec[(i, len(p) - 1 + k)] for k in range(len(o))])
                         for i, (p, o) in enumerate(zip(prompts, outputs))])
+
+
+def _count_wq_steps(eng):
+    """Per step the engine serves (``eng.run_mixed``: the pipelined
+    decode and mixed steps): its query width and the wq_matmul launches it
+    made, by design."""
+    steps, run = [], eng.run_mixed
+
+    def run_mixed(last, host, use_last, positions, *rest, **kw):
+        before = {k: v for k, v in K.DESIGN_LAUNCHES.items() if k.startswith("wq_matmul[")}
+        out = run(last, host, use_last, positions, *rest, **kw)
+        steps.append((int(np.asarray(host).shape[1]),
+                      {k: K.DESIGN_LAUNCHES[k] - v for k, v in before.items()
+                       if K.DESIGN_LAUNCHES[k] != v}))
+        return out
+
+    eng.run_mixed = run_mixed
+    return steps
 
 
 def phase_quant(seed):
@@ -5132,6 +5241,7 @@ def phase_quant(seed):
                                   fused_decode=fused), quantization=quant)
         qparams = llm.params
         rec = _record_steps(llm.engine)
+        steps = _count_wq_steps(llm.engine)
         results, line = _serve(llm, prompts, new)
         plain = K.PLAIN_CALLS["wq_matmul"]
         outputs = [r.output_tokens for r in results]
@@ -5142,8 +5252,17 @@ def phase_quant(seed):
         if quant:
             check(line["launches"].get(f"wq_matmul[{quant}]", 0) > 0,
                   f"quant-{label}: wq_matmul never launched")
-            check(set(wq) == {"wq_matmul[rows]", "wq_matmul[mma]"},
-                  f"quant-{label}: wq_matmul designs {wq}, want rows (decode) and mma (mixed)")
+            check(set(wq) == {"wq_matmul[splitk]", "wq_matmul[wgmma]"},
+                  f"quant-{label}: wq_matmul designs {wq}, want splitk (decode) and wgmma "
+                  "(mixed)")
+            per_step = 7 * cfg.num_hidden_layers
+            for width, took in steps:
+                want = "wq_matmul[splitk]" if width == 1 else "wq_matmul[wgmma]"
+                check(took == {want: per_step},
+                      f"quant-{label}: a step of width {width} launched {took}, want "
+                      f"{{{want!r}: {per_step}}}")
+            line["wq_launches_per_decode_step"] = sorted(
+                {sum(t.values()) for w, t in steps if w == 1})
         else:
             check(not wq, f"quant-{label}: wq_matmul ran on dense weights")
         prof = profile_slice(llm, prompts, new, f"quant-{label}") if quant and not fused else None

@@ -58,7 +58,7 @@ SIGNATURES = {
     "whole_step_decode": (40, 24, 3),
     "paged_commit": (8, 9, 1),
     "adam_update": (5, 3, 6),
-    "wq_matmul": (5, 8, 0),
+    "wq_matmul": (5, 12, 0),
 }
 #: kernels whose launcher lives in a source of another name
 SOURCES = {
@@ -78,7 +78,7 @@ DESIGNS = {
     "flash_attention_fwd": (("f32", "wgmma"), ("dtype",)),
     "flash_attention_bwd_kv": (("f32", "wgmma"), ("dtype",)),
     "flash_attention_bwd_q": (("f32", "wgmma"), ("dtype",)),
-    "wq_matmul": (("rows", "mma", "f32"), ("M", "dtype")),
+    "wq_matmul": (("rows", "wgmma", "f32", "splitk"), ("M", "dtype")),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -162,9 +162,6 @@ def _lib(name: str) -> ctypes.CDLL:
             if source(kernel) == src:
                 getattr(lib, f"{kernel}_design").argtypes = [ctypes.c_int] * len(args)
                 getattr(lib, f"{kernel}_design").restype = ctypes.c_int
-        if src == "wq_matmul":
-            lib.wq_matmul_splits.argtypes = [ctypes.c_int] * 5
-            lib.wq_matmul_splits.restype = ctypes.c_int
         if src == "whole_step_decode":
             lib.whole_step_decode_smem.argtypes = [ctypes.c_int] * 3 + [
                 ctypes.POINTER(ctypes.c_int)] * 3
@@ -208,12 +205,6 @@ def design(name: str, *ints: int) -> str:
     if len(ints) != len(args):
         raise ValueError(f"{name}_design takes {', '.join(args)}")
     return names[getattr(_lib(name), f"{name}_design")(*ints)]
-
-
-def wq_matmul_splits(B: int, M: int, K: int, N: int, dtype: int) -> int:
-    """The K splits the wq_matmul launcher takes for these sizes: its
-    caller's f32 partial-sum buffer holds that many B x M x N (none at 1)."""
-    return int(_lib("wq_matmul").wq_matmul_splits(B, M, K, N, dtype))
 
 
 def whole_step_smem(dtype: int, pool_kind: int, dk: int):

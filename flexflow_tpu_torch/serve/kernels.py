@@ -1444,13 +1444,103 @@ def _whole_step_decode_cuda(layer_arrays, head_arrays, x0, cos, sin, cache, page
 # ---------------------------------------------------------------------------
 # weight-only quantized matmul (quantization.py): y = x @ dequantize(q, scale)
 
-#: most rows the "rows" design takes; wider products run "mma" (bf16 x) or
-#: "f32" (f32 x) — the launcher's wq_matmul_design
+#: most rows of x the decode designs take ("splitk" for bf16 x, "rows" for
+#: f32); wider products run "wgmma" (bf16 x) or "f32" (f32 x)
 WQ_ROWS_MAX = 16
-#: the kernel's K and N granules (csrc/wq_matmul.cu): the mma design's K
-#: step and a scale group's rows, its 16-byte code vector's columns
+#: the kernel's K and N granules (csrc/wq_matmul.cu): a K slice's and a
+#: scale group's rows, a thread's 16 code columns
 WQ_K_MULTIPLE = 32
 WQ_N_MULTIPLE = 16
+#: the launcher's design codes (wq_matmul_design; _cuda.DESIGNS order)
+WQ_DESIGN_CODES = {d: i for i, d in enumerate(DESIGNS["wq_matmul"][0])}
+#: "splitk": a block's column strip, the ring's code rows a stage, the
+#: most blocks of a cluster (one K split), the ring depth; blocks an SM
+#: the split count aims for (the best of 1-8 splits on an H100 at the
+#: families' decode shapes, scripts/wq_probe.py --sweep), and the fewest K
+#: rows a slice keeps
+WQ_SPLITK_COLS = 128
+WQ_SPLITK_BOX_ROWS = 128
+WQ_SPLITK_CLUSTER_MAX = 8
+WQ_SPLITK_STAGES = 2
+WQ_SPLITK_BLOCKS_PER_SM = 1.5
+WQ_SPLITK_MIN_SLICE = 256
+#: "wgmma": a step's K rows and the ring depth
+WQ_WGMMA_BK = 64
+WQ_WGMMA_STAGES = 4
+#: "rows"/"f32": the column strip, the most K rows of a split (x's f32
+#: slice in shared memory), the fewest, and the blocks an SM aimed for
+WQ_ROWS_STRIP = 32
+WQ_ROWS_SPLIT_MAX = 1024
+WQ_ROWS_SPLIT_MIN = 256
+WQ_ROWS_BLOCKS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class WqPlan:
+    """How one ``wq_matmul`` launch runs (:func:`wq_plan`).
+
+    ``design``: "splitk", "wgmma", "rows" or "f32". K is cut into
+    ``splits`` slices of ``k_slice`` rows (the last may be shorter): for
+    "splitk" the blocks of one thread block cluster, reduced inside it; for
+    "rows"/"f32" the blocks of one launch whose f32 partial sums a second
+    launch adds. ``k_step``: the K rows a thread dequantizes against one
+    scale row. ``stage_k``: the K rows of one stage of the code ring,
+    ``stages`` deep."""
+
+    design: str
+    splits: int
+    k_slice: int
+    k_step: int
+    stage_k: int
+    stages: int
+
+    @property
+    def cluster(self) -> int:
+        """Blocks of a thread block cluster (1: no cluster)."""
+        return self.splits if self.design == "splitk" else 1
+
+    @property
+    def reduce_launches(self) -> int:
+        """Second launches that add K slices' partial sums (0 or 1)."""
+        return int(self.design in ("rows", "f32") and self.splits > 1)
+
+    def slices(self, K: int):
+        """The K slices ``[lo, hi)``, in order."""
+        return [(r * self.k_slice, min(K, (r + 1) * self.k_slice)) for r in range(self.splits)]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wq_plan(M: int, K: int, N: int, B: int, bits: int, dtype: torch.dtype, sms: int) -> WqPlan:
+    """The launch plan of ``wq_matmul`` for x (M, K) of ``dtype`` against
+    B weights (K, N) of ``bits``-bit codes on a card of ``sms`` SMs: the
+    design from M and the dtype, the K slices and the ring depth. Pure, so
+    the wrapper caches it per shape and the CPU tests check it."""
+    bf16 = dtype == torch.bfloat16
+    rpc = 2 if bits == 4 else 1
+    if M <= WQ_ROWS_MAX and bf16:
+        stage_k = WQ_SPLITK_BOX_ROWS * rpc
+        strips = _ceil(N, WQ_SPLITK_COLS) * B
+        S = max(1, min(WQ_SPLITK_CLUSTER_MAX, round(WQ_SPLITK_BLOCKS_PER_SM * sms / strips),
+                       K // WQ_SPLITK_MIN_SLICE))
+        k_slice = min(_ceil(_ceil(K, S), stage_k) * stage_k, K)
+        return WqPlan("splitk", _ceil(K, k_slice), k_slice, 16, stage_k, WQ_SPLITK_STAGES)
+    if bf16:
+        return WqPlan("wgmma", 1, K, 16, WQ_WGMMA_BK, WQ_WGMMA_STAGES)
+    mt = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8 if M <= 8 else 16
+    base = _ceil(N, WQ_ROWS_STRIP) * B * _ceil(M, mt)
+    S = min(_ceil(WQ_ROWS_BLOCKS_PER_SM * sms, base), max(1, K // WQ_ROWS_SPLIT_MIN))
+    S = max(S, _ceil(K, WQ_ROWS_SPLIT_MAX))
+    k_slice = _ceil(_ceil(K, S), WQ_K_MULTIPLE) * WQ_K_MULTIPLE
+    return WqPlan("rows" if M <= WQ_ROWS_MAX else "f32", _ceil(K, k_slice), k_slice, rpc,
+                  k_slice, 1)
+
+
+#: the plan of each shape, and each card's SM count
+_WQ_PLANS: Dict[tuple, WqPlan] = {}
+_SM_COUNTS: Dict[int, int] = {}
 
 
 def _wq_dense(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -1490,10 +1580,10 @@ def wq_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
       up and gate projections).
 
     CPU tensors run :func:`wq_matmul_ref`. CUDA tensors launch
-    ``csrc/wq_matmul.cu`` (counted in ``LAUNCHES["wq_matmul[int8|int4]"]``
-    and, by the block design its launcher took, in
-    ``DESIGN_LAUNCHES["wq_matmul[rows|mma|f32]"]``) or raise for what the
-    kernel does not take."""
+    ``csrc/wq_matmul.cu`` by the plan of :func:`wq_plan` (counted in
+    ``LAUNCHES["wq_matmul[int8|int4]"]`` and, by design, in
+    ``DESIGN_LAUNCHES["wq_matmul[splitk|wgmma|rows|f32]"]``) or raise for
+    what the kernel does not take, or a launch the card refuses."""
     if x.device.type == "cpu":
         return wq_matmul_ref(x, q, scale)
     bits = {torch.int8: 8, torch.uint8: 4}.get(q.dtype)
@@ -1530,21 +1620,31 @@ def wq_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
             raise ValueError(f"{name} must lie on {x.device}; got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # TMA and the 16-byte scale loads
+            raise ValueError(f"{name} must be 16-byte aligned")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # a view's offset: TMA reads 16-byte aligned rows
+        x = x.clone()
     y = torch.empty(((B,) if q.dim() == 3 else ()) + (M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
     from . import _cuda
 
-    # the "rows" and "f32" designs split K over blocks; their f32 partial
-    # sums meet in a second launch, in split order
-    splits = _cuda.wq_matmul_splits(B, M, K, N, _dtype_code(x.dtype))
-    part = (torch.empty((splits * B * M * N,), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    key = (M, K, N, B, bits, x.dtype, x.device.index)
+    plan = _WQ_PLANS.get(key)
+    if plan is None:
+        sms = _SM_COUNTS.get(x.device.index)
+        if sms is None:
+            sms = _SM_COUNTS[x.device.index] = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+        plan = _WQ_PLANS[key] = wq_plan(M, K, N, B, bits, x.dtype, sms)
+    part = (torch.empty((plan.splits * B * M * N,), dtype=torch.float32, device=x.device)
+            if plan.reduce_launches else None)
     _cuda.launch("wq_matmul", [x, q, scale, y, part],
-                 [B, M, K, N, G, x_batched, bits, _dtype_code(x.dtype)], [])
+                 [B, M, K, N, G, x_batched, bits, _dtype_code(x.dtype),
+                  WQ_DESIGN_CODES[plan.design], plan.splits, plan.k_slice, plan.stages], [])
     LAUNCHES[f"wq_matmul[int{bits}]"] += 1
-    DESIGN_LAUNCHES[f"wq_matmul[{_cuda.design('wq_matmul', M, _dtype_code(x.dtype))}]"] += 1
+    DESIGN_LAUNCHES[f"wq_matmul[{plan.design}]"] += 1
     return y
 
 

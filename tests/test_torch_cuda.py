@@ -1672,7 +1672,8 @@ def test_cuda_wq_matmul_designs_match_plain_version(cuda_device, dtype, bits, M)
     w = torch.randn((K, N), generator=gen, device=cuda_device)
     qw = quantize_tensor(w, bits)
     x = torch.randn((M, K), generator=gen, device=cuda_device).to(dtype)
-    want = "rows" if M <= tk.WQ_ROWS_MAX else "mma" if dtype == torch.bfloat16 else "f32"
+    bf16 = dtype == torch.bfloat16
+    want = ("splitk" if bf16 else "rows") if M <= tk.WQ_ROWS_MAX else "wgmma" if bf16 else "f32"
     before = dict(tk.DESIGN_LAUNCHES)
     y = tk.wq_matmul(x, qw["q"], qw["scale"])
     torch.cuda.synchronize()
@@ -1705,6 +1706,67 @@ def test_cuda_wq_matmul_expert_stacks_match_plain_version(cuda_device, bits, M):
         assert _rel_l2(y, tk.wq_matmul_ref(xx, q, s)) <= WQ_REL_L2[torch.bfloat16]
 
 
+@pytest.mark.parametrize("K,N", [(512, 64), (4544, 64), (512, 208), (4544, 4544),
+                                 (11008, 4096)])
+@pytest.mark.parametrize("M", [1, 3, 8, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_wq_matmul_decode_edges_match_plain_version(cuda_device, bits, M, K, N):
+    """The decode design at the widths of every family's edge tiles: N of
+    one KV head (Falcon-7B's 64), a strip's partial tail (208), Falcon's
+    D = 4544 = 71 x 64 as K and N, LLaMA's K = 11008; one launch a
+    product, its K split inside one cluster."""
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    gen = torch.Generator(device=cuda_device).manual_seed(M * 7 + bits + K + N)
+    qw = quantize_tensor(torch.randn((K, N), generator=gen, device=cuda_device), bits)
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = dict(tk.DESIGN_LAUNCHES)
+    y = tk.wq_matmul(x, qw["q"], qw["scale"])
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in tk.DESIGN_LAUNCHES.items() if n != before[k]}
+    assert moved == {"wq_matmul[splitk]": 1}
+    assert _rel_l2(y, tk.wq_matmul_ref(x, qw["q"], qw["scale"])) <= WQ_REL_L2[torch.bfloat16]
+
+
+@pytest.mark.parametrize("M", [1, 16, 48])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_wq_matmul_down_groups_match_plain_version(cuda_device, bits, M):
+    """The expert stack's down projection (G > 1 scale groups, one K over
+    the experts) at decode and at a mixed step, with groups of 96 rows: a
+    64-deep wgmma step crosses a group."""
+    from flexflow_tpu_torch.quantization import quantize_tensor
+
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + bits + M)
+    E, F, D = 8, 96, 4096
+    down = quantize_tensor(torch.randn((E, F, D), generator=gen, device=cuda_device), bits)
+    q, s = down["q"].reshape(-1, D), down["scale"].reshape(E, D)
+    h = torch.randn((M, E * F), generator=gen, device=cuda_device).to(torch.bfloat16)
+    y = tk.wq_matmul(h, q, s)
+    torch.cuda.synchronize()
+    assert _rel_l2(y, tk.wq_matmul_ref(h, q, s)) <= WQ_REL_L2[torch.bfloat16]
+
+
+@pytest.mark.parametrize("M", [1, 16, 200])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_wq_matmul_bf16_is_bitwise_run_to_run(cuda_device, bits, M):
+    """Both bf16 designs sum in a fixed order (the cluster's ranks in rank
+    order): two runs give the same bits. The plan's design is the one the
+    library reports."""
+    from flexflow_tpu_torch.quantization import quantize_tensor
+    from flexflow_tpu_torch.serve import _cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(bits * 1000 + M)
+    qw = quantize_tensor(torch.randn((4096, 4096), generator=gen, device=cuda_device), bits)
+    x = torch.randn((M, 4096), generator=gen, device=cuda_device).to(torch.bfloat16)
+    a = tk.wq_matmul(x, qw["q"], qw["scale"])
+    b = tk.wq_matmul(x, qw["q"], qw["scale"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tk.wq_plan(M, 4096, 4096, 1, bits, torch.bfloat16, sms)
+    assert _cuda.design("wq_matmul", M, 1) == plan.design
+
+
 def test_cuda_wq_matmul_raises_on_what_it_does_not_take(cuda_device):
     from flexflow_tpu_torch.quantization import quantize_tensor
 
@@ -1716,6 +1778,14 @@ def test_cuda_wq_matmul_raises_on_what_it_does_not_take(cuda_device):
         tk.wq_matmul(torch.randn((2, 64), device=cuda_device).half(), qw["q"], qw["scale"])
     with pytest.raises(ValueError, match="input dim"):
         tk.wq_matmul(torch.randn((2, 32), device=cuda_device), qw["q"], qw["scale"])
+    # a plan the launcher cannot run raises: it never falls back
+    from flexflow_tpu_torch.serve import _cuda
+
+    x = torch.randn((2, 64), device=cuda_device).to(torch.bfloat16)
+    y = torch.empty((2, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _cuda.launch("wq_matmul", [x, qw["q"], qw["scale"], y, None],
+                     [1, 2, 64, 32, 1, 0, 8, 1, tk.WQ_DESIGN_CODES["wgmma"], 1, 64, 3], [])
 
 
 def _tiny_llama(device, dtype=torch.bfloat16):

@@ -2,8 +2,9 @@
 (flexflow_tpu_torch/quantization.py, serve/kernels.wq_matmul's plain
 version, LLM.compile(quantization=, offload=)) held against the JAX
 package: codes and scales bitwise, the quantized leaves and footprint,
-the plain product against JAX's ``_mm``, and tiny quantized LLaMA and
-Mixtral served by both packages (f32, the CPU)."""
+the plain product against JAX's ``_mm``, tiny quantized LLaMA and
+Mixtral served by both packages (f32, the CPU), and the CUDA kernel's
+launch plan (``kernels.wq_plan``) at the families' published shapes."""
 import dataclasses
 import warnings
 
@@ -22,8 +23,11 @@ from flexflow_tpu.models import transformer as jtr
 from flexflow_tpu.serve import ServingConfig as JaxServingConfig
 from flexflow_tpu.serve.llm import LLM as JaxLLM
 from flexflow_tpu_torch import quantization as tq
+from flexflow_tpu_torch.models import falcon as tfal
+from flexflow_tpu_torch.models import gemma as tgem
 from flexflow_tpu_torch.models import llama as tl
 from flexflow_tpu_torch.models import mixtral as tmix
+from flexflow_tpu_torch.models import phi as tphi
 from flexflow_tpu_torch.models import transformer as ttr
 from flexflow_tpu_torch.serve import InferenceEngine, ServingConfig
 from flexflow_tpu_torch.serve import kernels as tk
@@ -178,6 +182,82 @@ def test_plain_wq_matmul_expert_forms_match_dequantized_products(bits):
     got = tk.wq_matmul(torch.from_numpy(h), tdown["q"].reshape(-1, D),
                        tdown["scale"].reshape(E, D))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def _projection_shapes(cfg):
+    """(K, N, B, G) of every layer projection of a family at its published
+    widths: attention q, k, v and o, the FFN's up (and gate) and down, and
+    an expert stack's up against E weights and its down as one K over E
+    scale groups."""
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    dk = cfg.head_dim
+    Q, KVd = cfg.num_attention_heads * dk, cfg.num_key_value_heads * dk
+    shapes = [(D, Q, 1, 1), (D, KVd, 1, 1), (Q, D, 1, 1)]
+    E = getattr(cfg, "num_local_experts", 0)
+    if E:
+        shapes += [(D, F, E, 1), (E * F, D, 1, E)]
+    else:
+        shapes += [(D, F, 1, 1), (F, D, 1, 1)]
+    return shapes
+
+
+WQ_FAMILIES = {"llama_7b": tl.LLaMAConfig.llama_7b, "mixtral_8x7b": tmix.mixtral_8x7b,
+               "falcon_7b": tfal.falcon_7b, "phi_2": tphi.phi_2, "gemma_7b": tgem.gemma_7b}
+
+
+@pytest.mark.parametrize("family", sorted(WQ_FAMILIES))
+def test_wq_plan_slices_cover_k_in_whole_steps(family):
+    """Every launch plan of wq_matmul at a family's projection shapes, at
+    decode (M 1-16) and a mixed step (M 2048), both code widths and x
+    types, on an H100's 132 SMs: K slices multiples of 32 that cover K
+    exactly, in order; a cluster of at most 8 blocks; no K step (rows
+    dequantized against one scale row) crossing a scale group; the design
+    the launcher takes for M and the dtype."""
+    cfg = WQ_FAMILIES[family]()
+    n_plans = 0
+    for K, N, B, G in _projection_shapes(cfg):
+        Kg = K // G
+        assert K % tk.WQ_K_MULTIPLE == 0 and N % tk.WQ_N_MULTIPLE == 0 and Kg % 32 == 0
+        for bits in (8, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                for M in (*range(1, 17), 2048):
+                    plan = tk.wq_plan(M, K, N, B, bits, dtype, 132)
+                    want = ({torch.bfloat16: "splitk", torch.float32: "rows"} if M <= 16 else
+                            {torch.bfloat16: "wgmma", torch.float32: "f32"})[dtype]
+                    assert plan.design == want
+                    assert 1 <= plan.cluster <= tk.WQ_SPLITK_CLUSTER_MAX
+                    slices = plan.slices(K)
+                    assert slices[0][0] == 0 and slices[-1][1] == K
+                    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+                    for lo, hi in slices:
+                        assert hi > lo and (hi - lo) % 32 == 0
+                        assert (hi - lo) % plan.k_step == 0
+                        for k in range(lo, hi, plan.k_step):
+                            assert k // Kg == (k + plan.k_step - 1) // Kg
+                    if plan.design == "splitk":
+                        assert plan.stage_k % 32 == 0 and plan.k_slice % 32 == 0
+                        # a slice of whole stages, the last of K's own rows
+                        assert all((hi - lo) % plan.stage_k == 0 or hi == K
+                                   for lo, hi in slices)
+                    if plan.design in ("rows", "f32"):
+                        assert plan.k_slice <= tk.WQ_ROWS_SPLIT_MAX
+                    n_plans += 1
+    assert n_plans == len(_projection_shapes(cfg)) * 2 * 2 * 17
+
+
+def test_wq_plan_fills_the_card_at_decode():
+    """LLaMA-7B's decode projections: K split into clusters until the grid
+    holds about 1.5 blocks an SM (w1's 86 strips take 2 slices, wq's 32
+    take 6 of whole 256-row int4 stages), one launch each, no partial-sum
+    pass; the mixed step's tiles alone fill the card (no split)."""
+    w1 = tk.wq_plan(16, 4096, 11008, 1, 8, torch.bfloat16, 132)
+    wq = tk.wq_plan(1, 4096, 4096, 1, 4, torch.bfloat16, 132)
+    assert (w1.design, w1.splits, w1.k_slice, w1.reduce_launches) == ("splitk", 2, 2048, 0)
+    assert (wq.design, wq.splits, wq.k_slice, wq.reduce_launches) == ("splitk", 6, 768, 0)
+    mixed = tk.wq_plan(2048, 4096, 11008, 1, 8, torch.bfloat16, 132)
+    assert (mixed.design, mixed.splits, mixed.cluster) == ("wgmma", 1, 1)
+    # the f32 decode path keeps its second launch
+    assert tk.wq_plan(16, 4096, 4096, 1, 8, torch.float32, 132).reduce_launches == 1
 
 
 SERVE = dict(max_requests_per_batch=4, max_sequence_length=48, prefill_chunk=8,
