@@ -226,6 +226,25 @@ then at 8 layers 1 replica against the bare engine (bitwise),
 disaggregated 1 + 1 pools on bf16 and int8 pages (every migrated page
 byte-exact), a scripted crash (failover) and a warm standby's adoption.
 
+The quantized commit redesigned (slice 20): each ``paged_commit`` row
+(int8 and int4 at decode and C = 128, SpecInfer's tree steps, head dims 80
+and 256) carries ``graph_ms`` (a CUDA graph of 20 restore-and-commit pairs
+less a graph of the 20 restores; each restore copies back the pages the
+commit can write and reads 64 MB to evict L2) beside the event ``ms``,
+the kernel's ``design`` as its library names it ("line-warp" at C = 1;
+"pair", K and V in one block, at C <= 32; "block" above) and, under
+``serial``, the first design's times and bits
+(``scripts/paged_commit_serial.cu``, built and launched by this script
+alone), timed in turns on the same card. Two more cases a pool type:
+decode with 8 live slots of 16 (the others' lines on the scratch page,
+which the commit skips) and a C = 128 step whose lines are shuffled
+within each slot (a page's lines neither contiguous nor sorted); the
+kernels line's commit rows list every case, the tree steps too, under
+``cases``. The bound counts the lines off the scratch page and, of the
+pages whose codes change, only the lines no new line overwrites
+(``bound_all_lines_ms`` PR 7's count). The build line lists each commit
+instantiation's registers and spills (``commit_kernels``).
+
 Training (slice 3): the flash-attention kernels, forward and backward,
 against their plain versions at the training shape (B·H = 128, S = T =
 2048, dk = 128, bf16, causal) and at an f32 non-aligned and a dk = 64
@@ -240,6 +259,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -690,9 +710,70 @@ def _wq_report(text):
     return rows
 
 
+COMMIT_KERNEL = r"paged_commit_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)ELi(\d)E"
+
+
+def _commit_report(text):
+    """Each instantiation of the commit kernel (q dtype x pool x dk x
+    form) from its ``ptxas -v`` report: registers and spill bytes a
+    thread. The "pair" and "block" forms are held to 64 registers (four
+    blocks of 256 threads an SM), where some spill a few bytes; the build
+    line lists them."""
+    rows = []
+    for fn in text.split("Compiling entry function '")[1:]:
+        m = re.search(COMMIT_KERNEL, fn.split("'")[0])
+        if m:
+            rows.append({"dtype": "f32" if m[1] == "f" else "bf16",
+                         "pool": ("f32", "int8", "int4")[int(m[2])], "dk": int(m[3]),
+                         "design": _cuda.DESIGNS["paged_commit"][0][int(m[4])],
+                         "registers": int(re.search(r"Used (\d+) registers", fn)[1]),
+                         "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores",
+                                                            fn)[1])})
+    return sorted(rows, key=lambda x: (x["design"], x["dtype"], x["pool"], x["dk"]))
+
+
+#: the commit's first design, the yardstick of the commit rows
+#: (``_serial_commit``): a source outside the package, built by this script
+#: beside the package's sources with their flags and headers, and launched
+#: by it alone
+SERIAL_COMMIT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                 "paged_commit_serial.cu")
+_SERIAL_COMMIT = {}
+
+
+def _build_serial_commit():
+    """Start ``nvcc`` on SERIAL_COMMIT_SRC; returns a function that waits
+    for it, loads the library into ``_SERIAL_COMMIT`` and returns the
+    ``ptxas`` report (raises if the build failed)."""
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = str(_cuda.BUILD_DIR / "paged_commit_serial.so")
+    proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.SRC_DIR),
+                             "-o", target, SERIAL_COMMIT_SRC],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"paged_commit_serial build failed (nvcc exit "
+                               f"{proc.returncode}):\n{out}")
+        lib = ctypes.CDLL(target)
+        lib.paged_commit_serial_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_commit_serial_launch.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _SERIAL_COMMIT["lib"] = lib
+        return out
+    return finish
+
+
 def phase_build():
     t0 = time.perf_counter()
-    reports = _cuda.build()
+    serial = _build_serial_commit()
+    try:
+        reports = _cuda.build()
+    finally:
+        serial_report = serial()
     seconds = time.perf_counter() - t0
     info = {}
     for name, text in reports.items():
@@ -707,11 +788,24 @@ def phase_build():
     whole = _whole_report(reports["whole_step_decode"]) if "whole_step_decode" in reports else []
     whole_spills = _whole_spills(reports.get("whole_step_decode", ""))
     split = _split_report(reports)
+    commit = _commit_report(reports.get("paged_commit", ""))
     emit({"phase": "build", "seconds": round(seconds, 3), "arch": "sm_90a",
           "sources": [f"flexflow_tpu_torch/csrc/{n}.cu" for n in sources],
           "ptxas": info, "mma_kernels": mma, "split_kernels": split,
           "whole_step_kernels": whole, "whole_step_spills": whole_spills,
-          "wq_kernels": _wq_report(reports.get("wq_matmul", ""))})
+          "wq_kernels": _wq_report(reports.get("wq_matmul", "")),
+          "commit_kernels": commit,
+          "commit_spills": [f"{r['design']} {r['dtype']}/{r['pool']}/dk{r['dk']}: "
+                            f"{r['spill_store_bytes']} bytes" for r in commit
+                            if r["spill_store_bytes"]],
+          "serial_commit": {"source": "scripts/paged_commit_serial.cu",
+                            "max_registers": max(map(int, re.findall(
+                                r"Used (\d+) registers", serial_report)), default=None)}})
+    # the commit: 2 q types x 2 pool types x 4 head dims x 3 forms, when
+    # this run compiled its source
+    want = 48 * ("paged_commit" in reports)
+    check(len(commit) == want, f"commit instantiations in the ptxas report: {len(commit)}, "
+                               f"want {want}")
     # the split decode walk: 2 q types x 3 pool types x 4 head dims x 3 row
     # counts in each paged source compiled by this run, 2 x 2 x 3 in the
     # dense one, none spilling
@@ -1289,10 +1383,11 @@ def run_fused_check(label, case, dtype, quant, timed=True):
     extra = (2 * k_new.numel() * isz + 2 * cos.numel() * 4 + 2 * R * C * 4
              + 2 * written * KV * dkp * pisz)
     if quant is not None:
-        # scale rows of the touched pages, and the pages whose scale moved
-        moved = sum(int((x[:P] != case[k][:P]).sum()) for x, k in zip(a[2:], ("ks", "vs")))
+        # scale rows of the touched pages, and the old lines that change
         touched = int(phys.unique().numel())
-        extra += 2 * touched * KV * 4 + moved * ps * dkp * pisz
+        extra += 2 * touched * KV * 4 + _requant_bytes(
+            phys, off.long(), zip((case["ks"], case["vs"]), a[2:]), P, ps, dkp * pisz,
+            R * C >= P + 1)[0]
     row["bound_ms"], row["bound_by"], row["bound_cuda_core_ms"] = _paged_bound(case, dtype, extra)
     row.update(
         ms=cuda_ms(lambda: K.fused_rope_paged_attention(
@@ -1316,14 +1411,91 @@ def run_fused_check(label, case, dtype, quant, timed=True):
     return row
 
 
-def run_commit_check(label, case, dtype, quant):
+#: bytes read before each timed commit to evict the pools from L2 (50 MB)
+COMMIT_FLUSH_BYTES = 64 << 20
+_COMMIT_FLUSH = []
+
+
+def _commit_restore(dst, start, pages):
+    """The restore before each timed commit: the scales, and the pool pages
+    the commit can write (``pages``), copied back from ``start``; then
+    COMMIT_FLUSH_BYTES read (a read leaves no dirty lines to drain during
+    the commit), so that each commit finds its lines and pages in device
+    memory, as a layer's commit does."""
+    if not _COMMIT_FLUSH:
+        _COMMIT_FLUSH.append(torch.ones(COMMIT_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV))
+    saved = [start[i].index_select(0, pages) for i in (0, 1)]
+
+    def run():
+        for i in (0, 1):
+            dst[i].index_copy_(0, pages, saved[i])
+            dst[2 + i].copy_(start[2 + i])
+        _COMMIT_FLUSH[0].amax()
+    return run
+
+
+def _serial_commit(pools, k, v, phys32, off32, qmax):
+    """The commit's first design (SERIAL_COMMIT_SRC, built by
+    phase_build), one launch for K and V, with int32 phys and off: the
+    yardstick of the commit rows, never launched by a serving path."""
+    R, C, KV, dk = k.shape
+    kp = pools[0]
+    lib = _SERIAL_COMMIT["lib"]
+    err = lib.paged_commit_serial_launch(
+        *[t.data_ptr() for t in (k, v, *pools, phys32, off32)],
+        R, C, KV, dk, kp.shape[1], kp.shape[0], K._dtype_code(k.dtype),
+        1 if kp.dtype == torch.int8 else 2, int(R * C >= kp.shape[0]), qmax,
+        torch.cuda.current_stream(k.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_commit_serial launch failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+
+
+def _requant_bytes(phys, off, scales, P, ps, line_bytes, whole_pool):
+    """The bytes that quant_line_write must move for the codes already in
+    the pools, K and V: in each (page, KV head) whose codes change, the
+    lines that no new line overwrites, written alone where the ratio is 0
+    (the page reset by a line at offset 0, or its old scale 0; in the
+    whole-pool branch also an untouched page of scale 0) and read and
+    written where the scale grew. Lines on the scratch page (page P) are
+    not committed and not counted. ``scales``: (old, new) of K's and of
+    V's (P + 1, KV) scales. Returns the bytes and the counts of (page, KV
+    head, K or V) written alone and read and written."""
+    on = phys != P
+    lines = (phys[on] * ps + off[on]).unique()
+    kept = ps - torch.bincount(lines // ps, minlength=P + 1)[:P, None]
+    touched = torch.zeros(P + 1, dtype=torch.bool, device=phys.device)
+    touched[phys[on]] = True
+    reset = torch.zeros_like(touched)
+    reset[phys[on & (off == 0)]] = True
+    touched, reset = touched[:P, None], reset[:P, None]
+    zeroed = grown = nbytes = 0
+    for old, new in scales:
+        old, new = old[:P], new[:P]
+        z = (touched & (reset | (old == 0))) | (~touched & (old == 0) & whole_pool)
+        g = touched & ~z & (new != old)
+        zeroed, grown = zeroed + int(z.sum()), grown + int(g.sum())
+        nbytes += int((z * kept).sum() + 2 * (g * kept).sum()) * line_bytes
+    return nbytes, zeroed, grown
+
+
+def run_commit_check(label, case, dtype, quant, live=None, spread=False):
     """The commit kernel (``K.commit_paged`` on CUDA tensors) against its
     plain version, quant_line_write on K and on V, at the paged slice's
     shapes: pools and scales of every page but the scratch page bitwise
-    equal; both timed with the pools restored before each call. Bound:
-    the new lines read, their code bytes and the touched pages' scales
-    written, and the pages whose scale moved (this data's requantization)
-    read and written."""
+    equal, one launch a call; the first design (``_serial_commit``, under
+    ``serial``) the same. ``live``: only the first ``live`` slots' lines
+    commit (the others' on the scratch page, as idle slots'); ``spread``:
+    each slot's lines in a random order, so a page's lines are neither
+    contiguous nor sorted. ``ms`` times a call by CUDA events,
+    ``graph_ms`` the device's time of one: a CUDA graph of 20 restore-and-
+    commit pairs less a graph of 20 restores (``_commit_restore``); the
+    plain version by events alone. Bound: the lines off the scratch page
+    read and their code bytes written, phys and off read, the touched
+    pages' scales read and written, and the old lines that change
+    (:func:`_requant_bytes`); ``bound_all_lines_ms`` is PR 7's count:
+    every line, padding lines too, and every (page, KV head) whose scale
+    moved read and written whole."""
     R, C, KV, dk, ps, P = (case[k] for k in ("R", "C", "KV", "dk", "ps", "P"))
     table, lines = case["table"], case["cpos"]  # the lines the step writes
     gen = torch.Generator(device=DEV)
@@ -1331,45 +1503,88 @@ def run_commit_check(label, case, dtype, quant):
     k_new, v_new = _rand((R, C, KV, dk), dtype, gen), _rand((R, C, KV, dk), dtype, gen)
     phys = table.long().gather(1, (lines // ps).long())
     off = lines % ps
+    if live is not None:
+        phys[live:] = P
+    if spread:
+        order = torch.argsort(torch.rand((R, C), generator=gen, device=DEV), dim=1)
+        phys, off = phys.gather(1, order), off.gather(1, order)
     qmax = KQ.SPECS[quant].qmax
     start = [case[k] for k in ("kp", "vp", "ks", "vs")]
-    a, b = [t.clone() for t in start], [t.clone() for t in start]
+    a, b, c = ([t.clone() for t in start] for _ in range(3))
     before = K.LAUNCHES[f"paged_commit[{quant}]"]
     K.commit_paged(a[0], a[1], k_new, v_new, phys, off, a[2], a[3], qmax)
-    K.commit_paged(b[0], b[1], k_new, v_new, phys, off, b[2], b[3], qmax, kernels="torch")
     torch.cuda.synchronize()
     check(K.LAUNCHES[f"paged_commit[{quant}]"] == before + 1,
           f"paged_commit[{label}]: not one launch")
+    K.commit_paged(b[0], b[1], k_new, v_new, phys, off, b[2], b[3], qmax, kernels="torch")
+    phys32, off32 = phys.int(), off.int()
+    _serial_commit(c, k_new, v_new, phys32, off32, qmax)
+    torch.cuda.synchronize()
     bitwise = all(bool(torch.equal(x[:P], y[:P])) for x, y in zip(a, b))
     check(bitwise, f"paged_commit[{label}]: non-scratch pools or scales differ from "
                    "quant_line_write")
+    serial_bitwise = all(bool(torch.equal(x[:P], y[:P])) for x, y in zip(c, b))
+    check(serial_bitwise, f"paged_commit_serial[{label}]: differs from quant_line_write")
     dkp, pisz, isz = start[0].shape[3], start[0].element_size(), k_new.element_size()
-    written = int((phys * ps + off).unique().numel())
-    touched = int(phys.unique().numel())
+    on = phys != P
+    n_live = int(on.sum())
+    written = int((phys[on] * ps + off[on]).unique().numel())
+    touched = phys[on].unique()
+    old_lines, zeroed, grown = _requant_bytes(phys, off, zip(start[2:], a[2:]), P, ps,
+                                              dkp * pisz, R * C >= P + 1)
+    nbytes = (2 * n_live * KV * dk * isz + 2 * R * C * 8 + 2 * written * KV * dkp * pisz
+              + 2 * 2 * int(touched.numel()) * KV * 4 + old_lines)
     moved = sum(int((x[:P] != y[:P]).sum()) for x, y in zip(a[2:], start[2:]))
-    nbytes = (2 * k_new.numel() * isz + 2 * R * C * 8 + 2 * written * KV * dkp * pisz
-              + 2 * 2 * touched * KV * 4 + 2 * moved * ps * dkp * pisz)
+    all_lines = (2 * k_new.numel() * isz + 2 * R * C * 8
+                 + 2 * int((phys * ps + off).unique().numel()) * KV * dkp * pisz
+                 + 2 * 2 * int(phys.unique().numel()) * KV * 4
+                 + 2 * moved * ps * dkp * pisz)
+    # the pages a commit can write: those its lines touch and (whole-pool
+    # branch) those with a zero scale
+    zero = ((start[2] == 0) | (start[3] == 0)).any(dim=1).nonzero().flatten()
+    pages = torch.cat([phys.flatten(), zero]).unique()
 
-    def restore(dst):
-        def run():
-            for x, y in zip(dst, start):
-                x.copy_(y)
-        return run
+    def kernel(dst):
+        return lambda: K.commit_paged(dst[0], dst[1], k_new, v_new, phys, off, dst[2], dst[3],
+                                      qmax)
 
+    def serial(dst):
+        return lambda: _serial_commit(dst, k_new, v_new, phys32, off32, qmax)
+
+    def graph_pairs_ms(fn, restore):
+        return graph_ms(lambda: (restore(), fn())) - graph_ms(restore)
+
+    ra, rc = _commit_restore(a, start, pages), _commit_restore(c, start, pages)
     row = {"phase": "kernels", "kernel": f"paged_commit[{quant}]", "case": label,
            "dtype": str(dtype).replace("torch.", ""), "pool": quant,
            "shape": {k: case[k] for k in ("R", "C", "KV", "dk", "ps", "P")},
            "branch": "per-line" if R * C < P + 1 else "whole-pool",
-           "bitwise": bitwise, "max_abs_err": 0.0, "pages_requantized": moved,
-           "ms": cuda_ms_restored(lambda: K.commit_paged(
-               a[0], a[1], k_new, v_new, phys, off, a[2], a[3], qmax), restore(a)),
+           "design": _cuda.design("paged_commit", C),
+           "live_lines": n_live, "spread": spread,
+           "bitwise": bitwise, "max_abs_err": 0.0,
+           "pages_requantized": {"zeroed": zeroed, "grown": grown},
+           "ms": cuda_ms_restored(kernel(a), ra),
            "plain_ms": cuda_ms_restored(lambda: K.commit_paged(
                b[0], b[1], k_new, v_new, phys, off, b[2], b[3], qmax, kernels="torch"),
-               restore(b), iters=5),
+               _commit_restore(b, start, pages), iters=5),
            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes"}
+           "bound_by": "bytes", "bound_all_lines_ms": all_lines / HBM_BYTES_PER_S * 1e3}
+    # graphs in turns on one card: kernel, first design, first design, kernel
+    row["graph_ms"] = graph_pairs_ms(kernel(a), ra)
+    row["serial"] = {"bitwise": serial_bitwise, "ms": cuda_ms_restored(serial(c), rc),
+                     "graph_ms": graph_pairs_ms(serial(c), rc),
+                     "graph_ms_again": graph_pairs_ms(serial(c), rc)}
+    row["graph_ms_again"] = graph_pairs_ms(kernel(a), ra)
     emit(row)
     return row
+
+
+#: the commit rows' extra cases (on the int8 and int4 decode and C = 128
+#: cases): 8 live slots of 16, and a mixed step's lines spread
+COMMIT_VARIANTS = {"decode": (("8-live", dict(live=8)),),
+                   "mixed": (("spread", dict(spread=True)),)}
+COMMIT_CASE_KEYS = ("design", "branch", "live_lines", "ms", "graph_ms", "graph_ms_again",
+                    "plain_ms", "bound_ms", "bound_all_lines_ms", "pages_requantized", "serial")
 
 
 # (label, q dtype, pool quantization, KV heads, step kind, timed); the
@@ -1412,7 +1627,7 @@ def phase_paged_kernels(seed):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 2)
     rng = np.random.default_rng(seed + 2)
-    main = {}
+    main, commits = {}, {}
     for label, dtype, quant, KV, kind, timed in PAGED_CASES:
         case = _paged_case(gen, rng, dtype, quant, KV, kind)
         ragged = run_ragged_check(label, case, dtype, quant, timed)
@@ -1422,6 +1637,11 @@ def phase_paged_kernels(seed):
         check(ragged["design"] == fused["design"] == want,
               f"paged[{label}]: designs {ragged['design']}, {fused['design']}, want {want}")
         commit = run_commit_check(label, case, dtype, quant) if quant and timed else None
+        if commit:
+            commits.setdefault(quant, {})[label] = commit
+            for name, kw in COMMIT_VARIANTS.get(kind, ()):
+                commits[quant][f"{label}-{name}"] = run_commit_check(
+                    f"{label}-{name}", case, dtype, quant, **kw)
         pool = quant or ("bf16" if dtype == torch.bfloat16 else "f32")
         if kind == "mixed" and "gqa" not in label and timed:
             main[f"ragged_paged_attention[{pool}]"] = ragged
@@ -1438,6 +1658,9 @@ def phase_paged_kernels(seed):
         del case
         gc.collect()
         torch.cuda.empty_cache()
+    for quant, rows in commits.items():  # the commit row's every case
+        main[f"paged_commit[{quant}]"]["cases"] = {
+            label: {k: row.get(k) for k in COMMIT_CASE_KEYS} for label, row in rows.items()}
     return main
 
 
@@ -5833,6 +6056,9 @@ def main(argv=None) -> int:
                     rows[-1][extra] = m[extra]
         if name.split("[")[0] in ("adam_update", "paged_commit"):
             rows[-1]["bitwise"] = m.get("bitwise")
+        if name.startswith("paged_commit["):  # the device time beside the first design's
+            rows[-1].update(design=m.get("design"), graph_ms=m.get("graph_ms"),
+                            serial=m.get("serial"))
         if "cases" in m:  # the other families' shapes: every case of the row's group
             rows[-1]["cases"] = m["cases"]
         if name.startswith("wq_matmul["):

@@ -35,9 +35,10 @@
 // whole page) before it attends, and no other block reads that page; at
 // C > 1 the split rule gives one split per (slot, KV head). Every block
 // rotates its own copy of the query rows into shared memory, so no block
-// waits on another. The one exception is the scratch page, which every
-// padding line of every slot writes: its bytes are garbage, and only
-// padding rows, whose outputs nobody reads, see them. The mma design
+// waits on another. No block writes the scratch page, where every
+// padding line points: those lines are not committed, so the padding
+// rows that read it (their outputs nobody reads) see a page that no block
+// of the launch writes. The mma design
 // reads the pages by cp.async.cg, through L2: the barrier that ends
 // rope_and_commit makes every thread's committed stores visible to the
 // whole block, those reads included.
@@ -48,7 +49,10 @@
 //
 // Design against that bound: the rotated K/V lines are committed
 // straight from the block (the rotated K, and on mixed steps q,
-// round-trip through small buffers of the wrapper), and the attention is
+// round-trip through small buffers of the wrapper; on quantized pools by
+// the block's commit_quant_block, in the tile's dynamic shared memory
+// before the tile uses it, or in the split design in at most 420 bytes of
+// static shared memory, lean in its one-row blocks), and the attention is
 // ragged_paged_attention's, in the design the ragged launcher would take
 // (paged_design) with the same split rule. Decode launches R * KV *
 // nsplit blocks of 128 threads (attend_split). A mixed step (bf16 q "mma", f32 q "tf32x3") launches
@@ -65,6 +69,20 @@ namespace {
 
 using FusedArgs = CommitArgs;
 
+constexpr int kMaxPageLines = 128;  // the launcher's largest page
+
+// The commit's shared memory in the split design of GB rows (C * G <= GB,
+// so at most GB lines a slot): static, on quantized pools only.
+template <int KIND, int GB>
+__device__ __forceinline__ void* split_commit_ws() {
+  if constexpr (KIND == kPoolFloat) {
+    return nullptr;
+  } else {
+    __shared__ __align__(16) unsigned char ws[commit_smem_bytes(GB, kMaxPageLines)];
+    return ws;
+  }
+}
+
 // The decode design: split blockIdx.x of KV head blockIdx.y of slot
 // blockIdx.z, its C * G <= GB query rows; the block whose split holds the
 // pages of the new lines (every block, with one split) commits them first.
@@ -80,7 +98,8 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks<KIND, GB>)
     const int page = f.logical[r];
     commits = page >= split * s.split_len && page < (split + 1) * s.split_len;
   }
-  if (commits) rope_commit_kv<TQ, KIND, DK, kSplitThreads>(f, r, h);
+  if (commits)
+    rope_commit_kv<TQ, KIND, DK, kSplitThreads, GB == 1>(f, r, h, split_commit_ws<KIND, GB>());
   const PagedLines<false> ln{f.a, r, h, 0, f.a.C * (f.a.H / f.a.KV)};
   attend_split<TQ, KIND, DK, GB, kSplitWarps>(ln, s, split, sQ, sm);
 }
@@ -91,7 +110,10 @@ template <typename TQ, int KIND, int DK>
 __global__ void __launch_bounds__(kMmaTileThreads, 1) fused_mma_kernel(FusedArgs f) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int h = blockIdx.x, r = blockIdx.y;
-  rope_and_commit<TQ, KIND, DK, kMmaTileThreads>(f, r, h);
+  static_assert(KIND == kPoolFloat ||
+                    MmaSmem<TQ, KIND, DK>::kBytes >= commit_smem_bytes(kMaxChunk, kMaxPageLines),
+                "the tile's shared memory holds the commit's");
+  rope_and_commit<TQ, KIND, DK, kMmaTileThreads>(f, r, h, smem_mma);
   const int rows = f.a.C * (f.a.H / f.a.KV);
   for (int row0 = 0; row0 < rows; row0 += kMmaTileRows)
     attend_tile_mma<TQ, KIND, DK>(f.a, r, h, row0, smem_mma);
@@ -165,11 +187,12 @@ extern "C" int fused_rope_paged_attention_launch(
     const void* sin, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* table, const void* logical, const void* off, const void* mask,
     void* out, void* q_rot, void* k_rot, void* ws, void* counters, int R, int C, int H,
-    int KV, int dk, int ps, int NP, int rot, int dtype, int pool_kind, int split_pages,
+    int KV, int dk, int ps, int NP, int P1, int rot, int dtype, int pool_kind, int split_pages,
     float scale, float qmax, void* stream) {
   if (R <= 0 || C <= 0 || C > fft::kMaxChunk || KV <= 0 || NP <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
-  if (ps != 16 && ps != 32 && ps != 64 && ps != 128) return (int)cudaErrorInvalidValue;
+  if (ps != 16 && ps != 32 && ps != 64 && ps != fft::kMaxPageLines || P1 <= 0)
+    return (int)cudaErrorInvalidValue;
   if ((cos == nullptr) != (sin == nullptr)) return (int)cudaErrorInvalidValue;
   if (cos != nullptr && (rot <= 0 || rot > dk || rot % 2 != 0)) return (int)cudaErrorInvalidValue;
   if (pool_kind != fft::kPoolFloat && (k_scale == nullptr || v_scale == nullptr))
@@ -198,7 +221,9 @@ extern "C" int fused_rope_paged_attention_launch(
   f.k_rot = k_rot;
   f.logical = static_cast<const int*>(logical);
   f.phys = nullptr;
-  f.off = static_cast<const int*>(off);
+  f.off = off;
+  f.phys64 = f.off64 = false;
+  f.scratch = P1 - 1;
   f.rot = rot;
   f.qmax = qmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

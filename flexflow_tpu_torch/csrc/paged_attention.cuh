@@ -135,8 +135,8 @@ constexpr int kMmaTileRows = kMmaTileWarps * 16;  // query rows per block or pas
 constexpr int kMmaStages = 3;                     // K/V tile buffers: two copies in flight
 constexpr int kMetaTiles = 32;                    // tiles whose mask bits are staged at once
 // dynamic shared bytes a tensor-core tile may take: a block's 232,448 less
-// 8 KB for static buffers (the fused kernel's, paged_commit.cuh, take at
-// most 5,120)
+// 8 KB for static buffers (the fused kernel's commit, paged_commit.cuh,
+// takes none: it runs in the tile's dynamic shared memory first)
 constexpr size_t kMmaSmemBudget = 232448 - 8192;
 
 // Shared bytes of the mask bits, page ids, scales and flags of ``tiles``

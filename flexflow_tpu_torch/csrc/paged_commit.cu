@@ -7,114 +7,178 @@
 // its fused kernel (serve/kernels.py fused_rope_paged_attention,
 // _quant_commit) runs the same arithmetic in Pallas. The port's plain
 // version is serve/kv_quant.quant_line_write (run for K, then for V),
-// ~20 eager PyTorch operations each. Same function, bitwise: offset-0
-// scale reset, running amax scale, codes of a page whose scale grew
-// requantized by rint(code * old / new), new lines quantized by
-// rint(v / max(s, 1e-30)) clipped to +-qmax (commit_quant_lines of
-// paged_commit.cuh, which the fused and whole-step kernels run too).
+// ~20 eager PyTorch operations each. Same function, bitwise on every page
+// but the scratch page, whose lines are not committed: paged_commit.cuh.
 //
 // quant_line_write's two branches:
-//  * R * C < P + 1: only the pages the new lines touch are requantized;
-//    blocks (h, r) for r < R do that.
+//  * R * C < P + 1: only the pages the new lines touch are requantized.
 //  * R * C >= P + 1: the whole pool is requantized by old / new. Pages no
 //    line touches keep their scale, so the ratio is exactly 1 (codes
 //    unchanged) unless the scale is 0, where it is 0: their codes become
-//    rint(code * 0) = 0 (int8 byte 0, int4 byte 0x88). ``sweep`` blocks
-//    (h, R + i) do that for the untouched pages i, i + sweep, ...; a page
-//    a line touches is left to its slot's block, so no two blocks write
-//    one page.
-//
-// Pages are slot-private; the scratch page, which every padding line of
-// every slot writes, is the one page several blocks write at once (its
-// bytes are garbage, and only padding rows read them).
+//    rint(code * 0) = 0 (int8 byte 0, int4 byte 0x88). ``sweep`` blocks,
+//    each over a run of pages, learn which of their pages a line touches
+//    in one pass over the lines (a bitmap in shared memory), then zero
+//    the untouched pages' KV heads of scale 0 in 16-byte stores. A touched
+//    page is left to the commit blocks, so no two blocks write one page.
 //
 // Bound on an H100: bytes. The new lines read once (TQ), their code bytes
-// written, and the touched pages' codes read and written when their scale
-// grows (every step's first line of a page: offset-0 resets; on a decode
-// step a growing scale rewrites one page a (slot, KV head)).
+// written, the touched pages' scales written, and the pages whose scale
+// moved read and written (every offset-0 reset writes its page's other
+// lines as zero codes, without a read).
 //
-// Design: one block of 256 threads a (KV head, slot) commits K and then V
-// (one launch a layer instead of ~40 PyTorch operations); the per-line
-// arrays (5 x C words) are dynamic shared memory sized from C, so any
-// chunk the unfused step takes fits up to kMaxCommitLines lines.
+// Design: one launch for K and V, phys and off read as the caller gives
+// them (int64 from the unfused step, or int32).
+//  * decode (C = 1): a warp a (slot, KV head, K or V) line,
+//    commit_line_warp; eight lines a block of 256 threads, no barrier.
+//  * C > 1: commit_quant_block in dynamic shared memory of
+//    commit_smem_bytes(C, ps), 256 threads a block at four blocks an SM:
+//    at C <= 32 (a tree step) a block a (slot, KV head) for K and V
+//    together, above (a prefill chunk) a block a (slot, KV head, K or V),
+//    so that K and V of one slot commit in parallel.
+#include <algorithm>
+
 #include "paged_commit.cuh"
 
 namespace fft {
 namespace {
 
 constexpr int kCommitThreads = 256;
-constexpr int kMaxCommitLines = 232448 / 20;  // 5 words a line in 227 KB
+constexpr int kCommitWarps = kCommitThreads / 32;
+constexpr int kSweepBlocks = 128;  // most sweep blocks of the whole-pool branch
 
-// Zero the codes of KV head h of every page no new line touches and whose
-// scale is 0 (quant_line_write's whole-pool branch, ratio 0).
-template <int KIND, int DK>
-__device__ void sweep_untouched(const CommitArgs& f, int h, int first, int stride, int P1) {
-  constexpr int DKP = DK / pack_of<KIND>();
-  constexpr uint8_t kZero = KIND == kPoolInt4 ? 0x88 : 0x00;
-  const int lines = f.a.R * f.a.C;
-  for (int page = first; page < P1; page += stride) {
-    int touched = 0;
-    for (int i = threadIdx.x; i < lines; i += kCommitThreads) touched |= f.phys[i] == page;
-    if (__syncthreads_or(touched)) continue;
-    const size_t sidx = (size_t)page * f.a.KV + h;
-    for (int which = 0; which < 2; ++which) {
-      const float* sc = which ? f.v_scale : f.k_scale;
-      if (sc[sidx] != 0.f) continue;  // ratio 1: codes unchanged
-      uint8_t* pool = static_cast<uint8_t*>(which ? f.v_pool : f.k_pool);
-      for (int idx = threadIdx.x; idx < f.a.ps * DKP; idx += kCommitThreads)
-        pool[pool_row<KIND, DK>(page, idx / DKP, h, f.a.ps, f.a.KV) + idx % DKP] = kZero;
+// The sweep block ``j`` of ``len`` pages from page j * len (below the
+// scratch page): the pages of its run that no line touches, in KV heads of
+// scale 0, zeroed in K and V.
+template <int KIND, int DK, int NT>
+__device__ void sweep_untouched(const CommitArgs& f, int j, int len, unsigned* smem) {
+  using U = LineUnits<float, KIND, DK>;
+  using Vec = typename VecOf<U::kVec>::T;
+  const PagedArgs& a = f.a;
+  const int first = j * len, last = min(first + len, f.scratch), tid = threadIdx.x;
+  const int words = (len + 31) / 32, zwords = (2 * a.KV + 31) / 32;
+  unsigned* touched = smem;         // [words]: bit p - first, page p touched
+  unsigned* zero = smem + words;    // [zwords]: bit t KV + h, scale of (page, h) in t is 0
+  for (int i = tid; i < words; i += NT) touched[i] = 0u;
+  __syncthreads();
+  for (int i = tid; i < a.R * a.C; i += NT) {
+    const int p = load_index(f.phys, f.phys64, i);
+    if (p >= first && p < last) atomicOr(touched + (p - first) / 32, 1u << ((p - first) % 32));
+  }
+  const Vec zv = requant_vec<KIND>(Vec{}, 0.f);  // zero codes
+  for (int page = first; page < last; ++page) {
+    __syncthreads();  // touched is complete; the previous page's zero mask is read
+    if ((touched[(page - first) / 32] >> ((page - first) % 32)) & 1u) continue;
+    for (int i = tid; i < zwords; i += NT) zero[i] = 0u;
+    __syncthreads();
+    bool any = false;
+    for (int i = tid; i < 2 * a.KV; i += NT) {
+      const float* sc = i >= a.KV ? f.v_scale : f.k_scale;
+      if (sc[(size_t)page * a.KV + i % a.KV] == 0.f) {
+        atomicOr(zero + i / 32, 1u << (i % 32));
+        any = true;
+      }
+    }
+    if (!__syncthreads_or(any)) continue;
+    const int per_tensor = a.ps * a.KV * U::kVecs;
+    for (int idx = tid; idx < 2 * per_tensor; idx += NT) {
+      const int t = idx / per_tensor, rem = idx % per_tensor;
+      const int h = (rem / U::kVecs) % a.KV, i = t * a.KV + h;
+      if (!((zero[i / 32] >> (i % 32)) & 1u)) continue;
+      uint8_t* pool = static_cast<uint8_t*>(t ? f.v_pool : f.k_pool);
+      *reinterpret_cast<Vec*>(pool + ((size_t)page * a.ps * a.KV) * U::kCodes +
+                              (size_t)(rem / U::kVecs) * U::kCodes +
+                              rem % U::kVecs * U::kVec) = zv;
     }
   }
 }
 
-template <typename TQ, int KIND, int DK>
-__global__ void __launch_bounds__(kCommitThreads)
-paged_commit_kernel(CommitArgs f, int P1, int sweep) {
-  const int h = blockIdx.x, r = blockIdx.y;
-  if (r >= f.a.R) {
-    sweep_untouched<KIND, DK>(f, h, r - f.a.R, sweep, P1);
+// The forms of the kernel, chosen by C: kLines (C = 1), a warp a line,
+// with registers to spare for its page rescale; kPair (C <= 32: a tree
+// step's few lines), a block a (slot, KV head) commits K and V together,
+// so that the grid's blocks are resident at once; kBlock (C > 32: a
+// prefill chunk), a block a (slot, KV head, K or V). The block forms take
+// 256 threads at four blocks an SM (64 registers a thread), so that a
+// block's chain of phases (indices, lines, page maxima, scales, rescale
+// and codes) hides behind the others'.
+enum CommitForm : int { kLines = 0, kPair = 1, kBlock = 2 };
+constexpr int kPairLines = 32;  // most lines a slot of the kPair form
+
+// The form for C lines a slot (exported as paged_commit_design).
+constexpr int commit_form(int C) { return C == 1 ? kLines : C <= kPairLines ? kPair : kBlock; }
+
+template <typename TQ, int KIND, int DK, int FORM>
+__global__ void __launch_bounds__(kCommitThreads, FORM == kLines ? 1 : 4)
+paged_commit_kernel(CommitArgs f, int commit_blocks, int sweep_len) {
+  constexpr int NT = kCommitThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PagedArgs& a = f.a;
+  const int b = blockIdx.x;
+  if (b >= commit_blocks) {
+    sweep_untouched<KIND, DK, NT>(f, b - commit_blocks, sweep_len,
+                                  reinterpret_cast<unsigned*>(smem));
     return;
   }
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = f.a.C;
-  float* lq = reinterpret_cast<float*>(smem);
-  int* page = reinterpret_cast<int*>(lq + C);
-  int* lead = page + C;
-  float* nw = reinterpret_cast<float*>(lead + C);
-  float* ratio = nw + C;
-  const CommitLines s{lq, page, lead, nw, ratio};
-  commit_quant_lines<TQ, KIND, DK, kCommitThreads>(
-      f, r, h, static_cast<const TQ*>(f.k_rot), f.k_pool, f.k_scale, s);
-  commit_quant_lines<TQ, KIND, DK, kCommitThreads>(
-      f, r, h, static_cast<const TQ*>(f.v_new), f.v_pool, f.v_scale, s);
+  if constexpr (FORM == kLines) {  // (t, r, h), h fastest: neighbouring warps, neighbouring lines
+    const int g = b * kCommitWarps + threadIdx.x / 32;
+    if (g >= 2 * a.R * a.KV) return;
+    const int t = g / (a.R * a.KV), r = g % (a.R * a.KV) / a.KV, h = g % a.KV;
+    commit_line_warp<TQ, KIND, DK>(f, r, 0, h, static_cast<const TQ*>(t ? f.v_new : f.k_rot),
+                                   t ? f.v_pool : f.k_pool, t ? f.v_scale : f.k_scale);
+  } else if constexpr (FORM == kPair) {
+    commit_quant_block<TQ, KIND, DK, NT, 2, LineUnits<TQ, KIND, DK>::kHold>(
+        f, b / a.KV, b % a.KV, 0, commit_smem(smem, a.C, a.ps));
+  } else {
+    const int t = b % 2, h = b / 2 % a.KV, r = b / (2 * a.KV);
+    commit_quant_block<TQ, KIND, DK, NT, 1, LineUnits<TQ, KIND, DK>::kHold>(
+        f, r, h, t, commit_smem(smem, a.C, a.ps));
+  }
 }
 
-template <typename TQ, int KIND, int DK>
-cudaError_t launch(const CommitArgs& f, int P1, int sweep, cudaStream_t stream) {
-  const size_t smem = 20 * size_t(f.a.C);
-  cudaError_t err = cudaFuncSetAttribute(paged_commit_kernel<TQ, KIND, DK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename TQ, int KIND, int DK, int FORM>
+cudaError_t launch_form(const CommitArgs& f, int commit_blocks, int sweep, int sweep_len,
+                        size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(paged_commit_kernel<TQ, KIND, DK, FORM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(f.a.KV, f.a.R + sweep);
-  paged_commit_kernel<TQ, KIND, DK><<<grid, kCommitThreads, smem, stream>>>(f, P1, sweep);
+  paged_commit_kernel<TQ, KIND, DK, FORM>
+      <<<commit_blocks + sweep, kCommitThreads, smem, stream>>>(f, commit_blocks, sweep_len);
   return cudaGetLastError();
 }
 
+template <typename TQ, int KIND, int DK>
+cudaError_t launch(const CommitArgs& f, int P1, bool whole_pool, cudaStream_t stream) {
+  const PagedArgs& a = f.a;
+  const int form = commit_form(a.C);
+  const int commit_blocks = form == kLines ? (2 * a.R * a.KV + kCommitWarps - 1) / kCommitWarps
+                            : form == kPair ? a.R * a.KV
+                                            : 2 * a.R * a.KV;
+  const int pages = P1 - 1;  // below the scratch page
+  const int sweep = whole_pool && pages > 0 ? std::min(pages, kSweepBlocks) : 0;
+  const int sweep_len = sweep ? (pages + sweep - 1) / sweep : 0;
+  size_t smem = form == kLines ? 0 : commit_smem_bytes(a.C, a.ps);
+  if (sweep) smem = std::max(smem, 4 * size_t((sweep_len + 31) / 32 + (2 * a.KV + 31) / 32));
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (form == kLines)
+    return launch_form<TQ, KIND, DK, kLines>(f, commit_blocks, sweep, sweep_len, smem, stream);
+  if (form == kPair)
+    return launch_form<TQ, KIND, DK, kPair>(f, commit_blocks, sweep, sweep_len, smem, stream);
+  return launch_form<TQ, KIND, DK, kBlock>(f, commit_blocks, sweep, sweep_len, smem, stream);
+}
+
 template <typename TQ, int KIND>
-cudaError_t launch_kind(const CommitArgs& f, int dk, int P1, int sweep, cudaStream_t s) {
-  if (dk == 64) return launch<TQ, KIND, 64>(f, P1, sweep, s);
-  if (dk == 80) return launch<TQ, KIND, 80>(f, P1, sweep, s);
-  if (dk == 128) return launch<TQ, KIND, 128>(f, P1, sweep, s);
-  if (dk == 256) return launch<TQ, KIND, 256>(f, P1, sweep, s);
+cudaError_t launch_kind(const CommitArgs& f, int dk, int P1, bool whole, cudaStream_t s) {
+  if (dk == 64) return launch<TQ, KIND, 64>(f, P1, whole, s);
+  if (dk == 80) return launch<TQ, KIND, 80>(f, P1, whole, s);
+  if (dk == 128) return launch<TQ, KIND, 128>(f, P1, whole, s);
+  if (dk == 256) return launch<TQ, KIND, 256>(f, P1, whole, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-cudaError_t launch_q(const CommitArgs& f, int dk, int pool_kind, int P1, int sweep,
+cudaError_t launch_q(const CommitArgs& f, int dk, int pool_kind, int P1, bool whole,
                      cudaStream_t s) {
-  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(f, dk, P1, sweep, s);
-  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(f, dk, P1, sweep, s);
+  if (pool_kind == kPoolInt8) return launch_kind<TQ, kPoolInt8>(f, dk, P1, whole, s);
+  if (pool_kind == kPoolInt4) return launch_kind<TQ, kPoolInt4>(f, dk, P1, whole, s);
   return cudaErrorInvalidValue;
 }
 
@@ -122,18 +186,16 @@ cudaError_t launch_q(const CommitArgs& f, int dk, int pool_kind, int P1, int swe
 }  // namespace fft
 
 // k, v (R, C, KV, dk) TQ; pools (P1, ps, KV, dk / pack) codes and scales
-// (P1, KV) f32, written in place; phys, off (R, C) int32. ``whole_pool``:
+// (P1, KV) f32, written in place; phys, off (R, C), int64 where bit 0
+// (phys) or bit 1 (off) of ``wide`` is set, else int32. ``whole_pool``:
 // quant_line_write's R * C >= P1 branch (the untouched pages swept too).
+// Page P1 - 1 is the scratch page.
 extern "C" int paged_commit_launch(const void* k, const void* v, void* k_pool, void* v_pool,
                                    void* k_scale, void* v_scale, const void* phys,
                                    const void* off, int R, int C, int KV, int dk, int ps,
-                                   int P1, int dtype, int pool_kind, int whole_pool,
+                                   int P1, int dtype, int pool_kind, int whole_pool, int wide,
                                    float qmax, void* stream) {
-  if (R <= 0 || C <= 0 || C > fft::kMaxCommitLines || KV <= 0 || P1 <= 0 || ps <= 0 ||
-      KV > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int sweep = whole_pool ? (P1 < 1024 ? P1 : 1024) : 0;
-  if (R + sweep > 65535) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || C <= 0 || KV <= 0 || P1 <= 0 || ps <= 0) return (int)cudaErrorInvalidValue;
   fft::CommitArgs f = {};
   f.a.R = R;
   f.a.C = C;
@@ -148,20 +210,23 @@ extern "C" int paged_commit_launch(const void* k, const void* v, void* k_pool, v
   f.k_scale = static_cast<float*>(k_scale);
   f.v_scale = static_cast<float*>(v_scale);
   f.logical = nullptr;
-  f.phys = static_cast<const int*>(phys);
-  f.off = static_cast<const int*>(off);
+  f.phys = phys;
+  f.off = off;
+  f.phys64 = (wide & 1) != 0;
+  f.off64 = (wide & 2) != 0;
+  f.scratch = P1 - 1;
   f.qmax = qmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == fft::kBFloat16) {
-    err = fft::launch_q<__nv_bfloat16>(f, dk, pool_kind, P1, sweep, s);
-  } else if (dtype == fft::kFloat32) {
-    err = fft::launch_q<float>(f, dk, pool_kind, P1, sweep, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (dtype == fft::kBFloat16)
+    return (int)fft::launch_q<__nv_bfloat16>(f, dk, pool_kind, P1, whole_pool != 0, s);
+  if (dtype == fft::kFloat32)
+    return (int)fft::launch_q<float>(f, dk, pool_kind, P1, whole_pool != 0, s);
+  return (int)cudaErrorInvalidValue;
 }
+
+// The form (CommitForm: 0 line-warp, 1 pair, 2 block) that
+// paged_commit_launch takes for C lines a slot.
+extern "C" int paged_commit_design(int C) { return fft::commit_form(C); }
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -220,8 +220,8 @@ __device__ __forceinline__ void widen_words(const uint32_t (&w)[W], float (&x)[N
 
 // The query rows a split block stages (GB rows of DK, TQ): static shared
 // memory, or at dk 256 dynamic shared memory of split_q_dyn_bytes (there
-// the walk's scratch, 37 KB with 8 rows, and the fused kernel's commit
-// arrays would pass the 48 KB of static shared memory with them).
+// the walk's scratch, 37 KB with 8 rows, leaves too little of the 48 KB
+// of static shared memory for them).
 template <typename TQ, int DK, int GB>
 __host__ __device__ constexpr int split_q_dyn_bytes() {
   return DK > 128 ? GB * DK * int(sizeof(TQ)) : 0;

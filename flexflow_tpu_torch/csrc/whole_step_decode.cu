@@ -1090,7 +1090,8 @@ __device__ __noinline__ void commit_unit() {
     store8<T>(dst, x);
   }
   __syncthreads();
-  rope_and_commit<T, KIND, DK, kThreads>(f, r, kh);
+  extern __shared__ __align__(16) unsigned char smem[];  // the commit's, before the attention's
+  rope_and_commit<T, KIND, DK, kThreads, true>(f, r, kh, smem);  // lean: one register budget
 }
 
 template <typename T, int KIND, int DK>
@@ -1123,6 +1124,8 @@ __device__ __noinline__ void attention_stage() {
     f.logical = nullptr;
     f.phys = a.phys;
     f.off = a.off;
+    f.phys64 = f.off64 = false;
+    f.scratch = a.P1 - 1;
     f.rot = a.rot;
     f.qmax = a.qmax;
     b.units = a.R * a.KV;
@@ -1389,8 +1392,9 @@ size_t dynamic_smem(const WholeArgs& a) {
   const size_t gemm = std::max(gemm_smem<TQ>(a.R * a.C, head_width_cap(a)),
                                gemm_smem<TQ>(head_rows(a), head_width(a)));
   const bool tile = paged_design(a.C * (a.H / a.KV), dtype_of(sizeof(TQ))) != kDesignDecode;
-  return std::max(std::max(gemm, tc_path(a, sizeof(TQ)) ? kTcSmem : size_t(0)),
-                  tile ? MmaSmem<TQ, KIND, DK>::kBytes : SplitLayout<TQ, DK>::bytes(a.R));
+  const size_t attn = std::max(tile ? MmaSmem<TQ, KIND, DK>::kBytes : SplitLayout<TQ, DK>::bytes(a.R),
+                               KIND == kPoolFloat ? size_t(0) : commit_smem_bytes(a.C, a.ps));
+  return std::max(std::max(gemm, tc_path(a, sizeof(TQ)) ? kTcSmem : size_t(0)), attn);
 }
 
 // The tensor maps of the wgmma projections: the activations (M, K) in

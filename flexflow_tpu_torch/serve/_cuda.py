@@ -51,12 +51,12 @@ SIGNATURES = {
     "decode_attention": (7, 7, 1),
     "verify_attention": (5, 7, 1),
     "ragged_paged_attention": (10, 10, 1),
-    "fused_rope_paged_attention": (18, 11, 2),
+    "fused_rope_paged_attention": (18, 12, 2),
     "flash_attention_fwd": (5, 7, 1),
     "flash_attention_bwd_kv": (8, 7, 1),
     "flash_attention_bwd_q": (7, 7, 1),
     "whole_step_decode": (40, 24, 3),
-    "paged_commit": (8, 9, 1),
+    "paged_commit": (8, 10, 1),
     "adam_update": (5, 3, 6),
     "wq_matmul": (5, 12, 0),
 }
@@ -79,6 +79,7 @@ DESIGNS = {
     "flash_attention_bwd_kv": (("f32", "wgmma"), ("dtype",)),
     "flash_attention_bwd_q": (("f32", "wgmma"), ("dtype",)),
     "wq_matmul": (("rows", "wgmma", "f32", "splitk"), ("M", "dtype")),
+    "paged_commit": (("line-warp", "pair", "block"), ("C",)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -645,10 +645,12 @@ def commit_paged(k_pool, v_pool, k, v, phys, off, k_scale=None, v_scale=None,
     On a quantized pool with CUDA tensors and ``kernels="cuda"`` one
     launch of the commit kernel (``csrc/paged_commit.cu``) writes K and V,
     bitwise ``quant_line_write``'s result on every page but the scratch
-    page (which several slots' padding lines write at once; only padding
-    rows read it); it counts in ``LAUNCHES["paged_commit[int8|int4]"]``.
-    CPU tensors and ``kernels="torch"`` run ``quant_line_write`` itself,
-    the plain version, which is bitwise the JAX package's."""
+    page (the pool's last), whose lines it does not commit (only padding
+    lines point there, and only padding rows read it); it reads ``phys``
+    and ``off`` as int64 or int32, as given, and counts in
+    ``LAUNCHES["paged_commit[int8|int4]"]``. CPU tensors and
+    ``kernels="torch"`` run ``quant_line_write`` itself, the plain
+    version, which is bitwise the JAX package's."""
     if kernels not in ("cuda", "torch"):
         raise ValueError(f"unknown kernels {kernels!r} (expected 'cuda' or 'torch')")
     if qmax is None:
@@ -661,56 +663,43 @@ def commit_paged(k_pool, v_pool, k, v, phys, off, k_scale=None, v_scale=None,
         _commit_quant_cuda(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax)
 
 
-#: most new lines per slot the commit kernel takes (5 shared words a line)
-_COMMIT_MAX_LINES = 232448 // 20
-
-
 def _commit_quant_cuda(k_pool, v_pool, k, v, phys, off, k_scale, v_scale, qmax):
-    """The commit kernel's launch (see :func:`commit_paged`): checks, then
-    one launch for K and V."""
+    """The commit kernel's launch (see :func:`commit_paged`): the checks
+    whose failure the kernel would turn into wrong bytes, then one launch
+    for K and V (which the launcher refuses, and :func:`_cuda.launch`
+    raises, where a block's shared memory cannot hold C lines)."""
     R, C, KV, dk = k.shape
-    P1 = k_pool.shape[0]
+    P1, ps = k_pool.shape[0], k_pool.shape[1]
     kind = {torch.int8: 1, torch.uint8: 2}.get(k_pool.dtype)
-    if kind is None or v_pool.dtype != k_pool.dtype or v_pool.shape != k_pool.shape:
-        raise ValueError("the commit kernel takes int8 or packed int4 pools of one shape")
-    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t is None or t.shape != (P1, KV) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 ({P1}, {KV})")
-    if k_pool.shape[2] != KV or k_pool.shape[3] * pool_pack(k_pool) != dk:
-        raise ValueError(f"pools {tuple(k_pool.shape)} do not hold lines {tuple(k.shape)}")
-    if k.dtype not in _CUDA_DTYPES or dk not in _PAGED_HEAD_DIMS:
-        raise ValueError(f"the commit kernel takes float32 or bfloat16 lines of head dim "
-                         f"{_PAGED_HEAD_DIMS}; got {k.dtype}, {dk}")
-    if C > _COMMIT_MAX_LINES:
-        raise ValueError(f"the commit kernel takes at most {_COMMIT_MAX_LINES} lines a "
-                         f"slot; got C={C}")
-    if v.shape != k.shape or v.dtype != k.dtype:
-        raise ValueError(f"v must be {k.dtype} {tuple(k.shape)}")
-    if phys.shape != (R, C) or off.shape != (R, C):
-        raise ValueError(f"phys and off must be ({R}, {C})")
-    for name, t in (("k", k), ("v", v), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("k_scale", k_scale), ("v_scale", v_scale), ("phys", phys),
-                    ("off", off)):
-        if t.device != k.device:
-            raise ValueError(f"{name} must lie on {k.device}; got {t.device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
-                    ("v_scale", v_scale)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 8:  # codes move 8 bytes at a time
-            raise ValueError(f"{name} must be 8-byte aligned")
+    if (kind is None or v_pool.dtype != k_pool.dtype or v_pool.shape != k_pool.shape
+            or k_pool.shape[2] != KV or k_pool.shape[3] * pool_pack(k_pool) != dk):
+        raise ValueError(f"the commit kernel takes int8 or packed int4 pools of one shape "
+                         f"holding lines {tuple(k.shape)}; got {k_pool.dtype} "
+                         f"{tuple(k_pool.shape)}")
+    if (k.dtype not in _CUDA_DTYPES or dk not in _PAGED_HEAD_DIMS or v.shape != k.shape
+            or v.dtype != k.dtype or v.device != k.device):
+        raise ValueError(f"the commit kernel takes float32 or bfloat16 K and V of one shape "
+                         f"on one device, head dim {_PAGED_HEAD_DIMS}; got {k.dtype} "
+                         f"{tuple(k.shape)} on {k.device}, {v.dtype} {tuple(v.shape)} on "
+                         f"{v.device}")
+    idx = (phys, off)
+    if (any(t.shape != (R, C) or t.dtype not in (torch.int32, torch.int64) for t in idx)
+            or any(t is None or t.shape != (P1, KV) or t.dtype != torch.float32
+                   for t in (k_scale, v_scale))):
+        raise ValueError(f"phys and off must be int32 or int64 ({R}, {C}); scales float32 "
+                         f"({P1}, {KV})")
+    tensors = (k_pool, v_pool, k_scale, v_scale, phys, off)
+    if any(t.device != k.device or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"pools, scales, phys and off must be contiguous on {k.device}")
+    vec = 16 if (dk // pool_pack(k_pool)) % 16 == 0 else 8  # bytes a code access moves
+    k, v = k.contiguous(), v.contiguous()
+    if (k_pool.data_ptr() | v_pool.data_ptr()) % vec or (k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError(f"pools must be {vec}-byte aligned and k, v 16-byte aligned")
     from . import _cuda
 
-    k, v = k.contiguous(), v.contiguous()
-    for name, t in (("k", k), ("v", v)):
-        if t.data_ptr() % 16:  # lines are read in 16-byte vectors
-            raise ValueError(f"{name} must be 16-byte aligned")
-    _cuda.launch("paged_commit",
-                 [k, v, k_pool, v_pool, k_scale, v_scale,
-                  phys.to(torch.int32).contiguous(), off.to(torch.int32).contiguous()],
-                 [R, C, KV, dk, k_pool.shape[1], P1, _dtype_code(k.dtype), kind,
-                  int(R * C >= P1)],
+    _cuda.launch("paged_commit", [k, v, k_pool, v_pool, k_scale, v_scale, phys, off],
+                 [R, C, KV, dk, ps, P1, _dtype_code(k.dtype), kind, int(R * C >= P1),
+                  int(phys.dtype == torch.int64) | 2 * int(off.dtype == torch.int64)],
                  [qmax])
     LAUNCHES[f"paged_commit[{pool_type(k_pool)}]"] += 1
 
@@ -797,7 +786,7 @@ def fused_rope_paged_attention(q, k_new, v_new, cos, sin, k_pool, v_pool,
         "fused_rope_paged_attention",
         [q, k_new, v_new, cos, sin, k_pool, v_pool, k_scale, v_scale, page_table,
          logical, off, mask, out, q_rot, k_rot, ws, counters],
-        [R, C, H, KV, dk, ps, NP, cos.shape[-1] if cos is not None else 0,
+        [R, C, H, KV, dk, ps, NP, k_pool.shape[0], cos.shape[-1] if cos is not None else 0,
          _dtype_code(q.dtype), kind, pages],
         [scale if scale is not None else 1.0 / math.sqrt(dk),
          qmax if qmax is not None else 0.0],

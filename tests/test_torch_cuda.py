@@ -1648,6 +1648,38 @@ def test_cuda_commit_kernel_bitwise_quant_line_write(cuda_device, quant, dtype, 
         assert torch.equal(x[:P], y[:P])
 
 
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32], ids=["int64", "int32"])
+@pytest.mark.parametrize("case", ["unsorted", "split-page", "two-resets", "idle-slot",
+                                  "whole-pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dk", [64, 80])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_cuda_commit_kernel_grouping_cases(cuda_device, quant, dk, dtype, case, index_dtype):
+    """The cases of tests/commit_cases.py (which the CPU tests hold to
+    JAX's quant_line_write) on the card: one launch of the commit kernel,
+    bitwise the plain version on every page but the scratch page, with
+    phys and off as given (int64 or int32)."""
+    import commit_cases as cc
+    from flexflow_tpu_torch.serve import kv_quant as kq
+
+    c = cc.make(case, quant, dk)
+    start = [torch.from_numpy(c[n]).to(cuda_device)
+             for n in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    phys, off = (torch.from_numpy(c[n]).to(cuda_device, index_dtype) for n in ("phys", "off"))
+    k, v = (torch.from_numpy(c[n]).to(cuda_device, dtype) for n in ("k", "v"))
+    want = [t.clone() for t in start]
+    kq.quant_line_write(want[0], want[2], phys, off, k, c["qmax"])
+    kq.quant_line_write(want[1], want[3], phys, off, v, c["qmax"])
+    got = [t.clone() for t in start]
+    before = tk.LAUNCHES[f"paged_commit[{quant}]"]
+    tk.commit_paged(got[0], got[1], k, v, phys, off, got[2], got[3], c["qmax"])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[f"paged_commit[{quant}]"] == before + 1
+    P = c["P"]
+    for x, y in zip(got, want):
+        assert torch.equal(x[:P], y[:P])
+
+
 # ---------------------------------------------------------------------------
 # wq_matmul: the weight-only quantized product (csrc/wq_matmul.cu)
 
